@@ -1,0 +1,158 @@
+"""Build, load and launch the CUDA kernels; resolve devices; count launches.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into ``_build/``
+beside this file (listed in ``.gitignore``).  A library's file name carries a
+hash of its source and the compiler flags, so an edited source rebuilds and
+an unchanged one is loaded as it is.  :func:`build` compiles every missing
+library at once, one ``nvcc`` process per source, all started together.
+
+The libraries are loaded with ``ctypes``: every pointer and the stream pass
+as ``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
+:func:`check` turns into an exception.
+
+Where a kernel runs is decided by the device of the tensors it is given: a
+CPU tensor takes the kernel's plain PyTorch version, a CUDA tensor launches
+the kernel or raises.  :data:`launches` counts the launches per kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List, Union
+
+import torch
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("_build")
+SOURCES = ("merge_sort", "gather_rows")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# C signature of every entry point, per library: (argtypes, restype).
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "merge_sort": {
+        **{f"remop_{op}_{t}": ([_P, _P, _P, _P, _I64, _I64, _P], _I32)
+           for op in ("sort_blocks", "merge_pass") for t in ("i32", "f32")},
+        "remop_merge_sort_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "gather_rows": {
+        "remop_gather_rows": ([_P, _P, _P, _I64, _I64, _I32, _I32, _P], _I32),
+        "remop_gather_rows_error_string": ([_I32], ctypes.c_char_p),
+    },
+}
+
+# Launches per kernel since the last reset_launches(): a wrapper adds one
+# where it launches its kernel, and nowhere else.
+launches: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """``None`` is ``cuda:0``; only an explicit ``"cpu"`` runs on the CPU.
+
+    Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or by
+    default) and ``torch.cuda.is_available()`` is False.
+    """
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "kernels' plain versions on the CPU"
+        )
+    return dev if dev.index is not None else torch.device("cuda", 0)
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on the CPU, False on one CUDA device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors lie on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def nvcc() -> str:
+    """The CUDA toolkit's compiler: ``$CUDA_HOME/bin/nvcc``, by default under
+    ``/usr/local/cuda``."""
+    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> List[str]:
+    """Compile every missing library, one ``nvcc`` per source in parallel.
+
+    Returns the names it compiled (libraries already built are skipped).
+    Raises ``RuntimeError`` with the compiler's output if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return list(procs)
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def check(name: str, lib: str, err: int) -> None:
+    """Raise if a kernel's entry point returned a CUDA error."""
+    if err != 0:
+        what = getattr(library(lib), f"remop_{lib}_error_string")(err)
+        raise RuntimeError(f"{name}: CUDA error {err}: {what.decode()}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
