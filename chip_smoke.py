@@ -5,22 +5,32 @@ Run from the root of a checkout on a machine with one H100:
 
     python3 chip_smoke.py
 
-Four phases, each printing JSON objects, one per line:
+Phases, each printing JSON objects, one per line:
 
 1. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) and read the card's name and power
    limit from ``nvidia-smi``;
 2. kernels: hold every kernel against its plain PyTorch version on the card
-   (bit for bit), and time kernel, plain version and the PyTorch library call
-   that computes the same function with CUDA events;
+   (the sort and gather kernels bit for bit, the attention kernels within
+   ``ATTN_TOL``, which must also reject two planted faults), and time
+   kernel, plain version and the PyTorch library call that computes the
+   same function with CUDA events;
 3. session: drive the spill engine's main path, ``Session(make_backend(...))
    .run(tasks)``, at a TPC-H SF1-shaped size (EMS over ``l_orderkey``, EHJ of
    orders with lineitem, EAGG of lineitem by key), with the launch counters
    set to 0 just before and read just after; hold it against the port's own
    simulator (ledgers field for field, output pages byte for byte) and the
    operators' oracles;
-4. report: per-query wall, transfer, kernel and simulated seconds, the
-   card's peak memory, and one ``{"kernels": [...]}`` line.
+4. serve: serve gemma-2b at full width (random bf16 weights from a seeded
+   generator on the card) through ``ServeEngine.submit``: 8 requests, 4
+   slots, the launch counters set to 0 just before and read just after;
+   every attention call must have gone through the flash (prefill) and
+   paged (decode) kernels, and the last decode step of two requests must
+   agree with a prefill of the same tokens (final hidden state and logits);
+   then a profiler window over one prefill and a few decode steps splits
+   the device time into attention kernels, matrix products and the rest;
+5. report: per-query and per-request seconds, the card's peak memory, and
+   one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without that line; it also exits non-zero when
@@ -39,10 +49,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks: HBM3 bandwidth, and 32-bit operations outside
-# the tensor cores (the float32 rate; the kernels compare 32-bit keys).
+# H100 SXM data-sheet peaks: HBM3 bandwidth, 32-bit operations outside
+# the tensor cores (the float32 rate; the sort kernels compare 32-bit keys),
+# and dense bf16 tensor-core operations (attention's products).
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # TPC-H SF1, spilled in DuckDB's 256 KiB blocks.
 KEY_PAGE_ROWS = 32_768  # int64 keys per page
@@ -55,16 +67,36 @@ PARTITIONS = 64
 LEVELS = (("dram", 256), ("rdma", 4096), "ssd")
 BUDGET_PAGES = 128.0  # 32 MiB
 
+# gemma-2b serving: 8 requests through 4 slots.
+SERVE_ARCH = "gemma-2b"
+PROMPT_LENS = (2048, 1536, 1000, 777, 2048, 512, 1300, 64)
+MAX_NEW_TOKENS = 32
+MAX_LEN = 4096
+SLOTS = 4
+SEED = 0
+CHECK_RIDS = (2, 3)  # the 1000- and 777-token prompts: ragged blocks and pages
+# Decode step against a prefill of the same tokens, relative L2 error of the
+# final hidden state and of the logits: the two paths round differently in
+# bf16 (matrix products of 1 row against products of S rows, the paged
+# kernel against the flash kernel), nothing else.
+CONSISTENCY_TOL = 3e-2
+
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "merge_pass": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "gather_rows": "src/repro_torch/kernels/csrc/gather_rows.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
     "merge_pass": "src/repro/kernels/merge_sort/merge_sort.py:115",
     "gather_rows": "src/repro/kernels/dispatch/dispatch.py:26",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:65",
 }
+SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
+SERVE_KERNELS = ("flash_attention", "paged_attention")
 
 
 def emit(obj) -> None:
@@ -133,9 +165,9 @@ def equal_bits(torch, names, got_pair, want_pair, errs):
         check(torch.equal(got, want), f"{names}: kernel differs from its plain version (max abs err {err})")
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = ALU_OPS_PER_S):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ALU_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -261,6 +293,162 @@ def phase_kernels(torch, device):
     return errs, rows
 
 
+# An attention kernel against its plain version: |got - want| <= atol +
+# rtol * |want| elementwise, and a relative L2 error <= rel.  f32 keeps the
+# JAX tests' 2e-5 (tests/test_kernels.py).  In bf16 both compute in f32 and
+# round once, so they differ by at most one bf16 ulp of the output (<= 2^-7
+# |want|) plus f32 summation noise.  The JAX tests' bf16 3e-2, set at
+# T <= 256, is as large as the outputs themselves at serving lengths
+# (|o| ~ 0.03 over 2048 keys) and passes a kernel that drops a page.
+ATTN_TOL = {"torch.float32": dict(atol=2e-5, rtol=2e-5, rel=None),
+            "torch.bfloat16": dict(atol=1e-4, rtol=2.0 ** -7, rel=5e-3)}
+JAX_BF16_TOL = 3e-2
+
+
+def attn_close(torch, got, want):
+    """(within ``ATTN_TOL``, max abs error, relative L2 error, within the JAX
+    tests' bf16 rule ``|got - want| <= 3e-2 + 3e-2 |want|``)."""
+    tol = ATTN_TOL[str(want.dtype)]
+    err, rel = max_abs_err(torch, got, want), rel_err(torch, got, want)
+    d, w = (got.double() - want.double()).abs(), want.double().abs()
+    ok = bool((d <= tol["atol"] + tol["rtol"] * w).all())
+    ok = ok and (tol["rel"] is None or rel <= tol["rel"])
+    return ok, err, rel, bool((d <= JAX_BF16_TOL * (1 + w)).all())
+
+
+def allclose(torch, names, got, want, errs):
+    """Check ``got`` against ``want`` under ``ATTN_TOL``; record the largest
+    absolute difference under each kernel in ``names``; return (max abs
+    error, relative L2 error)."""
+    ok, err, rel, _ = attn_close(torch, got, want)
+    for name in names:
+        errs[name] = max(errs.get(name, 0.0), err)
+    check(ok, f"{names}: kernel differs from its plain version beyond "
+              f"{ATTN_TOL[str(want.dtype)]} (max abs err {err}, relative L2 {rel})")
+    return err, rel
+
+
+def reject_fault(torch, name, what, got, want):
+    """Check that ``ATTN_TOL`` rejects ``got``, a planted fault of ``name``."""
+    ok, err, rel, jax_ok = attn_close(torch, got, want)
+    emit({"phase": "kernels", "planted_fault": name, "fault": what, "max_abs_err": err,
+          "rel_err": rel, "rejected": not ok, "jax_rule_passes": jax_ok})
+    check(not ok, f"{name}: the tolerance passes a kernel that {what}")
+
+
+def flash_cost(b, h, kv, s, t, hd, elem):
+    """(bytes, flops) of causal flash attention: q, k, v read once, o written
+    once; 4 hd flops (q.k and p.v) per unmasked (query, key) pair."""
+    offset = t - s
+    pairs = sum(min(t, i + offset + 1) for i in range(s))
+    return (2 * b * h * s * hd + 2 * b * kv * t * hd) * elem, 4 * hd * pairs * b * h
+
+
+def phase_attention(torch, device):
+    """The flash and paged kernels against their plain versions, then timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        paged_attention, paged_attention_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    errs, rows = {}, {}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    # -- correctness: the main path's shapes, ragged lengths, both dtypes -------
+    for b, h, kv, s, t, hd, dtype in (
+            (1, 8, 1, 2048, 2048, 256, torch.bfloat16),  # gemma-2b prefill
+            (1, 8, 1, 777, 777, 256, torch.bfloat16),
+            (2, 16, 8, 512, 512, 128, torch.float32),    # GQA, qwen3-0.6b widths
+            (2, 16, 8, 300, 333, 128, torch.float32)):   # ragged suffix prefill
+        q = randn(b, h, s, hd, dtype=dtype)
+        k, v = randn(b, kv, t, hd, dtype=dtype), randn(b, kv, t, hd, dtype=dtype)
+        want = flash_attention_plain(q, k, v)
+        err, rel = allclose(torch, ["flash_attention"], remop_flash_attention(q, k, v),
+                            want, errs)
+        # The model's layout: [B, S, heads, hd] memory seen as [B, heads, S, hd].
+        qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+        got = remop_flash_attention(qm, km, vm)
+        check(got.stride() == qm.stride(), "flash output lost q's layout")
+        err2, rel2 = allclose(torch, ["flash_attention"], got, want, errs)
+        emit({"phase": "kernels", "check": "flash_attention", "shape": [b, h, kv, s, t, hd],
+              "dtype": str(dtype), "tol": ATTN_TOL[str(dtype)], "max_abs_err": max(err, err2),
+              "rel_err": max(rel, rel2)})
+    for b, kv, g, hd, s, lengths, dtype in (
+            (1, 1, 8, 256, 4096, (2077,), torch.bfloat16),  # gemma-2b decode
+            (1, 1, 8, 256, 4096, (1,), torch.bfloat16),
+            (1, 1, 8, 256, 4096, (4096,), torch.bfloat16),
+            (4, 8, 2, 128, 4096, (1, 1000, 2049, 4096), torch.float32)):
+        q = randn(b, kv, g, hd, dtype=dtype)
+        kc, vc = randn(b, s, kv, hd, dtype=dtype), randn(b, s, kv, hd, dtype=dtype)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+        err, rel = allclose(torch, ["paged_attention"], paged_attention(q, kc, vc, ln),
+                            paged_attention_plain(q, kc, vc, ln), errs)
+        emit({"phase": "kernels", "check": "paged_attention", "shape": [b, kv, g, hd, s],
+              "lengths": list(lengths), "dtype": str(dtype), "tol": ATTN_TOL[str(dtype)],
+              "max_abs_err": err, "rel_err": rel})
+
+    # -- planted faults, made with the kernels, that the rule must reject ------
+    # A paged kernel that skips the ragged last page of 2077 positions is the
+    # kernel at length 2048 (bytes identical to a kernel that stops a page
+    # early).  A flash kernel that skips KV block [a, a + 64) is, for the rows
+    # after it, the kernel on the keys without that block: the offset T - S
+    # keeps every row's causal limit on the same key.
+    q = randn(1, 1, 8, 256, dtype=torch.bfloat16)
+    kc, vc = (randn(1, 4096, 1, 256, dtype=torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([2077], dtype=torch.int32, device=device)
+    reject_fault(torch, "paged_attention", "skips the ragged last page of 2077 positions",
+                 paged_attention(q, kc, vc, ln - 29), paged_attention_plain(q, kc, vc, ln))
+    a, s = 1024, 2048
+    q = randn(1, 8, s, 256, dtype=torch.bfloat16)
+    k, v = (randn(1, 1, s, 256, dtype=torch.bfloat16) for _ in range(2))
+    k_cut, v_cut = (torch.cat([x[:, :, :a], x[:, :, a + 64:]], dim=2) for x in (k, v))
+    reject_fault(torch, "flash_attention", f"skips KV block {a}..{a + 63} of {s} positions",
+                 remop_flash_attention(q[:, :, a + 64:], k_cut, v_cut),
+                 flash_attention_plain(q, k, v)[:, :, a + 64:])
+    torch.cuda.synchronize()
+
+    # -- timing at the main path's widest shapes -------------------------------
+    bench = Bench(torch, device)
+    b, h, kv, s, hd = 1, 8, 1, 2048, 256
+    q = randn(b, h, s, hd, dtype=torch.bfloat16)
+    k, v = randn(b, kv, s, hd, dtype=torch.bfloat16), randn(b, kv, s, hd, dtype=torch.bfloat16)
+    nbytes, flops = flash_cost(b, h, kv, s, s, hd, 2)
+    ms_bound, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    rows["flash_attention"] = dict(
+        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal",
+        ms=bench.ms(lambda: remop_flash_attention(q, k, v)),
+        plain_ms=bench.ms(lambda: flash_attention_plain(q, k, v)),
+        library_ms=bench.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bound_ms=ms_bound, bound_by=by)
+
+    b, kv, g, hd, s, length = 1, 1, 8, 256, 4096, 2048
+    q = randn(b, kv, g, hd, dtype=torch.bfloat16)
+    kc, vc = randn(b, s, kv, hd, dtype=torch.bfloat16), randn(b, s, kv, hd, dtype=torch.bfloat16)
+    ln = torch.full((b,), length, dtype=torch.int32, device=device)
+    mask = (torch.arange(s, device=device) < length)[None, None, None, :]
+    ms_bound, by = bound((2 * length * kv * hd + 2 * kv * g * hd) * 2 * b,
+                         4 * hd * length * kv * g * b, BF16_OPS_PER_S)
+    rows["paged_attention"] = dict(
+        shape=f"q [{b},{kv},{g},{hd}], caches [{b},{s},{kv},{hd}] bf16, length {length}",
+        ms=bench.ms(lambda: paged_attention(q, kc, vc, ln)),
+        plain_ms=bench.ms(lambda: paged_attention_plain(q, kc, vc, ln)),
+        library_ms=bench.ms(lambda: F.scaled_dot_product_attention(
+            q.reshape(b, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)),
+        bound_ms=ms_bound, bound_by=by)
+    for name, row in rows.items():
+        emit({"phase": "kernels", "timing": name, **row})
+    del bench
+    return errs, rows
+
+
 # --------------------------------------------------------------------------
 # Phase 3: the Session at a TPC-H SF1-shaped size
 # --------------------------------------------------------------------------
@@ -354,7 +542,7 @@ def phase_session(torch, device):
     sim_queries = run_queries(simulator)
     check(backend.wall.kernel_fallbacks == 0, "a kernel hook fell back to numpy")
     check(backend.wall.host_pinned_pages == 0, "a page was pinned to the host")
-    for name in SOURCES:
+    for name in SESSION_KERNELS:
         check(launches.get(name, 0) > 0, f"the main path never launched {name}")
 
     for (op, inputs, res, host_s, before, after), (_, _, sim, _, _, _) in zip(queries, sim_queries):
@@ -388,6 +576,156 @@ def phase_session(torch, device):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 4: gemma-2b serving at full width
+# --------------------------------------------------------------------------
+
+
+def rel_err(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm(got.double() - want.double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def phase_serve(torch, device):
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = ARCHS[SERVE_ARCH]
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "arch": cfg.name, "params": tf.param_count(params),
+          "init_seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in PROMPT_LENS]
+    last = {}
+
+    def keep_last(req, logits, hidden):
+        if req.rid in CHECK_RIDS:
+            last[req.rid] = (logits.float().clone(), hidden.float().clone())
+
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN, batch_slots=SLOTS, device=device,
+                         on_step=keep_last)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.submit(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    steps = sum(len(r.out_tokens) - 1 for r in reqs)  # the first token is prefill's
+    check(sorted(results) == list(range(len(reqs))), "a request did not finish")
+    check(all(len(r.out_tokens) == MAX_NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(launches.get("flash_attention", 0) == cfg.n_layers * len(reqs),
+          f"flash launches {launches.get('flash_attention')} != {cfg.n_layers} x {len(reqs)}")
+    check(launches.get("paged_attention", 0) == cfg.n_layers * steps,
+          f"paged launches {launches.get('paged_attention')} != {cfg.n_layers} x {steps}")
+    for rid, (logits, hidden) in last.items():
+        check(bool(torch.isfinite(logits).all() and torch.isfinite(hidden).all()),
+              f"request {rid}: non-finite logits or hidden state")
+
+    # The last decode step against a prefill of the same tokens.
+    for rid in CHECK_RIDS:
+        req = reqs[rid]
+        tokens = np.concatenate([req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+        with torch.inference_mode():
+            logits, _, hidden = tf.prefill(
+                params, cfg, {"tokens": torch.as_tensor(tokens[None], device=device)},
+                return_hidden=True)
+        dec_logits, dec_hidden = last[rid]
+        err_h = rel_err(torch, dec_hidden, hidden[0])
+        err_l = rel_err(torch, dec_logits, logits[0])
+        emit({"phase": "serve", "consistency": rid, "tokens": len(tokens),
+              "hidden_rel_err": err_h, "logits_rel_err": err_l, "tol": CONSISTENCY_TOL,
+              "max_abs_logit_diff": float((dec_logits - logits[0].float()).abs().max())})
+        check(err_h <= CONSISTENCY_TOL and err_l <= CONSISTENCY_TOL,
+              f"request {rid}: decode and prefill disagree (hidden {err_h}, logits {err_l})")
+
+    for r in reqs:
+        n_dec = len(r.out_tokens) - 1
+        emit({"phase": "serve", "request": r.rid, "prompt_tokens": len(r.prompt),
+              "new_tokens": len(r.out_tokens), "prefill_seconds": r.prefill_seconds,
+              "decode_seconds_per_token": r.decode_seconds / n_dec,
+              "tokens_per_second": len(r.out_tokens) / (r.prefill_seconds + r.decode_seconds)})
+    emit({"phase": "serve", "requests": len(reqs), "new_tokens": steps + len(reqs),
+          "decode_steps": steps, "wall_seconds": wall,
+          "tokens_per_second": (steps + len(reqs)) / wall,
+          "launches": launches, "peak_device_bytes": peak})
+    return launches, params
+
+
+def phase_breakdown(torch, device, params):
+    """Device time of a 2048-token prefill, 8 decode steps and a 64-token
+    prefill, by kind, from one profiler window."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[SERVE_ARCH]
+    rng = np.random.default_rng(SEED + 1)
+    long_prompt, short_prompt = (
+        torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32), device=device)
+        for n in (max(PROMPT_LENS), min(PROMPT_LENS)))
+
+    def timed_prefill(tokens):
+        t0 = time.perf_counter()
+        logits, caches = tf.prefill(params, cfg, {"tokens": tokens})
+        caches = tf.pad_caches(cfg, caches, MAX_LEN)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, tok, caches
+
+    def window():
+        with torch.inference_mode():
+            prefill_s, tok, caches = timed_prefill(long_prompt)
+            t0 = time.perf_counter()
+            for pos in range(long_prompt.shape[1], long_prompt.shape[1] + 8):
+                logits, caches = tf.decode_step(params, cfg, caches, tok, pos)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            decode_s = (time.perf_counter() - t0) / 8
+            short_s, _, _ = timed_prefill(short_prompt)
+            return prefill_s, decode_s, short_s
+
+    unprofiled = window()  # also the warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = window()
+    kinds = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if not us:
+            continue
+        name = e.key.lower()
+        if "flash_attention_kernel" in name or "paged_attention_kernel" in name:
+            kinds["attention_kernels"] += us / 1e6
+        elif any(w in name for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "matmul",
+                                      "sm90")):
+            kinds["matmul"] += us / 1e6
+        else:
+            kinds["other"] += us / 1e6
+    busy = sum(kinds.values())
+    window_s = profiled[0] + 8 * profiled[1] + profiled[2]
+    names = ("prefill_2048_seconds", "decode_step_seconds", "prefill_64_seconds")
+    emit({"phase": "breakdown",
+          "window": "prefill of 2048 tokens, 8 decode steps, prefill of 64 tokens",
+          "unprofiled": dict(zip(names, unprofiled)), "profiled": dict(zip(names, profiled)),
+          "device_seconds": kinds, "device_busy_seconds": busy,
+          "device_idle_share": (1 - busy / window_s) if busy else "not measured"})
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -411,13 +749,22 @@ def main() -> int:
     card = nvidia_smi()
     print(card, flush=True)
     emit({"phase": "scale", "reduced": [],
-          "note": "TPC-H SF1 row counts and 256 KiB pages as stated; nothing cut"})
+          "note": "TPC-H SF1 row counts and 256 KiB pages as stated; gemma-2b at its "
+                  "published widths and all 18 layers, random weights; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
+    attn_errs, attn_rows = phase_attention(torch, device)
+    errs.update(attn_errs)
+    rows.update(attn_rows)
     launches = phase_session(torch, device)
+    serve_launches, params = phase_serve(torch, device)
+    phase_breakdown(torch, device, params)
+    del params
+    launches.update({name: serve_launches[name] for name in SERVE_KERNELS})
 
     kernels = []
     for name, row in rows.items():
+        check(launches.get(name, 0) > 0, f"the main path never launched {name}")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

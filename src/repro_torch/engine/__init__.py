@@ -88,6 +88,14 @@ from repro_torch.engine.pipeline import (
     plan_pipeline,
     run_pipeline,
 )
+from repro_torch.engine.server import (
+    PreemptionEvent,
+    QueryReport,
+    QueryRequest,
+    Server,
+    ServerReport,
+    SlotLoop,
+)
 from repro_torch.engine.session import (
     OperatorTask,
     PlanReport,
@@ -100,6 +108,12 @@ from repro_torch.engine.session import (
 )
 
 __all__ = [
+    "Server",
+    "QueryRequest",
+    "QueryReport",
+    "ServerReport",
+    "PreemptionEvent",
+    "SlotLoop",
     "Session",
     "OperatorTask",
     "TaskOutput",

@@ -3,5 +3,7 @@
   merge_sort/  sort_blocks, merge_pass (bitonic network), remop_sort,
                argsort_by_key
   dispatch/    gather_rows
+  flash_attention/  flash_attention, remop_flash_attention, plan_blocks
+  paged_attention/  paged_attention, remop_paged_attention
   runtime.py   nvcc build, ctypes loading, device resolution, launch counts
 """

@@ -1,0 +1,31 @@
+"""Paged-attention entry point: default page and padding of the cache.
+
+The JAX package's ``planned_page`` (its page from ``core.planner.plan_kv_pages``)
+is not ported: the planner comes with a later slice.  The default page is
+``min(S, 128)``, as in the JAX entry point.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.paged_attention.paged_attention import paged_attention
+
+
+def remop_paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          lengths: torch.Tensor, page: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over a paged KV cache.
+
+    q: [B, KV, G, hd]; caches [B, S, KV, hd]; lengths [B].
+    Pads S to a page multiple (masked by lengths).
+    """
+    s = k_cache.shape[1]
+    page = page or min(s, 128)
+    pad = (-s) % page
+    if pad:
+        k_cache = F.pad(k_cache, (0, 0, 0, 0, 0, pad))
+        v_cache = F.pad(v_cache, (0, 0, 0, 0, 0, pad))
+    return paged_attention(q, k_cache, v_cache, lengths.to(torch.int32), page=page)

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("merge_sort", "gather_rows")
+SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # C signature of every entry point, per library: (argtypes, restype).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "merge_sort": {
@@ -50,6 +51,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gather_rows": {
         "remop_gather_rows": ([_P, _P, _P, _I64, _I64, _I32, _I32, _P], _I32),
         "remop_gather_rows_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        # q, k, v, out, &strides[12] (int64), b, h, kv, s, t, hd, bq, bk, scale, stream
+        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32, _P], _I32)
+           for t in ("bf16", "f32")},
+        "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "paged_attention": {
+        # q, k_cache, v_cache, lengths, out, b, kv, g, s, hd, page, scale, stream
+        **{f"remop_paged_attention_{t}": ([_P] * 5 + [_I32] * 6 + [_F32, _P], _I32)
+           for t in ("bf16", "f32")},
+        "remop_paged_attention_error_string": ([_I32], ctypes.c_char_p),
     },
 }
 

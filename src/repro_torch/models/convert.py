@@ -1,0 +1,54 @@
+"""Carry a parameter tree of the JAX package's ``init_params`` over to the port.
+
+The JAX tree of a dense decoder is ``{"embed": {"table"}, "final_norm":
+{"scale"}, "seg0": {"b0_attn": {...}}}`` with every leaf of ``seg0``
+stacked over layers; the port's is the same tree with the stack split into
+``"layers"``.  Leaves arrive as numpy arrays (the caller converts them with
+``np.asarray``), so this module needs nothing of JAX.  Matrices become bf16
+and norm scales stay f32: JAX casts each f32 master matrix to the bf16
+activations per call, which computes the same products.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models.layers import WEIGHT_DTYPE
+from repro_torch.models.transformer import Params, check_supported
+
+
+def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
+    dtype = torch.float32 if name == "scale" else WEIGHT_DTYPE
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+
+def _tree(tree: Mapping[str, Any], device: torch.device, layer: int | None = None):
+    out = {}
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            out[name] = _tree(sub, device, layer)
+        else:
+            out[name] = _leaf(name, sub if layer is None else sub[layer], device)
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> Params:
+    """The port's parameters from a numpy copy of ``tf.init_params(key, cfg)``.
+
+    ``device`` is ``cuda:0`` unless ``"cpu"`` is passed.
+    """
+    check_supported(cfg)
+    device = resolve_device(device)
+    if set(tree) != {"embed", "final_norm", "seg0"} or set(tree["seg0"]) != {"b0_attn"}:
+        raise ValueError(f"not a dense decoder's tree: {sorted(tree)}")
+    stack = tree["seg0"]["b0_attn"]
+    return {
+        "embed": _tree(tree["embed"], device),
+        "final_norm": _tree(tree["final_norm"], device),
+        "layers": [_tree(stack, device, layer) for layer in range(cfg.n_layers)],
+    }

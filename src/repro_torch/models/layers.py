@@ -1,0 +1,135 @@
+"""Building-block layers as plain functions over dicts of tensors.
+
+Conventions, as in the JAX package's ``models/layers.py``:
+  * parameters are nested dicts; matrices are held in bf16 and norm scales
+    in f32 (JAX keeps f32 masters and casts each matrix to the activation
+    dtype per call, which computes the same bf16 product);
+  * every apply computes in the dtype of its input, rmsnorm and rope in f32;
+  * the ``init_*`` functions draw from a seeded ``torch.Generator`` on the
+    device the weights live on.  They give other numbers than ``jax.random``
+    from the same seed; ``models.convert`` carries JAX's weights over where
+    the two must compute the same thing.
+
+``softmax_xent`` (training) waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+WEIGHT_DTYPE = torch.bfloat16
+
+
+def truncated_normal(shape, scale: float, generator: torch.Generator,
+                     device: torch.device, dtype=WEIGHT_DTYPE) -> torch.Tensor:
+    """``scale`` times a standard normal truncated to [-2, 2]."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    return torch.nn.init.trunc_normal_(w, 0.0, scale, -2.0 * scale, 2.0 * scale,
+                                       generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(dim: int, device: torch.device) -> Params:
+    return {"scale": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + p["scale"])).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_dense(in_dim: int, out_dim: int, generator: torch.Generator,
+               device: torch.device, scale: float | None = None) -> Params:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return {"w": truncated_normal((in_dim, out_dim), scale, generator, device)}
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"].to(x.dtype)
+
+
+def init_embedding(vocab: int, dim: int, generator: torch.Generator,
+                   device: torch.device) -> Params:
+    # 1/sqrt(dim) so the sqrt(d)-scaled embedding has unit variance and the
+    # tied unembedding produces O(1) logits at init.
+    return {"table": truncated_normal((vocab, dim), 1.0 / math.sqrt(dim), generator, device)}
+
+
+def embed(p: Params, tokens: torch.Tensor, scale_by_sqrt_dim: bool = False) -> torch.Tensor:
+    table = p["table"]
+    x = table[tokens.long()].to(torch.bfloat16)
+    if scale_by_sqrt_dim:
+        x = x * torch.tensor(math.sqrt(table.shape[-1]), dtype=x.dtype, device=x.device)
+    return x
+
+
+def unembed(p: Params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    logits = x @ p["table"].to(x.dtype).T
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(d_model: int, d_ff: int, generator: torch.Generator, device: torch.device,
+             mlp_type: str = "swiglu") -> Params:
+    p = {}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = init_dense(d_model, d_ff, generator, device)
+    p["w_up"] = init_dense(d_model, d_ff, generator, device)
+    p["w_down"] = init_dense(d_ff, d_model, generator, device, scale=1.0 / math.sqrt(d_ff))
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, mlp_type: str = "swiglu") -> torch.Tensor:
+    up = dense(p["w_up"], x)
+    t = mlp_type if "w_gate" in p else "gelu"
+    if t == "swiglu":
+        act = F.silu(dense(p["w_gate"], x)) * up
+    elif t == "geglu":
+        act = F.gelu(dense(p["w_gate"], x), approximate="tanh") * up
+    else:
+        act = F.gelu(up, approximate="tanh")
+    return dense(p["w_down"], act)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for given positions; returns (cos, sin) [..., dim/2]."""
+    exponents = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    freqs = 1.0 / (theta ** exponents)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; cos/sin: [..., seq, head_dim/2]."""
+    dtype = x.dtype
+    x1, x2 = x.float().chunk(2, dim=-1)
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)

@@ -1,0 +1,185 @@
+"""The dense decoder LM (a stack of ``"attn"`` blocks): init, forward,
+prefill, decode.
+
+The JAX package's ``models/transformer.py`` assembles every family and
+scans over layer-stacked parameters; here the layers are a Python list and
+the loop is a Python loop (PyTorch runs eagerly).  The parameter tree is
+JAX's with the layer stack split: ``{"embed": {"table"}, "final_norm":
+{"scale"}, "layers": [{"norm1", "attn", "norm2", "mlp"}, ...]}``.  Caches
+are a list with one ``(k, v)`` pair per layer, each ``[B, S, KV, hd]``.
+
+Families other than the dense decoder (MoE, SSM, hybrid, VLM, enc-dec)
+raise ``NotImplementedError``: they wait for later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
+)
+
+Params = Dict[str, Any]
+Caches = List[attn.KVCache]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense decoder of full-attention blocks."""
+    if cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.n_encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later "
+            "slice; this one ports the dense decoder")
+    if cfg.window or cfg.attn_softcap:
+        raise NotImplementedError(f"{cfg.name}: windowed/softcapped attention: later slice")
+
+
+# ===========================================================================
+# Init
+# ===========================================================================
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
+    return {
+        "norm1": init_rmsnorm(cfg.d_model, device),
+        "attn": attn.init_gqa(cfg, generator, device),
+        "norm2": init_rmsnorm(cfg.d_model, device),
+        "mlp": init_mlp(cfg.d_model, cfg.d_ff, generator, device, cfg.mlp_type),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Params:
+    """Random weights: matrices in bf16, norm scales in f32, on ``device``
+    (``cuda:0`` unless ``"cpu"`` is passed).  ``generator`` must live on
+    that device; the default is one seeded with 0."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return {
+        "embed": init_embedding(cfg.vocab_size, cfg.d_model, generator, device),
+        "final_norm": init_rmsnorm(cfg.d_model, device),
+        "layers": [init_block(cfg, generator, device) for _ in range(cfg.n_layers)],
+    }
+
+
+# ===========================================================================
+# Blocks
+# ===========================================================================
+
+
+def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                  want_cache: bool = False):
+    """Returns (x_out, (k, v) or None)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    out = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=want_cache)
+    cache = None
+    if want_cache:
+        out, cache = out
+    x = x + out
+    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp_type)
+    return x, cache
+
+
+def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: attn.KVCache,
+                 pos: int):
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    out, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos)
+    x = x + out
+    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp_type)
+    return x, cache
+
+
+# ===========================================================================
+# Whole model
+# ===========================================================================
+
+
+def _hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, want_cache: bool):
+    check_supported(cfg)
+    x = embed(params["embed"], tokens, scale_by_sqrt_dim=True)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    caches = []
+    for layer in params["layers"]:
+        x, cache = block_forward(layer, cfg, x, positions, want_cache)
+        caches.append(cache)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), (caches if want_cache else None)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            want_cache: bool = False):
+    """Full-sequence forward; returns (logits, aux_loss, caches)."""
+    x, caches = _hidden(params, cfg, batch["tokens"], want_cache)
+    logits = unembed(params["embed"], x, cfg.logit_softcap)
+    return logits, torch.zeros((), device=x.device), caches
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            return_hidden: bool = False):
+    """Returns (last_token_logits, caches[, last_hidden]) for decode.
+
+    Only the last position is unembedded: its logits are those of
+    :func:`forward`, without the ``[B, S, vocab]`` tensor.
+    """
+    x, caches = _hidden(params, cfg, batch["tokens"], want_cache=True)
+    last = x[:, -1]
+    logits = unembed(params["embed"], last, cfg.logit_softcap)
+    return (logits, caches, last) if return_hidden else (logits, caches)
+
+
+def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.Tensor,
+                pos: int, return_hidden: bool = False):
+    """One decode step. token: [B] integer; pos: the step's position.
+
+    Returns (logits [B, vocab], caches[, hidden [B, d]]); the caches are
+    written in place.
+    """
+    check_supported(cfg)
+    x = embed(params["embed"], token[:, None], scale_by_sqrt_dim=True)
+    new_caches = []
+    for layer, cache in zip(params["layers"], caches):
+        x, cache = block_decode(layer, cfg, x, cache, pos)
+        new_caches.append(cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0]
+    logits = unembed(params["embed"], x, cfg.logit_softcap)
+    return (logits, new_caches, x) if return_hidden else (logits, new_caches)
+
+
+# ===========================================================================
+# Cache specs
+# ===========================================================================
+
+
+def cache_struct(cfg: ModelConfig, batch: int, seq: int,
+                 dtype=torch.bfloat16) -> List[Tuple[Tuple[torch.Size, torch.dtype], ...]]:
+    """(shape, dtype) of each layer's (k, v), mirroring ``prefill``'s caches."""
+    check_supported(cfg)
+    spec = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq)), dtype)
+    return [(spec, spec) for _ in range(cfg.n_layers)]
+
+
+def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
+    """Grow each cache's seq axis to ``target_len`` with zeros (decode headroom)."""
+    def pad(a):
+        return a if a.shape[1] >= target_len else F.pad(
+            a, (0, 0, 0, 0, 0, target_len - a.shape[1]))
+
+    return [(pad(k), pad(v)) for k, v in caches]
+
+
+def param_count(params: Params) -> int:
+    def count(tree) -> int:
+        if isinstance(tree, torch.Tensor):
+            return tree.numel()
+        items = tree.values() if isinstance(tree, dict) else tree
+        return sum(count(x) for x in items)
+
+    return count(params)

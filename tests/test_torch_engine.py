@@ -202,6 +202,9 @@ def test_four_operator_session_on_torch_backend_matches_jax_simulator():
 
 
 def test_engine_exports_only_the_slice():
-    assert not hasattr(engine, "Server")
-    assert set(engine.__all__) <= set(jax_engine.__all__)
-    assert {"Session", "TransferScheduler", "plan_operator", "Evictor"} <= set(engine.__all__)
+    # The serving surface came with slice 2, SlotLoop exported beside it for
+    # the LM ServeEngine; engine/plan.py is not ported yet.
+    assert set(engine.__all__) <= set(jax_engine.__all__) | {"SlotLoop"}
+    assert {"Session", "TransferScheduler", "plan_operator", "Evictor",
+            "Server", "QueryRequest", "SlotLoop"} <= set(engine.__all__)
+    assert not hasattr(engine, "plan")

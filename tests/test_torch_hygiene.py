@@ -5,7 +5,8 @@ syntax tree: an ``import``/``from`` of ``jax`` or ``repro`` (as opposed to
 ``repro_torch``) fails, and so does a string literal naming a ``repro.``
 module, the way ``importlib.import_module("repro.remote.bnlj")`` would.
 Then a fresh interpreter with both packages blocked imports every port
-module and runs a tiny Session on the port's CPU backend.
+module, runs a tiny Session on the port's CPU backend and serves a reduced
+gemma-2b through ``ServeEngine.submit`` on the CPU.
 """
 
 import ast
@@ -95,6 +96,16 @@ def test_port_imports_and_runs_with_jax_package_blocked():
                       inputs={{"build": build, "probe": probe}}),
         ], replan="measured")
         assert backend.wall.kernel_calls > 0 and backend.wall.kernel_fallbacks == 0
+        import numpy as np
+        from repro_torch.configs import ARCHS, reduced
+        from repro_torch.models import transformer as tf
+        from repro_torch.runtime.serve_loop import Request, ServeEngine
+        cfg = reduced(ARCHS["gemma-2b"])
+        engine = ServeEngine(cfg, tf.init_params(cfg, device="cpu"), max_len=24,
+                             batch_slots=2, device="cpu")
+        served = engine.submit([Request(rid=i, prompt=np.arange(5 + i, dtype=np.int32),
+                                        max_new_tokens=4) for i in range(3)])
+        assert sorted(served) == [0, 1, 2] and all(len(t) == 4 for t in served.values())
         leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                         and m.split(".")[0] in ("jax", "repro"))
         assert not leaked, leaked
