@@ -29,7 +29,14 @@ Phases, each printing JSON objects, one per line:
    agree with a prefill of the same tokens (final hidden state and logits);
    then a profiler window over one prefill and a few decode steps splits
    the device time into attention kernels, matrix products and the rest;
-5. report: per-query and per-request seconds, the card's peak memory, and
+5. mamba: hold the SSD scan kernel against its plain version bit for bit
+   (and reject a planted fault), then serve mamba2-370m at full width and
+   all 48 layers the same way (8 requests, 4 slots; every prefill layer's
+   inter-chunk scan through the kernel), with two decode-against-prefill
+   checks, the second across chunks and shown to reject a planted state
+   fault, and profiler windows over a prefill and over decode steps split
+   into the scan kernel, matrix products and the rest;
+6. report: per-query and per-request seconds, the card's peak memory, and
    one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -81,12 +88,30 @@ CHECK_RIDS = (2, 3)  # the 1000- and 777-token prompts: ragged blocks and pages
 # kernel against the flash kernel), nothing else.
 CONSISTENCY_TOL = 3e-2
 
+# mamba2-370m serving: 8 requests through 4 slots.  A prompt is at most one
+# chunk (256) or a multiple of it, as ``ssd_forward`` requires.
+MAMBA_ARCH = "mamba2-370m"
+MAMBA_PROMPT_LENS = (2048, 1536, 1024, 768, 2048, 512, 1280, 225)
+MAMBA_CHECK_RID = 7  # 225 + 31 = 256 tokens at its last decode step: one chunk
+MAMBA_CROSS = (1792, 2048)  # prefill 7 chunks, decode to 8; against a prefill of 8
+# Decode against prefill, set before the first run at 48 layers: the
+# relative L2 error of the final hidden state and of the logits (bf16
+# products of one row against products of S rows, the recurrent step
+# against the chunked form; gemma-2b's check reads 1.4-1.5% after its 18
+# layers), and, per SSM head of every layer, the relative L2 error of the
+# state after the last token (the recurrence is in f32; its inputs carry
+# the bf16 noise of the layers below).  At random init the SSM adds well
+# under 1% to the residual stream, so hidden state and logits barely see
+# the scan: the per-head states are what rejects a wrong carry.
+MAMBA_TOL = {"hidden": 5e-2, "logits": 5e-2, "state": 1e-1}
+
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "merge_pass": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "gather_rows": "src/repro_torch/kernels/csrc/gather_rows.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -94,6 +119,7 @@ REPLACES = {
     "gather_rows": "src/repro/kernels/dispatch/dispatch.py:26",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:65",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:50",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
@@ -701,29 +727,339 @@ def phase_breakdown(torch, device, params):
     unprofiled = window()  # also the warm-up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled = window()
-    kinds = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if not us:
-            continue
-        name = e.key.lower()
-        if "flash_attention_kernel" in name or "paged_attention_kernel" in name:
-            kinds["attention_kernels"] += us / 1e6
-        elif any(w in name for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "matmul",
-                                      "sm90")):
-            kinds["matmul"] += us / 1e6
-        else:
-            kinds["other"] += us / 1e6
-    busy = sum(kinds.values())
-    window_s = profiled[0] + 8 * profiled[1] + profiled[2]
+    kinds = device_seconds(torch, prof, ("flash_attention_kernel", "paged_attention_kernel"),
+                           "attention_kernels")
     names = ("prefill_2048_seconds", "decode_step_seconds", "prefill_64_seconds")
     emit({"phase": "breakdown",
           "window": "prefill of 2048 tokens, 8 decode steps, prefill of 64 tokens",
           "unprofiled": dict(zip(names, unprofiled)), "profiled": dict(zip(names, profiled)),
-          "device_seconds": kinds, "device_busy_seconds": busy,
-          "device_idle_share": (1 - busy / window_s) if busy else "not measured"})
+          **busy_and_idle(kinds, profiled[0] + 8 * profiled[1] + profiled[2],
+                          unprofiled[0] + 8 * unprofiled[1] + unprofiled[2])})
+
+
+MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "matmul", "sm90")
+
+
+def device_seconds(torch, prof, ours, label):
+    """Device seconds of a profiler window by kind: our kernels (names
+    containing one of ``ours``), matrix products, and the rest; and the
+    number of device events (kernels, copies, fills) in the window.
+
+    Only device events count.  ``key_averages()`` also lists each aten op
+    with the device time of the kernels it launched as its own, so summing
+    every entry counts those kernels twice."""
+    kinds = {label: 0.0, "matmul": 0.0, "other": 0.0}
+    events = 0
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = e.self_device_time_total
+        events += e.count
+        name = e.key.lower()
+        if any(w in name for w in ours):
+            kinds[label] += us / 1e6
+        elif any(w in name for w in MATMUL_NAMES):
+            kinds["matmul"] += us / 1e6
+        else:
+            kinds["other"] += us / 1e6
+    return kinds, events
+
+
+def busy_and_idle(kinds_events, profiled_s, unprofiled_s):
+    """Busy device seconds and the idle share, over the profiled window's
+    host seconds and over the same work's unprofiled host seconds (the
+    profiler slows the host's launches, not the device's kernels)."""
+    kinds, events = kinds_events
+    busy = sum(kinds.values())
+    if not busy:
+        return {"device_seconds": kinds, "device_idle_share": "not measured"}
+    return {"device_seconds": kinds, "device_events": events, "device_busy_seconds": busy,
+            "device_idle_share": 1 - busy / profiled_s,
+            "device_idle_share_of_unprofiled_wall": 1 - busy / unprofiled_s}
+
+
+# --------------------------------------------------------------------------
+# Phase 5: the SSD scan kernel and mamba2-370m serving at full width
+# --------------------------------------------------------------------------
+
+
+def phase_ssd_scan(torch, device):
+    """The scan kernel against its plain version, bit for bit; a planted
+    fault; then timed at the serving shape (S = 2048: 8 chunks)."""
+    import numpy as np
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    rng = np.random.default_rng(SEED + 2)
+    errs = {}
+
+    def sigmoid_decays(shape, dtype):  # as the JAX test draws them
+        return torch.sigmoid(torch.randn(shape, device=device, generator=gen)).to(dtype)
+
+    def near_one_decays(shape):
+        # One position's decay exp(dt * A) at A = -1 over Mamba-2's dt range
+        # (log-uniform in [1e-3, 1e-1]): 0.905 .. 0.999.
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), shape))
+        return torch.as_tensor(np.exp(-dt), dtype=torch.float32, device=device)
+
+    serving = (1, 8, 32, 64, 128)
+    cases = [(serving, torch.float32, "sigmoid"), (serving, torch.float32, "near 1"),
+             ((2, 3, 32, 64, 128), torch.bfloat16, "sigmoid"),
+             ((3, 7, 1, 5, 3), torch.float32, "sigmoid"),  # P * N = 15: element-wise path
+             ((3, 7, 1, 5, 3), torch.bfloat16, "sigmoid"),
+             ((2, 5, 3, 8, 16), torch.float32, "misaligned")]  # 16-byte rows, base + 4 bytes
+    for shape, dtype, kind in cases:
+        if kind == "misaligned":
+            n = int(np.prod(shape))
+            states = torch.randn(n + 1, device=device, generator=gen)[1:].view(shape)
+        else:
+            states = torch.randn(shape, device=device, generator=gen).to(dtype)
+        decays = (near_one_decays(shape[:3]) if kind == "near 1"
+                  else sigmoid_decays(shape[:3], dtype))
+        equal_bits(torch, ["ssd_scan"], ssd_scan(states, decays),
+                   ssd_scan_plain(states, decays), errs)
+        emit({"phase": "kernels", "check": "ssd_scan", "shape": list(shape),
+              "dtype": str(dtype), "decays": kind, "equal": True})
+
+    # The planted fault: the kernel on states whose middle chunk is zeroed,
+    # against the plain version on the full states.
+    states = torch.randn(serving, device=device, generator=gen)
+    decays = near_one_decays(serving[:3])
+    cut = states.clone()
+    cut[:, serving[1] // 2] = 0
+    got, want = ssd_scan(cut, decays), ssd_scan_plain(states, decays)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    emit({"phase": "kernels", "planted_fault": "ssd_scan",
+          "fault": f"zeroes chunk {serving[1] // 2} of {serving[1]}",
+          "max_abs_err": max(max_abs_err(torch, g, w) for g, w in zip(got, want)),
+          "rejected": not equal})
+    check(not equal, "ssd_scan: the bit-for-bit check passes a kernel that drops a chunk")
+    torch.cuda.synchronize()
+
+    bench = Bench(torch, device)
+    b, nc, h, p, n = serving
+    states = torch.randn(serving, device=device, generator=gen)
+    decays = sigmoid_decays(serving[:3], torch.float32)
+    numel = states.numel()
+    ms_bound, by = bound(4 * (2 * numel + numel // nc + decays.numel()), 2 * numel)
+    row = dict(
+        shape=f"states [{b},{nc},{h},{p},{n}] f32, decays [{b},{nc},{h}]",
+        ms=bench.ms(lambda: ssd_scan(states, decays)),
+        plain_ms=bench.ms(lambda: ssd_scan_plain(states, decays)),
+        library_ms=None,  # no single PyTorch call computes this scan
+        bound_ms=ms_bound, bound_by=by)
+    emit({"phase": "kernels", "timing": "ssd_scan", **row})
+    del bench
+    return errs, {"ssd_scan": row}
+
+
+def mamba2_dt_bias(rng, n_layers, n_heads):
+    """Mamba-2's dt initialisation: per layer and head, the inverse softplus
+    of a log-uniform draw in [1e-3, 1e-1]."""
+    import numpy as np
+
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (n_layers, n_heads)))
+    return (dt + np.log(-np.expm1(-dt))).astype(np.float32)
+
+
+def mamba_params(torch, device, cfg):
+    import numpy as np
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    bias = mamba2_dt_bias(np.random.default_rng(SEED), cfg.n_layers, cfg.n_ssm_heads)
+    for layer, row in zip(params["layers"], bias):
+        layer["ssm"]["dt_bias"] = torch.as_tensor(row, device=device)
+    return params
+
+
+def head_state_err(torch, got, want) -> float:
+    """Largest relative L2 error of one head's state [P, N] over every layer,
+    batch row and head."""
+    worst = 0.0
+    for (_, g), (_, w) in zip(got, want):
+        g, w = g.double(), w.double()
+        num = torch.linalg.vector_norm(g - w, dim=(-2, -1))
+        den = torch.linalg.vector_norm(w, dim=(-2, -1)).clamp_min(1e-30)
+        worst = max(worst, float((num / den).max()))
+    return worst
+
+
+def phase_mamba_serve(torch, device):
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = ARCHS[MAMBA_ARCH]
+    t0 = time.perf_counter()
+    params = mamba_params(torch, device, cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "mamba", "arch": cfg.name, "params": tf.param_count(params),
+          "layers": cfg.n_layers, "init_seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in MAMBA_PROMPT_LENS]
+    last = {}
+
+    def keep_last(req, logits, hidden):
+        if req.rid == MAMBA_CHECK_RID:
+            last[req.rid] = (logits.float().clone(), hidden.float().clone())
+
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN, batch_slots=SLOTS, device=device,
+                         on_step=keep_last)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.submit(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    steps = sum(len(r.out_tokens) - 1 for r in reqs)
+    check(sorted(results) == list(range(len(reqs))), "a request did not finish")
+    check(all(len(r.out_tokens) == MAX_NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(launches.get("ssd_scan", 0) == cfg.n_layers * len(reqs),
+          f"ssd_scan launches {launches.get('ssd_scan')} != {cfg.n_layers} x {len(reqs)}")
+    logits, hidden = last[MAMBA_CHECK_RID]
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(hidden).all()),
+          "non-finite logits or hidden state")
+    for r in reqs:
+        n_dec = len(r.out_tokens) - 1
+        emit({"phase": "mamba", "request": r.rid, "prompt_tokens": len(r.prompt),
+              "new_tokens": len(r.out_tokens), "prefill_seconds": r.prefill_seconds,
+              "decode_seconds_per_token": r.decode_seconds / n_dec,
+              "tokens_per_second": len(r.out_tokens) / (r.prefill_seconds + r.decode_seconds)})
+    emit({"phase": "mamba", "requests": len(reqs), "new_tokens": steps + len(reqs),
+          "decode_steps": steps, "wall_seconds": wall,
+          "tokens_per_second": (steps + len(reqs)) / wall,
+          "launches": launches, "peak_device_bytes": peak})
+
+    # Check 1: request 7's last decode step against a one-chunk prefill.
+    req = reqs[MAMBA_CHECK_RID]
+    tokens = np.concatenate([req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+    with torch.inference_mode():
+        p_logits, _, p_hidden = tf.prefill(
+            params, cfg, {"tokens": torch.as_tensor(tokens[None], device=device)},
+            return_hidden=True)
+    errs = {"hidden": rel_err(torch, hidden, p_hidden[0]),
+            "logits": rel_err(torch, logits, p_logits[0])}
+    emit({"phase": "mamba", "consistency": MAMBA_CHECK_RID, "tokens": len(tokens),
+          "hidden_rel_err": errs["hidden"], "logits_rel_err": errs["logits"],
+          "tol": {k: MAMBA_TOL[k] for k in errs}})
+    check(all(errs[k] <= MAMBA_TOL[k] for k in errs),
+          f"request {MAMBA_CHECK_RID}: decode and prefill disagree ({errs})")
+
+    # Check 2, across chunks: prefill 7 chunks through the kernel,
+    # teacher-force the next 256 tokens, against a prefill of all 8.
+    head, total = MAMBA_CROSS
+    cross = cross_chunk_check(torch, device, cfg, params)
+    emit({"phase": "mamba", "consistency": "across chunks", "prefill_tokens": head,
+          "decoded_tokens": total - head, **{f"{k}_rel_err": v for k, v in cross.items()},
+          "tol": MAMBA_TOL})
+    check(all(cross[k] <= MAMBA_TOL[k] for k in MAMBA_TOL),
+          f"cross-chunk decode and prefill disagree ({cross})")
+    fault = cross_chunk_check(torch, device, cfg, params, fault=True)
+    rejected = any(fault[k] > MAMBA_TOL[k] for k in MAMBA_TOL)
+    emit({"phase": "mamba", "planted_fault": "state after prefill",
+          "fault": "every layer's post-prefill state replaced by the kernel's prev[:, -1]",
+          **{f"{k}_rel_err": v for k, v in fault.items()}, "tol": MAMBA_TOL,
+          "rejected": rejected,
+          "rejected_by": [k for k in MAMBA_TOL if fault[k] > MAMBA_TOL[k]]})
+    check(rejected, "the cross-chunk check passes a prefill that drops its last chunk")
+    return launches, params
+
+
+def cross_chunk_check(torch, device, cfg, params, fault: bool = False):
+    """Relative errors of the final hidden state, the logits and the per-head
+    SSM states after prefilling ``MAMBA_CROSS[0]`` tokens and decoding up to
+    ``MAMBA_CROSS[1]``, against a prefill of all of them.  With ``fault``,
+    every layer's post-prefill state is the state entering its last chunk."""
+    import numpy as np
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+
+    head, total = MAMBA_CROSS
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, total), dtype=np.int32),
+                             device=device)
+    scan = ssm_mod.remop_ssd_scan
+
+    def entering_last_chunk(states, decays):
+        prev, _ = scan(states, decays)
+        return prev, prev[:, -1].contiguous()
+
+    with torch.inference_mode():
+        if fault:
+            ssm_mod.remop_ssd_scan = entering_last_chunk
+        try:
+            _, caches = tf.prefill(params, cfg, {"tokens": tokens[:, :head]})
+        finally:
+            ssm_mod.remop_ssd_scan = scan
+        for pos in range(head, total):
+            logits, caches, hidden = tf.decode_step(params, cfg, caches, tokens[:, pos], pos,
+                                                    return_hidden=True)
+        p_logits, p_caches, p_hidden = tf.prefill(params, cfg, {"tokens": tokens},
+                                                  return_hidden=True)
+    return {"hidden": rel_err(torch, hidden[0], p_hidden[0]),
+            "logits": rel_err(torch, logits[0], p_logits[0]),
+            "state": head_state_err(torch, caches, p_caches)}
+
+
+def phase_mamba_breakdown(torch, device, params):
+    """Device time of a 2048-token prefill and of 8 decode steps of
+    mamba2-370m, by kind, each from its own profiler window."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[MAMBA_ARCH]
+    rng = np.random.default_rng(SEED + 4)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, max(MAMBA_PROMPT_LENS)),
+                                          dtype=np.int32), device=device)
+    state = {}
+
+    def prefill():
+        logits, state["caches"] = tf.prefill(params, cfg, {"tokens": prompt})
+        state["tok"] = logits.argmax(-1)
+
+    def decode():
+        for pos in range(prompt.shape[1], prompt.shape[1] + 8):
+            logits, state["caches"] = tf.decode_step(params, cfg, state["caches"],
+                                                     state["tok"], pos)
+            state["tok"] = logits.argmax(-1)
+
+    def timed(fn):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    for name, fn, steps in (("prefill of 2048 tokens", prefill, 1),
+                            ("8 decode steps after it", decode, 8)):
+        torch.cuda.reset_peak_memory_stats(device)
+        unprofiled = timed(fn)  # also the warm-up
+        peak = torch.cuda.max_memory_allocated(device)
+        if fn is decode:
+            prefill()  # the same 8 steps again, from the prefill's state
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled = timed(fn)
+        kinds = device_seconds(torch, prof, ("ssd_scan_kernel",), "ssd_scan_kernel")
+        emit({"phase": "mamba_breakdown", "window": name,
+              "unprofiled_seconds_per_call": unprofiled / steps,
+              "profiled_seconds_per_call": profiled / steps,
+              **busy_and_idle(kinds, profiled, unprofiled),
+              "peak_device_bytes": peak})
 
 
 def main() -> int:
@@ -750,7 +1086,10 @@ def main() -> int:
     print(card, flush=True)
     emit({"phase": "scale", "reduced": [],
           "note": "TPC-H SF1 row counts and 256 KiB pages as stated; gemma-2b at its "
-                  "published widths and all 18 layers, random weights; nothing cut"})
+                  "published widths and all 18 layers, random weights; mamba2-370m at "
+                  "its published widths and all 48 layers, random weights with dt_bias "
+                  "per layer and head the inverse softplus of a log-uniform draw in "
+                  "[1e-3, 1e-1] (Mamba-2's dt initialisation); nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -761,6 +1100,13 @@ def main() -> int:
     phase_breakdown(torch, device, params)
     del params
     launches.update({name: serve_launches[name] for name in SERVE_KERNELS})
+    scan_errs, scan_rows = phase_ssd_scan(torch, device)
+    errs.update(scan_errs)
+    rows.update(scan_rows)
+    mamba_launches, params = phase_mamba_serve(torch, device)
+    phase_mamba_breakdown(torch, device, params)
+    del params
+    launches["ssd_scan"] = mamba_launches["ssd_scan"]
 
     kernels = []
     for name, row in rows.items():

@@ -10,8 +10,9 @@ the JAX package so each module has a counterpart of the same name:
   remote/   simulated remote-memory tiers, the four operators, and the torch
             execution backend (device pages + CUDA kernels)
   configs/  the architectures (a copy of the JAX package's)
-  models/   layers, GQA attention over the flash/paged kernels, the dense
-            decoder, and params_from_jax
+  models/   layers, GQA attention over the flash/paged kernels, Mamba-2's
+            SSD block over the scan kernel, the decoder stacks (dense and
+            Mamba-2), and params_from_jax
   runtime/  ServeEngine (LM serving over SlotLoop)
   launch/   ``python -m repro_torch.launch.serve``
   kernels/  CUDA C++ kernels for Hopper (``csrc/``), built at first use, each

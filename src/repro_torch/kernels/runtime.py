@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention")
+SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -63,6 +63,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         **{f"remop_paged_attention_{t}": ([_P] * 5 + [_I32] * 6 + [_F32, _P], _I32)
            for t in ("bf16", "f32")},
         "remop_paged_attention_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "ssd_scan": {
+        # states, decays, prev, final, b, nc, h, p * n, stream
+        **{f"remop_ssd_scan_{t}": ([_P] * 4 + [_I32] * 3 + [_I64, _P], _I32)
+           for t in ("bf16", "f32")},
+        "remop_ssd_scan_error_string": ([_I32], ctypes.c_char_p),
     },
 }
 

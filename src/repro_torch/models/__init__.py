@@ -1,2 +1,3 @@
 """The LM stack: layers, GQA attention over the flash/paged kernels, the
-dense decoder, and the conversion of the JAX package's parameter trees."""
+Mamba-2 SSD block over the scan kernel, the dense and Mamba-2 decoder
+stacks, and the conversion of the JAX package's parameter trees."""

@@ -1,15 +1,17 @@
-"""The dense decoder LM (a stack of ``"attn"`` blocks): init, forward,
-prefill, decode.
+"""The decoder LM: a stack of ``"attn"`` blocks (dense decoder) or of
+``"ssm"`` blocks (Mamba-2): init, forward, prefill, decode.
 
 The JAX package's ``models/transformer.py`` assembles every family and
 scans over layer-stacked parameters; here the layers are a Python list and
 the loop is a Python loop (PyTorch runs eagerly).  The parameter tree is
 JAX's with the layer stack split: ``{"embed": {"table"}, "final_norm":
-{"scale"}, "layers": [{"norm1", "attn", "norm2", "mlp"}, ...]}``.  Caches
-are a list with one ``(k, v)`` pair per layer, each ``[B, S, KV, hd]``.
+{"scale"}, "layers": [...]}``, each layer ``{"norm1", "attn", "norm2",
+"mlp"}`` or ``{"norm1", "ssm"}`` (no FFN half).  Caches are a list with one
+pair per layer: ``(k, v)``, each ``[B, S, KV, hd]``, or the SSM's ``(conv
+[B, W-1, C] bf16, state [B, H, P, N] f32)``, which has no sequence axis.
 
-Families other than the dense decoder (MoE, SSM, hybrid, VLM, enc-dec)
-raise ``NotImplementedError``: they wait for later slices.
+Other families (MoE, hybrid, VLM, enc-dec) raise ``NotImplementedError``:
+they wait for later slices.
 """
 
 from __future__ import annotations
@@ -22,20 +24,24 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
 )
 
 Params = Dict[str, Any]
-Caches = List[attn.KVCache]
+Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder of full-attention blocks."""
+    """Raise unless ``cfg`` is a dense decoder of full-attention blocks or a
+    Mamba-2 stack."""
+    if cfg.family == "ssm":
+        return
     if cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.n_encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later "
-            "slice; this one ports the dense decoder")
+            "slice; the port serves the dense decoder and Mamba-2")
     if cfg.window or cfg.attn_softcap:
         raise NotImplementedError(f"{cfg.name}: windowed/softcapped attention: later slice")
 
@@ -46,6 +52,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
+    if cfg.family == "ssm":
+        return {"norm1": init_rmsnorm(cfg.d_model, device),
+                "ssm": ssm_mod.init_ssm(cfg, generator, device)}
     return {
         "norm1": init_rmsnorm(cfg.d_model, device),
         "attn": attn.init_gqa(cfg, generator, device),
@@ -77,8 +86,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                   want_cache: bool = False):
-    """Returns (x_out, (k, v) or None)."""
+    """Returns (x_out, cache or None): ``(k, v)``, or ``(conv, state)`` for SSM."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if "ssm" in p:
+        out = ssm_mod.ssd_forward(p["ssm"], cfg, h, return_state=want_cache)
+        cache = None
+        if want_cache:
+            out, cache = out
+        return x + out, cache
     out = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=want_cache)
     cache = None
     if want_cache:
@@ -88,9 +103,12 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch
     return x, cache
 
 
-def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: attn.KVCache,
-                 pos: int):
+def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache, pos: int):
+    """One token; an SSM block ignores ``pos`` (its state holds the past)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if "ssm" in p:
+        out, cache = ssm_mod.ssd_decode(p["ssm"], cfg, h, cache)
+        return x + out, cache
     out, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos)
     x = x + out
     x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp_type)
@@ -160,14 +178,23 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.T
 
 def cache_struct(cfg: ModelConfig, batch: int, seq: int,
                  dtype=torch.bfloat16) -> List[Tuple[Tuple[torch.Size, torch.dtype], ...]]:
-    """(shape, dtype) of each layer's (k, v), mirroring ``prefill``'s caches."""
+    """(shape, dtype) of each layer's (k, v), or (conv, state) for SSM,
+    mirroring ``prefill``'s caches."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        conv, state = ssm_mod.ssm_cache_shapes(cfg, batch)
+        return [((torch.Size(conv), dtype), (torch.Size(state), torch.float32))
+                for _ in range(cfg.n_layers)]
     spec = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq)), dtype)
     return [(spec, spec) for _ in range(cfg.n_layers)]
 
 
 def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
-    """Grow each cache's seq axis to ``target_len`` with zeros (decode headroom)."""
+    """Grow each KV cache's seq axis to ``target_len`` with zeros (decode
+    headroom).  SSM caches are fixed-size and pass through untouched."""
+    if cfg.family == "ssm":
+        return caches
+
     def pad(a):
         return a if a.shape[1] >= target_len else F.pad(
             a, (0, 0, 0, 0, 0, target_len - a.shape[1]))

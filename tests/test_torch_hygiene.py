@@ -6,7 +6,7 @@ syntax tree: an ``import``/``from`` of ``jax`` or ``repro`` (as opposed to
 module, the way ``importlib.import_module("repro.remote.bnlj")`` would.
 Then a fresh interpreter with both packages blocked imports every port
 module, runs a tiny Session on the port's CPU backend and serves a reduced
-gemma-2b through ``ServeEngine.submit`` on the CPU.
+gemma-2b and a reduced mamba2-370m through ``ServeEngine.submit`` on the CPU.
 """
 
 import ast
@@ -50,6 +50,9 @@ def _violations(path: Path):
 
 def test_files_to_check_exist():
     assert (PORT / "remote" / "backend.py") in FILES
+    assert (PORT / "models" / "ssm.py") in FILES
+    assert {"ssd_scan.py", "ops.py", "ref.py"} <= {
+        p.name for p in FILES if p.parent.name == "ssd_scan"}
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(FILES) >= 25
 
@@ -100,12 +103,13 @@ def test_port_imports_and_runs_with_jax_package_blocked():
         from repro_torch.configs import ARCHS, reduced
         from repro_torch.models import transformer as tf
         from repro_torch.runtime.serve_loop import Request, ServeEngine
-        cfg = reduced(ARCHS["gemma-2b"])
-        engine = ServeEngine(cfg, tf.init_params(cfg, device="cpu"), max_len=24,
-                             batch_slots=2, device="cpu")
-        served = engine.submit([Request(rid=i, prompt=np.arange(5 + i, dtype=np.int32),
-                                        max_new_tokens=4) for i in range(3)])
-        assert sorted(served) == [0, 1, 2] and all(len(t) == 4 for t in served.values())
+        for arch, lens in (("gemma-2b", (5, 6, 7)), ("mamba2-370m", (64, 7, 32))):
+            cfg = reduced(ARCHS[arch])
+            engine = ServeEngine(cfg, tf.init_params(cfg, device="cpu"), max_len=80,
+                                 batch_slots=2, device="cpu")
+            served = engine.submit([Request(rid=i, prompt=np.arange(n, dtype=np.int32),
+                                            max_new_tokens=4) for i, n in enumerate(lens)])
+            assert sorted(served) == [0, 1, 2] and all(len(t) == 4 for t in served.values())
         leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                         and m.split(".")[0] in ("jax", "repro"))
         assert not leaked, leaked
