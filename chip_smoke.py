@@ -36,7 +36,16 @@ Phases, each printing JSON objects, one per line:
    checks, the second across chunks and shown to reject a planted state
    fault, and profiler windows over a prefill and over decode steps split
    into the scan kernel, matrix products and the rest;
-6. report: per-query and per-request seconds, the card's peak memory, and
+6. matmul: print the H100 planner's REMOP and conventional tile plans for
+   the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
+   widths and token blocks), run ``remop_matmul`` in bf16 at every product
+   under both plans with the launch counters set to 0 just before and read
+   just after, then hold every result to the plain version within
+   ``MM_NOISE``/``MM_ULP``/``MM_REL`` (TF32 off), check the JAX tests' small
+   shapes and explicit tiles in f32 and bf16, reject two planted faults (a
+   dropped last K step, a B column tile rolled by one), and time kernel,
+   ``remop_matmul``, plain version and ``torch.matmul`` with CUDA events;
+7. report: per-query and per-request seconds, the card's peak memory, and
    one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -56,12 +65,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks: HBM3 bandwidth, 32-bit operations outside
-# the tensor cores (the float32 rate; the sort kernels compare 32-bit keys),
-# and dense bf16 tensor-core operations (attention's products).
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data-sheet peaks.  HBM3 bandwidth and dense bf16 tensor-core
+# operations (attention's and the matmul's products) are the port's
+# ``H100.hbm_bandwidth`` and ``H100.peak_flops`` (``core/cost_model.py``),
+# read by load_peaks() once the port is importable.  32-bit operations
+# outside the tensor cores (the float32 rate; the sort kernels compare 32-bit
+# keys), which the spec does not carry, are stated here.
+HBM_BYTES_PER_S = float("nan")
+BF16_OPS_PER_S = float("nan")
 ALU_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
 
 # TPC-H SF1, spilled in DuckDB's 256 KiB blocks.
 KEY_PAGE_ROWS = 32_768  # int64 keys per page
@@ -112,6 +124,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -120,9 +133,44 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:65",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:50",
+    "matmul": "src/repro/kernels/matmul/matmul.py:47",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
+
+# The blocked matmul at the LLM products of benchmarks/bench_kernel_policy.py
+# (lines 25-31), (m, k, n): token block x weight, at published widths.
+MATMUL_SHAPES = {
+    "gemma-7b ffn up": (4096, 3072, 24576),
+    "granite-20b ffn up": (4096, 6144, 24576),
+    "deepseek qkv": (8192, 2048, 2048),
+    "qwen3 unembed": (4096, 1024, 151936),
+    "deepseek expert": (16384, 2048, 1408),
+}
+MATMUL_POLICIES = ("remop", "conventional")
+MATMUL_REPORT = ("gemma-7b ffn up", "remop")  # the kernels line's shape and plan
+# Tiles no plan picks, timed at the report shape to tell the plans' causes
+# apart: the conventional plan's (bm, bn) with the REMOP plan's K step (many
+# CTAs an SM, 4 accumulators a thread), and the REMOP plan under 64-row
+# alignment (planner lane = sublane = 64).
+MATMUL_PROBE_TILES = ((8, 128, 128), (64, 64, 128))
+# The JAX tests' shapes (m, k, n) and explicit tiles (tests/test_kernels.py).
+JAX_MM_SHAPES = ((64, 64, 64), (128, 256, 64), (200, 130, 70), (33, 257, 129))
+JAX_MM_TILES = ((16, 16, 16), (32, 64, 16), (64, 32, 32))
+# Timed repetitions of each matmul call, after one warm-up: the SIMT kernel
+# takes tens of milliseconds a call at these products.
+MATMUL_REPS = 5
+# Kernel against plain version, set before the first card run.  Both sum the
+# same products (exact for bf16 inputs) in f32, in different orders, and
+# round once to the output type, so elementwise
+#     |got - want| <= MM_ULP * |want| + MM_NOISE * K * 2^-24 * rms(a) * rms(b)
+# (one unit of the output type's last place, plus the f32 noise of a sum of
+# K terms: sqrt(K) roundings of partial sums of size sqrt(K) rms(a) rms(b),
+# with a margin of 16), and the relative L2 error of the whole output must
+# be at most MM_REL (one-ulp flips on a small share of the elements).
+MM_NOISE = 16.0
+MM_ULP = {"torch.bfloat16": 2.0 ** -7, "torch.float32": 2.0 ** -23}
+MM_REL = {"torch.bfloat16": 1e-3, "torch.float32": 1e-6}
 
 
 def emit(obj) -> None:
@@ -132,6 +180,14 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def load_peaks() -> None:
+    """Set the bounds' peaks from the port's H100 spec (needs ``src`` on the path)."""
+    from repro_torch.core.cost_model import H100
+
+    global HBM_BYTES_PER_S, BF16_OPS_PER_S
+    HBM_BYTES_PER_S, BF16_OPS_PER_S = H100.hbm_bandwidth, H100.peak_flops
 
 
 def nvidia_smi() -> str:
@@ -1062,6 +1118,183 @@ def phase_mamba_breakdown(torch, device, params):
               "peak_device_bytes": peak})
 
 
+# --------------------------------------------------------------------------
+# Phase 6: the REMOP-planned blocked matmul at five LLM products
+# --------------------------------------------------------------------------
+
+
+def mm_close(torch, got, want, k: int, rms_ab: float):
+    """(within the matmul rule, max abs error, relative L2 error, atol)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"dtype/shape differ: {got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+    key = str(want.dtype)
+    atol = MM_NOISE * k * 2.0 ** -24 * rms_ab
+    d = (got.float() - want.float()).abs()  # exact for bf16 outputs
+    w = want.float().abs()
+    ok = bool((d <= atol + MM_ULP[key] * w).all())
+    rel = float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(w))
+    return ok and rel <= MM_REL[key], float(d.max()), rel, atol
+
+
+def rms(torch, x) -> float:
+    return float(x.float().pow(2).mean().sqrt())
+
+
+def padded(torch, x, m0: int, m1: int):
+    import torch.nn.functional as F
+    return F.pad(x, (0, (-x.shape[1]) % m1, 0, (-x.shape[0]) % m0))
+
+
+def phase_matmul(torch, device, card: str):
+    """``remop_matmul`` under the REMOP and the conventional plan at the five
+    products, against the plain version; JAX-test shapes and tiles; two
+    planted faults; then timed."""
+    from repro_torch.core.cost_model import H100
+    from repro_torch.core.planner import matmul_costs
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.matmul.matmul import (
+        check_tiles, matmul_tiled, matmul_tiled_plain, resident_ctas)
+    from repro_torch.kernels.matmul.ops import clamped_tiles, plan_for, remop_matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 products in f32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # cuBLAS sums in f32
+    emit({"phase": "matmul", "card": card, "spec": dataclasses.asdict(H100),
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "allow_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    plans, inputs = {}, {}
+    for name, (m, k, n) in MATMUL_SHAPES.items():
+        for policy in MATMUL_POLICIES:
+            plan = plan_for((m, k), (k, n), torch.bfloat16, policy)
+            tiles = clamped_tiles(plan, m, n, k)
+            check_tiles(*tiles, 2)  # raises before any launch if the kernel cannot take it
+            plans[name, policy] = (plan, tiles)
+            emit({"phase": "matmul", "plan": name, "mkn": [m, k, n], "policy": plan.policy,
+                  "tiles": list(tiles), "vmem_bytes": plan.vmem_bytes,
+                  "staged_bytes": (tiles[0] * tiles[2] + tiles[2] * tiles[1]) * 2,
+                  "resident_ctas_per_sm": resident_ctas(*tiles),
+                  "d_bytes": plan.d_bytes, "c_rounds": plan.c_rounds, "l_cost": plan.l_cost})
+        inputs[name] = (torch.randn(m, k, device=device, generator=gen).to(torch.bfloat16),
+                        torch.randn(k, n, device=device, generator=gen).to(torch.bfloat16))
+
+    # -- the path: remop_matmul at every product under both plans -------------
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    outs = {}
+    for name in MATMUL_SHAPES:
+        a, b = inputs[name]
+        for policy in MATMUL_POLICIES:
+            outs[name, policy] = remop_matmul(a, b, policy=policy)
+    torch.cuda.synchronize()
+    launches = runtime.launches["matmul"]
+    emit({"phase": "matmul", "launches": launches, "remop_matmul_calls": len(outs)})
+    check(launches == len(outs), f"remop_matmul made {launches} launches in {len(outs)} calls")
+
+    # -- against the plain version on the same (padded) inputs ----------------
+    errs = {"matmul": 0.0}
+
+    def hold(what, got, want, k, rms_ab):
+        ok, err, rel, atol = mm_close(torch, got, want, k, rms_ab)
+        errs["matmul"] = max(errs["matmul"], err)
+        emit({"phase": "matmul", "check": what, "dtype": str(got.dtype), "max_abs_err": err,
+              "rel_err": rel, "atol": atol, "ulp": MM_ULP[str(want.dtype)],
+              "rel_tol": MM_REL[str(want.dtype)], "within": ok})
+        check(ok, f"matmul {what}: kernel differs from its plain version (max abs err {err}, "
+                  f"relative L2 {rel})")
+
+    for (name, policy), got in outs.items():
+        a, b = inputs[name]
+        (m, k), n = a.shape, b.shape[1]
+        bm, bn, bk = plans[name, policy][1]
+        want = matmul_tiled_plain(padded(torch, a, bm, bk), padded(torch, b, bk, bn),
+                                  bm, bn, bk)[:m, :n]
+        hold(f"{name}, {policy} {[bm, bn, bk]}", got, want, k, rms(torch, a) * rms(torch, b))
+        del want
+    del outs
+
+    # -- the JAX tests' shapes (every policy) and explicit tiles, f32 and bf16 --
+    for m, k, n in JAX_MM_SHAPES:
+        for dtype, policies in ((torch.bfloat16, ("remop", "conventional", "closed-form")),
+                                (torch.float32, ("conventional",))):  # f32 REMOP plans assert
+            a = torch.randn(m, k, device=device, generator=gen).to(dtype)
+            b = torch.randn(k, n, device=device, generator=gen).to(dtype)
+            for policy in policies:
+                bm, bn, bk = clamped_tiles(plan_for((m, k), (k, n), dtype, policy), m, n, k)
+                want = matmul_tiled_plain(padded(torch, a, bm, bk), padded(torch, b, bk, bn),
+                                          bm, bn, bk)[:m, :n]
+                hold(f"jax shape {[m, k, n]}, {policy} {[bm, bn, bk]}",
+                     remop_matmul(a, b, policy=policy), want, k, rms(torch, a) * rms(torch, b))
+    for tiles in JAX_MM_TILES:
+        for dtype, out_dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                 (torch.bfloat16, torch.bfloat16)):
+            a = torch.randn(128, 64, device=device, generator=gen).to(dtype)
+            b = torch.randn(64, 128, device=device, generator=gen).to(dtype)
+            hold(f"jax tiles {list(tiles)}", matmul_tiled(a, b, *tiles, out_dtype=out_dtype),
+                 matmul_tiled_plain(a, b, *tiles, out_dtype=out_dtype), 64,
+                 rms(torch, a) * rms(torch, b))
+
+    # -- a strided A, and two planted faults the rule must reject --------------
+    name, policy = MATMUL_REPORT
+    a, b = inputs[name]
+    (m, k), n = a.shape, b.shape[1]
+    bm, bn, bk = plans[name, policy][1]
+    ap, bp = padded(torch, a, bm, bk), padded(torch, b, bk, bn)
+    rms_ab = rms(torch, a) * rms(torch, b)
+    a_cut, b_cut = ap[:, :k - bk], bp[:k - bk]  # a view: rows keep their stride k
+    hold(f"{name}, A as a strided view [:, :{k - bk}]", matmul_tiled(a_cut, b_cut, bm, bn, bk),
+         matmul_tiled_plain(a_cut, b_cut, bm, bn, bk), k - bk, rms_ab)
+    want = matmul_tiled_plain(ap, bp, bm, bn, bk)
+    b_roll = bp.clone()
+    b_roll[:, -bn:] = bp[:, -2 * bn:-bn]
+    for what, got in ((f"drops the last K step ({bk} of {k})", matmul_tiled(a_cut, b_cut, bm, bn, bk)),
+                      (f"reads B's column tile before the last ({bn} of {n} columns)",
+                       matmul_tiled(ap, b_roll, bm, bn, bk))):
+        ok, err, rel, _ = mm_close(torch, got, want, k, rms_ab)
+        emit({"phase": "matmul", "planted_fault": name, "fault": what, "max_abs_err": err,
+              "rel_err": rel, "rejected": not ok})
+        check(not ok, f"matmul: the rule passes a kernel that {what}")
+    del want, b_roll
+    torch.cuda.synchronize()
+
+    # -- timing ---------------------------------------------------------------
+    bench = Bench(torch, device, reps=MATMUL_REPS, warmup=1)
+    rows = {}
+    for name, (m, k, n) in MATMUL_SHAPES.items():
+        a, b = inputs[name]
+        library_ms = bench.ms(lambda: torch.matmul(a, b))
+        ms_bound, by = bound((m * k + k * n + m * n) * 2, 2.0 * m * n * k, BF16_OPS_PER_S)
+        for policy in MATMUL_POLICIES:
+            plan, (bm, bn, bk) = plans[name, policy]
+            ap, bp = padded(torch, a, bm, bk), padded(torch, b, bk, bn)
+            row = dict(
+                shape=f"{name}: a [{m},{k}] @ b [{k},{n}] bf16, {policy} tiles {[bm, bn, bk]}",
+                ms=bench.ms(lambda: matmul_tiled(ap, bp, bm, bn, bk)),
+                remop_matmul_ms=bench.ms(lambda: remop_matmul(a, b, policy=policy)),
+                plain_ms=bench.ms(lambda: matmul_tiled_plain(ap, bp, bm, bn, bk)),
+                library_ms=library_ms, bound_ms=ms_bound, bound_by=by,
+                c_rounds=plan.c_rounds, d_bytes=plan.d_bytes, l_cost=plan.l_cost)
+            rows[name, policy] = row
+            emit({"phase": "matmul", "timing": "matmul", "reps": MATMUL_REPS, **row})
+            del ap, bp
+    name = MATMUL_REPORT[0]
+    a, b = inputs[name]
+    (m, k), n = a.shape, b.shape[1]
+    for bm, bn, bk in MATMUL_PROBE_TILES:
+        ap, bp = padded(torch, a, bm, bk), padded(torch, b, bk, bn)
+        hold(f"{name}, probe tiles {[bm, bn, bk]}", matmul_tiled(ap, bp, bm, bn, bk)[:m, :n],
+             matmul_tiled_plain(ap, bp, bm, bn, bk)[:m, :n], k, rms(torch, a) * rms(torch, b))
+        d, c = matmul_costs(m, n, k, bm, bn, bk, 2, 4)
+        emit({"phase": "matmul", "timing": "probe tiles", "shape": name, "tiles": [bm, bn, bk],
+              "resident_ctas_per_sm": resident_ctas(bm, bn, bk), "reps": MATMUL_REPS,
+              "ms": bench.ms(lambda: matmul_tiled(ap, bp, bm, bn, bk)),
+              "c_rounds": c, "d_bytes": d, "l_cost": d + H100.tau_dma_bytes * c})
+        del ap, bp
+    del bench, inputs
+    return errs, {"matmul": rows[MATMUL_REPORT]}, launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1075,6 +1308,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import runtime
 
+    load_peaks()
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     compiled = runtime.build()  # one nvcc per source, all started together
@@ -1089,7 +1323,9 @@ def main() -> int:
                   "published widths and all 18 layers, random weights; mamba2-370m at "
                   "its published widths and all 48 layers, random weights with dt_bias "
                   "per layer and head the inverse softplus of a log-uniform draw in "
-                  "[1e-3, 1e-1] (Mamba-2's dt initialisation); nothing cut"})
+                  "[1e-3, 1e-1] (Mamba-2's dt initialisation); the blocked matmul at the "
+                  "five LLM products of benchmarks/bench_kernel_policy.py, published widths "
+                  "and full token blocks; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -1107,6 +1343,9 @@ def main() -> int:
     phase_mamba_breakdown(torch, device, params)
     del params
     launches["ssd_scan"] = mamba_launches["ssd_scan"]
+    mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
+    errs.update(mm_errs)
+    rows.update(mm_rows)
 
     kernels = []
     for name, row in rows.items():

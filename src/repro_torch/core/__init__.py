@@ -1,8 +1,11 @@
-"""REMOP core: cost model, buffer policies, memory arbiter."""
+"""REMOP core: cost model, buffer policies, memory arbiter, planner."""
 
 from repro_torch.core.cost_model import (
+    H100,
+    H100_TIERS,
     TABLE_I,
     TESTBED,
+    H100Spec,
     HierarchySnapshot,
     HierarchySpec,
     LedgerSnapshot,
@@ -14,7 +17,7 @@ from repro_torch.core.cost_model import (
     hierarchy_spec,
     latency_cost,
 )
-from repro_torch.core import arbiter, policies
+from repro_torch.core import arbiter, planner, policies
 from repro_torch.core.arbiter import (
     ArbiterItem,
     HierarchyItem,
@@ -23,10 +26,10 @@ from repro_torch.core.arbiter import (
 )
 
 __all__ = [
-    "TABLE_I", "TESTBED",
+    "H100", "H100_TIERS", "H100Spec", "TABLE_I", "TESTBED",
     "HierarchySnapshot", "HierarchySpec", "LedgerSnapshot",
     "TierLevel", "TierSpec", "TransferLedger",
     "alpha", "beta", "hierarchy_spec", "latency_cost",
     "ArbiterItem", "HierarchyItem", "arbitrate", "arbitrate_hierarchy",
-    "arbiter", "policies",
+    "arbiter", "planner", "policies",
 ]

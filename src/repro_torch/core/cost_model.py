@@ -14,7 +14,9 @@ measured in the same unit as ``D`` (pages or bytes).  ``tau -> 0`` recovers the
 classical min-volume objective; large ``tau`` makes round count first-order.
 
 Tier constants come from the paper's Table I (order-of-magnitude media) and
-Table IX (the CloudLab testbed).
+Table IX (the CloudLab testbed), plus the card-side tiers of one NVIDIA H100
+(``H100_TIERS``, ``H100``): device memory to shared memory, NVLink, PCIe
+host offload.
 """
 
 from __future__ import annotations
@@ -87,18 +89,73 @@ TESTBED: Dict[str, TierSpec] = {
 }
 
 def resolve_tier_name(tier: "TierSpec | str") -> TierSpec:
-    """Resolve a tier name against Table I / TESTBED.
+    """Resolve a tier name against Table I / TESTBED / H100 tiers.
 
     Lives next to the tables so every lookup (engine registry, hierarchy
     constructors) shares one copy; ``TierSpec`` inputs pass through.
     """
     if isinstance(tier, TierSpec):
         return tier
-    for table in (TABLE_I, TESTBED):
+    for table in (TABLE_I, TESTBED, H100_TIERS):
         if tier in table:
             return table[tier]
-    known = sorted(set(TABLE_I) | set(TESTBED))
+    known = sorted(set(TABLE_I) | set(TESTBED) | set(H100_TIERS))
     raise KeyError(f"unknown tier {tier!r}; known: {known}")
+
+
+# Card-side tiers of one H100 SXM. -------------------------------------------
+# Bandwidths are data-sheet figures (NVIDIA H100 SXM data sheet).  The "RTT"
+# of each tier is the fixed cost of one round of its mechanism, and every one
+# of them is a PLACEHOLDER chosen for this card, not measured: staging one
+# tile from device memory into shared memory (a round trip to HBM plus a
+# barrier), launching one NCCL collective over NVLink, one host<->device copy
+# over PCIe.  page_bytes is only the unit in which D is counted in pages.
+H100_DMA_OVERHEAD_S = 0.5e-6  # placeholder
+H100_COLLECTIVE_LAUNCH_S = 5e-6  # placeholder
+H100_PCIE_ROUND_S = 10e-6  # placeholder
+H100_TIERS: Dict[str, TierSpec] = {
+    "hbm_dma": TierSpec("hbm_dma", bandwidth=3.35e12, rtt=H100_DMA_OVERHEAD_S,
+                        page_bytes=1024),
+    # NVLink 4: 900 GB/s to the other cards of the host, 450 GB/s each way.
+    "nvlink": TierSpec("nvlink", bandwidth=450e9, rtt=H100_COLLECTIVE_LAUNCH_S,
+                       page_bytes=1024),
+    # PCIe Gen5 x16: 64 GB/s each way.
+    "pcie_host": TierSpec("pcie_host", bandwidth=64e9, rtt=H100_PCIE_ROUND_S,
+                          page_bytes=4096),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class H100Spec:
+    """Hardware constants of one NVIDIA H100 SXM for ``core.planner``.
+
+    The attribute names are the ones the planner reads (they first named a
+    TPU's memories); each comment says what the figure is on Hopper.
+    Data-sheet figures are from the NVIDIA H100 SXM data sheet; the two
+    ``*_s`` overheads are placeholders (see ``H100_TIERS``).
+    """
+
+    name: str = "h100-sxm"
+    peak_flops: float = 989e12  # dense bf16 tensor-core FLOP/s (data sheet)
+    hbm_bandwidth: float = 3.35e12  # HBM3 bytes/s (data sheet)
+    ici_bandwidth: float = 450e9  # NVLink bytes/s, one direction (data sheet)
+    vmem_bytes: int = 232_448  # shared memory one CTA can use, 227 KB (data sheet)
+    hbm_bytes: int = 80 * 1024**3  # device memory, "80GB" (data sheet): five 16 GiB HBM3 stacks
+    dma_overhead_s: float = H100_DMA_OVERHEAD_S  # one tile staging round: placeholder
+    collective_launch_s: float = H100_COLLECTIVE_LAUNCH_S  # one NCCL launch: placeholder
+
+    @property
+    def tau_dma_bytes(self) -> float:
+        """Per-staging-round fixed cost as equivalent HBM bytes (REMOP tau)."""
+        return self.hbm_bandwidth * self.dma_overhead_s
+
+    @property
+    def tau_ici_bytes(self) -> float:
+        """Per-collective fixed cost as equivalent NVLink bytes."""
+        return self.ici_bandwidth * self.collective_launch_s
+
+
+H100 = H100Spec()
 
 
 # --------------------------------------------------------------------------

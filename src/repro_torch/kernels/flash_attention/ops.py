@@ -7,6 +7,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.cost_model import H100
 from repro_torch.kernels.flash_attention.flash_attention import (
     MAX_BLOCK,
     flash_attention,
@@ -14,7 +15,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 )
 
 # Shared memory one CTA may use on an H100 (227 KB of the SM's 256 KB).
-HOPPER_SMEM_BYTES = 232_448
+HOPPER_SMEM_BYTES = H100.vmem_bytes
 # The TPU planner's candidates (128 .. 1024) scaled to what one CTA holds:
 # the accumulator of bq rows lives in registers, so bq and bk stop at 64.
 BLOCK_CANDIDATES = (16, 32, MAX_BLOCK)

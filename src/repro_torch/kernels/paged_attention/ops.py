@@ -1,7 +1,11 @@
 """Paged-attention entry point: default page and padding of the cache.
 
 The JAX package's ``planned_page`` (its page from ``core.planner.plan_kv_pages``)
-is not ported: the planner comes with a later slice.  The default page is
+is not ported.  The planner is (``core/planner.py``), but under the H100's
+figures ``plan_kv_pages`` finds no feasible page for any KV width above 56
+bytes a token: its budget, an eighth of a CTA's shared memory (29,056 bytes),
+must hold four double-buffered pages of at least 128 tokens.  gemma-2b's one
+KV head of 256 bf16 values is 512 bytes a token.  The default page is
 ``min(S, 128)``, as in the JAX entry point.
 """
 

@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention", "ssd_scan")
+SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention", "ssd_scan",
+           "matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -69,6 +70,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         **{f"remop_ssd_scan_{t}": ([_P] * 4 + [_I32] * 3 + [_I64, _P], _I32)
            for t in ("bf16", "f32")},
         "remop_ssd_scan_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "matmul": {
+        # a, b, c, m, n, k, lda, ldb, bm, bn, bk, out_f32, wide, stream
+        **{f"remop_matmul_{t}": ([_P] * 3 + [_I64] * 5 + [_I32] * 5 + [_P], _I32)
+           for t in ("bf16", "f32")},
+        # bm, bn, bk, wide, &ctas
+        **{f"remop_matmul_resident_ctas_{t}": ([_I32] * 4 + [_P], _I32)
+           for t in ("bf16", "f32")},
+        "remop_matmul_error_string": ([_I32], ctypes.c_char_p),
     },
 }
 
