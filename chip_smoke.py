@@ -12,9 +12,10 @@ Phases, each printing JSON objects, one per line:
    limit from ``nvidia-smi``;
 2. kernels: hold every kernel against its plain PyTorch version on the card
    (the sort and gather kernels bit for bit, the attention kernels within
-   ``ATTN_TOL``, which must also reject two planted faults), and time
-   kernel, plain version and the PyTorch library call that computes the
-   same function with CUDA events;
+   ``ATTN_TOL``, which must also reject two planted faults; the paged kernel
+   also at granite-20b's 48 query heads on one KV head), and time kernel,
+   plain version and the PyTorch library call that computes the same
+   function with CUDA events;
 3. session: drive the spill engine's main path, ``Session(make_backend(...))
    .run(tasks)``, at a TPC-H SF1-shaped size (EMS over ``l_orderkey``, EHJ of
    orders with lineitem, EAGG of lineitem by key), with the launch counters
@@ -38,13 +39,18 @@ Phases, each printing JSON objects, one per line:
    into the scan kernel, matrix products and the rest;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
-   widths and token blocks), run ``remop_matmul`` in bf16 at every product
+   widths and token blocks) with each kernel instantiation's occupancy,
+   registers and spills, run ``remop_matmul`` in bf16 at every product
    under both plans with the launch counters set to 0 just before and read
-   just after, then hold every result to the plain version within
+   just after (every call must take the tensor-core kernel's TMA route),
+   then hold every result to the plain version within
    ``MM_NOISE``/``MM_ULP``/``MM_REL`` (TF32 off), check the JAX tests' small
-   shapes and explicit tiles in f32 and bf16, reject two planted faults (a
-   dropped last K step, a B column tile rolled by one), and time kernel,
-   ``remop_matmul``, plain version and ``torch.matmul`` with CUDA events;
+   shapes and explicit tiles in f32 and bf16, a misaligned A (the
+   element-staged route) and the conventional f32 plan at deepseek qkv (the
+   f32 kernel's sub-steps), reject two planted faults (a dropped last K
+   step, a B column tile rolled by one), and time kernel, ``remop_matmul``,
+   plain version and ``torch.matmul`` with CUDA events, and three tile
+   probes;
 7. report: per-query and per-request seconds, the card's peak memory, and
    one ``{"kernels": [...]}`` line.
 
@@ -150,16 +156,21 @@ MATMUL_SHAPES = {
 MATMUL_POLICIES = ("remop", "conventional")
 MATMUL_REPORT = ("gemma-7b ffn up", "remop")  # the kernels line's shape and plan
 # Tiles no plan picks, timed at the report shape to tell the plans' causes
-# apart: the conventional plan's (bm, bn) with the REMOP plan's K step (many
-# CTAs an SM, 4 accumulators a thread), and the REMOP plan under 64-row
-# alignment (planner lane = sublane = 64).
-MATMUL_PROBE_TILES = ((8, 128, 128), (64, 64, 128))
+# apart: the conventional plan's (bm, bn) with the REMOP plan's K step, the
+# REMOP plan under 64-row alignment (planner lane = sublane = 64), and a
+# tile shaped for this card (128 rows of A feed each B byte; 4 warpgroups of
+# wgmma m64n128).
+MATMUL_PROBE_TILES = ((8, 128, 128), (64, 64, 128), (128, 256, 64))
 # The JAX tests' shapes (m, k, n) and explicit tiles (tests/test_kernels.py).
 JAX_MM_SHAPES = ((64, 64, 64), (128, 256, 64), (200, 130, 70), (33, 257, 129))
 JAX_MM_TILES = ((16, 16, 16), (32, 64, 16), (64, 32, 32))
-# Timed repetitions of each matmul call, after one warm-up: the SIMT kernel
-# takes tens of milliseconds a call at these products.
+# Timed repetitions of each matmul call, after one warm-up: the plain
+# version and the conventional plan take tens of milliseconds a call at
+# these products.
 MATMUL_REPS = 5
+# The f32 kernel's check: the conventional f32 plan, (8, 128, 512), whose K
+# step does not fit a CTA at once, at deepseek qkv.
+MATMUL_F32_SHAPE = ("deepseek qkv", "conventional")
 # Kernel against plain version, set before the first card run.  Both sum the
 # same products (exact for bf16 inputs) in f32, in different orders, and
 # round once to the output type, so elementwise
@@ -465,6 +476,8 @@ def phase_attention(torch, device):
             (1, 1, 8, 256, 4096, (2077,), torch.bfloat16),  # gemma-2b decode
             (1, 1, 8, 256, 4096, (1,), torch.bfloat16),
             (1, 1, 8, 256, 4096, (4096,), torch.bfloat16),
+            (1, 1, 48, 128, 4096, (2077,), torch.bfloat16),  # granite-20b decode
+            (1, 1, 48, 128, 4096, (4096,), torch.bfloat16),
             (4, 8, 2, 128, 4096, (1, 1000, 2049, 4096), torch.float32)):
         q = randn(b, kv, g, hd, dtype=dtype)
         kc, vc = randn(b, s, kv, hd, dtype=dtype), randn(b, s, kv, hd, dtype=dtype)
@@ -527,6 +540,20 @@ def phase_attention(torch, device):
         bound_ms=ms_bound, bound_by=by)
     for name, row in rows.items():
         emit({"phase": "kernels", "timing": name, **row})
+    # granite-20b's decode shape: 48 query heads on one KV head of 128, 6 CTAs.
+    b, kv, g, hd = 1, 1, 48, 128
+    q = randn(b, kv, g, hd, dtype=torch.bfloat16)
+    kc, vc = randn(b, s, kv, hd, dtype=torch.bfloat16), randn(b, s, kv, hd, dtype=torch.bfloat16)
+    ms_bound, by = bound((2 * length * kv * hd + 2 * kv * g * hd) * 2 * b,
+                         4 * hd * length * kv * g * b, BF16_OPS_PER_S)
+    emit({"phase": "kernels", "timing": "paged_attention granite-20b",
+          "shape": f"q [{b},{kv},{g},{hd}], caches [{b},{s},{kv},{hd}] bf16, length {length}",
+          "ms": bench.ms(lambda: paged_attention(q, kc, vc, ln)),
+          "plain_ms": bench.ms(lambda: paged_attention_plain(q, kc, vc, ln)),
+          "library_ms": bench.ms(lambda: F.scaled_dot_product_attention(
+              q.reshape(b, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2),
+              attn_mask=mask, enable_gqa=True)),
+          "bound_ms": ms_bound, "bound_by": by})
     del bench
     return errs, rows
 
@@ -1145,15 +1172,22 @@ def padded(torch, x, m0: int, m1: int):
     return F.pad(x, (0, (-x.shape[1]) % m1, 0, (-x.shape[0]) % m0))
 
 
+def mm_row_rates(m, n, k, ms, d_bytes):
+    """TFLOP/s of ``ms`` and the plan's bytes D read at the card's rate."""
+    return {"tflops": 2.0 * m * n * k / (ms * 1e-3) / 1e12,
+            "d_bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 def phase_matmul(torch, device, card: str):
     """``remop_matmul`` under the REMOP and the conventional plan at the five
-    products, against the plain version; JAX-test shapes and tiles; two
-    planted faults; then timed."""
+    products, against the plain version; JAX-test shapes and tiles; the
+    element route and the f32 kernel; two planted faults; then timed."""
     from repro_torch.core.cost_model import H100
     from repro_torch.core.planner import matmul_costs
     from repro_torch.kernels import runtime
     from repro_torch.kernels.matmul.matmul import (
-        check_tiles, matmul_tiled, matmul_tiled_plain, resident_ctas)
+        MMA_N, check_tiles, launch, matmul_tiled, matmul_tiled_plain, occupancy, ring_bytes,
+        ring_sub)
     from repro_torch.kernels.matmul.ops import clamped_tiles, plan_for, remop_matmul
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 products in f32
@@ -1167,17 +1201,29 @@ def phase_matmul(torch, device, card: str):
     plans, inputs = {}, {}
     for name, (m, k, n) in MATMUL_SHAPES.items():
         for policy in MATMUL_POLICIES:
-            plan = plan_for((m, k), (k, n), torch.bfloat16, policy)
+            t0 = time.perf_counter()
+            plan = plan_for.__wrapped__((m, k), (k, n), torch.bfloat16, policy)  # uncached
+            plan_host_ms = (time.perf_counter() - t0) * 1e3
             tiles = clamped_tiles(plan, m, n, k)
             check_tiles(*tiles, 2)  # raises before any launch if the kernel cannot take it
             plans[name, policy] = (plan, tiles)
             emit({"phase": "matmul", "plan": name, "mkn": [m, k, n], "policy": plan.policy,
                   "tiles": list(tiles), "vmem_bytes": plan.vmem_bytes,
-                  "staged_bytes": (tiles[0] * tiles[2] + tiles[2] * tiles[1]) * 2,
-                  "resident_ctas_per_sm": resident_ctas(*tiles),
-                  "d_bytes": plan.d_bytes, "c_rounds": plan.c_rounds, "l_cost": plan.l_cost})
+                  "ring_sub": ring_sub(*tiles, True),
+                  **occupancy(*tiles),
+                  "d_bytes": plan.d_bytes, "c_rounds": plan.c_rounds, "l_cost": plan.l_cost,
+                  "plan_host_ms": plan_host_ms})
         inputs[name] = (torch.randn(m, k, device=device, generator=gen).to(torch.bfloat16),
                         torch.randn(k, n, device=device, generator=gen).to(torch.bfloat16))
+
+    # Registers and local (spilled) bytes of every instantiation of the two
+    # kernels: bf16 by wgmma N (one warpgroup), f32 by accumulators a thread.
+    inst = {f"bf16 N={nn}": occupancy(nn, 64, 64) for nn in MMA_N}
+    inst.update({f"f32 NR={nr}{' wide' if wide else ''}":
+                 occupancy(nr, 256, 64, torch.float32, tma=wide)
+                 for nr in (1, 2, 4, 8, 12, 16, 24, 32) for wide in (False, True)})
+    emit({"phase": "matmul", "instantiations": {
+        name: {key: o[key] for key in ("registers", "local_bytes")} for name, o in inst.items()}})
 
     # -- the path: remop_matmul at every product under both plans -------------
     torch.cuda.synchronize()
@@ -1189,8 +1235,12 @@ def phase_matmul(torch, device, card: str):
             outs[name, policy] = remop_matmul(a, b, policy=policy)
     torch.cuda.synchronize()
     launches = runtime.launches["matmul"]
-    emit({"phase": "matmul", "launches": launches, "remop_matmul_calls": len(outs)})
-    check(launches == len(outs), f"remop_matmul made {launches} launches in {len(outs)} calls")
+    staged = runtime.launches["matmul_staged"]
+    emit({"phase": "matmul", "launches": launches, "staged_launches": staged,
+          "remop_matmul_calls": len(outs)})
+    check(launches == len(outs) and staged == 0,
+          f"remop_matmul made {launches} TMA-route and {staged} element-route launches in "
+          f"{len(outs)} calls")
 
     # -- against the plain version on the same (padded) inputs ----------------
     errs = {"matmul": 0.0}
@@ -1204,14 +1254,16 @@ def phase_matmul(torch, device, card: str):
         check(ok, f"matmul {what}: kernel differs from its plain version (max abs err {err}, "
                   f"relative L2 {rel})")
 
+    def plain(a, b, bm, bn, bk, out_dtype=None):
+        (m, k), n = a.shape, b.shape[1]
+        return matmul_tiled_plain(padded(torch, a, bm, bk), padded(torch, b, bk, bn),
+                                  bm, bn, bk, out_dtype)[:m, :n]
+
     for (name, policy), got in outs.items():
         a, b = inputs[name]
-        (m, k), n = a.shape, b.shape[1]
         bm, bn, bk = plans[name, policy][1]
-        want = matmul_tiled_plain(padded(torch, a, bm, bk), padded(torch, b, bk, bn),
-                                  bm, bn, bk)[:m, :n]
-        hold(f"{name}, {policy} {[bm, bn, bk]}", got, want, k, rms(torch, a) * rms(torch, b))
-        del want
+        hold(f"{name}, {policy} {[bm, bn, bk]}", got, plain(a, b, bm, bn, bk), a.shape[1],
+             rms(torch, a) * rms(torch, b))
     del outs
 
     # -- the JAX tests' shapes (every policy) and explicit tiles, f32 and bf16 --
@@ -1222,10 +1274,9 @@ def phase_matmul(torch, device, card: str):
             b = torch.randn(k, n, device=device, generator=gen).to(dtype)
             for policy in policies:
                 bm, bn, bk = clamped_tiles(plan_for((m, k), (k, n), dtype, policy), m, n, k)
-                want = matmul_tiled_plain(padded(torch, a, bm, bk), padded(torch, b, bk, bn),
-                                          bm, bn, bk)[:m, :n]
                 hold(f"jax shape {[m, k, n]}, {policy} {[bm, bn, bk]}",
-                     remop_matmul(a, b, policy=policy), want, k, rms(torch, a) * rms(torch, b))
+                     remop_matmul(a, b, policy=policy), plain(a, b, bm, bn, bk), k,
+                     rms(torch, a) * rms(torch, b))
     for tiles in JAX_MM_TILES:
         for dtype, out_dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                                  (torch.bfloat16, torch.bfloat16)):
@@ -1234,6 +1285,42 @@ def phase_matmul(torch, device, card: str):
             hold(f"jax tiles {list(tiles)}", matmul_tiled(a, b, *tiles, out_dtype=out_dtype),
                  matmul_tiled_plain(a, b, *tiles, out_dtype=out_dtype), 64,
                  rms(torch, a) * rms(torch, b))
+
+    # -- ragged K and N on the TMA route: views that keep 16-byte row strides --
+    name = "deepseek qkv"
+    a, b = inputs[name]
+    a_r, b_r = a[:, :2000], b[:2000, :2008]
+    bm, bn, bk = plans[name, "remop"][1]
+    before = runtime.launches["matmul"]
+    hold(f"{name}, ragged views A[:, :2000] @ B[:2000, :2008] (TMA route) {[bm, bn, bk]}",
+         launch(a_r, b_r, bm, bn, bk), plain(a_r, b_r, bm, bn, bk), 2000,
+         rms(torch, a) * rms(torch, b))
+    check(runtime.launches["matmul"] == before + 1, "the ragged views missed the TMA route")
+
+    # -- the element route at a product's shape: A starts 2 bytes past 16 ------
+    name = "deepseek expert"
+    a, b = inputs[name]
+    (m, k), n = a.shape, b.shape[1]
+    bm, bn, bk = plans[name, "remop"][1]
+    a_odd = torch.empty(m * k + 1, dtype=a.dtype, device=device)[1:].view(m, k)
+    a_odd.copy_(a)
+    before = runtime.launches["matmul_staged"]
+    hold(f"{name}, A misaligned by 2 bytes (element route) {[bm, bn, bk]}",
+         remop_matmul(a_odd, b), plain(a, b, bm, bn, bk), k, rms(torch, a) * rms(torch, b))
+    check(runtime.launches["matmul_staged"] == before + 1, "the misaligned A took the TMA route")
+    del a_odd
+
+    # -- the f32 kernel at the conventional f32 plan ----------------------------
+    name, policy = MATMUL_F32_SHAPE
+    m, k, n = MATMUL_SHAPES[name]
+    a32 = torch.randn(m, k, device=device, generator=gen)
+    b32 = torch.randn(k, n, device=device, generator=gen)
+    plan32 = plan_for((m, k), (k, n), torch.float32, policy)
+    t32 = clamped_tiles(plan32, m, n, k)
+    before = runtime.launches["matmul_f32"]
+    hold(f"{name}, {policy} f32 {list(t32)}", remop_matmul(a32, b32, policy=policy),
+         plain(a32, b32, *t32), k, rms(torch, a32) * rms(torch, b32))
+    check(runtime.launches["matmul_f32"] == before + 1, "the f32 product missed the f32 kernel")
 
     # -- a strided A, and two planted faults the rule must reject --------------
     name, policy = MATMUL_REPORT
@@ -1275,6 +1362,7 @@ def phase_matmul(torch, device, card: str):
                 plain_ms=bench.ms(lambda: matmul_tiled_plain(ap, bp, bm, bn, bk)),
                 library_ms=library_ms, bound_ms=ms_bound, bound_by=by,
                 c_rounds=plan.c_rounds, d_bytes=plan.d_bytes, l_cost=plan.l_cost)
+            row.update(mm_row_rates(m, n, k, row["ms"], plan.d_bytes))
             rows[name, policy] = row
             emit({"phase": "matmul", "timing": "matmul", "reps": MATMUL_REPS, **row})
             del ap, bp
@@ -1286,12 +1374,22 @@ def phase_matmul(torch, device, card: str):
         hold(f"{name}, probe tiles {[bm, bn, bk]}", matmul_tiled(ap, bp, bm, bn, bk)[:m, :n],
              matmul_tiled_plain(ap, bp, bm, bn, bk)[:m, :n], k, rms(torch, a) * rms(torch, b))
         d, c = matmul_costs(m, n, k, bm, bn, bk, 2, 4)
+        ms = bench.ms(lambda: matmul_tiled(ap, bp, bm, bn, bk))
         emit({"phase": "matmul", "timing": "probe tiles", "shape": name, "tiles": [bm, bn, bk],
-              "resident_ctas_per_sm": resident_ctas(bm, bn, bk), "reps": MATMUL_REPS,
-              "ms": bench.ms(lambda: matmul_tiled(ap, bp, bm, bn, bk)),
+              **occupancy(bm, bn, bk), "ring_bytes": ring_bytes(bm, bn, ring_sub(bm, bn, bk, True)),
+              "reps": MATMUL_REPS, "ms": ms, **mm_row_rates(m, n, k, ms, d),
               "c_rounds": c, "d_bytes": d, "l_cost": d + H100.tau_dma_bytes * c})
         del ap, bp
-    del bench, inputs
+    # The f32 kernel, timed once after one warm-up.
+    name, policy = MATMUL_F32_SHAPE
+    m, k, n = MATMUL_SHAPES[name]
+    bench32 = Bench(torch, device, reps=1, warmup=1)
+    ms = bench32.ms(lambda: remop_matmul(a32, b32, policy=policy))
+    emit({"phase": "matmul", "timing": "matmul f32", "shape": f"{name} f32, {policy} tiles "
+          f"{list(t32)}", **occupancy(*t32, dtype=torch.float32), "reps": 1, "ms": ms,
+          **mm_row_rates(m, n, k, ms, plan32.d_bytes),
+          "library_ms": bench32.ms(lambda: torch.matmul(a32, b32))})
+    del bench, bench32, inputs, a32, b32
     return errs, {"matmul": rows[MATMUL_REPORT]}, launches
 
 

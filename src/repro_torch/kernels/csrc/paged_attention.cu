@@ -5,8 +5,13 @@
 // the cache is walked one page of `page` positions at a time with an online
 // f32 softmax, positions >= lengths[b] masked, output in q's dtype.
 //
-// One CTA per (KV head, batch) serves all G query heads of the group, as the
-// TPU kernel's grid step does.  Pages past ceil(lengths[b] / page) are
+// One CTA per (KV head, batch, group of up to kMaxGroup query heads): the
+// TPU kernel's grid step serves all G query heads of a KV head; here G is
+// split over ceil(G / kMaxGroup) CTAs, each holding at most kMaxGroup heads
+// in registers and walking the same pages.  Any G is taken (granite-20b:
+// 48 heads on one KV head, 6 CTAs); the split keeps a thread's accumulators
+// at kMaxGroup x hd / 32 and gives a wide group more SMs, at the price of
+// reading the K and V rows once per CTA (from L2 after the first).  Pages past ceil(lengths[b] / page) are
 // skipped: they are fully masked, so the result is the same.  Per page:
 //   1. scores: warp w takes positions w, w + 8, ...; each lane holds hd / 32
 //      elements of the K row (one 16-byte load at hd = 256 in bf16) and the
@@ -19,9 +24,10 @@
 // the result does not depend on timing.  lengths[b] must lie in [1, S].
 //
 // What bounds it on this card: the bytes, the K and V rows up to lengths[b].
-// This first version reads them with one CTA per (batch, KV head), which at
-// gemma-2b's single KV head is one SM of the 132; splitting the pages over
-// CTAs (flash-decoding) is the next step.
+// This version reads them with one CTA per (batch, KV head, group of up to
+// 8 query heads), which at gemma-2b's single KV head of 8 query heads is
+// one SM of the 132; splitting the pages over CTAs (flash-decoding) is the
+// next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,7 +37,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;  // query heads per KV head
+constexpr int kMaxGroup = 8;  // query heads one CTA holds
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -81,10 +87,13 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                            const T* __restrict__ vc, const int32_t* __restrict__ lengths,
-                           T* __restrict__ out, int kv, int g, int s, int page,
+                           T* __restrict__ out, int kv, int g_all, int s, int page,
                            float scale) {
   constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // row elements per lane
   constexpr int LANES = HD / EPL;              // lanes that hold a row
+  // This CTA's query heads: [g0, g0 + g) of the G = g_all of KV head h.
+  const int g0 = blockIdx.z * kMaxGroup;
+  const int g = min(kMaxGroup, g_all - g0);
   extern __shared__ __align__(16) float sm[];
   float* q_s = sm;                 // [g][HD]
   float* acc_s = q_s + g * HD;     // [g][HD]
@@ -97,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(lengths[b], s);
   const int n_pages = (len + page - 1) / page;
-  const int64_t head0 = (int64_t(b) * kv + h) * g * HD;  // q / out offset
+  const int64_t head0 = ((int64_t(b) * kv + h) * g_all + g0) * HD;  // q / out offset
   const int64_t pos_stride = int64_t(kv) * HD;
   const T* kb = kc + (int64_t(b) * s * kv + h) * HD + lane * EPL;
   const T* vb = vc + (int64_t(b) * s * kv + h) * HD + lane * EPL;
@@ -214,12 +223,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
            int b, int kv, int g, int s, int page, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t(2 * g) * HD + size_t(g) * page + 3 * g);
+  const int gc = g < kMaxGroup ? g : kMaxGroup;  // heads of the widest CTA
+  const size_t smem = sizeof(float) * (size_t(2 * gc) * HD + size_t(gc) * page + 3 * gc);
   auto kernel = paged_attention_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(kv, b), kThreads, smem, stream>>>(
+  kernel<<<dim3(kv, b, (g + kMaxGroup - 1) / kMaxGroup), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(lengths), static_cast<T*>(o), kv, g, s, page, scale);
   return cudaGetLastError();
@@ -230,7 +240,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths, v
              int b, int kv, int g, int s, int hd, int page, float scale,
              void* stream) {
   if (b <= 0 || kv <= 0) return cudaSuccess;
-  if (g < 1 || g > kMaxGroup || s < 1 || page < 1) return cudaErrorInvalidValue;
+  if (g < 1 || g > 65535 * kMaxGroup || s < 1 || page < 1) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, lengths, o, b, kv, g, s, page, scale, st);

@@ -1,16 +1,23 @@
-"""Blocked matmul (the BNLJ analogue of the paper's §III-A) as a CUDA kernel.
+"""Blocked matmul (the BNLJ analogue of the paper's §III-A) as CUDA kernels.
 
-The kernel (``csrc/matmul.cu``) replaces the TPU kernel ``matmul_pallas`` of
+The kernels (``csrc/matmul.cu``) replace the TPU kernel ``matmul_pallas`` of
 the JAX package's ``kernels/matmul/matmul.py:47``: ``a [M, K] @ b [K, N]``
-tiled ``(bm, bn, bk)`` with ``M % bm == N % bn == K % bk == 0`` (the caller
-pads), an f32 accumulator over K and the product cast once to ``out_dtype``.
-One CTA owns one ``(bm, bn)`` output tile; each K step stages one A tile and
-one B tile in shared memory, so a step is one of the planner's rounds.
+tiled ``(bm, bn, bk)``, an f32 accumulator over K and the product cast once
+to ``out_dtype``.  One CTA owns one ``(bm, bn)`` output tile; each K step
+copies one A tile and one B tile into shared memory, so a step is one of the
+planner's rounds.  bf16 runs on the tensor cores (``wgmma`` fed by TMA
+through a two-slot ring); f32 runs exact f32 FMAs on the CUDA cores.
+
+Three routes, each with its own launch counter in ``runtime.launches``:
+``"matmul"`` (bf16, TMA), ``"matmul_staged"`` (bf16, element-staged: a row
+stride or base not 16-byte aligned, or ``bk`` or ``bn`` not a multiple of
+64) and ``"matmul_f32"``.
 
 Beside the wrapper is its plain PyTorch version, the same sweep over K
 steps with an f32 accumulator; a CPU tensor takes it, a CUDA tensor launches
-the kernel or raises.  :func:`check_tiles` is the wrapper's pre-launch check
-of what the kernel takes, callable on the host without a card.
+a kernel or raises.  :func:`check_tiles` and :func:`ring_bytes` are the
+wrapper's pre-launch checks and the kernel's shared memory, callable on the
+host without a card.
 """
 
 from __future__ import annotations
@@ -25,41 +32,103 @@ from repro_torch.core.cost_model import H100
 from repro_torch.kernels import runtime
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-THREADS = 256  # threads of one CTA
-MAX_ACC = 32  # f32 accumulators one thread may hold (64 x 128 tiles: 32)
 SMEM_BYTES = H100.vmem_bytes  # shared memory one CTA can use
+# bf16 (tensor cores): wgmma's N, which bm is padded up to; a warpgroup per
+# 64 columns of bn; N x warpgroups bounded by the registers (N / 2 f32
+# accumulators a thread); a ring of two slots.
+MMA_N = (8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+MAX_BN = 256
+MAX_ACC_REGS = 512
+RING_STAGES = 2
+# f32 (CUDA cores): one column of the tile a thread, at most MAX_ACC rows.
+THREADS = 256
+MAX_ACC = 32
+
+
+def mma_n(bm: int) -> int:
+    """wgmma's N for a tile of ``bm`` rows: the next of ``MMA_N``."""
+    return next(n for n in MMA_N if n >= bm)
+
+
+def ring_slot_bytes(bm: int, bn: int, sub: int) -> int:
+    """One ring slot: ``ceil(sub / 64)`` chunks of ``mma_n(bm)`` A rows of 128
+    bytes, and ``ceil(bn / 64)`` chunks of ``sub`` B rows of 128 bytes."""
+    return -(-sub // 64) * mma_n(bm) * 128 + -(-bn // 64) * sub * 128
+
+
+def ring_bytes(bm: int, bn: int, sub: int) -> int:
+    """Shared memory a bf16 CTA asks for: the two slots, 1024 bytes to align
+    them to the swizzle atom, and four 8-byte mbarriers."""
+    return 1024 + RING_STAGES * ring_slot_bytes(bm, bn, sub) + 32
+
+
+def ring_sub(bm: int, bn: int, bk: int, tma: bool) -> int:
+    """The K depth of one ring slot: the whole step ``bk`` (padded to 16)
+    when two slots fit a CTA, else the largest even split of it (in units of
+    64 on the TMA route, 16 on the element route) that does."""
+    unit = 64 if tma else 16
+    units = -(-bk // unit)
+    for parts in range(1, units + 1):
+        if units % parts == 0 and ring_bytes(bm, bn, units // parts * unit) <= SMEM_BYTES:
+            return units // parts * unit
+    raise ValueError(f"tiles {(bm, bn, bk)}: no ring slot fits a CTA")
+
+
+def f32_sub(bm: int, bn: int, bk: int) -> int:
+    """The K depth staged at once on the f32 route: the whole step when it
+    fits a CTA, else the step split evenly into the fewest parts that fit
+    (a multiple of 4, for 16-byte staging)."""
+    fit = SMEM_BYTES // ((bm + bn) * 4)
+    if bk <= fit:
+        return bk
+    fit -= fit % 4
+    parts = -(-bk // fit)
+    sub = -(-bk // parts)
+    return min(sub + (-sub) % 4, fit)
 
 
 def check_tiles(bm: int, bn: int, bk: int, elem_bytes: int) -> None:
-    """Raise ``ValueError`` unless the kernel can launch with these tiles.
+    """Raise ``ValueError`` unless the kernel for this element size can
+    launch with these tiles.
 
-    A thread owns one column of the tile and every ``THREADS // bn``-th row,
-    so ``bn <= THREADS`` and a thread holds ``ceil(bm / (THREADS // bn))``
-    accumulators, at most ``MAX_ACC``; the staged A and B tiles,
-    ``(bm*bk + bk*bn) * elem_bytes``, must fit ``SMEM_BYTES``.
+    bf16 (2 bytes): ``bm <= 256`` (wgmma's N, padded to ``MMA_N``), ``bn <=
+    256`` (a warpgroup per 64 columns), and ``mma_n(bm) * ceil(bn / 64) <=
+    MAX_ACC_REGS`` (the accumulators a CTA holds); any ``bk`` (a step too deep
+    for the ring is split, see :func:`ring_sub`).  f32 (4 bytes): ``bn <=
+    THREADS`` and ``ceil(bm / (THREADS // bn)) <= MAX_ACC`` accumulators a
+    thread; any ``bk`` (staged in sub-steps, see :func:`f32_sub`).
     """
     if min(bm, bn, bk) < 1:
         raise ValueError(f"tiles must be positive; got {(bm, bn, bk)}")
+    if elem_bytes == 2:
+        if bm > MMA_N[-1] or bn > MAX_BN:
+            raise ValueError(f"tiles {(bm, bn, bk)}: the tensor-core kernel takes bm <= "
+                             f"{MMA_N[-1]} and bn <= {MAX_BN}")
+        regs = mma_n(bm) * -(-bn // 64)
+        if regs > MAX_ACC_REGS:
+            raise ValueError(f"tiles {(bm, bn, bk)}: {mma_n(bm)} accumulator columns on "
+                             f"{-(-bn // 64)} warpgroups exceed the registers "
+                             f"({MAX_ACC_REGS} a CTA)")
+        return
     if bn > THREADS:
         raise ValueError(f"bn={bn} exceeds the kernel's {THREADS} threads (one column each)")
     acc = -(-bm // (THREADS // bn))
     if acc > MAX_ACC:
         raise ValueError(f"tile ({bm}, {bn}) needs {acc} accumulators a thread; "
                          f"the kernel holds at most {MAX_ACC}")
-    smem = (bm * bk + bk * bn) * elem_bytes
-    if smem > SMEM_BYTES:
-        raise ValueError(f"tiles {(bm, bn, bk)} stage {smem} bytes; a CTA has {SMEM_BYTES}")
 
 
-def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
-           out_dtype: Optional[torch.dtype]) -> torch.dtype:
+def tma_route(a: torch.Tensor, b: torch.Tensor, bn: int, bk: int) -> bool:
+    """True when a bf16 product can take the TMA route: 16-byte-aligned
+    bases and row strides, and ``bk`` and ``bn`` whole 128-byte boxes."""
+    return (a.dtype == torch.bfloat16 and a.shape[1] > 0 and bk % 64 == 0 and bn % 64 == 0
+            and a.stride(0) % 8 == 0 and b.stride(0) % 8 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"a must be [M,K] and b [K,N]; got {tuple(a.shape)}, {tuple(b.shape)}")
-    m, k = a.shape
-    n = b.shape[1]
-    if min(bm, bn, bk) < 1 or m % bm or n % bn or k % bk:
-        raise ValueError(f"tiles {(bm, bn, bk)} must divide (M, N, K) = {(m, n, k)}; "
-                         "the caller pads")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"a and b must share one dtype of {sorted(map(str, _DTYPES))}; "
                         f"got {a.dtype}, {b.dtype}")
@@ -69,11 +138,19 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
     return out_dtype
 
 
+def _check_divides(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int) -> None:
+    (m, k), n = a.shape, b.shape[1]
+    if min(bm, bn, bk) < 1 or m % bm or n % bn or k % bk:
+        raise ValueError(f"tiles {(bm, bn, bk)} must divide (M, N, K) = {(m, n, k)}; "
+                         "the caller pads")
+
+
 def matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The kernel's sweep in PyTorch: an f32 accumulator, one K step at a
     time, cast once at the end."""
-    out_dtype = _check(a, b, bm, bn, bk, out_dtype)
+    out_dtype = _check(a, b, out_dtype)
+    _check_divides(a, b, bm, bn, bk)
     k = a.shape[1]
     acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
     for k0 in range(0, k, bk):
@@ -81,17 +158,17 @@ def matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: i
     return acc.to(out_dtype)
 
 
-def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """a: [M, K]; b: [K, N] -> [M, N] in ``out_dtype`` (default a's).
+def launch(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors of any (M, K) x (K, N): the last
+    row, column and K tiles are masked in the kernel, nothing is padded.
 
-    ``M % bm == N % bn == K % bk == 0`` (the caller pads).  On a CUDA tensor
-    the elements of each row of ``a`` and ``b`` must be contiguous (rows
-    may be strided) and the tiles must pass :func:`check_tiles`.
+    The elements of each row of ``a`` and ``b`` must be contiguous (rows may
+    be strided) and the tiles must pass :func:`check_tiles`.
     """
-    out_dtype = _check(a, b, bm, bn, bk, out_dtype)
+    out_dtype = _check(a, b, out_dtype)
     if runtime.on_cpu(a, b):
-        return matmul_tiled_plain(a, b, bm, bn, bk, out_dtype)
+        raise ValueError("launch takes CUDA tensors; on the CPU use matmul_tiled_plain")
     check_tiles(bm, bn, bk, a.element_size())
     if a.stride(1) != 1 or b.stride(1) != 1:
         raise ValueError("the elements of each row of a and b must be contiguous")
@@ -100,28 +177,52 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    vec = 16 // a.element_size()  # elements of one 16-byte load
-    wide = (bk % vec == 0 and bn % vec == 0 and a.stride(0) % vec == 0
-            and b.stride(0) % vec == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    if a.dtype == torch.bfloat16:
+        route = tma_route(a, b, bn, bk)
+        sub = ring_sub(bm, bn, bk, route)
+        counter = "matmul" if route else "matmul_staged"
+    else:
+        sub = f32_sub(bm, bn, bk)
+        route = (bk % 4 == 0 and bn % 4 == 0 and sub % 4 == 0 and k % 4 == 0 and n % 4 == 0
+                 and a.stride(0) % 4 == 0 and b.stride(0) % 4 == 0
+                 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+        counter = "matmul_f32"
     lib = runtime.library("matmul")
     with torch.cuda.device(a.device):
         err = getattr(lib, f"remop_matmul_{_DTYPES[a.dtype]}")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0), b.stride(0),
-            bm, bn, bk, int(out_dtype == torch.float32), int(wide), runtime.stream_of(a))
+            bm, bn, bk, sub, int(out_dtype == torch.float32), int(route), runtime.stream_of(a))
     runtime.check("matmul", "matmul", err)
-    runtime.launches["matmul"] += 1
+    runtime.launches[counter] += 1
     return out
 
 
-def resident_ctas(bm: int, bn: int, bk: int, dtype: torch.dtype = torch.bfloat16,
-                  wide: bool = True) -> int:
-    """CTAs of the kernel with these tiles that one SM of the current card
-    holds at once (CUDA's occupancy calculator: registers, shared memory,
-    threads); ``wide`` picks the instantiation for 16-byte-aligned tiles."""
+def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """a: [M, K]; b: [K, N] -> [M, N] in ``out_dtype`` (default a's).
+
+    ``M % bm == N % bn == K % bk == 0`` (the caller pads), as
+    ``matmul_pallas`` requires.  On CUDA tensors see :func:`launch`.
+    """
+    out_dtype = _check(a, b, out_dtype)
+    _check_divides(a, b, bm, bn, bk)
+    if runtime.on_cpu(a, b):
+        return matmul_tiled_plain(a, b, bm, bn, bk, out_dtype)
+    return launch(a, b, bm, bn, bk, out_dtype)
+
+
+def occupancy(bm: int, bn: int, bk: int, dtype: torch.dtype = torch.bfloat16,
+              tma: bool = True) -> dict:
+    """The kernel instantiation these tiles launch, on the current card:
+    CTAs one SM holds at once (CUDA's occupancy calculator: registers,
+    shared memory, threads), registers and local (spilled) bytes a thread,
+    dynamic shared memory and threads a CTA.  ``tma`` picks the bf16 route;
+    for f32 it picks 16-byte staging."""
     check_tiles(bm, bn, bk, dtype.itemsize)
-    ctas = ctypes.c_int(0)
+    sub = ring_sub(bm, bn, bk, tma) if dtype == torch.bfloat16 else f32_sub(bm, bn, bk)
+    out = (ctypes.c_int * 5)()
     lib = runtime.library("matmul")
-    err = getattr(lib, f"remop_matmul_resident_ctas_{_DTYPES[dtype]}")(
-        bm, bn, bk, int(wide), ctypes.addressof(ctas))
+    err = getattr(lib, f"remop_matmul_occupancy_{_DTYPES[dtype]}")(
+        bm, bn, bk, sub, int(tma), ctypes.addressof(out))
     runtime.check("matmul", "matmul", err)
-    return ctas.value
+    return dict(zip(("resident_ctas", "registers", "local_bytes", "smem_bytes", "threads"), out))

@@ -5,12 +5,14 @@ The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
 ``kernels/paged_attention/paged_attention.py``: ``q [B, KV, G, hd]``,
 caches ``[B, S, KV, hd]``, ``lengths [B]`` int32; the cache is walked one
 page at a time with an online f32 softmax and positions ``>= lengths[b]``
-masked.  One CTA serves the G query heads of one (batch, KV head) and stops
-at the last page that holds an unmasked position.
+masked.  One CTA serves up to 8 query heads of one (batch, KV head), so a
+KV head's G heads take ``ceil(G / 8)`` CTAs (any G); each stops at the last
+page that holds an unmasked position.
 
 Beside the wrapper is its plain PyTorch version, the same page-by-page
 online softmax; a CPU tensor takes it, a CUDA tensor launches the kernel
-or raises.
+or raises.  :func:`check_shape` is the wrapper's pre-launch check of what
+the kernel takes, callable on the host without a card.
 """
 
 from __future__ import annotations
@@ -22,9 +24,17 @@ import torch
 from repro_torch.kernels import runtime
 
 NEG_INF = -1e30
-MAX_GROUP = 8  # query heads per KV head that one CTA holds
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def check_shape(g: int, hd: int) -> None:
+    """Raise ``ValueError`` unless the kernel can launch for G query heads
+    per KV head at head width ``hd``: any ``G >= 1``, ``hd`` in ``HEAD_DIMS``."""
+    if g < 1:
+        raise ValueError(f"G={g} query heads per KV head; need at least 1")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} must be in {HEAD_DIMS}")
 
 
 def _check(q, k_cache, v_cache, lengths, page: int) -> None:
@@ -75,15 +85,14 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
                     lengths: torch.Tensor, page: int = 128) -> torch.Tensor:
     """q: [B, KV, G, hd]; k/v_cache: [B, S, KV, hd]; lengths: [B] int32 in [1, S].
 
-    On a CUDA tensor all four must be contiguous, ``G <= 8`` and ``hd`` in
-    ``HEAD_DIMS``.
+    On a CUDA tensor all four must be contiguous and pass
+    :func:`check_shape`.
     """
     _check(q, k_cache, v_cache, lengths, page)
     if runtime.on_cpu(q, k_cache, v_cache, lengths):
         return paged_attention_plain(q, k_cache, v_cache, lengths, page)
     b, kv, g, hd = q.shape
-    if hd not in HEAD_DIMS or g > MAX_GROUP:
-        raise ValueError(f"head_dim {hd} must be in {HEAD_DIMS} and G={g} <= {MAX_GROUP}")
+    check_shape(g, hd)
     tensors = (q, k_cache, v_cache, lengths)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, the caches and lengths must be contiguous")

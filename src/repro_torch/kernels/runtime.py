@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into ``_build/``
 beside this file (listed in ``.gitignore``).  A library's file name carries a
-hash of its source and the compiler flags, so an edited source rebuilds and
-an unchanged one is loaded as it is.  :func:`build` compiles every missing
-library at once, one ``nvcc`` process per source, all started together.
+hash of its source, the headers in ``csrc/`` and the compiler flags, so an
+edited source or header rebuilds and an unchanged one is loaded as it is.
+:func:`build` compiles every missing library at once, one ``nvcc`` process
+per source, all started together.
 
 The libraries are loaded with ``ctypes``: every pointer and the stream pass
 as ``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
@@ -72,11 +73,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "remop_ssd_scan_error_string": ([_I32], ctypes.c_char_p),
     },
     "matmul": {
-        # a, b, c, m, n, k, lda, ldb, bm, bn, bk, out_f32, wide, stream
-        **{f"remop_matmul_{t}": ([_P] * 3 + [_I64] * 5 + [_I32] * 5 + [_P], _I32)
+        # a, b, c, m, n, k, lda, ldb, bm, bn, bk, sub, out_f32, route (tma / wide), stream
+        **{f"remop_matmul_{t}": ([_P] * 3 + [_I64] * 5 + [_I32] * 6 + [_P], _I32)
            for t in ("bf16", "f32")},
-        # bm, bn, bk, wide, &ctas
-        **{f"remop_matmul_resident_ctas_{t}": ([_I32] * 4 + [_P], _I32)
+        # bm, bn, bk, sub, route, &out[5]
+        **{f"remop_matmul_occupancy_{t}": ([_I32] * 5 + [_P], _I32)
            for t in ("bf16", "f32")},
         "remop_matmul_error_string": ([_I32], ctypes.c_char_p),
     },
@@ -128,10 +129,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """``_build/lib<name>-<hash>.so``: the hash covers ``csrc/<name>.cu``,
+    every header ``csrc/*.cuh`` (any source may include one) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> List[str]:

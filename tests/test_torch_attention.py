@@ -28,7 +28,9 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import remop_paged_attention
-from repro_torch.kernels.paged_attention.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention.paged_attention import (
+    check_shape, paged_attention, paged_attention_plain,
+)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -191,3 +193,24 @@ def test_cpu_tensors_take_the_plain_versions():
                           k.reshape(1, 16, 1, 16).repeat(1, 1, 1, 16),
                           torch.tensor([5], dtype=torch.int32))
     assert sum(runtime.launches.values()) == 0
+
+
+def test_paged_attention_plain_at_granite_group_matches_pallas():
+    """granite-20b's decode group: 48 query heads on one KV head of 128."""
+    b, kv, g, hd, s = 2, 1, 48, 128, 256
+    arrays, _ = _paged_inputs(48, b, kv, g, hd, s)
+    lengths = np.array([77, 200], np.int32)  # ragged: the last page masked part-way
+    (jq, jk, jv), (q, kc, vc) = _pair(arrays, "float32")
+    want = jax_paged(jq, jk, jv, jnp.asarray(lengths), page=64)
+    _close(paged_attention_plain(q, kc, vc, torch.from_numpy(lengths), page=64), want, 2e-5)
+    _close(remop_paged_attention(q, kc, vc, torch.from_numpy(lengths), page=64), want, 2e-5)
+
+
+@pytest.mark.parametrize("g,hd,ok", [(48, 128, True), (8, 256, True), (10, 256, True),
+                                     (1, 16, True), (0, 128, False), (48, 192, False)])
+def test_paged_check_shape_takes_any_group(g, hd, ok):
+    if ok:
+        check_shape(g, hd)
+    else:
+        with pytest.raises(ValueError):
+            check_shape(g, hd)

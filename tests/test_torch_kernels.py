@@ -202,3 +202,23 @@ def test_default_device_without_a_card_raises(monkeypatch):
         make_backend("tcp", device="cuda")
     assert make_backend("tcp", device="cpu").device == torch.device("cpu")
     assert runtime.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("edit", ["header", "other source", "nothing"])
+def test_library_path_covers_the_headers(monkeypatch, tmp_path, edit):
+    """A built library is keyed by its source, every csrc/*.cuh header and
+    the flags: editing a header rebuilds every library, editing another
+    source leaves this one as it is."""
+    for f in runtime.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(runtime, "CSRC", tmp_path)
+    before = runtime.library_path("matmul")
+    assert (tmp_path / "hopper.cuh").exists()
+    target = {"header": "hopper.cuh", "other source": "paged_attention.cu",
+              "nothing": None}[edit]
+    if target:
+        path = tmp_path / target
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+    after = runtime.library_path("matmul")
+    assert (after != before) == (edit == "header")
+    assert after.parent == runtime.BUILD_DIR and after.name.startswith("libmatmul-")

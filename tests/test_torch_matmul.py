@@ -22,13 +22,22 @@ from repro.kernels.matmul.ops import remop_matmul as jax_remop_matmul
 from repro.kernels.matmul.ref import matmul_ref as jax_matmul_ref
 
 from repro_torch.kernels import runtime
+from repro_torch.core.planner import matmul_vmem
 from repro_torch.kernels.matmul.matmul import (
     MAX_ACC,
+    MAX_ACC_REGS,
+    MAX_BN,
+    MMA_N,
+    RING_STAGES,
     SMEM_BYTES,
     THREADS,
     check_tiles,
+    f32_sub,
     matmul_tiled,
     matmul_tiled_plain,
+    ring_bytes,
+    ring_slot_bytes,
+    ring_sub,
 )
 from repro_torch.kernels.matmul.ops import clamped_tiles, plan_for, remop_matmul
 from repro_torch.kernels.matmul.ref import matmul_ref
@@ -142,10 +151,10 @@ def test_bad_shapes_and_dtypes_raise():
 
 
 @pytest.mark.parametrize("tiles,elem", [
-    ((8, 512, 16), 2),     # bn above the CTA's 256 threads
-    ((72, 128, 16), 2),    # 36 accumulators a thread
-    ((8, 128, 512), 4),    # the conventional plan's tiles in f32: 278,528 bytes staged
-    ((64, 256, 256), 2),   # 163,840 bytes staged, but 64 accumulators a thread
+    ((8, 512, 16), 2),     # bn above the tensor-core kernel's 4 warpgroups of 64 columns
+    ((264, 128, 16), 2),   # bm above wgmma's largest N, 256
+    ((256, 256, 64), 2),   # 256 accumulator columns on 4 warpgroups: 128 f32 registers x 512
+    ((72, 128, 16), 4),    # f32: 36 accumulators a thread
 ])
 def test_check_tiles_rejects_what_the_kernel_cannot_take(tiles, elem):
     with pytest.raises(ValueError):
@@ -154,10 +163,65 @@ def test_check_tiles_rejects_what_the_kernel_cannot_take(tiles, elem):
 
 def test_check_tiles_limits():
     assert THREADS == 256 and MAX_ACC == 32 and SMEM_BYTES == 232_448
-    check_tiles(64, 128, 128, 2)   # 32 accumulators a thread
-    check_tiles(8, 128, 512, 2)    # the conventional bf16 plan: 139,264 bytes
+    assert MAX_BN == 256 and MAX_ACC_REGS == 512 and MMA_N[0] == 8 and MMA_N[-1] == 256
+    check_tiles(24, 128, 128, 2)   # the REMOP bf16 plan
+    check_tiles(8, 128, 512, 2)    # the conventional bf16 plan: its step split in two
+    check_tiles(8, 128, 512, 4)    # the conventional f32 plan: 278,528 bytes, in sub-steps
+    check_tiles(128, 256, 64, 2)   # the tile probe: 4 warpgroups of 64 accumulators
+    check_tiles(256, 128, 1, 2)    # 2 warpgroups of 128 accumulators
     check_tiles(1, 256, 1, 4)
-    check_tiles(48, 70, 130, 2)    # bn = 70: 3 rows of threads, 16 accumulators a thread
+    check_tiles(48, 70, 130, 2)    # bn = 70: 2 warpgroups, bk = 130: element route
+    check_tiles(64, 128, 128, 4)   # f32: 32 accumulators a thread
+
+
+# Every tile the port's entry points give the bf16 kernel (the five products
+# of chip_smoke.py under both plans, the tile probes, the JAX tests' explicit
+# tiles) with the K depth of a ring slot on its route and the shared memory
+# the ring asks for: two slots, 1024 bytes of alignment, four mbarriers.
+PRODUCTS = {"gemma-7b ffn up": (4096, 3072, 24576), "granite-20b ffn up": (4096, 6144, 24576),
+            "deepseek qkv": (8192, 2048, 2048), "qwen3 unembed": (4096, 1024, 151936),
+            "deepseek expert": (16384, 2048, 1408)}
+RINGS = {  # (bm, bn, bk, TMA route) -> (sub, ring bytes)
+    (24, 128, 128, True): (128, 1024 + 2 * (2 * 24 * 128 + 2 * 128 * 128) + 32),
+    (8, 128, 512, True): (256, 1024 + 2 * (4 * 8 * 128 + 2 * 256 * 128) + 32),
+    (8, 128, 128, True): (128, 1024 + 2 * (2 * 8 * 128 + 2 * 128 * 128) + 32),
+    (64, 64, 128, True): (128, 1024 + 2 * (2 * 64 * 128 + 1 * 128 * 128) + 32),
+    (128, 256, 64, True): (64, 1024 + 2 * (1 * 128 * 128 + 4 * 64 * 128) + 32),
+    (16, 16, 16, False): (16, 1024 + 2 * (1 * 16 * 128 + 1 * 16 * 128) + 32),
+    (32, 64, 16, False): (16, 1024 + 2 * (1 * 32 * 128 + 1 * 16 * 128) + 32),
+    (64, 32, 32, False): (32, 1024 + 2 * (1 * 64 * 128 + 1 * 32 * 128) + 32),
+}
+
+
+@pytest.mark.parametrize("case", [(name, policy) for name in PRODUCTS
+                                  for policy in ("remop", "conventional")]
+                         + [("probe", t) for t in ((8, 128, 128), (64, 64, 128), (128, 256, 64))]
+                         + [("jax tiles", t) for t in EXPLICIT_TILES]
+                         + [("f32 conventional", (8192, 2048, 2048))], ids=str)
+def test_every_planned_tile_is_accepted_with_its_ring(case):
+    what, arg = case
+    if what in PRODUCTS or what == "f32 conventional":
+        m, k, n = PRODUCTS.get(what, arg)
+        dtype = torch.float32 if what == "f32 conventional" else torch.bfloat16
+        tiles = clamped_tiles(plan_for((m, k), (k, n), dtype, arg if what in PRODUCTS
+                                       else "conventional"), m, n, k)
+    else:
+        dtype, tiles = torch.bfloat16, arg
+    check_tiles(*tiles, dtype.itemsize)
+    bm, bn, bk = tiles
+    if dtype == torch.float32:
+        # The f32 kernel stages the planned step in even sub-steps that fit.
+        assert tiles == (8, 128, 512) and f32_sub(*tiles) == 256
+        assert (bm + bn) * f32_sub(*tiles) * 4 <= SMEM_BYTES < (bm + bn) * bk * 4
+        return
+    tma = bk % 64 == 0 and bn % 64 == 0  # contiguous aligned inputs: only the tiles decide
+    sub = ring_sub(bm, bn, bk, tma)
+    assert (sub, ring_bytes(bm, bn, sub)) == RINGS[bm, bn, bk, tma]
+    assert ring_bytes(bm, bn, sub) <= SMEM_BYTES and bk % sub == 0
+    if tma and sub == bk and bm in MMA_N:
+        # The ring is the planner's double-buffered working set, without the
+        # accumulator (in registers).
+        assert RING_STAGES * ring_slot_bytes(bm, bn, sub) == matmul_vmem(bm, bn, bk, 2, 0)
 
 
 def test_cuda_call_without_card_raises():
