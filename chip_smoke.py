@@ -12,10 +12,15 @@ Phases, each printing JSON objects, one per line:
    limit from ``nvidia-smi``;
 2. kernels: hold every kernel against its plain PyTorch version on the card
    (the sort and gather kernels bit for bit, the attention kernels within
-   ``ATTN_TOL``, which must also reject two planted faults; the paged kernel
-   also at granite-20b's 48 query heads on one KV head), and time kernel,
-   plain version and the PyTorch library call that computes the same
-   function with CUDA events;
+   ``ATTN_TOL``, which must also reject two planted faults; the flash kernel
+   on both routes, each check printing the route it took: bf16 at hd 64,
+   128 and 256 on the tensor cores, at gemma-2b's, qwen3-0.6b's and
+   granite-20b's widths and a ragged hd-64 prefill, f32 and bf16 hd 32 on
+   the CUDA cores; the paged kernel also at granite-20b's 48 query heads on
+   one KV head), print the registers and spills of every tensor-core flash
+   instantiation, and time kernel, plain version and the PyTorch library
+   call that computes the same function with CUDA events (the flash kernel
+   also at qwen3-0.6b's widths, and with P rounded once to bf16, a probe);
 3. session: drive the spill engine's main path, ``Session(make_backend(...))
    .run(tasks)``, at a TPC-H SF1-shaped size (EMS over ``l_orderkey``, EHJ of
    orders with lineitem, EAGG of lineitem by key), with the launch counters
@@ -25,8 +30,9 @@ Phases, each printing JSON objects, one per line:
 4. serve: serve gemma-2b at full width (random bf16 weights from a seeded
    generator on the card) through ``ServeEngine.submit``: 8 requests, 4
    slots, the launch counters set to 0 just before and read just after;
-   every attention call must have gone through the flash (prefill) and
-   paged (decode) kernels, and the last decode step of two requests must
+   every attention call must have gone through the flash (prefill, every
+   launch on its tensor-core route) and paged (decode) kernels, and the
+   last decode step of two requests must
    agree with a prefill of the same tokens (final hidden state and logits);
    then a profiler window over one prefill and a few decode steps splits
    the device time into attention kernels, matrix products and the rest;
@@ -440,8 +446,10 @@ def flash_cost(b, h, kv, s, t, hd, elem):
 def phase_attention(torch, device):
     """The flash and paged kernels against their plain versions, then timed."""
     import torch.nn.functional as F
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
-    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+    from repro_torch.kernels.flash_attention.ops import plan_blocks, remop_flash_attention
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_attention, paged_attention_plain)
 
@@ -453,25 +461,46 @@ def phase_attention(torch, device):
     def randn(*shape, dtype):
         return torch.randn(*shape, device=device, generator=gen).to(dtype)
 
-    # -- correctness: the main path's shapes, ragged lengths, both dtypes -------
-    for b, h, kv, s, t, hd, dtype in (
-            (1, 8, 1, 2048, 2048, 256, torch.bfloat16),  # gemma-2b prefill
-            (1, 8, 1, 777, 777, 256, torch.bfloat16),
-            (2, 16, 8, 512, 512, 128, torch.float32),    # GQA, qwen3-0.6b widths
-            (2, 16, 8, 300, 333, 128, torch.float32)):   # ragged suffix prefill
+    def flash_on(path, q, k, v, **kw):
+        """The flash kernel on q, k, v; checks that the call took ``path``."""
+        before = runtime.launches[f"flash_attention_{path}"]
+        out = fa.flash_attention(q, k, v, **kw) if kw else remop_flash_attention(q, k, v)
+        check(fa.route(q, k, v) == path
+              and runtime.launches[f"flash_attention_{path}"] == before + 1,
+              f"flash {tuple(q.shape)} {q.dtype} did not take the {path} route")
+        return out
+
+    # -- correctness: the main path's shapes, ragged lengths, both dtypes, both
+    # routes: bf16 at hd 64 / 128 / 256 on the tensor cores ("tc"), f32 and
+    # bf16 hd 32 on the CUDA cores ("simt") -------------------------------------
+    for b, h, kv, s, t, hd, dtype, path in (
+            (1, 8, 1, 2048, 2048, 256, torch.bfloat16, "tc"),  # gemma-2b prefill
+            (1, 8, 1, 777, 777, 256, torch.bfloat16, "tc"),
+            (1, 16, 8, 2048, 2048, 128, torch.bfloat16, "tc"),  # qwen3-0.6b widths
+            (2, 4, 2, 300, 333, 64, torch.bfloat16, "tc"),      # hd 64, ragged suffix
+            (1, 48, 1, 1000, 1000, 128, torch.bfloat16, "tc"),  # granite-20b, G = 48
+            (2, 16, 8, 300, 333, 32, torch.bfloat16, "simt"),
+            (2, 16, 8, 512, 512, 128, torch.float32, "simt"),   # GQA, qwen3-0.6b widths
+            (2, 16, 8, 300, 333, 128, torch.float32, "simt")):  # ragged suffix prefill
         q = randn(b, h, s, hd, dtype=dtype)
         k, v = randn(b, kv, t, hd, dtype=dtype), randn(b, kv, t, hd, dtype=dtype)
         want = flash_attention_plain(q, k, v)
-        err, rel = allclose(torch, ["flash_attention"], remop_flash_attention(q, k, v),
-                            want, errs)
+        err, rel = allclose(torch, ["flash_attention"], flash_on(path, q, k, v), want, errs)
         # The model's layout: [B, S, heads, hd] memory seen as [B, heads, S, hd].
         qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
-        got = remop_flash_attention(qm, km, vm)
+        got = flash_on(path, qm, km, vm)
         check(got.stride() == qm.stride(), "flash output lost q's layout")
         err2, rel2 = allclose(torch, ["flash_attention"], got, want, errs)
         emit({"phase": "kernels", "check": "flash_attention", "shape": [b, h, kv, s, t, hd],
-              "dtype": str(dtype), "tol": ATTN_TOL[str(dtype)], "max_abs_err": max(err, err2),
+              "dtype": str(dtype), "route": path, "blocks": plan_blocks(s, t, hd, q.element_size(),
+                                                                        path=path),
+              "tol": ATTN_TOL[str(dtype)], "max_abs_err": max(err, err2),
               "rel_err": max(rel, rel2)})
+    # Registers and local (spilled) bytes of every tensor-core instantiation.
+    emit({"phase": "kernels", "flash_attention_tc_instantiations": {
+        f"hd {hd} bq {bq} bk {bk}": fa.occupancy(hd, bq, bk)
+        for hd in fa.TC_HEAD_DIMS for bq in fa.TC_BLOCKS for bk in fa.TC_BLOCKS
+        if fa.smem_bytes(bq, bk, hd, 2, "tc") <= fa.SMEM_LIMIT}})
     for b, kv, g, hd, s, lengths, dtype in (
             (1, 1, 8, 256, 4096, (2077,), torch.bfloat16),  # gemma-2b decode
             (1, 1, 8, 256, 4096, (1,), torch.bfloat16),
@@ -503,8 +532,10 @@ def phase_attention(torch, device):
     q = randn(1, 8, s, 256, dtype=torch.bfloat16)
     k, v = (randn(1, 1, s, 256, dtype=torch.bfloat16) for _ in range(2))
     k_cut, v_cut = (torch.cat([x[:, :, :a], x[:, :, a + 64:]], dim=2) for x in (k, v))
-    reject_fault(torch, "flash_attention", f"skips KV block {a}..{a + 63} of {s} positions",
-                 remop_flash_attention(q[:, :, a + 64:], k_cut, v_cut),
+    reject_fault(torch, "flash_attention",
+                 f"skips KV block {a}..{a + 63} of {s} positions (route "
+                 f"{fa.route(q[:, :, a + 64:], k_cut, v_cut)})",
+                 flash_on("tc", q[:, :, a + 64:], k_cut, v_cut),
                  flash_attention_plain(q, k, v)[:, :, a + 64:])
     torch.cuda.synchronize()
 
@@ -515,13 +546,41 @@ def phase_attention(torch, device):
     k, v = randn(b, kv, s, hd, dtype=torch.bfloat16), randn(b, kv, s, hd, dtype=torch.bfloat16)
     nbytes, flops = flash_cost(b, h, kv, s, s, hd, 2)
     ms_bound, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    # ms: the kernel's wrapper at the planned blocks; remop_flash_attention_ms
+    # adds the route and the plan on the host, as the model calls it.
+    bq, bk = plan_blocks(s, s, hd)
     rows["flash_attention"] = dict(
-        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal",
-        ms=bench.ms(lambda: remop_flash_attention(q, k, v)),
+        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal, blocks {(bq, bk)}",
+        ms=bench.ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk)),
+        remop_flash_attention_ms=bench.ms(lambda: remop_flash_attention(q, k, v)),
         plain_ms=bench.ms(lambda: flash_attention_plain(q, k, v)),
         library_ms=bench.ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=ms_bound, bound_by=by)
+    # What keeping P at f32 precision (P_hi + P_lo, two PV products) costs:
+    # the same call with P rounded once to bf16, a probe off the main path.
+    single = fa.flash_attention(q, k, v, bq=bq, bk=bk, split_p=False)
+    ok, err, rel, _ = attn_close(torch, single, flash_attention_plain(q, k, v))
+    emit({"phase": "kernels", "timing": "flash_attention single-bf16-P probe",
+          "shape": rows["flash_attention"]["shape"],
+          "ms": bench.ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk, split_p=False)),
+          "split_ms": bench.ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk)),
+          "max_abs_err": err, "rel_err": rel, "within_attn_tol": ok})
+    # qwen3-0.6b's widths: 16 query heads on 8 KV heads of 128.
+    b, h, kv, s, hd = 1, 16, 8, 2048, 128
+    q = randn(b, h, s, hd, dtype=torch.bfloat16)
+    k, v = randn(b, kv, s, hd, dtype=torch.bfloat16), randn(b, kv, s, hd, dtype=torch.bfloat16)
+    ms_bound, by = bound(*flash_cost(b, h, kv, s, s, hd, 2), BF16_OPS_PER_S)
+    bq, bk = plan_blocks(s, s, hd)
+    emit({"phase": "kernels", "timing": "flash_attention qwen3-0.6b",
+          "shape": f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal, "
+                   f"blocks {(bq, bk)}",
+          "ms": bench.ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk)),
+          "remop_flash_attention_ms": bench.ms(lambda: remop_flash_attention(q, k, v)),
+          "plain_ms": bench.ms(lambda: flash_attention_plain(q, k, v)),
+          "library_ms": bench.ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, is_causal=True, enable_gqa=True)),
+          "bound_ms": ms_bound, "bound_by": by})
 
     b, kv, g, hd, s, length = 1, 1, 8, 256, 4096, 2048
     q = randn(b, kv, g, hd, dtype=torch.bfloat16)
@@ -737,6 +796,9 @@ def phase_serve(torch, device):
           "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
     check(launches.get("flash_attention", 0) == cfg.n_layers * len(reqs),
           f"flash launches {launches.get('flash_attention')} != {cfg.n_layers} x {len(reqs)}")
+    check(launches.get("flash_attention_tc", 0) == launches["flash_attention"],
+          f"only {launches.get('flash_attention_tc', 0)} of {launches['flash_attention']} "
+          "flash launches took the tensor-core route")
     check(launches.get("paged_attention", 0) == cfg.n_layers * steps,
           f"paged launches {launches.get('paged_attention')} != {cfg.n_layers} x {steps}")
     for rid, (logits, hidden) in last.items():
@@ -812,10 +874,12 @@ def phase_breakdown(torch, device, params):
         profiled = window()
     kinds = device_seconds(torch, prof, ("flash_attention_kernel", "paged_attention_kernel"),
                            "attention_kernels")
+    flash = device_seconds(torch, prof, ("flash_attention_kernel",), "flash")[0]["flash"]
     names = ("prefill_2048_seconds", "decode_step_seconds", "prefill_64_seconds")
     emit({"phase": "breakdown",
           "window": "prefill of 2048 tokens, 8 decode steps, prefill of 64 tokens",
           "unprofiled": dict(zip(names, unprofiled)), "profiled": dict(zip(names, profiled)),
+          "flash_attention_device_seconds": flash,
           **busy_and_idle(kinds, profiled[0] + 8 * profiled[1] + profiled[2],
                           unprofiled[0] + 8 * unprofiled[1] + unprofiled[2])})
 

@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Quick card check of the flash-attention kernel's two routes after an edit.
+
+Run from the root of a checkout on a machine with one H100:
+
+    python3 flash_probe.py [LOG_DIR]
+
+It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
+goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
+and prints each kernel's registers and spills; then holds the kernel to
+``flash_attention_plain`` under ``chip_smoke.ATTN_TOL`` at the main path's
+shapes (gemma-2b, qwen3-0.6b, granite-20b's 48 heads on one KV head, a
+ragged hd-64 prefill, the model's transposed layout), at every block pair
+the tensor-core route takes, with P rounded once to bf16 (the probe off the
+main path), and on the CUDA-core route (bf16 hd 32, f32); prints the
+occupancy of every tensor-core instantiation.  It times nothing;
+``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
+"""
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def ptxas_report(log_dir: Path) -> None:
+    from repro_torch.kernels import runtime
+
+    t0 = time.time()
+    r = subprocess.run([runtime.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-c", "-Xptxas", "-v", "-o",
+                        str(log_dir / "flash_attention.o"),
+                        str(runtime.CSRC / "flash_attention.cu")],
+                       capture_output=True, text=True)
+    log = r.stdout + r.stderr
+    (log_dir / "ptxas_flash_attention.txt").write_text(log)
+    print("flash_attention rc", r.returncode, "secs", time.time() - t0, flush=True)
+    if r.returncode:
+        print(log[-8000:])
+        sys.exit(1)
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            info = [x.strip() for x in lines[i + 1:i + 4] if "registers" in x or "spill" in x]
+            print(name[:90], "|", " ; ".join(info)[:220])
+        elif "warning" in line.lower():
+            print(line[:300])
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_probe.py: no CUDA device is available", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        TC_BLOCKS, TC_HEAD_DIMS, SMEM_LIMIT, flash_attention, flash_attention_plain, occupancy,
+        route, smem_bytes)
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+
+    log_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else runtime.BUILD_DIR
+    log_dir.mkdir(parents=True, exist_ok=True)
+    ptxas_report(log_dir)
+    print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+    t1 = time.time()
+    runtime.build()
+    print("build", time.time() - t1, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    failed = []
+
+    def inputs(b, h, kv, s, t, hd, dtype):
+        q = torch.randn(b, h, s, hd, device=dev, generator=g).to(dtype)
+        k = torch.randn(b, kv, t, hd, device=dev, generator=g).to(dtype)
+        v = torch.randn(b, kv, t, hd, device=dev, generator=g).to(dtype)
+        return q, k, v
+
+    def case(name, q, k, v, fn):
+        runtime.reset_launches()
+        try:
+            got = fn(q, k, v)
+            torch.cuda.synchronize()
+        except Exception as e:  # report and go on to the next case
+            print(name, "RAISED", repr(e)[:300], flush=True)
+            failed.append(name)
+            return
+        want = flash_attention_plain(q, k, v)
+        ok, err, rel, _ = chip_smoke.attn_close(torch, got, want)
+        finite = bool(torch.isfinite(got.float()).all())
+        print(name, tuple(q.shape), tuple(k.shape), str(q.dtype), route(q, k, v),
+              dict(runtime.launches), f"ok {ok} finite {finite} maxabs {err:.3e} rel {rel:.3e}",
+              flush=True)
+        if not (ok and finite):
+            failed.append(name)
+
+    shapes = (("gemma-2b", 1, 8, 1, 2048, 2048, 256), ("gemma-2b 777", 1, 8, 1, 777, 777, 256),
+              ("qwen3", 1, 16, 8, 2048, 2048, 128), ("hd64 ragged", 2, 4, 2, 300, 333, 64),
+              ("granite G48", 1, 48, 1, 1000, 1000, 128))
+    for name, *shape in shapes:
+        q, k, v = inputs(*shape, torch.bfloat16)
+        case(name, q, k, v, remop_flash_attention)
+    q, k, v = inputs(1, 8, 1, 777, 777, 256, torch.bfloat16)
+    qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    case("model layout", qm, km, vm, remop_flash_attention)
+    for hd in TC_HEAD_DIMS:
+        q, k, v = inputs(1, 4, 2, 200, 260, hd, torch.bfloat16)
+        for bq in TC_BLOCKS:
+            for bk in TC_BLOCKS:
+                if smem_bytes(bq, bk, hd, 2, "tc") <= SMEM_LIMIT:
+                    case(f"blocks {bq},{bk}", q, k, v,
+                         lambda q, k, v, bq=bq, bk=bk: flash_attention(q, k, v, bq=bq, bk=bk))
+                    print("occupancy", hd, bq, bk, occupancy(hd, bq, bk), flush=True)
+    q, k, v = inputs(1, 8, 1, 2048, 2048, 256, torch.bfloat16)
+    case("single bf16 P (probe; may exceed ATTN_TOL)", q, k, v,
+         lambda q, k, v: flash_attention(q, k, v, bq=128, bk=64, split_p=False))
+    failed = [f for f in failed if not f.startswith("single")]
+    for dtype, hd in ((torch.bfloat16, 32), (torch.float32, 128)):
+        q, k, v = inputs(2, 16, 8, 300, 333, hd, dtype)
+        case(f"simt {dtype} hd {hd}", q, k, v, remop_flash_attention)
+    print("FAILED" if failed else "ALL OK", failed, flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

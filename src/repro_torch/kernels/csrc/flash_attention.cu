@@ -4,30 +4,58 @@
 // (flash_attention): q [B, H, S, hd], k/v [B, KV, T, hd], query head h reads
 // KV head h / (H / KV), causal with the query positions offset by T - S, an
 // online softmax in f32, fully masked KV blocks skipped, output in q's dtype.
+// Any S <= T works without padding (rows past S and keys past T are masked),
+// and every tensor is passed with its own strides (the last dimension
+// contiguous), so the model's [B, S, H, hd] activations are read and
+// written in place.  Both routes launch one CTA per (q block, head, batch),
+// the heaviest (last) q blocks first to shorten the tail, and walk the KV
+// blocks 0 .. the last one a row of the block can see (the TPU kernel's
+// `q_base + bq - 1 >= k_base` skip).  What bounds both on this card, at the
+// model's widths (hd 128 or 256, S in the thousands): the operations, about
+// 2 S T hd H flops under the causal mask, against a few bytes per key.
 //
-// One CTA per (q block, head, batch).  It stages its bq query rows in shared
-// memory, then walks the KV blocks 0 .. last one a row of the block can see
-// (the TPU kernel's `q_base + bq - 1 >= k_base` skip): each block's K is
-// staged, the bq x bk scores are formed in registers, the (m, l, acc) online
-// softmax is updated exactly as the TPU kernel does it, P goes to shared
-// memory, V is staged into the buffer K used, and acc += P V.  The
-// accumulator lives in registers: 256 threads as 16 x 16, thread (ty, tx)
-// owning rows ty + 16 i (i < 4) and head columns tx + 16 j.  So bq, bk <= 64;
-// rows past S and columns past T are masked (zero-filled when staged), so
-// any S <= T works without padding.  Strides are passed in elements for
-// every tensor (the last dimension must be contiguous), so the model's
-// [B, S, H, hd] activations are read and written in place.
+// Tensor-core route (flash_attention_kernel_tc): bf16 at hd 64, 128 or 256,
+// with TMA-aligned bases and strides (16 bytes).  Both products run on
+// wgmma, bf16 in, f32 accumulate.  bq = 64 or 128: one consumer warpgroup
+// per 64 query rows, plus one producer warpgroup, of which one thread
+// issues the copies (a whole warpgroup, so that at bq = 128 it can hand its
+// registers to the consumers: ptxas budgets 384 threads at 168 registers,
+// and O, S and P of hd 256 need about 200).  The producer loads Q once and
+// K and V in a ring of two stages with TMA (rank-4 maps over (hd, position,
+// head, batch) with each tensor's own strides, boxes of [bk positions, 64 of
+// hd] in the 128-byte swizzle, positions past S or T zero-filled), so block
+// j + 1's copies are in flight while block j's products run; completion is
+// counted on mbarriers (K and V apart, so Q K^T starts before V lands), and
+// a stage is refilled once every consumer warp has released it.  A
+// warpgroup forms S = Q K^T (M 64, N bk, K hd; both operands K-major) into
+// registers, masks it by position and runs the online softmax on the
+// accumulator fragment (row max over the 4 lanes that share a row; the row
+// sum kept per lane and reduced once at the end), rescales O by `corr`,
+// then O += P V (M 64, N hd, K bk; V MN-major through the transpose bit)
+// with P taken from registers: the S fragment is wgmma's A fragment, so P
+// never goes through shared memory.  P is kept at f32 precision, as the
+// TPU kernel keeps it: P = P_hi + P_lo with P_hi = bf16(P), P_lo = bf16(P -
+// P_hi) (about 16 significant bits), two products into the same O, 1.5x
+// the tensor work of a bf16 P.  SPLIT = false (a probe off the main path)
+// rounds P to bf16 once.
 //
-// What bounds it on this card: at the model's widths (hd 128 or 256, S in
-// the thousands) the operations, about 4 S T hd H / 2 flops.  This first
-// version computes them with f32 FMAs on the CUDA cores, reading operands
-// from shared memory (rows padded by one 32-bit word, so the 16 rows a
-// half-warp reads fall in 16 banks), not on the tensor cores; the heaviest
-// (last) q blocks are launched first to shorten the tail.
+// CUDA-core route (flash_attention_kernel): every f32 call (f32 on a tensor
+// core would be TF32, which does not compute what the TPU kernel computes
+// in f32) and bf16 at hd 16 or 32, or with strides TMA cannot take.  It
+// stages its bq <= 64 query rows and each KV block in shared memory (rows
+// padded by one 32-bit word, so the 16 rows a half-warp reads fall in 16
+// banks), forms the bq x bk scores with f32 FMAs in registers (256 threads
+// as 16 x 16, thread (ty, tx) owning rows ty + 16 i and head columns tx +
+// 16 j), updates (m, l, acc) exactly as the TPU kernel does, puts P in
+// shared memory, stages V into the buffer K used, and adds P V.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -261,6 +289,365 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// ----------------------------------------------------------------------------
+// Tensor-core route
+// ----------------------------------------------------------------------------
+
+constexpr int kProducerThreads = 128;  // one warpgroup, after the consumers
+constexpr int kMaxSmem = 232448;      // shared memory one CTA can use (227 KB)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one CTA (byte offsets from a 1024-byte-aligned base):
+// Q as hd / 64 slabs of bq rows x 128 bytes; then two stages, each K and V
+// as hd / 64 slabs of bk rows x 128 bytes; then the mbarriers q_full,
+// k_full[2], v_full[2], empty[2]; 1024 bytes of slack to align the base.
+__host__ __device__ constexpr int tc_smem(int hd, int bq, int bk) {
+  return 1024 + bq * hd * 2 + 4 * bk * hd * 2 + 7 * 8;
+}
+
+template <int HD, int BQ, int BK>
+struct TcLayout {
+  static constexpr int kQBytes = BQ * HD * 2;
+  static constexpr int kKVBytes = BK * HD * 2;  // one K or one V block
+  static constexpr int kStage = 2 * kKVBytes;
+  static constexpr int kBars = kQBytes + 2 * kStage;
+  static constexpr int kSmem = tc_smem(HD, BQ, BK);
+};
+
+struct TcParams {
+  void* o;
+  int64_t ost[3];  // o's element strides (batch, head, position)
+  int h, kv, s, t;
+  float scale;
+};
+
+// One consumer warpgroup w of the CTA: query rows [q0 + 64w, q0 + 64w +
+// 64); this thread holds rows r0 and r0 + 8 of the accumulator fragments.
+template <int HD, int BQ, int BK, bool SPLIT>
+__device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, uint64_t* k_full,
+                                        uint64_t* v_full, uint64_t* empty, const TcParams& p,
+                                        int w, int warp, int lane, int q0, int head, int b,
+                                        int offset, int n_kv) {
+  using L = TcLayout<HD, BQ, BK>;
+  const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
+  const int qpos0 = r0 + offset, qpos1 = r0 + 8 + offset;
+  const uint32_t q_addr = hopper::smem_u32(smem) + w * 64 * 128;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) o[r] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's share
+
+  hopper::mbar_wait(q_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j & 1;
+    const uint32_t parity = (j >> 1) & 1;
+    const uint32_t k_addr = hopper::smem_u32(smem + L::kQBytes + s * L::kStage);
+    const uint32_t v_addr = k_addr + L::kKVBytes;
+
+    // S = Q K^T: column c of the fragment is key j * BK + c.
+    float sc[BK / 2];
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) sc[r] = 0.f;
+    hopper::mbar_wait(&k_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(sc);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint64_t da =
+          hopper::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024);
+      const uint64_t db =
+          hopper::desc_sw128(k_addr + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024);
+      hopper::wgmma_bf16<0, 0>(sc, da, db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+
+    // Causal mask (it also masks keys >= T for every row < S), then the
+    // online softmax update of the TPU kernel.
+    const int k0 = j * BK;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) {
+      const int col = k0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      const bool lower = (r >> 1) & 1;  // row r0 + 8
+      float x = sc[r] * p.scale;
+      if (col > (lower ? qpos1 : qpos0)) x = kNegInf;
+      sc[r] = x;
+      if (lower) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+    }
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f((m0 - mn0) * kLog2e), c1 = exp2f((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) {
+      const bool lower = (r >> 1) & 1;
+      sc[r] = exp2f((sc[r] - (lower ? mn1 : mn0)) * kLog2e);
+      if (lower) s1 += sc[r]; else s0 += sc[r];
+    }
+    l0 = l0 * c0 + s0;
+    l1 = l1 * c1 + s1;
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r) o[r] *= ((r >> 1) & 1) ? c1 : c0;
+
+    // P as wgmma A fragments: columns [16kk, 16kk + 16) are sc[8kk .. 8kk + 7].
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[8 * kk + 2 * e], y = sc[8 * kk + 2 * e + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        ph[kk][e] = *reinterpret_cast<const uint32_t*>(&hi);
+        if constexpr (SPLIT) {
+          const float2 back = __bfloat1622float2(hi);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(x - back.x, y - back.y);
+          pl[kk][e] = *reinterpret_cast<const uint32_t*>(&lo);
+        }
+      }
+    }
+
+    // O += P V.
+    hopper::mbar_wait(&v_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = hopper::desc_sw128(v_addr + kk * 2048, BK * 128, 1024);
+      hopper::wgmma_bf16_rs<1>(o, ph[kk], dv);
+      if constexpr (SPLIT) hopper::wgmma_bf16_rs<1>(o, pl[kk], dv);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      hopper::fence_operands(ph[kk]);
+      if constexpr (SPLIT) hopper::fence_operands(pl[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.ost[0] + head * p.ost[1];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= p.s) continue;
+    const float den = half ? den1 : den0;
+    __nv_bfloat16* orow = og + int64_t(row) * p.ost[2] + 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(o[4 * c + 2 * half] / den, o[4 * c + 2 * half + 1] / den);
+  }
+}
+
+// With two consumer warpgroups (384 threads) ptxas gives a thread at most
+// 168 registers at entry; the producer warpgroup then hands its registers
+// to the consumers (setmaxnreg: 40 and 232, 64,512 of the SM's 65,536).
+template <int HD, int BQ, int BK, bool SPLIT>
+__global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
+    flash_attention_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v, TcParams p) {
+  using L = TcLayout<HD, BQ, BK>;
+  constexpr int kWarpgroups = BQ / 64;
+  constexpr int kSlabs = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = q_full + 3;
+  uint64_t* empty = q_full + 5;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest q blocks first
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (p.h / p.kv);
+  const int offset = p.t - p.s;
+  const int q0 = qb * BQ;
+  const int q_last = min(q0 + BQ, p.s) - 1 + offset;  // largest q position here
+  const int n_kv = min((p.t + BK - 1) / BK, q_last / BK + 1);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kWarpgroups);  // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * kWarpgroups) {
+    // -- producer: Q once, then block j's K and V into stage j % 2 once the
+    // stage's last use (block j - 2) is released --
+    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * kWarpgroups && lane == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, L::kQBytes);
+      for (int i = 0; i < kSlabs; ++i)
+        hopper::tma_load_4d(smem + i * BQ * 128, &map_q, q_full, 64 * i, q0, head, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j & 1;
+        hopper::mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
+        unsigned char* ks = smem + L::kQBytes + s * L::kStage;
+        unsigned char* vs = ks + L::kKVBytes;
+        hopper::mbar_arrive_expect_tx(&k_full[s], L::kKVBytes);
+        for (int i = 0; i < kSlabs; ++i)
+          hopper::tma_load_4d(ks + i * BK * 128, &map_k, &k_full[s], 64 * i, j * BK, kvh, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], L::kKVBytes);
+        for (int i = 0; i < kSlabs; ++i)
+          hopper::tma_load_4d(vs + i * BK * 128, &map_v, &v_full[s], 64 * i, j * BK, kvh, b);
+      }
+    }
+  } else {
+    // -- consumers --
+    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume<HD, BQ, BK, SPLIT>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
+                               q0, head, b, offset, n_kv);
+  }
+}
+
+// The blocks the tensor-core route takes: bq, bk in {64, 128}, hd in {64,
+// 128, 256}, within one CTA's shared memory (which leaves hd 256 at bk 64).
+bool tc_ok(int hd, int bq, int bk) {
+  return (hd == 64 || hd == 128 || hd == 256) && (bq == 64 || bq == 128) &&
+         (bk == 64 || bk == 128) && tc_smem(hd, bq, bk) <= kMaxSmem;
+}
+
+// f(integral_constant<HD>, <BQ>, <BK>, bool_constant<SPLIT>) for a tc_ok shape.
+template <typename F>
+int tc_dispatch(int hd, int bq, int bk, int split, F&& f) {
+#define REMOP_FLASH_TC(HD, BQ, BK)                                                         \
+  if (hd == HD && bq == BQ && bk == BK)                                                    \
+    return split ? f(std::integral_constant<int, HD>{}, std::integral_constant<int, BQ>{}, \
+                     std::integral_constant<int, BK>{}, std::true_type{})                  \
+                 : f(std::integral_constant<int, HD>{}, std::integral_constant<int, BQ>{}, \
+                     std::integral_constant<int, BK>{}, std::false_type{});
+  REMOP_FLASH_TC(64, 64, 64)
+  REMOP_FLASH_TC(64, 64, 128)
+  REMOP_FLASH_TC(64, 128, 64)
+  REMOP_FLASH_TC(64, 128, 128)
+  REMOP_FLASH_TC(128, 64, 64)
+  REMOP_FLASH_TC(128, 64, 128)
+  REMOP_FLASH_TC(128, 128, 64)
+  REMOP_FLASH_TC(128, 128, 128)
+  REMOP_FLASH_TC(256, 64, 64)
+  REMOP_FLASH_TC(256, 128, 64)
+#undef REMOP_FLASH_TC
+  return cudaErrorInvalidValue;
+}
+
+template <int HD, int BQ, int BK, bool SPLIT>
+auto tc_kernel_for(cudaError_t* err) {
+  auto kernel = flash_attention_kernel_tc<HD, BQ, BK, SPLIT>;
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              TcLayout<HD, BQ, BK>::kSmem);
+  return kernel;
+}
+
+// TMA byte strides of dims 1..3 of a tensor with extents dims[0..3]
+// (innermost first) and element strides st[0..2] of dims 1..3.  A dim of
+// extent 1 is never stepped: its stride becomes the extent of the dims
+// inside it, which TMA takes whatever the tensor's own stride was.
+void tma_strides(const uint64_t (&dims)[4], const long long* st, uint64_t (&out)[3]) {
+  uint64_t extent = dims[0] * 2;
+  for (int i = 0; i < 3; ++i) {
+    out[i] = dims[i + 1] == 1 ? extent : uint64_t(st[i]) * 2;
+    extent = out[i] * dims[i + 1] > extent ? out[i] * dims[i + 1] : extent;
+  }
+}
+
+// What TMA takes: a 16-byte-aligned base and, for every dim of extent > 1,
+// a positive stride that is a multiple of 16 bytes (8 elements).
+bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* st) {
+  if (reinterpret_cast<uintptr_t>(base) % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] > 1 && (st[i] <= 0 || st[i] % 8)) return false;
+  return true;
+}
+
+// strides: q, k, v, o, each (batch, head, position), in elements.
+int launch_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
+              int b, int h, int kv, int s, int t, int hd, int bq, int bk, float scale, int split,
+              void* stream) {
+  if (b <= 0 || s <= 0) return cudaSuccess;
+  if (kv <= 0 || h % kv || t < s || !tc_ok(hd, bq, bk)) return cudaErrorInvalidValue;
+  const uint64_t dq[4] = {uint64_t(hd), uint64_t(s), uint64_t(h), uint64_t(b)};
+  const uint64_t dkv[4] = {uint64_t(hd), uint64_t(t), uint64_t(kv), uint64_t(b)};
+  // Each tensor's strides, innermost (position) first.
+  long long sq[3], sk[3], sv[3];
+  for (int i = 0; i < 3; ++i) {
+    sq[i] = strides[2 - i];
+    sk[i] = strides[5 - i];
+    sv[i] = strides[8 - i];
+  }
+  if (!tma_aligned(q, dq, sq) || !tma_aligned(k, dkv, sk) || !tma_aligned(v, dkv, sv) ||
+      reinterpret_cast<uintptr_t>(o) % 4 || strides[9] % 2 || strides[10] % 2 || strides[11] % 2)
+    return cudaErrorInvalidValue;
+  uint64_t bq_st[3], bk_st[3], bv_st[3];
+  tma_strides(dq, sq, bq_st);
+  tma_strides(dkv, sk, bk_st);
+  tma_strides(dkv, sv, bv_st);
+  CUtensorMap map_q{}, map_k{}, map_v{};
+  if (!hopper::encode_bf16_4d(&map_q, q, dq, bq_st, bq) ||
+      !hopper::encode_bf16_4d(&map_k, k, dkv, bk_st, bk) ||
+      !hopper::encode_bf16_4d(&map_v, v, dkv, bv_st, bk))
+    return cudaErrorNotSupported;
+  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((s + bq - 1) / bq, h, b);
+  return tc_dispatch(hd, bq, bk, split, [&](auto hd_c, auto bq_c, auto bk_c, auto split_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, BQ = decltype(bq_c)::value;
+    constexpr int BK = decltype(bk_c)::value;
+    cudaError_t err;
+    auto kernel = tc_kernel_for<HD, BQ, BK, decltype(split_c)::value>(&err);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, BQ / 64 * 128 + kProducerThreads, TcLayout<HD, BQ, BK>::kSmem, st>>>(
+        map_q, map_k, map_v, p);
+    return cudaGetLastError();
+  });
+}
+
+// out: CTAs resident on one SM (the occupancy calculator), registers a
+// thread, local (spilled) bytes a thread, dynamic shared memory, threads.
+int occupancy_tc(int hd, int bq, int bk, int split, int* out) {
+  if (!tc_ok(hd, bq, bk)) return cudaErrorInvalidValue;
+  return tc_dispatch(hd, bq, bk, split, [&](auto hd_c, auto bq_c, auto bk_c, auto split_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, BQ = decltype(bq_c)::value;
+    constexpr int BK = decltype(bk_c)::value;
+    cudaError_t err;
+    auto kernel = tc_kernel_for<HD, BQ, BK, decltype(split_c)::value>(&err);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    const int threads = BQ / 64 * 128 + kProducerThreads, smem = TcLayout<HD, BQ, BK>::kSmem;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
+    out[1] = attr.numRegs;
+    out[2] = int(attr.localSizeBytes);
+    out[3] = smem;
+    out[4] = threads;
+    return err;
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -279,6 +666,20 @@ int remop_flash_attention_f32(const void* q, const void* k, const void* v, void*
                               void* stream) {
   return dispatch<float>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale,
                          stream);
+}
+
+// bf16 on the tensor cores (hd 64, 128 or 256; bq, bk 64 or 128; TMA-aligned
+// q, k, v); split = 0 rounds P to bf16 once (a probe, not the main path).
+int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
+                             const long long* strides, int b, int h, int kv, int s, int t,
+                             int hd, int bq, int bk, float scale, int split, void* stream) {
+  return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, stream);
+}
+
+// Occupancy of the tensor-core instantiation these blocks launch, into
+// out[5] (see occupancy_tc above).
+int remop_flash_attention_tc_occupancy(int hd, int bq, int bk, int split, int* out) {
+  return occupancy_tc(hd, bq, bk, split, out);
 }
 
 const char* remop_flash_attention_error_string(int err) {

@@ -2,40 +2,59 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.cost_model import H100
 from repro_torch.kernels.flash_attention.flash_attention import (
     MAX_BLOCK,
+    SMEM_LIMIT,
+    TC_BLOCKS,
+    TC_HEAD_DIMS,
     flash_attention,
+    route,
     smem_bytes,
 )
 
 # Shared memory one CTA may use on an H100 (227 KB of the SM's 256 KB).
-HOPPER_SMEM_BYTES = H100.vmem_bytes
-# The TPU planner's candidates (128 .. 1024) scaled to what one CTA holds:
-# the accumulator of bq rows lives in registers, so bq and bk stop at 64.
-BLOCK_CANDIDATES = (16, 32, MAX_BLOCK)
+HOPPER_SMEM_BYTES = SMEM_LIMIT
+# The TPU planner's candidates (128 .. 1024) scaled to what one CTA holds,
+# per route: the CUDA-core kernel keeps bq rows of the accumulator in 256
+# threads' registers, so its blocks stop at 64; the tensor-core kernel
+# takes wgmma's 64 rows a warpgroup.
+BLOCK_CANDIDATES = {"simt": (16, 32, MAX_BLOCK), "tc": TC_BLOCKS}
 
 
+def default_route(hd: int, dtype_bytes: int) -> str:
+    """The route a TMA-aligned call of this head width and dtype takes."""
+    return "tc" if dtype_bytes == 2 and hd in TC_HEAD_DIMS else "simt"
+
+
+@functools.lru_cache(maxsize=None)
 def plan_blocks(s: int, t: int, hd: int, dtype_bytes: int = 2,
-                smem_budget: Optional[int] = None) -> Tuple[int, int]:
+                smem_budget: Optional[int] = None,
+                path: Optional[str] = None) -> Tuple[int, int]:
     """(bq, bk) minimizing KV staging rounds under the shared-memory budget.
 
     Rounds ~ ceil(S/bq) * ceil(T/bk) (each round stages one KV block); the
-    working set is :func:`smem_bytes`.  Ties keep the smaller blocks, as the
-    TPU planner's ascending scan does.  The kernel masks ragged ends, so
-    unlike the TPU planner no candidate has to divide S or T.
+    working set is :func:`smem_bytes` of ``path`` (by default the route an
+    aligned call of this ``hd`` and dtype takes), over that route's
+    candidates.  Ties keep the smaller blocks, as the TPU planner's
+    ascending scan does; when nothing fits, the smallest.  The kernels mask
+    ragged ends, so unlike the TPU planner no candidate has to divide S or T.
+    Plans depend on the arguments alone and are memoised (a prefill plans
+    once per layer).
     """
     smem_budget = smem_budget or HOPPER_SMEM_BYTES
-    best = (BLOCK_CANDIDATES[0], BLOCK_CANDIDATES[0])
+    path = path or default_route(hd, dtype_bytes)
+    candidates = BLOCK_CANDIDATES[path]
+    best = (candidates[0], candidates[0])
     best_rounds = math.inf
-    for bq in BLOCK_CANDIDATES:
-        for bk in BLOCK_CANDIDATES:
-            if smem_bytes(bq, bk, hd, dtype_bytes) > smem_budget:
+    for bq in candidates:
+        for bk in candidates:
+            if smem_bytes(bq, bk, hd, dtype_bytes, path) > smem_budget:
                 continue
             rounds = math.ceil(s / bq) * math.ceil(t / bk)
             if rounds < best_rounds:
@@ -47,10 +66,17 @@ def plan_blocks(s: int, t: int, hd: int, dtype_bytes: int = 2,
 def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bq: Optional[int] = None,
                           bk: Optional[int] = None) -> torch.Tensor:
-    """q: [B, H, S, hd]; k/v: [B, KV, T, hd]; causal with offset T - S."""
+    """q: [B, H, S, hd]; k/v: [B, KV, T, hd]; causal with offset T - S.
+
+    Blocks not given are planned for the route the call takes; on the
+    CUDA-core route they are cut to S and T (its threads cover bq x bk).
+    """
     s, hd = q.shape[2], q.shape[3]
     t = k.shape[2]
+    path = route(q, k, v)
     if bq is None or bk is None:
-        pbq, pbk = plan_blocks(s, t, hd, q.element_size())
+        pbq, pbk = plan_blocks(s, t, hd, q.element_size(), path=path)
         bq, bk = bq or pbq, bk or pbk
-    return flash_attention(q, k, v, bq=min(bq, s), bk=min(bk, t))
+    if path == "simt":
+        bq, bk = min(bq, s), min(bk, t)
+    return flash_attention(q, k, v, bq=bq, bk=bk)

@@ -21,10 +21,10 @@ from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_r
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, MAX_BLOCK, flash_attention, smem_bytes,
+    HEAD_DIMS, MAX_BLOCK, TC_HEAD_DIMS, flash_attention, route, smem_bytes,
 )
 from repro_torch.kernels.flash_attention.ops import (
-    BLOCK_CANDIDATES, HOPPER_SMEM_BYTES, plan_blocks, remop_flash_attention,
+    BLOCK_CANDIDATES, HOPPER_SMEM_BYTES, default_route, plan_blocks, remop_flash_attention,
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import remop_paged_attention
@@ -96,28 +96,46 @@ def test_flash_attention_ragged_lengths_match_ref(shape, dtype):
 
 
 def test_flash_attention_block_size_invariance():
+    # The CUDA-core route (f32): any bq, bk in [1, 64].
     (jq, jk, jv), (q, k, v) = _pair(_qkv(0, 1, 2, 2, 128, 128, 32), "float32")
+    assert route(q, k, v) == "simt"
     want = jax_flash(jq, jk, jv, bq=128, bk=128)
     for bq, bk in ((16, 16), (32, 64), (64, 64), (64, 24), (7, 50)):
         _close(flash_attention(q, k, v, bq=bq, bk=bk), want, 2e-5)
     for bq, bk in ((16, 16), (32, 64)):
         _close(flash_attention(q, k, v, bq=bq, bk=bk), jax_flash(jq, jk, jv, bq=bq, bk=bk), 2e-5)
+    # The tensor-core route (bf16, hd 64): bq, bk in wgmma's 64 rows.
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(1, 1, 2, 2, 256, 256, 64), "bfloat16")
+    assert route(q, k, v) == "tc"
+    for bq, bk in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        _close(flash_attention(q, k, v, bq=bq, bk=bk), jax_flash(jq, jk, jv, bq=bq, bk=bk),
+               DTYPES["bfloat16"][2])
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
 def test_plan_blocks_fits_hopper_shared_memory(hd, dtype_bytes):
+    # bf16 at hd 64 / 128 / 256 plans for the tensor-core route, the rest for
+    # the CUDA-core route; each within its own working set.
+    path = default_route(hd, dtype_bytes)
+    assert path == ("tc" if dtype_bytes == 2 and hd in TC_HEAD_DIMS else "simt")
+    cands = BLOCK_CANDIDATES[path]
     for s, t in ((32768, 32768), (2048, 2048), (777, 777), (1, 4096), (16, 16)):
         bq, bk = plan_blocks(s, t, hd, dtype_bytes)
-        assert bq in BLOCK_CANDIDATES and bk in BLOCK_CANDIDATES
-        assert smem_bytes(bq, bk, hd, dtype_bytes) <= HOPPER_SMEM_BYTES == 232_448
-    # Long sequences take the largest blocks: fewest staging rounds.
-    assert plan_blocks(2048, 2048, hd, dtype_bytes) == (MAX_BLOCK, MAX_BLOCK)
+        assert bq in cands and bk in cands
+        assert smem_bytes(bq, bk, hd, dtype_bytes, path) <= HOPPER_SMEM_BYTES == 232_448
+    # Long sequences take the largest blocks that fit: fewest staging rounds.
+    fits = [(bq, bk) for bq in cands for bk in cands
+            if smem_bytes(bq, bk, hd, dtype_bytes, path) <= HOPPER_SMEM_BYTES]
+    assert plan_blocks(2048, 2048, hd, dtype_bytes) == max(fits, key=lambda x: (x[0] * x[1], x))
+    if path == "simt":
+        assert plan_blocks(2048, 2048, hd, dtype_bytes) == (MAX_BLOCK, MAX_BLOCK)
     # A tight budget trades block size for fit; nothing fits -> smallest.
-    small = smem_bytes(32, 32, hd, dtype_bytes)
+    lo = cands[0] if path == "tc" else 32
+    small = smem_bytes(lo, lo, hd, dtype_bytes, path)
     bq, bk = plan_blocks(2048, 2048, hd, dtype_bytes, smem_budget=small)
-    assert smem_bytes(bq, bk, hd, dtype_bytes) <= small and bq * bk == 32 * 32
-    assert plan_blocks(2048, 2048, hd, dtype_bytes, smem_budget=1) == (16, 16)
+    assert smem_bytes(bq, bk, hd, dtype_bytes, path) <= small and bq * bk == lo * lo
+    assert plan_blocks(2048, 2048, hd, dtype_bytes, smem_budget=1) == (cands[0], cands[0])
 
 
 def test_flash_attention_checks_its_inputs():
