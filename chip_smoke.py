@@ -12,15 +12,20 @@ Phases, each printing JSON objects, one per line:
    limit from ``nvidia-smi``;
 2. kernels: hold every kernel against its plain PyTorch version on the card
    (the sort and gather kernels bit for bit, the attention kernels within
-   ``ATTN_TOL``, which must also reject two planted faults; the flash kernel
+   ``ATTN_TOL``, which must also reject three planted faults; the flash kernel
    on both routes, each check printing the route it took: bf16 at hd 64,
    128 and 256 on the tensor cores, at gemma-2b's, qwen3-0.6b's and
    granite-20b's widths and a ragged hd-64 prefill, f32 and bf16 hd 32 on
-   the CUDA cores; the paged kernel also at granite-20b's 48 query heads on
-   one KV head), print the registers and spills of every tensor-core flash
-   instantiation, and time kernel, plain version and the PyTorch library
-   call that computes the same function with CUDA events (the flash kernel
-   also at qwen3-0.6b's widths, and with P rounded once to bf16, a probe);
+   the CUDA cores; the split paged kernel at gemma-2b's decode shape at
+   lengths 1, S, mid-chunk and ragged, at granite-20b's 48 query heads on
+   one KV head, and in f32, against its plain version at the same split
+   plan, which must also reject a ragged last page skipped and a middle
+   chunk dropped), print the registers and spills of every tensor-core
+   flash and every paged instantiation, and time kernel, plain version and
+   the PyTorch library call that computes the same function with CUDA
+   events (the flash kernel also at qwen3-0.6b's widths, and with P rounded
+   once to bf16, a probe; the paged kernel and SDPA also by device time
+   from a profiler window);
 3. session: drive the spill engine's main path, ``Session(make_backend(...))
    .run(tasks)``, at a TPC-H SF1-shaped size (EMS over ``l_orderkey``, EHJ of
    orders with lineitem, EAGG of lineitem by key), with the launch counters
@@ -245,6 +250,33 @@ class Bench:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def device_ms(self, fn, reps: int = 50) -> dict:
+        """Device milliseconds a call: the device events of ``reps`` calls in
+        one profiler window, L2 flushed before each (the flush's own kernels,
+        found by name in a window of flushes alone, are left out), and the
+        device events a call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        for _ in range(self.warmup):
+            fn()
+
+        def window(call):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    call()
+                torch.cuda.synchronize()
+            return {e.key: e for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)}
+
+        flush_keys = set(window(lambda: None))
+        events = {k: e for k, e in window(fn).items() if k not in flush_keys}
+        return {"device_ms": sum(e.self_device_time_total for e in events.values()) / reps / 1e3,
+                "device_events_per_call": sum(e.count for e in events.values()) / reps}
+
 
 def max_abs_err(torch, got, want) -> float:
     check(got.dtype == want.dtype and got.shape == want.shape,
@@ -450,6 +482,7 @@ def phase_attention(torch, device):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_attention.ops import plan_blocks, remop_flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention.paged_attention import (
         paged_attention, paged_attention_plain)
 
@@ -505,6 +538,10 @@ def phase_attention(torch, device):
             (1, 1, 8, 256, 4096, (2077,), torch.bfloat16),  # gemma-2b decode
             (1, 1, 8, 256, 4096, (1,), torch.bfloat16),
             (1, 1, 8, 256, 4096, (4096,), torch.bfloat16),
+            # Lengths that end mid-chunk: 132 splits of 32, 16 and 16 positions.
+            (1, 1, 8, 256, 4096, (4095,), torch.bfloat16),
+            (1, 1, 8, 256, 4096, (33,), torch.bfloat16),
+            (1, 1, 8, 256, 4096, (2049,), torch.bfloat16),
             (1, 1, 48, 128, 4096, (2077,), torch.bfloat16),  # granite-20b decode
             (1, 1, 48, 128, 4096, (4096,), torch.bfloat16),
             (4, 8, 2, 128, 4096, (1, 1000, 2049, 4096), torch.float32)):
@@ -514,8 +551,14 @@ def phase_attention(torch, device):
         err, rel = allclose(torch, ["paged_attention"], paged_attention(q, kc, vc, ln),
                             paged_attention_plain(q, kc, vc, ln), errs)
         emit({"phase": "kernels", "check": "paged_attention", "shape": [b, kv, g, hd, s],
-              "lengths": list(lengths), "dtype": str(dtype), "tol": ATTN_TOL[str(dtype)],
-              "max_abs_err": err, "rel_err": rel})
+              "lengths": list(lengths), "dtype": str(dtype), "plan": pa.plan(b, kv, g, s),
+              "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel})
+    # Registers, local (spilled) bytes, shared memory and resident CTAs of
+    # every split-kernel instantiation at 8, 48 and 64 heads a CTA.
+    emit({"phase": "kernels", "paged_attention_instantiations": {
+        f"{str(dtype)[6:]} hd {hd} gc {gc}": pa.attributes(dtype, hd, gc)
+        for dtype in (torch.bfloat16, torch.float32) for hd in pa.HEAD_DIMS
+        for gc in (8, 48, 64)}})
 
     # -- planted faults, made with the kernels, that the rule must reject ------
     # A paged kernel that skips the ragged last page of 2077 positions is the
@@ -528,6 +571,14 @@ def phase_attention(torch, device):
     ln = torch.tensor([2077], dtype=torch.int32, device=device)
     reject_fault(torch, "paged_attention", "skips the ragged last page of 2077 positions",
                  paged_attention(q, kc, vc, ln - 29), paged_attention_plain(q, kc, vc, ln))
+    # A split kernel that loses one chunk's partial is the kernel on the cache
+    # with that chunk's positions cut out.
+    c = pa.chunk_len(2077, pa.plan(1, 1, 8, 4096)[0])
+    a = 1024 // c * c
+    k_cut, v_cut = (torch.cat([x[:, :a], x[:, a + c:]], dim=1) for x in (kc, vc))
+    reject_fault(torch, "paged_attention",
+                 f"drops the chunk {a}..{a + c - 1} of 2077 positions",
+                 paged_attention(q, k_cut, v_cut, ln - c), paged_attention_plain(q, kc, vc, ln))
     a, s = 1024, 2048
     q = randn(1, 8, s, 256, dtype=torch.bfloat16)
     k, v = (randn(1, 1, s, 256, dtype=torch.bfloat16) for _ in range(2))
@@ -582,37 +633,40 @@ def phase_attention(torch, device):
               q, k, v, is_causal=True, enable_gqa=True)),
           "bound_ms": ms_bound, "bound_by": by})
 
-    b, kv, g, hd, s, length = 1, 1, 8, 256, 4096, 2048
-    q = randn(b, kv, g, hd, dtype=torch.bfloat16)
-    kc, vc = randn(b, s, kv, hd, dtype=torch.bfloat16), randn(b, s, kv, hd, dtype=torch.bfloat16)
+    # Decode at gemma-2b's (8 query heads on one KV head of 256, the kernels
+    # line's row) and granite-20b's (48 on one of 128) widths.  ms: CUDA events
+    # around one call, which at this size mostly read the wrapper's host time;
+    # device_ms: the device events of a profiler window of calls.
+    b, kv, s, length = 1, 1, 4096, 2048
     ln = torch.full((b,), length, dtype=torch.int32, device=device)
     mask = (torch.arange(s, device=device) < length)[None, None, None, :]
-    ms_bound, by = bound((2 * length * kv * hd + 2 * kv * g * hd) * 2 * b,
-                         4 * hd * length * kv * g * b, BF16_OPS_PER_S)
-    rows["paged_attention"] = dict(
-        shape=f"q [{b},{kv},{g},{hd}], caches [{b},{s},{kv},{hd}] bf16, length {length}",
-        ms=bench.ms(lambda: paged_attention(q, kc, vc, ln)),
-        plain_ms=bench.ms(lambda: paged_attention_plain(q, kc, vc, ln)),
-        library_ms=bench.ms(lambda: F.scaled_dot_product_attention(
-            q.reshape(b, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)),
-        bound_ms=ms_bound, bound_by=by)
-    for name, row in rows.items():
+    paged_rows = {}
+    for name, g, hd in (("paged_attention", 8, 256), ("paged_attention granite-20b", 48, 128)):
+        q = randn(b, kv, g, hd, dtype=torch.bfloat16)
+        kc, vc = (randn(b, s, kv, hd, dtype=torch.bfloat16) for _ in range(2))
+        ms_bound, by = bound((2 * length * kv * hd + 2 * kv * g * hd) * 2 * b,
+                             4 * hd * length * kv * g * b, BF16_OPS_PER_S)
+
+        def kernel(q=q, kc=kc, vc=vc):
+            return paged_attention(q, kc, vc, ln)
+
+        def sdpa(q=q, kc=kc, vc=vc, g=g, hd=hd):
+            return F.scaled_dot_product_attention(
+                q.reshape(b, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        paged_rows[name] = dict(
+            shape=f"q [{b},{kv},{g},{hd}], caches [{b},{s},{kv},{hd}] bf16, length {length}, "
+                  f"plan {pa.plan(b, kv, g, s)}",
+            ms=bench.ms(kernel),
+            plain_ms=bench.ms(lambda q=q, kc=kc, vc=vc: paged_attention_plain(q, kc, vc, ln)),
+            library_ms=bench.ms(sdpa),
+            bound_ms=ms_bound, bound_by=by,
+            **bench.device_ms(kernel),
+            **{f"library_{k}": v for k, v in bench.device_ms(sdpa).items()})
+    rows["paged_attention"] = paged_rows["paged_attention"]
+    for name, row in {**rows, **paged_rows}.items():
         emit({"phase": "kernels", "timing": name, **row})
-    # granite-20b's decode shape: 48 query heads on one KV head of 128, 6 CTAs.
-    b, kv, g, hd = 1, 1, 48, 128
-    q = randn(b, kv, g, hd, dtype=torch.bfloat16)
-    kc, vc = randn(b, s, kv, hd, dtype=torch.bfloat16), randn(b, s, kv, hd, dtype=torch.bfloat16)
-    ms_bound, by = bound((2 * length * kv * hd + 2 * kv * g * hd) * 2 * b,
-                         4 * hd * length * kv * g * b, BF16_OPS_PER_S)
-    emit({"phase": "kernels", "timing": "paged_attention granite-20b",
-          "shape": f"q [{b},{kv},{g},{hd}], caches [{b},{s},{kv},{hd}] bf16, length {length}",
-          "ms": bench.ms(lambda: paged_attention(q, kc, vc, ln)),
-          "plain_ms": bench.ms(lambda: paged_attention_plain(q, kc, vc, ln)),
-          "library_ms": bench.ms(lambda: F.scaled_dot_product_attention(
-              q.reshape(b, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2),
-              attn_mask=mask, enable_gqa=True)),
-          "bound_ms": ms_bound, "bound_by": by})
     del bench
     return errs, rows
 

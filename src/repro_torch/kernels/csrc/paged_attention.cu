@@ -1,43 +1,78 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a), split over the positions
+// ("flash-decoding").
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/paged_attention.py:65
 // (paged_attention): q [B, KV, G, hd], k/v cache [B, S, KV, hd], lengths [B];
-// the cache is walked one page of `page` positions at a time with an online
-// f32 softmax, positions >= lengths[b] masked, output in q's dtype.
+// scores q.k^T / sqrt(hd) in f32 with positions >= lengths[b] masked, an f32
+// softmax, p @ v in f32, output in q's dtype.
 //
-// One CTA per (KV head, batch, group of up to kMaxGroup query heads): the
-// TPU kernel's grid step serves all G query heads of a KV head; here G is
-// split over ceil(G / kMaxGroup) CTAs, each holding at most kMaxGroup heads
-// in registers and walking the same pages.  Any G is taken (granite-20b:
-// 48 heads on one KV head, 6 CTAs); the split keeps a thread's accumulators
-// at kMaxGroup x hd / 32 and gives a wide group more SMs, at the price of
-// reading the K and V rows once per CTA (from L2 after the first).  Pages past ceil(lengths[b] / page) are
-// skipped: they are fully masked, so the result is the same.  Per page:
-//   1. scores: warp w takes positions w, w + 8, ...; each lane holds hd / 32
-//      elements of the K row (one 16-byte load at hd = 256 in bf16) and the
-//      G dot products are reduced across the warp;
-//   2. softmax: warp g updates (m, l) of query head g over the page and
-//      leaves exp(s - m) and the correction factor in shared memory;
-//   3. values: warp w rescales its partial accumulator (G x hd / 32 floats
-//      in each lane's registers) and adds p * V for its positions.
-// At the end the eight warps' partial sums are added in a fixed order, so
-// the result does not depend on timing.  lengths[b] must lie in [1, S].
+// What bounds it on this card: the bytes, the K and V rows up to lengths[b]
+// (2 MiB at gemma-2b's decode, 0.6 us at 3.35 TB/s).  Decode reads each K/V
+// byte for G query rows only (8-48 flop a byte), far below the tensor cores'
+// balance point, so the kernel runs on the CUDA cores and its design is about
+// parallelism and loads in flight:
 //
-// What bounds it on this card: the bytes, the K and V rows up to lengths[b].
-// This version reads them with one CTA per (batch, KV head, group of up to
-// 8 query heads), which at gemma-2b's single KV head of 8 query heads is
-// one SM of the 132; splitting the pages over CTAs (flash-decoding) is the
-// next step.
+// 1. Split.  The grid is (splits, KV * ceil(G / gc), B).  The host plans
+//    `splits` from the shape so that the CTAs fill the card's 132 SMs; each
+//    CTA derives its chunk of positions on the device from lengths[b]:
+//        c = round_up(ceil(max(len, 1) / splits), 16),
+//        chunk i = [min(i c, len), min((i + 1) c, len)),
+//    so the host never reads lengths.  A CTA whose chunk is empty returns at
+//    once; the combine skips it by the same rule.  gc, the query heads one
+//    CTA holds, is min(G, kMaxGroup): all G heads of a KV head share the
+//    CTA's K/V rows, so each row is read once (granite-20b's 48 heads: one
+//    group).
+// 2. Loads in flight.  A CTA first copies its q rows (cp.async, before it
+//    reads lengths[b]), then walks its chunk in tiles of kTile = 32
+//    positions through a two-stage ring in shared memory: every row of a
+//    tile is one group of 16-byte cp.async copies issued before the CTA
+//    computes on the tile before it.  At the serving shapes a chunk is one
+//    tile (16 or 32 positions), so the CTA's whole chunk is in flight at
+//    once.  Rows are padded by 16 bytes, which keeps the reads below free of
+//    bank conflicts.
+// 3. Fewer reductions, short chains.  At these sizes a CTA's time is the
+//    latency of its dependent steps, not its bytes or flops, so each phase
+//    is cut to short independent chains without branches:
+//    - scores: eight lanes share a position, each holding an eighth of its
+//      K row in registers; a lane takes its partial dot products with all
+//      the CTA's heads (independent FMA chains), and one 3-step shuffle per
+//      head sums the eight (not 5 shuffles over 32 lanes);
+//    - softmax: one warp max and one warp sum per (head, tile) update the
+//      head's running (m, l) in shared memory;
+//    - p @ v: thread (16-byte word of the row, head slot) holds NH heads'
+//      f32 accumulators for that word, NH a template argument chosen at
+//      launch from gc, so the row loop has no branches.
+// 4. Combine in a fixed order.  Each live CTA writes, per head, its partial
+//    (acc[hd], m, l) to an f32 scratch buffer the wrapper allocates; the
+//    second kernel merges the partials of one (batch, KV head, query head)
+//    and 64 columns per CTA: m = max m_i, w_i = exp(m_i - m), l = sum l_i w_i,
+//    o = sum acc_i w_i / max(l, 1e-30), every sum in an order fixed by the
+//    thread layout, so the result does not depend on timing.
+//
+// Every __global__ here keeps "paged_attention_kernel" in its name: the
+// serving breakdown finds the attention kernels' device time by that name.
+// lengths[b] is read as min(lengths[b], S); it must lie in [1, S].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;  // query heads one CTA holds
+constexpr int kTile = 32;       // positions per tile: one per lane
+constexpr int kStages = 2;      // tiles of the ring
+constexpr int kMaxGroup = 64;   // query heads one CTA holds
+constexpr int kMinChunk = 16;   // chunks are multiples of 16 positions
+constexpr int kMaxSplits = 1024;
+constexpr int kPStride = kTile + 1;  // p_s row stride, padded against bank conflicts
+constexpr int kCombineThreads = 256;
+constexpr int kCombineCols = 64;  // output columns a combine CTA merges
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -63,193 +98,453 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// N consecutive elements as floats, in 16-byte loads where N elements fill
-// whole 16-byte words (the wrapper checks the base pointers' alignment).
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* src, float (&dst)[N]) {
-  constexpr int kBytes = N * int(sizeof(T));
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPerWord = 16 / int(sizeof(T));
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The chunk length for a row of `len` valid positions over `splits` CTAs.
+__host__ __device__ __forceinline__ int chunk_len(int len, int splits) {
+  const int c = ((len > 1 ? len : 1) + splits - 1) / splits;
+  return (c + kMinChunk - 1) / kMinChunk * kMinChunk;
+}
+
+// One 16-byte word of a row, as floats.
+template <typename T>
+struct Word {
+  static constexpr int kVec = 16 / int(sizeof(T));
+  float x[kVec];
+  __device__ __forceinline__ explicit Word(const void* p) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int w = 0; w < kBytes / 16; ++w) {
-      const uint4 word = reinterpret_cast<const uint4*>(src)[w];
-      const T* e = reinterpret_cast<const T*>(&word);
-#pragma unroll
-      for (int i = 0; i < kPerWord; ++i) dst[w * kPerWord + i] = to_f32(e[i]);
+    for (int i = 0; i < kVec; ++i) x[i] = to_f32(e[i]);
+  }
+};
+
+template <typename T, int HD>
+struct Layout {
+  static constexpr int kVec = 16 / int(sizeof(T));   // elements per 16-byte word
+  static constexpr int kWords = HD / kVec;           // 16-byte words per row
+  static constexpr int kRowBytes = HD * int(sizeof(T)) + 16;  // padded row
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kRingBytes = kStages * 2 * kTileBytes;  // K and V
+  // p @ v: thread (word, head slot); slot ps holds heads ps, ps + kSlots, ...
+  // (NH of them, a template argument chosen at launch, at most kMaxNh).
+  static constexpr int kSlots = kThreads / kWords;
+  static constexpr int kMaxNh = (kMaxGroup + kSlots - 1) / kSlots;
+  // Scores: kSlices lanes share a position, lane slice r holding row words
+  // r, r + kSlices, ...: kSliceWords words, kSliceWords * kVec elements.
+  static constexpr int kSlices = kWords < 8 ? kWords : 8;
+  static constexpr int kSliceWords = kWords / kSlices;
+  static constexpr int kSlicePos = 32 / kSlices;  // positions a warp holds
+  // bf16 q is staged as loaded, then widened; f32 q is copied in place.
+  __host__ __device__ static size_t q_raw_bytes(int gc) {
+    return sizeof(T) == 2 ? size_t(gc) * HD * 2 : 0;
+  }
+  static size_t smem(int gc) {
+    return size_t(kRingBytes) + q_raw_bytes(gc) +
+           sizeof(float) * (size_t(gc) * HD + size_t(gc) * kPStride + 3 * size_t(gc));
+  }
+};
+
+template <typename T, int HD, int NH>
+__global__ void __launch_bounds__(kThreads, 1)
+    paged_attention_kernel_split(const T* __restrict__ q, const T* __restrict__ kc,
+                                 const T* __restrict__ vc, const int32_t* __restrict__ lengths,
+                                 float* __restrict__ part_acc, float* __restrict__ part_ml,
+                                 int kv, int g, int s, int splits, int gc, float scale) {
+  using L = Layout<T, HD>;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int groups = (g + gc - 1) / gc;
+  const int h = blockIdx.y / groups, g0 = (blockIdx.y % groups) * gc;
+  const int gn = min(gc, g - g0);  // query heads of this CTA
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;  // [stage][K, V][kTile][kRowBytes]
+  // q as f32, each head's float4s ordered so that the kSlices lanes of a
+  // position read consecutive float4s: word w = r + kSlices * i of a row
+  // goes to float4s (i * kVec / 4 + half) * kSlices + r (in order for f32).
+  float* q_s = reinterpret_cast<float*>(smem + L::kRingBytes);  // [gc][HD]
+  unsigned char* q_raw = reinterpret_cast<unsigned char*>(q_s + gc * HD);
+  float* p_s = reinterpret_cast<float*>(q_raw + L::q_raw_bytes(gc));  // [gc][kPStride]
+  float* c_s = p_s + gc * kPStride;  // [gc] this tile's correction factors
+  float* m_s = c_s + gc;             // [gc] running max
+  float* l_s = m_s + gc;             // [gc] running sum
+
+  // q first: it does not wait for lengths[b].
+  const int64_t head0 = ((int64_t(b) * kv + h) * g + g0) * HD;
+  for (int word = tid; word < gn * L::kWords; word += kThreads)
+    cp_async_16(sizeof(T) == 4 ? static_cast<void*>(q_s + word * L::kVec)
+                               : static_cast<void*>(q_raw + word * 16),
+                q + head0 + int64_t(word) * L::kVec);
+  cp_async_commit();
+
+  const int len = min(lengths[b], s);
+  const int c = chunk_len(len, splits);
+  const int lo = min(split * c, len), hi = min(lo + c, len);
+  if (lo >= hi) {  // empty chunk: the combine skips it
+    cp_async_wait<0>();
+    return;
+  }
+
+  const int64_t pos_stride = int64_t(kv) * HD;
+  const T* kb = kc + (int64_t(b) * s * kv + h) * HD;
+  const T* vb = vc + (int64_t(b) * s * kv + h) * HD;
+  auto issue = [&](int t0, int stage) {
+    const int rows = min(kTile, hi - t0);
+    unsigned char* kd = ring + stage * 2 * L::kTileBytes;
+    unsigned char* vd = kd + L::kTileBytes;
+    for (int i = tid; i < rows * L::kWords; i += kThreads) {
+      const int r = i / L::kWords, w = i % L::kWords;
+      const int64_t off = int64_t(t0 + r) * pos_stride + w * L::kVec;
+      cp_async_16(kd + r * L::kRowBytes + w * 16, kb + off);
+      cp_async_16(vd + r * L::kRowBytes + w * 16, vb + off);
     }
-  } else {
+    cp_async_commit();
+  };
+  issue(lo, 0);
+
+  for (int i = tid; i < gn; i += kThreads) {
+    m_s[i] = kNegInf;
+    l_s[i] = 0.f;
+  }
+  if constexpr (sizeof(T) == 2) {  // widen q once its group is in
+    cp_async_wait<1>();
+    __syncthreads();
+    for (int word = tid; word < gn * L::kWords; word += kThreads) {
+      const int hh = word / L::kWords, w = word % L::kWords;
+      const int r = w % L::kSlices, i = w / L::kSlices;
+      const Word<T> qw(q_raw + word * 16);
+      float4* dst = reinterpret_cast<float4*>(q_s + hh * HD);
 #pragma unroll
-    for (int i = 0; i < N; ++i) dst[i] = to_f32(src[i]);
+      for (int half = 0; half < L::kVec / 4; ++half)
+        dst[(i * (L::kVec / 4) + half) * L::kSlices + r] =
+            make_float4(qw.x[4 * half], qw.x[4 * half + 1], qw.x[4 * half + 2],
+                        qw.x[4 * half + 3]);
+    }
+  }
+
+  // p @ v accumulators: thread (word pw, slot ps) holds heads ps + kSlots * j;
+  // a head past gn reads head gn - 1's p and is never stored.
+  const int pw = tid % L::kWords, ps = tid / L::kWords;
+  int p_row[NH];
+  float acc[NH][L::kVec];
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    p_row[j] = min(ps + L::kSlots * j, gn - 1) * kPStride;
+#pragma unroll
+    for (int e = 0; e < L::kVec; ++e) acc[j][e] = 0.f;
+  }
+  // Scores: position sp of the tile, lane slice sr.
+  const int sp = warp * L::kSlicePos + lane / L::kSlices, sr = lane % L::kSlices;
+  const int sp_row = min(sp, kTile - 1);
+
+  const int n_tiles = (hi - lo + kTile - 1) / kTile;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int t0 = lo + tile * kTile, stage = tile % kStages;
+    if (tile + 1 < n_tiles) {
+      issue(t0 + kTile, (tile + 1) % kStages);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's rows (and, at the first, q_s, m_s, l_s) are in
+    const int tn = min(kTile, hi - t0);
+    const unsigned char* kt = ring + stage * 2 * L::kTileBytes;
+    const unsigned char* vt = kt + L::kTileBytes;
+
+    // Scores: the slice's K words in registers, eight heads at a time, one
+    // 3-step reduction over the slices per head.  Rows past tn hold stale
+    // bytes; their scores are replaced by the mask, never used.
+    {
+      float kf[L::kSliceWords][L::kVec];
+#pragma unroll
+      for (int i = 0; i < L::kSliceWords; ++i) {
+        const Word<T> kw(kt + sp_row * L::kRowBytes + (sr + L::kSlices * i) * 16);
+#pragma unroll
+        for (int e = 0; e < L::kVec; ++e) kf[i][e] = kw.x[e];
+      }
+      const bool valid = sp < tn, writes = sr == 0 && sp < kTile;
+      for (int h0 = 0; h0 < gn; h0 += 8) {
+        float sc[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float4* qr =
+              reinterpret_cast<const float4*>(q_s + min(h0 + jj, gn - 1) * HD) + sr;
+          sc[jj] = 0.f;
+#pragma unroll
+          for (int i = 0; i < L::kSliceWords; ++i) {
+#pragma unroll
+            for (int half = 0; half < L::kVec / 4; ++half) {
+              const float4 qv = qr[(i * (L::kVec / 4) + half) * L::kSlices];
+              sc[jj] = fmaf(qv.x, kf[i][4 * half], sc[jj]);
+              sc[jj] = fmaf(qv.y, kf[i][4 * half + 1], sc[jj]);
+              sc[jj] = fmaf(qv.z, kf[i][4 * half + 2], sc[jj]);
+              sc[jj] = fmaf(qv.w, kf[i][4 * half + 3], sc[jj]);
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int o = L::kSlices / 2; o > 0; o >>= 1)
+            sc[jj] += __shfl_xor_sync(0xffffffffu, sc[jj], o);
+          if (writes && h0 + jj < gn)
+            p_s[(h0 + jj) * kPStride + sp] = valid ? sc[jj] * scale : kNegInf;
+        }
+      }
+    }
+    __syncthreads();
+
+    // The online softmax: warp w takes heads w, w + kWarps, ...; lane = position.
+#pragma unroll 2
+    for (int hh = warp; hh < gn; hh += kWarps) {
+      const float x = p_s[hh * kPStride + lane];
+      const float m_prev = m_s[hh];
+      const float m_new = fmaxf(m_prev, warp_max(x));
+      const float p = lane < tn ? expf(x - m_new) : 0.f;
+      const float corr = expf(m_prev - m_new);
+      const float sum = warp_sum(p);
+      p_s[hh * kPStride + lane] = p;
+      if (lane == 0) {
+        l_s[hh] = l_s[hh] * corr + sum;
+        m_s[hh] = m_new;
+        c_s[hh] = corr;
+      }
+    }
+    __syncthreads();
+
+    // p @ v over the tile's valid rows, no branches inside.
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      const float corr = c_s[p_row[j] / kPStride];
+#pragma unroll
+      for (int e = 0; e < L::kVec; ++e) acc[j][e] *= corr;
+    }
+#pragma unroll 4
+    for (int t = 0; t < tn; ++t) {
+      const Word<T> vw(vt + t * L::kRowBytes + pw * 16);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const float p = p_s[p_row[j] + t];
+#pragma unroll
+        for (int e = 0; e < L::kVec; ++e) acc[j][e] = fmaf(p, vw.x[e], acc[j][e]);
+      }
+    }
+    __syncthreads();  // the stage, p_s and c_s are rewritten by later tiles
+  }
+
+  // Partials of row (b, h, g0 + hh), split `split`: acc [rows][splits][HD],
+  // (m, l) [rows][splits][2].
+  const int64_t row0 = (int64_t(b) * kv + h) * g + g0;
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    const int hh = ps + L::kSlots * j;
+    if (hh < gn) {
+      float4* dst = reinterpret_cast<float4*>(
+          part_acc + ((row0 + hh) * splits + split) * HD + pw * L::kVec);
+#pragma unroll
+      for (int e4 = 0; e4 < L::kVec / 4; ++e4)
+        dst[e4] = make_float4(acc[j][4 * e4], acc[j][4 * e4 + 1], acc[j][4 * e4 + 2],
+                              acc[j][4 * e4 + 3]);
+    }
+  }
+  for (int hh = tid; hh < gn; hh += kThreads) {
+    float* dst = part_ml + ((row0 + hh) * splits + split) * 2;
+    dst[0] = m_s[hh];
+    dst[1] = l_s[hh];
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                           const T* __restrict__ vc, const int32_t* __restrict__ lengths,
-                           T* __restrict__ out, int kv, int g_all, int s, int page,
-                           float scale) {
-  constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // row elements per lane
-  constexpr int LANES = HD / EPL;              // lanes that hold a row
-  // This CTA's query heads: [g0, g0 + g) of the G = g_all of KV head h.
-  const int g0 = blockIdx.z * kMaxGroup;
-  const int g = min(kMaxGroup, g_all - g0);
-  extern __shared__ __align__(16) float sm[];
-  float* q_s = sm;                 // [g][HD]
-  float* acc_s = q_s + g * HD;     // [g][HD]
-  float* p_s = acc_s + g * HD;     // [g][page]
-  float* m_s = p_s + g * page;     // [g]
-  float* l_s = m_s + g;            // [g]
-  float* c_s = l_s + g;            // [g]
-
-  const int h = blockIdx.x, b = blockIdx.y;
+// One CTA per (output row (b, KV head, query head), block of 64 columns):
+// merges the live splits' partials in split order.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+    paged_attention_kernel_combine(const float* __restrict__ part_acc,
+                                   const float* __restrict__ part_ml,
+                                   const int32_t* __restrict__ lengths, T* __restrict__ out,
+                                   int kv, int g, int s, int hd, int splits) {
+  extern __shared__ __align__(16) float cs[];
+  float* red = cs;                         // [kCombineThreads][4]
+  float* w_s = cs + 4 * kCombineThreads;   // [splits]
+  const int64_t row = blockIdx.x;
+  const int col0 = blockIdx.y * kCombineCols;
+  const int b = int(row / (int64_t(kv) * g));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kCombineWarps = kCombineThreads / 32;
   const int len = min(lengths[b], s);
-  const int n_pages = (len + page - 1) / page;
-  const int64_t head0 = ((int64_t(b) * kv + h) * g_all + g0) * HD;  // q / out offset
-  const int64_t pos_stride = int64_t(kv) * HD;
-  const T* kb = kc + (int64_t(b) * s * kv + h) * HD + lane * EPL;
-  const T* vb = vc + (int64_t(b) * s * kv + h) * HD + lane * EPL;
-  const bool holds = lane < LANES;
+  const int c = chunk_len(len, splits);
+  const int live = len > 0 ? min((len + c - 1) / c, splits) : 0;
+  const float* ml = part_ml + row * splits * 2;
+  const float* pa = part_acc + row * splits * hd;
 
-  for (int i = tid; i < g * HD; i += kThreads) q_s[i] = to_f32(q[head0 + i]);
-  if (tid < g) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxGroup][EPL];
-#pragma unroll
-  for (int gi = 0; gi < kMaxGroup; ++gi)
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[gi][e] = 0.f;
+  float mx = kNegInf;
+  for (int i = tid; i < live; i += kCombineThreads) mx = fmaxf(mx, ml[2 * i]);
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+  for (int w = 1; w < kCombineWarps; ++w) mx = fmaxf(mx, red[w]);
   __syncthreads();
 
-  for (int pg = 0; pg < n_pages; ++pg) {
-    const int t0 = pg * page;
-    const int tn = min(page, len - t0);  // unmasked positions of this page
-
-    for (int tt = warp; tt < page; tt += kWarps) {
-      float kr[EPL];
-      if (holds && tt < tn) {
-        load_row<T, EPL>(kb + int64_t(t0 + tt) * pos_stride, kr);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kr[e] = 0.f;
-      }
-#pragma unroll
-      for (int gi = 0; gi < kMaxGroup; ++gi) {
-        if (gi < g) {
-          float part = 0.f;
-          if (holds) {
-            const float* qr = q_s + gi * HD + lane * EPL;
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) part = fmaf(qr[e], kr[e], part);
-          }
-          part = warp_sum(part);
-          if (lane == 0) p_s[gi * page + tt] = tt < tn ? part * scale : kNegInf;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int gi = warp; gi < g; gi += kWarps) {
-      float* row = p_s + gi * page;
-      float mx = kNegInf;
-      for (int tt = lane; tt < page; tt += 32) mx = fmaxf(mx, row[tt]);
-      const float m_prev = m_s[gi];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-      for (int tt = lane; tt < page; tt += 32) {
-        const float e = expf(row[tt] - m_new);
-        row[tt] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[gi] = l_s[gi] * corr + sum;
-        m_s[gi] = m_new;
-        c_s[gi] = corr;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int gi = 0; gi < kMaxGroup; ++gi) {
-      if (gi < g) {
-        const float corr = c_s[gi];
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[gi][e] *= corr;
-      }
-    }
-    if (holds) {
-      for (int tt = warp; tt < tn; tt += kWarps) {
-        float vr[EPL];
-        load_row<T, EPL>(vb + int64_t(t0 + tt) * pos_stride, vr);
-#pragma unroll
-        for (int gi = 0; gi < kMaxGroup; ++gi) {
-          if (gi < g) {
-            const float pv = p_s[gi * page + tt];
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) acc[gi][e] = fmaf(pv, vr[e], acc[gi][e]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // p_s and c_s are rewritten by the next page
+  float ls = 0.f;
+  for (int i = tid; i < live; i += kCombineThreads) {
+    const float w = expf(ml[2 * i] - mx);
+    w_s[i] = w;
+    ls = fmaf(ml[2 * i + 1], w, ls);
   }
+  ls = warp_sum(ls);
+  if (lane == 0) red[warp] = ls;
+  __syncthreads();
+  float l = 0.f;
+  for (int w = 0; w < kCombineWarps; ++w) l += red[w];
+  __syncthreads();
 
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w && holds) {
-#pragma unroll
-      for (int gi = 0; gi < kMaxGroup; ++gi) {
-        if (gi < g) {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) {
-            float* a = acc_s + gi * HD + lane * EPL + e;
-            *a = (w == 0 ? 0.f : *a) + acc[gi][e];
-          }
-        }
-      }
+  // Thread (4 columns, slice): slice sl sums splits sl, sl + slices, ...
+  const int cols4 = min(hd, kCombineCols) / 4, slices = kCombineThreads / cols4;
+  const int c4 = col0 / 4 + tid % cols4, sl = tid / cols4;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int i = sl; i < live; i += slices) {
+    const float4 x = reinterpret_cast<const float4*>(pa + int64_t(i) * hd)[c4];
+    const float w = w_s[i];
+    a.x = fmaf(x.x, w, a.x);
+    a.y = fmaf(x.y, w, a.y);
+    a.z = fmaf(x.z, w, a.z);
+    a.w = fmaf(x.w, w, a.w);
+  }
+  reinterpret_cast<float4*>(red)[tid] = a;
+  __syncthreads();
+  if (sl == 0) {
+    for (int k = 1; k < slices; ++k) {
+      const float4 x = reinterpret_cast<const float4*>(red)[k * cols4 + tid % cols4];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
     }
-    __syncthreads();
+    const float den = fmaxf(l, 1e-30f);
+    T* o = out + row * hd + 4 * c4;
+    o[0] = from_f32<T>(a.x / den);
+    o[1] = from_f32<T>(a.y / den);
+    o[2] = from_f32<T>(a.z / den);
+    o[3] = from_f32<T>(a.w / den);
   }
-  for (int i = tid; i < g * HD; i += kThreads) {
-    const float den = fmaxf(l_s[i / HD], 1e-30f);
-    out[head0 + i] = from_f32<T>(acc_s[i] / den);
-  }
+}
+
+// Calls f with the least NH in {1, 2, 4, 8, 16} (at most MaxNh) that holds
+// `need` heads.
+template <int MaxNh, typename F>
+int with_nh(int need, F&& f) {
+  if (need <= 1) return f(std::integral_constant<int, 1>{});
+  if constexpr (MaxNh >= 2) if (need <= 2) return f(std::integral_constant<int, 2>{});
+  if constexpr (MaxNh >= 4) if (need <= 4) return f(std::integral_constant<int, 4>{});
+  if constexpr (MaxNh >= 8) if (need <= 8) return f(std::integral_constant<int, 8>{});
+  if constexpr (MaxNh >= 16) if (need <= 16) return f(std::integral_constant<int, 16>{});
+  return cudaErrorInvalidValue;
+}
+
+// Calls f with the split kernel for gc heads a CTA and its shared memory.
+template <typename T, int HD, typename F>
+int with_split(int gc, F&& f) {
+  using L = Layout<T, HD>;
+  return with_nh<L::kMaxNh>((gc + L::kSlots - 1) / L::kSlots, [&](auto nh_c) -> int {
+    auto kernel = paged_attention_kernel_split<T, HD, decltype(nh_c)::value>;
+    const size_t smem = L::smem(gc);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    return f(kernel, smem);
+  });
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
-           int b, int kv, int g, int s, int page, float scale, cudaStream_t stream) {
-  const int gc = g < kMaxGroup ? g : kMaxGroup;  // heads of the widest CTA
-  const size_t smem = sizeof(float) * (size_t(2 * gc) * HD + size_t(gc) * page + 3 * gc);
-  auto kernel = paged_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+           void* scratch, int b, int kv, int g, int s, int splits, int gc, float scale,
+           cudaStream_t stream) {
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + int64_t(b) * kv * g * splits * HD;
+  const int groups = (g + gc - 1) / gc;
+  const int err = with_split<T, HD>(gc, [&](auto kernel, size_t smem) -> int {
+    kernel<<<dim3(splits, kv * groups, b), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const int32_t*>(lengths), part_acc, part_ml, kv, g, s, splits, gc, scale);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(kv, b, (g + kMaxGroup - 1) / kMaxGroup), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(o), kv, g, s, page, scale);
+  paged_attention_kernel_combine<T>
+      <<<dim3(unsigned(int64_t(b) * kv * g), (HD + kCombineCols - 1) / kCombineCols),
+         kCombineThreads, sizeof(float) * (splits + 4 * kCombineThreads), stream>>>(
+          part_acc, part_ml, static_cast<const int32_t*>(lengths), static_cast<T*>(o), kv,
+          g, s, HD, splits);
   return cudaGetLastError();
+}
+
+template <typename F>
+int with_hd(int hd, F&& f) {
+  switch (hd) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool shape_ok(int b, int kv, int g, int s, int splits, int gc) {
+  if (g < 1 || s < 1 || splits < 1 || splits > kMaxSplits) return false;
+  if (gc < 1 || gc > kMaxGroup || gc > g) return false;
+  const int64_t groups = (g + gc - 1) / gc;
+  return b <= 65535 && int64_t(kv) * groups <= 65535 && int64_t(b) * kv * g < (int64_t(1) << 31);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* lengths, void* o,
-             int b, int kv, int g, int s, int hd, int page, float scale,
-             void* stream) {
+             void* scratch, int b, int kv, int g, int s, int hd, int splits, int gc,
+             float scale, void* stream) {
   if (b <= 0 || kv <= 0) return cudaSuccess;
-  if (g < 1 || g > 65535 * kMaxGroup || s < 1 || page < 1) return cudaErrorInvalidValue;
+  if (!shape_ok(b, kv, g, s, splits, gc)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, lengths, o, b, kv, g, s, page, scale, st);
-    case 32: return launch<T, 32>(q, k, v, lengths, o, b, kv, g, s, page, scale, st);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, b, kv, g, s, page, scale, st);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, b, kv, g, s, page, scale, st);
-    case 256: return launch<T, 256>(q, k, v, lengths, o, b, kv, g, s, page, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto hd_c) {
+    return launch<T, decltype(hd_c)::value>(q, k, v, lengths, o, scratch, b, kv, g, s, splits,
+                                            gc, scale, st);
+  });
+}
+
+// out: split kernel's registers, local (spilled) bytes a thread, dynamic
+// shared memory at gc heads, CTAs resident on one SM at gc heads; combine
+// kernel's registers and local bytes.
+template <typename T>
+int attributes(int hd, int gc, int* out) {
+  if (gc < 1 || gc > kMaxGroup) return cudaErrorInvalidValue;
+  return with_hd(hd, [&](auto hd_c) -> int {
+    return with_split<T, decltype(hd_c)::value>(gc, [&](auto kernel, size_t smem) -> int {
+      cudaFuncAttributes attr;
+      cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+      if (err != cudaSuccess) return err;
+      out[0] = attr.numRegs;
+      out[1] = int(attr.localSizeBytes);
+      out[2] = int(smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, kThreads, smem);
+      if (err != cudaSuccess) return err;
+      if ((err = cudaFuncGetAttributes(&attr, paged_attention_kernel_combine<T>)) != cudaSuccess)
+        return err;
+      out[4] = attr.numRegs;
+      out[5] = int(attr.localSizeBytes);
+      return cudaSuccess;
+    });
+  });
 }
 
 }  // namespace
@@ -257,16 +552,24 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths, v
 extern "C" {
 
 int remop_paged_attention_bf16(const void* q, const void* k, const void* v,
-                               const void* lengths, void* o, int b, int kv, int g,
-                               int s, int hd, int page, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, lengths, o, b, kv, g, s, hd, page, scale,
-                                 stream);
+                               const void* lengths, void* o, void* scratch, int b, int kv,
+                               int g, int s, int hd, int splits, int gc, float scale,
+                               void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, lengths, o, scratch, b, kv, g, s, hd, splits, gc,
+                                 scale, stream);
 }
 
 int remop_paged_attention_f32(const void* q, const void* k, const void* v,
-                              const void* lengths, void* o, int b, int kv, int g,
-                              int s, int hd, int page, float scale, void* stream) {
-  return dispatch<float>(q, k, v, lengths, o, b, kv, g, s, hd, page, scale, stream);
+                              const void* lengths, void* o, void* scratch, int b, int kv,
+                              int g, int s, int hd, int splits, int gc, float scale,
+                              void* stream) {
+  return dispatch<float>(q, k, v, lengths, o, scratch, b, kv, g, s, hd, splits, gc, scale,
+                         stream);
+}
+
+// is_f32, hd, gc, &out[6] (see attributes above).
+int remop_paged_attention_attributes(int is_f32, int hd, int gc, int* out) {
+  return is_f32 ? attributes<float>(hd, gc, out) : attributes<__nv_bfloat16>(hd, gc, out);
 }
 
 const char* remop_paged_attention_error_string(int err) {

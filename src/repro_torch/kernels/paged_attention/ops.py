@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import runtime
 from repro_torch.kernels.paged_attention.paged_attention import paged_attention
 
 
@@ -24,12 +25,14 @@ def remop_paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     """Decode attention over a paged KV cache.
 
     q: [B, KV, G, hd]; caches [B, S, KV, hd]; lengths [B].
-    Pads S to a page multiple (masked by lengths).
+    On the CPU, pads S to a page multiple (masked by lengths) for the plain
+    version, which walks pages; the kernel takes any S, so a CUDA tensor is
+    never copied.
     """
     s = k_cache.shape[1]
     page = page or min(s, 128)
     pad = (-s) % page
-    if pad:
+    if pad and runtime.on_cpu(q, k_cache, v_cache, lengths):
         k_cache = F.pad(k_cache, (0, 0, 0, 0, 0, pad))
         v_cache = F.pad(v_cache, (0, 0, 0, 0, 0, pad))
     return paged_attention(q, k_cache, v_cache, lengths.to(torch.int32), page=page)

@@ -3,21 +3,30 @@
 The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
 ``paged_attention`` of the JAX package's
 ``kernels/paged_attention/paged_attention.py``: ``q [B, KV, G, hd]``,
-caches ``[B, S, KV, hd]``, ``lengths [B]`` int32; the cache is walked one
-page at a time with an online f32 softmax and positions ``>= lengths[b]``
-masked.  One CTA serves up to 8 query heads of one (batch, KV head), so a
-KV head's G heads take ``ceil(G / 8)`` CTAs (any G); each stops at the last
-page that holds an unmasked position.
+caches ``[B, S, KV, hd]``, ``lengths [B]`` int32; scores in f32 with
+positions ``>= lengths[b]`` masked, an f32 softmax, ``p @ v`` in f32.
 
-Beside the wrapper is its plain PyTorch version, the same page-by-page
-online softmax; a CPU tensor takes it, a CUDA tensor launches the kernel
-or raises.  :func:`check_shape` is the wrapper's pre-launch check of what
-the kernel takes, callable on the host without a card.
+The positions are split over CTAs.  :func:`plan` gives, on the host, the
+number of splits and the query heads one CTA holds; each CTA finds its own
+chunk of positions on the device from ``lengths[b]`` by the rule of
+:func:`chunk_len` (:func:`chunk_bounds` on the host), so the host never reads
+``lengths``.  Each live chunk leaves an f32 partial ``(acc, m, l)`` per query
+head in a scratch buffer the wrapper allocates, and a second kernel merges
+the partials in split order.
+
+Beside the wrapper is its plain PyTorch version, the same split arithmetic:
+an online softmax page by page, kept per chunk, then the same fixed-order
+merge; with one split it is the TPU kernel's page-by-page online softmax.  A
+CPU tensor takes it, a CUDA tensor launches the kernel or raises.
+:func:`check_shape` is the wrapper's pre-launch check of what the kernel
+takes, callable on the host without a card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,6 +35,13 @@ from repro_torch.kernels import runtime
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# The plan's inputs: the H100's SMs, the most query heads one CTA holds (its
+# shared memory at f32, hd 256: 207,872 of 232,448 bytes), and the chunk
+# granule.  Chunks of fewer than 16 positions would leave most of a 32-row
+# tile idle.
+SMS = 132
+MAX_GROUP = 64
+MIN_CHUNK = 16
 
 
 def check_shape(g: int, hd: int) -> None:
@@ -37,7 +53,41 @@ def check_shape(g: int, hd: int) -> None:
         raise ValueError(f"head_dim {hd} must be in {HEAD_DIMS}")
 
 
-def _check(q, k_cache, v_cache, lengths, page: int) -> None:
+def plan(b: int, kv: int, g: int, s: int) -> Tuple[int, int]:
+    """``(splits, gc)`` for the kernel: ``gc`` query heads a CTA (all G of a
+    KV head up to ``MAX_GROUP``, so each K/V row is read once), and enough
+    splits of the positions that the ``B * KV * ceil(G / gc)`` head groups
+    fill the SMs at least once, with no more splits than chunks of
+    ``MIN_CHUNK`` positions in S."""
+    gc = min(g, MAX_GROUP)
+    groups = b * kv * -(-g // gc)
+    return max(1, min(-(-SMS // groups), -(-s // MIN_CHUNK))), gc
+
+
+def chunk_len(length, splits: int):
+    """Positions of each split's chunk for a row of ``length`` valid positions:
+    ``ceil(max(length, 1) / splits)`` rounded up to ``MIN_CHUNK``.  Takes an
+    int or an integer tensor of lengths (the kernel's rule, written in torch)."""
+    if isinstance(length, torch.Tensor):
+        c = (length.clamp_min(1) + splits - 1) // splits
+    else:
+        c = (max(length, 1) + splits - 1) // splits
+    return (c + MIN_CHUNK - 1) // MIN_CHUNK * MIN_CHUNK
+
+
+def chunk_bounds(length: int, splits: int) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` of each split's chunk; an empty chunk has ``lo == hi``."""
+    c = chunk_len(length, splits)
+    return [(min(i * c, length), min((i + 1) * c, length)) for i in range(splits)]
+
+
+def scratch_floats(b: int, kv: int, g: int, hd: int, splits: int) -> int:
+    """f32 values of the partials' buffer: ``acc [B*KV*G, splits, hd]`` then
+    ``(m, l) [B*KV*G, splits, 2]``."""
+    return b * kv * g * splits * (hd + 2)
+
+
+def _check(q, k_cache, v_cache, lengths, page: int, pages_divide: bool) -> None:
     if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"q must be [B,KV,G,hd] and caches [B,S,KV,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -46,64 +96,98 @@ def _check(q, k_cache, v_cache, lengths, page: int) -> None:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not fit q {tuple(q.shape)}")
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32 [{b}], got {lengths.dtype} {tuple(lengths.shape)}")
-    if page < 1 or k_cache.shape[1] % page:
+    if page < 1 or (pages_divide and k_cache.shape[1] % page):
         raise ValueError(f"page={page} must divide S={k_cache.shape[1]}")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(f"q and caches must share one dtype of {sorted(map(str, _DTYPES))}")
 
 
 def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          lengths: torch.Tensor, page: int = 128) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: online softmax page by page.
+                          lengths: torch.Tensor, page: int = 128,
+                          splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: ``splits`` chunks by the kernel's
+    rule (by default :func:`plan`'s), an online softmax page by page in each,
+    then the fixed-order merge of the chunks' partials.
 
-    Every page is taken; a page past a row's length is fully masked and
-    adds exactly 0 to that row.
+    A position outside a chunk adds exactly 0 to that chunk's partial; a
+    chunk past the length is skipped by the merge.
     """
     b, kv, g, hd = q.shape
+    s = k_cache.shape[1]
+    if splits is None:
+        splits = plan(b, kv, g, s)[0]
     scale = 1.0 / math.sqrt(hd)
     qf = q.float()
-    m = torch.full((b, kv, g, 1), NEG_INF, device=q.device)
+    ln = lengths.long().clamp(max=s)
+    c = chunk_len(ln, splits)  # [B]
+    ids = torch.arange(splits, device=q.device)
+    m = torch.full((b, kv, g, splits), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros_like(qf)
-    for p0 in range(0, k_cache.shape[1], page):
+    acc = torch.zeros((b, kv, g, splits, hd), device=q.device)
+    for p0 in range(0, s, page):
         kp = k_cache[:, p0:p0 + page].float()
         vp = v_cache[:, p0:p0 + page].float()
         sc = torch.einsum("bkgd,btkd->bkgt", qf, kp) * scale
         pos = torch.arange(p0, p0 + kp.shape[1], device=q.device)
-        masked = pos[None, :] >= lengths[:, None]  # [B, page]
-        sc = sc.masked_fill(masked[:, None, None, :], NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        p = torch.exp(sc - m_new)
+        valid = pos[None, :] < ln[:, None]  # [B, page]
+        owner = (pos[None, :] // c[:, None])[..., None] == ids  # [B, page, splits]
+        inside = (owner & valid[..., None])[:, None, None]  # [B, 1, 1, page, splits]
+        sc = sc[..., None].expand(*sc.shape, splits)
+        m_new = torch.maximum(m, sc.masked_fill(~inside, NEG_INF).amax(dim=-2))
+        p = torch.where(inside, torch.exp(sc - m_new[..., None, :]), 0.0)
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bkgt,btkd->bkgd", p, vp)
+        l = l * corr + p.sum(dim=-2)
+        acc = acc * corr[..., None] + torch.einsum("bkgts,btkd->bkgsd", p, vp)
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    live = (ids[None, :] * c[:, None] < ln[:, None])[:, None, None]  # [B, 1, 1, splits]
+    m_all = m.masked_fill(~live, NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - m_all), 0.0)
+    l_all = (l * w).sum(dim=-1, keepdim=True)
+    return ((acc * w[..., None]).sum(dim=-2) / l_all.clamp_min(1e-30)).to(q.dtype)
+
+
+def attributes(dtype: torch.dtype, hd: int, gc: int) -> dict:
+    """The split kernel's registers, local (spilled) bytes, dynamic shared
+    memory and CTAs resident on one SM at ``gc`` heads, and the combine
+    kernel's registers and local bytes, on the current card."""
+    check_shape(gc, hd)
+    out = (ctypes.c_int * 6)()
+    err = runtime.library("paged_attention").remop_paged_attention_attributes(
+        int(dtype == torch.float32), hd, gc, ctypes.addressof(out))
+    runtime.check("paged_attention", "paged_attention", err)
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "resident_ctas",
+                     "combine_registers", "combine_local_bytes"), out))
 
 
 def paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                     lengths: torch.Tensor, page: int = 128) -> torch.Tensor:
     """q: [B, KV, G, hd]; k/v_cache: [B, S, KV, hd]; lengths: [B] int32 in [1, S].
 
-    On a CUDA tensor all four must be contiguous and pass
-    :func:`check_shape`.
+    ``page`` is the plain version's page and must divide S on the CPU; the
+    kernel walks its own tiles and takes any S.  On a CUDA tensor all four
+    must be contiguous and pass :func:`check_shape`.
     """
-    _check(q, k_cache, v_cache, lengths, page)
-    if runtime.on_cpu(q, k_cache, v_cache, lengths):
+    cpu = runtime.on_cpu(q, k_cache, v_cache, lengths)
+    _check(q, k_cache, v_cache, lengths, page, pages_divide=cpu)
+    if cpu:
         return paged_attention_plain(q, k_cache, v_cache, lengths, page)
     b, kv, g, hd = q.shape
+    s = k_cache.shape[1]
     check_shape(g, hd)
     tensors = (q, k_cache, v_cache, lengths)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, the caches and lengths must be contiguous")
     if any(x.data_ptr() % 16 for x in tensors[:3]):
         raise ValueError("q and the caches must start on a 16-byte boundary")
+    splits, gc = plan(b, kv, g, s)
     out = torch.empty_like(q)
+    scratch = torch.empty(scratch_floats(b, kv, g, hd, splits), dtype=torch.float32,
+                          device=q.device)
     lib = runtime.library("paged_attention")
     with torch.cuda.device(q.device):
         err = getattr(lib, f"remop_paged_attention_{_DTYPES[q.dtype]}")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, kv, g, k_cache.shape[1], hd, page,
+            out.data_ptr(), scratch.data_ptr(), b, kv, g, s, hd, splits, gc,
             1.0 / math.sqrt(hd), runtime.stream_of(q))
     runtime.check("paged_attention", "paged_attention", err)
     runtime.launches["paged_attention"] += 1

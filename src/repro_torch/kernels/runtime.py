@@ -65,9 +65,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),
     },
     "paged_attention": {
-        # q, k_cache, v_cache, lengths, out, b, kv, g, s, hd, page, scale, stream
-        **{f"remop_paged_attention_{t}": ([_P] * 5 + [_I32] * 6 + [_F32, _P], _I32)
+        # q, k_cache, v_cache, lengths, out, scratch, b, kv, g, s, hd, splits, gc,
+        # scale, stream
+        **{f"remop_paged_attention_{t}": ([_P] * 6 + [_I32] * 7 + [_F32, _P], _I32)
            for t in ("bf16", "f32")},
+        # is_f32, hd, gc, &out[6]
+        "remop_paged_attention_attributes": ([_I32] * 3 + [_P], _I32),
         "remop_paged_attention_error_string": ([_I32], ctypes.c_char_p),
     },
     "ssd_scan": {
