@@ -11,7 +11,16 @@ Phases, each printing JSON objects, one per line:
    (one ``nvcc`` per source, in parallel) and read the card's name and power
    limit from ``nvidia-smi``;
 2. kernels: hold every kernel against its plain PyTorch version on the card
-   (the sort and gather kernels bit for bit, the attention kernels within
+   (the sort and gather kernels bit for bit: ``sort_blocks`` at every block
+   2^1..2^14, ``merge_pass`` at every run 2^0..2^20 and at n = 2^22 up to
+   run 2^21, the widest strided pass, on tied int32 keys and float32 keys
+   with -0.0 beside +0.0, compared by their bits; on every tied input past
+   block 2 and run 1 the plain version must place some tie elsewhere than
+   ``torch.sort(..., stable=True)``, so tie order is exercised, and on every
+   float input some zero key must leave with another sign than the key that
+   entered with its value, so signed zeros are exercised; the merge-
+   sort kernel's registers, spills and shared memory, no spills allowed; the
+   attention kernels within
    ``ATTN_TOL``, which must also reject three planted faults; the flash kernel
    on both routes, each check printing the route it took: bf16 at hd 64,
    128 and 256 on the tensor cores, at gemma-2b's, qwen3-0.6b's and
@@ -24,8 +33,8 @@ Phases, each printing JSON objects, one per line:
    flash and every paged instantiation, and time kernel, plain version and
    the PyTorch library call that computes the same function with CUDA
    events (the flash kernel also at qwen3-0.6b's widths, and with P rounded
-   once to bf16, a probe; the paged kernel and SDPA also by device time
-   from a profiler window);
+   once to bf16, a probe; the sort, gather, paged and scan kernels and the
+   library calls beside them also by device time from a profiler window);
 3. session: drive the spill engine's main path, ``Session(make_backend(...))
    .run(tasks)``, at a TPC-H SF1-shaped size (EMS over ``l_orderkey``, EHJ of
    orders with lineitem, EAGG of lineitem by key), with the launch counters
@@ -287,13 +296,39 @@ def max_abs_err(torch, got, want) -> float:
 
 
 def equal_bits(torch, names, got_pair, want_pair, errs):
-    """Check kernel outputs equal to the plain version's, bit for bit; record
-    the largest absolute difference under each kernel in ``names``."""
+    """Check kernel outputs equal to the plain version's, bit for bit (float
+    keys by their bits, so -0.0 and +0.0 differ); record the largest absolute
+    difference under each kernel in ``names``."""
     for got, want in zip(got_pair, want_pair):
         err = max_abs_err(torch, got, want)
         for name in names:
             errs[name] = max(errs.get(name, 0.0), err)
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
         check(torch.equal(got, want), f"{names}: kernel differs from its plain version (max abs err {err})")
+
+
+def ties_decide(torch, what, keys, values, span, plain_values):
+    """Check that the tie order is exercised: the plain version's values differ
+    somewhere from a stable sort of each ``span`` of ``keys``."""
+    order = torch.sort(keys.view(-1, span), dim=1, stable=True).indices
+    stable = values.view(-1, span).gather(1, order).reshape(-1)
+    check(not torch.equal(stable, plain_values),
+          f"{what}: the plain version places every tie as a stable sort does; "
+          "the input does not exercise tie order")
+
+
+def zeros_decide(torch, what, keys, values, plain_keys, plain_values):
+    """Check that signed zeros are exercised: in the plain version's output
+    some zero key has another sign than the key that entered with its value,
+    so a kernel that moves each (key, value) pair whole, taking ``a`` on
+    ties, would differ from it.  ``values`` is a permutation of ``0..n-1``."""
+    where = torch.empty_like(values)
+    where[values.long()] = torch.arange(values.shape[0], device=values.device,
+                                        dtype=values.dtype)
+    carried = keys[where[plain_values.long()].long()]
+    check(not torch.equal(carried.view(torch.int32), plain_keys.view(torch.int32)),
+          f"{what}: every key moves with its value; the input does not exercise signed zeros")
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float = ALU_OPS_PER_S):
@@ -306,6 +341,7 @@ def phase_kernels(torch, device):
     from repro_torch.kernels.dispatch.dispatch import gather_rows, gather_rows_plain
     from repro_torch.kernels.merge_sort.merge_sort import (
         merge_pass, merge_pass_plain, sort_blocks, sort_blocks_plain)
+    from repro_torch.kernels.merge_sort.merge_sort import attributes as merge_sort_attributes
     from repro_torch.kernels.merge_sort.ops import (
         argsort_by_key, argsort_by_key_plain, remop_sort, remop_sort_plain)
 
@@ -316,27 +352,51 @@ def phase_kernels(torch, device):
     sorts = ["sort_blocks", "merge_pass"]  # remop_sort and argsort_by_key run both
 
     def tied(n, dtype, hi=1000):
-        return torch.randint(0, hi, (n,), device=device, generator=gen,
+        keys = torch.randint(0, hi, (n,), device=device, generator=gen,
                              dtype=torch.int32).to(dtype)
+        if dtype == torch.float32:  # signed zeros beside each other: 5% of the keys
+            zero = keys < max(1, hi // 20)
+            sign = torch.rand(n, device=device, generator=gen) < 0.5
+            keys[zero] = torch.where(sign, -0.0, 0.0)[zero]
+            if n >= 1 << 14:
+                neg = torch.signbit(keys[zero])
+                check(bool(neg.any()) and not bool(neg.all()),
+                      f"tied float keys of {n}: the zero keys do not hold both signs")
+        return keys
 
-    # -- correctness: ties, every merge run, ragged lengths, bit for bit --------
+    # -- correctness: ties, every block and merge run, ragged lengths, bit for bit
+    # (block 2 and run 1 are one ascending compare-exchange, which keeps ties in
+    # order as a stable sort does; every other call must place some tie elsewhere).
     for dtype in (torch.int32, torch.float32):
-        keys = tied(1 << 21, dtype)
-        vals = torch.arange(1 << 21, dtype=torch.int32, device=device)
-        for block in (2, 256, 1 << 14):
-            equal_bits(torch, ["sort_blocks"], sort_blocks(keys, vals, block),
-                       sort_blocks_plain(keys, vals, block), errs)
-    n = 1 << 21
-    perm = torch.randperm(n, device=device, generator=gen).to(torch.int32)
+        n = 1 << 21
+        keys = tied(n, dtype)
+        vals = torch.randperm(n, device=device, generator=gen).to(torch.int32)
+        for e in range(1, 15):
+            want = sort_blocks_plain(keys, vals, 1 << e)
+            equal_bits(torch, ["sort_blocks"], sort_blocks(keys, vals, 1 << e), want, errs)
+            if e > 1:
+                ties_decide(torch, f"sort_blocks block 2^{e} {dtype}", keys, vals, 1 << e, want[1])
+            if dtype == torch.float32:
+                zeros_decide(torch, f"sort_blocks block 2^{e}", keys, vals, *want)
+        emit({"phase": "kernels", "check": "sort_blocks", "dtype": str(dtype), "n": n,
+              "blocks": "2^1..2^14", "equal": True})
     for dtype in (torch.int32, torch.float32):
-        base = tied(n, dtype)
-        runs = [1 << e for e in range(1, 21)] if dtype == torch.int32 else [2, 1 << 13, 1 << 14, 1 << 20]
-        for run in runs:
-            # Sorted runs with ties inside and across them (the library sort
-            # only prepares inputs here).
-            keys = torch.sort(base.view(-1, run), dim=1).values.reshape(-1)
-            equal_bits(torch, ["merge_pass"], merge_pass(keys, perm, run),
-                       merge_pass_plain(keys, perm, run), errs)
+        for n, exps in ((1 << 21, range(0, 21) if dtype == torch.int32 else (1, 13, 14, 20)),
+                        (1 << 22, (14, 21))):
+            base = tied(n, dtype)
+            perm = torch.randperm(n, device=device, generator=gen).to(torch.int32)
+            for e in exps:
+                # Sorted runs with ties inside and across them (the library sort
+                # only prepares inputs here).
+                keys = torch.sort(base.view(-1, 1 << e), dim=1).values.reshape(-1)
+                want = merge_pass_plain(keys, perm, 1 << e)
+                equal_bits(torch, ["merge_pass"], merge_pass(keys, perm, 1 << e), want, errs)
+                if e > 0:
+                    ties_decide(torch, f"merge_pass run 2^{e} {dtype}", keys, perm, 2 << e, want[1])
+                if dtype == torch.float32:
+                    zeros_decide(torch, f"merge_pass run 2^{e}", keys, perm, *want)
+            emit({"phase": "kernels", "check": "merge_pass", "dtype": str(dtype), "n": n,
+                  "runs": [1 << e for e in exps], "equal": True})
     for n in (3, (1 << 14) + 1, 1 << 21):
         for dtype in (torch.int32, torch.float32):
             keys = tied(n, dtype, hi=max(2, n // 8))
@@ -363,20 +423,31 @@ def phase_kernels(torch, device):
     emit({"phase": "kernels", "check": "bit-identical to the plain versions",
           "max_abs_err": errs})
 
+    # -- registers and spills of the tile kernel ---------------------------------
+    inst = {str(dt)[6:]: merge_sort_attributes(dt) for dt in (torch.int32, torch.float32)}
+    emit({"phase": "kernels", "merge_sort_instantiations": inst})
+    check(all(a["local_bytes"] == 0 for a in inst.values()), f"a merge-sort kernel spills: {inst}")
+
     # -- timing at the main path's widest shapes -------------------------------
     bench = Bench(torch, device)
+
+    def timed(kernel, plain, library, **row):
+        """CUDA-event ms of kernel, plain version and library call, and the
+        device ms of kernel and library call from a profiler window."""
+        return dict(row, ms=bench.ms(kernel), device_ms=bench.device_ms(kernel)["device_ms"],
+                    plain_ms=bench.ms(plain), library_ms=bench.ms(library),
+                    library_device_ms=bench.device_ms(library)["device_ms"])
+
     n = 1 << 22  # EMS run formation over 128 key pages: 4,194,304 keys
     keys = tied(n, torch.int32, hi=KEY_DOMAIN)
     vals = torch.arange(n, dtype=torch.int32, device=device)
     b = 1 << 14
     stages = 14 * 15 // 2
     ms_bound, by = bound(16 * n, n / 2 * stages)
-    rows["sort_blocks"] = dict(
-        shape=f"n={n}, block={b}, int32 keys + int32 values",
-        ms=bench.ms(lambda: sort_blocks(keys, vals, b)),
-        plain_ms=bench.ms(lambda: sort_blocks_plain(keys, vals, b)),
-        library_ms=bench.ms(lambda: torch.sort(keys.view(-1, b), dim=1, stable=True)),
-        bound_ms=ms_bound, bound_by=by)
+    rows["sort_blocks"] = timed(
+        lambda: sort_blocks(keys, vals, b), lambda: sort_blocks_plain(keys, vals, b),
+        lambda: torch.sort(keys.view(-1, b), dim=1, stable=True),
+        shape=f"n={n}, block={b}, int32 keys + int32 values", bound_ms=ms_bound, bound_by=by)
 
     runs_sorted, _ = sort_blocks(keys, vals, b)
     merge_runs = [1 << e for e in range(14, 22)]
@@ -389,22 +460,20 @@ def phase_kernels(torch, device):
 
     merge_stages = sum(e + 1 for e in range(14, 22))
     ms_bound, by = bound(16 * n * len(merge_runs), n / 2 * merge_stages)
-    rows["merge_pass"] = dict(
+    rows["merge_pass"] = timed(
+        lambda: ladder(merge_pass), lambda: ladder(merge_pass_plain),
+        lambda: torch.sort(runs_sorted, stable=True),
         shape=f"n={n}, runs 2^14..2^21 (8 passes), int32 keys + int32 values",
-        ms=bench.ms(lambda: ladder(merge_pass)),
-        plain_ms=bench.ms(lambda: ladder(merge_pass_plain)),
-        library_ms=bench.ms(lambda: torch.sort(runs_sorted, stable=True)),
         bound_ms=ms_bound, bound_by=by)
 
     m = 1 << 20  # a partition block of (key, payload) rows narrowed to int32
     x = torch.randint(0, KEY_DOMAIN, (m, 2), device=device, generator=gen, dtype=torch.int32)
     idx = torch.randperm(m, device=device, generator=gen).to(torch.int32)
     ms_bound, by = bound(2 * x.numel() * 4 + idx.numel() * 4, 0)
-    rows["gather_rows"] = dict(
+    rows["gather_rows"] = timed(
+        lambda: gather_rows(x, idx), lambda: gather_rows_plain(x, idx),
+        lambda: torch.index_select(x, 0, idx),
         shape=f"x=[{m}, 2] int32, idx=[{m}] int32, rows_per_block=1",
-        ms=bench.ms(lambda: gather_rows(x, idx)),
-        plain_ms=bench.ms(lambda: gather_rows_plain(x, idx)),
-        library_ms=bench.ms(lambda: torch.index_select(x, 0, idx)),
         bound_ms=ms_bound, bound_by=by)
     for name, row in rows.items():
         emit({"phase": "kernels", "timing": name, **row})
@@ -414,6 +483,7 @@ def phase_kernels(torch, device):
     parts = tied(m, torch.int32, hi=PARTITIONS)
     emit({"phase": "kernels", "timing": "remop_sort", "n": n,
           "ms": bench.ms(lambda: remop_sort(keys)),
+          "device_ms": bench.device_ms(lambda: remop_sort(keys))["device_ms"],
           "plain_ms": bench.ms(lambda: remop_sort_plain(keys)),
           "library_ms": bench.ms(lambda: torch.sort(keys, stable=True))})
     emit({"phase": "kernels", "timing": "argsort_by_key", "n": m,
@@ -1048,6 +1118,7 @@ def phase_ssd_scan(torch, device):
     row = dict(
         shape=f"states [{b},{nc},{h},{p},{n}] f32, decays [{b},{nc},{h}]",
         ms=bench.ms(lambda: ssd_scan(states, decays)),
+        device_ms=bench.device_ms(lambda: ssd_scan(states, decays))["device_ms"],
         plain_ms=bench.ms(lambda: ssd_scan_plain(states, decays)),
         library_ms=None,  # no single PyTorch call computes this scan
         bound_ms=ms_bound, bound_by=by)

@@ -1,245 +1,421 @@
-// Bitonic sort and bitonic merge for Hopper (sm_90a).
+// Bitonic sort and bitonic merge for Hopper (sm_90a), on one register-blocked
+// stage engine.
 //
 // Replaces the TPU kernels of src/repro/kernels/merge_sort/merge_sort.py:
 //   * remop_sort_blocks_*  <- sort_blocks (merge_sort.py:97, _bitonic_sort)
 //   * remop_merge_pass_*   <- merge_pass  (merge_sort.py:115, _bitonic_merge)
 //
-// Both run the TPU kernels' compare-exchange network stage for stage, so the
-// output is bit-identical to it, including the order of values under equal
-// keys: keys go to min/max, and values follow `take_lo_first = k0 <= k1`.
-// On a tie an ascending pair keeps its order and a descending pair swaps.
+// Both run the TPU kernels' compare-exchange network stage for stage and pair
+// for pair, so the output is bit-identical to it, including the order of
+// values under equal keys: keys go to min/max (-0.0 below +0.0, as
+// jnp.minimum takes them), and values follow `take_lo_first = a <= b`, where
+// `a` is the element of the lower index.  The stages of one pass are only
+// regrouped into trips through registers and shared memory: pairs within a
+// stage are disjoint, so any grouping that keeps the stages in order gives
+// the same bits.
 //
-// What bounds them on this card: the bytes.  A pass reads and writes 8 bytes
-// an element (a 4-byte key and a 4-byte value) and does a few integer
-// operations per byte.  The design keeps as many of the network's stages as
-// it can in shared memory:
-//   * a chunk of 2^14 keys + 2^14 values is 128 KiB and fits one CTA's
-//     dynamic shared memory, so sort_blocks (block <= 2^14) loads a chunk
-//     once, runs all its stages in shared memory with __syncthreads between
-//     stages, and stores it once;
-//   * merge_pass with 2*run <= 2^14 does the same, reversing the second run
-//     of each pair as it loads;
-//   * merge_pass with 2*run > 2^14 runs the ladder's stages at distance
-//     >= 2^14 as grid-wide passes over device memory (the first one reads
-//     the second run reversed), then finishes the remaining stages of every
-//     aligned 2^14-element chunk in shared memory.
-// Keys are int32 or float32, values int32.  Float keys are compared with
-// `<=`: NaN keys and the order of -0.0 against +0.0 are not pinned.
+// What bounds them on this card: the bytes (8 an element a pass, a 4-byte key
+// and a 4-byte value) and, inside a tile, shared memory.  The design:
+//   * The host plans the launches (merge_sort.py:plan) and passes them here;
+//     nothing below recomputes them.  A launch is one pass over device memory:
+//     one CTA loads a tile of at most 2^14 (key, value) pairs, runs a range of
+//     the network's stages on it and stores it.  A tile is `width` contiguous
+//     elements ("chunk") or `rows` rows at stride rows*width by `width`
+//     columns ("strided"), so a merge of two runs longer than 2^13 is two
+//     passes: the strided tile runs the stages at distances of a tile and
+//     more, then an aligned chunk tile runs the rest in place.  The first pass
+//     of a merge reads each second run reversed as it loads.  The plan takes
+//     tiles of 2^13 where the stages fit: two such CTAs share an SM, and one's
+//     loads and stores overlap the other's stages.
+//   * The engine: each of up to 512 threads holds E = 32 tile elements in
+//     registers, whose tile indices differ in a window of 5 consecutive bits.
+//     Stages whose distance bit lies in the window run in registers; a wider
+//     stage first re-lays the tile through shared memory into the window that
+//     covers it and the next stages, so one round trip buys up to 5 stages
+//     (a 2^14 sort: 22 round trips for 105 stages, plus one each to and from
+//     the layout in which loads and stores are coalesced).
+//   * Shared memory holds (key, value) as one 8-byte pair, XOR-swizzled (pair t
+//     at t ^ ((t >> 5) & 15)): at any window, a half-warp touches all 32 banks
+//     once.  A relayout between windows below bit L trades elements only among
+//     the 2^L threads of equal tid >> L, so it waits on a warp (L <= 5) or a
+//     named barrier of that group, not on the CTA: warps drift apart, and one
+//     warp's relayout overlaps another's compare-exchanges.  Stages run with
+//     their directions known at compile time.
+// Keys are int32 or float32, values int32.  NaN keys are not pinned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kChunkLog2 = 14;
-constexpr int kChunk = 1 << kChunkLog2;
-constexpr int kThreads = 1024;
-constexpr int kStageThreads = 256;
+constexpr int kTileLog2 = 14;
+constexpr int kTile = 1 << kTileLog2;
+constexpr int kLogE = 5;           // 32 elements a thread
+constexpr int kThreads = kTile >> kLogE;
+constexpr int kPlanFields = 7;     // merge_sort.py:PLAN_FIELDS
 
-// One compare-exchange of the pair (a, b), as merge_sort.py:_cmp_exchange.
-template <typename K>
-__device__ __forceinline__ void cmp_exchange(K& a, K& b, int& va, int& vb,
-                                             bool descending) {
-  const bool take_lo_first = a <= b;
-  const K lo = take_lo_first ? a : b;
-  const K hi = take_lo_first ? b : a;
-  const int v_lo = take_lo_first ? va : vb;
-  const int v_hi = take_lo_first ? vb : va;
-  if (descending) {
-    a = hi; b = lo; va = v_hi; vb = v_lo;
-  } else {
-    a = lo; b = hi; va = v_lo; vb = v_hi;
-  }
-}
+enum Route { kChunk = 0, kStrided = 1 };
 
-// Index of the first element of pair p at distance 2^j: p with a 0 bit
-// inserted at position j.
-__device__ __forceinline__ int64_t pair_first(int64_t p, int j) {
-  return ((p >> j) << (j + 1)) | (p & ((int64_t(1) << j) - 1));
-}
+// One launch of the host's plan (merge_sort.py:Launch).
+struct Launch {
+  int route, j_hi, j_lo, rows, width, reversed, sort_log2;
+};
 
-// Position, in the input, of logical element t of a pair of runs whose second
-// run is read reversed (merge_sort.py:_merge_pair_kernel): t < run reads t,
-// t >= run reads 3*run - 1 - t, all relative to the pair's start.
-__device__ __forceinline__ int64_t reversed_source(int64_t t, int64_t run) {
-  const int64_t q = t & (2 * run - 1);
-  return q < run ? t : t - q + 3 * run - 1 - q;
-}
-
-// sort_blocks: one CTA sorts `chunk / block` adjacent blocks in shared memory.
-// Stage (k, j) of block-local index i has direction bit (i >> k) & 1, which is
-// _bitonic_sort's `(group >> (k - 1 - j)) & 1` with group = i >> (j + 1).
-template <typename K>
-__global__ void sort_chunks_kernel(const K* __restrict__ kin,
-                                   const int* __restrict__ vin,
-                                   K* __restrict__ kout, int* __restrict__ vout,
-                                   int chunk, int block_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  K* ks = reinterpret_cast<K*>(smem);
-  int* vs = reinterpret_cast<int*>(ks + chunk);
-  const int64_t base = int64_t(blockIdx.x) * chunk;
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) {
-    ks[t] = kin[base + t];
-    vs[t] = vin[base + t];
-  }
-  __syncthreads();
-  const int block_mask = (1 << block_log2) - 1;
-  const int pairs = chunk >> 1;
-  for (int k = 1; k <= block_log2; ++k) {
-    for (int j = k - 1; j >= 0; --j) {
-      for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-        const int i = int(pair_first(p, j));
-        const int l = i + (1 << j);
-        const bool descending = ((i & block_mask) >> k) & 1;
-        K a = ks[i], b = ks[l];
-        int va = vs[i], vb = vs[l];
-        cmp_exchange(a, b, va, vb, descending);
-        ks[i] = a; ks[l] = b; vs[i] = va; vs[l] = vb;
-      }
-      __syncthreads();
-    }
-  }
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) {
-    kout[base + t] = ks[t];
-    vout[base + t] = vs[t];
-  }
-}
-
-// merge_pass in shared memory: the all-ascending ladder's stages j = top-1..0
-// on each chunk.  With run > 0 every aligned 2*run span of the chunk is a pair
-// of sorted runs and the second is reversed as it loads; with run == 0 the
-// chunk continues a ladder whose wider stages already ran (in place is fine:
-// a CTA loads its whole chunk before it stores any of it).
-template <typename K>
-__global__ void merge_chunks_kernel(const K* kin, const int* vin, K* kout,
-                                    int* vout, int chunk, int run, int top) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  K* ks = reinterpret_cast<K*>(smem);
-  int* vs = reinterpret_cast<int*>(ks + chunk);
-  const int64_t base = int64_t(blockIdx.x) * chunk;
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) {
-    const int64_t src = run > 0 ? reversed_source(t, run) : t;
-    ks[t] = kin[base + src];
-    vs[t] = vin[base + src];
-  }
-  __syncthreads();
-  const int pairs = chunk >> 1;
-  for (int j = top - 1; j >= 0; --j) {
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int i = int(pair_first(p, j));
-      const int l = i + (1 << j);
-      K a = ks[i], b = ks[l];
-      int va = vs[i], vb = vs[l];
-      cmp_exchange(a, b, va, vb, false);
-      ks[i] = a; ks[l] = b; vs[i] = va; vs[l] = vb;
-    }
-    __syncthreads();
-  }
-  for (int t = threadIdx.x; t < chunk; t += blockDim.x) {
-    kout[base + t] = ks[t];
-    vout[base + t] = vs[t];
-  }
-}
-
-// One grid-wide stage of the ascending ladder at distance 2^j.  With run > 0
-// (the ladder's first stage, 2^j == run) the second element of each pair is
-// read from the reversed second run.  Every thread owns whole pairs, so the
-// later stages run in place (kin == kout).
-template <typename K>
-__global__ void merge_stage_kernel(const K* kin, const int* vin, K* kout,
-                                   int* vout, int64_t pairs, int j,
-                                   int64_t run) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t p = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; p < pairs;
-       p += stride) {
-    const int64_t i = pair_first(p, j);
-    const int64_t l = i + (int64_t(1) << j);
-    const int64_t src = run > 0 ? reversed_source(l, run) : l;
-    K a = kin[i], b = kin[src];
-    int va = vin[i], vb = vin[src];
-    cmp_exchange(a, b, va, vb, false);
-    kout[i] = a; kout[l] = b; vout[i] = va; vout[l] = vb;
-  }
-}
-
-int log2_exact(int64_t x) {
+__host__ __device__ __forceinline__ int log2i(int x) {
   int r = 0;
-  while ((int64_t(1) << r) < x) ++r;
+  while ((1 << r) < x) ++r;
   return r;
 }
 
-// Widest power-of-two chunk (at most 2^14) made of whole `unit`-element spans
-// that tiles n.
-int chunk_for(int64_t n, int64_t unit) {
-  int64_t chunk = unit;
-  while (chunk < kChunk && n % (2 * chunk) == 0) chunk *= 2;
-  return int(chunk);
+__host__ __device__ constexpr int lowest_bit(int i) {
+  int j = 0;
+  while (!((i >> j) & 1)) ++j;
+  return j;
 }
 
+__device__ __forceinline__ int to_bits(int x) { return x; }
+__device__ __forceinline__ int to_bits(float x) { return __float_as_int(x); }
 template <typename K>
-cudaError_t allow_big_smem() {
-  const int bytes = kChunk * int(sizeof(K) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      sort_chunks_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(merge_chunks_kernel<K>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <typename K>
-int sort_blocks_impl(const void* keys, const void* values, void* keys_out,
-                     void* values_out, int64_t n, int64_t block, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  if (block < 1 || block > kChunk || (block & (block - 1)) || n % block) {
-    return cudaErrorInvalidValue;
+__device__ __forceinline__ K from_bits(int x) {
+  if constexpr (std::is_floating_point<K>::value) {
+    return __int_as_float(x);
+  } else {
+    return x;
   }
-  cudaError_t err = allow_big_smem<K>();
+}
+
+// Keys to min/max as jnp.minimum/jnp.maximum take them (-0.0 below +0.0),
+// values after `take_lo_first = a <= b`; a descending pair puts max first.
+template <typename K>
+__device__ __forceinline__ void cmp_exchange(K& a, K& b, int& va, int& vb, bool descending) {
+  const bool take_lo_first = a <= b;
+  // Ascending, a pair swaps unless its first key is the lower; descending,
+  // when it is.
+  const bool swap = take_lo_first == descending;
+  K x = swap ? b : a;
+  K y = swap ? a : b;
+  if constexpr (std::is_floating_point<K>::value) {
+    if (a == b) {  // equal keys differ in bits only as signed zeros
+      const int lo = to_bits(a) | to_bits(b), hi = to_bits(a) & to_bits(b);
+      x = from_bits<K>(descending ? hi : lo);
+      y = from_bits<K>(descending ? lo : hi);
+    }
+  }
+  const int vx = swap ? vb : va;
+  const int vy = swap ? va : vb;
+  a = x;
+  b = y;
+  va = vx;
+  vb = vy;
+}
+
+// Position of tile element t in shared memory, in (key, value) pairs of 8
+// bytes: at any window the 16 lanes of a half-warp hit 16 distinct pairs of
+// banks.  Linear over XOR: swizzle(x ^ y) = swizzle(x) ^ swizzle(y).
+__device__ __forceinline__ int swizzle(int t) { return t ^ ((t >> 5) & 15); }
+
+// A CTA's tile in registers: thread `tid` holds tile elements at(r), r < E,
+// which differ in index bits [w, w + LOG_E).
+template <typename K, int LOG_E>
+struct Tile {
+  static constexpr int E = 1 << LOG_E;
+  K k[E];
+  int v[E];
+  int w;
+  int tid;
+  int tile_log2;
+
+  __device__ __forceinline__ int at(int r) const {
+    return ((tid >> w) << (w + LOG_E)) | (r << w) | (tid & ((1 << w) - 1));
+  }
+
+  // Place in shared memory of each register's element, visited in Gray-code
+  // order so that each step is one XOR: register i ^ (i >> 1) lies at p[i].
+  __device__ __forceinline__ void places(int (&p)[E]) const {
+    int step[LOG_E];
+#pragma unroll
+    for (int j = 0; j < LOG_E; ++j) step[j] = swizzle(1 << (w + j));
+    p[0] = swizzle(at(0));
+#pragma unroll
+    for (int i = 1; i < E; ++i) p[i] = p[i - 1] ^ step[lowest_bit(i)];
+  }
+
+  // Waits for the threads that trade elements in a relayout between windows
+  // below `level`: those with equal tid >> level, which hold the tile elements
+  // with equal index >> (level + LOG_E) in both windows.  Groups drift apart,
+  // so each level has barriers of its own: 1..8 for groups of 64, 9..12 for
+  // 128, 13..14 for 256 (barrier 0 is the CTA's).
+  __device__ __forceinline__ void sync_group(int level) const {
+    static_assert(kThreads == 512, "the barrier ids below count groups of 512 threads");
+    const int threads = blockDim.x;
+    if (threads < 32 || (1 << level) >= threads) {
+      __syncthreads();
+    } else if (level <= 5) {
+      __syncwarp();
+    } else {
+      const int first = level == 6 ? 1 : level == 7 ? 9 : 13;
+      asm volatile("bar.sync %0, %1;" ::"r"(first + (tid >> level)), "r"(1 << level) : "memory");
+    }
+  }
+
+  // Re-lay the tile through shared memory into window `w_new`.  A thread first
+  // writes the places it alone read in the last relayout, so only the reads
+  // wait, and only for the threads of its group.
+  __device__ __forceinline__ void relayout(int w_new, int2* pairs) {
+    int p[E];
+    places(p);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int r = i ^ (i >> 1);
+      pairs[p[i]] = make_int2(to_bits(k[r]), v[r]);
+    }
+    sync_group(max(w, w_new));
+    w = w_new;
+    places(p);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int r = i ^ (i >> 1);
+      const int2 kv = pairs[p[i]];
+      k[r] = from_bits<K>(kv.x);
+      v[r] = kv.y;
+    }
+  }
+
+  // The window for stages b, b-1, ... down to b_lo: it holds b and as many of
+  // the next stages as it can, and lies as high as that allows.
+  __device__ __forceinline__ int window_for(int b, int b_lo) const {
+    const int w_new = min(b, max(b - LOG_E + 1, b_lo));
+    return min(w_new, tile_log2 - LOG_E);
+  }
+
+  // One stage at register bit P.  Q < 0: all ascending; Q < LOG_E: descending
+  // where bit Q of r is set; Q == LOG_E: all descending.
+  template <int P, int Q>
+  __device__ __forceinline__ void register_stage() {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      if (r & (1 << P)) continue;
+      const bool d = Q >= 0 && (Q == LOG_E || ((r >> Q) & 1) != 0);
+      cmp_exchange(k[r], k[r | (1 << P)], v[r], v[r | (1 << P)], d);
+    }
+  }
+
+  // The stages at register bits p_hi down to p_lo of the window.
+  template <int Q, int P = LOG_E - 1>
+  __device__ __forceinline__ void window_stages(int p_hi, int p_lo) {
+    if constexpr (P >= 0) {
+      if constexpr (Q < 0 || Q == LOG_E || Q > P) {  // an in-window Q lies above P
+        if (P <= p_hi && P >= p_lo) register_stage<P, Q>();
+      }
+      window_stages<Q, P - 1>(p_hi, p_lo);
+    }
+  }
+
+  template <int Q = -1>
+  __device__ __forceinline__ void window_stages_at(int q, int p_hi, int p_lo) {
+    if constexpr (Q <= LOG_E) {
+      if (q == Q) {
+        window_stages<Q>(p_hi, p_lo);
+      } else {
+        window_stages_at<Q + 1>(q, p_hi, p_lo);
+      }
+    }
+  }
+
+  // Stages at tile bits b_hi down to b_lo; direction bit d (-1: ascending).
+  // A direction bit outside the window is the thread's own: all its pairs go
+  // one way.
+  __device__ __forceinline__ void stages(int b_hi, int b_lo, int d, int2* pairs) {
+    for (int b = b_hi; b >= b_lo;) {
+      if (b < w || b >= w + LOG_E) relayout(window_for(b, b_lo), pairs);
+      int q = -1;
+      if (d >= w && d < w + LOG_E) {
+        q = d - w;
+      } else if (d >= 0 && ((at(0) >> d) & 1)) {
+        q = LOG_E;
+      }
+      const int stop = max(w, b_lo);
+      window_stages_at(q, b - w, stop - w);
+      b = stop - 1;
+    }
+  }
+};
+
+// Where the elements of tile `tile` under launch L lie: `origin` plus the
+// 32-bit offset of tile element t.  `load` reads the second run reversed
+// where L says so.
+struct TileMap {
+  Launch L;
+  int log2_width, log2_rows, size, c0;
+  int64_t origin;
+
+  __device__ __forceinline__ TileMap(const Launch& launch, int64_t tile)
+      : L(launch), log2_width(log2i(launch.width)), log2_rows(log2i(launch.rows)),
+        size(launch.rows * launch.width) {
+    if (L.route == kChunk) {
+      c0 = 0;
+      origin = tile * size;
+    } else {
+      // The tiles of one span of rows * size elements are its column blocks.
+      c0 = int(tile & (L.rows - 1)) << log2_width;
+      origin = (tile >> log2_rows) * L.rows * size;
+    }
+  }
+
+  __device__ __forceinline__ int offset(int t, bool load) const {
+    if (L.route == kChunk) {
+      if (!(load && L.reversed)) return t;
+      const int run = 1 << L.j_hi;
+      const int q = t & (2 * run - 1);
+      return q < run ? t : t - q + 3 * run - 1 - q;
+    }
+    // Strided: the second run's rows read the mirrored column segment backwards.
+    const int r = t >> log2_width, c = t & (L.width - 1);
+    if (load && L.reversed && r >= L.rows / 2)
+      return (3 * L.rows / 2 - 1 - r) * size + size - 1 - c0 - c;
+    return r * size + c0 + c;
+  }
+};
+
+// One launch: load the tile at a window whose lanes read contiguous words,
+// run the launch's stages, store it the same way.  In place is fine for the
+// unreversed chunk launch: a CTA loads its whole tile before it stores.
+template <typename K, int LOG_E>
+__global__ void __launch_bounds__(kThreads, 1)
+network_kernel(const K* kin, const int* vin, K* kout, int* vout, Launch L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* pairs = reinterpret_cast<int2*>(smem);
+  const TileMap map(L, blockIdx.x);
+  const int shift = L.route == kStrided ? map.log2_rows : 0;  // network bit -> tile bit
+
+  Tile<K, LOG_E> tile;
+  tile.tid = threadIdx.x;
+  tile.tile_log2 = log2i(map.size);
+  // Window 3 and up (or the top window of a small tile): each 8 lanes hold
+  // consecutive tile elements, so a warp's loads and stores fill whole 32-byte
+  // sectors.
+  const int w_io = min(3, tile.tile_log2 - LOG_E);
+  int first = w_io;
+  if (L.sort_log2 > 0) {
+    first = tile.window_for(0, 0);
+  } else if (L.j_hi >= L.j_lo) {
+    first = tile.window_for(L.j_hi - shift, L.j_lo - shift);
+  }
+  tile.w = max(first, w_io);
+  {
+    const K* kp = kin + map.origin;
+    const int* vp = vin + map.origin;
+#pragma unroll
+    for (int r = 0; r < tile.E; ++r) {
+      const int o = map.offset(tile.at(r), true);
+      tile.k[r] = kp[o];
+      tile.v[r] = vp[o];
+    }
+  }
+  if (L.sort_log2 > 0) {
+    const int m = L.sort_log2;
+    for (int k = 1; k <= m; ++k) tile.stages(k - 1, 0, k < m ? k : -1, pairs);
+  } else if (L.j_hi >= L.j_lo) {
+    tile.stages(L.j_hi - shift, L.j_lo - shift, -1, pairs);
+  }
+  if (tile.w < w_io) tile.relayout(w_io, pairs);
+  K* kp = kout + map.origin;
+  int* vp = vout + map.origin;
+#pragma unroll
+  for (int r = 0; r < tile.E; ++r) {
+    const int o = map.offset(tile.at(r), false);
+    kp[o] = tile.k[r];
+    vp[o] = tile.v[r];
+  }
+}
+
+bool is_pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// A launch the kernel can run on n elements; `first`: it reads the input.
+bool valid(const Launch& L, int64_t n, bool first) {
+  if (L.route != kChunk && L.route != kStrided) return false;
+  if (!is_pow2(L.rows) || !is_pow2(L.width)) return false;
+  const int64_t size = int64_t(L.rows) * L.width;
+  if (size > kTile || n % size) return false;
+  const int tile_log2 = log2i(int(size));
+  if (L.reversed && !first) return false;
+  if (L.sort_log2 > 0) return L.route == kChunk && L.sort_log2 <= tile_log2 && !L.reversed;
+  if (L.j_hi < L.j_lo) return !L.reversed;  // no stages: a copy
+  if (L.j_lo < 0) return false;
+  if (L.route == kChunk) return L.rows == 1 && L.j_hi < tile_log2;
+  // Strided: the rows are the index bits log2(size) .. j_hi.
+  return n % (size * L.rows) == 0 && L.rows >= 2 && L.j_lo == tile_log2 &&
+         L.j_hi == tile_log2 + log2i(L.rows) - 1;
+}
+
+template <typename K, int LOG_E>
+cudaError_t launch_one(const K* kin, const int* vin, K* kout, int* vout, int64_t n,
+                       const Launch& L, cudaStream_t stream) {
+  const int size = L.rows * L.width;
+  const size_t smem = size_t(size) * sizeof(int2);  // (key, value) pairs
+  cudaError_t err = cudaFuncSetAttribute(network_kernel<K, LOG_E>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int chunk = chunk_for(n, block);
-  const int threads = chunk >= 2 * kThreads ? kThreads : (chunk > 1 ? chunk / 2 : 1);
-  const size_t smem = size_t(chunk) * (sizeof(K) + sizeof(int));
-  sort_chunks_kernel<K><<<unsigned(n / chunk), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const K*>(keys), static_cast<const int*>(values),
-      static_cast<K*>(keys_out), static_cast<int*>(values_out), chunk,
-      log2_exact(block));
+  network_kernel<K, LOG_E><<<unsigned(n / size), unsigned(size >> LOG_E), smem, stream>>>(
+      kin, vin, kout, vout, L);
   return cudaGetLastError();
 }
 
+// Runs the plan's launches in order: the first from the input to the output,
+// the others in place on the output.
 template <typename K>
-int merge_pass_impl(const void* keys, const void* values, void* keys_out,
-                    void* values_out, int64_t n, int64_t run, void* stream) {
+int run_plan(const void* keys, const void* values, void* keys_out, void* values_out,
+             int64_t n, const int* plan, int launches, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (run < 1 || (run & (run - 1)) || n % (2 * run)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_big_smem<K>();
-  if (err != cudaSuccess) return err;
+  if (launches < 1 || launches > 2) return cudaErrorInvalidValue;
+  Launch L[2];
+  for (int i = 0; i < launches; ++i) {
+    const int* f = plan + kPlanFields * i;
+    L[i] = Launch{f[0], f[1], f[2], f[3], f[4], f[5], f[6]};
+    if (!valid(L[i], n, i == 0)) return cudaErrorInvalidValue;
+  }
   auto s = static_cast<cudaStream_t>(stream);
-  const K* kin = static_cast<const K*>(keys);
-  const int* vin = static_cast<const int*>(values);
   K* kout = static_cast<K*>(keys_out);
   int* vout = static_cast<int*>(values_out);
-  const int top = log2_exact(2 * run);
-  if (2 * run <= kChunk) {
-    const int chunk = chunk_for(n, 2 * run);
-    const int threads = chunk >= 2 * kThreads ? kThreads : chunk / 2;
-    merge_chunks_kernel<K><<<unsigned(n / chunk), threads,
-                             size_t(chunk) * (sizeof(K) + sizeof(int)), s>>>(
-        kin, vin, kout, vout, chunk, int(run), top);
-    return cudaGetLastError();
+  for (int i = 0; i < launches; ++i) {
+    const K* kin = i == 0 ? static_cast<const K*>(keys) : kout;
+    const int* vin = i == 0 ? static_cast<const int*>(values) : vout;
+    if (L[i].sort_log2 == 0 && L[i].j_hi < L[i].j_lo) {  // no stages (blocks of 1)
+      if (kin == kout) continue;
+      cudaError_t err = cudaMemcpyAsync(kout, kin, n * sizeof(K), cudaMemcpyDeviceToDevice, s);
+      if (err == cudaSuccess)
+        err = cudaMemcpyAsync(vout, vin, n * sizeof(int), cudaMemcpyDeviceToDevice, s);
+      if (err != cudaSuccess) return err;
+      continue;
+    }
+    // Tiles of fewer than 32 elements take 2 a thread.
+    const cudaError_t err = L[i].rows * L[i].width >= (1 << kLogE)
+        ? launch_one<K, kLogE>(kin, vin, kout, vout, n, L[i], s)
+        : launch_one<K, 1>(kin, vin, kout, vout, n, L[i], s);
+    if (err != cudaSuccess) return err;
   }
-  const int64_t pairs = n / 2;
-  const int64_t want = (pairs + kStageThreads - 1) / kStageThreads;
-  const unsigned grid = unsigned(want < (1 << 20) ? want : (1 << 20));
-  merge_stage_kernel<K><<<grid, kStageThreads, 0, s>>>(kin, vin, kout, vout,
-                                                       pairs, top - 1, run);
-  for (int j = top - 2; j >= kChunkLog2; --j) {
-    merge_stage_kernel<K><<<grid, kStageThreads, 0, s>>>(kout, vout, kout, vout,
-                                                         pairs, j, 0);
-  }
-  merge_chunks_kernel<K><<<unsigned(n / kChunk), kThreads,
-                           size_t(kChunk) * (sizeof(K) + sizeof(int)), s>>>(
-      kout, vout, kout, vout, kChunk, 0, kChunkLog2);
-  return cudaGetLastError();
+  return cudaSuccess;
+}
+
+template <typename K>
+int attributes(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, network_kernel<K, kLogE>);
+  if (err != cudaSuccess) return err;
+  const int smem = kTile * int(sizeof(int2));
+  err = cudaFuncSetAttribute(network_kernel<K, kLogE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = int(attr.localSizeBytes);
+  out[2] = smem;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], network_kernel<K, kLogE>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], network_kernel<K, kLogE>,
+                                                       kThreads / 2, smem / 2);
 }
 
 }  // namespace
@@ -247,31 +423,34 @@ int merge_pass_impl(const void* keys, const void* values, void* keys_out,
 extern "C" {
 
 int remop_sort_blocks_i32(const void* keys, const void* values, void* keys_out,
-                          void* values_out, long long n, long long block,
+                          void* values_out, long long n, const int* plan, int launches,
                           void* stream) {
-  return sort_blocks_impl<int32_t>(keys, values, keys_out, values_out, n, block,
-                                   stream);
+  return run_plan<int32_t>(keys, values, keys_out, values_out, n, plan, launches, stream);
 }
 
 int remop_sort_blocks_f32(const void* keys, const void* values, void* keys_out,
-                          void* values_out, long long n, long long block,
+                          void* values_out, long long n, const int* plan, int launches,
                           void* stream) {
-  return sort_blocks_impl<float>(keys, values, keys_out, values_out, n, block,
-                                 stream);
+  return run_plan<float>(keys, values, keys_out, values_out, n, plan, launches, stream);
 }
 
 int remop_merge_pass_i32(const void* keys, const void* values, void* keys_out,
-                         void* values_out, long long n, long long run,
+                         void* values_out, long long n, const int* plan, int launches,
                          void* stream) {
-  return merge_pass_impl<int32_t>(keys, values, keys_out, values_out, n, run,
-                                  stream);
+  return run_plan<int32_t>(keys, values, keys_out, values_out, n, plan, launches, stream);
 }
 
 int remop_merge_pass_f32(const void* keys, const void* values, void* keys_out,
-                         void* values_out, long long n, long long run,
+                         void* values_out, long long n, const int* plan, int launches,
                          void* stream) {
-  return merge_pass_impl<float>(keys, values, keys_out, values_out, n, run,
-                                stream);
+  return run_plan<float>(keys, values, keys_out, values_out, n, plan, launches, stream);
+}
+
+// is_f32, &out[5]: registers, local (spill) bytes and dynamic shared bytes of
+// the kernel at a 2^14-element tile, and its resident CTAs an SM at tiles of
+// 2^14 and of 2^13.
+int remop_merge_sort_attributes(int is_f32, int* out) {
+  return is_f32 ? attributes<float>(out) : attributes<int32_t>(out);
 }
 
 const char* remop_merge_sort_error_string(int err) {

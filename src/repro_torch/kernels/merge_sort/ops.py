@@ -39,7 +39,8 @@ def remop_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None,
 
     ``run_items`` (a power of two) is the in-core run size; the default is
     ``min(2^14, next_pow2(n))``.  Keys are int32 or float32; ``values``
-    (int32) default to ``arange(n)``.
+    (int32) default to ``arange(n)``.  On the card ``n`` is at most 2^28,
+    the widest merge :func:`merge_pass` takes.
     """
     return _sort(keys, values, run_items, sort_blocks, merge_pass)
 

@@ -46,8 +46,11 @@ _F32 = ctypes.c_float
 # C signature of every entry point, per library: (argtypes, restype).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "merge_sort": {
-        **{f"remop_{op}_{t}": ([_P, _P, _P, _P, _I64, _I64, _P], _I32)
+        # keys, values, keys_out, values_out, n, &plan[launches * 7] (int32), launches, stream
+        **{f"remop_{op}_{t}": ([_P, _P, _P, _P, _I64, _P, _I32, _P], _I32)
            for op in ("sort_blocks", "merge_pass") for t in ("i32", "f32")},
+        # is_f32, &out[5]
+        "remop_merge_sort_attributes": ([_I32, _P], _I32),
         "remop_merge_sort_error_string": ([_I32], ctypes.c_char_p),
     },
     "gather_rows": {
