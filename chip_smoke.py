@@ -18,8 +18,13 @@ Phases, each printing JSON objects, one per line:
    block 2 and run 1 the plain version must place some tie elsewhere than
    ``torch.sort(..., stable=True)``, so tie order is exercised, and on every
    float input some zero key must leave with another sign than the key that
-   entered with its value, so signed zeros are exercised; the merge-
-   sort kernel's registers, spills and shared memory, no spills allowed; the
+   entered with its value, so signed zeros are exercised; float keys with
+   NaNs of both signs and several payloads beside signed zeros and
+   infinities, where NaNs must spread and some must leave other than
+   canonical, so the NaN rule is exercised; ``gather_rows`` on every route
+   and unit of its plan, ragged, misaligned, blocked, on the partition
+   argsort's indices and a wide bf16 row; the merge-sort and gather
+   kernels' registers, spills and shared memory, no spills allowed; the
    attention kernels within
    ``ATTN_TOL``, which must also reject three planted faults; the flash kernel
    on both routes, each check printing the route it took: bf16 at hd 64,
@@ -33,8 +38,12 @@ Phases, each printing JSON objects, one per line:
    flash and every paged instantiation, and time kernel, plain version and
    the PyTorch library call that computes the same function with CUDA
    events (the flash kernel also at qwen3-0.6b's widths, and with P rounded
-   once to bf16, a probe; the sort, gather, paged and scan kernels and the
-   library calls beside them also by device time from a profiler window);
+   once to bf16, a probe; the sort, gather, flash, paged and scan kernels
+   and the library calls beside them also by device time from a profiler
+   window; ``sort_blocks`` also on float32 keys, without and with a NaN in
+   every block; the gather also on the partition argsort's indices, on the
+   identity beside a copy of the same rows, on a wide bf16 row, and with x
+   already in L2);
 3. session: drive the spill engine's main path, ``Session(make_backend(...))
    .run(tasks)``, at a TPC-H SF1-shaped size (EMS over ``l_orderkey``, EHJ of
    orders with lineitem, EAGG of lineitem by key), with the launch counters
@@ -69,7 +78,8 @@ Phases, each printing JSON objects, one per line:
    element-staged route) and the conventional f32 plan at deepseek qkv (the
    f32 kernel's sub-steps), reject two planted faults (a dropped last K
    step, a B column tile rolled by one), and time kernel, ``remop_matmul``,
-   plain version and ``torch.matmul`` with CUDA events, and three tile
+   plain version and ``torch.matmul`` with CUDA events (the report row's
+   kernel and ``torch.matmul`` also by device time), and three tile
    probes;
 7. report: per-query and per-request seconds, the card's peak memory, and
    one ``{"kernels": [...]}`` line.
@@ -234,6 +244,15 @@ def nvidia_smi() -> str:
 # --------------------------------------------------------------------------
 
 
+# Bench.device_ms: the spin launches that open each profiler window, the
+# windows taken at most, and the kernels of the primer (torch.cuda._sleep)
+# and of the L2 flush (zero_ of a uint8 tensor), known by name.
+PRIMER = 64
+WINDOWS = 3
+SPIN_KERNEL = "spin_kernel"
+FLUSH_KERNEL = "FillFunctor<unsigned char>"
+
+
 class Bench:
     """Median CUDA-event times with the L2 cache flushed before each launch."""
 
@@ -261,30 +280,49 @@ class Bench:
 
     def device_ms(self, fn, reps: int = 50) -> dict:
         """Device milliseconds a call: the device events of ``reps`` calls in
-        one profiler window, L2 flushed before each (the flush's own kernels,
-        found by name in a window of flushes alone, are left out), and the
-        device events a call."""
+        one profiler window, L2 flushed before each, per call; the device
+        events a call; how many of the window's first records the profiler
+        dropped; and the windows it took.
+
+        The profiler at times drops the first device records of a window (up
+        to a few dozen, whole calls with their flushes, mostly in windows late
+        in a long process).  So each window opens with ``PRIMER`` launches of
+        ``torch.cuda._sleep``'s spin kernel, which take that loss.  The spin
+        and flush kernels, known by name, are left out.  A window must hold
+        every flush and the same number of events for every call; one that
+        does not is taken again, at most ``WINDOWS`` times, then the check
+        fails."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         for _ in range(self.warmup):
             fn()
-
-        def window(call):
+        for taken in range(1, WINDOWS + 1):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(PRIMER):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
                 for _ in range(reps):
                     self.flush.zero_()
-                    call()
+                    fn()
                 torch.cuda.synchronize()
-            return {e.key: e for e in prof.key_averages()
-                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)}
-
-        flush_keys = set(window(lambda: None))
-        events = {k: e for k, e in window(fn).items() if k not in flush_keys}
-        return {"device_ms": sum(e.self_device_time_total for e in events.values()) / reps / 1e3,
-                "device_events_per_call": sum(e.count for e in events.values()) / reps}
+            events = [e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
+            primed = sum(e.count for e in events if SPIN_KERNEL in e.key)
+            fills = sum(e.count for e in events if FLUSH_KERNEL in e.key)
+            ours = [e for e in events if SPIN_KERNEL not in e.key and FLUSH_KERNEL not in e.key]
+            count = sum(e.count for e in ours)
+            if fills == reps and count > 0 and count % reps == 0:
+                break
+        check(fills == reps and count > 0 and count % reps == 0,
+              f"{WINDOWS} profiler windows of {reps} calls: the last holds {primed} of {PRIMER} "
+              f"spins, {fills} flushes and {count} events of the calls "
+              f"({ {e.key[:60]: e.count for e in ours} }), not the same number for every call")
+        return {"device_ms": sum(e.self_device_time_total for e in ours) / reps / 1e3,
+                "device_events_per_call": count // reps, "profiler_dropped": PRIMER - primed,
+                "profiler_windows": taken}
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -331,14 +369,77 @@ def zeros_decide(torch, what, keys, values, plain_keys, plain_values):
           f"{what}: every key moves with its value; the input does not exercise signed zeros")
 
 
+# NaN keys by their bits: quiet and signalling, with payloads, of both signs.
+NAN_BITS = (0x7FC00000, -0x00400000, 0x7FC00001, -0x003FFFFF, 0x7F800001, -0x007EDCBB)
+NAN_CANONICAL = 0x7FC00000  # what torch.minimum/maximum give for any NaN
+
+
+def with_nans(torch, gen, keys):
+    """A copy of float ``keys`` (holding -0.0 and +0.0) with every pattern of
+    ``NAN_BITS`` at a few places, -inf and +inf at others, and a NaN right
+    beside each of -0.0, +0.0, -inf and +inf."""
+    n = keys.shape[0]
+    bits = keys.clone().view(torch.int32)
+    count = max(2 * len(NAN_BITS), n >> 16)
+    # Even n: where ^ 1 is in range (an odd n leaves its last key out).
+    where = torch.randperm(n - n % 2, device=keys.device, generator=gen)[:3 * count]
+    pattern = torch.tensor(NAN_BITS, dtype=torch.int32, device=keys.device)
+    bits[where[:count]] = pattern.repeat(count // len(NAN_BITS) + 1)[:count]
+    bits[where[count:2 * count]] = torch.tensor(
+        [0x7F800000, -0x00800000], dtype=torch.int32, device=keys.device).repeat(count)[:count]
+    for i, special in enumerate((0, -(1 << 31), 0x7F800000, -0x00800000)):
+        bits[where[i] ^ 1] = special  # where[i] holds a NaN
+    return bits.view(torch.float32)
+
+
+def nans_decide(torch, what, keys, plain_keys):
+    """Check that NaN keys are exercised: the input holds NaNs of both signs
+    and several payloads beside signed zeros and infinities, and the plain
+    version's output holds more NaNs than its input (a kernel that moves each
+    key whole keeps the count) and NaNs other than the canonical one (a
+    kernel through min/max that makes NaNs canonical gives only that)."""
+    bits, out = keys.view(torch.int32), plain_keys.view(torch.int32)
+    nan_in, nan_out = torch.isnan(keys), torch.isnan(plain_keys)
+    patterns = torch.unique(bits[nan_in])
+    check(bool((patterns < 0).any()) and bool((patterns >= 0).any()) and patterns.numel() >= 4,
+          f"{what}: the input's NaNs do not hold both signs and several payloads")
+    for special in (0, -(1 << 31), 0x7F800000, -0x00800000):
+        check(bool((bits == special).any()), f"{what}: the input has no key of bits {special:#x}")
+    check(int(nan_out.sum()) > int(nan_in.sum()),
+          f"{what}: no NaN spread; the input does not exercise NaN keys")
+    check(bool((out[nan_out] != NAN_CANONICAL).any()),
+          f"{what}: every NaN out is canonical; the input does not exercise NaN bits")
+
+
 def bound(bytes_moved: float, ops: float, ops_per_s: float = ALU_OPS_PER_S):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def sort_key_types(torch, device, bench) -> dict:
+    """Device ms of ``sort_blocks`` at the kernels line's shape (n = 2^22,
+    blocks of 2^14) on int32 keys, on the same keys as float32, and on those
+    with a NaN in every block, which takes the NaN rule."""
+    from repro_torch.kernels.merge_sort.merge_sort import sort_blocks
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    n, b = 1 << 22, 1 << 14
+    keys = torch.randint(0, KEY_DOMAIN, (n,), device=device, generator=gen, dtype=torch.int32)
+    vals = torch.arange(n, dtype=torch.int32, device=device)
+    nans = keys.float()
+    nans[::b] = float("nan")
+    return {f"{name}_{k}": v
+            for name, key in (("int32", keys), ("float32", keys.float()),
+                              ("float32_nan_every_block", nans))
+            for k, v in bench.device_ms(lambda key=key: sort_blocks(key, vals, b)).items()}
+
+
 def phase_kernels(torch, device):
     from repro_torch.kernels.dispatch.dispatch import gather_rows, gather_rows_plain
+    from repro_torch.kernels.dispatch.dispatch import attributes as gather_attributes
+    from repro_torch.kernels.dispatch.dispatch import plan as gather_plan
     from repro_torch.kernels.merge_sort.merge_sort import (
         merge_pass, merge_pass_plain, sort_blocks, sort_blocks_plain)
     from repro_torch.kernels.merge_sort.merge_sort import attributes as merge_sort_attributes
@@ -380,6 +481,13 @@ def phase_kernels(torch, device):
                 zeros_decide(torch, f"sort_blocks block 2^{e}", keys, vals, *want)
         emit({"phase": "kernels", "check": "sort_blocks", "dtype": str(dtype), "n": n,
               "blocks": "2^1..2^14", "equal": True})
+    keys = with_nans(torch, gen, tied(n, torch.float32))
+    for e in range(1, 15):
+        want = sort_blocks_plain(keys, vals, 1 << e)
+        equal_bits(torch, ["sort_blocks"], sort_blocks(keys, vals, 1 << e), want, errs)
+        nans_decide(torch, f"sort_blocks block 2^{e}", keys, want[0])
+    emit({"phase": "kernels", "check": "sort_blocks", "dtype": "torch.float32 with NaNs",
+          "n": n, "blocks": "2^1..2^14", "equal": True})
     for dtype in (torch.int32, torch.float32):
         for n, exps in ((1 << 21, range(0, 21) if dtype == torch.int32 else (1, 13, 14, 20)),
                         (1 << 22, (14, 21))):
@@ -397,36 +505,90 @@ def phase_kernels(torch, device):
                     zeros_decide(torch, f"merge_pass run 2^{e}", keys, perm, *want)
             emit({"phase": "kernels", "check": "merge_pass", "dtype": str(dtype), "n": n,
                   "runs": [1 << e for e in exps], "equal": True})
+    for n, exps in ((1 << 21, (0, 1, 5, 13, 14, 20)), (1 << 22, (21,))):
+        base = with_nans(torch, gen, tied(n, torch.float32))
+        perm = torch.randperm(n, device=device, generator=gen).to(torch.int32)
+        for e in exps:
+            # Sorted runs, NaNs last, moved by index so that their bits stay.
+            runs = base.view(-1, 1 << e)
+            keys = runs.gather(1, torch.sort(runs, dim=1).indices).reshape(-1)
+            want = merge_pass_plain(keys, perm, 1 << e)
+            equal_bits(torch, ["merge_pass"], merge_pass(keys, perm, 1 << e), want, errs)
+            nans_decide(torch, f"merge_pass run 2^{e}", keys, want[0])
+        emit({"phase": "kernels", "check": "merge_pass", "dtype": "torch.float32 with NaNs",
+              "n": n, "runs": [1 << e for e in exps], "equal": True})
     for n in (3, (1 << 14) + 1, 1 << 21):
         for dtype in (torch.int32, torch.float32):
             keys = tied(n, dtype, hi=max(2, n // 8))
             equal_bits(torch, sorts, remop_sort(keys), remop_sort_plain(keys), errs)
+        if n > 1 << 14:
+            keys = with_nans(torch, gen, tied(n, torch.float32, hi=n // 8))
+            want = remop_sort_plain(keys)
+            equal_bits(torch, sorts, remop_sort(keys), want, errs)
+            nans_decide(torch, f"remop_sort n={n}", keys, want[0])
         parts = tied(n, torch.int32, hi=64)
         equal_bits(torch, sorts, (argsort_by_key(parts, max_key=63),),
                    (argsort_by_key_plain(parts, max_key=63),), errs)
         emit({"phase": "kernels", "check": "remop_sort+argsort_by_key", "n": n, "equal": True})
-    x = torch.randint(-(1 << 30), 1 << 30, (1 << 20, 2), device=device,
+    # gather_rows: every route and unit of its plan, ragged tails, misaligned
+    # bases, blocks (and a partial last block), the main path's index pattern
+    # and a wide bf16 row.
+    m = 1 << 20
+    x = torch.randint(-(1 << 30), 1 << 30, (m, 2), device=device,
                       generator=gen, dtype=torch.int32)
-    for rpb in (1, 8):
-        blocks = torch.randperm((1 << 20) // rpb, device=device, generator=gen)
-        idx = (blocks[:, None] * rpb + torch.arange(rpb, device=device)).reshape(-1).to(torch.int32)
-        equal_bits(torch, ["gather_rows"], (gather_rows(x, idx, rpb),),
-                   (gather_rows_plain(x, idx, rpb),), errs)
+    perm = torch.randperm(m, device=device, generator=gen).to(torch.int32)
+    parts = tied(m, torch.int32, hi=PARTITIONS)
+    gather_idx = {"random": perm, "partitions": argsort_by_key(parts, max_key=PARTITIONS - 1),
+                  "identity": torch.arange(m, dtype=torch.int32, device=device)}
+    narrow = [x, x[:, :1].contiguous(),
+              torch.randint(0, 1 << 30, (m // 4 + 3, 4), device=device, generator=gen,
+                            dtype=torch.int32)]
+    plans = set()
+
+    def hold_gather(src, idx, rpb=1):
+        if rpb == 1:  # the plan the wrapper takes; its output is a new, aligned tensor
+            plans.add(gather_plan(src.shape[1] * src.element_size(), src.data_ptr(),
+                                  idx.data_ptr(), 0))
+        equal_bits(torch, ["gather_rows"], (gather_rows(src, idx, rpb),),
+                   (gather_rows_plain(src, idx, rpb),), errs)
+
+    for idx in gather_idx.values():
+        hold_gather(x, idx)
+    for src in narrow:
+        hold_gather(src, perm[perm < src.shape[0]][: src.shape[0] - 5])  # a ragged tail
+    for rpb in (2, 8):
+        hold_gather(x, perm, rpb)
+    # m - 3 rows: x's last block of 8 is partial, and no index reaches it.
+    hold_gather(x[: m - 3], perm[perm < m - 8], 8)
+    hold_gather(x, perm[1:])  # indices 4 bytes off a 16-byte line
+    shifted = x.view(-1)[1:2 * m - 1].view(m - 1, 2)  # rows 4 bytes off their alignment
+    hold_gather(shifted, perm[perm < m - 1])
+    wide = torch.randn(32768, 1536, device=device, generator=gen).to(torch.bfloat16)
+    wide_idx = torch.randperm(32768, device=device, generator=gen).to(torch.int32)
+    hold_gather(wide, wide_idx)
     for shape, dtype in (((4096, 3), torch.int64), ((1000, 5), torch.int16),
                          ((777, 8), torch.float32), ((513, 7), torch.uint8)):
         src = torch.randint(0, 100, shape, device=device, generator=gen).to(dtype)
         idx = torch.randint(0, shape[0], (shape[0] // 2 * 2,), device=device,
                             generator=gen, dtype=torch.int32)
-        equal_bits(torch, ["gather_rows"], (gather_rows(src, idx),),
-                   (gather_rows_plain(src, idx),), errs)
+        hold_gather(src, idx)
+    want_plans = {(route, u) for route, units in (("narrow", (4, 8, 16)),
+                                                   ("grouped", (1, 2, 4, 8, 16)))
+                  for u in units}
+    check({p[:2] for p in plans} == want_plans,
+          f"gather_rows checks took plans {sorted(plans)}, not every instantiation")
+    emit({"phase": "kernels", "check": "gather_rows", "plans": sorted(plans), "equal": True})
     torch.cuda.synchronize()
     emit({"phase": "kernels", "check": "bit-identical to the plain versions",
           "max_abs_err": errs})
 
-    # -- registers and spills of the tile kernel ---------------------------------
+    # -- registers and spills of the tile kernel and the gather instantiations ---
     inst = {str(dt)[6:]: merge_sort_attributes(dt) for dt in (torch.int32, torch.float32)}
     emit({"phase": "kernels", "merge_sort_instantiations": inst})
     check(all(a["local_bytes"] == 0 for a in inst.values()), f"a merge-sort kernel spills: {inst}")
+    inst = {f"{p.route} unit {p.unit}": gather_attributes(p) for p in sorted(plans)}
+    emit({"phase": "kernels", "gather_rows_instantiations": inst})
+    check(all(a["local_bytes"] == 0 for a in inst.values()), f"a gather kernel spills: {inst}")
 
     # -- timing at the main path's widest shapes -------------------------------
     bench = Bench(torch, device)
@@ -434,9 +596,9 @@ def phase_kernels(torch, device):
     def timed(kernel, plain, library, **row):
         """CUDA-event ms of kernel, plain version and library call, and the
         device ms of kernel and library call from a profiler window."""
-        return dict(row, ms=bench.ms(kernel), device_ms=bench.device_ms(kernel)["device_ms"],
+        return dict(row, ms=bench.ms(kernel), **bench.device_ms(kernel),
                     plain_ms=bench.ms(plain), library_ms=bench.ms(library),
-                    library_device_ms=bench.device_ms(library)["device_ms"])
+                    **{f"library_{k}": v for k, v in bench.device_ms(library).items()})
 
     n = 1 << 22  # EMS run formation over 128 key pages: 4,194,304 keys
     keys = tied(n, torch.int32, hi=KEY_DOMAIN)
@@ -465,31 +627,59 @@ def phase_kernels(torch, device):
         lambda: torch.sort(runs_sorted, stable=True),
         shape=f"n={n}, runs 2^14..2^21 (8 passes), int32 keys + int32 values",
         bound_ms=ms_bound, bound_by=by)
+    emit({"phase": "kernels", "timing": "sort_blocks by key type",
+          "shape": rows["sort_blocks"]["shape"], **sort_key_types(torch, device, bench)})
 
-    m = 1 << 20  # a partition block of (key, payload) rows narrowed to int32
-    x = torch.randint(0, KEY_DOMAIN, (m, 2), device=device, generator=gen, dtype=torch.int32)
-    idx = torch.randperm(m, device=device, generator=gen).to(torch.int32)
-    ms_bound, by = bound(2 * x.numel() * 4 + idx.numel() * 4, 0)
-    rows["gather_rows"] = timed(
-        lambda: gather_rows(x, idx), lambda: gather_rows_plain(x, idx),
-        lambda: torch.index_select(x, 0, idx),
-        shape=f"x=[{m}, 2] int32, idx=[{m}] int32, rows_per_block=1",
-        bound_ms=ms_bound, bound_by=by)
+    # gather_rows, row 1 (the kernels line): a partition block of 2^20 (key,
+    # payload) rows narrowed to int32, a random permutation.  Rows 2-4: the
+    # main path's own indices (the stable argsort of 64 partition ids), the
+    # identity beside a copy of the same bytes (x.clone()), and a wide bf16
+    # row off the main path (granite-moe-3b's d_model, 4096 tokens x top-8).
+    gather_cases = (("gather_rows", x, perm),
+                    ("gather_rows partitions", x, gather_idx["partitions"]),
+                    ("gather_rows identity", x, gather_idx["identity"]),
+                    ("gather_rows wide", wide, wide_idx))
+    for name, src, idx in gather_cases:
+        n_rows, d = idx.shape[0], src.shape[1]
+        ms_bound, by = bound(2 * n_rows * d * src.element_size() + 4 * n_rows, 0)
+        row = timed(lambda src=src, idx=idx: gather_rows(src, idx),
+                    lambda src=src, idx=idx: gather_rows_plain(src, idx),
+                    lambda src=src, idx=idx: torch.index_select(src, 0, idx),
+                    shape=f"x=[{src.shape[0]}, {d}] {str(src.dtype)[6:]}, idx=[{n_rows}] int32, "
+                          f"rows_per_block=1", bound_ms=ms_bound, bound_by=by)
+        if name == "gather_rows identity":
+            row.update(copy_ms=bench.ms(src.clone),
+                       **{f"copy_{k}": v for k, v in bench.device_ms(src.clone).items()})
+        rows[name] = row
+    # What a gather takes with x already in L2 (read by a copy just before),
+    # less the copy's own time: random and identity indices.
+    warm = {}
+    for turn in range(2):
+        warm.setdefault("copy", []).append(bench.device_ms(x.clone)["device_ms"])
+        for name, idx in (("random", perm), ("identity", gather_idx["identity"])):
+            both = bench.device_ms(lambda idx=idx: (x.clone(), gather_rows(x, idx)))["device_ms"]
+            warm.setdefault(name, []).append(both - warm["copy"][-1])
+    emit({"phase": "kernels", "timing": "gather_rows with x in L2", "device_ms": warm})
     for name, row in rows.items():
         emit({"phase": "kernels", "timing": name, **row})
+    for name, _, _ in gather_cases[1:]:
+        del rows[name]
 
     # The composite ops on the main path, with the library sort beside them.
     keys = tied(n, torch.int32, hi=KEY_DOMAIN)
     parts = tied(m, torch.int32, hi=PARTITIONS)
     emit({"phase": "kernels", "timing": "remop_sort", "n": n,
           "ms": bench.ms(lambda: remop_sort(keys)),
-          "device_ms": bench.device_ms(lambda: remop_sort(keys))["device_ms"],
+          **bench.device_ms(lambda: remop_sort(keys)),
           "plain_ms": bench.ms(lambda: remop_sort_plain(keys)),
           "library_ms": bench.ms(lambda: torch.sort(keys, stable=True))})
     emit({"phase": "kernels", "timing": "argsort_by_key", "n": m,
           "ms": bench.ms(lambda: argsort_by_key(parts, max_key=PARTITIONS - 1)),
+          **bench.device_ms(lambda: argsort_by_key(parts, max_key=PARTITIONS - 1)),
           "plain_ms": bench.ms(lambda: argsort_by_key_plain(parts, max_key=PARTITIONS - 1)),
-          "library_ms": bench.ms(lambda: torch.argsort(parts, stable=True))})
+          "library_ms": bench.ms(lambda: torch.argsort(parts, stable=True)),
+          **{f"library_{k}": v for k, v in bench.device_ms(
+              lambda: torch.argsort(parts, stable=True)).items()}})
     del bench
     return errs, rows
 
@@ -670,14 +860,22 @@ def phase_attention(torch, device):
     # ms: the kernel's wrapper at the planned blocks; remop_flash_attention_ms
     # adds the route and the plan on the host, as the model calls it.
     bq, bk = plan_blocks(s, s, hd)
+
+    def flash_kernel():
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk)
+
+    def flash_sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
     rows["flash_attention"] = dict(
         shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal, blocks {(bq, bk)}",
-        ms=bench.ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk)),
+        ms=bench.ms(flash_kernel),
         remop_flash_attention_ms=bench.ms(lambda: remop_flash_attention(q, k, v)),
         plain_ms=bench.ms(lambda: flash_attention_plain(q, k, v)),
-        library_ms=bench.ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
-        bound_ms=ms_bound, bound_by=by)
+        library_ms=bench.ms(flash_sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(flash_kernel),
+        **{f"library_{k}": v for k, v in bench.device_ms(flash_sdpa).items()})
     # What keeping P at f32 precision (P_hi + P_lo, two PV products) costs:
     # the same call with P rounded once to bf16, a probe off the main path.
     single = fa.flash_attention(q, k, v, bq=bq, bk=bk, split_p=False)
@@ -1118,7 +1316,7 @@ def phase_ssd_scan(torch, device):
     row = dict(
         shape=f"states [{b},{nc},{h},{p},{n}] f32, decays [{b},{nc},{h}]",
         ms=bench.ms(lambda: ssd_scan(states, decays)),
-        device_ms=bench.device_ms(lambda: ssd_scan(states, decays))["device_ms"],
+        **bench.device_ms(lambda: ssd_scan(states, decays)),
         plain_ms=bench.ms(lambda: ssd_scan_plain(states, decays)),
         library_ms=None,  # no single PyTorch call computes this scan
         bound_ms=ms_bound, bound_by=by)
@@ -1552,6 +1750,10 @@ def phase_matmul(torch, device, card: str):
                 library_ms=library_ms, bound_ms=ms_bound, bound_by=by,
                 c_rounds=plan.c_rounds, d_bytes=plan.d_bytes, l_cost=plan.l_cost)
             row.update(mm_row_rates(m, n, k, row["ms"], plan.d_bytes))
+            if (name, policy) == MATMUL_REPORT:  # the table's device columns
+                row.update(bench.device_ms(lambda: matmul_tiled(ap, bp, bm, bn, bk), reps=10))
+                row.update({f"library_{k}": v for k, v in bench.device_ms(
+                    lambda: torch.matmul(a, b), reps=10).items()})
             rows[name, policy] = row
             emit({"phase": "matmul", "timing": "matmul", "reps": MATMUL_REPS, **row})
             del ap, bp

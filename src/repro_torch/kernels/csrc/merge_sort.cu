@@ -41,7 +41,12 @@
 //     named barrier of that group, not on the CTA: warps drift apart, and one
 //     warp's relayout overlaps another's compare-exchanges.  Stages run with
 //     their directions known at compile time.
-// Keys are int32 or float32, values int32.  NaN keys are not pinned.
+// Keys are int32 or float32, values int32.  Float keys go to min/max bit for
+// bit as jnp.minimum/jnp.maximum give them on the CPU: a NaN spreads to both
+// keys of its pair with its own bits (payload and sign), and of two NaNs min
+// is `a` and max is `b`, swapped when `a` has its sign bit set.  A float tile
+// runs that rule only when it holds a NaN as it loads (min and max of other
+// keys make none); the int32 instantiation has no such branch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,9 +91,11 @@ __device__ __forceinline__ K from_bits(int x) {
   }
 }
 
-// Keys to min/max as jnp.minimum/jnp.maximum take them (-0.0 below +0.0),
-// values after `take_lo_first = a <= b`; a descending pair puts max first.
-template <typename K>
+// Keys to min/max as jnp.minimum/jnp.maximum take them (-0.0 below +0.0, a
+// NaN spread with its bits), values after `take_lo_first = a <= b`; a
+// descending pair puts max first.  NANS: the tile may hold a NaN key; a tile
+// without one never makes one, so it skips the NaN rule.
+template <bool NANS, typename K>
 __device__ __forceinline__ void cmp_exchange(K& a, K& b, int& va, int& vb, bool descending) {
   const bool take_lo_first = a <= b;
   // Ascending, a pair swaps unless its first key is the lower; descending,
@@ -97,8 +104,17 @@ __device__ __forceinline__ void cmp_exchange(K& a, K& b, int& va, int& vb, bool 
   K x = swap ? b : a;
   K y = swap ? a : b;
   if constexpr (std::is_floating_point<K>::value) {
-    if (a == b) {  // equal keys differ in bits only as signed zeros
-      const int lo = to_bits(a) | to_bits(b), hi = to_bits(a) & to_bits(b);
+    const bool na = NANS && a != a, nb = NANS && b != b;
+    if (a == b || na || nb) {
+      const int ba = to_bits(a), bb = to_bits(b);
+      int lo, hi;
+      if (a == b) {  // equal keys differ in bits only as signed zeros
+        lo = ba | bb;
+        hi = ba & bb;
+      } else {  // a NaN spreads; of two, min is a and max b unless a has its sign bit
+        lo = nb && (!na || ba < 0) ? bb : ba;
+        hi = na && (!nb || ba < 0) ? ba : bb;
+      }
       x = from_bits<K>(descending ? hi : lo);
       y = from_bits<K>(descending ? lo : hi);
     }
@@ -192,34 +208,34 @@ struct Tile {
 
   // One stage at register bit P.  Q < 0: all ascending; Q < LOG_E: descending
   // where bit Q of r is set; Q == LOG_E: all descending.
-  template <int P, int Q>
+  template <bool NANS, int P, int Q>
   __device__ __forceinline__ void register_stage() {
 #pragma unroll
     for (int r = 0; r < E; ++r) {
       if (r & (1 << P)) continue;
       const bool d = Q >= 0 && (Q == LOG_E || ((r >> Q) & 1) != 0);
-      cmp_exchange(k[r], k[r | (1 << P)], v[r], v[r | (1 << P)], d);
+      cmp_exchange<NANS>(k[r], k[r | (1 << P)], v[r], v[r | (1 << P)], d);
     }
   }
 
   // The stages at register bits p_hi down to p_lo of the window.
-  template <int Q, int P = LOG_E - 1>
+  template <bool NANS, int Q, int P = LOG_E - 1>
   __device__ __forceinline__ void window_stages(int p_hi, int p_lo) {
     if constexpr (P >= 0) {
       if constexpr (Q < 0 || Q == LOG_E || Q > P) {  // an in-window Q lies above P
-        if (P <= p_hi && P >= p_lo) register_stage<P, Q>();
+        if (P <= p_hi && P >= p_lo) register_stage<NANS, P, Q>();
       }
-      window_stages<Q, P - 1>(p_hi, p_lo);
+      window_stages<NANS, Q, P - 1>(p_hi, p_lo);
     }
   }
 
-  template <int Q = -1>
+  template <bool NANS, int Q = -1>
   __device__ __forceinline__ void window_stages_at(int q, int p_hi, int p_lo) {
     if constexpr (Q <= LOG_E) {
       if (q == Q) {
-        window_stages<Q>(p_hi, p_lo);
+        window_stages<NANS, Q>(p_hi, p_lo);
       } else {
-        window_stages_at<Q + 1>(q, p_hi, p_lo);
+        window_stages_at<NANS, Q + 1>(q, p_hi, p_lo);
       }
     }
   }
@@ -227,6 +243,7 @@ struct Tile {
   // Stages at tile bits b_hi down to b_lo; direction bit d (-1: ascending).
   // A direction bit outside the window is the thread's own: all its pairs go
   // one way.
+  template <bool NANS>
   __device__ __forceinline__ void stages(int b_hi, int b_lo, int d, int2* pairs) {
     for (int b = b_hi; b >= b_lo;) {
       if (b < w || b >= w + LOG_E) relayout(window_for(b, b_lo), pairs);
@@ -237,7 +254,7 @@ struct Tile {
         q = LOG_E;
       }
       const int stop = max(w, b_lo);
-      window_stages_at(q, b - w, stop - w);
+      window_stages_at<NANS>(q, b - w, stop - w);
       b = stop - 1;
     }
   }
@@ -279,9 +296,22 @@ struct TileMap {
   }
 };
 
+// The launch's stages on a loaded tile; `shift` maps a network bit to a tile bit.
+template <bool NANS, typename K, int LOG_E>
+__device__ __forceinline__ void run_stages(Tile<K, LOG_E>& tile, const Launch& L, int shift,
+                                           int2* pairs) {
+  if (L.sort_log2 > 0) {
+    const int m = L.sort_log2;
+    for (int k = 1; k <= m; ++k) tile.template stages<NANS>(k - 1, 0, k < m ? k : -1, pairs);
+  } else if (L.j_hi >= L.j_lo) {
+    tile.template stages<NANS>(L.j_hi - shift, L.j_lo - shift, -1, pairs);
+  }
+}
+
 // One launch: load the tile at a window whose lanes read contiguous words,
 // run the launch's stages, store it the same way.  In place is fine for the
-// unreversed chunk launch: a CTA loads its whole tile before it stores.
+// unreversed chunk launch: a CTA loads its whole tile before it stores.  Float
+// tiles take the NaN rule only where they hold a NaN.
 template <typename K, int LOG_E>
 __global__ void __launch_bounds__(kThreads, 1)
 network_kernel(const K* kin, const int* vin, K* kout, int* vout, Launch L) {
@@ -314,11 +344,17 @@ network_kernel(const K* kin, const int* vin, K* kout, int* vout, Launch L) {
       tile.v[r] = vp[o];
     }
   }
-  if (L.sort_log2 > 0) {
-    const int m = L.sort_log2;
-    for (int k = 1; k <= m; ++k) tile.stages(k - 1, 0, k < m ? k : -1, pairs);
-  } else if (L.j_hi >= L.j_lo) {
-    tile.stages(L.j_hi - shift, L.j_lo - shift, -1, pairs);
+  if constexpr (std::is_floating_point<K>::value) {
+    bool mine = false;
+#pragma unroll
+    for (int r = 0; r < tile.E; ++r) mine |= tile.k[r] != tile.k[r];
+    if (__syncthreads_or(mine)) {
+      run_stages<true>(tile, L, shift, pairs);
+    } else {
+      run_stages<false>(tile, L, shift, pairs);
+    }
+  } else {
+    run_stages<false>(tile, L, shift, pairs);
   }
   if (tile.w < w_io) tile.relayout(w_io, pairs);
   K* kp = kout + map.origin;

@@ -9,10 +9,11 @@ Structure mirrors external merge sort (§III-B):
 The kernels (``csrc/merge_sort.cu``) replace the TPU kernels ``sort_blocks``
 and ``merge_pass`` of the JAX package's ``kernels/merge_sort/merge_sort.py``
 and run the same compare-exchange network stage for stage, so their output
-is bit-identical to it, ties and signed zeros included.  Beside each wrapper
-is its plain PyTorch version: the same stages in ``reshape``/``minimum``/
-``maximum``/``where``.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.  Keys are int32 or float32, values int32.
+is bit-identical to it, ties, signed zeros and NaNs included.  Beside each
+wrapper is its plain PyTorch version: the same stages in ``reshape``/
+``minimum``/``maximum``/``where``.  A CPU tensor takes the plain version; a
+CUDA tensor launches the kernel or raises.  Keys are int32 or float32, values
+int32.
 
 The host plans the launches (:func:`plan`) and the kernel follows them.  A
 launch runs a range of the network's stages on tiles of at most ``chunk``
@@ -176,8 +177,11 @@ def _cmp_exchange(keys: torch.Tensor, values: torch.Tensor, j: int,
     ``keys``/``values`` are ``[batch, n]``; ``dirs`` holds one direction per
     group of 2^(j+1) (True = descending), or ``None`` for all ascending.
     Keys go to ``jnp.minimum``/``jnp.maximum`` as the JAX package takes them,
-    where -0.0 < +0.0 (``torch.minimum`` returns its first argument there);
-    values follow ``take_lo_first = first <= second``.
+    bit for bit: -0.0 < +0.0 (``torch.minimum`` returns its first argument
+    there), and a NaN spreads to both keys with its bits (``torch.minimum``
+    makes every NaN canonical).  Of two NaNs, ``min`` is the first and
+    ``max`` the second, swapped when the first has its sign bit set.  Values
+    follow ``take_lo_first = first <= second``.
     """
     b, n = keys.shape
     d = 1 << j
@@ -193,6 +197,10 @@ def _cmp_exchange(keys: torch.Tensor, values: torch.Tensor, j: int,
         b0, b1 = first.view(torch.int32), second.view(torch.int32)
         lo = torch.where(eq, (b0 | b1).view(keys.dtype), lo)
         hi = torch.where(eq, (b0 & b1).view(keys.dtype), hi)
+        n0, n1 = torch.isnan(first), torch.isnan(second)
+        nan, neg0 = n0 | n1, b0 < 0
+        lo = torch.where(nan, torch.where(n1 & (~n0 | neg0), second, first), lo)
+        hi = torch.where(nan, torch.where(n0 & (~n1 | neg0), first, second), hi)
     take_lo_first = first <= second  # first already holds lo
     v_lo = torch.where(take_lo_first, vr[:, :, 0], vr[:, :, 1])
     v_hi = torch.where(take_lo_first, vr[:, :, 1], vr[:, :, 0])

@@ -54,7 +54,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "remop_merge_sort_error_string": ([_I32], ctypes.c_char_p),
     },
     "gather_rows": {
-        "remop_gather_rows": ([_P, _P, _P, _I64, _I64, _I32, _I32, _P], _I32),
+        # x, idx, out, n, row_bytes, route, unit, lanes, stream
+        "remop_gather_rows": ([_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P], _I32),
+        # route, unit, &out[3]
+        "remop_gather_rows_attributes": ([_I32, _I32, _P], _I32),
         "remop_gather_rows_error_string": ([_I32], ctypes.c_char_p),
     },
     "flash_attention": {
