@@ -37,7 +37,8 @@ Phases, each printing JSON objects, one per line:
    chunk dropped), print the registers and spills of every tensor-core
    flash and every paged instantiation, and time kernel, plain version and
    the PyTorch library call that computes the same function with CUDA
-   events (the flash kernel also at qwen3-0.6b's widths, and with P rounded
+   events (the flash kernel also at qwen3-0.6b's and granite-moe-3b's widths,
+   the paged kernel also at granite-moe-3b's, and with P rounded
    once to bf16, a probe; the sort, gather, flash, paged and scan kernels
    and the library calls beside them also by device time from a profiler
    window; ``sort_blocks`` also on float32 keys, without and with a NaN in
@@ -49,7 +50,13 @@ Phases, each printing JSON objects, one per line:
    orders with lineitem, EAGG of lineitem by key), with the launch counters
    set to 0 just before and read just after; hold it against the port's own
    simulator (ledgers field for field, output pages byte for byte) and the
-   operators' oracles;
+   operators' oracles; then (3b) the TPC-H Q3 and Q18 skeletons of
+   ``benchmarks/bench_tpch.py`` at SF1 (lineitem, orders, customer) through
+   the logical-plan frontend, ``compile_plan(...).run(replan="measured")``
+   on the card's backend, each held to the same plan on the simulator (DAG,
+   join choice, ledgers, every task's output pages), its final sort's output
+   sorted, its DAG makespan no longer than the serial latency, no fallback,
+   and every sort and gather kernel launched;
 4. serve: serve gemma-2b at full width (random bf16 weights from a seeded
    generator on the card) through ``ServeEngine.submit``: 8 requests, 4
    slots, the launch counters set to 0 just before and read just after;
@@ -66,6 +73,17 @@ Phases, each printing JSON objects, one per line:
    checks, the second across chunks and shown to reject a planted state
    fault, and profiler windows over a prefill and over decode steps split
    into the scan kernel, matrix products and the rest;
+5b. moe: serve granite-moe-3b-a800m at full width and all 32 layers the same
+   way (8 requests, 4 slots, capacity factor 1.25, dropped assignments
+   counted per prefill; every prefill layer through the flash kernel's
+   tensor-core route, every decode layer through the paged kernel), check
+   decode against prefill at capacity factor 40 (nothing drops) on hidden
+   state, logits and the share of routings that agree, and reject a planted
+   misrouting decode; split a 2048-token prefill and 8 decode steps into
+   attention kernels, expert products, other products and the rest; then
+   hold ``remop_dispatch``/``remop_combine`` at the prefill's shape, on the
+   expert ids of a served layer, bit for bit to their plain versions and by
+   value to the MoE layer's dense scatter, and time them beside it;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -91,8 +109,10 @@ no CUDA device is present or when ``src/repro_torch`` is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -121,6 +141,11 @@ KEY_DOMAIN = 6_000_000
 PARTITIONS = 64
 LEVELS = (("dram", 256), ("rdma", 4096), "ssd")
 BUDGET_PAGES = 128.0  # 32 MiB
+# The Q3 and Q18 DAGs (phase 3b) add SF1's customer table; Q3's filter
+# c_mktsegment = 'BUILDING' keeps one market segment of five.
+CUSTOMER_ROWS = 150_000
+CUSTOMER_FILTER = 0.2
+TPCH_QUERIES = ("q3", "q18")
 
 # gemma-2b serving: 8 requests through 4 slots.
 SERVE_ARCH = "gemma-2b"
@@ -152,6 +177,20 @@ MAMBA_CROSS = (1792, 2048)  # prefill 7 chunks, decode to 8; against a prefill o
 # under 1% to the residual stream, so hidden state and logits barely see
 # the scan: the per-head states are what rejects a wrong carry.
 MAMBA_TOL = {"hidden": 5e-2, "logits": 5e-2, "state": 1e-1}
+
+# granite-moe-3b-a800m serving: gemma-2b's traffic (PROMPT_LENS, MAX_NEW_TOKENS,
+# SLOTS, MAX_LEN), 40 experts top-8 at capacity_factor 1.25.
+MOE_ARCH = "granite-moe-3b-a800m"
+# Decode against prefill at capacity_factor = n_experts (nothing drops), set
+# before the first card run: the relative L2 error of the final hidden state
+# and of the logits (gemma-2b's check reads 1.4-1.5% after 18 layers; here 32
+# layers, and a router whose near-ties the two paths' bf16 rounding may
+# decide otherwise, each such flip moving one token's expert mix in one
+# layer).  The share of (token, layer) routings, as sets of experts, on which
+# the two paths agree is reported beside them: at random init it reads
+# 0.83-0.90, the 8th and 9th experts' logits lying closer than the paths'
+# rounding moves them, so it is no gate.
+MOE_TOL = {"hidden": 5e-2, "logits": 5e-2}
 
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
@@ -772,6 +811,8 @@ def phase_attention(torch, device):
             (1, 16, 8, 2048, 2048, 128, torch.bfloat16, "tc"),  # qwen3-0.6b widths
             (2, 4, 2, 300, 333, 64, torch.bfloat16, "tc"),      # hd 64, ragged suffix
             (1, 48, 1, 1000, 1000, 128, torch.bfloat16, "tc"),  # granite-20b, G = 48
+            (1, 24, 8, 2048, 2048, 64, torch.bfloat16, "tc"),   # granite-moe-3b, G = 3
+            (1, 24, 8, 777, 777, 64, torch.bfloat16, "tc"),
             (2, 16, 8, 300, 333, 32, torch.bfloat16, "simt"),
             (2, 16, 8, 512, 512, 128, torch.float32, "simt"),   # GQA, qwen3-0.6b widths
             (2, 16, 8, 300, 333, 128, torch.float32, "simt")):  # ragged suffix prefill
@@ -804,6 +845,8 @@ def phase_attention(torch, device):
             (1, 1, 8, 256, 4096, (2049,), torch.bfloat16),
             (1, 1, 48, 128, 4096, (2077,), torch.bfloat16),  # granite-20b decode
             (1, 1, 48, 128, 4096, (4096,), torch.bfloat16),
+            (1, 8, 3, 64, 4096, (2077,), torch.bfloat16),  # granite-moe-3b decode
+            (1, 8, 3, 64, 4096, (777,), torch.bfloat16),
             (4, 8, 2, 128, 4096, (1, 1000, 2049, 4096), torch.float32)):
         q = randn(b, kv, g, hd, dtype=dtype)
         kc, vc = randn(b, s, kv, hd, dtype=dtype), randn(b, s, kv, hd, dtype=dtype)
@@ -901,15 +944,37 @@ def phase_attention(torch, device):
               q, k, v, is_causal=True, enable_gqa=True)),
           "bound_ms": ms_bound, "bound_by": by})
 
+    # granite-moe-3b-a800m's widths: 24 query heads on 8 KV heads of 64.
+    b, h, kv, s, hd = 1, 24, 8, 2048, 64
+    q = randn(b, h, s, hd, dtype=torch.bfloat16)
+    k, v = randn(b, kv, s, hd, dtype=torch.bfloat16), randn(b, kv, s, hd, dtype=torch.bfloat16)
+    ms_bound, by = bound(*flash_cost(b, h, kv, s, s, hd, 2), BF16_OPS_PER_S)
+    bq, bk = plan_blocks(s, s, hd)
+    emit({"phase": "kernels", "timing": "flash_attention granite-moe-3b",
+          "shape": f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal, "
+                   f"blocks {(bq, bk)}",
+          "ms": bench.ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk)),
+          **bench.device_ms(lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk)),
+          "plain_ms": bench.ms(lambda: flash_attention_plain(q, k, v)),
+          "library_ms": bench.ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, is_causal=True, enable_gqa=True)),
+          **{f"library_{key}": val for key, val in bench.device_ms(
+              lambda: F.scaled_dot_product_attention(
+                  q, k, v, is_causal=True, enable_gqa=True)).items()},
+          "bound_ms": ms_bound, "bound_by": by})
+
     # Decode at gemma-2b's (8 query heads on one KV head of 256, the kernels
-    # line's row) and granite-20b's (48 on one of 128) widths.  ms: CUDA events
+    # line's row), granite-20b's (48 on one of 128) and granite-moe-3b's (3
+    # on each of 8 of 64) widths.  ms: CUDA events
     # around one call, which at this size mostly read the wrapper's host time;
     # device_ms: the device events of a profiler window of calls.
-    b, kv, s, length = 1, 1, 4096, 2048
+    b, s, length = 1, 4096, 2048
     ln = torch.full((b,), length, dtype=torch.int32, device=device)
     mask = (torch.arange(s, device=device) < length)[None, None, None, :]
     paged_rows = {}
-    for name, g, hd in (("paged_attention", 8, 256), ("paged_attention granite-20b", 48, 128)):
+    for name, kv, g, hd in (("paged_attention", 1, 8, 256),
+                            ("paged_attention granite-20b", 1, 48, 128),
+                            ("paged_attention granite-moe-3b", 8, 3, 64)):
         q = randn(b, kv, g, hd, dtype=torch.bfloat16)
         kc, vc = (randn(b, s, kv, hd, dtype=torch.bfloat16) for _ in range(2))
         ms_bound, by = bound((2 * length * kv * hd + 2 * kv * g * hd) * 2 * b,
@@ -918,7 +983,7 @@ def phase_attention(torch, device):
         def kernel(q=q, kc=kc, vc=vc):
             return paged_attention(q, kc, vc, ln)
 
-        def sdpa(q=q, kc=kc, vc=vc, g=g, hd=hd):
+        def sdpa(q=q, kc=kc, vc=vc, kv=kv, g=g, hd=hd):
             return F.scaled_dot_product_attention(
                 q.reshape(b, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
@@ -1063,6 +1128,144 @@ def phase_session(torch, device):
           "host_pinned_pages": backend.wall.host_pinned_pages,
           "wall": backend.wall.to_dict(),
           "peak_device_bytes": peak})
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 3b: TPC-H SF1 query DAGs through the logical-plan frontend
+# --------------------------------------------------------------------------
+
+
+def join_rows(rows_l: float, rows_r: float) -> float:
+    """Rows of an equi-join on keys drawn uniformly from KEY_DOMAIN."""
+    return rows_l * rows_r / KEY_DOMAIN
+
+
+def groups(rows: float) -> float:
+    """Distinct keys among ``rows`` uniform draws from KEY_DOMAIN: the groups
+    of an aggregate by key (0.632 of lineitem's rows, 1 - 1/e)."""
+    return KEY_DOMAIN * (1.0 - math.exp(-rows / KEY_DOMAIN))
+
+
+def tpch_plan(remote, query: str):
+    """Seed SF1's lineitem, orders and customer on ``remote`` and build the
+    Q3 or Q18 skeleton of ``benchmarks/bench_tpch.py`` (lines 67-79 and
+    101-114) over them, every ``out_pages`` estimated from the row counts and
+    the key domain (``join_rows``, ``groups``), in ROW_PAGE_ROWS-row pages."""
+    from repro_torch.engine.plan import LogicalPlan
+    from repro_torch.remote.simulator import make_relation
+
+    lineitem = make_relation(remote, LINEITEM_ROWS, ROW_PAGE_ROWS, KEY_DOMAIN, seed=3)
+    orders = make_relation(remote, ORDERS_ROWS, ROW_PAGE_ROWS, KEY_DOMAIN, seed=2)
+    customer = make_relation(remote, CUSTOMER_ROWS, ROW_PAGE_ROWS, KEY_DOMAIN, seed=4)
+    lp = LogicalPlan(query)
+    l_n = lp.scan("lineitem", lineitem, rows_per_page=ROW_PAGE_ROWS)
+    o_n = lp.scan("orders", orders, rows_per_page=ROW_PAGE_ROWS)
+    c_n = lp.scan("customer", customer, rows_per_page=ROW_PAGE_ROWS)
+    opts = dict(sigma=0.5, partitions=PARTITIONS)
+    if query == "q3":
+        # lineitem |><| orders |><| sigma(customer) -> group-by -> order-by.
+        lo = join_rows(LINEITEM_ROWS, ORDERS_ROWS)  # 1,500,304 rows
+        loc = join_rows(lo, CUSTOMER_ROWS * CUSTOMER_FILTER)  # 7,502 rows
+        j = lp.join(lp.join(l_n, o_n, out_pages=lo / ROW_PAGE_ROWS),
+                    lp.filter(c_n, CUSTOMER_FILTER), out_pages=loc / ROW_PAGE_ROWS, **opts)
+        lp.sort(lp.aggregate(j, out_pages=groups(loc) / ROW_PAGE_ROWS, **opts), k_cap=8)
+    else:
+        # (customer |><| orders) |><| agg(lineitem) -> order-by.
+        agg_rows = groups(LINEITEM_ROWS)  # 3,793,458 groups
+        co = join_rows(CUSTOMER_ROWS, ORDERS_ROWS)  # 37,500 rows
+        big = lp.aggregate(l_n, out_pages=agg_rows / ROW_PAGE_ROWS, **opts)
+        j = lp.join(lp.join(c_n, o_n, out_pages=co / ROW_PAGE_ROWS), big,
+                    out_pages=join_rows(co, agg_rows) / ROW_PAGE_ROWS, **opts)
+        lp.sort(j, k_cap=8)
+    return lp
+
+
+def run_dag(remote, query: str):
+    """Compile ``query`` on a Session over ``remote`` and run it with
+    measured re-planning; returns (compiled plan, result, host seconds)."""
+    from repro_torch.engine import Session
+    from repro_torch.engine.plan import compile_plan
+
+    sess = Session(remote, budget=BUDGET_PAGES)
+    cp = compile_plan(sess, tpch_plan(remote, query))
+    t0 = time.perf_counter()
+    res = cp.run(sess, replan="measured")
+    return cp, res, time.perf_counter() - t0
+
+
+def dag_shape(cp):
+    """The compiled DAG as data: per task its operator, label, stats and the
+    tasks it reads; and each join cluster's costed choice."""
+    index = {id(t): i for i, t in enumerate(cp.tasks)}
+    tasks = [(t.op, t.label, dataclasses.asdict(t.stats),
+              sorted(index[id(v.task)] for v in t.inputs.values() if hasattr(v, "task")))
+             for t in cp.tasks]
+    return tasks, [dataclasses.asdict(c) for c in cp.join_choices]
+
+
+def phase_dag(torch, device):
+    """Q3 and Q18 at SF1 on the card's backend against the simulator."""
+    import numpy as np
+    from repro_torch.kernels import runtime
+    from repro_torch.remote import make_backend, make_hierarchy
+
+    launches = {}
+    for query in TPCH_QUERIES:
+        backend = make_backend(*LEVELS, device=device)
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        cp, res, host_s = run_dag(backend, query)
+        torch.cuda.synchronize()
+        ran = dict(runtime.launches)
+        simulator = make_hierarchy(*LEVELS)
+        sim_cp, sim, _ = run_dag(simulator, query)
+
+        check(dag_shape(cp) == dag_shape(sim_cp), f"{query}: compiled DAG or join choice "
+                                                  "differs from the simulator's")
+        check(dataclasses.asdict(res.total) == dataclasses.asdict(sim.total),
+              f"{query}: backend ledger differs from the simulator's")
+        for tr, str_ in zip(res.per_task, sim.per_task):
+            check(dataclasses.asdict(tr.delta) == dataclasses.asdict(str_.delta),
+                  f"{query} {tr.label}: task ledger differs from the simulator's")
+            pages = backend.peek_batch(output_ids(tr.op, tr.result))
+            sim_pages = simulator.peek_batch(output_ids(str_.op, str_.result))
+            check(len(pages) == len(sim_pages) and all(
+                a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+                for a, b in zip(pages, sim_pages)),
+                f"{query} {tr.label}: output pages differ from the simulator's")
+        final = np.concatenate([p.ravel() for p in backend.peek_batch(
+            res.per_task[-1].result.run_page_ids)])
+        check(res.per_task[-1].op == "ems" and bool((np.diff(final) >= 0).all()),
+              f"{query}: the final sort's output is not sorted")
+        check(res.schedule == "dag" and res.makespan_seconds <= res.latency_seconds(),
+              f"{query}: schedule {res.schedule}, makespan {res.makespan_seconds} > "
+              f"serial {res.latency_seconds()}")
+        check(backend.wall.kernel_fallbacks == 0, f"{query}: a kernel hook fell back to numpy")
+        check(backend.wall.host_pinned_pages == 0, f"{query}: a page was pinned to the host")
+        for name in SESSION_KERNELS:
+            check(ran.get(name, 0) > 0, f"{query}: the DAG never launched {name}")
+        spilled = [tr.label for tr in res.per_task
+                   if sum(getattr(tr.result, "per_phase_rounds", {}).values()) > 0]
+        check(bool(spilled), f"{query}: no task spilled")
+        wall = backend.wall
+        emit({"phase": "dag", "query": query, "tasks": [(t.op, t.label) for t in cp.tasks],
+              "join_order": [c.chosen for c in cp.join_choices],
+              "m_pages": [tr.m_pages for tr in res.per_task],
+              "placement": [tr.placement for tr in res.per_task],
+              "replan_events": len(res.replan_events), "spilled_tasks": spilled,
+              "host_seconds": host_s, "wall_seconds": res.wall_seconds,
+              "transfer_seconds": wall.transfer_seconds, "kernel_seconds": wall.kernel_seconds,
+              "kernel_calls": wall.kernel_calls, "simulated_seconds": res.latency_seconds(),
+              "makespan_seconds": res.makespan_seconds,
+              "d_total": res.total.d_total, "c_total": res.total.c_total,
+              "output_values": int(final.shape[0]), "launches": ran,
+              "kernel_fallbacks": wall.kernel_fallbacks,
+              "host_pinned_pages": wall.host_pinned_pages,
+              "ledger_equal": True, "outputs_equal": True, "dag_equal": True})
+        for name, n in ran.items():
+            launches[name] = launches.get(name, 0) + n
+        del backend, simulator
     return launches
 
 
@@ -1533,6 +1736,336 @@ def phase_mamba_breakdown(torch, device, params):
 
 
 # --------------------------------------------------------------------------
+# Phase 5b: granite-moe-3b-a800m serving at full width
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def routing_recorded(log: list):
+    """Append ``(ids [B, S, k], keep [B, S*k])`` of every MoE layer call to
+    ``log`` (device tensors, no sync): the layer's dense dispatch, wrapped
+    while the block runs."""
+    from repro_torch.models import moe
+
+    dispatch = moe.dispatch_dense
+
+    def recording(x, ids, n_experts, cap):
+        out = dispatch(x, ids, n_experts, cap)
+        log.append((ids, out[1]))
+        return out
+
+    moe.dispatch_dense = recording
+    try:
+        yield log
+    finally:
+        moe.dispatch_dense = dispatch
+
+
+def moe_drops(log) -> int:
+    """Dropped assignments over the routing log's calls (one device sync)."""
+    return int(sum((~keep).sum() for _, keep in log)) if log else 0
+
+
+def phase_moe_serve(torch, device):
+    """Serve granite-moe-3b-a800m at full width and all 32 layers: the
+    flash kernel in every prefill layer, the paged kernel in every decode
+    layer, the dense capacity dispatch at cf 1.25.  Then the decode-against-
+    prefill check at cf = n_experts (nothing drops) with a planted routing
+    fault, and the routing a dispatch check takes its expert ids from."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = ARCHS[MOE_ARCH]
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    emit({"phase": "moe", "arch": cfg.name, "params": tf.param_count(params),
+          "layers": cfg.n_layers, "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+          "capacity_factor": cfg.capacity_factor, "init_seconds": time.perf_counter() - t0})
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in PROMPT_LENS]
+    log = []
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN, batch_slots=SLOTS, device=device)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    with routing_recorded(log):
+        results = engine.submit(reqs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    steps = sum(len(r.out_tokens) - 1 for r in reqs)
+    check(sorted(results) == list(range(len(reqs))), "a request did not finish")
+    check(all(len(r.out_tokens) == MAX_NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(launches.get("flash_attention", 0) == cfg.n_layers * len(reqs),
+          f"flash launches {launches.get('flash_attention')} != {cfg.n_layers} x {len(reqs)}")
+    check(launches.get("flash_attention_tc", 0) == launches["flash_attention"],
+          f"only {launches.get('flash_attention_tc', 0)} of {launches['flash_attention']} "
+          "flash launches took the tensor-core route")
+    check(launches.get("paged_attention", 0) == cfg.n_layers * steps,
+          f"paged launches {launches.get('paged_attention')} != {cfg.n_layers} x {steps}")
+    check(len(log) == cfg.n_layers * (len(reqs) + steps),
+          f"{len(log)} MoE calls, not {cfg.n_layers} x {len(reqs) + steps}")
+
+    # The slots admit requests in order, so the prefills' calls come n_layers
+    # at a time, request by request.
+    calls = [entry for entry in log if entry[0].shape[1] > 1]
+    prefills = [calls[i:i + cfg.n_layers] for i in range(0, len(calls), cfg.n_layers)]
+    check(len(prefills) == len(reqs) and all(
+        ids.shape[1] == len(r.prompt) for r, chunk in zip(reqs, prefills) for ids, _ in chunk),
+        "the prefills' MoE calls are not n_layers a request in request order")
+    prefill_drops = {r.rid: moe_drops(chunk) for r, chunk in zip(reqs, prefills)}
+    decode_drops = moe_drops([entry for entry in log if entry[0].shape[1] == 1])
+    check(decode_drops == 0, f"{decode_drops} assignments dropped in decode (capacity 1)")
+    check(any(prefill_drops.values()), "no prefill dropped an assignment at cf "
+                                       f"{cfg.capacity_factor}")
+
+    step_bound = moe_decode_bound_ms(cfg)
+    for r in reqs:
+        n_dec = len(r.out_tokens) - 1
+        emit({"phase": "moe", "request": r.rid, "prompt_tokens": len(r.prompt),
+              "new_tokens": len(r.out_tokens), "prefill_seconds": r.prefill_seconds,
+              "decode_seconds_per_token": r.decode_seconds / n_dec,
+              "decode_step_bound_ms": step_bound,
+              "tokens_per_second": len(r.out_tokens) / (r.prefill_seconds + r.decode_seconds),
+              "capacity": moe.capacity(cfg, len(r.prompt)),
+              "assignments": cfg.n_layers * len(r.prompt) * cfg.experts_per_token,
+              "dropped_assignments": prefill_drops[r.rid]})
+    emit({"phase": "moe", "requests": len(reqs), "new_tokens": steps + len(reqs),
+          "decode_steps": steps, "wall_seconds": wall,
+          "tokens_per_second": (steps + len(reqs)) / wall,
+          "dropped_assignments": sum(prefill_drops.values()),
+          "launches": launches, "peak_device_bytes": peak})
+
+    # The dispatch check's ids: the layer of the first 2048-token prefill that
+    # dropped the most assignments.
+    entries = prefills[PROMPT_LENS.index(max(PROMPT_LENS))]
+    layer = max(range(cfg.n_layers), key=lambda i: int((~entries[i][1]).sum()))
+    routing = entries[layer][0]
+    del log, calls, prefills, entries
+
+    moe_consistency(torch, device, cfg, params, prompts)
+    return launches, params, (layer, routing)
+
+
+def moe_decode_bound_ms(cfg) -> float:
+    """The least time of one decode step at batch 1: every weight read once
+    (the dense path computes all experts at capacity 1), at the card's
+    memory rate.  The caches' reads are left out (up to 4096 positions x 8
+    KV heads x 64 x 2 x 2 B a layer, ~4% more at the longest request)."""
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim + cfg.n_heads * cfg.head_dim * d
+    layer = attn + d * e + 3 * e * d * ff
+    weights = cfg.n_layers * layer + cfg.vocab_size * d
+    return weights * 2 / HBM_BYTES_PER_S * 1e3
+
+
+def moe_consistency(torch, device, cfg, params, prompts):
+    """The last decode step of CHECK_RIDS against a prefill of the same
+    tokens, at capacity_factor = n_experts (nothing drops, as the JAX
+    package's smoke tests run it): hidden state, logits and the share of
+    (token, layer) routings on which decode and prefill agree, as sets of
+    experts.  Then the same with a planted routing fault in decode: the
+    9th-ranked expert in place of the 8th, which the check must reject."""
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    k = cfg.experts_per_token
+    top_k = moe._top_k
+
+    def ninth_for_eighth(probs, n):
+        values, ids = top_k(probs, n + 1)
+        keep = list(range(n - 1)) + [n]
+        return values[..., keep], ids[..., keep]
+
+    def decode_vs_prefill(rid, fault):
+        last, log = {}, []
+
+        def keep_last(req, logits, hidden):
+            last["logits"], last["hidden"] = logits.float().clone(), hidden.float().clone()
+            if len(req.out_tokens) == 1 and fault:  # decode from here on misroutes
+                moe._top_k = ninth_for_eighth
+
+        engine = ServeEngine(cfg, params, max_len=MAX_LEN, batch_slots=1, device=device,
+                             on_step=keep_last)
+        req = Request(rid=rid, prompt=prompts[rid], max_new_tokens=MAX_NEW_TOKENS)
+        try:
+            with routing_recorded(log):
+                engine.submit([req])
+        finally:
+            moe._top_k = top_k
+        decoded = [ids[0, 0] for ids, _ in log if ids.shape[1] == 1]  # per step and layer
+        tokens = np.concatenate([req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+        with routing_recorded([]) as plog, torch.inference_mode():
+            logits, _, hidden = tf.prefill(
+                params, cfg, {"tokens": torch.as_tensor(tokens[None], device=device)},
+                return_hidden=True)
+        n = len(req.prompt)
+        prefilled = [ids[0, n + step] for step in range(len(tokens) - n) for ids, _ in plog]
+        check(len(decoded) == len(prefilled) == cfg.n_layers * (len(tokens) - n),
+              f"request {rid}: {len(decoded)} decode and {len(prefilled)} prefill routings")
+        agree = sum(bool(torch.equal(a.sort().values, b.sort().values))
+                    for a, b in zip(decoded, prefilled))
+        drops = moe_drops(log) + moe_drops(plog)
+        check(drops == 0, f"request {rid}: {drops} assignments dropped at cf {cfg.n_experts}")
+        return {"tokens": len(tokens), "routings": len(decoded),
+                "routing_agreement": agree / len(decoded),
+                "hidden_rel_err": rel_err(torch, last["hidden"], hidden[0]),
+                "logits_rel_err": rel_err(torch, last["logits"], logits[0]),
+                "max_abs_logit_diff": float((last["logits"] - logits[0].float()).abs().max())}
+
+    def within(r):
+        return all(r[f"{name}_rel_err"] <= tol for name, tol in MOE_TOL.items())
+
+    for rid in CHECK_RIDS:
+        r = decode_vs_prefill(rid, fault=False)
+        emit({"phase": "moe", "consistency": rid, "capacity_factor": cfg.capacity_factor,
+              **r, "tol": MOE_TOL})
+        check(within(r), f"request {rid}: decode and prefill disagree ({r})")
+    r = decode_vs_prefill(CHECK_RIDS[0], fault=True)
+    rejected_by = [name for name, tol in MOE_TOL.items() if r[f"{name}_rel_err"] > tol]
+    emit({"phase": "moe", "planted_fault": "routing",
+          "fault": f"decode routes to the {k + 1}th-ranked expert in place of the {k}th",
+          **r, "tol": MOE_TOL, "rejected": bool(rejected_by), "rejected_by": rejected_by})
+    check(bool(rejected_by), "the decode-against-prefill check passes a misrouting decode")
+
+
+def phase_moe_dispatch(torch, device, layer, routing):
+    """``remop_dispatch``/``remop_combine`` at the 2048-token prefill's shape
+    (A = 2048 x 8 rows of d_model bf16, E = 40, C = 512) on the expert ids
+    of one served layer: bit for bit against their plain versions, by value
+    against the oracle and the MoE layer's dense scatter, drops asserted;
+    then timed beside the dense scatter."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.dispatch.ops import (
+        remop_combine, remop_combine_plain, remop_dispatch, remop_dispatch_plain)
+    from repro_torch.kernels.dispatch.ref import dispatch_ref
+    from repro_torch.models import moe
+
+    cfg = ARCHS[MOE_ARCH]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    s, k, e = routing.shape[1], cfg.experts_per_token, cfg.n_experts
+    cap = moe.capacity(cfg, s)
+    x = torch.randn(1, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    rows = x[0].repeat_interleave(k, dim=0)  # assignment rows, token-major
+    ids = routing.reshape(-1).to(torch.int32)
+    errs = {}
+
+    got = remop_dispatch(rows, ids, e, cap)
+    want = remop_dispatch_plain(rows, ids, e, cap)
+    equal_bits(torch, ["gather_rows"], (got[1], got[0].view(torch.int16)),
+               (want[1], want[0].view(torch.int16)), errs)
+    ref_in, ref_slot = dispatch_ref(rows, ids, e, cap)
+    check(torch.equal(got[1], ref_slot) and torch.equal(got[0], ref_in),
+          "remop_dispatch differs from dispatch_ref")
+    dense_in, keep, _ = moe.dispatch_dense(x, routing, e, cap)
+    dropped = int((~keep).sum())
+    check(dropped > 0, f"layer {layer}'s routing drops nothing at capacity {cap}")
+    check(torch.equal(got[0].view(torch.int16), dense_in[0].view(torch.int16))
+          and torch.equal(got[1] >= 0, keep[0]),
+          "remop_dispatch's buffers differ from the MoE layer's dense scatter")
+    expert_out = torch.randn(e, cap, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    weights = torch.rand(s * k, device=device, generator=gen).to(torch.bfloat16)
+    y = remop_combine(expert_out, got[1], weights, k)
+    equal_bits(torch, ["gather_rows"], (y.view(torch.int16),),
+               (remop_combine_plain(expert_out, got[1], weights, k).view(torch.int16),), errs)
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "check": "remop_dispatch+remop_combine", "layer": layer,
+          "assignments": s * k, "experts": e, "capacity": cap, "dropped": dropped,
+          "plain_equal": True, "ref_equal": True, "dense_scatter_equal": True})
+
+    bench = Bench(torch, device)
+    moved = e * cap  # destination rows the gather fills
+    ms_bound, by = bound(2 * moved * cfg.d_model * 2 + 4 * moved, 0)
+    emit({"phase": "kernels", "timing": "remop_dispatch",
+          "shape": f"x [{s * k}, {cfg.d_model}] bf16, ids of layer {layer}, E {e}, C {cap}",
+          "bound_ms": ms_bound, "bound_by": by,
+          "ms": bench.ms(lambda: remop_dispatch(rows, ids, e, cap)),
+          **bench.device_ms(lambda: remop_dispatch(rows, ids, e, cap)),
+          "plain_ms": bench.ms(lambda: remop_dispatch_plain(rows, ids, e, cap)),
+          "dense_scatter_ms": bench.ms(lambda: moe.dispatch_dense(x, routing, e, cap)),
+          **{f"dense_scatter_{key}": v for key, v in bench.device_ms(
+              lambda: moe.dispatch_dense(x, routing, e, cap)).items()},
+          "combine_ms": bench.ms(lambda: remop_combine(expert_out, got[1], weights, k)),
+          **{f"combine_{key}": v for key, v in bench.device_ms(
+              lambda: remop_combine(expert_out, got[1], weights, k)).items()}})
+    del bench
+    return errs
+
+
+def phase_moe_breakdown(torch, device, params):
+    """Device time of a 2048-token prefill and of 8 decode steps of
+    granite-moe-3b-a800m, each from its own profiler window: attention
+    kernels, expert products (the batched products, ``aten::bmm``), other
+    products and the rest, with the device's idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[MOE_ARCH]
+    rng = np.random.default_rng(SEED + 5)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, max(PROMPT_LENS)),
+                                          dtype=np.int32), device=device)
+    state = {}
+
+    def prefill():
+        logits, caches = tf.prefill(params, cfg, {"tokens": prompt})
+        state["caches"] = tf.pad_caches(cfg, caches, MAX_LEN)
+        state["tok"] = logits.argmax(-1)
+
+    def decode():
+        for pos in range(prompt.shape[1], prompt.shape[1] + 8):
+            logits, state["caches"] = tf.decode_step(params, cfg, state["caches"],
+                                                     state["tok"], pos)
+            state["tok"] = logits.argmax(-1)
+
+    def timed(fn):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    for name, fn, steps in (("prefill of 2048 tokens", prefill, 1),
+                            ("8 decode steps after it", decode, 8)):
+        unprofiled = timed(fn)  # also the warm-up
+        if fn is decode:
+            timed(prefill)  # the same 8 steps again, from the prefill's caches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled = timed(fn)
+        kinds, events = device_seconds(torch, prof, ("flash_attention_kernel",
+                                                     "paged_attention_kernel"),
+                                       "attention_kernels")
+        expert = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                     if e.key == "aten::bmm") / 1e6
+        check(0 < expert <= kinds["matmul"], f"{name}: expert products {expert} s of "
+                                             f"{kinds['matmul']} s of products")
+        kinds = {"attention_kernels": kinds["attention_kernels"], "expert_products": expert,
+                 "other_products": kinds["matmul"] - expert, "other": kinds["other"]}
+        emit({"phase": "moe_breakdown", "window": name,
+              "unprofiled_seconds_per_call": unprofiled / steps,
+              "profiled_seconds_per_call": profiled / steps,
+              "decode_step_bound_ms": moe_decode_bound_ms(cfg),
+              **busy_and_idle((kinds, events), profiled, unprofiled)})
+
+
+# --------------------------------------------------------------------------
 # Phase 6: the REMOP-planned blocked matmul at five LLM products
 # --------------------------------------------------------------------------
 
@@ -1814,13 +2347,17 @@ def main() -> int:
                   "per layer and head the inverse softplus of a log-uniform draw in "
                   "[1e-3, 1e-1] (Mamba-2's dt initialisation); the blocked matmul at the "
                   "five LLM products of benchmarks/bench_kernel_policy.py, published widths "
-                  "and full token blocks; nothing cut"})
+                  "and full token blocks; TPC-H Q3 and Q18 DAGs at SF1 row counts; "
+                  "granite-moe-3b-a800m at its published widths and all 32 layers, random "
+                  "weights; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
     errs.update(attn_errs)
     rows.update(attn_rows)
     launches = phase_session(torch, device)
+    for name, n in phase_dag(torch, device).items():
+        launches[name] = launches.get(name, 0) + n
     serve_launches, params = phase_serve(torch, device)
     phase_breakdown(torch, device, params)
     del params
@@ -1832,6 +2369,13 @@ def main() -> int:
     phase_mamba_breakdown(torch, device, params)
     del params
     launches["ssd_scan"] = mamba_launches["ssd_scan"]
+    moe_launches, params, (layer, routing) = phase_moe_serve(torch, device)
+    phase_moe_breakdown(torch, device, params)
+    del params
+    for name in SERVE_KERNELS:
+        launches[name] += moe_launches[name]
+    for name, err in phase_moe_dispatch(torch, device, layer, routing).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

@@ -1,1 +1,1 @@
-"""Row gather for radix partitioning: gather_rows."""
+"""Row gather for radix partitioning (gather_rows) and MoE dispatch/combine over it."""

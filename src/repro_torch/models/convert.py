@@ -1,11 +1,14 @@
 """Carry a parameter tree of the JAX package's ``init_params`` over to the port.
 
 The JAX tree of a dense decoder is ``{"embed": {"table"}, "final_norm":
-{"scale"}, "seg0": {"b0_attn": {...}}}`` (``"b0_ssm"`` for Mamba-2) with
-every leaf of ``seg0`` stacked over layers; the port's is the same tree
-with the stack split into ``"layers"``.  Leaves arrive as numpy arrays (the
-caller converts them with ``np.asarray``), so this module needs nothing of
-JAX.  Matrices (the SSM's ``w_in``, ``w_out`` and conv weights among them)
+{"scale"}, "seg0": {"b0_attn": {...}}}`` (``"b0_ssm"`` for Mamba-2,
+``"b0_moe"`` for an MoE decoder, whose ``first_k_dense`` dense blocks come
+first as ``seg0: {"b0_attn"}`` and its MoE blocks then as ``seg1:
+{"b0_moe"}``) with every leaf of a segment stacked over its layers; the
+port's is the same tree with the stacks split into one ``"layers"`` list.
+Leaves arrive as numpy arrays (the caller converts them with
+``np.asarray``), so this module needs nothing of JAX.  Matrices (the SSM's
+``w_in``, ``w_out`` and conv weights, the MoE router and experts among them)
 become bf16: JAX casts each f32 master matrix to the bf16 activations per
 call, which computes the same products.  Norm scales and the SSM's
 ``a_log``, ``dt_bias`` and ``d_skip`` stay f32, as JAX uses them in f32
@@ -43,6 +46,17 @@ def _tree(tree: Mapping[str, Any], device: torch.device, layer: int | None = Non
     return out
 
 
+def _segments(cfg: ModelConfig):
+    """(segment, block, layers) of ``repro``'s ``stack_plan`` for ``cfg``."""
+    if cfg.family == "ssm":
+        return [("seg0", "b0_ssm", cfg.n_layers)]
+    if cfg.family != "moe":
+        return [("seg0", "b0_attn", cfg.n_layers)]
+    segs = [("seg0", "b0_attn", cfg.first_k_dense)] if cfg.first_k_dense else []
+    segs.append((f"seg{len(segs)}", "b0_moe", cfg.n_layers - cfg.first_k_dense))
+    return segs
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> Params:
     """The port's parameters from a numpy copy of ``tf.init_params(key, cfg)``.
 
@@ -50,13 +64,17 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> P
     """
     check_supported(cfg)
     device = resolve_device(device)
-    block = "b0_ssm" if cfg.family == "ssm" else "b0_attn"
-    if set(tree) != {"embed", "final_norm", "seg0"} or set(tree["seg0"]) != {block}:
-        raise ValueError(f"not the tree of {cfg.name}: {sorted(tree)}, seg0 "
-                         f"{sorted(tree.get('seg0', {}))}; expected seg0 {{{block!r}}}")
-    stack = tree["seg0"][block]
+    segs = _segments(cfg)
+    want = {seg: {block} for seg, block, _ in segs}
+    got = {seg: set(sub) for seg, sub in tree.items() if seg.startswith("seg")}
+    if set(tree) != {"embed", "final_norm", *want} or got != want:
+        raise ValueError(f"not the tree of {cfg.name}: {sorted(tree)}, segments "
+                         f"{ {k: sorted(v) for k, v in got.items()} }; expected "
+                         f"{ {k: sorted(v) for k, v in want.items()} }")
+    layers = [_tree(tree[seg][block], device, layer)
+              for seg, block, n in segs for layer in range(n)]
     return {
         "embed": _tree(tree["embed"], device),
         "final_norm": _tree(tree["final_norm"], device),
-        "layers": [_tree(stack, device, layer) for layer in range(cfg.n_layers)],
+        "layers": layers,
     }

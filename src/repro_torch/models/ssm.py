@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import remop_ssd_scan
-from repro_torch.models.layers import dense, init_dense, truncated_normal
+from repro_torch.models.layers import dense, init_dense, silu, truncated_normal
 
 Params = Dict
 SSMCache = Tuple[torch.Tensor, torch.Tensor]  # (conv [B, W-1, C] bf16, state [B,H,P,N] f32)
@@ -46,13 +46,6 @@ def init_ssm(cfg: ModelConfig, generator: torch.Generator, device: torch.device)
     }
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as JAX computes it, ``x * (1 / (1 + exp(-x)))`` with
-    every step rounded to the input's dtype; ``F.silu`` rounds once and
-    differs from it in a third of bf16 outputs by one ulp."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     d_in, n, h = cfg.d_inner_ssm, cfg.ssm_state, cfg.n_ssm_heads
     z, xbc, dt = torch.split(proj, [d_in, d_in + 2 * n, h], dim=-1)
@@ -71,7 +64,7 @@ def _causal_conv(w: torch.Tensor, x: torch.Tensor, state: Optional[torch.Tensor]
     s = x.shape[1]
     y = sum(xp[:, i:i + s] * w[i].to(x.dtype) for i in range(width))  # bf16, as in JAX
     new_state = xp[:, xp.shape[1] - (width - 1):].clone()  # not a view holding all of xp
-    return _silu(y), new_state
+    return silu(y), new_state
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +133,7 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = (y_diag + y_off).reshape(b, s, h, hd)
     y = y + xh.reshape(b, s, h, hd) * p["d_skip"][None, None, :, None]
     y = y.reshape(b, s, d_in).to(x.dtype)
-    y = y * _silu(z)
+    y = y * silu(z)
     out = dense(p["w_out"], y)
     if return_state:
         return out, (conv_state, final_state)
@@ -169,7 +162,7 @@ def ssd_decode(p: Params, cfg: ModelConfig, x_t: torch.Tensor, cache: SSMCache):
     y = torch.einsum("bn,bhpn->bhp", cm, ssm_state)
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(b, 1, d_in).to(x_t.dtype)
-    y = y * _silu(z)
+    y = y * silu(z)
     return dense(p["w_out"], y), (conv_state, ssm_state)
 
 

@@ -1,17 +1,19 @@
-"""The decoder LM: a stack of ``"attn"`` blocks (dense decoder) or of
-``"ssm"`` blocks (Mamba-2): init, forward, prefill, decode.
+"""The decoder LM: a stack of ``"attn"`` blocks (dense decoder), of
+``"moe"`` blocks after ``first_k_dense`` ``"attn"`` blocks (MoE decoder), or
+of ``"ssm"`` blocks (Mamba-2): init, forward, prefill, decode.
 
 The JAX package's ``models/transformer.py`` assembles every family and
 scans over layer-stacked parameters; here the layers are a Python list and
 the loop is a Python loop (PyTorch runs eagerly).  The parameter tree is
 JAX's with the layer stack split: ``{"embed": {"table"}, "final_norm":
 {"scale"}, "layers": [...]}``, each layer ``{"norm1", "attn", "norm2",
-"mlp"}`` or ``{"norm1", "ssm"}`` (no FFN half).  Caches are a list with one
-pair per layer: ``(k, v)``, each ``[B, S, KV, hd]``, or the SSM's ``(conv
-[B, W-1, C] bf16, state [B, H, P, N] f32)``, which has no sequence axis.
+"mlp"}``, ``{"norm1", "attn", "norm2", "moe"}`` or ``{"norm1", "ssm"}`` (no
+FFN half).  Caches are a list with one pair per layer: ``(k, v)``, each
+``[B, S, KV, hd]``, or the SSM's ``(conv [B, W-1, C] bf16, state [B, H, P,
+N] f32)``, which has no sequence axis.
 
-Other families (MoE, hybrid, VLM, enc-dec) raise ``NotImplementedError``:
-they wait for later slices.
+Other families (MLA-MoE, hybrid, VLM, enc-dec) raise
+``NotImplementedError``: they wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
@@ -34,14 +37,15 @@ Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder of full-attention blocks or a
-    Mamba-2 stack."""
+    """Raise unless ``cfg`` is a dense or MoE decoder of full GQA attention
+    blocks or a Mamba-2 stack."""
     if cfg.family == "ssm":
         return
-    if cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.n_encoder_layers:
+    if (cfg.family not in ("dense", "moe") or cfg.attn_type != "gqa"
+            or cfg.n_encoder_layers):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later "
-            "slice; the port serves the dense decoder and Mamba-2")
+            "slice; the port serves the dense and MoE decoders and Mamba-2")
     if cfg.window or cfg.attn_softcap:
         raise NotImplementedError(f"{cfg.name}: windowed/softcapped attention: later slice")
 
@@ -51,16 +55,27 @@ def check_supported(cfg: ModelConfig) -> None:
 # ===========================================================================
 
 
-def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
+def is_moe_layer(cfg: ModelConfig, layer: int) -> bool:
+    """Layer ``layer`` is an MoE block: the MoE family past its
+    ``first_k_dense`` dense blocks (``repro``'s ``stack_plan``)."""
+    return cfg.family == "moe" and layer >= cfg.first_k_dense
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device,
+               layer: int = 0) -> Params:
     if cfg.family == "ssm":
         return {"norm1": init_rmsnorm(cfg.d_model, device),
                 "ssm": ssm_mod.init_ssm(cfg, generator, device)}
-    return {
+    p = {
         "norm1": init_rmsnorm(cfg.d_model, device),
         "attn": attn.init_gqa(cfg, generator, device),
         "norm2": init_rmsnorm(cfg.d_model, device),
-        "mlp": init_mlp(cfg.d_model, cfg.d_ff, generator, device, cfg.mlp_type),
     }
+    if is_moe_layer(cfg, layer):
+        p["moe"] = moe_mod.init_moe(cfg, generator, device)
+    else:
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, generator, device, cfg.mlp_type)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -75,7 +90,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return {
         "embed": init_embedding(cfg.vocab_size, cfg.d_model, generator, device),
         "final_norm": init_rmsnorm(cfg.d_model, device),
-        "layers": [init_block(cfg, generator, device) for _ in range(cfg.n_layers)],
+        "layers": [init_block(cfg, generator, device, i) for i in range(cfg.n_layers)],
     }
 
 
@@ -84,23 +99,32 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ===========================================================================
 
 
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """The FFN half: (x + FFN(norm2(x)), the MoE's aux loss or None)."""
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe_mod.moe_apply(p["moe"], cfg, h)
+        return x + y, aux
+    return x + mlp(p["mlp"], h, cfg.mlp_type), None
+
+
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                   want_cache: bool = False):
-    """Returns (x_out, cache or None): ``(k, v)``, or ``(conv, state)`` for SSM."""
+    """Returns (x_out, cache or None, aux_loss or None): the cache is ``(k,
+    v)``, or ``(conv, state)`` for SSM; only an MoE block has an aux loss."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if "ssm" in p:
         out = ssm_mod.ssd_forward(p["ssm"], cfg, h, return_state=want_cache)
         cache = None
         if want_cache:
             out, cache = out
-        return x + out, cache
+        return x + out, cache, None
     out = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=want_cache)
     cache = None
     if want_cache:
         out, cache = out
-    x = x + out
-    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp_type)
-    return x, cache
+    x, aux = _ffn(p, cfg, x + out)
+    return x, cache, aux
 
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache, pos: int):
@@ -110,8 +134,7 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache, pos: int):
         out, cache = ssm_mod.ssd_decode(p["ssm"], cfg, h, cache)
         return x + out, cache
     out, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos)
-    x = x + out
-    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp_type)
+    x, _ = _ffn(p, cfg, x + out)
     return x, cache
 
 
@@ -126,18 +149,22 @@ def _hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, want_cache: 
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     caches = []
+    aux_total = torch.zeros((), device=x.device)
     for layer in params["layers"]:
-        x, cache = block_forward(layer, cfg, x, positions, want_cache)
+        x, cache, aux = block_forward(layer, cfg, x, positions, want_cache)
         caches.append(cache)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), (caches if want_cache else None)
+        if aux is not None:
+            aux_total = aux_total + aux
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, (caches if want_cache else None), aux_total
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             want_cache: bool = False):
     """Full-sequence forward; returns (logits, aux_loss, caches)."""
-    x, caches = _hidden(params, cfg, batch["tokens"], want_cache)
+    x, caches, aux = _hidden(params, cfg, batch["tokens"], want_cache)
     logits = unembed(params["embed"], x, cfg.logit_softcap)
-    return logits, torch.zeros((), device=x.device), caches
+    return logits, aux, caches
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -147,7 +174,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     Only the last position is unembedded: its logits are those of
     :func:`forward`, without the ``[B, S, vocab]`` tensor.
     """
-    x, caches = _hidden(params, cfg, batch["tokens"], want_cache=True)
+    x, caches, _ = _hidden(params, cfg, batch["tokens"], want_cache=True)
     last = x[:, -1]
     logits = unembed(params["embed"], last, cfg.logit_softcap)
     return (logits, caches, last) if return_hidden else (logits, caches)

@@ -203,8 +203,16 @@ def test_four_operator_session_on_torch_backend_matches_jax_simulator():
 
 def test_engine_exports_only_the_slice():
     # The serving surface came with slice 2, SlotLoop exported beside it for
-    # the LM ServeEngine; engine/plan.py is not ported yet.
+    # the LM ServeEngine; engine/plan.py came with slice 10 and, as in repro,
+    # is imported as engine.plan, not re-exported by engine.
+    import repro.engine.plan as jax_plan
+    import repro_torch.engine.plan as plan
+
     assert set(engine.__all__) <= set(jax_engine.__all__) | {"SlotLoop"}
     assert {"Session", "TransferScheduler", "plan_operator", "Evictor",
             "Server", "QueryRequest", "SlotLoop"} <= set(engine.__all__)
-    assert not hasattr(engine, "plan")
+    assert not {"plan", "LogicalPlan", "compile_plan"} & set(jax_engine.__all__)
+    assert not {"plan", "LogicalPlan", "compile_plan"} & set(engine.__all__)
+    assert ({n for n in dir(plan) if not n.startswith("_")}
+            == {n for n in dir(jax_plan) if not n.startswith("_")})
+    assert {"LogicalPlan", "compile_plan", "CompiledPlan", "JoinChoice", "Node"} <= set(dir(plan))
