@@ -84,6 +84,21 @@ Phases, each printing JSON objects, one per line:
    hold ``remop_dispatch``/``remop_combine`` at the prefill's shape, on the
    expert ids of a served layer, bit for bit to their plain versions and by
    value to the MoE layer's dense scatter, and time them beside it;
+5c. mla: hold the flash kernel at deepseek-v2-lite's prefill widths (q/k
+   192, v 128, 16 heads, on the tensor cores, in the kernel's and the
+   model's layouts) and the paged kernel's latent route (q [B, 16, 576]
+   against the latent cache [B, S, 576], the values its first 512 columns)
+   at S 64, 2048 and 4096 in bf16 and f32 against their plain versions under
+   ``ATTN_TOL``, with lengths below S and NaN rows past them that must never
+   reach the output; reject two planted faults (the scale 1/sqrt(576) for
+   1/sqrt(192), the rope term dropped); hold one MLA layer's absorbed decode
+   to ``mla_forward``'s rows at 16 positions of 2048 tokens at full width
+   within ``MLA_LAYER_TOL`` and reject a decode roped one position late;
+   serve deepseek-v2-lite-16b at full width and all 27 layers the same way
+   as 5b (every prefill layer through the flash kernel at 192 / 128 on the
+   tensor cores, every decode layer through the latent route, dropped
+   assignments at cf 1.25), split a prefill and 8 decode steps as in 5b, and
+   time both routes beside their bounds and SDPA;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -192,6 +207,30 @@ MOE_ARCH = "granite-moe-3b-a800m"
 # rounding moves them, so it is no gate.
 MOE_TOL = {"hidden": 5e-2, "logits": 5e-2}
 
+# deepseek-v2-lite-16b serving (MLA + MoE): gemma-2b's traffic (PROMPT_LENS,
+# MAX_NEW_TOKENS, SLOTS, MAX_LEN), 64 experts top-6 and 2 shared at
+# capacity_factor 1.25, every prefill layer through the flash kernel at q/k
+# width 192 and v width 128, every decode layer through the paged kernel's
+# latent route (576 / 512).
+MLA_ARCH = "deepseek-v2-lite-16b"
+# The latent route's checks: cache lengths S and, per S, the lengths (all
+# below S, a NaN tail past each) of a batch of two.
+LATENT_CHECKS = ((64, (50, 1)), (2048, (2047, 1000)), (4096, (4095, 2077)))
+# One MLA layer at full width: its absorbed decode at MLA_LAYER_POSITIONS
+# against mla_forward's rows of the same S = MLA_LAYER_SEQ tokens.  Both
+# compute the same function in bf16 along other paths (forward: per-head
+# K = c_kv W_uk and V = c_kv W_uv, rounded to bf16, through the flash
+# kernel; decode: q W_uk^T rounded to bf16 against c_kv, the context then
+# through W_uv), so each row's relative L2 error is bf16 rounding, about
+# 2^-8 per rounding.  Set before the first card run from a CPU rehearsal at
+# the same widths and seed with the plain kernels: 0.39-0.43% a row (0 at
+# position 0, where both attend to one row).  A decode that ropes the step
+# at the next position (an off-by-one in the step's position) read 6.3-49%
+# there, and must be rejected on every row but the first.
+MLA_LAYER_SEQ = 2048
+MLA_LAYER_POSITIONS = (0, 1, 2, 5, 17, 63, 64, 127, 300, 511, 777, 1024, 1500, 1999, 2046, 2047)
+MLA_LAYER_TOL = 2e-2
+
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "merge_pass": "src/repro_torch/kernels/csrc/merge_sort.cu",
@@ -200,6 +239,8 @@ SOURCES = {
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
+    "flash_attention_tc_192x128": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention_latent": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -209,9 +250,14 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:65",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:50",
     "matmul": "src/repro/kernels/matmul/matmul.py:47",
+    "flash_attention_tc_192x128": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "paged_attention_latent": "src/repro/kernels/paged_attention/paged_attention.py:65",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
+# deepseek-v2-lite's routes of the flash and paged kernels (the kernels line
+# lists them beside the two kernels' other rows).
+MLA_KERNELS = ("flash_attention_tc_192x128", "paged_attention_latent")
 
 # The blocked matmul at the LLM products of benchmarks/bench_kernel_policy.py
 # (lines 25-31), (m, k, n): token block x weight, at published widths.
@@ -766,12 +812,14 @@ def reject_fault(torch, name, what, got, want):
     check(not ok, f"{name}: the tolerance passes a kernel that {what}")
 
 
-def flash_cost(b, h, kv, s, t, hd, elem):
+def flash_cost(b, h, kv, s, t, hd, elem, hd_v=None):
     """(bytes, flops) of causal flash attention: q, k, v read once, o written
-    once; 4 hd flops (q.k and p.v) per unmasked (query, key) pair."""
+    once; 2 (hd + hd_v) flops (q.k and p.v) per unmasked (query, key) pair."""
+    hd_v = hd if hd_v is None else hd_v
     offset = t - s
     pairs = sum(min(t, i + offset + 1) for i in range(s))
-    return (2 * b * h * s * hd + 2 * b * kv * t * hd) * elem, 4 * hd * pairs * b * h
+    return ((b * h * s + b * kv * t) * (hd + hd_v) * elem,
+            2 * (hd + hd_v) * pairs * b * h)
 
 
 def phase_attention(torch, device):
@@ -2008,17 +2056,20 @@ def phase_moe_dispatch(torch, device, layer, routing):
     return errs
 
 
-def phase_moe_breakdown(torch, device, params):
-    """Device time of a 2048-token prefill and of 8 decode steps of
-    granite-moe-3b-a800m, each from its own profiler window: attention
-    kernels, expert products (the batched products, ``aten::bmm``), other
-    products and the rest, with the device's idle share."""
+def phase_moe_breakdown(torch, device, params, arch=MOE_ARCH, step_bound_ms=None):
+    """Device time of a 2048-token prefill and of 8 decode steps of an MoE
+    model (granite-moe-3b-a800m unless ``arch`` says otherwise), each from
+    its own profiler window: attention kernels, expert products (the batched
+    products, ``aten::bmm``; in MLA's decode also its two small absorption
+    products), other products and the rest, with the device's idle share."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer as tf
 
-    cfg = ARCHS[MOE_ARCH]
+    cfg = ARCHS[arch]
+    if step_bound_ms is None:
+        step_bound_ms = moe_decode_bound_ms(cfg)
     rng = np.random.default_rng(SEED + 5)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, max(PROMPT_LENS)),
                                           dtype=np.int32), device=device)
@@ -2058,11 +2109,304 @@ def phase_moe_breakdown(torch, device, params):
                                              f"{kinds['matmul']} s of products")
         kinds = {"attention_kernels": kinds["attention_kernels"], "expert_products": expert,
                  "other_products": kinds["matmul"] - expert, "other": kinds["other"]}
-        emit({"phase": "moe_breakdown", "window": name,
+        emit({"phase": "moe_breakdown", "arch": cfg.name, "window": name,
               "unprofiled_seconds_per_call": unprofiled / steps,
               "profiled_seconds_per_call": profiled / steps,
-              "decode_step_bound_ms": moe_decode_bound_ms(cfg),
+              "decode_step_bound_ms": step_bound_ms,
               **busy_and_idle((kinds, events), profiled, unprofiled)})
+
+
+# --------------------------------------------------------------------------
+# Phase 5c: deepseek-v2-lite-16b (MLA + MoE): the flash kernel at 192 / 128,
+# the paged kernel's latent route, one MLA layer, serving at full width
+# --------------------------------------------------------------------------
+
+
+def with_nan_tail(torch, latent, lengths):
+    """``latent`` with every row at or past its ``lengths`` set to NaN, and
+    the same with those rows zeroed."""
+    nan, zero = latent.clone(), latent.clone()
+    for i, n in enumerate(lengths.tolist()):
+        nan[i, n:] = float("nan")
+        zero[i, n:] = 0
+    return nan, zero
+
+
+def phase_mla_kernels(torch, device):
+    """The flash kernel at deepseek's prefill widths (q/k 192, v 128) and the
+    latent route (576 / 512) against their plain versions under ATTN_TOL; a
+    NaN tail past ``lengths`` must never reach the latent route's output; two
+    planted faults; registers and spills; then both timed beside their bounds
+    and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks, remop_flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    cfg = ARCHS[MLA_ARCH]
+    h, hd, hd_v = cfg.n_heads, cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim
+    width, lora = cfg.kv_lora_rank + cfg.rope_head_dim, cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(hd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    errs, rows = {}, {}
+    pair = f"flash_attention_tc_{hd}x{hd_v}"
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    # -- the flash kernel at 192 / 128: the kernel's layout, the model's
+    # transposed [B, S, H, hd] views, a ragged prefill --------------------------
+    for s, t in ((2048, 2048), (777, 777), (300, 333)):
+        q, k, v = randn(1, h, s, hd), randn(1, h, t, hd), randn(1, h, t, hd_v)
+        want = fa.flash_attention_plain(q, k, v)
+        for layout, (qx, kx, vx) in (("kernel", (q, k, v)), ("model", tuple(
+                x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)))):
+            before = runtime.launches[pair]
+            got = remop_flash_attention(qx, kx, vx)
+            check(runtime.launches[pair] == before + 1 and fa.route(qx, kx, vx) == "tc",
+                  f"flash {hd}/{hd_v} {layout} did not take the tensor-core route")
+            check(layout == "kernel" or got.stride()[1] == hd_v,
+                  "flash 192/128 output lost the model's layout")
+            err, rel = allclose(torch, [pair], got, want, errs)
+            emit({"phase": "mla", "check": pair, "shape": [1, h, h, s, t, hd, hd_v],
+                  "layout": layout, "blocks": plan_blocks(s, t, hd, 2, hd_v=hd_v),
+                  "tol": ATTN_TOL["torch.bfloat16"], "max_abs_err": err, "rel_err": rel})
+    emit({"phase": "mla", "flash_attention_tc_instantiations": {
+        f"hd {hd}/{hd_v} bq {bq} bk {bk}": fa.occupancy(hd, bq, bk, hd_v=hd_v)
+        for bq in fa.TC_BLOCKS for bk in fa.TC_BLOCKS}})
+
+    # -- the latent route: lengths below S, a NaN tail past them ---------------------
+    for s, lengths in LATENT_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+            q = randn(len(lengths), h, width, dtype=dtype)
+            latent, clean = with_nan_tail(torch, randn(len(lengths), s, width, dtype=dtype), ln)
+            got = pa.latent_decode(q, latent, ln, scale)
+            check(bool(torch.isfinite(got).all()), f"latent S {s}: the NaN tail reached the output")
+            check(torch.equal(got, pa.latent_decode(q, clean, ln, scale)),
+                  f"latent S {s}: the output depends on the rows past lengths")
+            err, rel = allclose(torch, ["paged_attention_latent"], got,
+                                pa.latent_decode_plain(q, clean, ln, scale), errs)
+            emit({"phase": "mla", "check": "paged_attention_latent", "shape": [len(lengths), h, s],
+                  "lengths": list(lengths), "dtype": str(dtype), "nan_tail": True,
+                  "plan": pa.latent_plan(len(lengths), h, s), "tol": ATTN_TOL[str(dtype)],
+                  "max_abs_err": err, "rel_err": rel})
+    emit({"phase": "mla", "paged_attention_latent_instantiations": {
+        f"{str(dtype)[6:]} gc {h}": pa.latent_attributes(dtype, h)
+        for dtype in (torch.bfloat16, torch.float32)}})
+    # Planted faults, made with the kernel: the scale of the latent width
+    # (1/sqrt(576)) for the per-head width's, and scores without the rope
+    # term (q's 64 rope columns zeroed).
+    ln = torch.tensor([2077], dtype=torch.int32, device=device)
+    q, latent = randn(1, h, width), randn(1, 4096, width)
+    want = pa.latent_decode_plain(q, latent, ln, scale)
+    reject_fault(torch, "paged_attention_latent", "scales the scores by 1/sqrt(576)",
+                 pa.latent_decode(q, latent, ln, 1.0 / math.sqrt(width)), want)
+    no_rope = q.clone()
+    no_rope[..., lora:] = 0
+    reject_fault(torch, "paged_attention_latent", "drops the rope term from the scores",
+                 pa.latent_decode(no_rope, latent, ln, scale), want)
+    torch.cuda.synchronize()
+
+    # -- timing at deepseek's shapes: a 2048-token prefill, a decode step at
+    # length 2048 of a 4096-slot cache ------------------------------------------
+    bench = Bench(torch, device)
+    s = 2048
+    q, k, v = randn(1, h, s, hd), randn(1, h, s, hd), randn(1, h, s, hd_v)
+    ms_bound, by = bound(*flash_cost(1, h, h, s, s, hd, 2, hd_v), BF16_OPS_PER_S)
+    bq, bk = plan_blocks(s, s, hd, 2, hd_v=hd_v)
+
+    def flash_kernel():
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk)
+
+    def flash_sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
+
+    rows[pair] = dict(
+        shape=f"q/k [1,{h},{s},{hd}], v [1,{h},{s},{hd_v}] bf16, causal, blocks {(bq, bk)}",
+        ms=bench.ms(flash_kernel),
+        remop_flash_attention_ms=bench.ms(lambda: remop_flash_attention(q, k, v)),
+        plain_ms=bench.ms(lambda: fa.flash_attention_plain(q, k, v)),
+        library_ms=bench.ms(flash_sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(flash_kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(flash_sdpa).items()})
+    s, length = MAX_LEN, max(PROMPT_LENS)
+    ln = torch.full((1,), length, dtype=torch.int32, device=device)
+    q, latent = randn(1, h, width), randn(1, s, width)
+    mask = (torch.arange(s, device=device) < length)[None, None, None, :]
+    ms_bound, by = bound((length * width + h * width + h * lora) * 2,
+                         2 * h * length * (width + lora), BF16_OPS_PER_S)
+
+    def latent_kernel():
+        return pa.latent_decode(q, latent, ln, scale)
+
+    def latent_sdpa():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], latent[:, None], latent[:, None, :, :lora], attn_mask=mask,
+            scale=scale, enable_gqa=True)
+
+    rows["paged_attention_latent"] = dict(
+        shape=f"q [1,{h},{width}], latent [1,{s},{width}] bf16, values its first {lora} "
+              f"columns, length {length}, plan {pa.latent_plan(1, h, s)}",
+        ms=bench.ms(latent_kernel),
+        plain_ms=bench.ms(lambda: pa.latent_decode_plain(q, latent, ln, scale)),
+        library_ms=bench.ms(latent_sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        partial_bytes=pa.scratch_floats(1, 1, h, lora, sum(
+            hi > lo for lo, hi in pa.chunk_bounds(length, pa.latent_plan(1, h, s)[0],
+                                                  pa.LATENT_MIN_CHUNK))) * 4,
+        cache_bytes=length * width * 2,
+        **bench.device_ms(latent_kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(latent_sdpa).items()})
+    for name, row in rows.items():
+        emit({"phase": "mla", "timing": name, **row})
+    del bench
+    return errs, rows
+
+
+def mla_layer_errors(torch, device, cfg, fault: bool = False):
+    """One MLA layer at ``cfg``'s widths on MLA_LAYER_SEQ tokens: the
+    relative L2 error of its absorbed decode at each of MLA_LAYER_POSITIONS
+    against ``mla_forward``'s row there, the decode's cache the forward's
+    rows before the position.  ``fault`` ropes the step (query and cache row)
+    at the next position."""
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    p = attn.init_mla(cfg, gen, device)
+    s = MLA_LAYER_SEQ
+    x = torch.randn(1, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None]
+    with torch.inference_mode():
+        want, (c_kv, k_rope) = attn.mla_forward(p, cfg, x, positions, return_cache=True)
+        errs = []
+        for pos in MLA_LAYER_POSITIONS:
+            cache = attn.mla_pad(attn.mla_cache(c_kv[:, :pos], k_rope[:, :pos]), s)
+            got, _ = attn.mla_decode(p, cfg, x[:, pos:pos + 1], cache, pos + 1 if fault else pos)
+            errs.append(rel_err(torch, got[0, 0], want[0, pos]))
+    return errs
+
+
+def phase_mla_layer(torch, device):
+    """One MLA layer of deepseek-v2-lite at full width: the absorbed decode
+    against the forward pass, row by row; a planted off-by-one position must
+    fail every row past the first."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[MLA_ARCH]
+    errs = mla_layer_errors(torch, device, cfg)
+    emit({"phase": "mla", "layer_check": "absorbed decode against mla_forward",
+          "seq": MLA_LAYER_SEQ, "positions": list(MLA_LAYER_POSITIONS), "rel_l2": errs,
+          "max_rel_l2": max(errs), "tol": MLA_LAYER_TOL})
+    check(max(errs) <= MLA_LAYER_TOL, f"MLA absorbed decode differs from the forward pass: {errs}")
+    bad = mla_layer_errors(torch, device, cfg, fault=True)
+    rejected = all(e > MLA_LAYER_TOL for e in bad[1:])
+    emit({"phase": "mla", "planted_fault": "layer", "fault": "ropes the step at position + 1",
+          "rel_l2": bad, "min_rel_l2_past_first": min(bad[1:]), "tol": MLA_LAYER_TOL,
+          "rejected": rejected})
+    check(rejected, "the layer check passes a decode that ropes at the next position")
+
+
+def weights_bound_ms(params) -> float:
+    """The least time of one decode step at batch 1 when every weight is
+    read once (the dense MoE path computes all experts at capacity 1), at the
+    card's memory rate; the caches' reads are left out (at most 4096 x 576 x 2
+    bytes a layer, 0.15% more)."""
+    def nbytes(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    return nbytes(params) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_mla_serve(torch, device):
+    """Serve deepseek-v2-lite-16b at full width and all 27 layers: the flash
+    kernel at 192 / 128 in every prefill layer, the latent route in every
+    decode layer, the dense capacity dispatch at cf 1.25."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = ARCHS[MLA_ARCH]
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    emit({"phase": "mla", "arch": cfg.name, "params": tf.param_count(params),
+          "layers": cfg.n_layers, "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+          "shared_experts": cfg.n_shared_experts, "kv_lora_rank": cfg.kv_lora_rank,
+          "capacity_factor": cfg.capacity_factor, "init_seconds": time.perf_counter() - t0,
+          "weight_bytes_on_device": torch.cuda.memory_allocated(device)})
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in PROMPT_LENS]
+    log = []
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN, batch_slots=SLOTS, device=device)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    with routing_recorded(log):
+        results = engine.submit(reqs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    steps = sum(len(r.out_tokens) - 1 for r in reqs)
+    pair = f"flash_attention_tc_{cfg.nope_head_dim + cfg.rope_head_dim}x{cfg.v_head_dim}"
+    check(sorted(results) == list(range(len(reqs))), "a request did not finish")
+    check(all(len(r.out_tokens) == MAX_NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(launches.get("flash_attention", 0) == launches.get(pair, 0) == cfg.n_layers * len(reqs),
+          f"flash launches {launches.get('flash_attention')}, at 192/128 on the tensor cores "
+          f"{launches.get(pair)}, not {cfg.n_layers} x {len(reqs)}")
+    check(launches.get("paged_attention_latent", 0) == cfg.n_layers * steps
+          and not launches.get("paged_attention"),
+          f"latent launches {launches.get('paged_attention_latent')} != {cfg.n_layers} x "
+          f"{steps}, or a GQA paged launch")
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    check(len(log) == n_moe * (len(reqs) + steps),
+          f"{len(log)} MoE calls, not {n_moe} x {len(reqs) + steps}")
+    calls = [entry for entry in log if entry[0].shape[1] > 1]
+    prefills = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
+    check(len(prefills) == len(reqs) and all(
+        ids.shape[1] == len(r.prompt) for r, chunk in zip(reqs, prefills) for ids, _ in chunk),
+        "the prefills' MoE calls are not n_moe a request in request order")
+    prefill_drops = {r.rid: moe_drops(chunk) for r, chunk in zip(reqs, prefills)}
+    decode_drops = moe_drops([entry for entry in log if entry[0].shape[1] == 1])
+    check(decode_drops == 0, f"{decode_drops} assignments dropped in decode (capacity 1)")
+    del log, calls, prefills
+
+    step_bound = weights_bound_ms(params)
+    for r in reqs:
+        n_dec = len(r.out_tokens) - 1
+        emit({"phase": "mla", "request": r.rid, "prompt_tokens": len(r.prompt),
+              "new_tokens": len(r.out_tokens), "prefill_seconds": r.prefill_seconds,
+              "decode_seconds_per_token": r.decode_seconds / n_dec,
+              "decode_step_bound_ms": step_bound,
+              "tokens_per_second": len(r.out_tokens) / (r.prefill_seconds + r.decode_seconds),
+              "capacity": moe.capacity(cfg, len(r.prompt)),
+              "assignments": n_moe * len(r.prompt) * cfg.experts_per_token,
+              "dropped_assignments": prefill_drops[r.rid]})
+    emit({"phase": "mla", "requests": len(reqs), "new_tokens": steps + len(reqs),
+          "decode_steps": steps, "wall_seconds": wall,
+          "tokens_per_second": (steps + len(reqs)) / wall,
+          "dropped_assignments": sum(prefill_drops.values()),
+          "launches": launches, "peak_device_bytes": peak})
+    return launches, params, step_bound
 
 
 # --------------------------------------------------------------------------
@@ -2349,7 +2693,9 @@ def main() -> int:
                   "five LLM products of benchmarks/bench_kernel_policy.py, published widths "
                   "and full token blocks; TPC-H Q3 and Q18 DAGs at SF1 row counts; "
                   "granite-moe-3b-a800m at its published widths and all 32 layers, random "
-                  "weights; nothing cut"})
+                  "weights; deepseek-v2-lite-16b at its published widths (MLA, kv_lora_rank "
+                  "512, 64 experts top-6 and 2 shared) and all 27 layers, random weights; "
+                  "nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -2376,6 +2722,17 @@ def main() -> int:
         launches[name] += moe_launches[name]
     for name, err in phase_moe_dispatch(torch, device, layer, routing).items():
         errs[name] = max(errs.get(name, 0.0), err)
+    del routing
+    torch.cuda.empty_cache()  # granite-moe's 6.6 GB back before deepseek's 31 GB
+    mla_errs, mla_rows = phase_mla_kernels(torch, device)
+    errs.update(mla_errs)
+    rows.update(mla_rows)
+    phase_mla_layer(torch, device)
+    mla_launches, params, step_bound = phase_mla_serve(torch, device)
+    phase_moe_breakdown(torch, device, params, arch=MLA_ARCH, step_bound_ms=step_bound)
+    del params
+    torch.cuda.empty_cache()
+    launches.update({name: mla_launches[name] for name in MLA_KERNELS})
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

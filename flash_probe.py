@@ -10,8 +10,9 @@ goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
 and prints each kernel's registers and spills; then holds the kernel to
 ``flash_attention_plain`` under ``chip_smoke.ATTN_TOL`` at the main path's
 shapes (gemma-2b, qwen3-0.6b, granite-20b's 48 heads on one KV head, a
-ragged hd-64 prefill, the model's transposed layout), at every block pair
-the tensor-core route takes, with P rounded once to bf16 (the probe off the
+ragged hd-64 prefill, the model's transposed layout, deepseek-v2-lite's
+q/k 192 and v 128), at every block pair the tensor-core route takes (the
+pair 192 / 128 too), with P rounded once to bf16 (the probe off the
 main path), and on the CUDA-core route (bf16 hd 32, f32); prints the
 occupancy of every tensor-core instantiation.  It times nothing;
 ``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
@@ -60,7 +61,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention.flash_attention import (
-        TC_BLOCKS, TC_HEAD_DIMS, SMEM_LIMIT, flash_attention, flash_attention_plain, occupancy,
+        TC_BLOCKS, TC_HEAD_PAIRS, SMEM_LIMIT, flash_attention, flash_attention_plain, occupancy,
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
@@ -77,10 +78,10 @@ def main() -> int:
     g.manual_seed(0)
     failed = []
 
-    def inputs(b, h, kv, s, t, hd, dtype):
+    def inputs(b, h, kv, s, t, hd, dtype, hd_v=None):
         q = torch.randn(b, h, s, hd, device=dev, generator=g).to(dtype)
         k = torch.randn(b, kv, t, hd, device=dev, generator=g).to(dtype)
-        v = torch.randn(b, kv, t, hd, device=dev, generator=g).to(dtype)
+        v = torch.randn(b, kv, t, hd if hd_v is None else hd_v, device=dev, generator=g).to(dtype)
         return q, k, v
 
     def case(name, q, k, v, fn):
@@ -110,21 +111,28 @@ def main() -> int:
     q, k, v = inputs(1, 8, 1, 777, 777, 256, torch.bfloat16)
     qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
     case("model layout", qm, km, vm, remop_flash_attention)
-    for hd in TC_HEAD_DIMS:
-        q, k, v = inputs(1, 4, 2, 200, 260, hd, torch.bfloat16)
+    for s in (2048, 777):
+        q, k, v = inputs(1, 16, 16, s, s, 192, torch.bfloat16, hd_v=128)
+        case(f"deepseek 192/128 S {s}", q, k, v, remop_flash_attention)
+        qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+        case(f"deepseek 192/128 model layout S {s}", qm, km, vm, remop_flash_attention)
+    for hd, hd_v in TC_HEAD_PAIRS:
+        q, k, v = inputs(1, 4, 2, 200, 260, hd, torch.bfloat16, hd_v=hd_v)
         for bq in TC_BLOCKS:
             for bk in TC_BLOCKS:
-                if smem_bytes(bq, bk, hd, 2, "tc") <= SMEM_LIMIT:
-                    case(f"blocks {bq},{bk}", q, k, v,
+                if smem_bytes(bq, bk, hd, 2, "tc", hd_v) <= SMEM_LIMIT:
+                    case(f"blocks {bq},{bk} hd {hd}/{hd_v}", q, k, v,
                          lambda q, k, v, bq=bq, bk=bk: flash_attention(q, k, v, bq=bq, bk=bk))
-                    print("occupancy", hd, bq, bk, occupancy(hd, bq, bk), flush=True)
+                    print("occupancy", hd, hd_v, bq, bk, occupancy(hd, bq, bk, hd_v=hd_v),
+                          flush=True)
     q, k, v = inputs(1, 8, 1, 2048, 2048, 256, torch.bfloat16)
     case("single bf16 P (probe; may exceed ATTN_TOL)", q, k, v,
          lambda q, k, v: flash_attention(q, k, v, bq=128, bk=64, split_p=False))
     failed = [f for f in failed if not f.startswith("single")]
-    for dtype, hd in ((torch.bfloat16, 32), (torch.float32, 128)):
-        q, k, v = inputs(2, 16, 8, 300, 333, hd, dtype)
-        case(f"simt {dtype} hd {hd}", q, k, v, remop_flash_attention)
+    for dtype, hd, hd_v in ((torch.bfloat16, 32, 32), (torch.float32, 128, 128),
+                            (torch.float32, 192, 128)):
+        q, k, v = inputs(2, 16, 8, 300, 333, hd, dtype, hd_v=hd_v)
+        case(f"simt {dtype} hd {hd}/{hd_v}", q, k, v, remop_flash_attention)
     print("FAILED" if failed else "ALL OK", failed, flush=True)
     return 1 if failed else 0
 

@@ -11,8 +11,10 @@ and prints each kernel's registers and spills; then holds the kernel to
 ``paged_attention_plain`` (at the kernel's own plan) under
 ``chip_smoke.ATTN_TOL`` at every head width in bf16 and f32, at gemma-2b's
 and granite-20b's decode shapes, at lengths 1, S, mid-chunk and ragged, at
-G past one CTA's group and at S that is no multiple of 16; checks that two
-calls give the same bits; prints the kernels' device time at gemma-2b's and
+G past one CTA's group and at S that is no multiple of 16; the latent route
+(MLA's decode, 576 / 512, 16 heads) to ``latent_decode_plain`` in bf16 and
+f32 at S 64 to 4096 with lengths below S and a NaN tail past them; checks
+that two calls give the same bits; prints the kernels' device time at gemma-2b's and
 granite-20b's decode shapes from a profiler window, and the cycles each
 phase of one CTA takes there, from ``clock64()`` stamps in a copy of the
 source built beside the log.  ``chip_smoke.py`` is the full check.  Exits 1
@@ -75,7 +77,9 @@ PHASES = (
 def phase_cycles(log_dir: Path, dev, shapes) -> None:
     """Builds a copy of the kernel with a clock64() stamp at each of PHASES in
     CTA 5 (a live chunk at the probe's length) and prints the cycles between
-    stamps at each (G, hd) of ``shapes`` (bf16, S 4096, length 2048)."""
+    stamps at each (G, hd) of ``shapes`` (bf16, S 4096, length 2048), then
+    on the latent route (16 heads, 576 / 512: CTA 5 walks 4 tiles there, so
+    its per-tile phases are the last tile's)."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.kernels.paged_attention import paged_attention as pa
@@ -118,6 +122,23 @@ def phase_cycles(log_dir: Path, dev, shapes) -> None:
         print(f"cycles G {g} hd {hd}:", ", ".join(
             f"{PHASES[i][0]} {stamps[i] - stamps[i - 1]}" for i in range(1, len(PHASES))),
             f"| total {stamps[len(PHASES) - 1] - stamps[0]}", flush=True)
+    q = torch.randn(1, 16, 576, device=dev, generator=gen).to(torch.bfloat16)
+    latent = torch.randn(1, 4096, 576, device=dev, generator=gen).to(torch.bfloat16)
+    ln = torch.tensor([2048], dtype=torch.int32, device=dev)
+    splits, gc = pa.latent_plan(1, 16, 4096)
+    out = torch.empty(1, 16, 512, dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(pa.scratch_floats(1, 1, 16, 512, splits), device=dev)
+    for _ in range(10):
+        err = lib.remop_latent_decode_bf16(
+            q.data_ptr(), latent.data_ptr(), ln.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            1, 16, 4096, splits, gc, pa.LATENT_MIN_CHUNK, 192 ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+    torch.cuda.synchronize()
+    assert lib.read_stamps(stamps) == 0
+    print("cycles latent H 16, 4 tiles:", ", ".join(
+        f"{PHASES[i][0]} {stamps[i] - stamps[i - 1]}" for i in range(1, len(PHASES))),
+        f"| total {stamps[len(PHASES) - 1] - stamps[0]}", flush=True)
 
 
 def main() -> int:
@@ -180,11 +201,44 @@ def main() -> int:
     case(3, 2, 1, 16, 1, (1, 1, 1), bf)                # S = 1
     case(1, 3, 5, 32, 50, (50,), torch.float32)        # S no multiple of 16
 
+    def latent_case(s, lengths, dtype, h=16):
+        name = f"latent h{h} s{s} {str(dtype)[6:]} len {lengths}"
+        q = torch.randn(len(lengths), h, 576, device=dev, generator=gen).to(dtype)
+        latent = torch.randn(len(lengths), s, 576, device=dev, generator=gen).to(dtype)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        nan, clean = chip_smoke.with_nan_tail(torch, latent, ln)
+        runtime.reset_launches()
+        try:
+            got = pa.latent_decode(q, nan, ln, 192 ** -0.5)
+            again = pa.latent_decode(q, clean, ln, 192 ** -0.5)
+            torch.cuda.synchronize()
+        except Exception as e:  # report and go on to the next case
+            print(name, "RAISED", repr(e)[:300], flush=True)
+            failed.append(name)
+            return
+        want = pa.latent_decode_plain(q, clean, ln, 192 ** -0.5)
+        ok, err, rel, _ = chip_smoke.attn_close(torch, got, want)
+        same = torch.equal(got, again)
+        finite = bool(torch.isfinite(got.float()).all())
+        print(name, pa.latent_plan(len(lengths), h, s), dict(runtime.launches),
+              f"ok {ok} same {same} finite {finite} maxabs {err:.3e} rel {rel:.3e}", flush=True)
+        if not (ok and same and finite):
+            failed.append(name)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for s, lengths in ((64, (50, 1)), (2048, (2047, 1000)), (4096, (4095, 2077)),
+                           (4096, (1, 128, 129, 4096)), (300, (300, 17))):
+            latent_case(s, lengths, dtype)
+    latent_case(777, (777, 5), bf, h=8)
+    latent_case(777, (700,), bf, h=40)  # heads past one CTA's 16
+
     for dtype in (torch.bfloat16, torch.float32):
         for hd in pa.HEAD_DIMS:
             for gc in (8, 48, 64):
                 print("attributes", str(dtype)[6:], hd, gc, pa.attributes(dtype, hd, gc),
                       flush=True)
+        print("latent attributes", str(dtype)[6:], 16, pa.latent_attributes(dtype, 16),
+              flush=True)
 
     # Device time at gemma-2b's and granite-20b's decode shapes, warm L2 (no
     # flush): a first look.
@@ -205,6 +259,21 @@ def main() -> int:
             if "paged_attention_kernel" in e.key:
                 print("device G", g, "hd", hd, e.key[:80], "count", e.count, "us/call",
                       e.self_device_time_total / e.count, flush=True)
+    # The latent route at deepseek's decode (length 2048 of 4096), per kernel.
+    q = torch.randn(1, 16, 576, device=dev, generator=gen).to(bf)
+    latent = torch.randn(1, 4096, 576, device=dev, generator=gen).to(bf)
+    ln = torch.tensor([2048], dtype=torch.int32, device=dev)
+    for _ in range(5):
+        pa.latent_decode(q, latent, ln, 192 ** -0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            pa.latent_decode(q, latent, ln, 192 ** -0.5)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if "paged_attention_kernel" in e.key:
+            print("device latent", e.key[:80], "count", e.count, "us/call",
+                  e.self_device_time_total / e.count, flush=True)
     phase_cycles(log_dir, dev, ((8, 256), (48, 128)))
     print("FAILED" if failed else "ALL OK", failed, flush=True)
     return 1 if failed else 0

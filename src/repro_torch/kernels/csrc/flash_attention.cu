@@ -1,9 +1,12 @@
 // Causal GQA flash attention (prefill) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py:72
-// (flash_attention): q [B, H, S, hd], k/v [B, KV, T, hd], query head h reads
-// KV head h / (H / KV), causal with the query positions offset by T - S, an
-// online softmax in f32, fully masked KV blocks skipped, output in q's dtype.
+// (flash_attention): q [B, H, S, hd], k [B, KV, T, hd], v [B, KV, T, hd_v],
+// query head h reads KV head h / (H / KV), causal with the query positions
+// offset by T - S, an online softmax in f32 of the scores times `scale`,
+// fully masked KV blocks skipped, output [B, H, S, hd_v] in q's dtype.
+// hd_v = hd, or (hd, hd_v) = (192, 128): MLA's prefill, whose q and k are
+// 128 nope and 64 rope columns and whose values are 128 wide.
 // Any S <= T works without padding (rows past S and keys past T are masked),
 // and every tensor is passed with its own strides (the last dimension
 // contiguous), so the model's [B, S, H, hd] activations are read and
@@ -14,8 +17,9 @@
 // model's widths (hd 128 or 256, S in the thousands): the operations, about
 // 2 S T hd H flops under the causal mask, against a few bytes per key.
 //
-// Tensor-core route (flash_attention_kernel_tc): bf16 at hd 64, 128 or 256,
-// with TMA-aligned bases and strides (16 bytes).  Both products run on
+// Tensor-core route (flash_attention_kernel_tc): bf16 at hd 64, 128 or 256
+// (hd_v = hd) or at (192, 128), with TMA-aligned bases and strides (16
+// bytes).  Both products run on
 // wgmma, bf16 in, f32 accumulate.  bq = 64 or 128: one consumer warpgroup
 // per 64 query rows, plus one producer warpgroup, of which one thread
 // issues the copies (a whole warpgroup, so that at bq = 128 it can hand its
@@ -23,15 +27,16 @@
 // and O, S and P of hd 256 need about 200).  The producer loads Q once and
 // K and V in a ring of two stages with TMA (rank-4 maps over (hd, position,
 // head, batch) with each tensor's own strides, boxes of [bk positions, 64 of
-// hd] in the 128-byte swizzle, positions past S or T zero-filled), so block
+// hd] in the 128-byte swizzle, positions past S or T zero-filled; q and k
+// of hd 192 are three such 64-column slabs, v of 128 two), so block
 // j + 1's copies are in flight while block j's products run; completion is
 // counted on mbarriers (K and V apart, so Q K^T starts before V lands), and
 // a stage is refilled once every consumer warp has released it.  A
 // warpgroup forms S = Q K^T (M 64, N bk, K hd; both operands K-major) into
-// registers, masks it by position and runs the online softmax on the
-// accumulator fragment (row max over the 4 lanes that share a row; the row
+// registers (hd / 16 k-steps of 16), masks it by position and runs the
+// online softmax on the accumulator fragment (row max over the 4 lanes that share a row; the row
 // sum kept per lane and reduced once at the end), rescales O by `corr`,
-// then O += P V (M 64, N hd, K bk; V MN-major through the transpose bit)
+// then O += P V (M 64, N hd_v, K bk; V MN-major through the transpose bit)
 // with P taken from registers: the S fragment is wgmma's A fragment, so P
 // never goes through shared memory.  P is kept at f32 precision, as the
 // TPU kernel keeps it: P = P_hi + P_lo with P_hi = bf16(P), P_lo = bf16(P -
@@ -109,22 +114,24 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-// rows [r0, r0 + n) of src (position stride `ps`) into dst, zero past `limit`.
-template <typename T, int HD>
+// W columns of rows [r0, r0 + n) of src (position stride `ps`) into dst
+// (row stride LD), zero past `limit`.
+template <typename T, int W, int LD>
 __device__ __forceinline__ void stage(T* dst, const T* src, int64_t ps, int r0,
                                       int n, int limit) {
-  constexpr int LD = ld<T, HD>();
-  for (int i = threadIdx.x; i < n * HD; i += kThreads) {
-    const int r = i / HD, d = i - r * HD;
+  for (int i = threadIdx.x; i < n * W; i += kThreads) {
+    const int r = i / W, d = i - r * W;
     const int row = r0 + r;
     dst[r * LD + d] = row < limit ? src[int64_t(row) * ps + d] : from_f32<T>(0.f);
   }
 }
 
-template <typename T, int HD>
+// HD: the width of q and k; HDV: of v and the output (V is staged into
+// the rows K used).
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   constexpr int LD = ld<T, HD>();
-  constexpr int CD = HD / 16;  // head columns per thread
+  constexpr int CD = HDV / 16;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);                            // [bq][LD]
   T* kv_s = q_s + p.bq * LD;                                      // [bk][LD]
@@ -143,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   const T* vg = static_cast<const T*>(p.v) + b * p.st[6] + kvh * p.st[7];
   T* og = static_cast<T*>(p.o) + b * p.st[9] + head * p.st[10];
 
-  stage<T, HD>(q_s, qg, p.st[2], q0, p.bq, p.s);
+  stage<T, HD, LD>(q_s, qg, p.st[2], q0, p.bq, p.s);
 
   // Rows and columns past bq / bk read a valid row (clamped) and are
   // discarded, which keeps the inner loops free of branches.
@@ -170,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * p.bk;
     __syncthreads();  // q staged; the previous block's V no longer read
-    stage<T, HD>(kv_s, kg, p.st[5], k0, p.bk, p.t);
+    stage<T, HD, LD>(kv_s, kg, p.st[5], k0, p.bk, p.t);
     __syncthreads();
 
     float sc[kPer][kPer];
@@ -226,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
       }
     }
     __syncthreads();  // K no longer read; P visible
-    stage<T, HD>(kv_s, vg, p.st[8], k0, p.bk, p.t);
+    stage<T, HDV, LD>(kv_s, vg, p.st[8], k0, p.bk, p.t);
     __syncthreads();
 
     for (int c = 0; c < p.bk; ++c) {
@@ -255,11 +262,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = size_t(p.bq + p.bk) * ld<T, HD>() * sizeof(T) +
                       size_t(p.bq) * (p.bk + 1) * sizeof(float);
-  auto kernel = flash_attention_kernel<T, HD>;
+  auto kernel = flash_attention_kernel<T, HD, HDV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -271,7 +278,7 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const long long* strides, int b, int h, int kv, int s, int t,
-             int hd, int bq, int bk, float scale, void* stream) {
+             int hd, int bq, int bk, float scale, int hd_v, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
   if (kv <= 0 || h % kv || t < s || bq < 1 || bq > kMaxBlock || bk < 1 ||
       bk > kMaxBlock)
@@ -279,12 +286,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale};
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
+  if (hd_v != hd) {
+    if (hd == 192 && hd_v == 128) return launch<T, 192, 128>(p, b, st);
+    return cudaErrorInvalidValue;
+  }
   switch (hd) {
-    case 16: return launch<T, 16>(p, b, st);
-    case 32: return launch<T, 32>(p, b, st);
-    case 64: return launch<T, 64>(p, b, st);
-    case 128: return launch<T, 128>(p, b, st);
-    case 256: return launch<T, 256>(p, b, st);
+    case 16: return launch<T, 16, 16>(p, b, st);
+    case 32: return launch<T, 32, 32>(p, b, st);
+    case 64: return launch<T, 64, 64>(p, b, st);
+    case 128: return launch<T, 128, 128>(p, b, st);
+    case 256: return launch<T, 256, 256>(p, b, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -298,20 +309,22 @@ constexpr int kMaxSmem = 232448;      // shared memory one CTA can use (227 KB)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one CTA (byte offsets from a 1024-byte-aligned base):
-// Q as hd / 64 slabs of bq rows x 128 bytes; then two stages, each K and V
-// as hd / 64 slabs of bk rows x 128 bytes; then the mbarriers q_full,
-// k_full[2], v_full[2], empty[2]; 1024 bytes of slack to align the base.
-__host__ __device__ constexpr int tc_smem(int hd, int bq, int bk) {
-  return 1024 + bq * hd * 2 + 4 * bk * hd * 2 + 7 * 8;
+// Q as hd / 64 slabs of bq rows x 128 bytes; then two stages, each K as hd /
+// 64 and V as hd_v / 64 slabs of bk rows x 128 bytes; then the mbarriers
+// q_full, k_full[2], v_full[2], empty[2]; 1024 bytes of slack to align the
+// base.  Every slab starts on 1024 bytes, as the swizzle wants.
+__host__ __device__ constexpr int tc_smem(int hd, int hdv, int bq, int bk) {
+  return 1024 + bq * hd * 2 + 2 * bk * (hd + hdv) * 2 + 7 * 8;
 }
 
-template <int HD, int BQ, int BK>
+template <int HD, int HDV, int BQ, int BK>
 struct TcLayout {
   static constexpr int kQBytes = BQ * HD * 2;
-  static constexpr int kKVBytes = BK * HD * 2;  // one K or one V block
-  static constexpr int kStage = 2 * kKVBytes;
+  static constexpr int kKBytes = BK * HD * 2;   // one K block
+  static constexpr int kVBytes = BK * HDV * 2;  // one V block
+  static constexpr int kStage = kKBytes + kVBytes;
   static constexpr int kBars = kQBytes + 2 * kStage;
-  static constexpr int kSmem = tc_smem(HD, BQ, BK);
+  static constexpr int kSmem = tc_smem(HD, HDV, BQ, BK);
 };
 
 struct TcParams {
@@ -323,19 +336,19 @@ struct TcParams {
 
 // One consumer warpgroup w of the CTA: query rows [q0 + 64w, q0 + 64w +
 // 64); this thread holds rows r0 and r0 + 8 of the accumulator fragments.
-template <int HD, int BQ, int BK, bool SPLIT>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT>
 __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, uint64_t* k_full,
                                         uint64_t* v_full, uint64_t* empty, const TcParams& p,
                                         int w, int warp, int lane, int q0, int head, int b,
                                         int offset, int n_kv) {
-  using L = TcLayout<HD, BQ, BK>;
+  using L = TcLayout<HD, HDV, BQ, BK>;
   const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
   const int qpos0 = r0 + offset, qpos1 = r0 + 8 + offset;
   const uint32_t q_addr = hopper::smem_u32(smem) + w * 64 * 128;
 
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int r = 0; r < HD / 2; ++r) o[r] = 0.f;
+  for (int r = 0; r < HDV / 2; ++r) o[r] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's share
 
   hopper::mbar_wait(q_full, 0);
@@ -343,7 +356,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
     const int s = j & 1;
     const uint32_t parity = (j >> 1) & 1;
     const uint32_t k_addr = hopper::smem_u32(smem + L::kQBytes + s * L::kStage);
-    const uint32_t v_addr = k_addr + L::kKVBytes;
+    const uint32_t v_addr = k_addr + L::kKBytes;
 
     // S = Q K^T: column c of the fragment is key j * BK + c.
     float sc[BK / 2];
@@ -396,7 +409,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
     l0 = l0 * c0 + s0;
     l1 = l1 * c1 + s1;
 #pragma unroll
-    for (int r = 0; r < HD / 2; ++r) o[r] *= ((r >> 1) & 1) ? c1 : c0;
+    for (int r = 0; r < HDV / 2; ++r) o[r] *= ((r >> 1) & 1) ? c1 : c0;
 
     // P as wgmma A fragments: columns [16kk, 16kk + 16) are sc[8kk .. 8kk + 7].
     uint32_t ph[BK / 16][4], pl[BK / 16][4];
@@ -451,7 +464,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
     const float den = half ? den1 : den0;
     __nv_bfloat16* orow = og + int64_t(row) * p.ost[2] + 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+    for (int c = 0; c < HDV / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
           __floats2bfloat162_rn(o[4 * c + 2 * half] / den, o[4 * c + 2 * half + 1] / den);
   }
@@ -460,14 +473,15 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
 // With two consumer warpgroups (384 threads) ptxas gives a thread at most
 // 168 registers at entry; the producer warpgroup then hands its registers
 // to the consumers (setmaxnreg: 40 and 232, 64,512 of the SM's 65,536).
-template <int HD, int BQ, int BK, bool SPLIT>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT>
 __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
     flash_attention_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v, TcParams p) {
-  using L = TcLayout<HD, BQ, BK>;
+  using L = TcLayout<HD, HDV, BQ, BK>;
   constexpr int kWarpgroups = BQ / 64;
-  constexpr int kSlabs = HD / 64;
+  constexpr int kSlabs = HD / 64;    // of Q and K
+  constexpr int kVSlabs = HDV / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -507,58 +521,68 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
         const int s = j & 1;
         hopper::mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
         unsigned char* ks = smem + L::kQBytes + s * L::kStage;
-        unsigned char* vs = ks + L::kKVBytes;
-        hopper::mbar_arrive_expect_tx(&k_full[s], L::kKVBytes);
+        unsigned char* vs = ks + L::kKBytes;
+        hopper::mbar_arrive_expect_tx(&k_full[s], L::kKBytes);
         for (int i = 0; i < kSlabs; ++i)
           hopper::tma_load_4d(ks + i * BK * 128, &map_k, &k_full[s], 64 * i, j * BK, kvh, b);
-        hopper::mbar_arrive_expect_tx(&v_full[s], L::kKVBytes);
-        for (int i = 0; i < kSlabs; ++i)
+        hopper::mbar_arrive_expect_tx(&v_full[s], L::kVBytes);
+        for (int i = 0; i < kVSlabs; ++i)
           hopper::tma_load_4d(vs + i * BK * 128, &map_v, &v_full[s], 64 * i, j * BK, kvh, b);
       }
     }
   } else {
     // -- consumers --
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<HD, BQ, BK, SPLIT>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
+    consume<HD, HDV, BQ, BK, SPLIT>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
                                q0, head, b, offset, n_kv);
   }
 }
 
-// The blocks the tensor-core route takes: bq, bk in {64, 128}, hd in {64,
-// 128, 256}, within one CTA's shared memory (which leaves hd 256 at bk 64).
-bool tc_ok(int hd, int bq, int bk) {
-  return (hd == 64 || hd == 128 || hd == 256) && (bq == 64 || bq == 128) &&
-         (bk == 64 || bk == 128) && tc_smem(hd, bq, bk) <= kMaxSmem;
+// The blocks the tensor-core route takes: bq, bk in {64, 128}, (hd, hd_v)
+// in {(64, 64), (128, 128), (256, 256), (192, 128)}, within one CTA's
+// shared memory (which leaves hd 256 at bk 64).
+bool tc_ok(int hd, int hdv, int bq, int bk) {
+  const bool pair = (hd == hdv && (hd == 64 || hd == 128 || hd == 256)) ||
+                    (hd == 192 && hdv == 128);
+  return pair && (bq == 64 || bq == 128) && (bk == 64 || bk == 128) &&
+         tc_smem(hd, hdv, bq, bk) <= kMaxSmem;
 }
 
-// f(integral_constant<HD>, <BQ>, <BK>, bool_constant<SPLIT>) for a tc_ok shape.
+// f(integral_constant<HD>, <HDV>, <BQ>, <BK>, bool_constant<SPLIT>) for a
+// tc_ok shape.
 template <typename F>
-int tc_dispatch(int hd, int bq, int bk, int split, F&& f) {
-#define REMOP_FLASH_TC(HD, BQ, BK)                                                         \
-  if (hd == HD && bq == BQ && bk == BK)                                                    \
-    return split ? f(std::integral_constant<int, HD>{}, std::integral_constant<int, BQ>{}, \
-                     std::integral_constant<int, BK>{}, std::true_type{})                  \
-                 : f(std::integral_constant<int, HD>{}, std::integral_constant<int, BQ>{}, \
-                     std::integral_constant<int, BK>{}, std::false_type{});
-  REMOP_FLASH_TC(64, 64, 64)
-  REMOP_FLASH_TC(64, 64, 128)
-  REMOP_FLASH_TC(64, 128, 64)
-  REMOP_FLASH_TC(64, 128, 128)
-  REMOP_FLASH_TC(128, 64, 64)
-  REMOP_FLASH_TC(128, 64, 128)
-  REMOP_FLASH_TC(128, 128, 64)
-  REMOP_FLASH_TC(128, 128, 128)
-  REMOP_FLASH_TC(256, 64, 64)
-  REMOP_FLASH_TC(256, 128, 64)
+int tc_dispatch(int hd, int hdv, int bq, int bk, int split, F&& f) {
+#define REMOP_FLASH_TC(HD, HDV, BQ, BK)                                                      \
+  if (hd == HD && hdv == HDV && bq == BQ && bk == BK)                                        \
+    return split ? f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},  \
+                     std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},   \
+                     std::true_type{})                                                       \
+                 : f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},  \
+                     std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},   \
+                     std::false_type{});
+  REMOP_FLASH_TC(64, 64, 64, 64)
+  REMOP_FLASH_TC(64, 64, 64, 128)
+  REMOP_FLASH_TC(64, 64, 128, 64)
+  REMOP_FLASH_TC(64, 64, 128, 128)
+  REMOP_FLASH_TC(128, 128, 64, 64)
+  REMOP_FLASH_TC(128, 128, 64, 128)
+  REMOP_FLASH_TC(128, 128, 128, 64)
+  REMOP_FLASH_TC(128, 128, 128, 128)
+  REMOP_FLASH_TC(256, 256, 64, 64)
+  REMOP_FLASH_TC(256, 256, 128, 64)
+  REMOP_FLASH_TC(192, 128, 64, 64)
+  REMOP_FLASH_TC(192, 128, 64, 128)
+  REMOP_FLASH_TC(192, 128, 128, 64)
+  REMOP_FLASH_TC(192, 128, 128, 128)
 #undef REMOP_FLASH_TC
   return cudaErrorInvalidValue;
 }
 
-template <int HD, int BQ, int BK, bool SPLIT>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT>
 auto tc_kernel_for(cudaError_t* err) {
-  auto kernel = flash_attention_kernel_tc<HD, BQ, BK, SPLIT>;
+  auto kernel = flash_attention_kernel_tc<HD, HDV, BQ, BK, SPLIT>;
   *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              TcLayout<HD, BQ, BK>::kSmem);
+                              TcLayout<HD, HDV, BQ, BK>::kSmem);
   return kernel;
 }
 
@@ -586,11 +610,12 @@ bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* s
 // strides: q, k, v, o, each (batch, head, position), in elements.
 int launch_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
               int b, int h, int kv, int s, int t, int hd, int bq, int bk, float scale, int split,
-              void* stream) {
+              int hd_v, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (kv <= 0 || h % kv || t < s || !tc_ok(hd, bq, bk)) return cudaErrorInvalidValue;
+  if (kv <= 0 || h % kv || t < s || !tc_ok(hd, hd_v, bq, bk)) return cudaErrorInvalidValue;
   const uint64_t dq[4] = {uint64_t(hd), uint64_t(s), uint64_t(h), uint64_t(b)};
   const uint64_t dkv[4] = {uint64_t(hd), uint64_t(t), uint64_t(kv), uint64_t(b)};
+  const uint64_t dv[4] = {uint64_t(hd_v), uint64_t(t), uint64_t(kv), uint64_t(b)};
   // Each tensor's strides, innermost (position) first.
   long long sq[3], sk[3], sv[3];
   for (int i = 0; i < 3; ++i) {
@@ -598,28 +623,29 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
     sk[i] = strides[5 - i];
     sv[i] = strides[8 - i];
   }
-  if (!tma_aligned(q, dq, sq) || !tma_aligned(k, dkv, sk) || !tma_aligned(v, dkv, sv) ||
+  if (!tma_aligned(q, dq, sq) || !tma_aligned(k, dkv, sk) || !tma_aligned(v, dv, sv) ||
       reinterpret_cast<uintptr_t>(o) % 4 || strides[9] % 2 || strides[10] % 2 || strides[11] % 2)
     return cudaErrorInvalidValue;
   uint64_t bq_st[3], bk_st[3], bv_st[3];
   tma_strides(dq, sq, bq_st);
   tma_strides(dkv, sk, bk_st);
-  tma_strides(dkv, sv, bv_st);
+  tma_strides(dv, sv, bv_st);
   CUtensorMap map_q{}, map_k{}, map_v{};
   if (!hopper::encode_bf16_4d(&map_q, q, dq, bq_st, bq) ||
       !hopper::encode_bf16_4d(&map_k, k, dkv, bk_st, bk) ||
-      !hopper::encode_bf16_4d(&map_v, v, dkv, bv_st, bk))
+      !hopper::encode_bf16_4d(&map_v, v, dv, bv_st, bk))
     return cudaErrorNotSupported;
   TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale};
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((s + bq - 1) / bq, h, b);
-  return tc_dispatch(hd, bq, bk, split, [&](auto hd_c, auto bq_c, auto bk_c, auto split_c) -> int {
-    constexpr int HD = decltype(hd_c)::value, BQ = decltype(bq_c)::value;
-    constexpr int BK = decltype(bk_c)::value;
+  return tc_dispatch(hd, hd_v, bq, bk, split,
+                     [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
+    constexpr int BQ = decltype(bq_c)::value, BK = decltype(bk_c)::value;
     cudaError_t err;
-    auto kernel = tc_kernel_for<HD, BQ, BK, decltype(split_c)::value>(&err);
+    auto kernel = tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value>(&err);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, BQ / 64 * 128 + kProducerThreads, TcLayout<HD, BQ, BK>::kSmem, st>>>(
+    kernel<<<grid, BQ / 64 * 128 + kProducerThreads, TcLayout<HD, HDV, BQ, BK>::kSmem, st>>>(
         map_q, map_k, map_v, p);
     return cudaGetLastError();
   });
@@ -627,18 +653,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
 
 // out: CTAs resident on one SM (the occupancy calculator), registers a
 // thread, local (spilled) bytes a thread, dynamic shared memory, threads.
-int occupancy_tc(int hd, int bq, int bk, int split, int* out) {
-  if (!tc_ok(hd, bq, bk)) return cudaErrorInvalidValue;
-  return tc_dispatch(hd, bq, bk, split, [&](auto hd_c, auto bq_c, auto bk_c, auto split_c) -> int {
-    constexpr int HD = decltype(hd_c)::value, BQ = decltype(bq_c)::value;
-    constexpr int BK = decltype(bk_c)::value;
+int occupancy_tc(int hd, int hd_v, int bq, int bk, int split, int* out) {
+  if (!tc_ok(hd, hd_v, bq, bk)) return cudaErrorInvalidValue;
+  return tc_dispatch(hd, hd_v, bq, bk, split,
+                     [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
+    constexpr int BQ = decltype(bq_c)::value, BK = decltype(bk_c)::value;
     cudaError_t err;
-    auto kernel = tc_kernel_for<HD, BQ, BK, decltype(split_c)::value>(&err);
+    auto kernel = tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value>(&err);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
-    const int threads = BQ / 64 * 128 + kProducerThreads, smem = TcLayout<HD, BQ, BK>::kSmem;
+    const int threads = BQ / 64 * 128 + kProducerThreads;
+    const int smem = TcLayout<HD, HDV, BQ, BK>::kSmem;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
     out[1] = attr.numRegs;
     out[2] = int(attr.localSizeBytes);
@@ -652,34 +680,38 @@ int occupancy_tc(int hd, int bq, int bk, int split, int* out) {
 
 extern "C" {
 
+// hd: the width of q and k; hd_v: of v and o (equal, or 192 and 128).
 int remop_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, int b, int h, int kv, int s,
-                               int t, int hd, int bq, int bk, float scale,
+                               int t, int hd, int bq, int bk, float scale, int hd_v,
                                void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk,
-                                 scale, stream);
+                                 scale, hd_v, stream);
 }
 
 int remop_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                               const long long* strides, int b, int h, int kv, int s,
-                              int t, int hd, int bq, int bk, float scale,
+                              int t, int hd, int bq, int bk, float scale, int hd_v,
                               void* stream) {
-  return dispatch<float>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale,
+  return dispatch<float>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, hd_v,
                          stream);
 }
 
-// bf16 on the tensor cores (hd 64, 128 or 256; bq, bk 64 or 128; TMA-aligned
-// q, k, v); split = 0 rounds P to bf16 once (a probe, not the main path).
+// bf16 on the tensor cores ((hd, hd_v) (64, 64), (128, 128), (256, 256) or
+// (192, 128); bq, bk 64 or 128; TMA-aligned q, k, v); split = 0 rounds P to
+// bf16 once (a probe, not the main path).
 int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                              const long long* strides, int b, int h, int kv, int s, int t,
-                             int hd, int bq, int bk, float scale, int split, void* stream) {
-  return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, stream);
+                             int hd, int bq, int bk, float scale, int split, int hd_v,
+                             void* stream) {
+  return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
+                   stream);
 }
 
 // Occupancy of the tensor-core instantiation these blocks launch, into
 // out[5] (see occupancy_tc above).
-int remop_flash_attention_tc_occupancy(int hd, int bq, int bk, int split, int* out) {
-  return occupancy_tc(hd, bq, bk, split, out);
+int remop_flash_attention_tc_occupancy(int hd, int hd_v, int bq, int bk, int split, int* out) {
+  return occupancy_tc(hd, hd_v, bq, bk, split, out);
 }
 
 const char* remop_flash_attention_error_string(int err) {

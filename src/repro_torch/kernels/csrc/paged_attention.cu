@@ -49,6 +49,22 @@
 //    o = sum acc_i w_i / max(l, 1e-30), every sum in an order fixed by the
 //    thread layout, so the result does not depend on timing.
 //
+// The latent route (remop_latent_decode_*) is MLA's absorbed-weight decode
+// (src/repro/models/attention.py:316-347, mla_decode): q [B, H, 576] is
+// (q_nope W_uk^T) | q_rope, the cache [B, S, 576] holds each position's
+// latent row c_kv (512) | k_rope (64), and the values are the first 512
+// columns of the same rows, with the scale 1 / sqrt(nope + rope) the caller
+// gives.  It is the same split kernel with HD = 576, HDV = 512 and one KV
+// head whose G = H query heads (16 for deepseek-v2-lite) share every row:
+// a row is copied to shared memory once and read there for the scores and
+// for the context, so the step reads L * 1152 bytes of cache (0.7 us at L
+// 2048 and 3.35 TB/s).  576 = 9 x 64 columns: a position's eight lanes hold
+// nine 16-byte words each.  Its split plan keeps chunks of at least
+// `min_chunk` positions (128 from the host), so the f32 partials, 16 x 514
+// values a chunk (32.9 KB), stay at most 22% of the chunk's cache bytes
+// (147 KB): at L 2048, 16 live chunks and 0.53 MB of partials, not the 4.2
+// MB that 128 chunks of 16 positions would write.
+//
 // Every __global__ here keeps "paged_attention_kernel" in its name: the
 // serving breakdown finds the attention kernels' device time by that name.
 // lengths[b] is read as min(lengths[b], S); it must lie in [1, S].
@@ -68,7 +84,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;       // positions per tile: one per lane
 constexpr int kStages = 2;      // tiles of the ring
 constexpr int kMaxGroup = 64;   // query heads one CTA holds
+constexpr int kLatentMaxGroup = 16;  // on the latent route (q rows of 576 f32)
 constexpr int kMinChunk = 16;   // chunks are multiples of 16 positions
+constexpr int kLatentHd = 576;  // the latent route's key width (lora 512 + rope 64)
+constexpr int kLatentHdv = 512;  // and its value width
 constexpr int kMaxSplits = 1024;
 constexpr int kPStride = kTile + 1;  // p_s row stride, padded against bank conflicts
 constexpr int kCombineThreads = 256;
@@ -111,10 +130,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The chunk length for a row of `len` valid positions over `splits` CTAs.
-__host__ __device__ __forceinline__ int chunk_len(int len, int splits) {
+// The chunk length for a row of `len` valid positions over `splits` CTAs:
+// ceil(len / splits) rounded up to 16, and at least `min_chunk` (a multiple
+// of 16: 16 on the GQA route, where it changes nothing).
+__host__ __device__ __forceinline__ int chunk_len(int len, int splits, int min_chunk) {
   const int c = ((len > 1 ? len : 1) + splits - 1) / splits;
-  return (c + kMinChunk - 1) / kMinChunk * kMinChunk;
+  const int r = (c + kMinChunk - 1) / kMinChunk * kMinChunk;
+  return r > min_chunk ? r : min_chunk;
 }
 
 // One 16-byte word of a row, as floats.
@@ -130,17 +152,24 @@ struct Word {
   }
 };
 
-template <typename T, int HD>
+// HD: the key width; HDV: the value width.  HDV < HD is the latent route,
+// whose values are the first HDV columns of the key rows: its ring holds
+// the rows once.
+template <typename T, int HD, int HDV>
 struct Layout {
+  static constexpr bool kShared = HDV != HD;
   static constexpr int kVec = 16 / int(sizeof(T));   // elements per 16-byte word
-  static constexpr int kWords = HD / kVec;           // 16-byte words per row
+  static constexpr int kWords = HD / kVec;           // 16-byte words per key row
+  static constexpr int kVWords = HDV / kVec;         // and per value row
   static constexpr int kRowBytes = HD * int(sizeof(T)) + 16;  // padded row
   static constexpr int kTileBytes = kTile * kRowBytes;
-  static constexpr int kRingBytes = kStages * 2 * kTileBytes;  // K and V
+  static constexpr int kStageTiles = kShared ? 1 : 2;  // K and V, or the shared rows
+  static constexpr int kRingBytes = kStages * kStageTiles * kTileBytes;
   // p @ v: thread (word, head slot); slot ps holds heads ps, ps + kSlots, ...
   // (NH of them, a template argument chosen at launch, at most kMaxNh).
-  static constexpr int kSlots = kThreads / kWords;
-  static constexpr int kMaxNh = (kMaxGroup + kSlots - 1) / kSlots;
+  static constexpr int kSlots = kThreads / kVWords;
+  static constexpr int kMaxNh =
+      ((kShared ? kLatentMaxGroup : kMaxGroup) + kSlots - 1) / kSlots;
   // Scores: kSlices lanes share a position, lane slice r holding row words
   // r, r + kSlices, ...: kSliceWords words, kSliceWords * kVec elements.
   static constexpr int kSlices = kWords < 8 ? kWords : 8;
@@ -156,13 +185,14 @@ struct Layout {
   }
 };
 
-template <typename T, int HD, int NH>
+template <typename T, int HD, int HDV, int NH>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_attention_kernel_split(const T* __restrict__ q, const T* __restrict__ kc,
                                  const T* __restrict__ vc, const int32_t* __restrict__ lengths,
                                  float* __restrict__ part_acc, float* __restrict__ part_ml,
-                                 int kv, int g, int s, int splits, int gc, float scale) {
-  using L = Layout<T, HD>;
+                                 int kv, int g, int s, int splits, int gc, int min_chunk,
+                                 float scale) {
+  using L = Layout<T, HD, HDV>;
   const int split = blockIdx.x, b = blockIdx.z;
   const int groups = (g + gc - 1) / gc;
   const int h = blockIdx.y / groups, g0 = (blockIdx.y % groups) * gc;
@@ -170,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;  // [stage][K, V][kTile][kRowBytes]
+  unsigned char* ring = smem;  // [stage][K, V or the shared rows][kTile][kRowBytes]
   // q as f32, each head's float4s ordered so that the kSlices lanes of a
   // position read consecutive float4s: word w = r + kSlices * i of a row
   // goes to float4s (i * kVec / 4 + half) * kSlices + r (in order for f32).
@@ -190,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_commit();
 
   const int len = min(lengths[b], s);
-  const int c = chunk_len(len, splits);
+  const int c = chunk_len(len, splits, min_chunk);
   const int lo = min(split * c, len), hi = min(lo + c, len);
   if (lo >= hi) {  // empty chunk: the combine skips it
     cp_async_wait<0>();
@@ -202,13 +232,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const T* vb = vc + (int64_t(b) * s * kv + h) * HD;
   auto issue = [&](int t0, int stage) {
     const int rows = min(kTile, hi - t0);
-    unsigned char* kd = ring + stage * 2 * L::kTileBytes;
+    unsigned char* kd = ring + stage * L::kStageTiles * L::kTileBytes;
     unsigned char* vd = kd + L::kTileBytes;
     for (int i = tid; i < rows * L::kWords; i += kThreads) {
       const int r = i / L::kWords, w = i % L::kWords;
       const int64_t off = int64_t(t0 + r) * pos_stride + w * L::kVec;
       cp_async_16(kd + r * L::kRowBytes + w * 16, kb + off);
-      cp_async_16(vd + r * L::kRowBytes + w * 16, vb + off);
+      if constexpr (!L::kShared) cp_async_16(vd + r * L::kRowBytes + w * 16, vb + off);
     }
     cp_async_commit();
   };
@@ -236,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // p @ v accumulators: thread (word pw, slot ps) holds heads ps + kSlots * j;
   // a head past gn reads head gn - 1's p and is never stored.
-  const int pw = tid % L::kWords, ps = tid / L::kWords;
+  const int pw = tid % L::kVWords, ps = tid / L::kVWords;
   int p_row[NH];
   float acc[NH][L::kVec];
 #pragma unroll
@@ -260,8 +290,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // this tile's rows (and, at the first, q_s, m_s, l_s) are in
     const int tn = min(kTile, hi - t0);
-    const unsigned char* kt = ring + stage * 2 * L::kTileBytes;
-    const unsigned char* vt = kt + L::kTileBytes;
+    const unsigned char* kt = ring + stage * L::kStageTiles * L::kTileBytes;
+    const unsigned char* vt = L::kShared ? kt : kt + L::kTileBytes;
 
     // Scores: the slice's K words in registers, eight heads at a time, one
     // 3-step reduction over the slices per head.  Rows past tn hold stale
@@ -344,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();  // the stage, p_s and c_s are rewritten by later tiles
   }
 
-  // Partials of row (b, h, g0 + hh), split `split`: acc [rows][splits][HD],
+  // Partials of row (b, h, g0 + hh), split `split`: acc [rows][splits][HDV],
   // (m, l) [rows][splits][2].
   const int64_t row0 = (int64_t(b) * kv + h) * g + g0;
 #pragma unroll
@@ -352,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int hh = ps + L::kSlots * j;
     if (hh < gn) {
       float4* dst = reinterpret_cast<float4*>(
-          part_acc + ((row0 + hh) * splits + split) * HD + pw * L::kVec);
+          part_acc + ((row0 + hh) * splits + split) * HDV + pw * L::kVec);
 #pragma unroll
       for (int e4 = 0; e4 < L::kVec / 4; ++e4)
         dst[e4] = make_float4(acc[j][4 * e4], acc[j][4 * e4 + 1], acc[j][4 * e4 + 2],
@@ -373,7 +403,7 @@ __global__ void __launch_bounds__(kCombineThreads)
     paged_attention_kernel_combine(const float* __restrict__ part_acc,
                                    const float* __restrict__ part_ml,
                                    const int32_t* __restrict__ lengths, T* __restrict__ out,
-                                   int kv, int g, int s, int hd, int splits) {
+                                   int kv, int g, int s, int hd, int splits, int min_chunk) {
   extern __shared__ __align__(16) float cs[];
   float* red = cs;                         // [kCombineThreads][4]
   float* w_s = cs + 4 * kCombineThreads;   // [splits]
@@ -383,7 +413,7 @@ __global__ void __launch_bounds__(kCombineThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kCombineWarps = kCombineThreads / 32;
   const int len = min(lengths[b], s);
-  const int c = chunk_len(len, splits);
+  const int c = chunk_len(len, splits, min_chunk);
   const int live = len > 0 ? min((len + c - 1) / c, splits) : 0;
   const float* ml = part_ml + row * splits * 2;
   const float* pa = part_acc + row * splits * hd;
@@ -455,11 +485,11 @@ int with_nh(int need, F&& f) {
 }
 
 // Calls f with the split kernel for gc heads a CTA and its shared memory.
-template <typename T, int HD, typename F>
+template <typename T, int HD, int HDV, typename F>
 int with_split(int gc, F&& f) {
-  using L = Layout<T, HD>;
+  using L = Layout<T, HD, HDV>;
   return with_nh<L::kMaxNh>((gc + L::kSlots - 1) / L::kSlots, [&](auto nh_c) -> int {
-    auto kernel = paged_attention_kernel_split<T, HD, decltype(nh_c)::value>;
+    auto kernel = paged_attention_kernel_split<T, HD, HDV, decltype(nh_c)::value>;
     const size_t smem = L::smem(gc);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -468,25 +498,26 @@ int with_split(int gc, F&& f) {
   });
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
-           void* scratch, int b, int kv, int g, int s, int splits, int gc, float scale,
-           cudaStream_t stream) {
+           void* scratch, int b, int kv, int g, int s, int splits, int gc, int min_chunk,
+           float scale, cudaStream_t stream) {
   float* part_acc = static_cast<float*>(scratch);
-  float* part_ml = part_acc + int64_t(b) * kv * g * splits * HD;
+  float* part_ml = part_acc + int64_t(b) * kv * g * splits * HDV;
   const int groups = (g + gc - 1) / gc;
-  const int err = with_split<T, HD>(gc, [&](auto kernel, size_t smem) -> int {
+  const int err = with_split<T, HD, HDV>(gc, [&](auto kernel, size_t smem) -> int {
     kernel<<<dim3(splits, kv * groups, b), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const int32_t*>(lengths), part_acc, part_ml, kv, g, s, splits, gc, scale);
+        static_cast<const int32_t*>(lengths), part_acc, part_ml, kv, g, s, splits, gc,
+        min_chunk, scale);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
   paged_attention_kernel_combine<T>
-      <<<dim3(unsigned(int64_t(b) * kv * g), (HD + kCombineCols - 1) / kCombineCols),
+      <<<dim3(unsigned(int64_t(b) * kv * g), (HDV + kCombineCols - 1) / kCombineCols),
          kCombineThreads, sizeof(float) * (splits + 4 * kCombineThreads), stream>>>(
           part_acc, part_ml, static_cast<const int32_t*>(lengths), static_cast<T*>(o), kv,
-          g, s, HD, splits);
+          g, s, HDV, splits, min_chunk);
   return cudaGetLastError();
 }
 
@@ -517,33 +548,54 @@ int dispatch(const void* q, const void* k, const void* v, const void* lengths, v
   if (!shape_ok(b, kv, g, s, splits, gc)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return with_hd(hd, [&](auto hd_c) {
-    return launch<T, decltype(hd_c)::value>(q, k, v, lengths, o, scratch, b, kv, g, s, splits,
-                                            gc, scale, st);
+    constexpr int HD = decltype(hd_c)::value;
+    return launch<T, HD, HD>(q, k, v, lengths, o, scratch, b, kv, g, s, splits, gc, kMinChunk,
+                             scale, st);
   });
+}
+
+// The latent route: one KV head (the latent rows), g = H query heads.
+template <typename T>
+int latent_dispatch(const void* q, const void* latent, const void* lengths, void* o,
+                    void* scratch, int b, int h, int s, int splits, int gc, int min_chunk,
+                    float scale, void* stream) {
+  if (b <= 0) return cudaSuccess;
+  if (!shape_ok(b, 1, h, s, splits, gc) || gc > kLatentMaxGroup || min_chunk < kMinChunk ||
+      min_chunk % kMinChunk)
+    return cudaErrorInvalidValue;
+  return launch<T, kLatentHd, kLatentHdv>(q, latent, latent, lengths, o, scratch, b, 1, h, s,
+                                          splits, gc, min_chunk, scale,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // out: split kernel's registers, local (spilled) bytes a thread, dynamic
 // shared memory at gc heads, CTAs resident on one SM at gc heads; combine
 // kernel's registers and local bytes.
+template <typename T, int HD, int HDV>
+int split_attributes(int gc, int* out) {
+  return with_split<T, HD, HDV>(gc, [&](auto kernel, size_t smem) -> int {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = int(attr.localSizeBytes);
+    out[2] = int(smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaFuncGetAttributes(&attr, paged_attention_kernel_combine<T>)) != cudaSuccess)
+      return err;
+    out[4] = attr.numRegs;
+    out[5] = int(attr.localSizeBytes);
+    return cudaSuccess;
+  });
+}
+
 template <typename T>
 int attributes(int hd, int gc, int* out) {
   if (gc < 1 || gc > kMaxGroup) return cudaErrorInvalidValue;
   return with_hd(hd, [&](auto hd_c) -> int {
-    return with_split<T, decltype(hd_c)::value>(gc, [&](auto kernel, size_t smem) -> int {
-      cudaFuncAttributes attr;
-      cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-      if (err != cudaSuccess) return err;
-      out[0] = attr.numRegs;
-      out[1] = int(attr.localSizeBytes);
-      out[2] = int(smem);
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, kThreads, smem);
-      if (err != cudaSuccess) return err;
-      if ((err = cudaFuncGetAttributes(&attr, paged_attention_kernel_combine<T>)) != cudaSuccess)
-        return err;
-      out[4] = attr.numRegs;
-      out[5] = int(attr.localSizeBytes);
-      return cudaSuccess;
-    });
+    constexpr int HD = decltype(hd_c)::value;
+    return split_attributes<T, HD, HD>(gc, out);
   });
 }
 
@@ -570,6 +622,30 @@ int remop_paged_attention_f32(const void* q, const void* k, const void* v,
 // is_f32, hd, gc, &out[6] (see attributes above).
 int remop_paged_attention_attributes(int is_f32, int hd, int gc, int* out) {
   return is_f32 ? attributes<float>(hd, gc, out) : attributes<__nv_bfloat16>(hd, gc, out);
+}
+
+// MLA's absorbed decode: q [B, H, 576], latent [B, S, 576], lengths [B] int32,
+// out [B, H, 512]; scratch holds B * H * splits * (512 + 2) floats; chunks
+// of at least min_chunk positions.
+int remop_latent_decode_bf16(const void* q, const void* latent, const void* lengths, void* o,
+                             void* scratch, int b, int h, int s, int splits, int gc,
+                             int min_chunk, float scale, void* stream) {
+  return latent_dispatch<__nv_bfloat16>(q, latent, lengths, o, scratch, b, h, s, splits, gc,
+                                        min_chunk, scale, stream);
+}
+
+int remop_latent_decode_f32(const void* q, const void* latent, const void* lengths, void* o,
+                            void* scratch, int b, int h, int s, int splits, int gc,
+                            int min_chunk, float scale, void* stream) {
+  return latent_dispatch<float>(q, latent, lengths, o, scratch, b, h, s, splits, gc,
+                                min_chunk, scale, stream);
+}
+
+// is_f32, gc, &out[6] (see split_attributes above).
+int remop_latent_decode_attributes(int is_f32, int gc, int* out) {
+  if (gc < 1 || gc > kLatentMaxGroup) return cudaErrorInvalidValue;
+  return is_f32 ? split_attributes<float, kLatentHd, kLatentHdv>(gc, out)
+                : split_attributes<__nv_bfloat16, kLatentHd, kLatentHdv>(gc, out);
 }
 
 const char* remop_paged_attention_error_string(int err) {

@@ -3,20 +3,23 @@
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention`` of the JAX package's
 ``kernels/flash_attention/flash_attention.py``: ``q [B, H, S, hd]``,
-``k, v [B, KV, T, hd]``, query head ``h`` reading KV head ``h // (H / KV)``,
-causal with the query positions offset by ``T - S``, an online softmax in
-f32 over KV blocks of ``bk`` positions, fully masked blocks skipped, output
-in q's dtype.  Unlike the TPU kernel it takes any ``S <= T`` (rows and
+``k [B, KV, T, hd]``, ``v [B, KV, T, hd_v]``, query head ``h`` reading KV
+head ``h // (H / KV)``, causal with the query positions offset by ``T - S``,
+an online softmax in f32 over KV blocks of ``bk`` positions, scores scaled by
+``scale`` (by default ``1 / sqrt(hd)``), fully masked blocks skipped, output
+``[B, H, S, hd_v]`` in q's dtype.  ``hd_v`` equals ``hd`` except at the
+pair (192, 128), MLA's prefill (128 nope + 64 rope columns of q and k,
+values of 128).  Unlike the TPU kernel it takes any ``S <= T`` (rows and
 columns past the ends are masked) and any strides with a contiguous last
 dimension, so the model hands it ``[B, S, H, hd]`` activations as
 transposed views and gets its output back in the same layout.
 
-Two routes, chosen on the host by :func:`route` from dtype, head width and
+Two routes, chosen on the host by :func:`route` from dtype, head widths and
 alignment alone:
 
-- ``"tc"``: bf16 at ``hd`` in :data:`TC_HEAD_DIMS` whose q, k and v start
-  on 16 bytes and step every dimension of extent > 1 by a positive multiple
-  of 16 bytes (what TMA loads).  Both products on the tensor cores
+- ``"tc"``: bf16 at ``(hd, hd_v)`` in :data:`TC_HEAD_PAIRS` whose q, k and
+  v start on 16 bytes and step every dimension of extent > 1 by a positive
+  multiple of 16 bytes (what TMA loads).  Both products on the tensor cores
   (``wgmma``), K and V in a two-stage TMA ring; ``bq, bk`` in
   :data:`TC_BLOCKS`.
 - ``"simt"``: everything else (every f32 call, bf16 at hd 16 or 32 or with
@@ -26,7 +29,8 @@ A call the tensor-core route takes never goes to the CUDA-core kernel:
 blocks it refuses raise, and so does a failed build, encode or launch.
 ``runtime.launches`` counts every launch under ``"flash_attention"`` and
 under the route's own name, ``"flash_attention_tc"`` or
-``"flash_attention_simt"``.
+``"flash_attention_simt"``; a launch at unequal widths also counts under
+``"flash_attention_<route>_<hd>x<hd_v>"``.
 
 Beside the wrapper is its plain PyTorch version, the same online softmax
 over the same KV blocks; a CPU tensor takes it, a CUDA tensor launches the
@@ -48,26 +52,32 @@ NEG_INF = -1e30
 # holding 4 query rows of the f32 accumulator in registers.
 MAX_BLOCK = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# (hd, hd_v) of q/k and of v: equal widths, and MLA's 192 / 128.
+MLA_HEAD_PAIR = (192, 128)
+HEAD_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + (MLA_HEAD_PAIR,)
 # The tensor-core route: head widths, and blocks in wgmma's 64 rows (one
 # consumer warpgroup per 64 query rows; bk stops at 128 because S and P
 # of a block live in registers beside O).
 TC_HEAD_DIMS = (64, 128, 256)
+TC_HEAD_PAIRS = tuple((hd, hd) for hd in TC_HEAD_DIMS) + (MLA_HEAD_PAIR,)
 TC_BLOCKS = (64, 128)
 SMEM_LIMIT = H100.vmem_bytes  # shared memory one CTA may use (227 KB)
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def smem_bytes(bq: int, bk: int, hd: int, dtype_bytes: int, route: str = "simt") -> int:
-    """Dynamic shared memory of one CTA on ``route``.
+def smem_bytes(bq: int, bk: int, hd: int, dtype_bytes: int, route: str = "simt",
+               hd_v: int | None = None) -> int:
+    """Dynamic shared memory of one CTA on ``route`` (``hd_v`` defaults to ``hd``).
 
-    ``"simt"``: q and K/V tiles (rows padded by one 32-bit word) in the
-    input dtype, plus the f32 P tile ``[bq, bk + 1]``.  ``"tc"``: bf16 Q
-    ``[bq, hd]`` and two ring stages of K and V ``[bk, hd]`` each, seven
-    mbarriers and 1024 bytes to align the swizzled tiles (P stays in
-    registers).
+    ``"simt"``: q and K/V tiles (rows of ``hd`` padded by one 32-bit word;
+    V is staged where K was) in the input dtype, plus the f32 P tile ``[bq,
+    bk + 1]``.  ``"tc"``: bf16 Q ``[bq, hd]`` and two ring stages of K
+    ``[bk, hd]`` and V ``[bk, hd_v]``, seven mbarriers and 1024 bytes to
+    align the swizzled tiles (P stays in registers).
     """
     if route == "tc":
-        return 1024 + bq * hd * 2 + 4 * bk * hd * 2 + 7 * 8
+        hd_v = hd if hd_v is None else hd_v
+        return 1024 + bq * hd * 2 + 2 * bk * (hd + hd_v) * 2 + 7 * 8
     return (bq + bk) * (hd * dtype_bytes + 4) + bq * (bk + 1) * 4
 
 
@@ -77,30 +87,30 @@ def _tma_aligned(x: torch.Tensor) -> bool:
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"tc"`` when q is bf16, ``hd`` in :data:`TC_HEAD_DIMS` and q, k, v
-    are TMA-aligned (16-byte base; every dimension of extent > 1 but the
-    last stepped by a positive multiple of 8 elements); else ``"simt"``."""
-    if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+    """``"tc"`` when q is bf16, ``(hd, hd_v)`` in :data:`TC_HEAD_PAIRS` and
+    q, k, v are TMA-aligned (16-byte base; every dimension of extent > 1 but
+    the last stepped by a positive multiple of 8 elements); else ``"simt"``."""
+    if (q.dtype == torch.bfloat16 and (q.shape[-1], v.shape[-1]) in TC_HEAD_PAIRS
             and all(_tma_aligned(x) for x in (q, k, v))):
         return "tc"
     return "simt"
 
 
-def check_blocks(path: str, bq: int, bk: int, hd: int) -> None:
+def check_blocks(path: str, bq: int, bk: int, hd: int, hd_v: int | None = None) -> None:
     """Raise ``ValueError`` for blocks ``path`` does not launch."""
     if path == "tc":
         if (bq not in TC_BLOCKS or bk not in TC_BLOCKS
-                or smem_bytes(bq, bk, hd, 2, "tc") > SMEM_LIMIT):
+                or smem_bytes(bq, bk, hd, 2, "tc", hd_v) > SMEM_LIMIT):
             raise ValueError(f"the tensor-core route takes bq, bk in {TC_BLOCKS} within "
                              f"{SMEM_LIMIT} bytes of shared memory; got bq={bq}, bk={bk} at "
-                             f"hd={hd}")
+                             f"hd={hd}, hd_v={hd if hd_v is None else hd_v}")
     elif not (1 <= bq <= MAX_BLOCK and 1 <= bk <= MAX_BLOCK):
         raise ValueError(f"bq={bq}, bk={bk} must lie in [1, {MAX_BLOCK}]")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"q must be [B,H,S,hd] and k, v [B,KV,T,hd]; got "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"q must be [B,H,S,hd], k [B,KV,T,hd] and v [B,KV,T,hd_v]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, s, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[1]:
@@ -112,20 +122,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bk: int = MAX_BLOCK) -> torch.Tensor:
+                          bk: int = MAX_BLOCK, scale: float | None = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: online softmax over KV blocks of ``bk``.
 
     All query rows take every block; a block the kernel skips is fully
     masked for the rows it would skip it for, and adds exactly 0 there.
     """
     b, h, s, hd = q.shape
-    kv, t = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
+    kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qf = q.float().reshape(b, kv, h // kv, s, hd)
     q_pos = torch.arange(s, device=q.device) + (t - s)
     m = torch.full((b, kv, h // kv, s, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros_like(qf)
+    acc = torch.zeros((b, kv, h // kv, s, hd_v), device=q.device)
     for k0 in range(0, t, bk):
         kb = k[:, :, k0:k0 + bk].float()
         vb = v[:, :, k0:k0 + bk].float()
@@ -138,60 +148,80 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p, vb[:, :, None])
         m = m_new
-    return (acc / l.clamp_min(1e-30)).reshape(b, h, s, hd).to(q.dtype)
+    return (acc / l.clamp_min(1e-30)).reshape(b, h, s, hd_v).to(q.dtype)
+
+
+def _empty_out(q: torch.Tensor, hd_v: int) -> torch.Tensor:
+    """The output ``[B, H, S, hd_v]``: ``empty_like(q)`` at equal widths;
+    else laid out as q's first three dimensions are (by decreasing stride),
+    so the model's transposed ``[B, S, H, hd]`` views give the same view of
+    ``[B, S, H, hd_v]``."""
+    if hd_v == q.shape[3]:
+        return torch.empty_like(q)  # keeps q's layout when q is dense
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    shape = [q.shape[i] for i in order] + [hd_v]
+    out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    return out.permute(*[order.index(i) for i in range(3)], 3)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = MAX_BLOCK, bk: int = MAX_BLOCK,
-                    split_p: bool = True) -> torch.Tensor:
-    """q: [B, H, S, hd]; k/v: [B, KV, T, hd]; causal with offset T - S.
+                    split_p: bool = True, scale: float | None = None) -> torch.Tensor:
+    """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
+    offset T - S; scores scaled by ``scale`` (default ``1 / sqrt(hd)``).
 
     ``bq, bk`` must suit the call's :func:`route` (:func:`check_blocks`);
-    on a CUDA tensor ``hd`` must also lie in ``HEAD_DIMS``.  The output has
-    q's strides where q is dense.  ``split_p=False`` (tensor-core route
+    on a CUDA tensor ``(hd, hd_v)`` must also lie in ``HEAD_PAIRS``.  The
+    output ``[B, H, S, hd_v]`` has q's strides where q is dense (its
+    dimension order at unequal widths).  ``split_p=False`` (tensor-core route
     only) rounds P to bf16 once instead of keeping it as ``P_hi + P_lo``: a
     probe of what the split costs, not the main path.  Query blocks do not
     change any row's arithmetic, so the plain version takes only ``bk``.
     """
     _check(q, k, v)
     b, h, s, hd = q.shape
+    hd_v = v.shape[3]
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
     path = route(q, k, v)
-    check_blocks(path, bq, bk, hd)
+    check_blocks(path, bq, bk, hd, hd_v)
     if not split_p and path != "tc":
         raise ValueError("split_p=False exists on the tensor-core route only")
     if runtime.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, bk)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+        return flash_attention_plain(q, k, v, bk, scale)
+    if (hd, hd_v) not in HEAD_PAIRS:
+        raise ValueError(f"head_dim {hd} with value width {hd_v} not in {HEAD_PAIRS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the last dimension of q, k and v must be contiguous")
     kv, t = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)  # keeps q's layout when q is dense
+    out = _empty_out(q, hd_v)
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in (x.stride(0), x.stride(1), x.stride(2))))
     lib = runtime.library("flash_attention")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-            b, h, kv, s, t, hd, bq, bk, 1.0 / math.sqrt(hd))
+            b, h, kv, s, t, hd, bq, bk, scale)
     with torch.cuda.device(q.device):
         if path == "tc":
-            err = lib.remop_flash_attention_tc(*args, int(split_p), runtime.stream_of(q))
+            err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, runtime.stream_of(q))
         else:
             err = getattr(lib, f"remop_flash_attention_{_DTYPES[q.dtype]}")(
-                *args, runtime.stream_of(q))
+                *args, hd_v, runtime.stream_of(q))
     runtime.check("flash_attention", "flash_attention", err)
     runtime.launches["flash_attention"] += 1
     runtime.launches[f"flash_attention_{path}"] += 1
+    if hd_v != hd:
+        runtime.launches[f"flash_attention_{path}_{hd}x{hd_v}"] += 1
     return out
 
 
-def occupancy(hd: int, bq: int, bk: int, split_p: bool = True) -> dict:
+def occupancy(hd: int, bq: int, bk: int, split_p: bool = True, hd_v: int | None = None) -> dict:
     """The tensor-core instantiation these blocks launch, on the current
     card: CTAs one SM holds at once (CUDA's occupancy calculator), registers
     and local (spilled) bytes a thread, dynamic shared memory and threads a
     CTA."""
-    check_blocks("tc", bq, bk, hd)
+    hd_v = hd if hd_v is None else hd_v
+    check_blocks("tc", bq, bk, hd, hd_v)
     out = (ctypes.c_int * 5)()
     err = runtime.library("flash_attention").remop_flash_attention_tc_occupancy(
-        hd, bq, bk, int(split_p), ctypes.addressof(out))
+        hd, hd_v, bq, bk, int(split_p), ctypes.addressof(out))
     runtime.check("flash_attention", "flash_attention", err)
     return dict(zip(("resident_ctas", "registers", "local_bytes", "smem_bytes", "threads"), out))

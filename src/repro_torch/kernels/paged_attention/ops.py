@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.paged_attention.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention.paged_attention import (
+    LATENT_DIMS, latent_decode, paged_attention)
 
 
 def remop_paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -36,3 +37,11 @@ def remop_paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
         k_cache = F.pad(k_cache, (0, 0, 0, 0, 0, pad))
         v_cache = F.pad(v_cache, (0, 0, 0, 0, 0, pad))
     return paged_attention(q, k_cache, v_cache, lengths.to(torch.int32), page=page)
+
+
+def remop_latent_decode(q: torch.Tensor, latent: torch.Tensor, lengths: torch.Tensor,
+                        scale: float, v_dim: int = LATENT_DIMS[1]) -> torch.Tensor:
+    """MLA's absorbed decode over the latent cache: q [B, H, D], latent
+    [B, S, D], lengths [B] -> [B, H, v_dim], the values the rows' first
+    ``v_dim`` columns (:func:`latent_decode`; any S, the cache never copied)."""
+    return latent_decode(q, latent, lengths.to(torch.int32), scale, v_dim)

@@ -14,12 +14,27 @@ chunk of positions on the device from ``lengths[b]`` by the rule of
 head in a scratch buffer the wrapper allocates, and a second kernel merges
 the partials in split order.
 
-Beside the wrapper is its plain PyTorch version, the same split arithmetic:
+The latent route, :func:`latent_decode`, is MLA's absorbed-weight decode
+(the JAX package's ``models/attention.py`` ``mla_decode``, which computes it
+with jnp einsums): ``q [B, H, 576]`` (``q_nope W_uk^T`` beside ``q_rope``)
+against the latent cache ``[B, S, 576]`` (``c_kv`` 512 beside ``k_rope``
+64), the values the first 512 columns of the same rows, so each row is read
+once for both; the caller gives the scale (``1 / sqrt(nope + rope)``, not
+``1 / sqrt(576)``).  It is the same split kernel with ``(HD, HDV) = (576,
+512)``, all H query heads on the one latent head (:func:`latent_plan`), and
+its own chunk floor: chunks of at least :data:`LATENT_MIN_CHUNK` positions,
+so the f32 partials (``16 x 514`` floats a chunk at 16 heads) stay at most
+22% of the chunk's cache bytes (at length 2048: 16 chunks, 526,336 bytes of
+partials against 2,359,296 of cache; chunks of 16 would write 4.2 MB).
+Launches count under ``"paged_attention_latent"``.
+
+Beside each wrapper is its plain PyTorch version, the same split arithmetic:
 an online softmax page by page, kept per chunk, then the same fixed-order
-merge; with one split it is the TPU kernel's page-by-page online softmax.  A
-CPU tensor takes it, a CUDA tensor launches the kernel or raises.
-:func:`check_shape` is the wrapper's pre-launch check of what the kernel
-takes, callable on the host without a card.
+merge; with one split it is the TPU kernel's page-by-page online softmax.
+Positions past ``lengths`` add exactly 0, whatever they hold (NaN
+included).  A CPU tensor takes it, a CUDA tensor launches the kernel or
+raises.  :func:`check_shape` is the wrapper's pre-launch check of what the
+kernel takes, callable on the host without a card.
 """
 
 from __future__ import annotations
@@ -42,6 +57,12 @@ _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 SMS = 132
 MAX_GROUP = 64
 MIN_CHUNK = 16
+# The latent route: key and value widths (kv_lora_rank 512 + rope 64, and
+# 512), the query heads one CTA holds (16 q rows of 576 f32 in shared
+# memory), and the least positions a chunk takes.
+LATENT_DIMS = (576, 512)
+LATENT_MAX_GROUP = 16
+LATENT_MIN_CHUNK = 128
 
 
 def check_shape(g: int, hd: int) -> None:
@@ -64,26 +85,36 @@ def plan(b: int, kv: int, g: int, s: int) -> Tuple[int, int]:
     return max(1, min(-(-SMS // groups), -(-s // MIN_CHUNK))), gc
 
 
-def chunk_len(length, splits: int):
+def latent_plan(b: int, h: int, s: int) -> Tuple[int, int]:
+    """``(splits, gc)`` of the latent route: ``gc = min(H, LATENT_MAX_GROUP)``
+    query heads a CTA, and enough splits to fill the SMs with no more than
+    chunks of ``LATENT_MIN_CHUNK`` positions in S."""
+    gc = min(h, LATENT_MAX_GROUP)
+    groups = b * -(-h // gc)
+    return max(1, min(-(-SMS // groups), -(-s // LATENT_MIN_CHUNK))), gc
+
+
+def chunk_len(length, splits: int, min_chunk: int = MIN_CHUNK):
     """Positions of each split's chunk for a row of ``length`` valid positions:
-    ``ceil(max(length, 1) / splits)`` rounded up to ``MIN_CHUNK``.  Takes an
-    int or an integer tensor of lengths (the kernel's rule, written in torch)."""
+    ``ceil(max(length, 1) / splits)`` rounded up to ``MIN_CHUNK``, and at
+    least ``min_chunk`` (a multiple of ``MIN_CHUNK``).  Takes an int or an
+    integer tensor of lengths (the kernel's rule, written in torch)."""
     if isinstance(length, torch.Tensor):
         c = (length.clamp_min(1) + splits - 1) // splits
-    else:
-        c = (max(length, 1) + splits - 1) // splits
-    return (c + MIN_CHUNK - 1) // MIN_CHUNK * MIN_CHUNK
+        return ((c + MIN_CHUNK - 1) // MIN_CHUNK * MIN_CHUNK).clamp_min(min_chunk)
+    c = (max(length, 1) + splits - 1) // splits
+    return max((c + MIN_CHUNK - 1) // MIN_CHUNK * MIN_CHUNK, min_chunk)
 
 
-def chunk_bounds(length: int, splits: int) -> List[Tuple[int, int]]:
+def chunk_bounds(length: int, splits: int, min_chunk: int = MIN_CHUNK) -> List[Tuple[int, int]]:
     """``[lo, hi)`` of each split's chunk; an empty chunk has ``lo == hi``."""
-    c = chunk_len(length, splits)
+    c = chunk_len(length, splits, min_chunk)
     return [(min(i * c, length), min((i + 1) * c, length)) for i in range(splits)]
 
 
 def scratch_floats(b: int, kv: int, g: int, hd: int, splits: int) -> int:
     """f32 values of the partials' buffer: ``acc [B*KV*G, splits, hd]`` then
-    ``(m, l) [B*KV*G, splits, 2]``."""
+    ``(m, l) [B*KV*G, splits, 2]`` (``hd`` the value width)."""
     return b * kv * g * splits * (hd + 2)
 
 
@@ -102,34 +133,28 @@ def _check(q, k_cache, v_cache, lengths, page: int, pages_divide: bool) -> None:
         raise TypeError(f"q and caches must share one dtype of {sorted(map(str, _DTYPES))}")
 
 
-def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          lengths: torch.Tensor, page: int = 128,
-                          splits: Optional[int] = None) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: ``splits`` chunks by the kernel's
-    rule (by default :func:`plan`'s), an online softmax page by page in each,
-    then the fixed-order merge of the chunks' partials.
-
-    A position outside a chunk adds exactly 0 to that chunk's partial; a
-    chunk past the length is skipped by the merge.
-    """
-    b, kv, g, hd = q.shape
-    s = k_cache.shape[1]
-    if splits is None:
-        splits = plan(b, kv, g, s)[0]
-    scale = 1.0 / math.sqrt(hd)
+def _split_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, page: int, splits: int, scale: float,
+                     min_chunk: int) -> torch.Tensor:
+    """The split kernel's arithmetic: q [B, KV, G, hd], k [B, S, KV, hd],
+    v [B, S, KV, hd_v] -> [B, KV, G, hd_v]."""
+    b, kv, g, _ = q.shape
+    s, hd_v = k_cache.shape[1], v_cache.shape[3]
     qf = q.float()
     ln = lengths.long().clamp(max=s)
-    c = chunk_len(ln, splits)  # [B]
+    c = chunk_len(ln, splits, min_chunk)  # [B]
     ids = torch.arange(splits, device=q.device)
     m = torch.full((b, kv, g, splits), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, kv, g, splits, hd), device=q.device)
+    acc = torch.zeros((b, kv, g, splits, hd_v), device=q.device)
     for p0 in range(0, s, page):
         kp = k_cache[:, p0:p0 + page].float()
-        vp = v_cache[:, p0:p0 + page].float()
         sc = torch.einsum("bkgd,btkd->bkgt", qf, kp) * scale
         pos = torch.arange(p0, p0 + kp.shape[1], device=q.device)
         valid = pos[None, :] < ln[:, None]  # [B, page]
+        # Rows past the length are never read by the kernel: zeroed here, so
+        # whatever they hold (NaN too) adds exactly 0.
+        vp = torch.where(valid[:, :, None, None], v_cache[:, p0:p0 + page].float(), 0.0)
         owner = (pos[None, :] // c[:, None])[..., None] == ids  # [B, page, splits]
         inside = (owner & valid[..., None])[:, None, None]  # [B, 1, 1, page, splits]
         sc = sc[..., None].expand(*sc.shape, splits)
@@ -144,6 +169,40 @@ def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     w = torch.where(live, torch.exp(m - m_all), 0.0)
     l_all = (l * w).sum(dim=-1, keepdim=True)
     return ((acc * w[..., None]).sum(dim=-2) / l_all.clamp_min(1e-30)).to(q.dtype)
+
+
+def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          lengths: torch.Tensor, page: int = 128,
+                          splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: ``splits`` chunks by the kernel's
+    rule (by default :func:`plan`'s), an online softmax page by page in each,
+    then the fixed-order merge of the chunks' partials.
+
+    A position outside a chunk adds exactly 0 to that chunk's partial; a
+    chunk past the length is skipped by the merge.
+    """
+    b, kv, g, hd = q.shape
+    if splits is None:
+        splits = plan(b, kv, g, k_cache.shape[1])[0]
+    return _split_attention(q, k_cache, v_cache, lengths, page, splits, 1.0 / math.sqrt(hd),
+                            MIN_CHUNK)
+
+
+def latent_decode_plain(q: torch.Tensor, latent: torch.Tensor, lengths: torch.Tensor,
+                        scale: float, v_dim: int = LATENT_DIMS[1], page: int = 128,
+                        splits: Optional[int] = None) -> torch.Tensor:
+    """The latent route's arithmetic in PyTorch: q [B, H, D] against the rows
+    of latent [B, S, D] up to ``lengths``, values their first ``v_dim``
+    columns -> [B, H, v_dim]; :func:`latent_plan`'s splits by default, chunks
+    of at least ``LATENT_MIN_CHUNK`` positions, the same online softmax and
+    merge as :func:`paged_attention_plain`.  Any widths (the reduced models'
+    too); the kernel takes (576, 512)."""
+    if splits is None:
+        splits = latent_plan(q.shape[0], q.shape[1], latent.shape[1])[0]
+    rows = latent[:, :, None, :]
+    out = _split_attention(q[:, None], rows, rows[..., :v_dim], lengths, page, splits, scale,
+                           LATENT_MIN_CHUNK)
+    return out[:, 0]
 
 
 def attributes(dtype: torch.dtype, hd: int, gc: int) -> dict:
@@ -191,4 +250,66 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
             1.0 / math.sqrt(hd), runtime.stream_of(q))
     runtime.check("paged_attention", "paged_attention", err)
     runtime.launches["paged_attention"] += 1
+    return out
+
+
+def latent_attributes(dtype: torch.dtype, gc: int) -> dict:
+    """:func:`attributes` of the latent route's split kernel at ``gc`` heads."""
+    if not 1 <= gc <= LATENT_MAX_GROUP:
+        raise ValueError(f"gc={gc} must lie in [1, {LATENT_MAX_GROUP}]")
+    out = (ctypes.c_int * 6)()
+    err = runtime.library("paged_attention").remop_latent_decode_attributes(
+        int(dtype == torch.float32), gc, ctypes.addressof(out))
+    runtime.check("paged_attention", "paged_attention", err)
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "resident_ctas",
+                     "combine_registers", "combine_local_bytes"), out))
+
+
+def _check_latent(q, latent, lengths, v_dim: int) -> None:
+    if q.dim() != 3 or latent.dim() != 3:
+        raise ValueError(f"q must be [B,H,D] and latent [B,S,D]; got {tuple(q.shape)}, "
+                         f"{tuple(latent.shape)}")
+    b, h, d = q.shape
+    if latent.shape[0] != b or latent.shape[2] != d or not 1 <= v_dim <= d or h < 1:
+        raise ValueError(f"latent {tuple(latent.shape)} and v_dim {v_dim} do not fit "
+                         f"q {tuple(q.shape)}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32 [{b}], got {lengths.dtype} {tuple(lengths.shape)}")
+    if q.dtype not in _DTYPES or latent.dtype != q.dtype:
+        raise TypeError(f"q and latent must share one dtype of {sorted(map(str, _DTYPES))}")
+
+
+def latent_decode(q: torch.Tensor, latent: torch.Tensor, lengths: torch.Tensor, scale: float,
+                  v_dim: int = LATENT_DIMS[1]) -> torch.Tensor:
+    """q: [B, H, D]; latent: [B, S, D]; lengths: [B] int32 in [1, S] ->
+    [B, H, v_dim]: softmax(scale q latent^T) latent[..., :v_dim] over the
+    positions below ``lengths``.
+
+    Any S; on a CUDA tensor ``(D, v_dim)`` must be :data:`LATENT_DIMS` and
+    all three tensors contiguous.
+    """
+    _check_latent(q, latent, lengths, v_dim)
+    if runtime.on_cpu(q, latent, lengths):
+        return latent_decode_plain(q, latent, lengths, scale, v_dim)
+    b, h, d = q.shape
+    if (d, v_dim) != LATENT_DIMS:
+        raise ValueError(f"the latent route takes (D, v_dim) = {LATENT_DIMS}, got {(d, v_dim)}")
+    tensors = (q, latent, lengths)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("q, latent and lengths must be contiguous")
+    if any(x.data_ptr() % 16 for x in tensors[:2]):
+        raise ValueError("q and latent must start on a 16-byte boundary")
+    s = latent.shape[1]
+    splits, gc = latent_plan(b, h, s)
+    out = torch.empty((b, h, v_dim), dtype=q.dtype, device=q.device)
+    scratch = torch.empty(scratch_floats(b, 1, h, v_dim, splits), dtype=torch.float32,
+                          device=q.device)
+    lib = runtime.library("paged_attention")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"remop_latent_decode_{_DTYPES[q.dtype]}")(
+            q.data_ptr(), latent.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, h, s, splits, gc, LATENT_MIN_CHUNK, float(scale),
+            runtime.stream_of(q))
+    runtime.check("paged_attention", "paged_attention", err)
+    runtime.launches["paged_attention_latent"] += 1
     return out

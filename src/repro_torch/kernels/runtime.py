@@ -61,13 +61,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "remop_gather_rows_error_string": ([_I32], ctypes.c_char_p),
     },
     "flash_attention": {
-        # q, k, v, out, &strides[12] (int64), b, h, kv, s, t, hd, bq, bk, scale, stream
-        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32, _P], _I32)
+        # q, k, v, out, &strides[12] (int64), b, h, kv, s, t, hd, bq, bk, scale, hd_v,
+        # stream
+        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32, _I32, _P], _I32)
            for t in ("bf16", "f32")},
-        # q, k, v, out, &strides[12], b, h, kv, s, t, hd, bq, bk, scale, split, stream
-        "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32, _I32, _P], _I32),
-        # hd, bq, bk, split, &out[5]
-        "remop_flash_attention_tc_occupancy": ([_I32] * 4 + [_P], _I32),
+        # q, k, v, out, &strides[12], b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
+        # stream
+        "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32, _I32, _I32, _P], _I32),
+        # hd, hd_v, bq, bk, split, &out[5]
+        "remop_flash_attention_tc_occupancy": ([_I32] * 5 + [_P], _I32),
         "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),
     },
     "paged_attention": {
@@ -77,6 +79,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
            for t in ("bf16", "f32")},
         # is_f32, hd, gc, &out[6]
         "remop_paged_attention_attributes": ([_I32] * 3 + [_P], _I32),
+        # q, latent, lengths, out, scratch, b, h, s, splits, gc, min_chunk, scale, stream
+        **{f"remop_latent_decode_{t}": ([_P] * 5 + [_I32] * 6 + [_F32, _P], _I32)
+           for t in ("bf16", "f32")},
+        # is_f32, gc, &out[6]
+        "remop_latent_decode_attributes": ([_I32] * 2 + [_P], _I32),
         "remop_paged_attention_error_string": ([_I32], ctypes.c_char_p),
     },
     "ssd_scan": {

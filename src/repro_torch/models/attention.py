@@ -1,4 +1,4 @@
-"""GQA/MQA attention over the flash (prefill) and paged (decode) kernels.
+"""GQA/MQA and MLA attention over the flash (prefill) and paged (decode) kernels.
 
 The JAX package's ``models/attention.py`` computes attention with a jnp
 einsum softmax (``full_attention``) and keeps ``chunked_attention`` as the
@@ -13,9 +13,22 @@ Decode writes the new K/V row into the caller's cache in place (slot
 ``min(pos, S - 1)``, as JAX's ``dynamic_update_slice`` writes it), which
 saves copying the cache every step.
 
-Only the dense decoder's attention is ported: windowed (ring) caches,
-logit softcap, int8 KV quantization, cross-attention, prefix-LM masks and
-MLA raise ``NotImplementedError`` naming the slice they wait for.
+MLA (multi-head latent attention, DeepSeek-V2) keeps ``repro``'s parameter
+names and math: one shared rope head, prefill through the flash kernel at
+q/k width ``nope + rope`` (192) and v width ``v_head_dim`` (128), and the
+absorbed-weight decode (``q_abs = q_nope W_uk^T``, ``out = ctx W_uv``) over
+the compressed cache through the paged kernel's latent route.  The cache is
+``repro``'s pair ``(c_kv [B, S, lora], k_rope [B, S, rope])``, held as
+views of one ``[B, S, lora + rope]`` buffer (:func:`mla_cache`), the rows
+the latent route reads once for scores and context.  The products outside
+attention (projections, the absorption of ``W_uk`` and ``W_uv``) are
+``torch.matmul``, as ``repro`` computes them outside any Pallas kernel.  The
+latent route scores and weighs in f32 and rounds the context once; ``repro``
+rounds the two score terms and P to bf16, so they agree to bf16 precision.
+
+Windowed (ring) caches, logit softcap, int8 KV quantization,
+cross-attention and prefix-LM masks raise ``NotImplementedError`` naming the
+slice they wait for.
 """
 
 from __future__ import annotations
@@ -24,10 +37,11 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import remop_flash_attention
-from repro_torch.kernels.paged_attention.ops import remop_paged_attention
+from repro_torch.kernels.paged_attention.ops import remop_latent_decode, remop_paged_attention
 from repro_torch.models.layers import (
     Params, apply_rope, dense, init_dense, init_rmsnorm, rmsnorm, rope_tables,
 )
@@ -41,8 +55,8 @@ def _unsupported(cfg: ModelConfig, window: int) -> None:
                                   "(recurrentgemma serving)")
     if cfg.attn_softcap:
         raise NotImplementedError("attention logit softcap: later slice")
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(f"{cfg.attn_type} attention: later slice (MLA, deepseek)")
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise NotImplementedError(f"{cfg.attn_type} attention: not in the port")
 
 
 def init_gqa(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
@@ -120,3 +134,133 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int, window: int = 0):
     # Ring caches are always window-sized (slots = pos % window).
     s = window if window else seq
     return (batch, s, cfg.n_kv_heads, cfg.head_dim)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope_d, v_hd, lora = (cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                                cfg.kv_lora_rank)
+    return {
+        "wq": init_dense(d, h * (nope + rope_d), generator, device),
+        "w_dkv": init_dense(d, lora, generator, device),
+        "kv_norm": init_rmsnorm(lora, device),
+        "w_uk": init_dense(lora, h * nope, generator, device),
+        "w_uv": init_dense(lora, h * v_hd, generator, device),
+        "w_kr": init_dense(d, rope_d, generator, device),
+        "wo": init_dense(h * v_hd, d, generator, device, scale=1.0 / math.sqrt(h * v_hd)),
+    }
+
+
+def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, nope, rope_d = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    q = dense(p["wq"], x).view(b, s, h, nope + rope_d)
+    cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
+    return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+
+def _mla_ckv(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    c_kv = rmsnorm(p["kv_norm"], dense(p["w_dkv"], x), cfg.norm_eps)
+    k_rope = dense(p["w_kr"], x)[:, :, None, :]  # single shared rope head
+    cos, sin = rope_tables(positions, cfg.rope_head_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope, cos, sin)[:, :, 0, :]
+
+
+def mla_cache(c_kv: torch.Tensor, k_rope: torch.Tensor) -> KVCache:
+    """``(c_kv, k_rope)`` as views of one new ``[B, S, lora + rope]`` buffer."""
+    lora = c_kv.shape[-1]
+    latent = torch.cat([c_kv, k_rope.to(c_kv.dtype)], dim=-1)
+    return latent[..., :lora], latent[..., lora:]
+
+
+def mla_latent(cache: KVCache) -> torch.Tensor:
+    """The ``[B, S, lora + rope]`` buffer an MLA cache's two views share.
+
+    Raises ``ValueError`` unless ``c_kv`` and ``k_rope`` are the two column
+    ranges of one buffer with rows of ``lora + rope`` (as :func:`mla_cache`
+    and :func:`mla_pad` make them)."""
+    c_kv, k_rope = cache
+    b, s, lora = c_kv.shape
+    width = lora + k_rope.shape[-1]
+    if s == 0:  # nothing to share
+        return torch.cat([c_kv, k_rope], dim=-1)
+    row = (s * width, width, 1)
+    if (k_rope.shape[:2] != (b, s) or c_kv.dtype != k_rope.dtype or c_kv.device != k_rope.device
+            or c_kv.stride() != row or k_rope.stride() != row
+            or k_rope.untyped_storage().data_ptr() != c_kv.untyped_storage().data_ptr()
+            or k_rope.storage_offset() != c_kv.storage_offset() + lora):
+        raise ValueError("an MLA cache must be (c_kv, k_rope) views of one [B, S, lora + rope] "
+                         "buffer; build it with mla_cache")
+    return c_kv.as_strided((b, s, width), row)
+
+
+def mla_pad(cache: KVCache, target_len: int) -> KVCache:
+    """The cache grown to ``target_len`` positions with zeros: the shared
+    buffer is padded, so the two views still alias one buffer."""
+    latent = mla_latent(cache)
+    if latent.shape[1] < target_len:
+        latent = F.pad(latent, (0, 0, 0, target_len - latent.shape[1]))
+    lora = cache[0].shape[-1]
+    return latent[..., :lora], latent[..., lora:]
+
+
+def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                return_cache: bool = False):
+    """Causal MLA over the whole sequence: x [B, S, d] -> [B, S, d]; with
+    ``return_cache`` also the cache ``(c_kv, k_rope)`` that :func:`mla_decode`
+    continues.  Per-head K is ``c_kv W_uk`` beside the shared rope head, V
+    is ``c_kv W_uv``; the flash kernel attends at widths 192 / 128 with the
+    scale ``1 / sqrt(nope + rope)``."""
+    _unsupported(cfg, 0)
+    b, s, _ = x.shape
+    h, nope, rope_d, v_hd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+    k_nope = dense(p["w_uk"], c_kv).view(b, s, h, nope)
+    v = dense(p["w_uv"], c_kv).view(b, s, h, v_hd)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    # [B, S, heads, width] viewed as the kernel's [B, heads, S, width]; the
+    # output comes back in q's memory layout, so the reshape below is free.
+    out = remop_flash_attention(q_full.transpose(1, 2), k_full.transpose(1, 2),
+                                v.transpose(1, 2))
+    out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, h * v_hd))
+    return (out, mla_cache(c_kv, k_rope)) if return_cache else out
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos: int):
+    """Absorbed-weight decode over the compressed cache. x: [B, 1, d]; cache
+    ``(c_kv [B, S, lora], k_rope [B, S, rope])`` as :func:`mla_cache` makes
+    it; ``pos`` is the step's position.  Returns (out [B, 1, d], cache) with
+    the new row written in place, at slot ``min(pos, S - 1)``."""
+    _unsupported(cfg, 0)
+    b = x.shape[0]
+    h, nope, rope_d, v_hd, lora = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                                   cfg.v_head_dim, cfg.kv_lora_rank)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_t, kr_t = _mla_ckv(p, cfg, x, positions)
+    latent = mla_latent(cache)
+    s_cache = latent.shape[1]
+    slot = min(pos, s_cache - 1)
+    latent[:, slot, :lora] = c_t[:, 0].to(latent.dtype)
+    latent[:, slot, lora:] = kr_t[:, 0].to(latent.dtype)
+    # Absorb W_uk into q: q_abs[b, h, l] = sum_n q_nope[b, h, n] W_uk[l, (h, n)].
+    w_uk = p["w_uk"]["w"].to(x.dtype).view(lora, h, nope)
+    q_abs = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], w_uk)
+    q_lat = torch.cat([q_abs, q_rope[:, 0].to(q_abs.dtype)], dim=-1)  # [B, H, lora + rope]
+    lengths = torch.full((b,), min(pos + 1, s_cache), dtype=torch.int32, device=x.device)
+    ctx = remop_latent_decode(q_lat, latent.to(x.dtype), lengths,
+                              scale=1.0 / math.sqrt(nope + rope_d), v_dim=lora)
+    w_uv = p["w_uv"]["w"].to(x.dtype).view(lora, h, v_hd)
+    out = torch.einsum("bhl,lhv->bhv", ctx, w_uv).reshape(b, 1, h * v_hd)
+    return dense(p["wo"], out), cache
+
+
+def mla_cache_shapes(cfg: ModelConfig, batch: int, seq: int):
+    return (batch, seq, cfg.kv_lora_rank), (batch, seq, cfg.rope_head_dim)

@@ -4,7 +4,9 @@ The JAX tree of a dense decoder is ``{"embed": {"table"}, "final_norm":
 {"scale"}, "seg0": {"b0_attn": {...}}}`` (``"b0_ssm"`` for Mamba-2,
 ``"b0_moe"`` for an MoE decoder, whose ``first_k_dense`` dense blocks come
 first as ``seg0: {"b0_attn"}`` and its MoE blocks then as ``seg1:
-{"b0_moe"}``) with every leaf of a segment stacked over its layers; the
+{"b0_moe"}``; with MLA attention the blocks are ``"b0_mla"`` and
+``"b0_mla_moe"``, as deepseek-v2-lite's) with every leaf of a segment
+stacked over its layers; the
 port's is the same tree with the stacks split into one ``"layers"`` list.
 Leaves arrive as numpy arrays (the caller converts them with
 ``np.asarray``), so this module needs nothing of JAX.  Matrices (the SSM's
@@ -50,10 +52,12 @@ def _segments(cfg: ModelConfig):
     """(segment, block, layers) of ``repro``'s ``stack_plan`` for ``cfg``."""
     if cfg.family == "ssm":
         return [("seg0", "b0_ssm", cfg.n_layers)]
+    dense = "b0_mla" if cfg.attn_type == "mla" else "b0_attn"
     if cfg.family != "moe":
-        return [("seg0", "b0_attn", cfg.n_layers)]
-    segs = [("seg0", "b0_attn", cfg.first_k_dense)] if cfg.first_k_dense else []
-    segs.append((f"seg{len(segs)}", "b0_moe", cfg.n_layers - cfg.first_k_dense))
+        return [("seg0", dense, cfg.n_layers)]
+    segs = [("seg0", dense, cfg.first_k_dense)] if cfg.first_k_dense else []
+    moe = "b0_mla_moe" if cfg.attn_type == "mla" else "b0_moe"
+    segs.append((f"seg{len(segs)}", moe, cfg.n_layers - cfg.first_k_dense))
     return segs
 
 

@@ -1,6 +1,9 @@
 """The decoder LM: a stack of ``"attn"`` blocks (dense decoder), of
 ``"moe"`` blocks after ``first_k_dense`` ``"attn"`` blocks (MoE decoder), or
-of ``"ssm"`` blocks (Mamba-2): init, forward, prefill, decode.
+of ``"ssm"`` blocks (Mamba-2); with MLA attention (``attn_type == "mla"``)
+the kinds are ``repro``'s ``"mla"`` and ``"mla_moe"`` (deepseek-v2-lite: one
+dense ``"mla"`` block, then ``"mla_moe"`` blocks): init, forward, prefill,
+decode.
 
 The JAX package's ``models/transformer.py`` assembles every family and
 scans over layer-stacked parameters; here the layers are a Python list and
@@ -8,12 +11,14 @@ the loop is a Python loop (PyTorch runs eagerly).  The parameter tree is
 JAX's with the layer stack split: ``{"embed": {"table"}, "final_norm":
 {"scale"}, "layers": [...]}``, each layer ``{"norm1", "attn", "norm2",
 "mlp"}``, ``{"norm1", "attn", "norm2", "moe"}`` or ``{"norm1", "ssm"}`` (no
-FFN half).  Caches are a list with one pair per layer: ``(k, v)``, each
-``[B, S, KV, hd]``, or the SSM's ``(conv [B, W-1, C] bf16, state [B, H, P,
-N] f32)``, which has no sequence axis.
+FFN half); an MLA layer's ``"attn"`` holds ``init_mla``'s weights.  Caches
+are a list with one pair per layer: ``(k, v)``, each ``[B, S, KV, hd]``,
+MLA's ``(c_kv [B, S, lora], k_rope [B, S, rope])`` as views of one ``[B, S,
+lora + rope]`` buffer, or the SSM's ``(conv [B, W-1, C] bf16, state [B, H,
+P, N] f32)``, which has no sequence axis.
 
-Other families (MLA-MoE, hybrid, VLM, enc-dec) raise
-``NotImplementedError``: they wait for later slices.
+Other families (hybrid, VLM, enc-dec) raise ``NotImplementedError``: they
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -37,15 +42,15 @@ Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense or MoE decoder of full GQA attention
-    blocks or a Mamba-2 stack."""
+    """Raise unless ``cfg`` is a dense or MoE decoder of full GQA or MLA
+    attention blocks or a Mamba-2 stack."""
     if cfg.family == "ssm":
         return
-    if (cfg.family not in ("dense", "moe") or cfg.attn_type != "gqa"
+    if (cfg.family not in ("dense", "moe") or cfg.attn_type not in ("gqa", "mla")
             or cfg.n_encoder_layers):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later "
-            "slice; the port serves the dense and MoE decoders and Mamba-2")
+            "slice; the port serves the dense and MoE decoders (GQA or MLA) and Mamba-2")
     if cfg.window or cfg.attn_softcap:
         raise NotImplementedError(f"{cfg.name}: windowed/softcapped attention: later slice")
 
@@ -61,14 +66,20 @@ def is_moe_layer(cfg: ModelConfig, layer: int) -> bool:
     return cfg.family == "moe" and layer >= cfg.first_k_dense
 
 
+def is_mla(cfg: ModelConfig) -> bool:
+    """Every attention block is MLA (``repro``'s kinds ``"mla"``, ``"mla_moe"``)."""
+    return cfg.attn_type == "mla"
+
+
 def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device,
                layer: int = 0) -> Params:
     if cfg.family == "ssm":
         return {"norm1": init_rmsnorm(cfg.d_model, device),
                 "ssm": ssm_mod.init_ssm(cfg, generator, device)}
+    init_attn = attn.init_mla if is_mla(cfg) else attn.init_gqa
     p = {
         "norm1": init_rmsnorm(cfg.d_model, device),
-        "attn": attn.init_gqa(cfg, generator, device),
+        "attn": init_attn(cfg, generator, device),
         "norm2": init_rmsnorm(cfg.d_model, device),
     }
     if is_moe_layer(cfg, layer):
@@ -119,7 +130,10 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch
         if want_cache:
             out, cache = out
         return x + out, cache, None
-    out = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=want_cache)
+    if is_mla(cfg):
+        out = attn.mla_forward(p["attn"], cfg, h, positions, return_cache=want_cache)
+    else:
+        out = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=want_cache)
     cache = None
     if want_cache:
         out, cache = out
@@ -133,7 +147,8 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache, pos: int):
     if "ssm" in p:
         out, cache = ssm_mod.ssd_decode(p["ssm"], cfg, h, cache)
         return x + out, cache
-    out, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos)
+    decode = attn.mla_decode if is_mla(cfg) else attn.gqa_decode
+    out, cache = decode(p["attn"], cfg, h, cache, pos)
     x, _ = _ffn(p, cfg, x + out)
     return x, cache
 
@@ -205,12 +220,16 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.T
 
 def cache_struct(cfg: ModelConfig, batch: int, seq: int,
                  dtype=torch.bfloat16) -> List[Tuple[Tuple[torch.Size, torch.dtype], ...]]:
-    """(shape, dtype) of each layer's (k, v), or (conv, state) for SSM,
-    mirroring ``prefill``'s caches."""
+    """(shape, dtype) of each layer's (k, v), (c_kv, k_rope) for MLA or
+    (conv, state) for SSM, mirroring ``prefill``'s caches."""
     check_supported(cfg)
     if cfg.family == "ssm":
         conv, state = ssm_mod.ssm_cache_shapes(cfg, batch)
         return [((torch.Size(conv), dtype), (torch.Size(state), torch.float32))
+                for _ in range(cfg.n_layers)]
+    if is_mla(cfg):
+        c_sh, r_sh = attn.mla_cache_shapes(cfg, batch, seq)
+        return [((torch.Size(c_sh), dtype), (torch.Size(r_sh), dtype))
                 for _ in range(cfg.n_layers)]
     spec = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq)), dtype)
     return [(spec, spec) for _ in range(cfg.n_layers)]
@@ -218,9 +237,12 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int,
 
 def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
     """Grow each KV cache's seq axis to ``target_len`` with zeros (decode
-    headroom).  SSM caches are fixed-size and pass through untouched."""
+    headroom); an MLA cache grows its shared buffer, so its two views still
+    alias one buffer.  SSM caches are fixed-size and pass through untouched."""
     if cfg.family == "ssm":
         return caches
+    if is_mla(cfg):
+        return [attn.mla_pad(cache, target_len) for cache in caches]
 
     def pad(a):
         return a if a.shape[1] >= target_len else F.pad(
