@@ -99,6 +99,28 @@ Phases, each printing JSON objects, one per line:
    tensor cores, every decode layer through the latent route, dropped
    assignments at cf 1.25), split a prefill and 8 decode steps as in 5b, and
    time both routes beside their bounds and SDPA;
+5d. hybrid: hold the flash kernel with a sliding window (recurrentgemma's
+   ``[1, 10, S, 256]`` on one KV head at W 2048, S 2048 / 3000 / 4096, and
+   a GQA shape at W 1000) on both routes against its plain version under
+   ``ATTN_TOL`` (the route read from the launch counters), reject the
+   kernel at W against a plain version without it, and a kernel whose
+   window's edge is a key off (on keys
+   planted to dominate at distance W and W - 1, both classes shown to
+   decide their rows), show window 0 bit for bit a window as wide as the
+   keys; hold the paged kernel over a 2048-slot ring at G = 10 (full, below
+   full, wrapped); hold one local-attention layer's ring decode to its
+   windowed forward at full width across the wrap within
+   ``HYBRID_LAYER_TOL`` and reject a ring written a slot ahead and one read
+   a slot short; serve recurrentgemma-2b at full width and all 26 layers
+   the same way as 4 (prompts up to 4096 tokens, past the window; every
+   local-attention prefill through the windowed flash kernel on the tensor
+   cores, every local-attention decode through the paged kernel over its
+   ring, the RG-LRU in PyTorch), check decode against prefill across the
+   ring's wrap within ``HYBRID_TOL`` (hidden state, logits, every RG-LRU
+   state, every ring) and print what the two ring faults do there, split a
+   4096-token prefill and a decode step into attention kernels, the
+   RG-LRU's scan and other elementwise work, products and the rest, and
+   time both kernel routes beside their bounds and SDPA;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -231,6 +253,66 @@ MLA_LAYER_SEQ = 2048
 MLA_LAYER_POSITIONS = (0, 1, 2, 5, 17, 63, 64, 127, 300, 511, 777, 1024, 1500, 1999, 2046, 2047)
 MLA_LAYER_TOL = 2e-2
 
+# recurrentgemma-2b serving (RG-LRU + local attention, window 2048): 8
+# requests through 4 slots, 32 new tokens each.  4096 and 3000 exceed the
+# window in prefill, 2040's decode crosses the ring's wrap at position
+# 2048, 777 and 1300 are ragged.
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_PROMPT_LENS = (4096, 2040, 3000, 777, 2048, 512, 1300, 64)
+HYBRID_MAX_LEN = 4160
+HYBRID_CHECK_RID = 1  # the 2040-token prompt: its decode steps 2040 .. 2070
+# jax.eval_shape of repro's init_params(recurrentgemma-2b), counted.
+HYBRID_PARAMS = 2_894_435_840
+# The windowed flash kernel's checks: recurrentgemma's prefill, 10 query
+# heads on one KV head of 256 at W 2048 (S 2048: the window does not bind;
+# 3000 ragged; 4096), and a GQA shape whose window is no multiple of the
+# block (W 1000, S 1500, 8 heads on 2 of 128); bf16 on the tensor cores,
+# f32 on the CUDA cores.
+WINDOW_CHECKS = ((1, 10, 1, 2048, 256, 2048), (1, 10, 1, 3000, 256, 2048),
+                 (1, 10, 1, 4096, 256, 2048), (1, 8, 2, 1500, 128, 1000))
+# The paged kernel over a ring of 2048 slots at recurrentgemma's decode
+# shape (G = 10, hd 256): the ring full (every position after the wrap) and
+# below it.
+RING_LENGTHS = (2048, 2047, 1000, 1)
+# One local-attention layer at full width on HYBRID_LAYER_SEQ tokens: its
+# decode at HYBRID_LAYER_POSITIONS (the ring packed from the forward's rows
+# before the position) against gqa_forward's row there.  Both compute the
+# same function in bf16 along other paths (one-row products and the paged
+# kernel against S-row products and the flash kernel), so each row's
+# relative L2 error is bf16 rounding.  Set before the first card run from a
+# CPU rehearsal at the same widths and seed with the plain kernels: 0-0.14%
+# a row (MLA's layer check read 0.4% on the card, where one-row products
+# round otherwise).  A ring written a slot ahead read 1.97-100% on every
+# row, one read a slot short 2.0-100% on every row before the wrap (after
+# it the ring is full either way, and the fault changes nothing).  Set at
+# 1e-2 for the first card run, which read 0-0.095% a row and the faults
+# 1.14-100% and 1.72-100% where they bite (their draws differ from the
+# CPU's): the ring written a slot ahead came within 14% of 1e-2 at position
+# 2047, so the rule was tightened to 5e-3, 5x the worst correct row.
+HYBRID_LAYER_SEQ = 2600
+HYBRID_LAYER_POSITIONS = (0, 1, 2, 63, 777, 2046, 2047, 2048, 2049, 2100, 2599)
+HYBRID_LAYER_TOL = 5e-3
+# Decode against prefill for the 2040-token request after its decode crossed
+# the wrap (2071 tokens at the last step; the window binds for the last
+# rows): the relative L2 error of the final hidden state and of the logits,
+# of each RG-LRU layer's f32 state after the last token, and of each
+# local-attention layer's ring against the prefill's packed ring (the
+# largest over layers).  Set before the first card run from CPU rehearsals
+# at full width with the plain kernels, cut to 5 and 11 layers: hidden
+# state 0.71% / 1.22%, logits 0.75% / 1.25%, states 0.63% / 1.13%, rings
+# 0.05% / 0.85%, growing with depth (gemma-2b's 18 layers read 1.4-1.5% on
+# the card).  A ring written a slot ahead read 17.4% in the rings (5
+# layers) and must be rejected; hidden state, logits and states did not see
+# it (0.74%), nor any metric a ring read a slot short: the fault touches
+# only the 8 steps before the wrap, by ~2% of one attention output each, and
+# the layer check is what rejects it.  All four were 5e-2 for the first
+# card run (26 layers): hidden state 2.35%, logits 2.36%, states 0.43%,
+# rings 0.26%, and the slot fault 5.7% in the rings (greedy decoding
+# repeats the prompt's last token at random init, so the shifted slots hold
+# near-equal keys), within 14% of 5e-2; the ring rule was tightened to
+# 2e-2, 7.7x the correct run's and 2.4x the CPU's 11-layer reading.
+HYBRID_TOL = {"hidden": 5e-2, "logits": 5e-2, "h": 5e-2, "ring": 2e-2}
+
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "merge_pass": "src/repro_torch/kernels/csrc/merge_sort.cu",
@@ -241,6 +323,8 @@ SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "flash_attention_tc_192x128": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention_latent": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention_windowed": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention_ring": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -252,12 +336,18 @@ REPLACES = {
     "matmul": "src/repro/kernels/matmul/matmul.py:47",
     "flash_attention_tc_192x128": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention_latent": "src/repro/kernels/paged_attention/paged_attention.py:65",
+    "flash_attention_windowed": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "paged_attention_ring": "src/repro/kernels/paged_attention/paged_attention.py:65",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
 # deepseek-v2-lite's routes of the flash and paged kernels (the kernels line
 # lists them beside the two kernels' other rows).
 MLA_KERNELS = ("flash_attention_tc_192x128", "paged_attention_latent")
+# recurrentgemma's: the flash kernel's windowed launches (counted by the
+# wrapper under "flash_attention_windowed") and the paged kernel over its
+# 2048-slot rings (the paged launches of phase 5d's serving window).
+HYBRID_KERNELS = ("flash_attention_windowed", "paged_attention_ring")
 
 # The blocked matmul at the LLM products of benchmarks/bench_kernel_policy.py
 # (lines 25-31), (m, k, n): token block x weight, at published widths.
@@ -812,12 +902,13 @@ def reject_fault(torch, name, what, got, want):
     check(not ok, f"{name}: the tolerance passes a kernel that {what}")
 
 
-def flash_cost(b, h, kv, s, t, hd, elem, hd_v=None):
-    """(bytes, flops) of causal flash attention: q, k, v read once, o written
-    once; 2 (hd + hd_v) flops (q.k and p.v) per unmasked (query, key) pair."""
+def flash_cost(b, h, kv, s, t, hd, elem, hd_v=None, window=0):
+    """(bytes, flops) of causal flash attention (with ``window``, local): q,
+    k, v read once, o written once; 2 (hd + hd_v) flops (q.k and p.v) per
+    unmasked (query, key) pair."""
     hd_v = hd if hd_v is None else hd_v
     offset = t - s
-    pairs = sum(min(t, i + offset + 1) for i in range(s))
+    pairs = sum(min(t, i + offset + 1, window or t) for i in range(s))
     return ((b * h * s + b * kv * t) * (hd + hd_v) * elem,
             2 * (hd + hd_v) * pairs * b * h)
 
@@ -2410,6 +2501,527 @@ def phase_mla_serve(torch, device):
 
 
 # --------------------------------------------------------------------------
+# Phase 5d: recurrentgemma-2b (RG-LRU + local attention): the flash kernel's
+# window, the paged kernel over a ring, one local-attention layer, serving
+# at full width
+# --------------------------------------------------------------------------
+
+
+def windowed_flash(torch, q, k, v, window, path):
+    """The flash kernel at ``window`` through the model's entry point; checks
+    by the launch counters that the call took ``path`` and counted as
+    windowed."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+
+    before = (runtime.launches[f"flash_attention_{path}"],
+              runtime.launches["flash_attention_windowed"])
+    out = remop_flash_attention(q, k, v, window=window)
+    check((runtime.launches[f"flash_attention_{path}"],
+           runtime.launches["flash_attention_windowed"])
+          == (before[0] + 1, before[1] + bool(window)),
+          f"windowed flash {tuple(q.shape)} {q.dtype} W {window} did not take the {path} route")
+    return out
+
+
+def planted_edge(torch, device, gen, s, hd, window, dtype):
+    """recurrentgemma's prefill shape (10 query heads on one KV head) with a
+    key planted for each of some rows 200 apart, alternately at distance
+    exactly W from it (outside the window) and W - 1 (inside): the row's
+    query is 8 e_j in every head, its key 60 e_j (a score of 30, where the
+    random keys score about N(0, 1/4) for it and e_j is the row's own axis,
+    so no other planted row's key scores for it), its value 4 in every
+    column.  Returns (q, k, v, rows outside, rows inside)."""
+    q = torch.randn(1, 10, s, hd, device=device, generator=gen)
+    k = torch.randn(1, 1, s, hd, device=device, generator=gen)
+    v = torch.randn(1, 1, s, hd, device=device, generator=gen)
+    outside, inside = [], []
+    for j, r in enumerate(range(window + 52, s, 200)):
+        d = window if j % 2 == 0 else window - 1
+        q[0, :, r] = 0.0
+        q[0, :, r, j] = 8.0
+        k[0, 0, r - d] = 0.0
+        k[0, 0, r - d, j] = 60.0
+        v[0, 0, r - d] = 4.0
+        (outside if d == window else inside).append(r)
+    return (*(x.to(dtype) for x in (q, k, v)), outside, inside)
+
+
+def phase_hybrid_kernels(torch, device):
+    """The flash kernel's window against its plain version under ATTN_TOL on
+    both routes; two planted faults (no window; the window's edge one key
+    off, on keys planted at distance W and W - 1); window 0 bit for bit as
+    wide a window as the keys; the paged kernel over a 2048-slot ring at
+    G = 10; then both timed beside their bounds and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    errs, rows = {}, {}
+    name = "flash_attention_windowed"
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    # -- the window on both routes --------------------------------------------------------
+    for b, h, kv, s, hd, window in WINDOW_CHECKS:
+        for dtype, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+            q, k, v = randn(b, h, s, hd, dtype=dtype), *(randn(b, kv, s, hd, dtype=dtype)
+                                                         for _ in range(2))
+            bq, bk = plan_blocks(s, s, hd, q.element_size(), path=path)
+            got = windowed_flash(torch, q, k, v, window, path)
+            err, rel = allclose(torch, [name], got,
+                                fa.flash_attention_plain(q, k, v, bk, window=window), errs)
+            emit({"phase": "hybrid", "check": name, "shape": [b, h, kv, s, s, hd],
+                  "window": window, "dtype": str(dtype), "route": path, "blocks": [bq, bk],
+                  "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel})
+    # -- planted faults: no window at all; the window's edge one key off -------------------
+    b, h, kv, s, hd, window = WINDOW_CHECKS[2]
+    q, k, v = randn(b, h, s, hd), randn(b, kv, s, hd), randn(b, kv, s, hd)
+    bq, bk = plan_blocks(s, s, hd, 2)
+    reject_fault(torch, name, f"applies a window ({window}, S {s}) the plain version lacks",
+                 windowed_flash(torch, q, k, v, window, "tc"),
+                 fa.flash_attention_plain(q, k, v, bk))
+    for dtype, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        q, k, v, outside, inside = planted_edge(torch, device, gen, s, hd, window, dtype)
+        bq, bk = plan_blocks(s, s, hd, q.element_size(), path=path)
+        want = fa.flash_attention_plain(q, k, v, bk, window=window)
+        far = (want[0, :, outside].float() - 4.0).abs().amin(dim=-1)  # [heads, rows]
+        near = (want[0, :, inside].float() - 4.0).abs().amax(dim=-1)
+        emit({"phase": "hybrid", "edge_classes": str(dtype), "rows_at_distance_w": outside,
+              "rows_at_distance_w_minus_1": inside,
+              "min_distance_from_planted_value_outside": float(far.min()),
+              "max_distance_from_planted_value_inside": float(near.max())})
+        check(len(outside) >= 4 and len(inside) >= 4 and float(far.min()) > 1.0
+              and float(near.max()) < 0.1,
+              "the planted keys do not decide their rows: the data does not exercise the "
+              "window's edge")
+        allclose(torch, [name], windowed_flash(torch, q, k, v, window, path), want, errs)
+        for wrong, what in ((window + 1, "sees the key at distance W"),
+                            (window - 1, "misses the key at distance W - 1")):
+            reject_fault(torch, name, f"{what} ({path}, window {wrong} for {window})",
+                         windowed_flash(torch, q, k, v, wrong, path), want)
+    # -- window 0 launches what it launched: bit for bit the kernel with a
+    # window as wide as the keys (never masks, starts at block 0) ---------------------------
+    q, k, v = randn(1, 8, 2048, 256), randn(1, 1, 2048, 256), randn(1, 1, 2048, 256)
+    causal = windowed_flash(torch, q, k, v, 0, "tc")
+    check(torch.equal(causal, windowed_flash(torch, q, k, v, 2048, "tc")),
+          "window 0 and a window as wide as the keys differ at gemma-2b's shape")
+    emit({"phase": "hybrid", "check": "flash_attention window 0",
+          "shape": [1, 8, 1, 2048, 2048, 256], "equal_bits_to_window_2048": True})
+    # -- the paged kernel over a 2048-slot ring at G = 10 ---------------------------------
+    q = randn(1, 1, 10, 256)
+    ring_k, ring_v = randn(1, window, 1, 256), randn(1, window, 1, 256)
+    for length in RING_LENGTHS:
+        ln = torch.full((1,), length, dtype=torch.int32, device=device)
+        err, rel = allclose(torch, ["paged_attention_ring"],
+                            pa.paged_attention(q, ring_k, ring_v, ln),
+                            pa.paged_attention_plain(q, ring_k, ring_v, ln), errs)
+        emit({"phase": "hybrid", "check": "paged_attention_ring", "shape": [1, 1, 10, 256, window],
+              "lengths": [length], "plan": pa.plan(1, 1, 10, window),
+              "tol": ATTN_TOL["torch.bfloat16"], "max_abs_err": err, "rel_err": rel})
+    # A wrapped ring (position p at slot p % W, the oldest at slot 1901)
+    # against the plain version over the same rows in position order.
+    shift = 1901
+    err, rel = allclose(torch, ["paged_attention_ring"],
+                        pa.paged_attention(q, ring_k, ring_v, ln.fill_(window)),
+                        pa.paged_attention_plain(q, ring_k.roll(-shift, 1),
+                                                 ring_v.roll(-shift, 1), ln), errs)
+    emit({"phase": "hybrid", "check": "paged_attention_ring", "wrapped_at_slot": shift,
+          "max_abs_err": err, "rel_err": rel})
+    torch.cuda.synchronize()
+
+    # -- timing: recurrentgemma's 4096-token prefill, and a decode step over a
+    # full ring -----------------------------------------------------------------------------
+    bench = Bench(torch, device)
+    b, h, kv, s, hd, window = WINDOW_CHECKS[2]
+    q, k, v = randn(b, h, s, hd), randn(b, kv, s, hd), randn(b, kv, s, hd)
+    bq, bk = plan_blocks(s, s, hd, 2)
+    pos = torch.arange(s, device=device)
+    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    ms_bound, by = bound(*flash_cost(b, h, kv, s, s, hd, 2, window=window), BF16_OPS_PER_S)
+
+    def kernel(window=window, q=q, k=k, v=v):
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk, window=window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)
+
+    q2, k2, v2 = (x[:, :, :2048] for x in (q, k, v))
+    rows[name] = dict(
+        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, window {window}, "
+              f"blocks {(bq, bk)}",
+        ms=bench.ms(kernel),
+        plain_ms=bench.ms(lambda: fa.flash_attention_plain(q, k, v, bk, window=window)),
+        library_ms=bench.ms(sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(sdpa).items()},
+        causal_at_s_4096_device_ms=bench.device_ms(lambda: kernel(0))["device_ms"],
+        causal_at_s_4096_bound_ms=bound(*flash_cost(b, h, kv, s, s, hd, 2), BF16_OPS_PER_S)[0],
+        windowed_at_s_2048_device_ms=bench.device_ms(
+            lambda: kernel(window, q2, k2, v2))["device_ms"],
+        causal_at_s_2048_device_ms=bench.device_ms(lambda: kernel(0, q2, k2, v2))["device_ms"])
+    q = randn(1, 1, 10, 256)
+    ln = torch.full((1,), window, dtype=torch.int32, device=device)
+    ms_bound, by = bound((2 * window * 256 + 2 * 10 * 256) * 2, 4 * 256 * window * 10,
+                         BF16_OPS_PER_S)
+
+    def ring_kernel():
+        return pa.paged_attention(q, ring_k, ring_v, ln)
+
+    def ring_sdpa():
+        return F.scaled_dot_product_attention(q.reshape(1, 10, 1, 256), ring_k.transpose(1, 2),
+                                              ring_v.transpose(1, 2), enable_gqa=True)
+
+    rows["paged_attention_ring"] = dict(
+        shape=f"q [1,1,10,256], ring [1,{window},1,256] bf16, length {window}, "
+              f"plan {pa.plan(1, 1, 10, window)}",
+        ms=bench.ms(ring_kernel),
+        plain_ms=bench.ms(lambda: pa.paged_attention_plain(q, ring_k, ring_v, ln)),
+        library_ms=bench.ms(ring_sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(ring_kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(ring_sdpa).items()})
+    for key, row in rows.items():
+        emit({"phase": "hybrid", "timing": key, **row})
+    del bench
+    return errs, rows
+
+
+def window_zero_probe(torch, device) -> dict:
+    """The flash kernel at gemma-2b's prefill shape called as every earlier
+    slice calls it (no window argument): a digest of its output's bits and
+    its device ms.  Not run by ``main``: a parent/change A/B calls it with
+    either checkout's kernels first on ``sys.path``."""
+    import hashlib
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    q, k, v = (torch.randn(1, h, 2048, 256, device=device, generator=gen).to(torch.bfloat16)
+               for h in (8, 1, 1))
+    bq, bk = plan_blocks(2048, 2048, 256)
+
+    def kernel():
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk)
+
+    digest = hashlib.sha256(kernel().view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    return {"digest": digest, "blocks": [bq, bk], **Bench(torch, device).device_ms(kernel)}
+
+
+@contextlib.contextmanager
+def ring_fault(fault):
+    """The decode's ring rules with a planted fault: ``"slot"`` writes
+    position pos at slot (pos + 1) % W, ``"length"`` attends to min(pos, W)
+    slots; None plants nothing."""
+    from repro_torch.models import attention as attn
+
+    slot, length = attn.cache_slot, attn.cache_length
+    if fault == "slot":
+        attn.cache_slot = lambda pos, size, window: (pos + 1) % size if window else slot(
+            pos, size, window)
+    elif fault == "length":
+        attn.cache_length = lambda pos, size: min(pos, size)
+    try:
+        yield
+    finally:
+        attn.cache_slot, attn.cache_length = slot, length
+
+
+def hybrid_layer_errors(torch, device, cfg, fault=None):
+    """One local-attention layer at ``cfg``'s widths on HYBRID_LAYER_SEQ
+    tokens: the relative L2 error of its decode at each of
+    HYBRID_LAYER_POSITIONS against ``gqa_forward``'s row there, the decode's
+    ring packed from the forward's K/V before the position; ``fault`` as
+    :func:`ring_fault` plants it."""
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    p = attn.init_gqa(cfg, gen, device)
+    s, window = HYBRID_LAYER_SEQ, cfg.window
+    x = torch.randn(1, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None]
+    with torch.inference_mode():
+        want, (k, v) = attn.gqa_forward(p, cfg, x, positions, window=window, return_kv=True)
+        errs = []
+        for pos in HYBRID_LAYER_POSITIONS:
+            ring = attn.ring_pack((k[:, :pos], v[:, :pos]), positions[:, :pos], window)
+            with ring_fault(fault):
+                got, _ = attn.gqa_decode(p, cfg, x[:, pos:pos + 1], ring, pos, window=window)
+            errs.append(rel_err(torch, got[0, 0], want[0, pos]))
+    return errs
+
+
+def phase_hybrid_layer(torch, device):
+    """One local-attention layer of recurrentgemma at full width: the ring
+    decode against the windowed forward, row by row, across the wrap; a ring
+    written one slot ahead must fail every row, and one read a slot short
+    every row before the wrap (after it the ring is full either way)."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[HYBRID_ARCH]
+    errs = hybrid_layer_errors(torch, device, cfg)
+    emit({"phase": "hybrid", "layer_check": "ring decode against the windowed gqa_forward",
+          "seq": HYBRID_LAYER_SEQ, "window": cfg.window, "positions": list(HYBRID_LAYER_POSITIONS),
+          "rel_l2": errs, "max_rel_l2": max(errs), "tol": HYBRID_LAYER_TOL})
+    check(max(errs) <= HYBRID_LAYER_TOL, f"the ring decode differs from the forward pass: {errs}")
+    for fault, what, bites in (
+            ("slot", "writes position pos at slot (pos + 1) % W", lambda pos: True),
+            ("length", "attends to min(pos, W) slots", lambda pos: pos < cfg.window)):
+        bad = hybrid_layer_errors(torch, device, cfg, fault)
+        hit = [e for pos, e in zip(HYBRID_LAYER_POSITIONS, bad) if bites(pos)]
+        rejected = all(e > HYBRID_LAYER_TOL for e in hit)
+        emit({"phase": "hybrid", "planted_fault": "layer", "fault": what, "rel_l2": bad,
+              "min_rel_l2_where_it_bites": min(hit), "tol": HYBRID_LAYER_TOL,
+              "rejected": rejected})
+        check(rejected, f"the layer check passes a decode that {what}")
+
+
+def hybrid_consistency(torch, device, cfg, params, tokens, decode_from, fault=None):
+    """Prefill ``tokens[:decode_from]``, decode the rest one token at a time
+    (teacher-forced), and compare with a prefill of all of them: the
+    relative L2 error of the final hidden state and of the logits, and the
+    largest over RG-LRU layers of the f32 state's after the last token and
+    over local-attention layers of the ring's against the prefill's packed
+    ring (each layer's too, in layer order).  ``fault`` as
+    :func:`ring_fault` plants it in the decode.  Returns (errors, logits)."""
+    from repro_torch.models import transformer as tf
+
+    tokens = torch.as_tensor(tokens[None], device=device)
+    with torch.inference_mode():
+        logits, caches = tf.prefill(params, cfg, {"tokens": tokens[:, :decode_from]})
+        caches = tf.pad_caches(cfg, caches, HYBRID_MAX_LEN)
+        with ring_fault(fault):
+            for pos in range(decode_from, tokens.shape[1]):
+                logits, caches, hidden = tf.decode_step(params, cfg, caches, tokens[:, pos], pos,
+                                                        return_hidden=True)
+        want_logits, want_caches, want_hidden = tf.prefill(
+            params, cfg, {"tokens": tokens}, return_hidden=True)
+    layers = {"h": [], "ring": []}
+    for kind, got, want in zip(tf.layer_kinds(cfg), caches, want_caches):
+        if kind == "rec":
+            layers["h"].append(rel_err(torch, got[1], want[1]))
+        elif kind == "attn_local":
+            layers["ring"].append(max(rel_err(torch, a, b) for a, b in zip(got, want)))
+    errs = {"hidden": rel_err(torch, hidden, want_hidden),
+            "logits": rel_err(torch, logits, want_logits),
+            "h": max(layers["h"]), "ring": max(layers["ring"])}
+    return errs, layers, logits
+
+
+def phase_hybrid_serve(torch, device):
+    """Serve recurrentgemma-2b at full width and all 26 layers: every
+    local-attention prefill through the flash kernel with its window on the
+    tensor cores, every local-attention decode through the paged kernel over
+    a 2048-slot ring, every RG-LRU block in PyTorch; then decode against
+    prefill across the wrap, with two planted ring faults."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import Request, ServeEngine
+
+    cfg = ARCHS[HYBRID_ARCH]
+    kinds = tf.layer_kinds(cfg)
+    n_local = kinds.count("attn_local")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    emit({"phase": "hybrid", "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+          "rglru_layers": kinds.count("rec"), "local_attention_layers": n_local,
+          "window": cfg.window, "init_seconds": time.perf_counter() - t0,
+          "weight_bytes_on_device": torch.cuda.memory_allocated(device)})
+    check(n_params == HYBRID_PARAMS, f"{n_params} parameters, not {HYBRID_PARAMS}")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in HYBRID_PROMPT_LENS]
+    last = {}
+
+    def keep_last(req, logits, hidden):
+        if req.rid == HYBRID_CHECK_RID:
+            last["logits"] = logits.float().clone()
+
+    engine = ServeEngine(cfg, params, max_len=HYBRID_MAX_LEN, batch_slots=SLOTS, device=device,
+                         on_step=keep_last)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MAX_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    results = engine.submit(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    steps = sum(len(r.out_tokens) - 1 for r in reqs)
+    check(sorted(results) == list(range(len(reqs))), "a request did not finish")
+    check(all(len(r.out_tokens) == MAX_NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(launches.get("flash_attention", 0) == launches.get("flash_attention_windowed", 0)
+          == launches.get("flash_attention_tc", 0) == n_local * len(reqs),
+          f"flash launches {launches.get('flash_attention')}, windowed "
+          f"{launches.get('flash_attention_windowed')}, on the tensor cores "
+          f"{launches.get('flash_attention_tc')}, not {n_local} x {len(reqs)}")
+    check(launches.get("paged_attention", 0) == n_local * steps,
+          f"paged launches {launches.get('paged_attention')} != {n_local} x {steps}")
+    check(bool(torch.isfinite(last["logits"]).all()), "non-finite logits")
+
+    # Decode against prefill across the wrap, then with each planted fault.
+    req = reqs[HYBRID_CHECK_RID]
+    tokens = np.concatenate([req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+    errs, layers, logits = hybrid_consistency(torch, device, cfg, params, tokens,
+                                              len(req.prompt))
+    emit({"phase": "hybrid", "consistency": HYBRID_CHECK_RID, "prompt_tokens": len(req.prompt),
+          "tokens": len(tokens), "rel_l2": errs, "tol": HYBRID_TOL,
+          "h_rel_l2_per_rglru_layer": layers["h"],
+          "ring_rel_l2_per_local_layer": layers["ring"],
+          "replay_equals_served_logits": torch.equal(logits[0].float(), last["logits"])})
+    check(all(errs[key] <= HYBRID_TOL[key] for key in HYBRID_TOL),
+          f"decode and prefill disagree across the wrap: {errs}")
+    for fault, what in (("slot", "writes position pos at slot (pos + 1) % W"),
+                        ("length", "attends to min(pos, W) slots")):
+        bad, _, _ = hybrid_consistency(torch, device, cfg, params, tokens, len(req.prompt),
+                                       fault)
+        over = sorted(key for key in HYBRID_TOL if bad[key] > HYBRID_TOL[key])
+        emit({"phase": "hybrid", "planted_fault": "consistency", "fault": what, "rel_l2": bad,
+              "tol": HYBRID_TOL, "rejected_by": over, "rejected": bool(over)})
+        check(fault != "slot" or "ring" in over,
+              f"decode against prefill passes a ring that {what}")
+
+    step_bound = weights_bound_ms(params)
+    for r in reqs:
+        n_dec = len(r.out_tokens) - 1
+        emit({"phase": "hybrid", "request": r.rid, "prompt_tokens": len(r.prompt),
+              "new_tokens": len(r.out_tokens), "prefill_seconds": r.prefill_seconds,
+              "decode_seconds_per_token": r.decode_seconds / n_dec,
+              "decode_step_bound_ms": step_bound,
+              "tokens_per_second": len(r.out_tokens) / (r.prefill_seconds + r.decode_seconds)})
+    emit({"phase": "hybrid", "requests": len(reqs), "new_tokens": steps + len(reqs),
+          "decode_steps": steps, "wall_seconds": wall,
+          "tokens_per_second": (steps + len(reqs)) / wall,
+          "launches": launches, "peak_device_bytes": peak})
+    return launches, params
+
+
+@contextlib.contextmanager
+def annotated(module, names):
+    """Each of ``module``'s functions ``names`` wrapped in a profiler range
+    of its own name while the context lasts."""
+    from torch.profiler import record_function
+
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def ranged(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return ranged
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def ranged_kernels(torch, prof, names):
+    """Device seconds of the kernels launched inside each profiler range of
+    ``names`` (innermost range wins), split into products and the rest."""
+    events = [e for e in prof.events() if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CPU]
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.name in names), key=lambda span: span[1] - span[0])
+    out = {f"{name}_{kind}": 0.0 for name in names for kind in ("matmul", "other")}
+    for e in events:
+        if e.name in names or not e.kernels:
+            continue
+        inner = next((name for lo, hi, name in spans
+                      if lo <= e.time_range.start and e.time_range.end <= hi), None)
+        if inner is None:
+            continue
+        for kernel in e.kernels:
+            kind = "matmul" if any(w in kernel.name.lower() for w in MATMUL_NAMES) else "other"
+            out[f"{inner}_{kind}"] += kernel.duration / 1e6
+    return out
+
+
+def phase_hybrid_breakdown(torch, device, params):
+    """Device time of a 4096-token prefill and of one decode step after it,
+    each from its own profiler window: attention kernels, the RG-LRU's scan
+    and its other elementwise work, products, and the rest, with the idle
+    share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import rglru
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[HYBRID_ARCH]
+    rng = np.random.default_rng(SEED + 11)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, max(HYBRID_PROMPT_LENS)),
+                                          dtype=np.int32), device=device)
+    state = {}
+
+    def prefill():
+        logits, caches = tf.prefill(params, cfg, {"tokens": prompt})
+        state["caches"] = tf.pad_caches(cfg, caches, HYBRID_MAX_LEN)
+        state["tok"] = logits.argmax(-1)
+
+    def decode():
+        logits, state["caches"] = tf.decode_step(params, cfg, state["caches"], state["tok"],
+                                                 prompt.shape[1])
+        state["tok"] = logits.argmax(-1)
+
+    def timed(fn):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    ranges = ("associative_scan", "rglru_forward", "rglru_decode")
+    for name, fn in (("prefill of 4096 tokens", prefill), ("one decode step after it", decode)):
+        unprofiled = timed(fn)  # also the warm-up
+        if fn is decode:
+            timed(prefill)  # the same step again, from the prefill's caches
+        with annotated(rglru, ranges):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profiled = timed(fn)
+        kinds, events = device_seconds(torch, prof, ("flash_attention_kernel",
+                                                     "paged_attention_kernel"),
+                                       "attention_kernels")
+        ranged = ranged_kernels(torch, prof, ranges)
+        scan = ranged["associative_scan_other"]
+        rec_other = ranged["rglru_forward_other"] + ranged["rglru_decode_other"]
+        rec_products = sum(ranged[f"{r}_matmul"] for r in ranges)
+        split = dict(kinds)
+        if rec_other > 0:  # the profiler tied kernels to their ranges
+            check(scan + rec_other <= kinds["other"] * (1 + 1e-6)
+                  and rec_products <= kinds["matmul"] * (1 + 1e-6),
+                  f"{name}: RG-LRU ranges {ranged} exceed the window's {kinds}")
+            split = {"attention_kernels": kinds["attention_kernels"],
+                     "rglru_scan": scan, "rglru_other_elementwise": rec_other,
+                     "rglru_products": rec_products,
+                     "other_products": kinds["matmul"] - rec_products,
+                     "other": kinds["other"] - scan - rec_other}
+        emit({"phase": "hybrid_breakdown", "arch": cfg.name, "window": name,
+              "unprofiled_seconds": unprofiled, "profiled_seconds": profiled,
+              "decode_step_bound_ms": weights_bound_ms(params),
+              "rglru_split": "measured" if rec_other > 0 else "not measured",
+              **busy_and_idle((split, events), profiled, unprofiled)})
+
+
+# --------------------------------------------------------------------------
 # Phase 6: the REMOP-planned blocked matmul at five LLM products
 # --------------------------------------------------------------------------
 
@@ -2695,7 +3307,8 @@ def main() -> int:
                   "granite-moe-3b-a800m at its published widths and all 32 layers, random "
                   "weights; deepseek-v2-lite-16b at its published widths (MLA, kv_lora_rank "
                   "512, 64 experts top-6 and 2 shared) and all 27 layers, random weights; "
-                  "nothing cut"})
+                  "recurrentgemma-2b at its published widths (RG-LRU 2560, local attention "
+                  "window 2048) and all 26 layers, random weights; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -2733,6 +3346,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     launches.update({name: mla_launches[name] for name in MLA_KERNELS})
+    hyb_errs, hyb_rows = phase_hybrid_kernels(torch, device)
+    errs.update(hyb_errs)
+    rows.update(hyb_rows)
+    phase_hybrid_layer(torch, device)
+    hyb_launches, params = phase_hybrid_serve(torch, device)
+    phase_hybrid_breakdown(torch, device, params)
+    del params
+    torch.cuda.empty_cache()
+    for name in SERVE_KERNELS:
+        launches[name] += hyb_launches[name]
+    launches["flash_attention_windowed"] = hyb_launches["flash_attention_windowed"]
+    launches["paged_attention_ring"] = hyb_launches["paged_attention"]
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

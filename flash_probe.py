@@ -13,7 +13,10 @@ shapes (gemma-2b, qwen3-0.6b, granite-20b's 48 heads on one KV head, a
 ragged hd-64 prefill, the model's transposed layout, deepseek-v2-lite's
 q/k 192 and v 128), at every block pair the tensor-core route takes (the
 pair 192 / 128 too), with P rounded once to bf16 (the probe off the
-main path), and on the CUDA-core route (bf16 hd 32, f32); prints the
+main path), and on the CUDA-core route (bf16 hd 32, f32); with a sliding
+window (recurrentgemma's 10 heads on one KV head of 256 at W 2048, S 2048,
+3000 and 4096, in both routes and the model's layout; W 1000 at a GQA
+shape; W 100 at every tensor-core block pair, with T > S); prints the
 occupancy of every tensor-core instantiation.  It times nothing;
 ``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
 """
@@ -84,7 +87,7 @@ def main() -> int:
         v = torch.randn(b, kv, t, hd if hd_v is None else hd_v, device=dev, generator=g).to(dtype)
         return q, k, v
 
-    def case(name, q, k, v, fn):
+    def case(name, q, k, v, fn, window=0):
         runtime.reset_launches()
         try:
             got = fn(q, k, v)
@@ -93,7 +96,7 @@ def main() -> int:
             print(name, "RAISED", repr(e)[:300], flush=True)
             failed.append(name)
             return
-        want = flash_attention_plain(q, k, v)
+        want = flash_attention_plain(q, k, v, window=window)
         ok, err, rel, _ = chip_smoke.attn_close(torch, got, want)
         finite = bool(torch.isfinite(got.float()).all())
         print(name, tuple(q.shape), tuple(k.shape), str(q.dtype), route(q, k, v),
@@ -133,6 +136,27 @@ def main() -> int:
                             (torch.float32, 192, 128)):
         q, k, v = inputs(2, 16, 8, 300, 333, hd, dtype, hd_v=hd_v)
         case(f"simt {dtype} hd {hd}/{hd_v}", q, k, v, remop_flash_attention)
+    for s in (2048, 3000, 4096):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(1, 10, 1, s, s, 256, dtype)
+            case(f"recurrentgemma W 2048 S {s} {dtype}", q, k, v,
+                 lambda q, k, v: remop_flash_attention(q, k, v, window=2048), window=2048)
+    q, k, v = inputs(1, 10, 1, 3000, 3000, 256, torch.bfloat16)
+    qm, km, vm = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    case("recurrentgemma W 2048 model layout", qm, km, vm,
+         lambda q, k, v: remop_flash_attention(q, k, v, window=2048), window=2048)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(1, 8, 2, 1500, 1500, 128, dtype)
+        case(f"GQA W 1000 {dtype}", q, k, v,
+             lambda q, k, v: remop_flash_attention(q, k, v, window=1000), window=1000)
+    for hd, hd_v in TC_HEAD_PAIRS:
+        q, k, v = inputs(1, 4, 2, 300, 333, hd, torch.bfloat16, hd_v=hd_v)
+        for bq in TC_BLOCKS:
+            for bk in TC_BLOCKS:
+                if smem_bytes(bq, bk, hd, 2, "tc", hd_v) <= SMEM_LIMIT:
+                    case(f"W 100 blocks {bq},{bk} hd {hd}/{hd_v}", q, k, v,
+                         lambda q, k, v, bq=bq, bk=bk: flash_attention(q, k, v, bq=bq, bk=bk,
+                                                                       window=100), window=100)
     print("FAILED" if failed else "ALL OK", failed, flush=True)
     return 1 if failed else 0
 

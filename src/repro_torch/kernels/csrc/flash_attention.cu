@@ -5,6 +5,8 @@
 // query head h reads KV head h / (H / KV), causal with the query positions
 // offset by T - S, an online softmax in f32 of the scores times `scale`,
 // fully masked KV blocks skipped, output [B, H, S, hd_v] in q's dtype.
+// With window = W > 0 (local attention, which the TPU kernel does not
+// compute) a query at position q sees only the keys q - W + 1 .. q.
 // hd_v = hd, or (hd, hd_v) = (192, 128): MLA's prefill, whose q and k are
 // 128 nope and 64 rope columns and whose values are 128 wide.
 // Any S <= T works without padding (rows past S and keys past T are masked),
@@ -12,10 +14,16 @@
 // contiguous), so the model's [B, S, H, hd] activations are read and
 // written in place.  Both routes launch one CTA per (q block, head, batch),
 // the heaviest (last) q blocks first to shorten the tail, and walk the KV
-// blocks 0 .. the last one a row of the block can see (the TPU kernel's
-// `q_base + bq - 1 >= k_base` skip).  What bounds both on this card, at the
-// model's widths (hd 128 or 256, S in the thousands): the operations, about
-// 2 S T hd H flops under the causal mask, against a few bytes per key.
+// blocks j0 .. the last one a row of the block can see (the TPU kernel's
+// `q_base + bq - 1 >= k_base` skip), j0 = 0 without a window and else the
+// first block the block's first row can see, so the work follows the
+// visible pairs.  A later row whose window starts past block j0 sees only
+// masked scores there: its m stays kNegInf (finite), each p is exp(0) = 1,
+// and the correction exp(kNegInf - m) at its first live key, which the
+// diagonal block always holds, wipes them exactly.  What bounds both on this
+// card, at the model's widths (hd 128 or 256, S in the thousands): the
+// operations, about 2 S T hd H flops under the causal mask (2 S min(T, W) hd
+// H under a window), against a few bytes per key.
 //
 // Tensor-core route (flash_attention_kernel_tc): bf16 at hd 64, 128 or 256
 // (hd_v = hd) or at (192, 128), with TMA-aligned bases and strides (16
@@ -78,6 +86,7 @@ struct Params {
   int64_t st[12];
   int h, kv, s, t, bq, bk;
   float scale;
+  int window;  // 0: causal only
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -173,8 +182,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
 
   const int q_last = min(q0 + p.bq, p.s) - 1 + offset;  // largest q position here
   const int n_kv = min((p.t + p.bk - 1) / p.bk, q_last / p.bk + 1);
+  const int j0 = p.window ? max(0, q0 + offset - p.window + 1) / p.bk : 0;
 
-  for (int j = 0; j < n_kv; ++j) {
+  for (int j = j0; j < n_kv; ++j) {
     const int k0 = j * p.bk;
     __syncthreads();  // q staged; the previous block's V no longer read
     stage<T, HD, LD>(kv_s, kg, p.st[5], k0, p.bk, p.t);
@@ -200,8 +210,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
           sc[i][c] = fmaf(qv[i].y, kv[c].y, fmaf(qv[i].x, kv[c].x, sc[i][c]));
     }
 
-    // Causal mask (it also masks k >= T, since every q position is < T),
-    // then the online softmax update of the TPU kernel.
+    // Causal and window masks (the causal one also masks k >= T, since
+    // every q position is < T), then the online softmax update of the TPU
+    // kernel.
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int qpos = q0 + ty + 16 * i + offset;
@@ -210,7 +221,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
       for (int c = 0; c < kPer; ++c) {
         const int col = tx + 16 * c;
         float x = sc[i][c] * p.scale;
-        if (col >= p.bk || k0 + col > qpos) x = kNegInf;
+        if (col >= p.bk || k0 + col > qpos || (p.window && qpos - (k0 + col) >= p.window))
+          x = kNegInf;
         sc[i][c] = x;
         rmax = fmaxf(rmax, x);
       }
@@ -278,12 +290,12 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const long long* strides, int b, int h, int kv, int s, int t,
-             int hd, int bq, int bk, float scale, int hd_v, void* stream) {
+             int hd, int bq, int bk, float scale, int hd_v, int window, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
   if (kv <= 0 || h % kv || t < s || bq < 1 || bq > kMaxBlock || bk < 1 ||
-      bk > kMaxBlock)
+      bk > kMaxBlock || window < 0)
     return cudaErrorInvalidValue;
-  Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale};
+  Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale, window};
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   if (hd_v != hd) {
@@ -332,15 +344,18 @@ struct TcParams {
   int64_t ost[3];  // o's element strides (batch, head, position)
   int h, kv, s, t;
   float scale;
+  int window;  // 0: causal only
 };
 
 // One consumer warpgroup w of the CTA: query rows [q0 + 64w, q0 + 64w +
 // 64); this thread holds rows r0 and r0 + 8 of the accumulator fragments.
+// KV blocks j0 .. n_kv - 1; the i-th of them (i = j - j0) sits in ring stage
+// i % 2 at mbarrier parity (i / 2) % 2, as the producer counts it.
 template <int HD, int HDV, int BQ, int BK, bool SPLIT>
 __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, uint64_t* k_full,
                                         uint64_t* v_full, uint64_t* empty, const TcParams& p,
                                         int w, int warp, int lane, int q0, int head, int b,
-                                        int offset, int n_kv) {
+                                        int offset, int j0, int n_kv) {
   using L = TcLayout<HD, HDV, BQ, BK>;
   const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
   const int qpos0 = r0 + offset, qpos1 = r0 + 8 + offset;
@@ -352,9 +367,9 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's share
 
   hopper::mbar_wait(q_full, 0);
-  for (int j = 0; j < n_kv; ++j) {
-    const int s = j & 1;
-    const uint32_t parity = (j >> 1) & 1;
+  for (int j = j0; j < n_kv; ++j) {
+    const int s = (j - j0) & 1;
+    const uint32_t parity = ((j - j0) >> 1) & 1;
     const uint32_t k_addr = hopper::smem_u32(smem + L::kQBytes + s * L::kStage);
     const uint32_t v_addr = k_addr + L::kKBytes;
 
@@ -377,16 +392,17 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
     hopper::wgmma_wait<0>();
     hopper::fence_operands(sc);
 
-    // Causal mask (it also masks keys >= T for every row < S), then the
-    // online softmax update of the TPU kernel.
+    // Causal and window masks (the causal one also masks keys >= T for
+    // every row < S), then the online softmax update of the TPU kernel.
     const int k0 = j * BK;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int r = 0; r < BK / 2; ++r) {
       const int col = k0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
       const bool lower = (r >> 1) & 1;  // row r0 + 8
+      const int qpos = lower ? qpos1 : qpos0;
       float x = sc[r] * p.scale;
-      if (col > (lower ? qpos1 : qpos0)) x = kNegInf;
+      if (col > qpos || (p.window && qpos - col >= p.window)) x = kNegInf;
       sc[r] = x;
       if (lower) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
     }
@@ -496,6 +512,7 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
   const int q0 = qb * BQ;
   const int q_last = min(q0 + BQ, p.s) - 1 + offset;  // largest q position here
   const int n_kv = min((p.t + BK - 1) / BK, q_last / BK + 1);
+  const int j0 = p.window ? max(0, q0 + offset - p.window + 1) / BK : 0;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -510,16 +527,16 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= 4 * kWarpgroups) {
-    // -- producer: Q once, then block j's K and V into stage j % 2 once the
-    // stage's last use (block j - 2) is released --
+    // -- producer: Q once, then block j's K and V into stage (j - j0) % 2
+    // once the stage's last use (block j - 2) is released --
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 4 * kWarpgroups && lane == 0) {
       hopper::mbar_arrive_expect_tx(q_full, L::kQBytes);
       for (int i = 0; i < kSlabs; ++i)
         hopper::tma_load_4d(smem + i * BQ * 128, &map_q, q_full, 64 * i, q0, head, b);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j & 1;
-        hopper::mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
+      for (int j = j0; j < n_kv; ++j) {
+        const int s = (j - j0) & 1;
+        hopper::mbar_wait(&empty[s], (((j - j0) >> 1) & 1) ^ 1);
         unsigned char* ks = smem + L::kQBytes + s * L::kStage;
         unsigned char* vs = ks + L::kKBytes;
         hopper::mbar_arrive_expect_tx(&k_full[s], L::kKBytes);
@@ -534,7 +551,7 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
     // -- consumers --
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     consume<HD, HDV, BQ, BK, SPLIT>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
-                               q0, head, b, offset, n_kv);
+                               q0, head, b, offset, j0, n_kv);
   }
 }
 
@@ -610,9 +627,10 @@ bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* s
 // strides: q, k, v, o, each (batch, head, position), in elements.
 int launch_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
               int b, int h, int kv, int s, int t, int hd, int bq, int bk, float scale, int split,
-              int hd_v, void* stream) {
+              int hd_v, int window, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (kv <= 0 || h % kv || t < s || !tc_ok(hd, hd_v, bq, bk)) return cudaErrorInvalidValue;
+  if (kv <= 0 || h % kv || t < s || window < 0 || !tc_ok(hd, hd_v, bq, bk))
+    return cudaErrorInvalidValue;
   const uint64_t dq[4] = {uint64_t(hd), uint64_t(s), uint64_t(h), uint64_t(b)};
   const uint64_t dkv[4] = {uint64_t(hd), uint64_t(t), uint64_t(kv), uint64_t(b)};
   const uint64_t dv[4] = {uint64_t(hd_v), uint64_t(t), uint64_t(kv), uint64_t(b)};
@@ -635,7 +653,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
       !hopper::encode_bf16_4d(&map_k, k, dkv, bk_st, bk) ||
       !hopper::encode_bf16_4d(&map_v, v, dv, bv_st, bk))
     return cudaErrorNotSupported;
-  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale};
+  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale, window};
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((s + bq - 1) / bq, h, b);
   return tc_dispatch(hd, hd_v, bq, bk, split,
@@ -680,21 +698,22 @@ int occupancy_tc(int hd, int hd_v, int bq, int bk, int split, int* out) {
 
 extern "C" {
 
-// hd: the width of q and k; hd_v: of v and o (equal, or 192 and 128).
+// hd: the width of q and k; hd_v: of v and o (equal, or 192 and 128);
+// window: the keys a query sees up to its own position, 0 for all of them.
 int remop_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, int b, int h, int kv, int s,
                                int t, int hd, int bq, int bk, float scale, int hd_v,
-                               void* stream) {
+                               int window, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk,
-                                 scale, hd_v, stream);
+                                 scale, hd_v, window, stream);
 }
 
 int remop_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                               const long long* strides, int b, int h, int kv, int s,
                               int t, int hd, int bq, int bk, float scale, int hd_v,
-                              void* stream) {
+                              int window, void* stream) {
   return dispatch<float>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, hd_v,
-                         stream);
+                         window, stream);
 }
 
 // bf16 on the tensor cores ((hd, hd_v) (64, 64), (128, 128), (256, 256) or
@@ -703,9 +722,9 @@ int remop_flash_attention_f32(const void* q, const void* k, const void* v, void*
 int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                              const long long* strides, int b, int h, int kv, int s, int t,
                              int hd, int bq, int bk, float scale, int split, int hd_v,
-                             void* stream) {
+                             int window, void* stream) {
   return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
-                   stream);
+                   window, stream);
 }
 
 // Occupancy of the tensor-core instantiation these blocks launch, into

@@ -7,9 +7,13 @@ The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 head ``h // (H / KV)``, causal with the query positions offset by ``T - S``,
 an online softmax in f32 over KV blocks of ``bk`` positions, scores scaled by
 ``scale`` (by default ``1 / sqrt(hd)``), fully masked blocks skipped, output
-``[B, H, S, hd_v]`` in q's dtype.  ``hd_v`` equals ``hd`` except at the
-pair (192, 128), MLA's prefill (128 nope + 64 rope columns of q and k,
-values of 128).  Unlike the TPU kernel it takes any ``S <= T`` (rows and
+``[B, H, S, hd_v]`` in q's dtype.  With ``window = W > 0`` a query at
+position ``q`` sees the keys ``q - W + 1 .. q`` (``repro``'s local attention,
+``full_attention(window=W)``, which the TPU kernel does not compute): the
+KV loop starts at the first block the query block's first row can see, so
+the work follows the visible pairs; ``window = 0`` is causal only.  ``hd_v``
+equals ``hd`` except at the pair (192, 128), MLA's prefill (128 nope + 64
+rope columns of q and k, values of 128).  Unlike the TPU kernel it takes any ``S <= T`` (rows and
 columns past the ends are masked) and any strides with a contiguous last
 dimension, so the model hands it ``[B, S, H, hd]`` activations as
 transposed views and gets its output back in the same layout.
@@ -30,7 +34,8 @@ blocks it refuses raise, and so does a failed build, encode or launch.
 ``runtime.launches`` counts every launch under ``"flash_attention"`` and
 under the route's own name, ``"flash_attention_tc"`` or
 ``"flash_attention_simt"``; a launch at unequal widths also counts under
-``"flash_attention_<route>_<hd>x<hd_v>"``.
+``"flash_attention_<route>_<hd>x<hd_v>"``, a windowed launch under
+``"flash_attention_windowed"``.
 
 Beside the wrapper is its plain PyTorch version, the same online softmax
 over the same KV blocks; a CPU tensor takes it, a CUDA tensor launches the
@@ -121,12 +126,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"q, k, v must share one dtype of {sorted(map(str, _DTYPES))}")
 
 
+def first_block(q_pos: int, window: int, bk: int) -> int:
+    """The first KV block of ``bk`` positions a query at ``q_pos`` can see
+    (0 without a window), the kernels' ``j0`` for a query block's first row."""
+    return max(0, q_pos - window + 1) // bk if window else 0
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bk: int = MAX_BLOCK, scale: float | None = None) -> torch.Tensor:
+                          bk: int = MAX_BLOCK, scale: float | None = None,
+                          window: int = 0) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: online softmax over KV blocks of ``bk``.
 
-    All query rows take every block; a block the kernel skips is fully
-    masked for the rows it would skip it for, and adds exactly 0 there.
+    All query rows take every block from the first row's first visible one
+    on; a block the kernel skips is fully masked for the rows it would skip
+    it for, and adds exactly 0 there: before a row's first live key its m
+    stays ``NEG_INF`` (each masked p is ``exp(0) = 1``), and the first live
+    key's correction ``exp(NEG_INF - m)`` is exactly 0.
     """
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
@@ -136,12 +151,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, kv, h // kv, s, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kv, h // kv, s, hd_v), device=q.device)
-    for k0 in range(0, t, bk):
+    for k0 in range(first_block(t - s, window, bk) * bk, t, bk):
         kb = k[:, :, k0:k0 + bk].float()
         vb = v[:, :, k0:k0 + bk].float()
         sc = torch.einsum("bkgsd,bktd->bkgst", qf, kb) * scale
         k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-        sc = sc.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+        hidden = q_pos[:, None] < k_pos[None, :]
+        if window:
+            hidden |= q_pos[:, None] - k_pos[None, :] >= window
+        sc = sc.masked_fill(hidden, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
         corr = torch.exp(m - m_new)
@@ -166,9 +184,11 @@ def _empty_out(q: torch.Tensor, hd_v: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = MAX_BLOCK, bk: int = MAX_BLOCK,
-                    split_p: bool = True, scale: float | None = None) -> torch.Tensor:
+                    split_p: bool = True, scale: float | None = None,
+                    window: int = 0) -> torch.Tensor:
     """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
-    offset T - S; scores scaled by ``scale`` (default ``1 / sqrt(hd)``).
+    offset T - S, and with ``window > 0`` only the last ``window`` keys up to
+    each query's position; scores scaled by ``scale`` (default ``1 / sqrt(hd)``).
 
     ``bq, bk`` must suit the call's :func:`route` (:func:`check_blocks`);
     on a CUDA tensor ``(hd, hd_v)`` must also lie in ``HEAD_PAIRS``.  The
@@ -186,8 +206,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_blocks(path, bq, bk, hd, hd_v)
     if not split_p and path != "tc":
         raise ValueError("split_p=False exists on the tensor-core route only")
+    if window < 0:
+        raise ValueError(f"window={window} must be 0 (causal only) or positive")
     if runtime.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, bk, scale)
+        return flash_attention_plain(q, k, v, bk, scale, window)
     if (hd, hd_v) not in HEAD_PAIRS:
         raise ValueError(f"head_dim {hd} with value width {hd_v} not in {HEAD_PAIRS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
@@ -201,15 +223,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, kv, s, t, hd, bq, bk, scale)
     with torch.cuda.device(q.device):
         if path == "tc":
-            err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, runtime.stream_of(q))
+            err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, window,
+                                               runtime.stream_of(q))
         else:
             err = getattr(lib, f"remop_flash_attention_{_DTYPES[q.dtype]}")(
-                *args, hd_v, runtime.stream_of(q))
+                *args, hd_v, window, runtime.stream_of(q))
     runtime.check("flash_attention", "flash_attention", err)
     runtime.launches["flash_attention"] += 1
     runtime.launches[f"flash_attention_{path}"] += 1
     if hd_v != hd:
         runtime.launches[f"flash_attention_{path}_{hd}x{hd_v}"] += 1
+    if window:
+        runtime.launches["flash_attention_windowed"] += 1
     return out
 
 

@@ -67,9 +67,12 @@ def plan_blocks(s: int, t: int, hd: int, dtype_bytes: int = 2,
 def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bq: Optional[int] = None,
                           bk: Optional[int] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          window: int = 0) -> torch.Tensor:
     """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
-    offset T - S; ``scale`` defaults to ``1 / sqrt(hd)``.
+    offset T - S, and with ``window > 0`` each query sees its last ``window``
+    keys only; ``scale`` defaults to ``1 / sqrt(hd)``.  Blocks are planned as
+    without a window, as ``repro``'s planner has none.
 
     Blocks not given are planned for the route the call takes; on the
     CUDA-core route they are cut to S and T (its threads cover bq x bk).
@@ -82,4 +85,4 @@ def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bq, bk = bq or pbq, bk or pbk
     if path == "simt":
         bq, bk = min(bq, s), min(bk, t)
-    return flash_attention(q, k, v, bq=bq, bk=bk, scale=scale)
+    return flash_attention(q, k, v, bq=bq, bk=bk, scale=scale, window=window)

@@ -1,12 +1,14 @@
 """Serving driver: greedy decoding with continuous batching.
 
 ``python -m repro_torch.launch.serve --arch gemma-2b --no-reduced`` (or
-``--arch mamba2-370m``, ``--arch granite-moe-3b-a800m``) serves the
-full-width model on ``cuda:0`` (the default device; it raises without a
-card); ``--device cpu`` runs the kernels' plain versions at the default
-reduced size.  A Mamba-2 prompt is
-at most one chunk or a multiple of it (``--prompt-len``).  Weights are random, drawn from a ``torch.Generator`` seeded
-with ``--seed`` on the serving device.
+``--arch mamba2-370m``, ``granite-moe-3b-a800m``, ``deepseek-v2-lite-16b``,
+``recurrentgemma-2b``) serves the full-width model on ``cuda:0`` (the
+default device; it raises without a card); ``--device cpu`` runs the
+kernels' plain versions at the default reduced size.  A Mamba-2 prompt is
+at most one chunk or a multiple of it (``--prompt-len``); a recurrentgemma
+prompt may exceed its window (2048, reduced 32), the local-attention
+caches being rings of the window's length.  Weights are random, drawn from a
+``torch.Generator`` seeded with ``--seed`` on the serving device.
 """
 
 from __future__ import annotations

@@ -13,6 +13,18 @@ Decode writes the new K/V row into the caller's cache in place (slot
 ``min(pos, S - 1)``, as JAX's ``dynamic_update_slice`` writes it), which
 saves copying the cache every step.
 
+Local attention (``window = W > 0``, recurrentgemma's ``"attn_local"``
+blocks): the prefill passes ``window`` to the flash kernel, so a query at
+position ``q`` sees keys ``q - W + 1 .. q``; the decode cache is a ring of
+``W`` slots, position ``pos`` written at slot ``pos % W``
+(:func:`cache_slot`).  The ring then holds exactly the positions ``pos - W
++ 1 .. pos``, every one inside the window, in slots ``0 .. min(pos + 1, W)
+- 1`` (:func:`cache_length`); softmax does not depend on the slots' order,
+so the paged kernel reads the ring as it reads any cache.  Only the callers
+decide the window: ``cfg.window`` is ``repro``'s setting for its
+``"attn_local"`` blocks and is ignored here, as ``repro``'s dense, MoE and
+MLA blocks ignore it.
+
 MLA (multi-head latent attention, DeepSeek-V2) keeps ``repro``'s parameter
 names and math: one shared rope head, prefill through the flash kernel at
 q/k width ``nope + rope`` (192) and v width ``v_head_dim`` (128), and the
@@ -26,9 +38,8 @@ attention (projections, the absorption of ``W_uk`` and ``W_uv``) are
 latent route scores and weighs in f32 and rounds the context once; ``repro``
 rounds the two score terms and P to bf16, so they agree to bf16 precision.
 
-Windowed (ring) caches, logit softcap, int8 KV quantization,
-cross-attention and prefix-LM masks raise ``NotImplementedError`` naming the
-slice they wait for.
+Logit softcap, int8 KV quantization, cross-attention and prefix-LM masks
+raise ``NotImplementedError`` naming the slice they wait for.
 """
 
 from __future__ import annotations
@@ -49,10 +60,7 @@ from repro_torch.models.layers import (
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _unsupported(cfg: ModelConfig, window: int) -> None:
-    if window or cfg.window:
-        raise NotImplementedError("windowed (ring-cache) attention: later slice "
-                                  "(recurrentgemma serving)")
+def _unsupported(cfg: ModelConfig) -> None:
     if cfg.attn_softcap:
         raise NotImplementedError("attention logit softcap: later slice")
     if cfg.attn_type not in ("gqa", "mla"):
@@ -89,12 +97,14 @@ def _gqa_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
 def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                 window: int = 0, mask_pos: Optional[torch.Tensor] = None,
                 xa: Optional[torch.Tensor] = None, return_kv: bool = False):
-    """Causal self-attention over the whole sequence (positions 0 .. S-1).
+    """Causal self-attention over the whole sequence (positions 0 .. S-1),
+    with ``window > 0`` over each query's last ``window`` keys.
 
     x: [B, S, d] -> [B, S, d]; with ``return_kv`` also (k, v), each
-    [B, S, KV, hd], the cache that :func:`gqa_decode` continues.
+    [B, S, KV, hd], from which :func:`gqa_decode` continues (a windowed
+    caller packs them into a ring first).
     """
-    _unsupported(cfg, window)
+    _unsupported(cfg)
     if xa is not None:
         raise NotImplementedError("cross-attention: later slice (enc-dec, seamless)")
     if mask_pos is not None:
@@ -103,17 +113,32 @@ def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     q, k, v = _gqa_qkv(p, cfg, x, positions)
     # [B, S, heads, hd] viewed as the kernel's [B, heads, S, hd]; the output
     # comes back in q's memory layout, so the reshape below is free.
-    out = remop_flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    out = remop_flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                window=window)
     out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim))
     return (out, (k, v)) if return_kv else out
 
 
+def cache_slot(pos: int, size: int, window: int) -> int:
+    """The slot decode writes position ``pos`` to in a cache of ``size``
+    slots: ``pos % size`` in a ring (``window > 0``), else ``min(pos, size -
+    1)``, as ``repro``'s ``gqa_decode`` writes it."""
+    return pos % size if window else min(pos, size - 1)
+
+
+def cache_length(pos: int, size: int) -> int:
+    """The slots ``0 .. n - 1`` the step at ``pos`` attends to, after its own
+    row is written: ``min(pos + 1, size)``, in a ring as in a linear cache."""
+    return min(pos + 1, size)
+
+
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos: int,
                window: int = 0):
-    """One-token decode. x: [B, 1, d]; cache (k, v): [B, S, KV, hd]; ``pos``
-    is the step's position.  Returns (out [B, 1, d], cache) with the cache
-    written in place."""
-    _unsupported(cfg, window)
+    """One-token decode. x: [B, 1, d]; cache (k, v): [B, S, KV, hd], a ring
+    of ``S = window`` slots when ``window > 0``; ``pos`` is the step's
+    position.  Returns (out [B, 1, d], cache) with the cache written in
+    place."""
+    _unsupported(cfg)
     if len(cache) != 2:
         raise NotImplementedError("int8 KV cache: later slice")
     b = x.shape[0]
@@ -122,10 +147,13 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos
     q, k_t, v_t = _gqa_qkv(p, cfg, x, positions)
     ck, cv = cache
     s_cache = ck.shape[1]
-    slot = min(pos, s_cache - 1)
+    if window and s_cache != window:
+        raise ValueError(f"a windowed decode takes a ring of {window} slots, got {s_cache}")
+    slot = cache_slot(pos, s_cache, window)
     ck[:, slot] = k_t[:, 0].to(ck.dtype)
     cv[:, slot] = v_t[:, 0].to(cv.dtype)
-    lengths = torch.full((b,), min(pos + 1, s_cache), dtype=torch.int32, device=x.device)
+    lengths = torch.full((b,), cache_length(pos, s_cache), dtype=torch.int32,
+                         device=x.device)
     out = remop_paged_attention(q.view(b, kv, h // kv, hd), ck, cv, lengths)
     return dense(p["wo"], out.view(b, 1, h * hd)), (ck, cv)
 
@@ -134,6 +162,23 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int, window: int = 0):
     # Ring caches are always window-sized (slots = pos % window).
     s = window if window else seq
     return (batch, s, cfg.n_kv_heads, cfg.head_dim)
+
+
+def ring_pack(kv: KVCache, positions: torch.Tensor, window: int) -> KVCache:
+    """``repro``'s ``_ring_pack``: the last ``min(window, S)`` positions of
+    (k, v) [B, S, KV, hd] at slots ``pos % window`` of new ``[B, window, KV,
+    hd]`` rings (zeros elsewhere); ``positions`` [B, S], shared across the
+    batch."""
+    k, v = kv
+    w = min(window, k.shape[1])
+    slots = (positions[0, k.shape[1] - w:] % window).long()
+
+    def pack(a):
+        ring = a.new_zeros((a.shape[0], window) + tuple(a.shape[2:]))
+        ring[:, slots] = a[:, a.shape[1] - w:]
+        return ring
+
+    return pack(k), pack(v)
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +260,8 @@ def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     ``return_cache`` also the cache ``(c_kv, k_rope)`` that :func:`mla_decode`
     continues.  Per-head K is ``c_kv W_uk`` beside the shared rope head, V
     is ``c_kv W_uv``; the flash kernel attends at widths 192 / 128 with the
-    scale ``1 / sqrt(nope + rope)``."""
-    _unsupported(cfg, 0)
+    scale ``1 / sqrt(nope + rope)``.  ``cfg.window`` is ignored, as in ``repro``."""
+    _unsupported(cfg)
     b, s, _ = x.shape
     h, nope, rope_d, v_hd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
@@ -237,8 +282,9 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos
     """Absorbed-weight decode over the compressed cache. x: [B, 1, d]; cache
     ``(c_kv [B, S, lora], k_rope [B, S, rope])`` as :func:`mla_cache` makes
     it; ``pos`` is the step's position.  Returns (out [B, 1, d], cache) with
-    the new row written in place, at slot ``min(pos, S - 1)``."""
-    _unsupported(cfg, 0)
+    the new row written in place, at slot ``min(pos, S - 1)``.  ``cfg.window``
+    is ignored, as in ``repro``."""
+    _unsupported(cfg)
     b = x.shape[0]
     h, nope, rope_d, v_hd, lora = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                                    cfg.v_head_dim, cfg.kv_lora_rank)
@@ -247,14 +293,14 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos
     c_t, kr_t = _mla_ckv(p, cfg, x, positions)
     latent = mla_latent(cache)
     s_cache = latent.shape[1]
-    slot = min(pos, s_cache - 1)
+    slot = cache_slot(pos, s_cache, 0)
     latent[:, slot, :lora] = c_t[:, 0].to(latent.dtype)
     latent[:, slot, lora:] = kr_t[:, 0].to(latent.dtype)
     # Absorb W_uk into q: q_abs[b, h, l] = sum_n q_nope[b, h, n] W_uk[l, (h, n)].
     w_uk = p["w_uk"]["w"].to(x.dtype).view(lora, h, nope)
     q_abs = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], w_uk)
     q_lat = torch.cat([q_abs, q_rope[:, 0].to(q_abs.dtype)], dim=-1)  # [B, H, lora + rope]
-    lengths = torch.full((b,), min(pos + 1, s_cache), dtype=torch.int32, device=x.device)
+    lengths = torch.full((b,), cache_length(pos, s_cache), dtype=torch.int32, device=x.device)
     ctx = remop_latent_decode(q_lat, latent.to(x.dtype), lengths,
                               scale=1.0 / math.sqrt(nope + rope_d), v_dim=lora)
     w_uv = p["w_uv"]["w"].to(x.dtype).view(lora, h, v_hd)

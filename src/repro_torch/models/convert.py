@@ -1,20 +1,25 @@
 """Carry a parameter tree of the JAX package's ``init_params`` over to the port.
 
-The JAX tree of a dense decoder is ``{"embed": {"table"}, "final_norm":
-{"scale"}, "seg0": {"b0_attn": {...}}}`` (``"b0_ssm"`` for Mamba-2,
-``"b0_moe"`` for an MoE decoder, whose ``first_k_dense`` dense blocks come
-first as ``seg0: {"b0_attn"}`` and its MoE blocks then as ``seg1:
-{"b0_moe"}``; with MLA attention the blocks are ``"b0_mla"`` and
-``"b0_mla_moe"``, as deepseek-v2-lite's) with every leaf of a segment
-stacked over its layers; the
-port's is the same tree with the stacks split into one ``"layers"`` list.
-Leaves arrive as numpy arrays (the caller converts them with
-``np.asarray``), so this module needs nothing of JAX.  Matrices (the SSM's
-``w_in``, ``w_out`` and conv weights, the MoE router and experts among them)
-become bf16: JAX casts each f32 master matrix to the bf16 activations per
-call, which computes the same products.  Norm scales and the SSM's
-``a_log``, ``dt_bias`` and ``d_skip`` stay f32, as JAX uses them in f32
-arithmetic.
+The JAX tree holds one entry per segment of ``repro``'s ``stack_plan``
+(:func:`~repro_torch.models.transformer.stack_plan`): ``{"embed":
+{"table"}, "final_norm": {"scale"}, "seg0": {"b0_attn": {...}}, ...}``, a
+segment holding one block per kind of its scan group (``"b{i}_{kind}"``)
+with every leaf stacked over the segment's repeats.  A dense decoder is
+``seg0: {"b0_attn"}`` (``"b0_mla"`` with MLA), Mamba-2 ``seg0: {"b0_ssm"}``,
+an MoE decoder ``seg0: {"b0_attn"}`` for its ``first_k_dense`` dense blocks
+and then ``seg1: {"b0_moe"}`` (``"b0_mla"`` and ``"b0_mla_moe"`` for
+deepseek-v2-lite), and recurrentgemma's hybrid ``seg0: {"b0_rec", "b1_rec",
+"b2_attn_local"}`` repeated 8 times, then ``seg1: {"b0_rec"}`` twice.  The
+port's tree is the same with the stacks split into one ``"layers"`` list in
+``repro``'s layer order: repeat ``l`` of a segment gives its blocks' layer
+``l`` in block order (``b0_rec[l], b1_rec[l], b2_attn_local[l]``), then the
+next repeat, then the next segment.  Leaves arrive as numpy arrays (the
+caller converts them with ``np.asarray``), so this module needs nothing of
+JAX.  Matrices (the SSM's and RG-LRU's projections and conv weights, the MoE
+router and experts among them) become bf16: JAX casts each f32 master
+matrix to the bf16 activations per call, which computes the same products.
+Norm scales, the SSM's ``a_log``, ``dt_bias`` and ``d_skip`` and the
+RG-LRU's ``a_param`` stay f32, as JAX uses them in f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -27,10 +32,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.layers import WEIGHT_DTYPE
-from repro_torch.models.transformer import Params, check_supported
+from repro_torch.models.transformer import Params, check_supported, stack_plan
 
 
-F32_LEAVES = ("scale", "a_log", "dt_bias", "d_skip")
+F32_LEAVES = ("scale", "a_log", "dt_bias", "d_skip", "a_param")
 
 
 def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -49,16 +54,9 @@ def _tree(tree: Mapping[str, Any], device: torch.device, layer: int | None = Non
 
 
 def _segments(cfg: ModelConfig):
-    """(segment, block, layers) of ``repro``'s ``stack_plan`` for ``cfg``."""
-    if cfg.family == "ssm":
-        return [("seg0", "b0_ssm", cfg.n_layers)]
-    dense = "b0_mla" if cfg.attn_type == "mla" else "b0_attn"
-    if cfg.family != "moe":
-        return [("seg0", dense, cfg.n_layers)]
-    segs = [("seg0", dense, cfg.first_k_dense)] if cfg.first_k_dense else []
-    moe = "b0_mla_moe" if cfg.attn_type == "mla" else "b0_moe"
-    segs.append((f"seg{len(segs)}", moe, cfg.n_layers - cfg.first_k_dense))
-    return segs
+    """(segment, block names, repeats) of ``repro``'s ``stack_plan`` for ``cfg``."""
+    return [(f"seg{j}", tuple(f"b{i}_{kind}" for i, kind in enumerate(kinds)), repeats)
+            for j, (kinds, repeats) in enumerate(stack_plan(cfg))]
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> Params:
@@ -69,14 +67,14 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> P
     check_supported(cfg)
     device = resolve_device(device)
     segs = _segments(cfg)
-    want = {seg: {block} for seg, block, _ in segs}
+    want = {seg: set(blocks) for seg, blocks, _ in segs}
     got = {seg: set(sub) for seg, sub in tree.items() if seg.startswith("seg")}
     if set(tree) != {"embed", "final_norm", *want} or got != want:
         raise ValueError(f"not the tree of {cfg.name}: {sorted(tree)}, segments "
                          f"{ {k: sorted(v) for k, v in got.items()} }; expected "
                          f"{ {k: sorted(v) for k, v in want.items()} }")
     layers = [_tree(tree[seg][block], device, layer)
-              for seg, block, n in segs for layer in range(n)]
+              for seg, blocks, n in segs for layer in range(n) for block in blocks]
     return {
         "embed": _tree(tree["embed"], device),
         "final_norm": _tree(tree["final_norm"], device),

@@ -1,24 +1,34 @@
-"""The decoder LM: a stack of ``"attn"`` blocks (dense decoder), of
-``"moe"`` blocks after ``first_k_dense`` ``"attn"`` blocks (MoE decoder), or
-of ``"ssm"`` blocks (Mamba-2); with MLA attention (``attn_type == "mla"``)
-the kinds are ``repro``'s ``"mla"`` and ``"mla_moe"`` (deepseek-v2-lite: one
-dense ``"mla"`` block, then ``"mla_moe"`` blocks): init, forward, prefill,
-decode.
+"""The decoder LM: init, forward, prefill, decode for every family the port
+serves, each layer a block of one of ``repro``'s kinds:
 
-The JAX package's ``models/transformer.py`` assembles every family and
-scans over layer-stacked parameters; here the layers are a Python list and
-the loop is a Python loop (PyTorch runs eagerly).  The parameter tree is
-JAX's with the layer stack split: ``{"embed": {"table"}, "final_norm":
-{"scale"}, "layers": [...]}``, each layer ``{"norm1", "attn", "norm2",
-"mlp"}``, ``{"norm1", "attn", "norm2", "moe"}`` or ``{"norm1", "ssm"}`` (no
-FFN half); an MLA layer's ``"attn"`` holds ``init_mla``'s weights.  Caches
-are a list with one pair per layer: ``(k, v)``, each ``[B, S, KV, hd]``,
-MLA's ``(c_kv [B, S, lora], k_rope [B, S, rope])`` as views of one ``[B, S,
-lora + rope]`` buffer, or the SSM's ``(conv [B, W-1, C] bf16, state [B, H,
-P, N] f32)``, which has no sequence axis.
+- dense decoder: ``"attn"`` blocks (GQA), or ``"mla"`` with MLA attention
+  (``attn_type == "mla"``);
+- MoE decoder: ``first_k_dense`` dense blocks, then ``"moe"`` blocks
+  (``"mla_moe"`` with MLA: deepseek-v2-lite);
+- Mamba-2: ``"ssm"`` blocks;
+- hybrid (recurrentgemma): ``block_pattern`` repeated, by default ``("rec",
+  "rec", "attn_local")``; ``"rec"`` is an RG-LRU block (``models/rglru.py``),
+  ``"attn_local"`` a GQA block whose attention sees the last ``cfg.window``
+  keys and whose decode cache is a ring of ``cfg.window`` slots.
 
-Other families (hybrid, VLM, enc-dec) raise ``NotImplementedError``: they
-wait for later slices.
+The JAX package's ``models/transformer.py`` assembles the families and
+scans over layer-stacked parameters, one scan per segment of its
+``stack_plan`` (:func:`stack_plan` here); here the layers are a Python list
+in ``repro``'s layer order (:func:`layer_kinds`) and the loop is a Python
+loop (PyTorch runs eagerly).  The parameter tree is JAX's with the stacks
+split: ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [...]}``,
+each layer ``{"norm1", "attn", "norm2", "mlp"}``, ``{"norm1", "attn",
+"norm2", "moe"}``, ``{"norm1", "ssm"}`` (no FFN half) or ``{"norm1", "rec",
+"norm2", "mlp"}``; an MLA layer's ``"attn"`` holds ``init_mla``'s weights.
+Caches are a list with one pair per layer: ``(k, v)``, each ``[B, S, KV,
+hd]`` (a ring ``[B, window, KV, hd]`` for ``"attn_local"``), MLA's ``(c_kv
+[B, S, lora], k_rope [B, S, rope])`` as views of one ``[B, S, lora + rope]``
+buffer, the SSM's ``(conv [B, W-1, C] bf16, state [B, H, P, N] f32)`` or the
+RG-LRU's ``(conv [B, W-1, lru] bf16, h [B, lru] f32)``; only the plain
+``(k, v)`` and MLA caches have a sequence axis that :func:`pad_caches` grows.
+
+Other families (VLM, enc-dec) raise ``NotImplementedError``: they wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
@@ -39,25 +50,25 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
+# A segment of repro's stack_plan: (the block kinds of one scan group, repeats).
+Segment = Tuple[Tuple[str, ...], int]
+HYBRID_PATTERN = ("rec", "rec", "attn_local")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense or MoE decoder of full GQA or MLA
-    attention blocks or a Mamba-2 stack."""
-    if cfg.family == "ssm":
-        return
-    if (cfg.family not in ("dense", "moe") or cfg.attn_type not in ("gqa", "mla")
-            or cfg.n_encoder_layers):
+    """Raise unless ``cfg`` is a dense or MoE decoder of GQA or MLA attention
+    blocks, a Mamba-2 stack or a hybrid of RG-LRU and attention blocks."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.n_encoder_layers
+            or (cfg.family in ("dense", "moe") and cfg.attn_type not in ("gqa", "mla"))):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later "
-            "slice; the port serves the dense and MoE decoders (GQA or MLA) and Mamba-2")
-    if cfg.window or cfg.attn_softcap:
-        raise NotImplementedError(f"{cfg.name}: windowed/softcapped attention: later slice")
-
-
-# ===========================================================================
-# Init
-# ===========================================================================
+            f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later slice; "
+            "the port serves the dense and MoE decoders (GQA or MLA), Mamba-2 and the "
+            "RG-LRU hybrid")
+    if cfg.family == "hybrid" and not set(cfg.block_pattern or HYBRID_PATTERN) <= {
+            "rec", "attn", "attn_local"}:
+        raise NotImplementedError(f"{cfg.name}: hybrid pattern {cfg.block_pattern}")
+    if cfg.attn_softcap:
+        raise NotImplementedError(f"{cfg.name}: attention logit softcap: later slice")
 
 
 def is_moe_layer(cfg: ModelConfig, layer: int) -> bool:
@@ -71,18 +82,55 @@ def is_mla(cfg: ModelConfig) -> bool:
     return cfg.attn_type == "mla"
 
 
-def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device,
-               layer: int = 0) -> Params:
+def stack_plan(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    """``repro``'s ``stack_plan``: the layers as segments of ``(kinds,
+    repeats)``, each repeat one layer per kind, in order."""
+    if cfg.family == "moe":
+        dense_kind, kind = ("mla", "mla_moe") if is_mla(cfg) else ("attn", "moe")
+        segs = [((dense_kind,), cfg.first_k_dense)] if cfg.first_k_dense else []
+        return tuple(segs + [((kind,), cfg.n_layers - cfg.first_k_dense)])
     if cfg.family == "ssm":
-        return {"norm1": init_rmsnorm(cfg.d_model, device),
-                "ssm": ssm_mod.init_ssm(cfg, generator, device)}
-    init_attn = attn.init_mla if is_mla(cfg) else attn.init_gqa
-    p = {
-        "norm1": init_rmsnorm(cfg.d_model, device),
-        "attn": init_attn(cfg, generator, device),
-        "norm2": init_rmsnorm(cfg.d_model, device),
-    }
-    if is_moe_layer(cfg, layer):
+        return ((("ssm",), cfg.n_layers),)
+    if cfg.family == "hybrid":
+        pat = tuple(cfg.block_pattern or HYBRID_PATTERN)
+        n_groups, rem = divmod(cfg.n_layers, len(pat))
+        segs = [(pat, n_groups)] if n_groups else []
+        head = pat[:rem]
+        if len(set(head)) == 1:
+            segs.append(((head[0],), rem))
+        else:
+            segs.extend(((kind,), 1) for kind in head)
+        return tuple(segs)
+    return ((("mla",) if is_mla(cfg) else ("attn",), cfg.n_layers),)
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of every layer, in ``repro``'s layer order."""
+    return [kind for kinds, repeats in stack_plan(cfg) for _ in range(repeats) for kind in kinds]
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.window if kind == "attn_local" else 0
+
+
+# ===========================================================================
+# Init
+# ===========================================================================
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.device,
+               kind: str) -> Params:
+    p = {"norm1": init_rmsnorm(cfg.d_model, device)}
+    if kind == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(cfg, generator, device)
+        return p
+    if kind == "rec":
+        p["rec"] = rec_mod.init_rglru(cfg, generator, device)
+    else:
+        init_attn = attn.init_mla if kind in ("mla", "mla_moe") else attn.init_gqa
+        p["attn"] = init_attn(cfg, generator, device)
+    p["norm2"] = init_rmsnorm(cfg.d_model, device)
+    if kind in ("moe", "mla_moe"):
         p["moe"] = moe_mod.init_moe(cfg, generator, device)
     else:
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, generator, device, cfg.mlp_type)
@@ -91,9 +139,10 @@ def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.devic
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
-    """Random weights: matrices in bf16, norm scales in f32, on ``device``
-    (``cuda:0`` unless ``"cpu"`` is passed).  ``generator`` must live on
-    that device; the default is one seeded with 0."""
+    """Random weights: matrices in bf16, norm scales (and the RG-LRU's
+    ``a_param``) in f32, on ``device`` (``cuda:0`` unless ``"cpu"`` is
+    passed).  ``generator`` must live on that device; the default is one
+    seeded with 0."""
     check_supported(cfg)
     device = resolve_device(device)
     if generator is None:
@@ -101,7 +150,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return {
         "embed": init_embedding(cfg.vocab_size, cfg.d_model, generator, device),
         "final_norm": init_rmsnorm(cfg.d_model, device),
-        "layers": [init_block(cfg, generator, device, i) for i in range(cfg.n_layers)],
+        "layers": [init_block(cfg, generator, device, kind) for kind in layer_kinds(cfg)],
     }
 
 
@@ -119,36 +168,49 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor):
     return x + mlp(p["mlp"], h, cfg.mlp_type), None
 
 
-def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                  want_cache: bool = False):
+def block_forward(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                  positions: torch.Tensor, want_cache: bool = False):
     """Returns (x_out, cache or None, aux_loss or None): the cache is ``(k,
-    v)``, or ``(conv, state)`` for SSM; only an MoE block has an aux loss."""
+    v)`` (packed into a ring for ``"attn_local"``), MLA's pair, or ``(conv,
+    state)`` / ``(conv, h)`` for SSM / RG-LRU; only an MoE block has an aux
+    loss."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if "ssm" in p:
+    if kind == "ssm":
         out = ssm_mod.ssd_forward(p["ssm"], cfg, h, return_state=want_cache)
         cache = None
         if want_cache:
             out, cache = out
         return x + out, cache, None
-    if is_mla(cfg):
+    window = _window(cfg, kind)
+    if kind == "rec":
+        out = rec_mod.rglru_forward(p["rec"], cfg, h, return_state=want_cache)
+    elif kind in ("mla", "mla_moe"):
         out = attn.mla_forward(p["attn"], cfg, h, positions, return_cache=want_cache)
     else:
-        out = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=want_cache)
+        out = attn.gqa_forward(p["attn"], cfg, h, positions, window=window,
+                               return_kv=want_cache)
     cache = None
     if want_cache:
         out, cache = out
+        if window:
+            cache = attn.ring_pack(cache, positions, window)
     x, aux = _ffn(p, cfg, x + out)
     return x, cache, aux
 
 
-def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache, pos: int):
-    """One token; an SSM block ignores ``pos`` (its state holds the past)."""
+def block_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor, cache, pos: int):
+    """One token; SSM and RG-LRU blocks ignore ``pos`` (their state holds
+    the past)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if "ssm" in p:
+    if kind == "ssm":
         out, cache = ssm_mod.ssd_decode(p["ssm"], cfg, h, cache)
         return x + out, cache
-    decode = attn.mla_decode if is_mla(cfg) else attn.gqa_decode
-    out, cache = decode(p["attn"], cfg, h, cache, pos)
+    if kind == "rec":
+        out, cache = rec_mod.rglru_decode(p["rec"], cfg, h, cache)
+    elif kind in ("mla", "mla_moe"):
+        out, cache = attn.mla_decode(p["attn"], cfg, h, cache, pos)
+    else:
+        out, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos, window=_window(cfg, kind))
     x, _ = _ffn(p, cfg, x + out)
     return x, cache
 
@@ -165,8 +227,8 @@ def _hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, want_cache: 
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     caches = []
     aux_total = torch.zeros((), device=x.device)
-    for layer in params["layers"]:
-        x, cache, aux = block_forward(layer, cfg, x, positions, want_cache)
+    for kind, layer in zip(layer_kinds(cfg), params["layers"]):
+        x, cache, aux = block_forward(layer, cfg, kind, x, positions, want_cache)
         caches.append(cache)
         if aux is not None:
             aux_total = aux_total + aux
@@ -205,8 +267,8 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.T
     check_supported(cfg)
     x = embed(params["embed"], token[:, None], scale_by_sqrt_dim=True)
     new_caches = []
-    for layer, cache in zip(params["layers"], caches):
-        x, cache = block_decode(layer, cfg, x, cache, pos)
+    for kind, layer, cache in zip(layer_kinds(cfg), params["layers"], caches):
+        x, cache = block_decode(layer, cfg, kind, x, cache, pos)
         new_caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0]
     logits = unembed(params["embed"], x, cfg.logit_softcap)
@@ -220,35 +282,45 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.T
 
 def cache_struct(cfg: ModelConfig, batch: int, seq: int,
                  dtype=torch.bfloat16) -> List[Tuple[Tuple[torch.Size, torch.dtype], ...]]:
-    """(shape, dtype) of each layer's (k, v), (c_kv, k_rope) for MLA or
-    (conv, state) for SSM, mirroring ``prefill``'s caches."""
+    """(shape, dtype) of each layer's cache, mirroring ``prefill``'s: (k, v)
+    (a ring of ``cfg.window`` slots for ``"attn_local"``), (c_kv, k_rope) for
+    MLA, (conv, state) for SSM, (conv, h) for RG-LRU."""
     check_supported(cfg)
-    if cfg.family == "ssm":
-        conv, state = ssm_mod.ssm_cache_shapes(cfg, batch)
-        return [((torch.Size(conv), dtype), (torch.Size(state), torch.float32))
-                for _ in range(cfg.n_layers)]
-    if is_mla(cfg):
-        c_sh, r_sh = attn.mla_cache_shapes(cfg, batch, seq)
-        return [((torch.Size(c_sh), dtype), (torch.Size(r_sh), dtype))
-                for _ in range(cfg.n_layers)]
-    spec = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq)), dtype)
-    return [(spec, spec) for _ in range(cfg.n_layers)]
+
+    def spec(kind):
+        if kind == "ssm":
+            conv, state = ssm_mod.ssm_cache_shapes(cfg, batch)
+            return (torch.Size(conv), dtype), (torch.Size(state), torch.float32)
+        if kind == "rec":
+            conv, h = rec_mod.rglru_cache_shapes(cfg, batch)
+            return (torch.Size(conv), dtype), (torch.Size(h), torch.float32)
+        if kind in ("mla", "mla_moe"):
+            c_sh, r_sh = attn.mla_cache_shapes(cfg, batch, seq)
+            return (torch.Size(c_sh), dtype), (torch.Size(r_sh), dtype)
+        kv = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq, _window(cfg, kind))), dtype)
+        return kv, kv
+
+    return [spec(kind) for kind in layer_kinds(cfg)]
 
 
 def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
     """Grow each KV cache's seq axis to ``target_len`` with zeros (decode
     headroom); an MLA cache grows its shared buffer, so its two views still
-    alias one buffer.  SSM caches are fixed-size and pass through untouched."""
-    if cfg.family == "ssm":
-        return caches
-    if is_mla(cfg):
-        return [attn.mla_pad(cache, target_len) for cache in caches]
+    alias one buffer.  Ring (windowed), SSM and RG-LRU caches are fixed-size
+    and pass through untouched."""
 
     def pad(a):
         return a if a.shape[1] >= target_len else F.pad(
             a, (0, 0, 0, 0, 0, target_len - a.shape[1]))
 
-    return [(pad(k), pad(v)) for k, v in caches]
+    def grown(kind, cache):
+        if kind in ("mla", "mla_moe"):
+            return attn.mla_pad(cache, target_len)
+        if kind in ("attn", "moe"):
+            return tuple(pad(a) for a in cache)
+        return cache
+
+    return [grown(kind, cache) for kind, cache in zip(layer_kinds(cfg), caches)]
 
 
 def param_count(params: Params) -> int:

@@ -152,13 +152,24 @@ def test_mla_cache_views_share_one_buffer():
 
 
 def test_unported_variants_still_raise_on_mla():
+    """A softcap still raises; ``cfg.window`` is ignored by MLA, as by
+    ``repro``'s ``mla_forward`` and ``mla_decode`` (only ``"attn_local"``
+    blocks apply it)."""
     _, cfg = _cfgs()
     p = attn.init_mla(cfg, torch.Generator().manual_seed(0), "cpu")
     x, positions = torch.zeros(1, 4, cfg.d_model), torch.arange(4)[None]
     with pytest.raises(NotImplementedError, match="softcap"):
         attn.mla_forward(p, dataclasses.replace(cfg, attn_softcap=50.0), x, positions)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        attn.mla_forward(p, dataclasses.replace(cfg, window=8), x, positions)
+    xr = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 12, cfg.d_model))
+                          .astype(np.float32))
+    pos12 = torch.arange(12)[None]
+    want, want_cache = attn.mla_forward(p, cfg, xr, pos12, return_cache=True)
+    got, got_cache = attn.mla_forward(p, dataclasses.replace(cfg, window=8), xr, pos12,
+                                      return_cache=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    stepped = [attn.mla_decode(p, c, xr[:, 11:], attn.mla_pad(got_cache, 16), 12)[0]
+               for c in (cfg, dataclasses.replace(cfg, window=8))]
+    torch.testing.assert_close(stepped[1], stepped[0], rtol=0, atol=0)
     cache = attn.mla_cache(torch.zeros(1, 8, cfg.kv_lora_rank),
                            torch.zeros(1, 8, cfg.rope_head_dim))
     with pytest.raises(NotImplementedError, match="softcap"):

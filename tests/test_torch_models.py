@@ -141,17 +141,27 @@ def test_gqa_forward_and_decode_match_jax(models):
 
 
 def test_unported_attention_variants_raise():
+    """Cross-attention, the attention softcap, VLM and enc-dec still raise.
+    A window is ported (recurrentgemma's local attention, held to ``repro``
+    in tests/test_torch_hybrid.py): ``gqa_forward(window=8)`` computes
+    ``repro``'s, and recurrentgemma initialises."""
     cfg = reduced(ARCHS["gemma-2b"])
     x, positions = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16), torch.zeros(1, 4)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        attn.gqa_forward({}, cfg, x, positions, window=8)
+    jcfg = jax_reduced(JAX_ARCHS["gemma-2b"])
+    jp = jattn.init_gqa(jax.random.key(5), jcfg)
+    p = {k: {"w": torch.from_numpy(np.array(v["w"])).to(torch.bfloat16)} for k, v in jp.items()}
+    jx, xs = _bf16(np.random.default_rng(5), 2, 20, cfg.d_model)
+    pos = np.broadcast_to(np.arange(20, dtype=np.int32), (2, 20))
+    _close(attn.gqa_forward(p, cfg, xs, torch.from_numpy(pos.copy()), window=8),
+           jattn.gqa_forward(jp, jcfg, jx, jnp.asarray(pos), window=8))
     with pytest.raises(NotImplementedError, match="cross-attention"):
         attn.gqa_forward({}, cfg, x, positions, xa=x)
     with pytest.raises(NotImplementedError, match="softcap"):
         attn.gqa_forward({}, reduced(ARCHS["gemma-2b"], attn_softcap=50.0), x, positions)
-    for arch in ("recurrentgemma-2b", "paligemma-3b", "seamless-m4t-large-v2"):
+    for arch in ("paligemma-3b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError):
             tf.init_params(reduced(ARCHS[arch]), device="cpu")
+    tf.init_params(reduced(ARCHS["recurrentgemma-2b"]), device="cpu")
 
 
 # -- the whole model ----------------------------------------------------------------

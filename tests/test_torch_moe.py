@@ -355,12 +355,19 @@ def test_prefill_and_teacher_forced_decode_match_jax(models, jax_routing):
 
 def test_mla_moe_still_waits_for_its_slice():
     # MLA-MoE is served now (tests/test_torch_mla.py); what MLA has not got,
-    # a logit softcap or a window, still waits.
+    # a logit softcap, still waits.  A window is ignored by its MLA and MoE
+    # blocks, as in repro: the model computes what it computes without one.
     tf.check_supported(reduced(ARCHS["deepseek-v2-lite-16b"]))
     with pytest.raises(NotImplementedError, match="softcap"):
         tf.check_supported(reduced(ARCHS["deepseek-v2-lite-16b"], attn_softcap=50.0))
-    with pytest.raises(NotImplementedError, match="windowed"):
-        tf.check_supported(reduced(ARCHS["deepseek-v2-lite-16b"], window=8))
+    windowed = reduced(ARCHS["deepseek-v2-lite-16b"], window=8)
+    tf.check_supported(windowed)
+    params = tf.init_params(windowed, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, windowed.vocab_size, (1, 12),
+                                                                dtype=np.int32))
+    logits = [tf.prefill(params, c, {"tokens": tokens})[0]
+              for c in (windowed, dataclasses.replace(windowed, window=0))]
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=0)
     tf.check_supported(ARCHS[ARCH])
     assert tf.is_moe_layer(dataclasses.replace(ARCHS[ARCH], first_k_dense=2), 2)
     assert not tf.is_moe_layer(dataclasses.replace(ARCHS[ARCH], first_k_dense=2), 1)
