@@ -121,6 +121,35 @@ Phases, each printing JSON objects, one per line:
    4096-token prefill and a decode step into attention kernels, the
    RG-LRU's scan and other elementwise work, products and the rest, and
    time both kernel routes beside their bounds and SDPA;
+5e. vlm: hold the flash kernel with a prefix (paligemma's ``[1, 8, P + L,
+   256]`` on one KV head at P 256 under text of 8, 200 and 512, P 1024, an
+   unaligned P 100) on both routes against its plain version under
+   ``ATTN_TOL``, on keys planted at P - 1 and P (both classes shown to
+   decide their rows) reject prefix P - 1 and P + 1 on both routes, show
+   prefix 0 (and 1) bit for bit the causal call; hold one paligemma
+   attention layer at full width to its plain path and its paged decode to
+   the forward (``VLM_LAYER_TOL``; a layer without the prefix rejected);
+   run paligemma-3b at full width and all 18 layers through ``prefill`` and
+   ``decode_step`` (4 requests of 256 patches and 8 to 512 text tokens, 32
+   greedy tokens each; every prefill layer through the flash kernel at
+   prefix 256 on the tensor cores, every decode layer through the paged
+   kernel), every request's last step against a prefill replay within
+   ``VLM_TOL``, a prefill and decode breakdown, and time the prefix kernel
+   beside its bound and SDPA with the prefix mask;
+5f. encdec: hold the flash kernel over every key (bidirectional at
+   seamless's ``[1, 16, T, 64]``, T 4096 and 2500; cross-attention from
+   decoder rows 1, 64, 300 onto 4096 and 200 encoder rows, S > T included)
+   on both routes against its plain version, reject a kernel without the
+   ``k >= T`` mask where T is no multiple of the block, hold the paged
+   kernel over cross caches of 4096 and 2500 rows at G 1, hd 64; hold one
+   encoder layer and one cross-attention at full width to their plain path
+   and the cross decode to the forward (``ENCDEC_LAYER_TOL``; a causal
+   encoder and a roped cross decode rejected); run seamless-m4t-large-v2 at
+   full width and all 48 layers (4 requests of 4096 to 333 frames and 1 to
+   64 decoder tokens, 32 greedy tokens each; 24 bidirectional, 24 causal and
+   24 cross flash launches a request, 48 paged launches a step), every
+   request's last step against a prefill replay within ``ENCDEC_TOL``, a
+   breakdown, and time both kernels beside their bounds and SDPA;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -313,6 +342,81 @@ HYBRID_LAYER_TOL = 5e-3
 # 2e-2, 7.7x the correct run's and 2.4x the CPU's 11-layer reading.
 HYBRID_TOL = {"hidden": 5e-2, "logits": 5e-2, "h": 5e-2, "ring": 2e-2}
 
+# paligemma-3b (prefix-LM VLM: 256 SigLIP patch embeddings of 1152 projected
+# in, the gemma-2b backbone, every position seeing the patches): 4 requests
+# of the 256 patches and text prompts of VLM_TEXT_LENS tokens, 32 greedy
+# tokens each, each request alone at batch 1 through prefill, pad_caches
+# and decode_step (ServeEngine takes no patches, as repro's does not).
+VLM_ARCH = "paligemma-3b"
+VLM_TEXT_LENS = (8, 64, 200, 512)
+VLM_MAX_LEN = 1024  # the decode caches: 256 patches + 512 + 32 tokens fit
+# jax.eval_shape of repro's init_params(paligemma-3b), counted.
+VLM_PARAMS = 2_511_022_080
+# The flash kernel's prefix checks, (P, text tokens) at paligemma's prefill
+# shape (8 query heads on one KV head of 256, S = T = P + text): its 256
+# patches under text of 8, 200 and 512; the 448-px variant's 1024 patches;
+# an unaligned P of 100.  bf16 on the tensor cores, f32 on the CUDA cores.
+PREFIX_CHECKS = ((256, 8), (256, 200), (256, 512), (1024, 200), (100, 512))
+PREFIX_EDGE_CHECKS = ((256, 200), (100, 512))  # keys planted at P - 1 and P
+# One paligemma attention layer at full width over 256 patches and 200 text
+# rows: the kernel path (the flash kernel at prefix 256) against the plain
+# path (flash_attention_plain on the same card tensors), row by row, and the
+# paged decode at VLM_LAYER_DECODE against the forward's rows.  Both paths
+# compute one function in f32 from the same bf16 inputs and round once, so
+# each row's relative L2 error is bf16 rounding.  Set before the first card
+# run: 1e-2, the hybrid layer check's first rule (it read 0-0.095% on the
+# card).  A planted fault drops the prefix (the causal mask only) and must
+# be rejected on every checked row before P / 2; a CPU rehearsal at full
+# width read 98-1242% there (and 4% at row 254, which loses one key of 256;
+# the CPU's kernel and plain paths are one function there, 0 apart).
+VLM_LAYER_TEXT = 200
+VLM_LAYER_ROWS = (0, 1, 17, 100, 127, 200, 254, 255, 256, 300, 455)
+VLM_LAYER_DECODE = (256, 300, 455)
+VLM_LAYER_TOL = 1e-2
+# Decode against a prefill replay of the same tokens, every request:
+# relative L2 error of the final hidden state and of the logits.  The
+# backbone is gemma-2b's at its depth (its check reads 1.4-1.5% on the card);
+# set before the first card run at the MoE and hybrid checks' first rule.
+VLM_TOL = {"hidden": 5e-2, "logits": 5e-2}
+
+# seamless-m4t-large-v2 (encoder-decoder: 24 bidirectional encoder layers
+# over frame embeddings of 1024, 24 decoder layers each with causal
+# self-attention and cross-attention): 4 requests of ENCDEC_FRAMES encoder
+# frames and ENCDEC_PROMPT_LENS decoder tokens, 32 greedy tokens each, each
+# request alone at batch 1 through prefill, pad_caches and decode_step.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_FRAMES = (4096, 2500, 1024, 333)
+ENCDEC_PROMPT_LENS = (1, 64, 17, 40)
+ENCDEC_MAX_LEN = 128  # the self caches: 64 + 32 tokens fit; cross caches stay T_enc
+# jax.eval_shape of repro's init_params(seamless-m4t-large-v2), counted.
+ENCDEC_PARAMS = 1_370_824_704
+# The flash kernel over every key: bidirectional at seamless's encoder
+# shape (16 heads on 16 KV heads of 64) at T 4096 and an unaligned 2500,
+# and cross-attention from decoder rows S onto T_enc encoder rows (S > T
+# at 300 over 200); the paged kernel over the cross cache at G 1, hd 64.
+BIDIR_CHECKS = (4096, 2500)
+CROSS_CHECKS = tuple((s, t) for t in (4096, 200) for s in (1, 64, 300))
+CROSS_SIMT_CHECKS = ((300, 200), (64, 4096))  # f32, on the CUDA cores
+CROSS_FAULT = (64, 200)  # where the dropped k >= T mask is planted: T % bk != 0
+CROSS_DECODE_LENGTHS = (4096, 2500)
+# One encoder layer over ENCDEC_LAYER_FRAMES frames and one decoder layer's
+# cross-attention from ENCDEC_LAYER_SEQ rows over as many encoder rows, at full
+# width: kernel path against plain path row by row, and cross_decode at
+# each of ENCDEC_LAYER_POSITIONS against the kernel forward's row.  Set
+# before the first card run as VLM_LAYER_TOL.  Planted faults: a causal
+# encoder (rejected on every checked row before T / 2) and a cross decode
+# that ropes q at the step's position (every position past 0); a CPU
+# rehearsal at full width read 99-3824% and 22-92% there, the correct paths
+# at most 0.11% apart (the plain path's blocks of 64 against the planned 128).
+ENCDEC_LAYER_FRAMES = 2500
+ENCDEC_LAYER_SEQ = 64
+ENCDEC_LAYER_ROWS = (0, 1, 100, 777, 1000, 1249, 2000, 2498, 2499)
+ENCDEC_LAYER_POSITIONS = (0, 1, 2, 31, 63)
+ENCDEC_LAYER_TOL = 1e-2
+# Decode against a prefill replay, every request, as VLM_TOL: 24 decoder
+# layers over an encoder output both paths share.
+ENCDEC_TOL = {"hidden": 5e-2, "logits": 5e-2}
+
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "merge_pass": "src/repro_torch/kernels/csrc/merge_sort.cu",
@@ -325,6 +429,9 @@ SOURCES = {
     "paged_attention_latent": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "flash_attention_windowed": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention_ring": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention_prefix": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_full": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention_cross": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -338,6 +445,9 @@ REPLACES = {
     "paged_attention_latent": "src/repro/kernels/paged_attention/paged_attention.py:65",
     "flash_attention_windowed": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention_ring": "src/repro/kernels/paged_attention/paged_attention.py:65",
+    "flash_attention_prefix": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "flash_attention_full": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "paged_attention_cross": "src/repro/kernels/paged_attention/paged_attention.py:65",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
@@ -348,6 +458,10 @@ MLA_KERNELS = ("flash_attention_tc_192x128", "paged_attention_latent")
 # wrapper under "flash_attention_windowed") and the paged kernel over its
 # 2048-slot rings (the paged launches of phase 5d's serving window).
 HYBRID_KERNELS = ("flash_attention_windowed", "paged_attention_ring")
+# paligemma's and seamless's: the flash kernel's launches with a prefix
+# (paligemma's patches) and over every key (seamless's encoder and
+# cross-attention), counted by the wrapper under "flash_attention_prefix"
+# and "flash_attention_full", and the paged kernel over the cross caches.
 
 # The blocked matmul at the LLM products of benchmarks/bench_kernel_policy.py
 # (lines 25-31), (m, k, n): token block x weight, at published widths.
@@ -902,13 +1016,14 @@ def reject_fault(torch, name, what, got, want):
     check(not ok, f"{name}: the tolerance passes a kernel that {what}")
 
 
-def flash_cost(b, h, kv, s, t, hd, elem, hd_v=None, window=0):
-    """(bytes, flops) of causal flash attention (with ``window``, local): q,
-    k, v read once, o written once; 2 (hd + hd_v) flops (q.k and p.v) per
-    unmasked (query, key) pair."""
+def flash_cost(b, h, kv, s, t, hd, elem, hd_v=None, window=0, prefix=0):
+    """(bytes, flops) of causal flash attention (with ``window``, local;
+    with ``prefix``, every key below it seen too): q, k, v read once, o
+    written once; 2 (hd + hd_v) flops (q.k and p.v) per unmasked (query,
+    key) pair."""
     hd_v = hd if hd_v is None else hd_v
     offset = t - s
-    pairs = sum(min(t, i + offset + 1, window or t) for i in range(s))
+    pairs = sum(min(t, max(i + offset + 1, prefix), window or t) for i in range(s))
     return ((b * h * s + b * kv * t) * (hd + hd_v) * elem,
             2 * (hd + hd_v) * pairs * b * h)
 
@@ -2403,18 +2518,20 @@ def phase_mla_layer(torch, device):
     check(rejected, "the layer check passes a decode that ropes at the next position")
 
 
+def nbytes(tree) -> int:
+    """Bytes of the tensors in a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
 def weights_bound_ms(params) -> float:
     """The least time of one decode step at batch 1 when every weight is
     read once (the dense MoE path computes all experts at capacity 1), at the
     card's memory rate; the caches' reads are left out (at most 4096 x 576 x 2
     bytes a layer, 0.15% more)."""
-    def nbytes(tree) -> int:
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        if isinstance(tree, list):
-            return sum(nbytes(v) for v in tree)
-        return tree.numel() * tree.element_size()
-
     return nbytes(params) / HBM_BYTES_PER_S * 1e3
 
 
@@ -3022,6 +3139,797 @@ def phase_hybrid_breakdown(torch, device, params):
 
 
 # --------------------------------------------------------------------------
+# Phases 5e and 5f: the flash kernel's prefix (keys every query sees), then
+# paligemma-3b (prefix-LM VLM) and seamless-m4t-large-v2 (encoder-decoder)
+# at full width through prefill and decode_step
+# --------------------------------------------------------------------------
+
+
+def prefix_flash(torch, q, k, v, prefix, path, **blocks):
+    """The flash kernel at ``prefix`` through the model's entry point (or
+    ``flash_attention`` at the ``bq``/``bk`` given); checks by the launch
+    counters that the call took ``path`` and counted under
+    ``flash_attention_prefix`` (and ``flash_attention_full`` when the prefix
+    covers every key)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+
+    names = (f"flash_attention_{path}", "flash_attention_prefix", "flash_attention_full")
+    before = [runtime.launches[n] for n in names]
+    out = (fa.flash_attention(q, k, v, prefix=prefix, **blocks) if blocks
+           else remop_flash_attention(q, k, v, prefix=prefix))
+    want = [before[0] + 1, before[1] + bool(prefix), before[2] + (prefix >= k.shape[2])]
+    check([runtime.launches[n] for n in names] == want,
+          f"flash {tuple(q.shape)} over {k.shape[2]} keys, {q.dtype}, prefix {prefix}: not "
+          f"the {path} route, or not counted")
+    return out
+
+
+def planted_prefix(torch, device, gen, s, hd, p, dtype):
+    """paligemma's prefill shape (8 query heads on one KV head) over ``s``
+    positions, prefix ``p``, with keys planted on both sides of its edge.
+    The key at P - 1 (60 e_0, value 4 in every column) decides the rows
+    ``through`` (all before P - 1, query 8 e_0 in every head: a score of 30
+    where the random keys score about N(0, 1/4)), which see it only through
+    the prefix; the key at P (60 e_1, value -4) decides the rows of query
+    8 e_1 that see it: those ``after`` P, not those ``before`` it.  Returns
+    (q, k, v, through, before, after)."""
+    q = torch.randn(1, 8, s, hd, device=device, generator=gen)
+    k = torch.randn(1, 1, s, hd, device=device, generator=gen)
+    v = torch.randn(1, 1, s, hd, device=device, generator=gen)
+    rows = list(range(1, p - 1, max(1, (p - 2) // 12)))
+    through, before = rows[0::2], rows[1::2]
+    after = list(range(p, s, max(1, (s - p) // 6)))
+    for r in rows + after:
+        q[0, :, r] = 0.0
+        q[0, :, r, 0 if r in through else 1] = 8.0
+    for key, axis, value in ((p - 1, 0, 4.0), (p, 1, -4.0)):
+        k[0, 0, key] = 0.0
+        k[0, 0, key, axis] = 60.0
+        v[0, 0, key] = value
+    return (*(x.to(dtype) for x in (q, k, v)), through, before, after)
+
+
+def phase_vlm_kernels(torch, device):
+    """The flash kernel's prefix on both routes against its plain version at
+    paligemma's prefill shape (PREFIX_CHECKS); keys planted at P - 1 and P,
+    both classes shown to decide their rows, and prefix P - 1 and P + 1
+    rejected on both routes; prefix 0 bit for bit the causal call; then
+    timed beside its bound and SDPA with the prefix mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    errs, rows = {}, {}
+    name, hd = "flash_attention_prefix", 256
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    # -- the prefix on both routes -------------------------------------------------------
+    for p, text in PREFIX_CHECKS:
+        s = p + text
+        for dtype, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+            q, k, v = randn(1, 8, s, hd, dtype=dtype), *(randn(1, 1, s, hd, dtype=dtype)
+                                                         for _ in range(2))
+            bq, bk = plan_blocks(s, s, hd, q.element_size(), path=path)
+            got = prefix_flash(torch, q, k, v, p, path)
+            err, rel = allclose(torch, [name], got,
+                                fa.flash_attention_plain(q, k, v, bk, prefix=p), errs)
+            emit({"phase": "vlm", "check": name, "shape": [1, 8, 1, s, s, hd], "prefix": p,
+                  "dtype": str(dtype), "route": path, "blocks": [bq, bk],
+                  "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel})
+    # -- keys planted at P - 1 and P; the prefix's edge one key off ----------------------
+    for p, text in PREFIX_EDGE_CHECKS:
+        s = p + text
+        for dtype, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+            q, k, v, through, before, after = planted_prefix(torch, device, gen, s, hd, p, dtype)
+            bq, bk = plan_blocks(s, s, hd, q.element_size(), path=path)
+            want = fa.flash_attention_plain(q, k, v, bk, prefix=p)
+
+            def dist(rows, value):  # [heads, rows]: each row's largest distance from value
+                return (want[0, :, rows].float() - value).abs().amax(dim=-1)
+
+            emit({"phase": "vlm", "edge_classes": str(dtype), "prefix": p, "seq": s,
+                  "rows_through_prefix": through, "rows_before_p": before,
+                  "rows_after_p": after,
+                  "max_distance_from_key_p_minus_1_value_through": float(dist(through, 4.0).max()),
+                  "min_distance_from_key_p_value_before": float(dist(before, -4.0).min()),
+                  "max_distance_from_key_p_value_after": float(dist(after, -4.0).max())})
+            check(min(len(through), len(before), len(after)) >= 4
+                  and float(dist(through, 4.0).max()) < 0.1
+                  and float(dist(before, -4.0).min()) > 1.0
+                  and float(dist(after, -4.0).max()) < 0.1,
+                  "the planted keys do not decide their rows: the data does not exercise the "
+                  "prefix's edge")
+            allclose(torch, [name], prefix_flash(torch, q, k, v, p, path), want, errs)
+            for wrong, what in ((p - 1, "hides the key at P - 1 from the rows before it"),
+                                (p + 1, "shows the key at P to the rows before it")):
+                reject_fault(torch, name, f"{what} ({path}, prefix {wrong} for {p})",
+                             prefix_flash(torch, q, k, v, wrong, path), want)
+    # -- prefix 0 launches what it launched: bit for bit the causal call, and a
+    # prefix of 1 (key 0, which every row sees anyway) -------------------------------------
+    for shape, dtype, path in (((1, 8, 2048), torch.bfloat16, "tc"),
+                               ((1, 8, 456), torch.float32, "simt")):
+        b, h, s = shape
+        q, k, v = randn(b, h, s, hd, dtype=dtype), *(randn(b, 1, s, hd, dtype=dtype)
+                                                     for _ in range(2))
+        causal = fa.flash_attention(q, k, v, *plan_blocks(s, s, hd, q.element_size(), path=path))
+        same = [torch.equal(causal, prefix_flash(torch, q, k, v, p, path)) for p in (0, 1)]
+        emit({"phase": "vlm", "check": "flash_attention prefix 0", "shape": [b, h, 1, s, s, hd],
+              "dtype": str(dtype), "route": path,
+              "equal_bits_to_causal": same[0], "equal_bits_prefix_1_to_causal": same[1]})
+        check(all(same), f"prefix 0 or 1 differs from the causal call at {shape} {dtype}")
+    torch.cuda.synchronize()
+
+    # -- timing: paligemma's prefill of 256 patches and 512 text tokens ----------------------
+    bench = Bench(torch, device)
+    p, s = 256, 768
+    q, k, v = randn(1, 8, s, hd), randn(1, 1, s, hd), randn(1, 1, s, hd)
+    bq, bk = plan_blocks(s, s, hd, 2)
+    pos = torch.arange(s, device=device)
+    mask = (pos[:, None] >= pos[None, :]) | (pos[None, :] < p)
+    ms_bound, by = bound(*flash_cost(1, 8, 1, s, s, hd, 2, prefix=p), BF16_OPS_PER_S)
+
+    def kernel(prefix=p):
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk, prefix=prefix)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    rows[name] = dict(
+        shape=f"q [1,8,{s},{hd}], k/v [1,1,{s},{hd}] bf16, prefix {p}, blocks {(bq, bk)}",
+        ms=bench.ms(kernel),
+        plain_ms=bench.ms(lambda: fa.flash_attention_plain(q, k, v, bk, prefix=p)),
+        library_ms=bench.ms(sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(sdpa).items()},
+        causal_device_ms=bench.device_ms(lambda: kernel(0))["device_ms"],
+        causal_bound_ms=bound(*flash_cost(1, 8, 1, s, s, hd, 2), BF16_OPS_PER_S)[0])
+    for key, row in rows.items():
+        emit({"phase": "vlm", "timing": key, **row})
+    del bench
+    return errs, rows
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention entry points (``models.attention``'s
+    ``remop_flash_attention`` and ``remop_paged_attention``) on the kernels'
+    plain versions while the context lasts, CUDA tensors included: the
+    layer checks' reference path."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_plain
+    from repro_torch.models import attention as attn
+
+    saved = attn.remop_flash_attention, attn.remop_paged_attention
+    attn.remop_flash_attention = lambda q, k, v, window=0, prefix=0: flash_attention_plain(
+        q, k, v, window=window, prefix=prefix)
+    attn.remop_paged_attention = lambda q, kc, vc, lengths: paged_attention_plain(
+        q, kc, vc, lengths.int())
+    try:
+        yield
+    finally:
+        attn.remop_flash_attention, attn.remop_paged_attention = saved
+
+
+@contextlib.contextmanager
+def flash_prefix_fault(rule):
+    """The model's flash entry with ``prefix`` replaced by ``rule(q, k,
+    prefix)`` while the context lasts: a planted mask fault."""
+    from repro_torch.models import attention as attn
+
+    saved = attn.remop_flash_attention
+
+    def faulty(q, k, v, window=0, prefix=0):
+        return saved(q, k, v, window=window, prefix=rule(q, k, prefix))
+
+    attn.remop_flash_attention = faulty
+    try:
+        yield
+    finally:
+        attn.remop_flash_attention = saved
+
+
+def row_errors(torch, got, want, rows):
+    """Relative L2 error of each of ``rows`` of [1, S, d] outputs."""
+    return [rel_err(torch, got[0, r], want[0, r]) for r in rows]
+
+
+def vlm_layer_errors(torch, device, cfg, fault: bool = False):
+    """One paligemma attention layer at ``cfg``'s widths over the patches
+    and VLM_LAYER_TEXT text rows: per row of VLM_LAYER_ROWS, the relative
+    L2 error of the kernel path against the plain path; per position of
+    VLM_LAYER_DECODE, of the paged decode (its cache the forward's rows
+    before the position) against the kernel forward's row.  ``fault`` runs
+    the kernel path without the prefix (the causal mask only)."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    p = attn.init_gqa(cfg, gen, device)
+    prefix, s = cfg.frontend_seq, cfg.frontend_seq + VLM_LAYER_TEXT
+    x = torch.randn(1, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None]
+    with torch.inference_mode():
+        with flash_prefix_fault(lambda q, k, pre: 0 if fault else pre):
+            got, (k, v) = attn.gqa_forward(p, cfg, x, positions, prefix=prefix, return_kv=True)
+        with plain_attention():
+            want = attn.gqa_forward(p, cfg, x, positions, prefix=prefix)
+        decode = []
+        for pos in VLM_LAYER_DECODE:
+            cache = tuple(F.pad(a[:, :pos], (0, 0, 0, 0, 0, s - pos)) for a in (k, v))
+            out, _ = attn.gqa_decode(p, cfg, x[:, pos:pos + 1], cache, pos)
+            decode.append(rel_err(torch, out[0, 0], got[0, pos]))
+    return row_errors(torch, got, want, VLM_LAYER_ROWS), decode
+
+
+def phase_vlm_layer(torch, device):
+    """One paligemma attention layer at full width: the flash kernel at
+    prefix 256 against the plain path row by row, the paged decode against
+    the forward's rows; a kernel path without the prefix must fail every
+    checked row before P / 2."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[VLM_ARCH]
+    rows, decode = vlm_layer_errors(torch, device, cfg)
+    emit({"phase": "vlm", "layer_check": "flash at prefix P against the plain path; paged "
+          "decode against the forward", "prefix": cfg.frontend_seq, "text": VLM_LAYER_TEXT,
+          "rows": list(VLM_LAYER_ROWS), "rel_l2": rows, "decode_positions": list(VLM_LAYER_DECODE),
+          "decode_rel_l2": decode, "max_rel_l2": max(rows + decode), "tol": VLM_LAYER_TOL})
+    check(max(rows + decode) <= VLM_LAYER_TOL, f"the VLM layer's kernel path differs: {rows}, "
+          f"{decode}")
+    bad, _ = vlm_layer_errors(torch, device, cfg, fault=True)
+    hit = [e for r, e in zip(VLM_LAYER_ROWS, bad) if r < cfg.frontend_seq // 2]
+    rejected = all(e > VLM_LAYER_TOL for e in hit)
+    emit({"phase": "vlm", "planted_fault": "layer", "fault": "drops the prefix (causal mask only)",
+          "rel_l2": bad, "min_rel_l2_where_it_bites": min(hit), "tol": VLM_LAYER_TOL,
+          "rejected": rejected})
+    check(rejected, "the layer check passes a VLM layer without its prefix")
+
+
+@contextlib.contextmanager
+def kernel_calls(log):
+    """Each call the model makes to its attention entry points while the
+    context lasts, appended to ``log`` as (kernel, role, S, T, prefix, the
+    launches the wrapper counted): ``"flash"`` for ``remop_flash_attention``
+    (prefix its argument), ``"paged"`` for ``remop_paged_attention`` (S 1,
+    T the cache's positions, prefix None); role ``"cross"`` inside a
+    cross-attention ``gqa_forward`` or ``cross_decode``, else ``"self"``."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models import attention as attn
+
+    names = ("gqa_forward", "cross_decode", "remop_flash_attention", "remop_paged_attention")
+    saved = {n: getattr(attn, n) for n in names}
+    role = ["self"]
+
+    def tagged(fn, is_cross):
+        def call(*args, **kwargs):
+            cross = is_cross(kwargs)
+            role.append("cross" if cross else role[-1])
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                role.pop()
+        return call
+
+    def recorded(fn, kernel, counter):
+        def call(q, k, *args, **kwargs):
+            before = runtime.launches[counter]
+            out = fn(q, k, *args, **kwargs)
+            s, t = (q.shape[2], k.shape[2]) if kernel == "flash" else (1, k.shape[1])
+            log.append((kernel, role[-1], s, t, kwargs.get("prefix", 0) if kernel == "flash"
+                        else None, runtime.launches[counter] - before))
+            return out
+        return call
+
+    attn.gqa_forward = tagged(saved["gqa_forward"], lambda kw: kw.get("xa") is not None)
+    attn.cross_decode = tagged(saved["cross_decode"], lambda kw: True)
+    attn.remop_flash_attention = recorded(saved["remop_flash_attention"], "flash",
+                                          "flash_attention")
+    attn.remop_paged_attention = recorded(saved["remop_paged_attention"], "paged",
+                                          "paged_attention")
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(attn, n, fn)
+
+
+def serve_greedy(torch, device, cfg, params, batches, starts, max_len):
+    """Each request alone at batch 1, as ServeEngine serves a slot:
+    ``prefill``, ``pad_caches`` to ``max_len``, then MAX_NEW_TOKENS - 1
+    greedy ``decode_step`` calls from position ``starts[i]`` (each step
+    ends in its argmax read back).  Per request: its tokens, host seconds
+    of the prefill and of the decode steps, and the last step's logits and
+    final hidden state."""
+    from repro_torch.models import transformer as tf
+
+    served = []
+    with torch.inference_mode():
+        for batch, start in zip(batches, starts):
+            t0 = time.perf_counter()
+            logits, caches = tf.prefill(params, cfg, batch)
+            caches = tf.pad_caches(cfg, caches, max_len)
+            tokens = [int(logits[0].argmax())]
+            t1 = time.perf_counter()
+            for pos in range(start, start + MAX_NEW_TOKENS - 1):
+                token = torch.tensor([tokens[-1]], device=device)
+                logits, caches, hidden = tf.decode_step(params, cfg, caches, token, pos,
+                                                        return_hidden=True)
+                tokens.append(int(logits[0].argmax()))
+            served.append({"tokens": tokens, "prefill_seconds": t1 - t0,
+                           "decode_seconds": time.perf_counter() - t1,
+                           "logits": logits[0].float(), "hidden": hidden[0].float()})
+            del caches
+    return served
+
+
+def replay_errors(torch, device, cfg, params, batch, served):
+    """The served request's last decode step against a prefill of its
+    prompt and every token it decoded from: relative L2 error of the final
+    hidden state and of the logits."""
+    from repro_torch.models import transformer as tf
+
+    tokens = torch.cat([batch["tokens"], torch.tensor([served["tokens"][:-1]],
+                                                      dtype=batch["tokens"].dtype, device=device)],
+                       dim=1)
+    with torch.inference_mode():
+        logits, _, hidden = tf.prefill(params, cfg, dict(batch, tokens=tokens), return_hidden=True)
+    return {"hidden": rel_err(torch, served["hidden"], hidden[0]),
+            "logits": rel_err(torch, served["logits"], logits[0])}
+
+
+def decode_bound_ms(params) -> float:
+    """:func:`weights_bound_ms` of the parameters a decode step reads: the
+    decoder layers, the tied embedding (its unembedding) and the final norm;
+    no frontend, no encoder."""
+    return weights_bound_ms({key: params[key] for key in ("embed", "final_norm", "layers")})
+
+
+def family_breakdown(torch, device, cfg, params, batch, start, max_len, phase):
+    """Device time of one prefill and of 8 decode steps after it, each from
+    its own profiler window after an unprofiled warm-up: attention kernels,
+    products and the rest, with the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+
+    state = {}
+
+    def prefill():
+        logits, caches = tf.prefill(params, cfg, batch)
+        state["caches"] = tf.pad_caches(cfg, caches, max_len)
+        state["tok"] = logits.argmax(-1)
+
+    def decode():
+        for pos in range(start, start + 8):
+            logits, state["caches"] = tf.decode_step(params, cfg, state["caches"], state["tok"],
+                                                     pos)
+            state["tok"] = logits.argmax(-1)
+
+    def timed(fn):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    for name, fn in (("one prefill", prefill), ("8 decode steps after it", decode)):
+        unprofiled = timed(fn)  # also the warm-up
+        if fn is decode:
+            timed(prefill)  # the same steps again, from the prefill's caches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled = timed(fn)
+        kinds = device_seconds(torch, prof, ("flash_attention_kernel", "paged_attention_kernel"),
+                               "attention_kernels")
+        emit({"phase": f"{phase}_breakdown", "arch": cfg.name, "window": name,
+              "tokens": batch["tokens"].shape[1], "unprofiled_seconds": unprofiled,
+              "profiled_seconds": profiled, **busy_and_idle(kinds, profiled, unprofiled)})
+    del state
+
+
+def phase_vlm_serve(torch, device):
+    """paligemma-3b at full width and all 18 layers: 4 requests of 256
+    patches and VLM_TEXT_LENS text tokens, 32 greedy tokens each; every
+    prefill layer through the flash kernel at prefix 256 on the tensor
+    cores, every decode layer through the paged kernel; every request's
+    last step against a prefill replay."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[VLM_ARCH]
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    emit({"phase": "vlm", "arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+          "patches": cfg.frontend_seq, "patch_width": cfg.frontend_dim,
+          "init_seconds": time.perf_counter() - t0,
+          "weight_bytes_on_device": torch.cuda.memory_allocated(device)})
+    check(n_params == VLM_PARAMS, f"{n_params} parameters, not {VLM_PARAMS}")
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32),
+                                          device=device),
+                "patches": torch.randn(1, cfg.frontend_seq, cfg.frontend_dim, device=device,
+                                       generator=gen)} for n in VLM_TEXT_LENS]
+    starts = [cfg.frontend_seq + n for n in VLM_TEXT_LENS]
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    with kernel_calls(log):
+        served = serve_greedy(torch, device, cfg, params, batches, starts, VLM_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    n_req, steps = len(batches), len(batches) * (MAX_NEW_TOKENS - 1)
+    check(all(len(r["tokens"]) == MAX_NEW_TOKENS and all(0 <= t < cfg.vocab_size
+                                                         for t in r["tokens"]) for r in served),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(all(bool(torch.isfinite(r["logits"]).all()) for r in served), "non-finite logits")
+    flash = cfg.n_layers * n_req
+    check(launches.get("flash_attention", 0) == launches.get("flash_attention_tc", 0)
+          == launches.get("flash_attention_prefix", 0) == flash
+          and not launches.get("flash_attention_full"),
+          f"flash launches {launches.get('flash_attention')}, on the tensor cores "
+          f"{launches.get('flash_attention_tc')}, with a prefix "
+          f"{launches.get('flash_attention_prefix')}, over every key "
+          f"{launches.get('flash_attention_full')}: not {cfg.n_layers} x {n_req} with a prefix")
+    want = sorted([("flash", "self", t, t, cfg.frontend_seq, 1) for t in starts] * cfg.n_layers)
+    check(sorted(e for e in log if e[0] == "flash") == want,
+          "a prefill layer did not reach the flash kernel once over patches and text at prefix P")
+    check(launches.get("paged_attention", 0) == cfg.n_layers * steps,
+          f"paged launches {launches.get('paged_attention')} != {cfg.n_layers} x {steps}")
+
+    step_bound = decode_bound_ms(params)
+    replays = []
+    for i, (batch, r) in enumerate(zip(batches, served)):
+        errs = replay_errors(torch, device, cfg, params, batch, r)
+        replays.append(errs)
+        cache_bytes = cfg.n_layers * 2 * (starts[i] + MAX_NEW_TOKENS) * cfg.n_kv_heads \
+            * cfg.head_dim * 2
+        emit({"phase": "vlm", "request": i, "patches": cfg.frontend_seq,
+              "text_tokens": VLM_TEXT_LENS[i], "new_tokens": len(r["tokens"]),
+              "prefill_seconds": r["prefill_seconds"],
+              "decode_seconds_per_token": r["decode_seconds"] / (MAX_NEW_TOKENS - 1),
+              "decode_step_bound_ms": step_bound,
+              "decode_step_bound_with_caches_ms": step_bound + cache_bytes / HBM_BYTES_PER_S * 1e3,
+              "tokens_per_second": len(r["tokens"]) / (r["prefill_seconds"] + r["decode_seconds"]),
+              "consistency": errs, "tol": VLM_TOL})
+    check(all(e[key] <= VLM_TOL[key] for e in replays for key in VLM_TOL),
+          f"decode and its prefill replay disagree: {replays}")
+    emit({"phase": "vlm", "requests": n_req, "new_tokens": steps + n_req, "decode_steps": steps,
+          "wall_seconds": wall, "tokens_per_second": (steps + n_req) / wall,
+          "launches": launches, "peak_device_bytes": peak})
+    family_breakdown(torch, device, cfg, params, batches[-1], starts[-1], VLM_MAX_LEN, "vlm")
+    return launches
+
+
+def phase_encdec_kernels(torch, device):
+    """The flash kernel over every key (bidirectional at seamless's encoder
+    shape, cross-attention from decoder rows onto encoder rows, S > T
+    included) on both routes against its plain version; a kernel without
+    the ``k >= T`` mask rejected where T is no multiple of the block; the
+    paged kernel over the cross cache at G 1, hd 64; then both timed beside
+    their bounds and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(19)
+    errs, rows = {}, {}
+    name, h, hd = "flash_attention_full", 16, 64
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    def full_check(what, s, t, dtype, path, fault=False):
+        q, k, v = randn(1, h, s, hd, dtype=dtype), *(randn(1, h, t, hd, dtype=dtype)
+                                                     for _ in range(2))
+        bq, bk = plan_blocks(s, t, hd, q.element_size(), path=path)
+        want = fa.flash_attention_plain(q, k, v, bk, prefix=t)
+        err, rel = allclose(torch, [name], prefix_flash(torch, q, k, v, t, path), want, errs)
+        emit({"phase": "encdec", "check": name, "what": what, "shape": [1, h, h, s, t, hd],
+              "prefix": t, "dtype": str(dtype), "route": path, "blocks": [bq, bk],
+              "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel})
+        pad = -t % bk
+        if fault and pad:
+            # A kernel without the k >= T mask scores the block's rows past T,
+            # which TMA fills with zeros, as keys of score 0 and value 0: the
+            # kernel on K/V padded with zeros to whole blocks, every key seen.
+            planted.append((what, t, bk))
+            k_pad, v_pad = (F.pad(x, (0, 0, 0, pad)) for x in (k, v))
+            reject_fault(torch, name, f"drops the k >= T mask ({what}, T {t}, bk {bk}: "
+                                      f"{pad} zero keys scored)",
+                         prefix_flash(torch, q, k_pad, v_pad, t + pad, path, bq=bq, bk=bk),
+                         want)
+
+    # -- bidirectional (S = T, prefix T) and cross-attention (prefix T_enc); the
+    # dropped k >= T mask planted where T is no multiple of the block -----------------------
+    planted = []
+    for t in BIDIR_CHECKS:
+        for dtype, path in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+            full_check("bidirectional", t, t, dtype, path, fault=path == "tc")
+    for s, t in CROSS_CHECKS:
+        full_check("cross", s, t, torch.bfloat16, "tc", fault=(s, t) == CROSS_FAULT)
+    for s, t in CROSS_SIMT_CHECKS:
+        full_check("cross", s, t, torch.float32, "simt")
+    check(len(planted) >= 2 and {what for what, _, _ in planted} == {"bidirectional", "cross"},
+          f"the dropped k >= T mask was planted at {planted}, not at a bidirectional and a "
+          "cross shape whose T is no multiple of the block")
+    # -- the paged kernel over the cross cache: G 1, hd 64, 16 KV heads --------------------
+    for t in CROSS_DECODE_LENGTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(1, h, 1, hd, dtype=dtype)
+            kc, vc = (randn(1, t, h, hd, dtype=dtype) for _ in range(2))
+            ln = torch.full((1,), t, dtype=torch.int32, device=device)
+            err, rel = allclose(torch, ["paged_attention_cross"], pa.paged_attention(q, kc, vc, ln),
+                                pa.paged_attention_plain(q, kc, vc, ln), errs)
+            emit({"phase": "encdec", "check": "paged_attention_cross", "shape": [1, h, 1, hd, t],
+                  "lengths": [t], "dtype": str(dtype), "plan": pa.plan(1, h, 1, t),
+                  "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel})
+    torch.cuda.synchronize()
+
+    # -- timing: the 4096-frame encoder's attention, and a cross decode step over
+    # 4096 frames ----------------------------------------------------------------------------
+    bench = Bench(torch, device)
+    t = ENCDEC_FRAMES[0]
+    q, k, v = (randn(1, h, t, hd) for _ in range(3))
+    bq, bk = plan_blocks(t, t, hd, 2)
+    ms_bound, by = bound(*flash_cost(1, h, h, t, t, hd, 2, prefix=t), BF16_OPS_PER_S)
+
+    def kernel():
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk, prefix=t)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=False)
+
+    rows[name] = dict(
+        shape=f"q/k/v [1,{h},{t},{hd}] bf16, every key (prefix {t}), blocks {(bq, bk)}",
+        ms=bench.ms(kernel),
+        plain_ms=bench.ms(lambda: fa.flash_attention_plain(q, k, v, bk, prefix=t)),
+        library_ms=bench.ms(sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(sdpa).items()},
+        causal_device_ms=bench.device_ms(
+            lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk))["device_ms"])
+    s = 64
+    xq = randn(1, h, s, hd)
+    xb = plan_blocks(s, t, hd, 2)
+    emit({"phase": "encdec", "timing": "flash_attention cross prefill",
+          "shape": f"q [1,{h},{s},{hd}], k/v [1,{h},{t},{hd}] bf16, every key, blocks {xb}",
+          "bound_ms": bound(*flash_cost(1, h, h, s, t, hd, 2, prefix=t), BF16_OPS_PER_S)[0],
+          **bench.device_ms(lambda: fa.flash_attention(xq, k, v, *xb, prefix=t)),
+          **{f"library_{key}": val for key, val in bench.device_ms(
+              lambda: F.scaled_dot_product_attention(xq, k, v)).items()}})
+    q = randn(1, h, 1, hd)
+    kc, vc = (randn(1, t, h, hd) for _ in range(2))
+    ln = torch.full((1,), t, dtype=torch.int32, device=device)
+    ms_bound, by = bound((2 * t * h * hd + 2 * h * hd) * 2, 4 * hd * t * h, BF16_OPS_PER_S)
+
+    def cross_kernel():
+        return pa.paged_attention(q, kc, vc, ln)
+
+    def cross_sdpa():
+        return F.scaled_dot_product_attention(q.reshape(1, h, 1, hd), kc.transpose(1, 2),
+                                              vc.transpose(1, 2))
+
+    rows["paged_attention_cross"] = dict(
+        shape=f"q [1,{h},1,{hd}], cross cache [1,{t},{h},{hd}] bf16, length {t}, "
+              f"plan {pa.plan(1, h, 1, t)}",
+        ms=bench.ms(cross_kernel),
+        plain_ms=bench.ms(lambda: pa.paged_attention_plain(q, kc, vc, ln)),
+        library_ms=bench.ms(cross_sdpa),
+        bound_ms=ms_bound, bound_by=by,
+        **bench.device_ms(cross_kernel),
+        **{f"library_{key}": val for key, val in bench.device_ms(cross_sdpa).items()})
+    for key, row in rows.items():
+        emit({"phase": "encdec", "timing": key, **row})
+    del bench
+    return errs, rows
+
+
+def roped_cross_decode(torch, p, cfg, x, cache, pos):
+    """A planted fault: ``cross_decode`` with q roped at the step's position
+    (as self-attention's is; cross-attention's is not)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_rope, dense, rope_tables
+
+    b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(dense(p["wq"], x).view(b, 1, h, hd), cos, sin).view(b, kv, h // kv, hd)
+    ck, cv = cache
+    lengths = torch.full((b,), ck.shape[1], dtype=torch.int32, device=x.device)
+    return dense(p["wo"], attn.remop_paged_attention(q, ck, cv, lengths).view(b, 1, h * hd))
+
+
+def encdec_layer_errors(torch, device, cfg, fault=None):
+    """One encoder layer's attention over ENCDEC_LAYER_FRAMES frames and one
+    decoder layer's cross-attention from ENCDEC_LAYER_SEQ rows over as many
+    encoder rows (drawn apart: an attention output's rows, each a softmax
+    average of the same values, barely differ), at ``cfg``'s widths: the
+    relative L2 error of the kernel path against the plain path at each row
+    of ENCDEC_LAYER_ROWS (encoder) and of ENCDEC_LAYER_POSITIONS (cross
+    forward), and of ``cross_decode`` at each position against the kernel
+    forward's row.  ``fault``:
+    ``"causal"`` runs the encoder's kernel path causally, ``"roped"``
+    ropes the cross decode's q."""
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    enc, xattn = attn.init_gqa(cfg, gen, device), attn.init_gqa(cfg, gen, device)
+    t, s = ENCDEC_LAYER_FRAMES, ENCDEC_LAYER_SEQ
+    h, enc_out = (torch.randn(1, t, cfg.d_model, device=device, generator=gen)
+                  .to(torch.bfloat16) for _ in range(2))
+    x = torch.randn(1, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    enc_pos = torch.arange(t, dtype=torch.int32, device=device)[None]
+    dec_pos = torch.arange(s, dtype=torch.int32, device=device)[None]
+    with torch.inference_mode():
+        with flash_prefix_fault(lambda q, k, pre: 0 if fault == "causal" else pre):
+            enc_got = attn.gqa_forward(enc, cfg, h, enc_pos, prefix=t)
+        with plain_attention():
+            enc_want = attn.gqa_forward(enc, cfg, h, enc_pos, prefix=t)
+            x_want = attn.gqa_forward(xattn, cfg, x, dec_pos, xa=enc_out)
+        x_got, kv = attn.gqa_forward(xattn, cfg, x, dec_pos, xa=enc_out, return_kv=True)
+        decode = []
+        for pos in ENCDEC_LAYER_POSITIONS:
+            row = x[:, pos:pos + 1]
+            out = (roped_cross_decode(torch, xattn, cfg, row, kv, pos) if fault == "roped"
+                   else attn.cross_decode(xattn, cfg, row, kv))
+            decode.append(rel_err(torch, out[0, 0], x_got[0, pos]))
+    return (row_errors(torch, enc_got, enc_want, ENCDEC_LAYER_ROWS),
+            row_errors(torch, x_got, x_want, ENCDEC_LAYER_POSITIONS), decode)
+
+
+def phase_encdec_layer(torch, device):
+    """One seamless encoder layer and one decoder layer's cross-attention at
+    full width: the flash kernel over every key against the plain path row
+    by row, the paged cross decode against the forward's rows; a causal
+    encoder must fail every checked row before T / 2, a roped cross decode
+    every position past 0."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[ENCDEC_ARCH]
+    enc, cross, decode = encdec_layer_errors(torch, device, cfg)
+    worst = max(enc + cross + decode)
+    emit({"phase": "encdec", "layer_check": "bidirectional encoder and cross-attention "
+          "against the plain path; cross decode against the forward",
+          "frames": ENCDEC_LAYER_FRAMES, "seq": ENCDEC_LAYER_SEQ,
+          "encoder_rows": list(ENCDEC_LAYER_ROWS), "encoder_rel_l2": enc,
+          "cross_positions": list(ENCDEC_LAYER_POSITIONS), "cross_rel_l2": cross,
+          "cross_decode_rel_l2": decode, "max_rel_l2": worst, "tol": ENCDEC_LAYER_TOL})
+    check(worst <= ENCDEC_LAYER_TOL, f"the encoder-decoder layer's kernel path differs: "
+          f"{enc}, {cross}, {decode}")
+    for fault, what in (("causal", "runs the encoder causally"),
+                        ("roped", "ropes the cross decode's q at the step's position")):
+        enc, _, decode = encdec_layer_errors(torch, device, cfg, fault)
+        if fault == "causal":
+            bad = enc
+            hit = [e for r, e in zip(ENCDEC_LAYER_ROWS, enc) if r < ENCDEC_LAYER_FRAMES // 2]
+        else:
+            bad = decode
+            hit = [e for pos, e in zip(ENCDEC_LAYER_POSITIONS, decode) if pos > 0]
+        rejected = all(e > ENCDEC_LAYER_TOL for e in hit)
+        emit({"phase": "encdec", "planted_fault": "layer", "fault": what, "rel_l2": bad,
+              "min_rel_l2_where_it_bites": min(hit), "tol": ENCDEC_LAYER_TOL,
+              "rejected": rejected})
+        check(rejected, f"the layer check passes a layer that {what}")
+
+
+def phase_encdec_serve(torch, device):
+    """seamless-m4t-large-v2 at full width, all 24 encoder and 24 decoder
+    layers: 4 requests of ENCDEC_FRAMES frames and ENCDEC_PROMPT_LENS tokens,
+    32 greedy tokens each; every encoder layer through the flash kernel over
+    every key, every decoder layer through it causally and over the encoder's
+    rows, every decode layer through the paged kernel twice (self, cross);
+    every request's last step against a prefill replay."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[ENCDEC_ARCH]
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(params)
+    emit({"phase": "encdec", "arch": cfg.name, "params": n_params,
+          "encoder_layers": cfg.n_encoder_layers, "decoder_layers": cfg.n_layers,
+          "init_seconds": time.perf_counter() - t0,
+          "weight_bytes_on_device": torch.cuda.memory_allocated(device)})
+    check(n_params == ENCDEC_PARAMS, f"{n_params} parameters, not {ENCDEC_PARAMS}")
+    rng = np.random.default_rng(SEED + 31)
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32),
+                                          device=device),
+                "frames": torch.randn(1, t, cfg.frontend_dim, device=device, generator=gen)}
+               for t, n in zip(ENCDEC_FRAMES, ENCDEC_PROMPT_LENS)]
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    with kernel_calls(log):
+        served = serve_greedy(torch, device, cfg, params, batches, ENCDEC_PROMPT_LENS,
+                              ENCDEC_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    n_req, steps = len(batches), len(batches) * (MAX_NEW_TOKENS - 1)
+    check(all(len(r["tokens"]) == MAX_NEW_TOKENS and all(0 <= t < cfg.vocab_size
+                                                         for t in r["tokens"]) for r in served),
+          "a request's tokens are not MAX_NEW_TOKENS ids of the vocabulary")
+    check(all(bool(torch.isfinite(r["logits"]).all()) for r in served), "non-finite logits")
+    layers = cfg.n_layers
+    check(launches.get("flash_attention", 0) == launches.get("flash_attention_tc", 0)
+          == 3 * layers * n_req
+          and launches.get("flash_attention_full", 0) == launches.get("flash_attention_prefix", 0)
+          == 2 * layers * n_req,
+          f"flash launches {launches.get('flash_attention')}, on the tensor cores "
+          f"{launches.get('flash_attention_tc')}, over every key "
+          f"{launches.get('flash_attention_full')}: not 3 x {layers} x {n_req}, two thirds "
+          "over every key")
+    flash = sorted(e[1:] for e in log if e[0] == "flash")
+    want = sorted([("self", t, t, t, 1) for t in ENCDEC_FRAMES] * cfg.n_encoder_layers
+                  + [("self", n, n, 0, 1) for n in ENCDEC_PROMPT_LENS] * layers
+                  + [("cross", n, t, t, 1) for n, t in zip(ENCDEC_PROMPT_LENS, ENCDEC_FRAMES)]
+                  * layers)
+    check(flash == want, "the prefills' flash calls are not 24 bidirectional, 24 causal and 24 "
+                         "cross a request at their shapes")
+    paged = [e for e in log if e[0] == "paged"]
+    cross = [e for e in paged if e[1] == "cross"]
+    check(launches.get("paged_attention", 0) == sum(e[5] for e in paged) == 2 * layers * steps
+          and len(cross) == sum(e[5] for e in cross) == layers * steps
+          and sorted({e[3] for e in cross}) == sorted(ENCDEC_FRAMES),
+          f"paged launches {launches.get('paged_attention')}, {len(cross)} over cross caches: "
+          f"not 2 x {layers} x {steps}, half over the encoder's rows")
+    launches["paged_attention_cross"] = sum(e[5] for e in cross)
+    del log
+
+    step_bound = decode_bound_ms(params)
+    replays = []
+    for i, (batch, r) in enumerate(zip(batches, served)):
+        errs = replay_errors(torch, device, cfg, params, batch, r)
+        replays.append(errs)
+        kv_row = cfg.n_kv_heads * cfg.head_dim * 2 * 2  # k and v, bf16
+        cache_bytes = layers * kv_row * (ENCDEC_FRAMES[i] + ENCDEC_PROMPT_LENS[i] + MAX_NEW_TOKENS)
+        emit({"phase": "encdec", "request": i, "frames": ENCDEC_FRAMES[i],
+              "prompt_tokens": ENCDEC_PROMPT_LENS[i], "new_tokens": len(r["tokens"]),
+              "prefill_seconds": r["prefill_seconds"],
+              "decode_seconds_per_token": r["decode_seconds"] / (MAX_NEW_TOKENS - 1),
+              "decode_step_bound_ms": step_bound,
+              "decode_step_bound_with_caches_ms": step_bound + cache_bytes / HBM_BYTES_PER_S * 1e3,
+              "tokens_per_second": len(r["tokens"]) / (r["prefill_seconds"] + r["decode_seconds"]),
+              "consistency": errs, "tol": ENCDEC_TOL})
+    check(all(e[key] <= ENCDEC_TOL[key] for e in replays for key in ENCDEC_TOL),
+          f"decode and its prefill replay disagree: {replays}")
+    emit({"phase": "encdec", "requests": n_req, "new_tokens": steps + n_req,
+          "decode_steps": steps, "wall_seconds": wall, "tokens_per_second": (steps + n_req) / wall,
+          "launches": launches, "peak_device_bytes": peak})
+    family_breakdown(torch, device, cfg, params, batches[0], ENCDEC_PROMPT_LENS[0],
+                     ENCDEC_MAX_LEN, "encdec")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # Phase 6: the REMOP-planned blocked matmul at five LLM products
 # --------------------------------------------------------------------------
 
@@ -3308,7 +4216,12 @@ def main() -> int:
                   "weights; deepseek-v2-lite-16b at its published widths (MLA, kv_lora_rank "
                   "512, 64 experts top-6 and 2 shared) and all 27 layers, random weights; "
                   "recurrentgemma-2b at its published widths (RG-LRU 2560, local attention "
-                  "window 2048) and all 26 layers, random weights; nothing cut"})
+                  "window 2048) and all 26 layers, random weights; paligemma-3b at its "
+                  "published widths (the gemma-2b backbone, 18 layers, 256 patch embeddings "
+                  "of 1152 projected in, prefix-LM mask), random weights and patches; "
+                  "seamless-m4t-large-v2 at its published widths (24 bidirectional encoder "
+                  "and 24 decoder layers with cross-attention, d_model 1024, 4096 frames of "
+                  "1024), random weights and frames; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -3358,6 +4271,23 @@ def main() -> int:
         launches[name] += hyb_launches[name]
     launches["flash_attention_windowed"] = hyb_launches["flash_attention_windowed"]
     launches["paged_attention_ring"] = hyb_launches["paged_attention"]
+    vlm_errs, vlm_rows = phase_vlm_kernels(torch, device)
+    errs.update(vlm_errs)
+    rows.update(vlm_rows)
+    phase_vlm_layer(torch, device)
+    vlm_launches = phase_vlm_serve(torch, device)
+    torch.cuda.empty_cache()
+    enc_errs, enc_rows = phase_encdec_kernels(torch, device)
+    errs.update(enc_errs)
+    rows.update(enc_rows)
+    phase_encdec_layer(torch, device)
+    enc_launches = phase_encdec_serve(torch, device)
+    torch.cuda.empty_cache()
+    for name in SERVE_KERNELS:
+        launches[name] += vlm_launches[name] + enc_launches[name]
+    launches["flash_attention_prefix"] = vlm_launches["flash_attention_prefix"]
+    launches["flash_attention_full"] = enc_launches["flash_attention_full"]
+    launches["paged_attention_cross"] = enc_launches["paged_attention_cross"]
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

@@ -16,8 +16,12 @@ pair 192 / 128 too), with P rounded once to bf16 (the probe off the
 main path), and on the CUDA-core route (bf16 hd 32, f32); with a sliding
 window (recurrentgemma's 10 heads on one KV head of 256 at W 2048, S 2048,
 3000 and 4096, in both routes and the model's layout; W 1000 at a GQA
-shape; W 100 at every tensor-core block pair, with T > S); prints the
-occupancy of every tensor-core instantiation.  It times nothing;
+shape; W 100 at every tensor-core block pair, with T > S); with a prefix
+(paligemma's 8 heads on one KV head of 256 at P 256 under 200 and 512 text
+rows, an unaligned P 100, in both routes; every key at seamless's 16 heads
+of 64, bidirectional at T 4096 and 2500 and cross-attention with S above
+and below T; P 100 and every key with S > T at every tensor-core block
+pair); prints the occupancy of every tensor-core instantiation.  It times nothing;
 ``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
 """
 
@@ -87,7 +91,7 @@ def main() -> int:
         v = torch.randn(b, kv, t, hd if hd_v is None else hd_v, device=dev, generator=g).to(dtype)
         return q, k, v
 
-    def case(name, q, k, v, fn, window=0):
+    def case(name, q, k, v, fn, window=0, prefix=0):
         runtime.reset_launches()
         try:
             got = fn(q, k, v)
@@ -96,7 +100,7 @@ def main() -> int:
             print(name, "RAISED", repr(e)[:300], flush=True)
             failed.append(name)
             return
-        want = flash_attention_plain(q, k, v, window=window)
+        want = flash_attention_plain(q, k, v, window=window, prefix=prefix)
         ok, err, rel, _ = chip_smoke.attn_close(torch, got, want)
         finite = bool(torch.isfinite(got.float()).all())
         print(name, tuple(q.shape), tuple(k.shape), str(q.dtype), route(q, k, v),
@@ -157,6 +161,26 @@ def main() -> int:
                     case(f"W 100 blocks {bq},{bk} hd {hd}/{hd_v}", q, k, v,
                          lambda q, k, v, bq=bq, bk=bk: flash_attention(q, k, v, bq=bq, bk=bk,
                                                                        window=100), window=100)
+    def prefixed(p):
+        return lambda q, k, v: remop_flash_attention(q, k, v, prefix=p)
+
+    for s, p in ((456, 256), (768, 256), (612, 100)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(1, 8, 1, s, s, 256, dtype)
+            case(f"paligemma P {p} S {s} {dtype}", q, k, v, prefixed(p), prefix=p)
+    for s, t in ((4096, 4096), (2500, 2500), (300, 200), (1, 4096), (64, 2500)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(1, 16, 16, s, t, 64, dtype)
+            case(f"seamless every key S {s} T {t} {dtype}", q, k, v, prefixed(t), prefix=t)
+    for hd, hd_v in TC_HEAD_PAIRS:
+        for s, t, p in ((333, 333, 100), (300, 260, 260)):
+            q, k, v = inputs(1, 4, 2, s, t, hd, torch.bfloat16, hd_v=hd_v)
+            for bq in TC_BLOCKS:
+                for bk in TC_BLOCKS:
+                    if smem_bytes(bq, bk, hd, 2, "tc", hd_v) <= SMEM_LIMIT:
+                        case(f"P {p} S {s} T {t} blocks {bq},{bk} hd {hd}/{hd_v}", q, k, v,
+                             lambda q, k, v, bq=bq, bk=bk, p=p: flash_attention(
+                                 q, k, v, bq=bq, bk=bk, prefix=p), prefix=p)
     print("FAILED" if failed else "ALL OK", failed, flush=True)
     return 1 if failed else 0
 

@@ -6,18 +6,23 @@
 // offset by T - S, an online softmax in f32 of the scores times `scale`,
 // fully masked KV blocks skipped, output [B, H, S, hd_v] in q's dtype.
 // With window = W > 0 (local attention, which the TPU kernel does not
-// compute) a query at position q sees only the keys q - W + 1 .. q.
+// compute) a query at position q sees only the keys q - W + 1 .. q.  With
+// prefix = P > 0 it sees every key below P beside the causal ones (k < P or
+// k <= q): the prefix-LM mask over an image prefix (P its length), and with
+// P >= T every key (a bidirectional encoder, or cross-attention, where S may
+// exceed T).  A window and a prefix are never given together.
 // hd_v = hd, or (hd, hd_v) = (192, 128): MLA's prefill, whose q and k are
 // 128 nope and 64 rope columns and whose values are 128 wide.
-// Any S <= T works without padding (rows past S and keys past T are masked),
-// and every tensor is passed with its own strides (the last dimension
-// contiguous), so the model's [B, S, H, hd] activations are read and
-// written in place.  Both routes launch one CTA per (q block, head, batch),
+// Any S <= T (any S when P >= T) works without padding (rows past S and
+// keys past T are masked), and every tensor is passed with its own strides
+// (the last dimension contiguous), so the model's [B, S, H, hd] activations
+// are read and written in place.  Both routes launch one CTA per (q block, head, batch),
 // the heaviest (last) q blocks first to shorten the tail, and walk the KV
 // blocks j0 .. the last one a row of the block can see (the TPU kernel's
 // `q_base + bq - 1 >= k_base` skip), j0 = 0 without a window and else the
 // first block the block's first row can see, so the work follows the
-// visible pairs.  A later row whose window starts past block j0 sees only
+// visible pairs; with a prefix the walk also runs to the block that holds
+// key min(P, T) - 1.  A later row whose window starts past block j0 sees only
 // masked scores there: its m stays kNegInf (finite), each p is exp(0) = 1,
 // and the correction exp(kNegInf - m) at its first live key, which the
 // diagonal block always holds, wipes them exactly.  What bounds both on this
@@ -87,7 +92,31 @@ struct Params {
   int h, kv, s, t, bq, bk;
   float scale;
   int window;  // 0: causal only
+  int prefix;  // keys below it are seen by every query; 0: causal only
 };
+
+// The keys a query at position qpos sees, as one range [lo, hi]: hi the
+// last key below T that lies at or before qpos or inside the prefix, lo the
+// window's first key (none without a window).  Computed once a row, so a
+// score is masked by one compare, two with a window (keys past T, which the
+// tiles hold as zeros, included: with a prefix a row may see keys past its
+// position).
+struct KeyRange {
+  int lo, hi;
+};
+__device__ __forceinline__ KeyRange visible(int qpos, int t, int prefix, int window) {
+  return {window ? qpos - window + 1 : -(1 << 30), min(max(qpos, prefix - 1), t - 1)};
+}
+
+// The KV blocks of bk positions a query block whose largest position is
+// q_last walks: up to the last one a row of it sees, at least the blocks of
+// keys below min(prefix, T), never past T.
+__device__ __forceinline__ int kv_blocks(int q_last, int t, int bk, int prefix) {
+  const int n_t = (t + bk - 1) / bk;
+  const int causal = q_last < 0 ? 0 : q_last / bk + 1;
+  const int seen = (min(prefix, t) + bk - 1) / bk;
+  return min(n_t, max(causal, seen));
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -181,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   }
 
   const int q_last = min(q0 + p.bq, p.s) - 1 + offset;  // largest q position here
-  const int n_kv = min((p.t + p.bk - 1) / p.bk, q_last / p.bk + 1);
+  const int n_kv = kv_blocks(q_last, p.t, p.bk, p.prefix);
   const int j0 = p.window ? max(0, q0 + offset - p.window + 1) / p.bk : 0;
 
   for (int j = j0; j < n_kv; ++j) {
@@ -210,19 +239,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
           sc[i][c] = fmaf(qv[i].y, kv[c].y, fmaf(qv[i].x, kv[c].x, sc[i][c]));
     }
 
-    // Causal and window masks (the causal one also masks k >= T, since
-    // every q position is < T), then the online softmax update of the TPU
-    // kernel.
+    // Columns past bk and the keys a row does not see (visible()), then the
+    // online softmax update of the TPU kernel.
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      const int qpos = q0 + ty + 16 * i + offset;
+      const KeyRange seen = visible(q0 + ty + 16 * i + offset, p.t, p.prefix, p.window);
       float rmax = kNegInf;
 #pragma unroll
       for (int c = 0; c < kPer; ++c) {
-        const int col = tx + 16 * c;
+        const int col = tx + 16 * c, key = k0 + col;
         float x = sc[i][c] * p.scale;
-        if (col >= p.bk || k0 + col > qpos || (p.window && qpos - (k0 + col) >= p.window))
-          x = kNegInf;
+        if (col >= p.bk || key > seen.hi || (p.window && key < seen.lo)) x = kNegInf;
         sc[i][c] = x;
         rmax = fmaxf(rmax, x);
       }
@@ -287,15 +314,23 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// What both routes take: KV heads dividing the query heads, S <= T unless
+// every key is seen (prefix >= T, T > 0), a window or a prefix, not both.
+bool shape_ok(int h, int kv, int s, int t, int window, int prefix) {
+  return kv > 0 && h % kv == 0 && t > 0 && (s <= t || prefix >= t) && window >= 0 &&
+         prefix >= 0 && !(window > 0 && prefix > 0);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const long long* strides, int b, int h, int kv, int s, int t,
-             int hd, int bq, int bk, float scale, int hd_v, int window, void* stream) {
+             int hd, int bq, int bk, float scale, int hd_v, int window, int prefix,
+             void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (kv <= 0 || h % kv || t < s || bq < 1 || bq > kMaxBlock || bk < 1 ||
-      bk > kMaxBlock || window < 0)
+  if (!shape_ok(h, kv, s, t, window, prefix) || bq < 1 || bq > kMaxBlock || bk < 1 ||
+      bk > kMaxBlock)
     return cudaErrorInvalidValue;
-  Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale, window};
+  Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale, window, prefix};
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   if (hd_v != hd) {
@@ -345,6 +380,7 @@ struct TcParams {
   int h, kv, s, t;
   float scale;
   int window;  // 0: causal only
+  int prefix;  // 0: causal only
 };
 
 // One consumer warpgroup w of the CTA: query rows [q0 + 64w, q0 + 64w +
@@ -358,7 +394,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
                                         int offset, int j0, int n_kv) {
   using L = TcLayout<HD, HDV, BQ, BK>;
   const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
-  const int qpos0 = r0 + offset, qpos1 = r0 + 8 + offset;
+  const KeyRange seen0 = visible(r0 + offset, p.t, p.prefix, p.window);
+  const KeyRange seen1 = visible(r0 + 8 + offset, p.t, p.prefix, p.window);
   const uint32_t q_addr = hopper::smem_u32(smem) + w * 64 * 128;
 
   float o[HDV / 2];
@@ -392,17 +429,18 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
     hopper::wgmma_wait<0>();
     hopper::fence_operands(sc);
 
-    // Causal and window masks (the causal one also masks keys >= T for
-    // every row < S), then the online softmax update of the TPU kernel.
+    // The keys a row does not see (visible(); TMA fills rows past T with
+    // zeros, which would score 0), then the online softmax update of the TPU
+    // kernel.
     const int k0 = j * BK;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int r = 0; r < BK / 2; ++r) {
       const int col = k0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
       const bool lower = (r >> 1) & 1;  // row r0 + 8
-      const int qpos = lower ? qpos1 : qpos0;
+      const KeyRange& seen = lower ? seen1 : seen0;
       float x = sc[r] * p.scale;
-      if (col > qpos || (p.window && qpos - col >= p.window)) x = kNegInf;
+      if (col > seen.hi || (p.window && col < seen.lo)) x = kNegInf;
       sc[r] = x;
       if (lower) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
     }
@@ -511,7 +549,7 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
   const int offset = p.t - p.s;
   const int q0 = qb * BQ;
   const int q_last = min(q0 + BQ, p.s) - 1 + offset;  // largest q position here
-  const int n_kv = min((p.t + BK - 1) / BK, q_last / BK + 1);
+  const int n_kv = kv_blocks(q_last, p.t, BK, p.prefix);
   const int j0 = p.window ? max(0, q0 + offset - p.window + 1) / BK : 0;
 
   if (threadIdx.x == 0) {
@@ -627,9 +665,9 @@ bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* s
 // strides: q, k, v, o, each (batch, head, position), in elements.
 int launch_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
               int b, int h, int kv, int s, int t, int hd, int bq, int bk, float scale, int split,
-              int hd_v, int window, void* stream) {
+              int hd_v, int window, int prefix, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (kv <= 0 || h % kv || t < s || window < 0 || !tc_ok(hd, hd_v, bq, bk))
+  if (!shape_ok(h, kv, s, t, window, prefix) || !tc_ok(hd, hd_v, bq, bk))
     return cudaErrorInvalidValue;
   const uint64_t dq[4] = {uint64_t(hd), uint64_t(s), uint64_t(h), uint64_t(b)};
   const uint64_t dkv[4] = {uint64_t(hd), uint64_t(t), uint64_t(kv), uint64_t(b)};
@@ -653,7 +691,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
       !hopper::encode_bf16_4d(&map_k, k, dkv, bk_st, bk) ||
       !hopper::encode_bf16_4d(&map_v, v, dv, bv_st, bk))
     return cudaErrorNotSupported;
-  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale, window};
+  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale, window, prefix};
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((s + bq - 1) / bq, h, b);
   return tc_dispatch(hd, hd_v, bq, bk, split,
@@ -699,21 +737,22 @@ int occupancy_tc(int hd, int hd_v, int bq, int bk, int split, int* out) {
 extern "C" {
 
 // hd: the width of q and k; hd_v: of v and o (equal, or 192 and 128);
-// window: the keys a query sees up to its own position, 0 for all of them.
+// window: the keys a query sees up to its own position, 0 for all of them;
+// prefix: the keys every query sees (k < prefix), 0 for causal only.
 int remop_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, int b, int h, int kv, int s,
                                int t, int hd, int bq, int bk, float scale, int hd_v,
-                               int window, void* stream) {
+                               int window, int prefix, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk,
-                                 scale, hd_v, window, stream);
+                                 scale, hd_v, window, prefix, stream);
 }
 
 int remop_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                               const long long* strides, int b, int h, int kv, int s,
                               int t, int hd, int bq, int bk, float scale, int hd_v,
-                              int window, void* stream) {
+                              int window, int prefix, void* stream) {
   return dispatch<float>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, hd_v,
-                         window, stream);
+                         window, prefix, stream);
 }
 
 // bf16 on the tensor cores ((hd, hd_v) (64, 64), (128, 128), (256, 256) or
@@ -722,9 +761,9 @@ int remop_flash_attention_f32(const void* q, const void* k, const void* v, void*
 int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                              const long long* strides, int b, int h, int kv, int s, int t,
                              int hd, int bq, int bk, float scale, int split, int hd_v,
-                             int window, void* stream) {
+                             int window, int prefix, void* stream) {
   return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
-                   window, stream);
+                   window, prefix, stream);
 }
 
 // Occupancy of the tensor-core instantiation these blocks launch, into

@@ -11,12 +11,19 @@ an online softmax in f32 over KV blocks of ``bk`` positions, scores scaled by
 position ``q`` sees the keys ``q - W + 1 .. q`` (``repro``'s local attention,
 ``full_attention(window=W)``, which the TPU kernel does not compute): the
 KV loop starts at the first block the query block's first row can see, so
-the work follows the visible pairs; ``window = 0`` is causal only.  ``hd_v``
-equals ``hd`` except at the pair (192, 128), MLA's prefill (128 nope + 64
-rope columns of q and k, values of 128).  Unlike the TPU kernel it takes any ``S <= T`` (rows and
-columns past the ends are masked) and any strides with a contiguous last
-dimension, so the model hands it ``[B, S, H, hd]`` activations as
-transposed views and gets its output back in the same layout.
+the work follows the visible pairs; ``window = 0`` is causal only.  With ``prefix = P >
+0`` a query at position ``q`` sees the keys ``k < P`` beside ``k <= q``:
+``repro``'s prefix-LM mask (paligemma's ``mask_pos = max(pos - P + 1,
+0)``), and at ``P >= T`` every key (the encoder's all-zero ``mask_pos``,
+and cross-attention's ``q_pos = 1e9`` over ``kv_pos = 0``, where S may
+exceed T); the KV loop then runs at least to key ``min(P, T) - 1``.  A
+window and a prefix are never given together.  ``hd_v`` equals ``hd``
+except at the pair (192, 128), MLA's prefill (128 nope + 64 rope columns of
+q and k, values of 128).  Unlike the TPU kernel it takes any ``S <= T``
+(any S at ``P >= T``; rows and columns past the ends are masked) and any
+strides with a contiguous last dimension, so the model hands it ``[B, S,
+H, hd]`` activations as transposed views and gets its output back in the
+same layout.
 
 Two routes, chosen on the host by :func:`route` from dtype, head widths and
 alignment alone:
@@ -35,7 +42,9 @@ blocks it refuses raise, and so does a failed build, encode or launch.
 under the route's own name, ``"flash_attention_tc"`` or
 ``"flash_attention_simt"``; a launch at unequal widths also counts under
 ``"flash_attention_<route>_<hd>x<hd_v>"``, a windowed launch under
-``"flash_attention_windowed"``.
+``"flash_attention_windowed"``, one with a prefix under
+``"flash_attention_prefix"`` and, when the prefix covers every key, also
+under ``"flash_attention_full"``.
 
 Beside the wrapper is its plain PyTorch version, the same online softmax
 over the same KV blocks; a CPU tensor takes it, a CUDA tensor launches the
@@ -113,15 +122,28 @@ def check_blocks(path: str, bq: int, bk: int, hd: int, hd_v: int | None = None) 
         raise ValueError(f"bq={bq}, bk={bk} must lie in [1, {MAX_BLOCK}]")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_mask(s: int, t: int, window: int, prefix: int) -> None:
+    """Raise ``ValueError`` for a mask the kernel does not compute: S > T
+    unless the prefix covers every key, a negative window or prefix, both
+    together."""
+    if t < s and prefix < t:
+        raise ValueError(f"more queries ({s}) than keys ({t}) under a causal mask")
+    if window < 0 or prefix < 0:
+        raise ValueError(f"window={window} and prefix={prefix} must be 0 (causal only) or "
+                         "positive")
+    if window and prefix:
+        raise ValueError(f"a window ({window}) and a prefix ({prefix}) together: no model "
+                         "uses both")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, prefix: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"q must be [B,H,S,hd], k [B,KV,T,hd] and v [B,KV,T,hd_v]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, s, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[1]:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if k.shape[2] < s:
-        raise ValueError(f"more queries ({s}) than keys ({k.shape[2]})")
+    _check_mask(s, k.shape[2], window, prefix)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype of {sorted(map(str, _DTYPES))}")
 
@@ -134,15 +156,18 @@ def first_block(q_pos: int, window: int, bk: int) -> int:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bk: int = MAX_BLOCK, scale: float | None = None,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, prefix: int = 0) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: online softmax over KV blocks of ``bk``.
 
     All query rows take every block from the first row's first visible one
     on; a block the kernel skips is fully masked for the rows it would skip
     it for, and adds exactly 0 there: before a row's first live key its m
     stays ``NEG_INF`` (each masked p is ``exp(0) = 1``), and the first live
-    key's correction ``exp(NEG_INF - m)`` is exactly 0.
+    key's correction ``exp(NEG_INF - m)`` is exactly 0.  Key ``k`` is seen
+    by the query at position ``q`` iff ``k <= q`` or ``k < prefix`` (inside
+    the window, if any).
     """
+    _check_mask(q.shape[2], k.shape[2], window, prefix)
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
@@ -156,7 +181,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vb = v[:, :, k0:k0 + bk].float()
         sc = torch.einsum("bkgsd,bktd->bkgst", qf, kb) * scale
         k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-        hidden = q_pos[:, None] < k_pos[None, :]
+        hidden = (q_pos[:, None] < k_pos[None, :]) & (k_pos[None, :] >= prefix)
         if window:
             hidden |= q_pos[:, None] - k_pos[None, :] >= window
         sc = sc.masked_fill(hidden, NEG_INF)
@@ -185,10 +210,12 @@ def _empty_out(q: torch.Tensor, hd_v: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = MAX_BLOCK, bk: int = MAX_BLOCK,
                     split_p: bool = True, scale: float | None = None,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, prefix: int = 0) -> torch.Tensor:
     """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
     offset T - S, and with ``window > 0`` only the last ``window`` keys up to
-    each query's position; scores scaled by ``scale`` (default ``1 / sqrt(hd)``).
+    each query's position, with ``prefix > 0`` also every key below
+    ``prefix`` (every key at ``prefix >= T``, where S may exceed T); scores
+    scaled by ``scale`` (default ``1 / sqrt(hd)``).
 
     ``bq, bk`` must suit the call's :func:`route` (:func:`check_blocks`);
     on a CUDA tensor ``(hd, hd_v)`` must also lie in ``HEAD_PAIRS``.  The
@@ -198,7 +225,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probe of what the split costs, not the main path.  Query blocks do not
     change any row's arithmetic, so the plain version takes only ``bk``.
     """
-    _check(q, k, v)
+    _check(q, k, v, window, prefix)
     b, h, s, hd = q.shape
     hd_v = v.shape[3]
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
@@ -206,10 +233,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_blocks(path, bq, bk, hd, hd_v)
     if not split_p and path != "tc":
         raise ValueError("split_p=False exists on the tensor-core route only")
-    if window < 0:
-        raise ValueError(f"window={window} must be 0 (causal only) or positive")
     if runtime.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, bk, scale, window)
+        return flash_attention_plain(q, k, v, bk, scale, window, prefix)
     if (hd, hd_v) not in HEAD_PAIRS:
         raise ValueError(f"head_dim {hd} with value width {hd_v} not in {HEAD_PAIRS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
@@ -223,11 +248,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, kv, s, t, hd, bq, bk, scale)
     with torch.cuda.device(q.device):
         if path == "tc":
-            err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, window,
+            err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, window, prefix,
                                                runtime.stream_of(q))
         else:
             err = getattr(lib, f"remop_flash_attention_{_DTYPES[q.dtype]}")(
-                *args, hd_v, window, runtime.stream_of(q))
+                *args, hd_v, window, prefix, runtime.stream_of(q))
     runtime.check("flash_attention", "flash_attention", err)
     runtime.launches["flash_attention"] += 1
     runtime.launches[f"flash_attention_{path}"] += 1
@@ -235,6 +260,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         runtime.launches[f"flash_attention_{path}_{hd}x{hd_v}"] += 1
     if window:
         runtime.launches["flash_attention_windowed"] += 1
+    if prefix:
+        runtime.launches["flash_attention_prefix"] += 1
+    if prefix >= t:
+        runtime.launches["flash_attention_full"] += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain oracle for causal flash attention (prefill): one dense softmax in f32."""
+"""Plain oracle for flash attention (prefill): one dense softmax in f32."""
 
 import math
 
@@ -7,14 +7,17 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q: [B, H, S, hd]; k/v: [B, KV, T, hd]; causal (q pos offset = T - S)."""
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        prefix: int = 0) -> torch.Tensor:
+    """q: [B, H, S, hd]; k/v: [B, KV, T, hd]; causal (q pos offset = T - S),
+    every key below ``prefix`` seen by every query."""
     b, h, s, hd = q.shape
     kv, t = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, kv, h // kv, s, hd)
     scores = torch.einsum("bkgsh,bkth->bkgst", qg, k.float()) / math.sqrt(hd)
     q_pos = torch.arange(s, device=q.device) + (t - s)
-    mask = q_pos[:, None] >= torch.arange(t, device=q.device)[None, :]
+    k_pos = torch.arange(t, device=q.device)
+    mask = (q_pos[:, None] >= k_pos[None, :]) | (k_pos[None, :] < prefix)
     scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bkth->bkgsh", p, v.float())

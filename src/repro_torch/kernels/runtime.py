@@ -62,13 +62,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # q, k, v, out, &strides[12] (int64), b, h, kv, s, t, hd, bq, bk, scale, hd_v,
-        # window, stream
-        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32, _I32, _I32, _P], _I32)
+        # window, prefix, stream
+        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 3 + [_P],
+                                          _I32)
            for t in ("bf16", "f32")},
         # q, k, v, out, &strides[12], b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
-        # window, stream
-        "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32, _I32, _I32, _I32, _P],
-                                     _I32),
+        # window, prefix, stream
+        "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 4 + [_P], _I32),
         # hd, hd_v, bq, bk, split, &out[5]
         "remop_flash_attention_tc_occupancy": ([_I32] * 5 + [_P], _I32),
         "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),

@@ -7,8 +7,12 @@ default device; it raises without a card); ``--device cpu`` runs the
 kernels' plain versions at the default reduced size.  A Mamba-2 prompt is
 at most one chunk or a multiple of it (``--prompt-len``); a recurrentgemma
 prompt may exceed its window (2048, reduced 32), the local-attention
-caches being rings of the window's length.  Weights are random, drawn from a
-``torch.Generator`` seeded with ``--seed`` on the serving device.
+caches being rings of the window's length.  paligemma-3b and
+seamless-m4t-large-v2 are refused, as ``repro``'s ``launch/serve.py``
+refuses them: their requests carry patches or encoder frames, which it does
+not take (drive ``models.transformer``'s ``prefill`` and ``decode_step``
+instead).  Weights are random, drawn from a ``torch.Generator`` seeded with
+``--seed`` on the serving device.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = reduced(ARCHS[args.arch]) if args.reduced else ARCHS[args.arch]
+    if cfg.family in ("vlm", "audio_encdec"):
+        raise SystemExit("serve driver targets decoder-only archs")
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = tf.init_params(cfg, gen, device)

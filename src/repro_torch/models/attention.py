@@ -38,8 +38,19 @@ attention (projections, the absorption of ``W_uk`` and ``W_uv``) are
 latent route scores and weighs in f32 and rounds the context once; ``repro``
 rounds the two score terms and P to bf16, so they agree to bf16 precision.
 
-Logit softcap, int8 KV quantization, cross-attention and prefix-LM masks
-raise ``NotImplementedError`` naming the slice they wait for.
+Prefix-LM and bidirectional masks: ``repro`` bends ``mask_pos`` (the
+positions its causal mask compares) where the flash kernel takes one
+integer, ``prefix``: key ``k`` is seen by the query at ``q`` iff ``k <= q``
+or ``k < prefix``.  paligemma's ``mask_pos = max(pos - P + 1, 0)`` over its
+``P`` image patches is ``prefix = P``; the encoder's all-zero ``mask_pos``
+is ``prefix = S`` (every key).  Cross-attention (``gqa_forward(xa=...)``,
+``repro``'s ``q_pos = 1e9`` over ``kv_pos = 0``) is the flash kernel at
+``prefix = T_enc`` with q from ``x`` and k, v from ``xa``, none roped; its
+decode (:func:`cross_decode`) is the paged kernel over the fixed ``[B,
+T_enc, KV, hd]`` cross cache at ``lengths = T_enc``.
+
+Logit softcap and int8 KV quantization raise ``NotImplementedError`` naming
+the slice they wait for.
 """
 
 from __future__ import annotations
@@ -95,26 +106,36 @@ def _gqa_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
 
 
 def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                window: int = 0, mask_pos: Optional[torch.Tensor] = None,
-                xa: Optional[torch.Tensor] = None, return_kv: bool = False):
+                window: int = 0, prefix: int = 0, xa: Optional[torch.Tensor] = None,
+                return_kv: bool = False):
     """Causal self-attention over the whole sequence (positions 0 .. S-1),
-    with ``window > 0`` over each query's last ``window`` keys.
+    with ``window > 0`` over each query's last ``window`` keys, with
+    ``prefix > 0`` also over every key below ``prefix`` (``repro``'s
+    ``mask_pos``: paligemma's ``max(pos - P + 1, 0)`` is ``prefix = P``, the
+    encoder's zeros ``prefix = S``).  With ``xa`` [B, T, d] it is
+    cross-attention, as in ``repro``: q from ``x``, k and v from ``xa``, no
+    RoPE, every key seen (``prefix = T``); ``positions`` and ``prefix`` are
+    then unused.
 
     x: [B, S, d] -> [B, S, d]; with ``return_kv`` also (k, v), each
-    [B, S, KV, hd], from which :func:`gqa_decode` continues (a windowed
-    caller packs them into a ring first).
+    [B, S, KV, hd] ([B, T, KV, hd] for cross-attention), from which
+    :func:`gqa_decode` (:func:`cross_decode`) continues (a windowed caller
+    packs them into a ring first).
     """
     _unsupported(cfg)
-    if xa is not None:
-        raise NotImplementedError("cross-attention: later slice (enc-dec, seamless)")
-    if mask_pos is not None:
-        raise NotImplementedError("prefix-LM / bidirectional masks: later slice (vlm)")
     b, s, _ = x.shape
-    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if xa is None:
+        q, k, v = _gqa_qkv(p, cfg, x, positions)
+    else:
+        q = dense(p["wq"], x).view(b, s, h, hd)
+        k = dense(p["wk"], xa).view(b, xa.shape[1], kv, hd)
+        v = dense(p["wv"], xa).view(b, xa.shape[1], kv, hd)
+        prefix = xa.shape[1]
     # [B, S, heads, hd] viewed as the kernel's [B, heads, S, hd]; the output
     # comes back in q's memory layout, so the reshape below is free.
     out = remop_flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                window=window)
+                                window=window, prefix=prefix)
     out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim))
     return (out, (k, v)) if return_kv else out
 
@@ -156,6 +177,24 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos
                          device=x.device)
     out = remop_paged_attention(q.view(b, kv, h // kv, hd), ck, cv, lengths)
     return dense(p["wo"], out.view(b, 1, h * hd)), (ck, cv)
+
+
+def cross_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """One token's cross-attention over the encoder's K/V: x [B, 1, d];
+    cache (k, v) [B, T_enc, KV, hd] from ``gqa_forward(xa=...)``, read and
+    never written.  The paged kernel at ``lengths = T_enc`` with q unroped,
+    as ``repro``'s decode computes it (``full_attention`` with every key
+    seen).  Returns out [B, 1, d]."""
+    _unsupported(cfg)
+    if len(cache) != 2:
+        raise NotImplementedError("int8 KV cache: later slice")
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ck, cv = cache
+    q = dense(p["wq"], x).view(b, kv, h // kv, hd)
+    lengths = torch.full((b,), ck.shape[1], dtype=torch.int32, device=x.device)
+    out = remop_paged_attention(q, ck, cv, lengths)
+    return dense(p["wo"], out.view(b, 1, h * hd))
 
 
 def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int, window: int = 0):

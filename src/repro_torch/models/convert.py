@@ -8,18 +8,23 @@ with every leaf stacked over the segment's repeats.  A dense decoder is
 ``seg0: {"b0_attn"}`` (``"b0_mla"`` with MLA), Mamba-2 ``seg0: {"b0_ssm"}``,
 an MoE decoder ``seg0: {"b0_attn"}`` for its ``first_k_dense`` dense blocks
 and then ``seg1: {"b0_moe"}`` (``"b0_mla"`` and ``"b0_mla_moe"`` for
-deepseek-v2-lite), and recurrentgemma's hybrid ``seg0: {"b0_rec", "b1_rec",
-"b2_attn_local"}`` repeated 8 times, then ``seg1: {"b0_rec"}`` twice.  The
-port's tree is the same with the stacks split into one ``"layers"`` list in
-``repro``'s layer order: repeat ``l`` of a segment gives its blocks' layer
-``l`` in block order (``b0_rec[l], b1_rec[l], b2_attn_local[l]``), then the
-next repeat, then the next segment.  Leaves arrive as numpy arrays (the
-caller converts them with ``np.asarray``), so this module needs nothing of
-JAX.  Matrices (the SSM's and RG-LRU's projections and conv weights, the MoE
-router and experts among them) become bf16: JAX casts each f32 master
-matrix to the bf16 activations per call, which computes the same products.
-Norm scales, the SSM's ``a_log``, ``dt_bias`` and ``d_skip`` and the
-RG-LRU's ``a_param`` stay f32, as JAX uses them in f32 arithmetic.
+deepseek-v2-lite), recurrentgemma's hybrid ``seg0: {"b0_rec", "b1_rec",
+"b2_attn_local"}`` repeated 8 times, then ``seg1: {"b0_rec"}`` twice, and
+the encoder-decoder's ``seg0: {"b0_cross"}`` (``repro``'s
+``_decoder_segments``).  The VLM and the encoder-decoder add ``"frontend":
+{"proj_in"}``, the encoder-decoder ``"encoder": {"b0_enc"}`` (stacked over
+its layers) and ``"enc_norm"``.  The port's tree is the same with the
+stacks split into lists in ``repro``'s layer order: ``"layers"``, where
+repeat ``l`` of a segment gives its blocks' layer ``l`` in block order
+(``b0_rec[l], b1_rec[l], b2_attn_local[l]``), then the next repeat, then
+the next segment; and ``"encoder"``, one ``"enc"`` layer a repeat.  Leaves
+arrive as numpy arrays (the caller converts them with ``np.asarray``), so
+this module needs nothing of JAX.  Matrices (the SSM's and RG-LRU's
+projections and conv weights, the MoE router and experts among them) become
+bf16: JAX casts each f32 master matrix to the bf16 activations per call,
+which computes the same products.  Norm scales, the SSM's ``a_log``,
+``dt_bias`` and ``d_skip`` and the RG-LRU's ``a_param`` stay f32, as JAX
+uses them in f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.layers import WEIGHT_DTYPE
-from repro_torch.models.transformer import Params, check_supported, stack_plan
+from repro_torch.models.transformer import Params, check_supported, decoder_segments
 
 
 F32_LEAVES = ("scale", "a_log", "dt_bias", "d_skip", "a_param")
@@ -54,9 +59,10 @@ def _tree(tree: Mapping[str, Any], device: torch.device, layer: int | None = Non
 
 
 def _segments(cfg: ModelConfig):
-    """(segment, block names, repeats) of ``repro``'s ``stack_plan`` for ``cfg``."""
+    """(segment, block names, repeats) of ``repro``'s ``_decoder_segments``
+    for ``cfg``."""
     return [(f"seg{j}", tuple(f"b{i}_{kind}" for i, kind in enumerate(kinds)), repeats)
-            for j, (kinds, repeats) in enumerate(stack_plan(cfg))]
+            for j, (kinds, repeats) in enumerate(decoder_segments(cfg))]
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> Params:
@@ -68,15 +74,26 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> P
     device = resolve_device(device)
     segs = _segments(cfg)
     want = {seg: set(blocks) for seg, blocks, _ in segs}
-    got = {seg: set(sub) for seg, sub in tree.items() if seg.startswith("seg")}
-    if set(tree) != {"embed", "final_norm", *want} or got != want:
+    if cfg.n_encoder_layers:
+        want["encoder"] = {"b0_enc"}
+    got = {seg: set(sub) for seg, sub in tree.items() if seg in want}
+    top = {"embed", "final_norm", *want}
+    top |= {"frontend"} if cfg.frontend else set()
+    top |= {"enc_norm"} if cfg.n_encoder_layers else set()
+    if set(tree) != top or got != want:
         raise ValueError(f"not the tree of {cfg.name}: {sorted(tree)}, segments "
                          f"{ {k: sorted(v) for k, v in got.items()} }; expected "
-                         f"{ {k: sorted(v) for k, v in want.items()} }")
-    layers = [_tree(tree[seg][block], device, layer)
-              for seg, blocks, n in segs for layer in range(n) for block in blocks]
-    return {
+                         f"{sorted(top)}, { {k: sorted(v) for k, v in want.items()} }")
+    out = {
         "embed": _tree(tree["embed"], device),
         "final_norm": _tree(tree["final_norm"], device),
-        "layers": layers,
+        "layers": [_tree(tree[seg][block], device, layer)
+                   for seg, blocks, n in segs for layer in range(n) for block in blocks],
     }
+    if cfg.frontend:
+        out["frontend"] = _tree(tree["frontend"], device)
+    if cfg.n_encoder_layers:
+        out["encoder"] = [_tree(tree["encoder"]["b0_enc"], device, layer)
+                          for layer in range(cfg.n_encoder_layers)]
+        out["enc_norm"] = _tree(tree["enc_norm"], device)
+    return out

@@ -9,7 +9,16 @@ serves, each layer a block of one of ``repro``'s kinds:
 - hybrid (recurrentgemma): ``block_pattern`` repeated, by default ``("rec",
   "rec", "attn_local")``; ``"rec"`` is an RG-LRU block (``models/rglru.py``),
   ``"attn_local"`` a GQA block whose attention sees the last ``cfg.window``
-  keys and whose decode cache is a ring of ``cfg.window`` slots.
+  keys and whose decode cache is a ring of ``cfg.window`` slots;
+- VLM (paligemma): ``"attn"`` blocks over ``[patches; text]``, the patches
+  (``batch["patches"]`` ``[B, P, frontend_dim]``) projected in by
+  ``frontend.proj_in``, every position seeing the ``P`` patches (the flash
+  kernel's ``prefix = P``: ``repro``'s prefix-LM mask);
+- encoder-decoder (seamless-m4t): ``batch["frames"]`` ``[B, T_enc,
+  frontend_dim]`` through ``frontend.proj_in`` and ``n_encoder_layers``
+  bidirectional ``"enc"`` blocks (``prefix = T_enc``) then ``enc_norm``;
+  the decoder's ``"cross"`` blocks add cross-attention over that output
+  after their causal self-attention.
 
 The JAX package's ``models/transformer.py`` assembles the families and
 scans over layer-stacked parameters, one scan per segment of its
@@ -17,18 +26,21 @@ scans over layer-stacked parameters, one scan per segment of its
 in ``repro``'s layer order (:func:`layer_kinds`) and the loop is a Python
 loop (PyTorch runs eagerly).  The parameter tree is JAX's with the stacks
 split: ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [...]}``,
-each layer ``{"norm1", "attn", "norm2", "mlp"}``, ``{"norm1", "attn",
-"norm2", "moe"}``, ``{"norm1", "ssm"}`` (no FFN half) or ``{"norm1", "rec",
-"norm2", "mlp"}``; an MLA layer's ``"attn"`` holds ``init_mla``'s weights.
-Caches are a list with one pair per layer: ``(k, v)``, each ``[B, S, KV,
-hd]`` (a ring ``[B, window, KV, hd]`` for ``"attn_local"``), MLA's ``(c_kv
-[B, S, lora], k_rope [B, S, rope])`` as views of one ``[B, S, lora + rope]``
-buffer, the SSM's ``(conv [B, W-1, C] bf16, state [B, H, P, N] f32)`` or the
-RG-LRU's ``(conv [B, W-1, lru] bf16, h [B, lru] f32)``; only the plain
-``(k, v)`` and MLA caches have a sequence axis that :func:`pad_caches` grows.
-
-Other families (VLM, enc-dec) raise ``NotImplementedError``: they wait for
-later slices.
+each layer ``{"norm1", "attn", "norm2", "mlp"}`` (also ``"enc"``),
+``{"norm1", "attn", "norm2", "moe"}``, ``{"norm1", "ssm"}`` (no FFN half),
+``{"norm1", "rec", "norm2", "mlp"}`` or, for ``"cross"``, ``{"norm1",
+"attn", "norm_x", "xattn", "norm2", "mlp"}``; an MLA layer's ``"attn"``
+holds ``init_mla``'s weights.  The VLM and the encoder-decoder add
+``"frontend": {"proj_in"}``, the encoder-decoder ``"encoder"`` (a list of
+``"enc"`` layers) and ``"enc_norm"``.  Caches are a list with one entry per
+decoder layer: ``(k, v)``, each ``[B, S, KV, hd]`` (a ring ``[B, window,
+KV, hd]`` for ``"attn_local"``), MLA's ``(c_kv [B, S, lora], k_rope [B, S,
+rope])`` as views of one ``[B, S, lora + rope]`` buffer, the SSM's ``(conv
+[B, W-1, C] bf16, state [B, H, P, N] f32)``, the RG-LRU's ``(conv [B, W-1,
+lru] bf16, h [B, lru] f32)`` or a cross block's ``{"self": (k, v),
+"cross": (ck, cv)}`` (``ck``, ``cv`` ``[B, T_enc, KV, hd]``); only the
+plain ``(k, v)`` caches (a cross block's ``"self"`` among them) and MLA
+caches have a sequence axis that :func:`pad_caches` grows.
 """
 
 from __future__ import annotations
@@ -45,11 +57,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
+    dense, embed, init_dense, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
 )
 
 Params = Dict[str, Any]
-Caches = List[Tuple[torch.Tensor, torch.Tensor]]
+Caches = List[Any]  # per decoder layer: a pair of tensors, or a cross block's dict of pairs
 # A segment of repro's stack_plan: (the block kinds of one scan group, repeats).
 Segment = Tuple[Tuple[str, ...], int]
 HYBRID_PATTERN = ("rec", "rec", "attn_local")
@@ -57,13 +69,18 @@ HYBRID_PATTERN = ("rec", "rec", "attn_local")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a dense or MoE decoder of GQA or MLA attention
-    blocks, a Mamba-2 stack or a hybrid of RG-LRU and attention blocks."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.n_encoder_layers
-            or (cfg.family in ("dense", "moe") and cfg.attn_type not in ("gqa", "mla"))):
+    blocks, a Mamba-2 stack, a hybrid of RG-LRU and attention blocks, a VLM
+    or an encoder-decoder of GQA blocks (encoder layers in the
+    encoder-decoder only)."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio_encdec")
+            or bool(cfg.n_encoder_layers) != (cfg.family == "audio_encdec")
+            or (cfg.family in ("dense", "moe") and cfg.attn_type not in ("gqa", "mla"))
+            or (cfg.family in ("vlm", "audio_encdec") and cfg.attn_type != "gqa")):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}) waits for a later slice; "
-            "the port serves the dense and MoE decoders (GQA or MLA), Mamba-2 and the "
-            "RG-LRU hybrid")
+            f"{cfg.name}: family {cfg.family!r} ({cfg.attn_type}, {cfg.n_encoder_layers} "
+            "encoder layers) waits for a later slice; the port serves the dense and MoE "
+            "decoders (GQA or MLA), Mamba-2, the RG-LRU hybrid, the VLM and the "
+            "encoder-decoder (GQA)")
     if cfg.family == "hybrid" and not set(cfg.block_pattern or HYBRID_PATTERN) <= {
             "rec", "attn", "attn_local"}:
         raise NotImplementedError(f"{cfg.name}: hybrid pattern {cfg.block_pattern}")
@@ -104,9 +121,18 @@ def stack_plan(cfg: ModelConfig) -> Tuple[Segment, ...]:
     return ((("mla",) if is_mla(cfg) else ("attn",), cfg.n_layers),)
 
 
+def decoder_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    """``repro``'s ``_decoder_segments``: ``n_layers`` ``"cross"`` blocks
+    for an encoder-decoder, else :func:`stack_plan`."""
+    if cfg.n_encoder_layers:
+        return ((("cross",), cfg.n_layers),)
+    return stack_plan(cfg)
+
+
 def layer_kinds(cfg: ModelConfig) -> List[str]:
-    """The block kind of every layer, in ``repro``'s layer order."""
-    return [kind for kinds, repeats in stack_plan(cfg) for _ in range(repeats) for kind in kinds]
+    """The block kind of every decoder layer, in ``repro``'s layer order."""
+    return [kind for kinds, repeats in decoder_segments(cfg) for _ in range(repeats)
+            for kind in kinds]
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -129,6 +155,9 @@ def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.devic
     else:
         init_attn = attn.init_mla if kind in ("mla", "mla_moe") else attn.init_gqa
         p["attn"] = init_attn(cfg, generator, device)
+    if kind == "cross":
+        p["norm_x"] = init_rmsnorm(cfg.d_model, device)
+        p["xattn"] = attn.init_gqa(cfg, generator, device)
     p["norm2"] = init_rmsnorm(cfg.d_model, device)
     if kind in ("moe", "mla_moe"):
         p["moe"] = moe_mod.init_moe(cfg, generator, device)
@@ -147,11 +176,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return {
+    p = {
         "embed": init_embedding(cfg.vocab_size, cfg.d_model, generator, device),
         "final_norm": init_rmsnorm(cfg.d_model, device),
         "layers": [init_block(cfg, generator, device, kind) for kind in layer_kinds(cfg)],
     }
+    if cfg.frontend:
+        p["frontend"] = {"proj_in": init_dense(cfg.frontend_dim, cfg.d_model, generator, device)}
+    if cfg.n_encoder_layers:
+        p["encoder"] = [init_block(cfg, generator, device, "enc")
+                        for _ in range(cfg.n_encoder_layers)]
+        p["enc_norm"] = init_rmsnorm(cfg.d_model, device)
+    return p
 
 
 # ===========================================================================
@@ -169,11 +205,15 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor):
 
 
 def block_forward(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                  positions: torch.Tensor, want_cache: bool = False):
+                  positions: torch.Tensor, want_cache: bool = False, prefix: int = 0,
+                  enc_out: Optional[torch.Tensor] = None):
     """Returns (x_out, cache or None, aux_loss or None): the cache is ``(k,
-    v)`` (packed into a ring for ``"attn_local"``), MLA's pair, or ``(conv,
-    state)`` / ``(conv, h)`` for SSM / RG-LRU; only an MoE block has an aux
-    loss."""
+    v)`` (packed into a ring for ``"attn_local"``), MLA's pair, ``(conv,
+    state)`` / ``(conv, h)`` for SSM / RG-LRU, or ``{"self": (k, v),
+    "cross": (ck, cv)}`` for ``"cross"``; only an MoE block has an aux loss.
+    ``prefix`` is the keys every query of an ``"attn"`` block sees (the
+    VLM's patches); an ``"enc"`` block sees every key; a ``"cross"`` block
+    attends to ``enc_out`` after its causal self-attention."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind == "ssm":
         out = ssm_mod.ssd_forward(p["ssm"], cfg, h, return_state=want_cache)
@@ -186,8 +226,17 @@ def block_forward(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         out = rec_mod.rglru_forward(p["rec"], cfg, h, return_state=want_cache)
     elif kind in ("mla", "mla_moe"):
         out = attn.mla_forward(p["attn"], cfg, h, positions, return_cache=want_cache)
+    elif kind == "cross":
+        out, kv_self = attn.gqa_forward(p["attn"], cfg, h, positions, return_kv=True)
+        x = x + out
+        hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+        out, kv_cross = attn.gqa_forward(p["xattn"], cfg, hx, positions, xa=enc_out,
+                                         return_kv=True)
+        if want_cache:
+            out = out, {"self": kv_self, "cross": kv_cross}
     else:
         out = attn.gqa_forward(p["attn"], cfg, h, positions, window=window,
+                               prefix=x.shape[1] if kind == "enc" else prefix,
                                return_kv=want_cache)
     cache = None
     if want_cache:
@@ -209,6 +258,12 @@ def block_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
         out, cache = rec_mod.rglru_decode(p["rec"], cfg, h, cache)
     elif kind in ("mla", "mla_moe"):
         out, cache = attn.mla_decode(p["attn"], cfg, h, cache, pos)
+    elif kind == "cross":
+        out, kv_self = attn.gqa_decode(p["attn"], cfg, h, cache["self"], pos)
+        x = x + out
+        hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+        out = attn.cross_decode(p["xattn"], cfg, hx, cache["cross"])
+        cache = {"self": kv_self, "cross": cache["cross"]}
     else:
         out, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos, window=_window(cfg, kind))
     x, _ = _ffn(p, cfg, x + out)
@@ -220,15 +275,46 @@ def block_decode(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
 # ===========================================================================
 
 
-def _hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, want_cache: bool):
-    check_supported(cfg)
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """``repro``'s ``_embed_inputs``: the token embedding, for the VLM
+    after the projected patches; returns (x, positions, prefix), ``prefix``
+    the patches every position sees (0 without them)."""
+    tokens = batch["tokens"]
     x = embed(params["embed"], tokens, scale_by_sqrt_dim=True)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    prefix = 0
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(device=x.device, dtype=x.dtype)  # [B, P, frontend_dim]
+        x = torch.cat([dense(params["frontend"]["proj_in"], patches), x], dim=1)
+        prefix = patches.shape[1]
+    return x, _positions(x.shape[0], x.shape[1], x.device), prefix
+
+
+def encode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``repro``'s ``_encode``: ``batch["frames"]`` [B, T_enc,
+    frontend_dim] in bf16 through ``proj_in`` and the bidirectional encoder
+    layers, then ``enc_norm``: [B, T_enc, d]."""
+    frames = batch["frames"].to(torch.bfloat16)
+    h = dense(params["frontend"]["proj_in"], frames)
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+    for layer in params["encoder"]:
+        h, _, _ = block_forward(layer, cfg, "enc", h, positions)
+    return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+
+def _hidden(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            want_cache: bool):
+    check_supported(cfg)
+    enc_out = encode(params, cfg, batch) if cfg.n_encoder_layers else None
+    x, positions, prefix = _embed_inputs(params, cfg, batch)
     caches = []
     aux_total = torch.zeros((), device=x.device)
     for kind, layer in zip(layer_kinds(cfg), params["layers"]):
-        x, cache, aux = block_forward(layer, cfg, kind, x, positions, want_cache)
+        x, cache, aux = block_forward(layer, cfg, kind, x, positions, want_cache, prefix,
+                                      enc_out)
         caches.append(cache)
         if aux is not None:
             aux_total = aux_total + aux
@@ -238,8 +324,11 @@ def _hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, want_cache: 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             want_cache: bool = False):
-    """Full-sequence forward; returns (logits, aux_loss, caches)."""
-    x, caches, aux = _hidden(params, cfg, batch["tokens"], want_cache)
+    """Full-sequence forward over ``repro``'s batch: ``{"tokens"}``, with
+    ``"patches"`` for the VLM (its logits cover patches and text) and
+    ``"frames"`` for the encoder-decoder; returns (logits, aux_loss,
+    caches)."""
+    x, caches, aux = _hidden(params, cfg, batch, want_cache)
     logits = unembed(params["embed"], x, cfg.logit_softcap)
     return logits, aux, caches
 
@@ -251,7 +340,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     Only the last position is unembedded: its logits are those of
     :func:`forward`, without the ``[B, S, vocab]`` tensor.
     """
-    x, caches, _ = _hidden(params, cfg, batch["tokens"], want_cache=True)
+    x, caches, _ = _hidden(params, cfg, batch, want_cache=True)
     last = x[:, -1]
     logits = unembed(params["embed"], last, cfg.logit_softcap)
     return (logits, caches, last) if return_hidden else (logits, caches)
@@ -259,7 +348,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.Tensor,
                 pos: int, return_hidden: bool = False):
-    """One decode step. token: [B] integer; pos: the step's position.
+    """One decode step. token: [B] integer; pos: the step's position (the
+    VLM's counts its patches: ``P + tokens so far``).
 
     Returns (logits [B, vocab], caches[, hidden [B, d]]); the caches are
     written in place.
@@ -280,14 +370,22 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.T
 # ===========================================================================
 
 
-def cache_struct(cfg: ModelConfig, batch: int, seq: int,
-                 dtype=torch.bfloat16) -> List[Tuple[Tuple[torch.Size, torch.dtype], ...]]:
+def cache_struct(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
+                 enc_len: Optional[int] = None) -> List[Any]:
     """(shape, dtype) of each layer's cache, mirroring ``prefill``'s: (k, v)
     (a ring of ``cfg.window`` slots for ``"attn_local"``), (c_kv, k_rope) for
-    MLA, (conv, state) for SSM, (conv, h) for RG-LRU."""
+    MLA, (conv, state) for SSM, (conv, h) for RG-LRU, ``{"self": (k, v),
+    "cross": (ck, cv)}`` for ``"cross"``, the cross pair over ``enc_len``
+    positions (by default ``cfg.frontend_seq``, else ``seq``), as in
+    ``repro``."""
     check_supported(cfg)
+    enc_len = enc_len or cfg.frontend_seq or seq
 
     def spec(kind):
+        if kind == "cross":
+            kv = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq)), dtype)
+            enc = (torch.Size(attn.gqa_cache_shape(cfg, batch, enc_len)), dtype)
+            return {"self": (kv, kv), "cross": (enc, enc)}
         if kind == "ssm":
             conv, state = ssm_mod.ssm_cache_shapes(cfg, batch)
             return (torch.Size(conv), dtype), (torch.Size(state), torch.float32)
@@ -307,7 +405,8 @@ def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
     """Grow each KV cache's seq axis to ``target_len`` with zeros (decode
     headroom); an MLA cache grows its shared buffer, so its two views still
     alias one buffer.  Ring (windowed), SSM and RG-LRU caches are fixed-size
-    and pass through untouched."""
+    and pass through untouched, as does a cross block's ``"cross"`` pair
+    (its ``"self"`` pair grows)."""
 
     def pad(a):
         return a if a.shape[1] >= target_len else F.pad(
@@ -318,6 +417,8 @@ def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
             return attn.mla_pad(cache, target_len)
         if kind in ("attn", "moe"):
             return tuple(pad(a) for a in cache)
+        if kind == "cross":
+            return {"self": tuple(pad(a) for a in cache["self"]), "cross": cache["cross"]}
         return cache
 
     return [grown(kind, cache) for kind, cache in zip(layer_kinds(cfg), caches)]

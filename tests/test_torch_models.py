@@ -141,10 +141,12 @@ def test_gqa_forward_and_decode_match_jax(models):
 
 
 def test_unported_attention_variants_raise():
-    """Cross-attention, the attention softcap, VLM and enc-dec still raise.
-    A window is ported (recurrentgemma's local attention, held to ``repro``
-    in tests/test_torch_hybrid.py): ``gqa_forward(window=8)`` computes
-    ``repro``'s, and recurrentgemma initialises."""
+    """The attention softcap and the int8 KV cache still raise.  A window,
+    prefix-LM and bidirectional masks and cross-attention are ported
+    (held to ``repro`` in tests/test_torch_hybrid.py, test_torch_prefix.py,
+    test_torch_vlm.py and test_torch_encdec.py): ``gqa_forward(window=8)``
+    computes ``repro``'s, and recurrentgemma, paligemma and seamless-m4t
+    initialise."""
     cfg = reduced(ARCHS["gemma-2b"])
     x, positions = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16), torch.zeros(1, 4)
     jcfg = jax_reduced(JAX_ARCHS["gemma-2b"])
@@ -154,14 +156,17 @@ def test_unported_attention_variants_raise():
     pos = np.broadcast_to(np.arange(20, dtype=np.int32), (2, 20))
     _close(attn.gqa_forward(p, cfg, xs, torch.from_numpy(pos.copy()), window=8),
            jattn.gqa_forward(jp, jcfg, jx, jnp.asarray(pos), window=8))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        attn.gqa_forward({}, cfg, x, positions, xa=x)
     with pytest.raises(NotImplementedError, match="softcap"):
         attn.gqa_forward({}, reduced(ARCHS["gemma-2b"], attn_softcap=50.0), x, positions)
-    for arch in ("paligemma-3b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError):
-            tf.init_params(reduced(ARCHS[arch]), device="cpu")
-    tf.init_params(reduced(ARCHS["recurrentgemma-2b"]), device="cpu")
+    with pytest.raises(NotImplementedError, match="softcap"):
+        tf.init_params(reduced(ARCHS["paligemma-3b"], attn_softcap=50.0), device="cpu")
+    cache = tuple(torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim) for _ in range(4))
+    with pytest.raises(NotImplementedError, match="int8"):
+        attn.gqa_decode(p, cfg, x[:, :1], cache, 3)
+    with pytest.raises(NotImplementedError, match="int8"):
+        attn.cross_decode(p, cfg, x[:, :1], cache)
+    for arch in ("recurrentgemma-2b", "paligemma-3b", "seamless-m4t-large-v2"):
+        tf.init_params(reduced(ARCHS[arch]), device="cpu")
 
 
 # -- the whole model ----------------------------------------------------------------
