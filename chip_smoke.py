@@ -150,6 +150,36 @@ Phases, each printing JSON objects, one per line:
    24 cross flash launches a request, 48 paged launches a step), every
    request's last step against a prefill replay within ``ENCDEC_TOL``, a
    breakdown, and time both kernels beside their bounds and SDPA;
+5g. softcap: hold the flash kernel with a cap that bites (cap 5 on q times
+   8; at least 10% of each check's visible scores past it, the uncapped
+   kernel missing ``ATTN_TOL`` by more than 10 times) on both routes
+   against its plain version (gemma-2b's prefill in bf16 and f32,
+   deepseek's 192 / 128, recurrentgemma's window 2048, paligemma's prefix
+   256, hd 32 and f32 on the CUDA cores), and the paged kernel with it
+   (gemma-2b's G 8, granite-moe's G 3, a full 2048-slot ring at G 10; bf16
+   and f32); hold the paged kernel's int8 route bit for bit to the bf16
+   route on the dequantized caches at those shapes and G 1, hd 64, with and
+   without a cap, and ``quantize_kv`` on the card byte for byte to the CPU
+   on ties at .5 and zero rows; reject four planted faults (the cap after
+   the mask, the cap before the scale, the int8 route reading the next
+   position's scale, and head 0's scale for every head); time the capped
+   kernels at the model's cap of 50 and the int8 route beside their bounds
+   (the capped rows' library call: ``flex_attention`` compiled with a tanh
+   ``score_mod``); serve gemma-2b with Gemma 2's caps (attention 50, final
+   logits 30) as phase 4 does (every flash and paged launch on the capped
+   instantiation, the last decode step of two requests against a prefill
+   replay), with its breakdown; then decode gemma-2b over its int8 cache
+   (prompts of 64, 512, 1024 and 2040 tokens, ``pad_caches`` to 4096,
+   ``quantize_kv`` on every layer, 32 greedy steps each, timed with only
+   the int8 caches on the card, after one full-width layer's int8 decode
+   within ``INT8_LAYER_TOL`` of its plain path: every ``gqa_decode`` call
+   of those steps replayed on the plain path within ``INT8_LAYER_TOL``,
+   every step's logits and hidden state within ``INT8_TOL`` of the plain
+   path, every new row byte for byte ``quantize_kv`` on the CPU, the caches
+   (hd + 2) / (2 hd) of the bf16 caches' bytes, 18 x 32 int8 launches a
+   request), beside the same tokens through the bf16 caches, timed with
+   only those on the card (the logits' gap and argmax agreement printed,
+   tokens/s, step time, peak memory and idle share of both);
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -175,10 +205,12 @@ no CUDA device is present or when ``src/repro_torch`` is not beside it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -417,6 +449,62 @@ ENCDEC_LAYER_TOL = 1e-2
 # layers over an encoder output both paths share.
 ENCDEC_TOL = {"hidden": 5e-2, "logits": 5e-2}
 
+# Phase 5g: gemma-2b with Gemma 2's attention and final logit softcaps
+# (arXiv 2408.00118: attn_logit_softcapping 50, final_logit_softcapping 30),
+# set on repro's flags, served as phase 4 serves gemma-2b; then gemma-2b's
+# decode over its int8 KV cache.
+SOFTCAP_ARCH = "gemma-2b"
+ATTN_SOFTCAP, LOGIT_SOFTCAP = 50.0, 30.0
+# The kernel checks' cap and gain on q: a score of size 1 under a cap of 50
+# moves by 1e-4, below bf16's grain, so the checks cap at 5 scores made up
+# to 20 and more (q times 8).
+CHECK_CAP, CHECK_GAIN = 5.0, 8.0
+# The capped rows' library call, timed beside the kernels (flex_softcap).
+FLEX_LIBRARY = "flex_attention under torch.compile, score_mod tanh(s / 50) * 50"
+# (what, b, h, kv, s, t, hd, hd_v, dtype, route, window, prefix)
+SOFTCAP_FLASH_CHECKS = (
+    ("gemma-2b prefill", 1, 8, 1, 2048, 2048, 256, 256, "bf16", "tc", 0, 0),
+    ("gemma-2b prefill", 1, 8, 1, 2048, 2048, 256, 256, "f32", "simt", 0, 0),
+    ("deepseek prefill 192/128", 1, 16, 16, 2048, 2048, 192, 128, "bf16", "tc", 0, 0),
+    ("recurrentgemma window 2048", 1, 10, 1, 4096, 4096, 256, 256, "bf16", "tc", 2048, 0),
+    ("paligemma prefix 256", 1, 8, 1, 768, 768, 256, 256, "bf16", "tc", 0, 256),
+    ("hd 32", 2, 16, 8, 300, 333, 32, 32, "bf16", "simt", 0, 0),
+    ("GQA f32", 2, 16, 8, 300, 333, 128, 128, "f32", "simt", 0, 0),
+)
+# (what, b, kv, g, hd, s, lengths): the paged kernel with a cap (bf16 and
+# f32) and its int8 route (bit for bit the bf16 route on the dequantized
+# caches, with and without a cap).
+SOFTCAP_PAGED_CHECKS = (
+    ("gemma-2b decode", 1, 1, 8, 256, 4096, (2077,)),
+    ("granite-moe decode", 1, 8, 3, 64, 4096, (2077,)),
+    ("recurrentgemma full 2048-slot ring", 1, 1, 10, 256, 2048, (2048,)),
+)
+INT8_CHECKS = SOFTCAP_PAGED_CHECKS + (("G 1, hd 64", 1, 16, 1, 64, 4096, (4096,)),)
+INT8_FAULTS = (
+    ("gemma-2b decode", 1, 1, 8, 256, 4096, (2077,), "reads the scale of the next position"),
+    ("granite-moe decode", 1, 8, 3, 64, 4096, (2077,), "reads head 0's scale for every head"),
+)
+INT8_PROMPT_LENS = (64, 512, 1024, 2040)
+INT8_MAX_LEN = 4096
+INT8_STEPS = 32
+# The int8 decode's kernel path against its plain path, both on the card,
+# three ways.  One attention layer at full width (positions of a 2048-token
+# prefix, its rows quantized) and, along the model's own decode, every
+# gqa_decode call of the 32 steps after each prompt replayed on the plain
+# path with its recorded inputs: the relative L2 error of each call's output
+# within INT8_LAYER_TOL, 1e-2, as the layer checks of phases 5c-5f read a
+# layer's two paths.  The whole model, 32 steps after each prompt: the
+# relative L2 error of each step's logits and final hidden state within
+# phase 4's CONSISTENCY_TOL; max|got - want| / max|want| is printed beside
+# it.  Gated at 1e-2, the whole model failed twice on the card (0.0236 max
+# abs of scale, 0.016 relative L2): 18 random-init bf16 layers grow the
+# paths' one-ulp differences to the 1.5% that phase 4's decode against
+# prefill reads too.
+INT8_LAYER_TOL = 1e-2
+INT8_LAYER_SEQ = 2048
+INT8_LAYER_POSITIONS = (1, 2, 63, 777, 1500, 2047)
+INT8_TOL = CONSISTENCY_TOL
+
 SOURCES = {
     "sort_blocks": "src/repro_torch/kernels/csrc/merge_sort.cu",
     "merge_pass": "src/repro_torch/kernels/csrc/merge_sort.cu",
@@ -432,6 +520,9 @@ SOURCES = {
     "flash_attention_prefix": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_full": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention_cross": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention_softcap": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention_softcap": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_attention_int8": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -448,6 +539,9 @@ REPLACES = {
     "flash_attention_prefix": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "flash_attention_full": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention_cross": "src/repro/kernels/paged_attention/paged_attention.py:65",
+    "flash_attention_softcap": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "paged_attention_softcap": "src/repro/kernels/paged_attention/paged_attention.py:65",
+    "paged_attention_int8": "src/repro/kernels/paged_attention/paged_attention.py:65",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
@@ -1533,18 +1627,22 @@ def rel_err(torch, got, want) -> float:
                  / torch.linalg.vector_norm(want.double()))
 
 
-def phase_serve(torch, device):
+def phase_serve(torch, device, cfg=None, phase="serve"):
+    """Serve ``cfg`` (gemma-2b by default) through ``ServeEngine.submit``;
+    with ``cfg.attn_softcap`` every flash and paged launch must also count
+    as capped.  Returns (launches, params)."""
     import numpy as np
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import runtime
     from repro_torch.models import transformer as tf
     from repro_torch.runtime.serve_loop import Request, ServeEngine
 
-    cfg = ARCHS[SERVE_ARCH]
+    cfg = cfg or ARCHS[SERVE_ARCH]
     t0 = time.perf_counter()
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
     torch.cuda.synchronize()
-    emit({"phase": "serve", "arch": cfg.name, "params": tf.param_count(params),
+    emit({"phase": phase, "arch": cfg.name, "params": tf.param_count(params),
+          "attn_softcap": cfg.attn_softcap, "logit_softcap": cfg.logit_softcap,
           "init_seconds": time.perf_counter() - t0})
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in PROMPT_LENS]
@@ -1580,6 +1678,11 @@ def phase_serve(torch, device):
           "flash launches took the tensor-core route")
     check(launches.get("paged_attention", 0) == cfg.n_layers * steps,
           f"paged launches {launches.get('paged_attention')} != {cfg.n_layers} x {steps}")
+    for name in ("flash_attention", "paged_attention"):
+        capped = launches.get(f"{name}_softcap", 0)
+        check(capped == (launches[name] if cfg.attn_softcap else 0),
+              f"{capped} of {launches[name]} {name} launches took the capped instantiation, "
+              f"with attn_softcap {cfg.attn_softcap}")
     for rid, (logits, hidden) in last.items():
         check(bool(torch.isfinite(logits).all() and torch.isfinite(hidden).all()),
               f"request {rid}: non-finite logits or hidden state")
@@ -1595,7 +1698,7 @@ def phase_serve(torch, device):
         dec_logits, dec_hidden = last[rid]
         err_h = rel_err(torch, dec_hidden, hidden[0])
         err_l = rel_err(torch, dec_logits, logits[0])
-        emit({"phase": "serve", "consistency": rid, "tokens": len(tokens),
+        emit({"phase": phase, "consistency": rid, "tokens": len(tokens),
               "hidden_rel_err": err_h, "logits_rel_err": err_l, "tol": CONSISTENCY_TOL,
               "max_abs_logit_diff": float((dec_logits - logits[0].float()).abs().max())})
         check(err_h <= CONSISTENCY_TOL and err_l <= CONSISTENCY_TOL,
@@ -1603,26 +1706,27 @@ def phase_serve(torch, device):
 
     for r in reqs:
         n_dec = len(r.out_tokens) - 1
-        emit({"phase": "serve", "request": r.rid, "prompt_tokens": len(r.prompt),
+        emit({"phase": phase, "request": r.rid, "prompt_tokens": len(r.prompt),
               "new_tokens": len(r.out_tokens), "prefill_seconds": r.prefill_seconds,
               "decode_seconds_per_token": r.decode_seconds / n_dec,
               "tokens_per_second": len(r.out_tokens) / (r.prefill_seconds + r.decode_seconds)})
-    emit({"phase": "serve", "requests": len(reqs), "new_tokens": steps + len(reqs),
+    emit({"phase": phase, "requests": len(reqs), "new_tokens": steps + len(reqs),
           "decode_steps": steps, "wall_seconds": wall,
           "tokens_per_second": (steps + len(reqs)) / wall,
           "launches": launches, "peak_device_bytes": peak})
     return launches, params
 
 
-def phase_breakdown(torch, device, params):
+def phase_breakdown(torch, device, params, cfg=None, phase="breakdown"):
     """Device time of a 2048-token prefill, 8 decode steps and a 64-token
-    prefill, by kind, from one profiler window."""
+    prefill of ``cfg`` (gemma-2b by default), by kind, from one profiler
+    window."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import ARCHS
     from repro_torch.models import transformer as tf
 
-    cfg = ARCHS[SERVE_ARCH]
+    cfg = cfg or ARCHS[SERVE_ARCH]
     rng = np.random.default_rng(SEED + 1)
     long_prompt, short_prompt = (
         torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32), device=device)
@@ -1655,7 +1759,7 @@ def phase_breakdown(torch, device, params):
                            "attention_kernels")
     flash = device_seconds(torch, prof, ("flash_attention_kernel",), "flash")[0]["flash"]
     names = ("prefill_2048_seconds", "decode_step_seconds", "prefill_64_seconds")
-    emit({"phase": "breakdown",
+    emit({"phase": phase,
           "window": "prefill of 2048 tokens, 8 decode steps, prefill of 64 tokens",
           "unprofiled": dict(zip(names, unprofiled)), "profiled": dict(zip(names, profiled)),
           "flash_attention_device_seconds": flash,
@@ -3300,22 +3404,29 @@ def phase_vlm_kernels(torch, device):
 @contextlib.contextmanager
 def plain_attention():
     """The model's attention entry points (``models.attention``'s
-    ``remop_flash_attention`` and ``remop_paged_attention``) on the kernels'
-    plain versions while the context lasts, CUDA tensors included: the
-    layer checks' reference path."""
+    ``remop_flash_attention``, ``remop_paged_attention`` and
+    ``remop_paged_attention_int8``) on the kernels' plain versions while the
+    context lasts, CUDA tensors included: the layer checks' reference path."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
-    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_plain
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        paged_attention_int8_plain, paged_attention_plain)
     from repro_torch.models import attention as attn
 
-    saved = attn.remop_flash_attention, attn.remop_paged_attention
-    attn.remop_flash_attention = lambda q, k, v, window=0, prefix=0: flash_attention_plain(
-        q, k, v, window=window, prefix=prefix)
-    attn.remop_paged_attention = lambda q, kc, vc, lengths: paged_attention_plain(
-        q, kc, vc, lengths.int())
+    saved = (attn.remop_flash_attention, attn.remop_paged_attention,
+             attn.remop_paged_attention_int8)
+    attn.remop_flash_attention = (
+        lambda q, k, v, window=0, prefix=0, softcap=0.0: flash_attention_plain(
+            q, k, v, window=window, prefix=prefix, softcap=softcap))
+    attn.remop_paged_attention = lambda q, kc, vc, lengths, softcap=0.0: paged_attention_plain(
+        q, kc, vc, lengths.int(), softcap=softcap)
+    attn.remop_paged_attention_int8 = (
+        lambda q, kq, vq, ks, vs, lengths, softcap=0.0: paged_attention_int8_plain(
+            q, kq, vq, ks, vs, lengths.int(), softcap=softcap))
     try:
         yield
     finally:
-        attn.remop_flash_attention, attn.remop_paged_attention = saved
+        (attn.remop_flash_attention, attn.remop_paged_attention,
+         attn.remop_paged_attention_int8) = saved
 
 
 @contextlib.contextmanager
@@ -3326,8 +3437,8 @@ def flash_prefix_fault(rule):
 
     saved = attn.remop_flash_attention
 
-    def faulty(q, k, v, window=0, prefix=0):
-        return saved(q, k, v, window=window, prefix=rule(q, k, prefix))
+    def faulty(q, k, v, window=0, prefix=0, softcap=0.0):
+        return saved(q, k, v, window=window, prefix=rule(q, k, prefix), softcap=softcap)
 
     attn.remop_flash_attention = faulty
     try:
@@ -3930,6 +4041,569 @@ def phase_encdec_serve(torch, device):
 
 
 # --------------------------------------------------------------------------
+# Phase 5g: the attention softcap in the flash and paged kernels, the paged
+# kernel's int8 route, and gemma-2b served with both
+# --------------------------------------------------------------------------
+
+
+def capped_launch(torch, counter, fn):
+    """``fn()`` through a wrapper that must count one launch under
+    ``counter`` and one under its ``*_softcap`` sibling (or, for the int8
+    route, ``paged_attention_softcap``)."""
+    from repro_torch.kernels import runtime
+
+    capped = "flash_attention_softcap" if counter.startswith("flash") else "paged_attention_softcap"
+    before = runtime.launches[counter], runtime.launches[capped]
+    out = fn()
+    check((runtime.launches[counter], runtime.launches[capped]) == (before[0] + 1, before[1] + 1),
+          f"a capped call did not launch the capped instantiation under {counter}")
+    return out
+
+
+def tol_excess(torch, got, want) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` of ``ATTN_TOL``:
+    how many times the rule's bound an output misses by."""
+    tol = ATTN_TOL[str(want.dtype)]
+    d, w = (got.double() - want.double()).abs(), want.double().abs()
+    return float((d / (tol["atol"] + tol["rtol"] * w)).max())
+
+
+def bite_share(torch, scores, visible) -> float:
+    """The share of the visible scores above ``CHECK_CAP`` in magnitude."""
+    return float((scores.abs() > CHECK_CAP)[visible.expand_as(scores)].float().mean())
+
+
+def phase_softcap_kernels(torch, device):
+    """The flash (both routes) and paged kernels with a cap that bites
+    against their plain versions under ``ATTN_TOL`` (each check showing at
+    least 10% of its visible scores past the cap and the uncapped kernel
+    missing the rule by more than 10 times); the int8 route bit for bit
+    against the bf16 route on the dequantized caches, with and without a
+    cap; ``quantize_kv`` on the card byte for byte against the CPU on ties
+    and zero rows; four planted faults; then the capped kernels and the int8
+    route timed beside their bounds."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks, remop_flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models import attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(29)
+    errs, rows = {}, {}
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    # -- flash with a cap that bites, both routes ----------------------------------------
+    for what, b, h, kv, s, t, hd, hd_v, dt, path, window, prefix in SOFTCAP_FLASH_CHECKS:
+        dtype = dtypes[dt]
+        q = randn(b, h, s, hd, dtype=dtype) * CHECK_GAIN
+        k, v = randn(b, kv, t, hd, dtype=dtype), randn(b, kv, t, hd_v, dtype=dtype)
+        check(fa.route(q, k, v) == path, f"{what} {dt} does not take the {path} route")
+        want = fa.flash_attention_plain(q, k, v, window=window, prefix=prefix, softcap=CHECK_CAP)
+        got = capped_launch(torch, f"flash_attention_{path}", lambda: remop_flash_attention(
+            q, k, v, window=window, prefix=prefix, softcap=CHECK_CAP))
+        err, rel = allclose(torch, ["flash_attention_softcap"], got, want, errs)
+        g = h // kv
+        sc = torch.einsum("gsd,td->gst", q[0, :min(g, 2)].float(), k[0, 0].float()) / math.sqrt(hd)
+        qp = torch.arange(s, device=device)[:, None] + (t - s)
+        kp = torch.arange(t, device=device)[None, :]
+        seen = (kp <= qp) | (kp < prefix)
+        if window:
+            seen &= qp - kp < window
+        share = bite_share(torch, sc, seen)
+        excess = tol_excess(torch, remop_flash_attention(q, k, v, window=window, prefix=prefix),
+                            want)
+        emit({"phase": "softcap", "check": "flash_attention_softcap", "what": what,
+              "shape": [b, h, kv, s, t, hd, hd_v], "dtype": str(dtype), "route": path,
+              "window": window, "prefix": prefix, "softcap": CHECK_CAP, "q_gain": CHECK_GAIN,
+              "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel,
+              "visible_scores_past_cap": share, "uncapped_tol_excess": excess})
+        check(share >= 0.1 and excess > 10, f"{what}: the cap does not bite (share {share}, "
+                                             f"uncapped {excess} x the rule)")
+    emit({"phase": "softcap", "flash_attention_tc_capped_instantiations": {
+        f"hd {hd}/{hd_v} bq {bq} bk {bk}": fa.occupancy(hd, bq, bk, hd_v=hd_v, capped=True)
+        for hd, hd_v in fa.TC_HEAD_PAIRS for bq in fa.TC_BLOCKS for bk in fa.TC_BLOCKS
+        if fa.smem_bytes(bq, bk, hd, 2, "tc", hd_v) <= fa.SMEM_LIMIT}})
+
+    # -- paged with a cap that bites, bf16 and f32 -----------------------------------------
+    for what, b, kv, g, hd, s, lengths in SOFTCAP_PAGED_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(b, kv, g, hd, dtype=dtype) * CHECK_GAIN
+            kc, vc = randn(b, s, kv, hd, dtype=dtype), randn(b, s, kv, hd, dtype=dtype)
+            ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+            want = pa.paged_attention_plain(q, kc, vc, ln, softcap=CHECK_CAP)
+            got = capped_launch(torch, "paged_attention", lambda: pa.paged_attention(
+                q, kc, vc, ln, softcap=CHECK_CAP))
+            err, rel = allclose(torch, ["paged_attention_softcap"], got, want, errs)
+            sc = torch.einsum("bkgd,bskd->bkgs", q.float(), kc.float()) / math.sqrt(hd)
+            share = bite_share(torch, sc, (torch.arange(s, device=device)[None, :]
+                                           < ln[:, None])[:, None, None, :])
+            excess = tol_excess(torch, pa.paged_attention(q, kc, vc, ln), want)
+            emit({"phase": "softcap", "check": "paged_attention_softcap", "what": what,
+                  "shape": [b, kv, g, hd, s], "lengths": list(lengths), "dtype": str(dtype),
+                  "plan": pa.plan(b, kv, g, s), "softcap": CHECK_CAP, "q_gain": CHECK_GAIN,
+                  "tol": ATTN_TOL[str(dtype)], "max_abs_err": err, "rel_err": rel,
+                  "visible_scores_past_cap": share, "uncapped_tol_excess": excess})
+            check(share >= 0.1 and excess > 10, f"{what}: the cap does not bite")
+
+    # -- the int8 route: bit for bit the bf16 route on the dequantized caches --------------
+    for what, b, kv, g, hd, s, lengths in INT8_CHECKS:
+        for cap in (0.0, CHECK_CAP):
+            q = randn(b, kv, g, hd) * (CHECK_GAIN if cap else 1.0)
+            (kq, ks), (vq, vs) = (attn.quantize_kv(randn(b, s, kv, hd)) for _ in range(2))
+            ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+
+            def int8():
+                return pa.paged_attention_int8(q, kq, vq, ks, vs, ln, softcap=cap)
+
+            got = capped_launch(torch, "paged_attention_int8", int8) if cap else int8()
+            bf16 = pa.paged_attention(q, attn.dequantize_kv(kq, ks), attn.dequantize_kv(vq, vs),
+                                      ln, softcap=cap)
+            equal = torch.equal(got.view(torch.int16), bf16.view(torch.int16))
+            err, rel = allclose(torch, ["paged_attention_int8"], got,
+                                pa.paged_attention_int8_plain(q, kq, vq, ks, vs, ln,
+                                                              softcap=cap), errs)
+            emit({"phase": "softcap", "check": "paged_attention_int8", "what": what,
+                  "shape": [b, kv, g, hd, s], "lengths": list(lengths), "softcap": cap,
+                  "plan": pa.plan(b, kv, g, s), "equal_bits_to_bf16_route": equal,
+                  "max_abs_err_to_plain": err, "rel_err_to_plain": rel})
+            check(equal, f"int8 route {what} (cap {cap}) differs from the bf16 route on the "
+                         "dequantized caches")
+    emit({"phase": "softcap", "paged_attention_int8_instantiations": {
+        f"hd {hd} gc {gc}": pa.attributes(torch.int8, hd, gc)
+        for hd in pa.HEAD_DIMS for gc in (8, 48, 64)}})
+
+    # -- quantize_kv on the card, byte for byte the CPU's, on ties and zero rows ------------
+    rng = np.random.default_rng(SEED + 29)
+    x = rng.standard_normal((4, 512, 8, 64)).astype(np.float32)
+    x[:, ::7] = 0.0  # zero rows
+    pow2 = np.float32(2.0) ** rng.integers(-8, 3, (4, 512, 8, 1)).astype(np.float32)
+    ties = rng.choice(np.float32([2.5, -2.5, 3.5, -3.5, 10.5, -100.5, 0.5, -0.5]), (4, 512, 8, 64))
+    x[:, 3::7] = (ties * pow2)[:, 3::7]
+    x[:, 3::7, :, 0] = (127.0 * pow2)[:, 3::7, :, 0]  # the max: the scale is pow2 exactly
+    xc = torch.from_numpy(x).to(torch.bfloat16)
+    (q_cpu, s_cpu), (q_dev, s_dev) = attn.quantize_kv(xc), attn.quantize_kv(xc.to(device))
+    same = (torch.equal(q_cpu, q_dev.cpu())
+            and torch.equal(s_cpu.view(torch.int16), s_dev.cpu().view(torch.int16)))
+    xf = xc.float()
+    ratio = xf / (torch.clamp_min(xf.abs().amax(-1, keepdim=True), 1e-6) / 127.0)
+    n_ties = int(((ratio - ratio.floor()) == 0.5).sum())
+    n_zero = int((xf == 0).all(-1).sum())
+    emit({"phase": "softcap", "check": "quantize_kv", "shape": list(x.shape),
+          "equal_bytes_card_cpu": same, "ties_at_half": n_ties, "zero_rows": n_zero,
+          "extremes": [int((q_cpu == 127).sum()), int((q_cpu == -127).sum())]})
+    check(same and n_ties > 0 and n_zero > 0, f"quantize_kv on the card differs from the CPU "
+          f"({same}) or the data lack ties ({n_ties}) or zero rows ({n_zero})")
+
+    # -- planted faults --------------------------------------------------------------------
+    b, h, kv, s, hd = 1, 8, 1, 2048, 256
+    q = randn(b, h, s, hd) * CHECK_GAIN
+    k, v = randn(b, kv, s, hd), randn(b, kv, s, hd)
+    want = fa.flash_attention_plain(q, k, v, softcap=CHECK_CAP)
+    raw = torch.einsum("hsd,td->hst", q[0].float(), k[0, 0].float())
+    hidden = torch.ones(s, s, dtype=torch.bool, device=device).triu(1)
+    scale = 1.0 / math.sqrt(hd)
+
+    def dense(scores):
+        out = torch.softmax(scores, dim=-1) @ v[0, 0].float()
+        return out[None].to(q.dtype)
+
+    capped = lambda x: torch.tanh(x / CHECK_CAP) * CHECK_CAP  # noqa: E731
+    reject_fault(torch, "flash_attention_softcap", "applies the cap after the mask",
+                 dense(capped((raw * scale).masked_fill(hidden, -1e30))), want)
+    reject_fault(torch, "flash_attention_softcap", "applies the cap before the scale",
+                 dense((capped(raw) * scale).masked_fill(hidden, -1e30)), want)
+    del raw, hidden
+    for what, b, kv, g, hd, s, lengths, fault in INT8_FAULTS:
+        q = randn(b, kv, g, hd)
+        (kq, ks), (vq, vs) = (attn.quantize_kv(randn(b, s, kv, hd)) for _ in range(2))
+        ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+        if "next position" in fault:
+            bad_ks, bad_vs = (torch.roll(x, -1, dims=1) for x in (ks, vs))
+        else:  # head 0's scale for every head
+            bad_ks, bad_vs = (x[:, :, :1].expand_as(x) for x in (ks, vs))
+        reject_fault(torch, "paged_attention_int8", f"{fault} ({what})",
+                     pa.paged_attention(q, attn.dequantize_kv(kq, bad_ks),
+                                        attn.dequantize_kv(vq, bad_vs), ln),
+                     pa.paged_attention_int8_plain(q, kq, vq, ks, vs, ln))
+    torch.cuda.synchronize()
+
+    # -- timing: the model's cap (50) at gemma-2b's prefill and decode shapes; the int8
+    # route at row 5's shape and at G 1, hd 64 ---------------------------------------------
+    bench = Bench(torch, device)
+    b, h, kv, s, hd = 1, 8, 1, 2048, 256
+    q, k, v = randn(b, h, s, hd), randn(b, kv, s, hd), randn(b, kv, s, hd)
+    bq, bk = plan_blocks(s, s, hd)
+    ms_bound, by = bound(*flash_cost(b, h, kv, s, s, hd, 2), BF16_OPS_PER_S)
+
+    flex, block_mask, tanh_cap = flex_softcap(torch)
+
+    def flash_capped():
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk, softcap=ATTN_SOFTCAP)
+
+    causal = block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None, s, s,
+                        device=device)
+
+    def flash_flex():
+        return flex(q, k, v, score_mod=tanh_cap, block_mask=causal, enable_gqa=True)
+
+    plain = fa.flash_attention_plain(q, k, v, softcap=ATTN_SOFTCAP)
+    rows["flash_attention_softcap"] = dict(
+        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{s},{hd}] bf16, causal, softcap "
+              f"{ATTN_SOFTCAP}, blocks {(bq, bk)}",
+        ms=bench.ms(flash_capped),
+        plain_ms=bench.ms(lambda: fa.flash_attention_plain(q, k, v, softcap=ATTN_SOFTCAP)),
+        library_ms=bench.ms(flash_flex), library=FLEX_LIBRARY,
+        library_rel_err_to_plain=rel_err(torch, flash_flex(), plain),
+        bound_ms=ms_bound, bound_by=by, **bench.device_ms(flash_capped),
+        **{f"library_{k}": v for k, v in bench.device_ms(flash_flex).items()},
+        uncapped_device_ms=bench.device_ms(
+            lambda: fa.flash_attention(q, k, v, bq=bq, bk=bk))["device_ms"])
+    del plain, causal
+    s, length = 4096, 2048
+    ln = torch.full((1,), length, dtype=torch.int32, device=device)
+    for name, kv, g, hd in (("paged_attention_softcap", 1, 8, 256),
+                            ("paged_attention_int8", 1, 8, 256),
+                            ("paged_attention_int8 G 1 hd 64", 16, 1, 64)):
+        q = randn(1, kv, g, hd)
+        kc, vc = randn(1, s, kv, hd), randn(1, s, kv, hd)
+        (kq, ks), (vq, vs) = attn.quantize_kv(kc), attn.quantize_kv(vc)
+        n = s if g == 1 else length  # G 1: row 5d's full 4096-row cache
+        lens = torch.full((1,), n, dtype=torch.int32, device=device)
+        if name == "paged_attention_softcap":
+            cache_bytes = 2 * n * kv * hd * 2
+
+            def kernel(q=q, kc=kc, vc=vc, lens=lens):
+                return pa.paged_attention(q, kc, vc, lens, softcap=ATTN_SOFTCAP)
+
+            def plain(q=q, kc=kc, vc=vc, lens=lens):
+                return pa.paged_attention_plain(q, kc, vc, lens, softcap=ATTN_SOFTCAP)
+
+            seen = block_mask(lambda b, h, q_idx, kv_idx, n=n: kv_idx < n, None, None, 1, s,
+                              device=device)
+            qf, kf, vf = q.view(1, kv * g, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2)
+
+            def library(qf=qf, kf=kf, vf=vf, seen=seen):
+                return flex(qf, kf, vf, score_mod=tanh_cap, block_mask=seen, enable_gqa=True)
+
+            flex_row = dict(library_ms=bench.ms(library), library=FLEX_LIBRARY,
+                            library_rel_err_to_plain=rel_err(
+                                torch, library().view(q.shape), plain()),
+                            **{f"library_{k}": v for k, v in bench.device_ms(library).items()})
+        else:
+            cache_bytes = 2 * n * kv * (hd + 2)
+
+            def kernel(q=q, kq=kq, vq=vq, ks=ks, vs=vs, lens=lens):
+                return pa.paged_attention_int8(q, kq, vq, ks, vs, lens)
+
+            def plain(q=q, kq=kq, vq=vq, ks=ks, vs=vs, lens=lens):
+                return pa.paged_attention_int8_plain(q, kq, vq, ks, vs, lens)
+
+            flex_row = dict(library_ms=None,
+                            library="none: no single PyTorch call reads an int8 cache")
+        ms_bound, by = bound(cache_bytes + 2 * kv * g * hd * 2, 4 * hd * n * kv * g,
+                             BF16_OPS_PER_S)
+        row = dict(
+            shape=f"q [1,{kv},{g},{hd}], caches [1,{s},{kv},{hd}] "
+                  f"{'bf16' if name.endswith('softcap') else 'int8, bf16 scales'}, length {n}, "
+                  f"plan {pa.plan(1, kv, g, s)}",
+            ms=bench.ms(kernel), plain_ms=bench.ms(plain), **flex_row, bound_ms=ms_bound,
+            bound_by=by, cache_bytes=cache_bytes, **bench.device_ms(kernel),
+            bf16_route_device_ms=bench.device_ms(lambda q=q, kc=kc, vc=vc, lens=lens:
+                                                 pa.paged_attention(q, kc, vc, lens))["device_ms"])
+        if name in ("paged_attention_softcap", "paged_attention_int8"):
+            rows[name] = row
+        else:
+            emit({"phase": "softcap", "timing": name, **row})
+    for key, row in rows.items():
+        emit({"phase": "softcap", "timing": key, **row})
+    del bench
+    return errs, rows
+
+
+def flex_softcap(torch):
+    """The one PyTorch call that computes the capped kernels' function:
+    ``flex_attention`` under ``torch.compile`` with ``score_mod = tanh(s /
+    ATTN_SOFTCAP) * ATTN_SOFTCAP`` (after flex's own 1/sqrt(hd) scale, as
+    the kernels cap), compiled in this process (``main`` sets where its
+    caches go).  Returns (the compiled call, ``create_block_mask``, the
+    score_mod)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def tanh_cap(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / ATTN_SOFTCAP) * ATTN_SOFTCAP
+
+    return torch.compile(flex_attention, dynamic=False), create_block_mask, tanh_cap
+
+
+def softcap_config():
+    """gemma-2b with Gemma 2's published caps (``ATTN_SOFTCAP``,
+    ``LOGIT_SOFTCAP``) set on ``repro``'s flags."""
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS[SOFTCAP_ARCH], attn_softcap=ATTN_SOFTCAP,
+                               logit_softcap=LOGIT_SOFTCAP)
+
+
+@contextlib.contextmanager
+def recorded(module, name, log):
+    """Each call of ``module.<name>`` while the context lasts appended to
+    ``log`` as (its positional arguments, its keyword arguments, its
+    result)."""
+    saved = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        log.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def scale_err(torch, got, want) -> float:
+    """``max|got - want| / max|want|``: the model rule's measure."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def int8_decode(torch, cfg, params, caches, first, start, feed=None, steps=None):
+    """``steps`` (INT8_STEPS) ``decode_step`` calls from position ``start``
+    on ``caches`` (written in place): greedy from ``first``, or fed the
+    tokens of ``feed``.  Returns (the tokens fed, each step's (logits,
+    hidden) in f32, host seconds, peak device bytes)."""
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tok, fed, out = first, [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i, pos in enumerate(range(start, start + (steps or INT8_STEPS))):
+            tok = tok if feed is None else feed[i]
+            fed.append(tok)
+            logits, caches, hidden = tf.decode_step(params, cfg, caches, tok, pos,
+                                                    return_hidden=True)
+            out.append((logits.float(), hidden.float()))
+            tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return fed, out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def profiled_decode(torch, cfg, params, caches, token, start, steps, unprofiled):
+    """``steps`` greedy decode steps from ``token`` at ``start`` under the
+    profiler: the busy device seconds and the idle share, beside
+    ``unprofiled``, the host seconds of the same steps in the timed pass."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+
+    tok = token
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for pos in range(start, start + steps):
+            logits, caches = tf.decode_step(params, cfg, caches, tok, pos)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    kinds = device_seconds(torch, prof, ("paged_attention_kernel",), "attention_kernels")
+    return {"steps": steps, "unprofiled_seconds": unprofiled, "profiled_seconds": profiled,
+            **busy_and_idle(kinds, profiled, unprofiled)}
+
+
+def int8_layer_errors(torch, device, cfg):
+    """One gemma-2b attention layer at full width over INT8_LAYER_SEQ random
+    rows: at each of INT8_LAYER_POSITIONS, the decode over the int8 cache of
+    the rows before it (``quantize_kv`` of the forward's K/V) on the kernel
+    path against the plain path: relative L2 errors of the output."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 37)
+    p = attn.init_gqa(cfg, gen, device)
+    s = INT8_LAYER_SEQ
+    x = torch.randn(1, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None]
+    errs = []
+    with torch.inference_mode():
+        _, (k, v) = attn.gqa_forward(p, cfg, x, positions, return_kv=True)
+        for pos in INT8_LAYER_POSITIONS:
+            (kq, ks), (vq, vs) = (attn.quantize_kv(F.pad(a[:, :pos], (0, 0, 0, 0, 0, s - pos)))
+                                  for a in (k, v))
+            cache = (kq, vq, ks, vs)
+            got, _ = attn.gqa_decode(p, cfg, x[:, pos:pos + 1], tuple(t.clone() for t in cache),
+                                     pos)
+            with plain_attention():
+                want, _ = attn.gqa_decode(p, cfg, x[:, pos:pos + 1], cache, pos)
+            errs.append(rel_err(torch, got[0, 0], want[0, 0]))
+    return errs
+
+
+def phase_int8_decode(torch, device, params):
+    """gemma-2b at full width: each of INT8_PROMPT_LENS through ``prefill``,
+    ``pad_caches(INT8_MAX_LEN)`` and ``quantize_kv`` on every layer's cache,
+    then INT8_STEPS greedy ``decode_step`` calls on the int8 caches, timed
+    with only those caches on the card, each ``quantize_kv`` and
+    ``gqa_decode`` call recorded.  After the timed pass: every new cache row
+    byte for byte ``quantize_kv`` of the same k and v on the CPU; every
+    recorded ``gqa_decode`` call replayed on the plain path within
+    ``INT8_LAYER_TOL``; the whole model's steps on the plain path (from a
+    copy of the caches, the same tokens) within ``INT8_TOL``.  Then the same
+    tokens through the bf16 caches, timed with only those on the card (the
+    logits' gap and the argmax agreement printed, not gated).  First one
+    attention layer's int8 decode, kernel path against plain path, within
+    ``INT8_LAYER_TOL``."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tf
+
+    cfg = ARCHS[SOFTCAP_ARCH]
+    layer = int8_layer_errors(torch, device, cfg)
+    emit({"phase": "int8", "layer_check": "int8 decode of one attention layer, kernel path "
+          "against plain path", "positions": list(INT8_LAYER_POSITIONS), "rel_l2": layer,
+          "max_rel_l2": max(layer), "tol": INT8_LAYER_TOL})
+    check(max(layer) <= INT8_LAYER_TOL, f"the int8 layer's kernel path differs: {layer}")
+    rng = np.random.default_rng(SEED + 31)
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n), dtype=np.int32),
+                               device=device) for n in INT8_PROMPT_LENS]
+    launches, runs = collections.Counter(), {"int8": [], "bf16": []}
+    gaps, agree, first_step = [], [], []
+    worst = {"hidden": 0.0, "logits": 0.0}  # relative L2, gated
+    worst_scale = {"hidden": 0.0, "logits": 0.0}  # max abs of scale, printed
+    calls_worst, calls_checked, rows_checked, ratios = 0.0, 0, 0, set()
+    idle = {}
+
+    def copies(caches, where):  # copies even where the caches lie already
+        return [tuple(t.to(where, copy=True) for t in c) for c in caches]
+
+    for n, tokens in zip(INT8_PROMPT_LENS, prompts):
+        with torch.inference_mode():
+            logits, caches = tf.prefill(params, cfg, {"tokens": tokens})
+            caches = tf.pad_caches(cfg, caches, INT8_MAX_LEN)
+            q8 = []
+            for k, v in caches:
+                (kq, ks), (vq, vs) = attn.quantize_kv(k), attn.quantize_kv(v)
+                q8.append((kq, vq, ks, vs))
+        bytes8 = sum(t.numel() * t.element_size() for c in q8 for t in c)
+        bytes16 = sum(t.numel() * t.element_size() for c in caches for t in c)
+        ratios.add((bytes8, bytes16))
+        check(bytes8 * 2 * cfg.head_dim == bytes16 * (cfg.head_dim + 2),
+              f"int8 caches {bytes8} bytes against {bytes16}: not (hd + 2) / (2 hd)")
+        first = logits.argmax(-1)
+        # Each run keeps only its own caches on the card: the others wait on the host.
+        bf16_host, q8_host = copies(caches, "cpu"), copies(q8, "cpu")
+        del logits, caches
+        last = n == INT8_PROMPT_LENS[-1]
+        if n == INT8_PROMPT_LENS[0]:  # both paths once before the first timed pass
+            for host in (q8_host, bf16_host):
+                int8_decode(torch, cfg, params, copies(host, device), first, n, steps=2)
+
+        # The int8 caches on the kernel path, timed; its tokens go to the other paths.
+        quant, calls = [], []
+        runtime.reset_launches()
+        with recorded(attn, "quantize_kv", quant), recorded(attn, "gqa_decode", calls):
+            seq, out8, seconds, peak = int8_decode(torch, cfg, params, q8, first, n)
+        launches.update(runtime.launches)
+        check(runtime.launches["paged_attention_int8"] == cfg.n_layers * INT8_STEPS
+              and not runtime.launches["paged_attention"],
+              f"request {n}: {dict(runtime.launches)} int8 launches, not "
+              f"{cfg.n_layers} x {INT8_STEPS} on the int8 route alone")
+        runs["int8"].append({"prompt": n, "decode_seconds_per_step": seconds / INT8_STEPS,
+                             "steps": INT8_STEPS, "peak_device_bytes": peak})
+        if last:
+            idle["int8"] = profiled_decode(torch, cfg, params, copies(q8_host, device), first,
+                                           n, 8, seconds * 8 / INT8_STEPS)
+
+        # Every new row (k_q, v_q, k_scale, v_scale) against quantize_kv of its k and v
+        # on the CPU: one copy to the host a tensor.
+        check(len(quant) == 2 * len(calls) == 2 * cfg.n_layers * INT8_STEPS,
+              f"{len(quant)} quantize_kv and {len(calls)} gqa_decode calls recorded")
+        want = [attn.quantize_kv(torch.stack([a[0] for a, _, _ in quant[j::2]]).cpu())
+                for j in (0, 1)]
+        got = [torch.stack([a[3][i][:, a[4]] for a, _, _ in calls]).cpu() for i in range(4)]
+        check(torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[1][0])
+              and torch.equal(got[2].view(torch.int16), want[0][1].view(torch.int16))
+              and torch.equal(got[3].view(torch.int16), want[1][1].view(torch.int16)),
+              f"request {n}: a new int8 row is not quantize_kv of its k and v on the CPU")
+        rows_checked += len(calls)
+        del quant, got, want
+
+        # Every gqa_decode call replayed on the plain path with the same inputs.  The
+        # cache read is the final one: a call reads no row past its own position.
+        with torch.inference_mode(), plain_attention():
+            clones = {}
+            for (p, c, x, cache, pos), kw, (out, _) in calls:
+                mine = clones.setdefault(id(cache[0]), tuple(t.clone() for t in cache))
+                ref, _ = attn.gqa_decode(p, c, x, mine, pos, **kw)
+                calls_worst = max(calls_worst, rel_err(torch, out, ref))
+                calls_checked += 1
+        del calls, clones, q8
+
+        # The whole model on the plain path, the same tokens, from a copy of the caches.
+        with plain_attention():
+            _, plain, _, _ = int8_decode(torch, cfg, params, copies(q8_host, device), first,
+                                         n, feed=seq)
+        for (l8, h8), (lp, hp) in zip(out8, plain):
+            for key, g, w in (("logits", l8, lp), ("hidden", h8, hp)):
+                worst[key] = max(worst[key], rel_err(torch, g, w))
+                worst_scale[key] = max(worst_scale[key], scale_err(torch, g, w))
+        first_step.append(rel_err(torch, out8[0][1], plain[0][1]))
+        logits8 = [lg.cpu() for lg, _ in out8]  # off the card for the bf16 run's peak
+        del plain, q8_host, out8
+
+        # The bf16 caches, the same tokens, timed.
+        runtime.reset_launches()
+        _, out16, seconds, peak = int8_decode(torch, cfg, params, copies(bf16_host, device),
+                                              first, n, feed=seq)
+        launches.update(runtime.launches)
+        runs["bf16"].append({"prompt": n, "decode_seconds_per_step": seconds / INT8_STEPS,
+                             "steps": INT8_STEPS, "peak_device_bytes": peak})
+        if last:
+            idle["bf16"] = profiled_decode(torch, cfg, params, copies(bf16_host, device),
+                                           first, n, 8, seconds * 8 / INT8_STEPS)
+        for l8, (l16, _) in zip(logits8, out16):
+            l16 = l16.cpu()
+            gaps.append(scale_err(torch, l8, l16))
+            agree.append(bool((l8.argmax(-1) == l16.argmax(-1)).all()))
+        del logits8, out16, bf16_host
+    check(calls_worst <= INT8_LAYER_TOL,
+          f"a gqa_decode call's int8 kernel path differs from its plain path: {calls_worst}")
+    check(worst["logits"] <= INT8_TOL and worst["hidden"] <= INT8_TOL,
+          f"the int8 decode's kernel path differs from its plain path: {worst}")
+    n_req = len(INT8_PROMPT_LENS)
+    check(launches["paged_attention_int8"] == cfg.n_layers * INT8_STEPS * n_req,
+          f"{launches['paged_attention_int8']} int8 launches, not {cfg.n_layers} x "
+          f"{INT8_STEPS} x {n_req}")
+    for label in ("int8", "bf16"):
+        per = statistics.mean(r["decode_seconds_per_step"] for r in runs[label])
+        emit({"phase": "int8", "run": label, "requests": runs[label],
+              "decode_seconds_per_step": per, "tokens_per_second": 1.0 / per,
+              "peak_device_bytes": max(r["peak_device_bytes"] for r in runs[label]),
+              "decode_window": idle[label]})
+    emit({"phase": "int8", "arch": cfg.name, "prompts": list(INT8_PROMPT_LENS),
+          "steps": INT8_STEPS, "gqa_decode_calls_replayed": calls_checked,
+          "gqa_decode_kernel_vs_plain_rel_l2_max": calls_worst, "call_tol": INT8_LAYER_TOL,
+          "kernel_vs_plain_rel_l2": worst, "tol": INT8_TOL,
+          "kernel_vs_plain_scale_err": worst_scale, "first_step_hidden_rel_l2": first_step,
+          "new_rows_byte_equal_to_cpu_quantize_kv": rows_checked,
+          "cache_bytes_int8_bf16": sorted(ratios), "cache_ratio": (cfg.head_dim + 2) / (
+              2 * cfg.head_dim),
+          "int8_vs_bf16_logits_scale_err_max": max(gaps),
+          "int8_vs_bf16_logits_scale_err_mean": statistics.mean(gaps),
+          "argmax_agreement": sum(agree) / len(agree),
+          "launches": {k: launches[k] for k in ("paged_attention_int8", "paged_attention")}})
+    return dict(launches)
+
+
+# --------------------------------------------------------------------------
 # Phase 6: the REMOP-planned blocked matmul at five LLM products
 # --------------------------------------------------------------------------
 
@@ -4187,6 +4861,12 @@ def main() -> int:
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # torch.compile (phase 5g's library call) compiles in this process and
+    # keeps its caches in the kernels' gitignored build directory.
+    build = ROOT / "src" / "repro_torch" / "kernels" / "_build"
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(build / "inductor")
+    os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
+    os.environ["TORCHINDUCTOR_COMPILE_THREADS"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -4197,11 +4877,17 @@ def main() -> int:
     load_peaks()
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    laps, last_lap = {}, [t0]
+
+    def lap(name):  # host seconds of each part of the run
+        now = time.perf_counter()
+        laps[name], last_lap[0] = now - last_lap[0], now
     compiled = runtime.build()  # one nvcc per source, all started together
     for name in runtime.SOURCES:
         runtime.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "compiled": compiled,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    lap("build")
     card = nvidia_smi()
     print(card, flush=True)
     emit({"phase": "scale", "reduced": [],
@@ -4221,19 +4907,24 @@ def main() -> int:
                   "of 1152 projected in, prefix-LM mask), random weights and patches; "
                   "seamless-m4t-large-v2 at its published widths (24 bidirectional encoder "
                   "and 24 decoder layers with cross-attention, d_model 1024, 4096 frames of "
-                  "1024), random weights and frames; nothing cut"})
+                  "1024), random weights and frames; gemma-2b with Gemma 2's attention and "
+                  "final logit softcaps (50, 30) at its published widths and all 18 layers, "
+                  "its decode also over its int8 KV cache at max_len 4096; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
     errs.update(attn_errs)
     rows.update(attn_rows)
+    lap("kernels")
     launches = phase_session(torch, device)
     for name, n in phase_dag(torch, device).items():
         launches[name] = launches.get(name, 0) + n
+    lap("session_dag")
     serve_launches, params = phase_serve(torch, device)
     phase_breakdown(torch, device, params)
     del params
     launches.update({name: serve_launches[name] for name in SERVE_KERNELS})
+    lap("gemma-2b")
     scan_errs, scan_rows = phase_ssd_scan(torch, device)
     errs.update(scan_errs)
     rows.update(scan_rows)
@@ -4241,6 +4932,7 @@ def main() -> int:
     phase_mamba_breakdown(torch, device, params)
     del params
     launches["ssd_scan"] = mamba_launches["ssd_scan"]
+    lap("mamba")
     moe_launches, params, (layer, routing) = phase_moe_serve(torch, device)
     phase_moe_breakdown(torch, device, params)
     del params
@@ -4249,6 +4941,7 @@ def main() -> int:
     for name, err in phase_moe_dispatch(torch, device, layer, routing).items():
         errs[name] = max(errs.get(name, 0.0), err)
     del routing
+    lap("granite-moe")
     torch.cuda.empty_cache()  # granite-moe's 6.6 GB back before deepseek's 31 GB
     mla_errs, mla_rows = phase_mla_kernels(torch, device)
     errs.update(mla_errs)
@@ -4259,6 +4952,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     launches.update({name: mla_launches[name] for name in MLA_KERNELS})
+    lap("deepseek")
     hyb_errs, hyb_rows = phase_hybrid_kernels(torch, device)
     errs.update(hyb_errs)
     rows.update(hyb_rows)
@@ -4271,26 +4965,46 @@ def main() -> int:
         launches[name] += hyb_launches[name]
     launches["flash_attention_windowed"] = hyb_launches["flash_attention_windowed"]
     launches["paged_attention_ring"] = hyb_launches["paged_attention"]
+    lap("recurrentgemma")
     vlm_errs, vlm_rows = phase_vlm_kernels(torch, device)
     errs.update(vlm_errs)
     rows.update(vlm_rows)
     phase_vlm_layer(torch, device)
     vlm_launches = phase_vlm_serve(torch, device)
     torch.cuda.empty_cache()
+    lap("paligemma")
     enc_errs, enc_rows = phase_encdec_kernels(torch, device)
     errs.update(enc_errs)
     rows.update(enc_rows)
     phase_encdec_layer(torch, device)
     enc_launches = phase_encdec_serve(torch, device)
     torch.cuda.empty_cache()
+    lap("seamless")
     for name in SERVE_KERNELS:
         launches[name] += vlm_launches[name] + enc_launches[name]
     launches["flash_attention_prefix"] = vlm_launches["flash_attention_prefix"]
     launches["flash_attention_full"] = enc_launches["flash_attention_full"]
     launches["paged_attention_cross"] = enc_launches["paged_attention_cross"]
+    sc_errs, sc_rows = phase_softcap_kernels(torch, device)
+    errs.update(sc_errs)
+    rows.update(sc_rows)
+    lap("softcap_kernels")
+    sc_launches, params = phase_serve(torch, device, softcap_config(), "softcap")
+    phase_breakdown(torch, device, params, softcap_config(), "softcap_breakdown")
+    lap("softcap_serve")
+    int8_launches = phase_int8_decode(torch, device, params)
+    lap("int8_decode")
+    del params
+    torch.cuda.empty_cache()
+    for name in SERVE_KERNELS:
+        launches[name] += sc_launches[name]
+    for name in ("flash_attention_softcap", "paged_attention_softcap"):
+        launches[name] = sc_launches[name]
+    launches["paged_attention_int8"] = int8_launches["paged_attention_int8"]
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)
+    lap("matmul")
 
     kernels = []
     for name, row in rows.items():
@@ -4302,6 +5016,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    emit({"phase": "seconds", "by_part": laps, "total": time.perf_counter() - t0})
     emit({"card": card, "kernel_shapes": {n: r["shape"] for n, r in rows.items()}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

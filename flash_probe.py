@@ -21,7 +21,15 @@ shape; W 100 at every tensor-core block pair, with T > S); with a prefix
 rows, an unaligned P 100, in both routes; every key at seamless's 16 heads
 of 64, bidirectional at T 4096 and 2500 and cross-attention with S above
 and below T; P 100 and every key with S > T at every tensor-core block
-pair); prints the occupancy of every tensor-core instantiation.  It times nothing;
+pair); with a softcap (cap 5 on q scaled by 8, so that most scores pass
+the cap) at gemma-2b's, deepseek-v2-lite's, recurrentgemma's windowed and
+paligemma's prefix shapes and on the CUDA-core route, each also shown to
+differ from the uncapped call; prints the occupancy of every tensor-core
+instantiation, capped ones too.  It times one thing: the softcap rows'
+library call, ``flex_attention`` under ``torch.compile`` with a tanh
+``score_mod`` (cap 50) at gemma-2b's prefill and decode shapes, beside the
+capped kernels, by device time (``chip_smoke.Bench.device_ms``), printed
+with its error against the plain version or the error it raised;
 ``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
 """
 
@@ -91,7 +99,7 @@ def main() -> int:
         v = torch.randn(b, kv, t, hd if hd_v is None else hd_v, device=dev, generator=g).to(dtype)
         return q, k, v
 
-    def case(name, q, k, v, fn, window=0, prefix=0):
+    def case(name, q, k, v, fn, window=0, prefix=0, softcap=0.0):
         runtime.reset_launches()
         try:
             got = fn(q, k, v)
@@ -100,8 +108,11 @@ def main() -> int:
             print(name, "RAISED", repr(e)[:300], flush=True)
             failed.append(name)
             return
-        want = flash_attention_plain(q, k, v, window=window, prefix=prefix)
+        want = flash_attention_plain(q, k, v, window=window, prefix=prefix, softcap=softcap)
         ok, err, rel, _ = chip_smoke.attn_close(torch, got, want)
+        if softcap:  # the cap must change the output
+            ok = ok and not chip_smoke.attn_close(
+                torch, got, flash_attention_plain(q, k, v, window=window, prefix=prefix))[0]
         finite = bool(torch.isfinite(got.float()).all())
         print(name, tuple(q.shape), tuple(k.shape), str(q.dtype), route(q, k, v),
               dict(runtime.launches), f"ok {ok} finite {finite} maxabs {err:.3e} rel {rel:.3e}",
@@ -181,8 +192,93 @@ def main() -> int:
                         case(f"P {p} S {s} T {t} blocks {bq},{bk} hd {hd}/{hd_v}", q, k, v,
                              lambda q, k, v, bq=bq, bk=bk, p=p: flash_attention(
                                  q, k, v, bq=bq, bk=bk, prefix=p), prefix=p)
+    def capped(**kw):
+        return lambda q, k, v: remop_flash_attention(q, k, v, softcap=5.0, **kw)
+
+    for name, shape, kw in (("gemma-2b", (1, 8, 1, 2048, 2048, 256), {}),
+                            ("qwen3", (1, 16, 8, 777, 777, 128), {}),
+                            ("hd64 ragged", (2, 4, 2, 300, 333, 64), {}),
+                            ("recurrentgemma W 2048", (1, 10, 1, 4096, 4096, 256),
+                             {"window": 2048}),
+                            ("paligemma P 256", (1, 8, 1, 456, 456, 256), {"prefix": 256})):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = inputs(*shape, dtype)
+            case(f"softcap 5 {name} {dtype}", q * 8, k, v, capped(**kw), softcap=5.0, **kw)
+    q, k, v = inputs(1, 16, 16, 777, 777, 192, torch.bfloat16, hd_v=128)
+    case("softcap 5 deepseek 192/128", q * 8, k, v, capped(), softcap=5.0)
+    q, k, v = inputs(2, 16, 8, 300, 333, 32, torch.bfloat16)
+    case("softcap 5 simt bf16 hd 32", q * 8, k, v, capped(), softcap=5.0)
+    for hd, hd_v in TC_HEAD_PAIRS:
+        q, k, v = inputs(1, 4, 2, 200, 260, hd, torch.bfloat16, hd_v=hd_v)
+        for bq in TC_BLOCKS:
+            for bk in TC_BLOCKS:
+                if smem_bytes(bq, bk, hd, 2, "tc", hd_v) <= SMEM_LIMIT:
+                    case(f"softcap 5 blocks {bq},{bk} hd {hd}/{hd_v}", q * 8, k, v,
+                         lambda q, k, v, bq=bq, bk=bk: flash_attention(q, k, v, bq=bq, bk=bk,
+                                                                       softcap=5.0),
+                         softcap=5.0)
+                    print("occupancy capped", hd, hd_v, bq, bk,
+                          occupancy(hd, bq, bk, hd_v=hd_v, capped=True), flush=True)
+    flex_times(torch, dev, chip_smoke)
     print("FAILED" if failed else "ALL OK", failed, flush=True)
     return 1 if failed else 0
+
+
+def flex_times(torch, dev, chip_smoke) -> None:
+    """The library call for the capped kernels' rows: ``flex_attention``
+    compiled with ``score_mod = tanh(s / 50) * 50`` (after its 1/sqrt(hd)
+    scale, as the kernels cap) at gemma-2b's causal prefill ``[1,8,2048,256]``
+    on one KV head and at its decode (one query over 2048 of 4096 cached
+    positions), by device ms beside the kernels'."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    cap = chip_smoke.ATTN_SOFTCAP
+    bench = chip_smoke.Bench(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(1, h, 2048, 256, device=dev, generator=g).to(torch.bfloat16)
+               for h in (8, 1, 1))
+    qd = torch.randn(1, 1, 8, 256, device=dev, generator=g).to(torch.bfloat16)
+    kc, vc = (torch.randn(1, 4096, 1, 256, device=dev, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    ln = torch.tensor([2048], dtype=torch.int32, device=dev)
+    print("capped kernels device ms", {
+        "flash": bench.device_ms(lambda: fa.flash_attention(q, k, v, bq=128, bk=64,
+                                                            softcap=cap))["device_ms"],
+        "paged": bench.device_ms(lambda: pa.paged_attention(qd, kc, vc, ln,
+                                                            softcap=cap))["device_ms"]},
+          flush=True)
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        def tanh_cap(score, b, h, q_idx, kv_idx):
+            return torch.tanh(score / cap) * cap
+
+        flex = torch.compile(flex_attention)
+        causal = create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None,
+                                   2048, 2048, device=dev)
+
+        def prefill():
+            return flex(q, k, v, score_mod=tanh_cap, block_mask=causal, enable_gqa=True)
+
+        ok, err, rel, _ = chip_smoke.attn_close(
+            torch, prefill(), fa.flash_attention_plain(q, k, v, softcap=cap))
+        print("flex_attention prefill", bench.device_ms(prefill), f"ok {ok} maxabs {err:.3e} "
+              f"rel {rel:.3e}", flush=True)
+        seen = create_block_mask(lambda b, h, q_idx, kv_idx: kv_idx < 2048, None, None, 1,
+                                 4096, device=dev)
+        qf, kf, vf = qd.view(1, 8, 1, 256), kc.transpose(1, 2), vc.transpose(1, 2)
+
+        def decode():
+            return flex(qf, kf, vf, score_mod=tanh_cap, block_mask=seen, enable_gqa=True)
+
+        ok, err, rel, _ = chip_smoke.attn_close(
+            torch, decode().view(1, 1, 8, 256), pa.paged_attention_plain(qd, kc, vc, ln,
+                                                                          softcap=cap))
+        print("flex_attention decode", bench.device_ms(decode), f"ok {ok} maxabs {err:.3e} "
+              f"rel {rel:.3e}", flush=True)
+    except Exception as e:  # report what the library call did and go on
+        print("flex_attention RAISED", repr(e)[:2000], flush=True)
 
 
 if __name__ == "__main__":

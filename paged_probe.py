@@ -14,7 +14,12 @@ and granite-20b's decode shapes, at lengths 1, S, mid-chunk and ragged, at
 G past one CTA's group and at S that is no multiple of 16; the latent route
 (MLA's decode, 576 / 512, 16 heads) to ``latent_decode_plain`` in bf16 and
 f32 at S 64 to 4096 with lengths below S and a NaN tail past them; checks
-that two calls give the same bits; prints the kernels' device time at gemma-2b's and
+that two calls give the same bits; with a softcap (cap 5 on q scaled by 8) at
+every head width in bf16 and f32, each shown to differ from the uncapped
+call; the int8 route against the bf16 route on the dequantized caches, bit
+for bit, at every head width, gemma-2b's, granite-moe's and
+recurrentgemma's decode shapes, with and without a cap; prints the
+kernels' device time at gemma-2b's and
 granite-20b's decode shapes from a profiler window, and the cycles each
 phase of one CTA takes there, from ``clock64()`` stamps in a copy of the
 source built beside the log.  ``chip_smoke.py`` is the full check.  Exits 1
@@ -114,7 +119,7 @@ def phase_cycles(log_dir: Path, dev, shapes) -> None:
         for _ in range(10):  # the stamps of the last call stay
             err = lib.remop_paged_attention_bf16(
                 q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ln.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), 1, 1, g, 4096, hd, splits, gc, hd ** -0.5,
+                scratch.data_ptr(), 1, 1, g, 4096, hd, splits, gc, hd ** -0.5, 0.0,
                 torch.cuda.current_stream().cuda_stream)
             assert err == 0, err
         torch.cuda.synchronize()
@@ -150,6 +155,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.kernels import runtime
     from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models import attention as attn
 
     log_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else runtime.BUILD_DIR
     log_dir.mkdir(parents=True, exist_ok=True)
@@ -201,6 +207,64 @@ def main() -> int:
     case(3, 2, 1, 16, 1, (1, 1, 1), bf)                # S = 1
     case(1, 3, 5, 32, 50, (50,), torch.float32)        # S no multiple of 16
 
+    def capped_case(b, kv, g, hd, s, lengths, dtype):
+        name = f"softcap 5 b{b} kv{kv} g{g} hd{hd} s{s} {str(dtype)[6:]} len {lengths}"
+        q = torch.randn(b, kv, g, hd, device=dev, generator=gen).to(dtype) * 8
+        kc, vc = (torch.randn(b, s, kv, hd, device=dev, generator=gen).to(dtype)
+                  for _ in range(2))
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        runtime.reset_launches()
+        try:
+            got = pa.paged_attention(q, kc, vc, ln, softcap=5.0)
+            torch.cuda.synchronize()
+        except Exception as e:  # report and go on to the next case
+            print(name, "RAISED", repr(e)[:300], flush=True)
+            failed.append(name)
+            return
+        ok, err, rel, _ = chip_smoke.attn_close(
+            torch, got, pa.paged_attention_plain(q, kc, vc, ln, softcap=5.0))
+        bites = not chip_smoke.attn_close(torch, got, pa.paged_attention_plain(q, kc, vc, ln))[0]
+        print(name, dict(runtime.launches), f"ok {ok} bites {bites} maxabs {err:.3e} "
+              f"rel {rel:.3e}", flush=True)
+        if not (ok and bites):
+            failed.append(name)
+
+    def int8_case(b, kv, g, hd, s, lengths, softcap):
+        name = f"int8 b{b} kv{kv} g{g} hd{hd} s{s} len {lengths} softcap {softcap}"
+        q = torch.randn(b, kv, g, hd, device=dev, generator=gen).to(bf) * (8 if softcap else 1)
+        k_q, v_q = (torch.randint(-127, 128, (b, s, kv, hd), device=dev, generator=gen,
+                                  dtype=torch.int8) for _ in range(2))
+        k_s, v_s = (torch.rand(b, s, kv, 1, device=dev, generator=gen).mul(0.02).to(bf)
+                    for _ in range(2))
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        runtime.reset_launches()
+        try:
+            got = pa.paged_attention_int8(q, k_q, v_q, k_s, v_s, ln, softcap=softcap)
+            torch.cuda.synchronize()
+        except Exception as e:  # report and go on to the next case
+            print(name, "RAISED", repr(e)[:300], flush=True)
+            failed.append(name)
+            return
+        launches = dict(runtime.launches)
+        want = pa.paged_attention(q, attn.dequantize_kv(k_q, k_s),
+                                  attn.dequantize_kv(v_q, v_s), ln, softcap=softcap)
+        same = torch.equal(got, want)
+        print(name, launches, f"bit-equal to the bf16 route {same}", flush=True)
+        if not same:
+            failed.append(name)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in pa.HEAD_DIMS:
+            capped_case(2, 2, 4, hd, 777, (777, 33), dtype)
+    for softcap in (0.0, 5.0):
+        for hd in pa.HEAD_DIMS:
+            int8_case(2, 2, 4, hd, 777, (777, 33), softcap)
+        int8_case(1, 1, 8, 256, 4096, (2077,), softcap)  # gemma-2b
+        int8_case(1, 8, 3, 64, 4096, (1000,), softcap)   # granite-moe
+        int8_case(1, 8, 1, 64, 4096, (4096,), softcap)   # G 1
+        int8_case(1, 1, 10, 256, 2048, (2048,), softcap)  # recurrentgemma's ring
+        int8_case(1, 1, 64, 128, 300, (299,), softcap)   # the widest CTA
+
     def latent_case(s, lengths, dtype, h=16):
         name = f"latent h{h} s{s} {str(dtype)[6:]} len {lengths}"
         q = torch.randn(len(lengths), h, 576, device=dev, generator=gen).to(dtype)
@@ -239,6 +303,9 @@ def main() -> int:
                       flush=True)
         print("latent attributes", str(dtype)[6:], 16, pa.latent_attributes(dtype, 16),
               flush=True)
+    for hd in pa.HEAD_DIMS:
+        for gc in (8, 48, 64):
+            print("attributes int8", hd, gc, pa.attributes(torch.int8, hd, gc), flush=True)
 
     # Device time at gemma-2b's and granite-20b's decode shapes, warm L2 (no
     # flush): a first look.

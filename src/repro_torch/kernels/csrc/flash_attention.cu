@@ -11,6 +11,14 @@
 // k <= q): the prefix-LM mask over an image prefix (P its length), and with
 // P >= T every key (a bidirectional encoder, or cross-attention, where S may
 // exceed T).  A window and a prefix are never given together.
+// With softcap = c > 0 each scaled score is capped before the mask, s =
+// c tanh(s / c) (repro's attention logit softcap,
+// src/repro/models/attention.py:72-73, which the TPU kernel does not
+// compute).  The cap is a template argument of both routes (CAP), so a launch
+// without one runs the code it ran before, bit for bit and at its time.  bf16
+// calls cap through hopper::softcap's exp2f form (within about 5e-7 of the
+// cap), f32 calls through tanhf; neither uses tanh.approx, whose 2^-11
+// relative error times a cap of 50 would move a score by 0.025.
 // hd_v = hd, or (hd, hd_v) = (192, 128): MLA's prefill, whose q and k are
 // 128 nope and 64 rope columns and whose values are 128 wide.
 // Any S <= T (any S when P >= T) works without padding (rows past S and
@@ -93,6 +101,7 @@ struct Params {
   float scale;
   int window;  // 0: causal only
   int prefix;  // keys below it are seen by every query; 0: causal only
+  float softcap;  // 0: no cap
 };
 
 // The keys a query at position qpos sees, as one range [lo, hi]: hi the
@@ -166,7 +175,7 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int64_t ps, int r0,
 
 // HD: the width of q and k; HDV: of v and the output (V is staged into
 // the rows K used).
-template <typename T, int HD, int HDV>
+template <typename T, int HD, int HDV, bool CAP>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   constexpr int LD = ld<T, HD>();
   constexpr int CD = HDV / 16;  // output columns per thread
@@ -212,6 +221,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   const int q_last = min(q0 + p.bq, p.s) - 1 + offset;  // largest q position here
   const int n_kv = kv_blocks(q_last, p.t, p.bk, p.prefix);
   const int j0 = p.window ? max(0, q0 + offset - p.window + 1) / p.bk : 0;
+  const float cap_k = CAP ? hopper::softcap_k(p.softcap) : 0.f;
 
   for (int j = j0; j < n_kv; ++j) {
     const int k0 = j * p.bk;
@@ -249,6 +259,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
       for (int c = 0; c < kPer; ++c) {
         const int col = tx + 16 * c, key = k0 + col;
         float x = sc[i][c] * p.scale;
+        if constexpr (CAP) x = hopper::softcap<sizeof(T) == 2>(x, p.softcap, cap_k);
         if (col >= p.bk || key > seen.hi || (p.window && key < seen.lo)) x = kNegInf;
         sc[i][c] = x;
         rmax = fmaxf(rmax, x);
@@ -305,7 +316,8 @@ template <typename T, int HD, int HDV>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = size_t(p.bq + p.bk) * ld<T, HD>() * sizeof(T) +
                       size_t(p.bq) * (p.bk + 1) * sizeof(float);
-  auto kernel = flash_attention_kernel<T, HD, HDV>;
+  auto kernel = p.softcap > 0.f ? flash_attention_kernel<T, HD, HDV, true>
+                                : flash_attention_kernel<T, HD, HDV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -315,22 +327,23 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // What both routes take: KV heads dividing the query heads, S <= T unless
-// every key is seen (prefix >= T, T > 0), a window or a prefix, not both.
-bool shape_ok(int h, int kv, int s, int t, int window, int prefix) {
+// every key is seen (prefix >= T, T > 0), a window or a prefix, not both, a
+// cap of 0 or above.
+bool shape_ok(int h, int kv, int s, int t, int window, int prefix, float softcap) {
   return kv > 0 && h % kv == 0 && t > 0 && (s <= t || prefix >= t) && window >= 0 &&
-         prefix >= 0 && !(window > 0 && prefix > 0);
+         prefix >= 0 && !(window > 0 && prefix > 0) && softcap >= 0.f;
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const long long* strides, int b, int h, int kv, int s, int t,
              int hd, int bq, int bk, float scale, int hd_v, int window, int prefix,
-             void* stream) {
+             float softcap, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (!shape_ok(h, kv, s, t, window, prefix) || bq < 1 || bq > kMaxBlock || bk < 1 ||
+  if (!shape_ok(h, kv, s, t, window, prefix, softcap) || bq < 1 || bq > kMaxBlock || bk < 1 ||
       bk > kMaxBlock)
     return cudaErrorInvalidValue;
-  Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale, window, prefix};
+  Params p{q, k, v, o, {}, h, kv, s, t, bq, bk, scale, window, prefix, softcap};
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   if (hd_v != hd) {
@@ -381,13 +394,14 @@ struct TcParams {
   float scale;
   int window;  // 0: causal only
   int prefix;  // 0: causal only
+  float softcap;  // 0: no cap
 };
 
 // One consumer warpgroup w of the CTA: query rows [q0 + 64w, q0 + 64w +
 // 64); this thread holds rows r0 and r0 + 8 of the accumulator fragments.
 // KV blocks j0 .. n_kv - 1; the i-th of them (i = j - j0) sits in ring stage
 // i % 2 at mbarrier parity (i / 2) % 2, as the producer counts it.
-template <int HD, int HDV, int BQ, int BK, bool SPLIT>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP>
 __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, uint64_t* k_full,
                                         uint64_t* v_full, uint64_t* empty, const TcParams& p,
                                         int w, int warp, int lane, int q0, int head, int b,
@@ -402,6 +416,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
 #pragma unroll
   for (int r = 0; r < HDV / 2; ++r) o[r] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this lane's share
+  const float cap_k = CAP ? hopper::softcap_k(p.softcap) : 0.f;
 
   hopper::mbar_wait(q_full, 0);
   for (int j = j0; j < n_kv; ++j) {
@@ -440,6 +455,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
       const bool lower = (r >> 1) & 1;  // row r0 + 8
       const KeyRange& seen = lower ? seen1 : seen0;
       float x = sc[r] * p.scale;
+      if constexpr (CAP) x = hopper::softcap<true>(x, p.softcap, cap_k);
       if (col > seen.hi || (p.window && col < seen.lo)) x = kNegInf;
       sc[r] = x;
       if (lower) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
@@ -527,7 +543,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
 // With two consumer warpgroups (384 threads) ptxas gives a thread at most
 // 168 registers at entry; the producer warpgroup then hands its registers
 // to the consumers (setmaxnreg: 40 and 232, 64,512 of the SM's 65,536).
-template <int HD, int HDV, int BQ, int BK, bool SPLIT>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP>
 __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
     flash_attention_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
@@ -588,7 +604,7 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
   } else {
     // -- consumers --
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<HD, HDV, BQ, BK, SPLIT>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
+    consume<HD, HDV, BQ, BK, SPLIT, CAP>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
                                q0, head, b, offset, j0, n_kv);
   }
 }
@@ -603,18 +619,22 @@ bool tc_ok(int hd, int hdv, int bq, int bk) {
          tc_smem(hd, hdv, bq, bk) <= kMaxSmem;
 }
 
-// f(integral_constant<HD>, <HDV>, <BQ>, <BK>, bool_constant<SPLIT>) for a
-// tc_ok shape.
+// f(integral_constant<HD>, <HDV>, <BQ>, <BK>, bool_constant<SPLIT>,
+// bool_constant<CAP>) for a tc_ok shape.  A cap comes with the split P only
+// (split = 0 is a probe off the main path).
 template <typename F>
-int tc_dispatch(int hd, int hdv, int bq, int bk, int split, F&& f) {
+int tc_dispatch(int hd, int hdv, int bq, int bk, int split, bool cap, F&& f) {
+#define REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, SPLIT, CAP)                                     \
+  f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},                   \
+    std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},                    \
+    std::bool_constant<SPLIT>{}, std::bool_constant<CAP>{})
 #define REMOP_FLASH_TC(HD, HDV, BQ, BK)                                                      \
-  if (hd == HD && hdv == HDV && bq == BQ && bk == BK)                                        \
-    return split ? f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},  \
-                     std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},   \
-                     std::true_type{})                                                       \
-                 : f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},  \
-                     std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},   \
-                     std::false_type{});
+  if (hd == HD && hdv == HDV && bq == BQ && bk == BK) {                                      \
+    if (cap)                                                                                 \
+      return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, true) : cudaErrorInvalidValue; \
+    return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, false)                         \
+                 : REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, false, false);                       \
+  }
   REMOP_FLASH_TC(64, 64, 64, 64)
   REMOP_FLASH_TC(64, 64, 64, 128)
   REMOP_FLASH_TC(64, 64, 128, 64)
@@ -630,12 +650,13 @@ int tc_dispatch(int hd, int hdv, int bq, int bk, int split, F&& f) {
   REMOP_FLASH_TC(192, 128, 128, 64)
   REMOP_FLASH_TC(192, 128, 128, 128)
 #undef REMOP_FLASH_TC
+#undef REMOP_FLASH_TC_CALL
   return cudaErrorInvalidValue;
 }
 
-template <int HD, int HDV, int BQ, int BK, bool SPLIT>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP>
 auto tc_kernel_for(cudaError_t* err) {
-  auto kernel = flash_attention_kernel_tc<HD, HDV, BQ, BK, SPLIT>;
+  auto kernel = flash_attention_kernel_tc<HD, HDV, BQ, BK, SPLIT, CAP>;
   *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               TcLayout<HD, HDV, BQ, BK>::kSmem);
   return kernel;
@@ -665,9 +686,9 @@ bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* s
 // strides: q, k, v, o, each (batch, head, position), in elements.
 int launch_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
               int b, int h, int kv, int s, int t, int hd, int bq, int bk, float scale, int split,
-              int hd_v, int window, int prefix, void* stream) {
+              int hd_v, int window, int prefix, float softcap, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (!shape_ok(h, kv, s, t, window, prefix) || !tc_ok(hd, hd_v, bq, bk))
+  if (!shape_ok(h, kv, s, t, window, prefix, softcap) || !tc_ok(hd, hd_v, bq, bk))
     return cudaErrorInvalidValue;
   const uint64_t dq[4] = {uint64_t(hd), uint64_t(s), uint64_t(h), uint64_t(b)};
   const uint64_t dkv[4] = {uint64_t(hd), uint64_t(t), uint64_t(kv), uint64_t(b)};
@@ -691,15 +712,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
       !hopper::encode_bf16_4d(&map_k, k, dkv, bk_st, bk) ||
       !hopper::encode_bf16_4d(&map_v, v, dv, bv_st, bk))
     return cudaErrorNotSupported;
-  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale, window, prefix};
+  TcParams p{o, {strides[9], strides[10], strides[11]}, h, kv, s, t, scale, window, prefix,
+             softcap};
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((s + bq - 1) / bq, h, b);
-  return tc_dispatch(hd, hd_v, bq, bk, split,
-                     [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c) -> int {
+  return tc_dispatch(hd, hd_v, bq, bk, split, softcap > 0.f,
+                     [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c,
+                         auto cap_c) -> int {
     constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
     constexpr int BQ = decltype(bq_c)::value, BK = decltype(bk_c)::value;
     cudaError_t err;
-    auto kernel = tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value>(&err);
+    auto kernel =
+        tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value, decltype(cap_c)::value>(&err);
     if (err != cudaSuccess) return err;
     kernel<<<grid, BQ / 64 * 128 + kProducerThreads, TcLayout<HD, HDV, BQ, BK>::kSmem, st>>>(
         map_q, map_k, map_v, p);
@@ -709,14 +733,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
 
 // out: CTAs resident on one SM (the occupancy calculator), registers a
 // thread, local (spilled) bytes a thread, dynamic shared memory, threads.
-int occupancy_tc(int hd, int hd_v, int bq, int bk, int split, int* out) {
+int occupancy_tc(int hd, int hd_v, int bq, int bk, int split, int cap, int* out) {
   if (!tc_ok(hd, hd_v, bq, bk)) return cudaErrorInvalidValue;
-  return tc_dispatch(hd, hd_v, bq, bk, split,
-                     [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c) -> int {
+  return tc_dispatch(hd, hd_v, bq, bk, split, cap != 0,
+                     [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c,
+                         auto cap_c) -> int {
     constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
     constexpr int BQ = decltype(bq_c)::value, BK = decltype(bk_c)::value;
     cudaError_t err;
-    auto kernel = tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value>(&err);
+    auto kernel =
+        tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value, decltype(cap_c)::value>(&err);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
@@ -738,38 +764,40 @@ extern "C" {
 
 // hd: the width of q and k; hd_v: of v and o (equal, or 192 and 128);
 // window: the keys a query sees up to its own position, 0 for all of them;
-// prefix: the keys every query sees (k < prefix), 0 for causal only.
+// prefix: the keys every query sees (k < prefix), 0 for causal only;
+// softcap: the cap of the scaled scores, 0 for none.
 int remop_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, int b, int h, int kv, int s,
                                int t, int hd, int bq, int bk, float scale, int hd_v,
-                               int window, int prefix, void* stream) {
+                               int window, int prefix, float softcap, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk,
-                                 scale, hd_v, window, prefix, stream);
+                                 scale, hd_v, window, prefix, softcap, stream);
 }
 
 int remop_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                               const long long* strides, int b, int h, int kv, int s,
                               int t, int hd, int bq, int bk, float scale, int hd_v,
-                              int window, int prefix, void* stream) {
+                              int window, int prefix, float softcap, void* stream) {
   return dispatch<float>(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, hd_v,
-                         window, prefix, stream);
+                         window, prefix, softcap, stream);
 }
 
 // bf16 on the tensor cores ((hd, hd_v) (64, 64), (128, 128), (256, 256) or
 // (192, 128); bq, bk 64 or 128; TMA-aligned q, k, v); split = 0 rounds P to
-// bf16 once (a probe, not the main path).
+// bf16 once (a probe, not the main path, which takes no cap).
 int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                              const long long* strides, int b, int h, int kv, int s, int t,
                              int hd, int bq, int bk, float scale, int split, int hd_v,
-                             int window, int prefix, void* stream) {
+                             int window, int prefix, float softcap, void* stream) {
   return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
-                   window, prefix, stream);
+                   window, prefix, softcap, stream);
 }
 
-// Occupancy of the tensor-core instantiation these blocks launch, into
-// out[5] (see occupancy_tc above).
-int remop_flash_attention_tc_occupancy(int hd, int hd_v, int bq, int bk, int split, int* out) {
-  return occupancy_tc(hd, hd_v, bq, bk, split, out);
+// Occupancy of the tensor-core instantiation these blocks launch (cap != 0:
+// the capped one), into out[5] (see occupancy_tc above).
+int remop_flash_attention_tc_occupancy(int hd, int hd_v, int bq, int bk, int split, int cap,
+                                       int* out) {
+  return occupancy_tc(hd, hd_v, bq, bk, split, cap, out);
 }
 
 const char* remop_flash_attention_error_string(int err) {

@@ -25,6 +25,20 @@
 
 namespace hopper {
 
+// An attention score x capped at c > 0 (the attention logit softcap,
+// c tanh(x / c)), given k = softcap_k(c).  FAST (for bf16 outputs): c - 2c /
+// (1 + 2^(k x)), one exp2f and a fast reciprocal, within about 5e-7 c of the
+// exact value (2.5e-5 at a cap of 50, against outputs rounded to 2^-8); else
+// tanhf(x / c) * c, within a few ulps.
+__host__ __device__ __forceinline__ float softcap_k(float c) {
+  return 2.8853900817779268f / c;  // 2 log2(e) / c
+}
+template <bool FAST>
+__device__ __forceinline__ float softcap(float x, float c, float k) {
+  if constexpr (FAST) return c - __fdividef(2.f * c, 1.f + exp2f(x * k));
+  return tanhf(x / c) * c;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -65,6 +65,28 @@
 // (147 KB): at L 2048, 16 live chunks and 0.53 MB of partials, not the 4.2
 // MB that 128 chunks of 16 positions would write.
 //
+// Softcap.  With softcap = c > 0 each scaled score is capped before the
+// mask, s = c tanh(s / c) (repro's attention logit softcap,
+// src/repro/models/attention.py:72-73, which the TPU kernel does not
+// compute), through hopper::softcap: its exp2f form for bf16 q, tanhf for
+// f32; the cap is a template argument (CAP), so a launch without one runs
+// the code it ran before, bit for bit.  The latent route has none.
+//
+// The int8 route (remop_paged_attention_int8_bf16) reads repro's int8 KV
+// cache (src/repro/models/attention.py:32-52): int8 k_q, v_q [B, S, KV, hd]
+// and bf16 scales [B, S, KV, 1], q and the output bf16.  Its ring holds the
+// int8 rows (hd + 16 bytes a row, the 16 bytes of padding kept against bank
+// conflicts), so a tile costs half the bf16 route's bytes plus two bytes a
+// row of scale.  The scales are not 16-byte runs (they sit KV * 2 bytes
+// apart), so the first two warps load a tile's K and V scales with plain
+// loads into registers when they issue its copies, and store them to shared
+// memory only when the tile comes up, a tile later.  Once a tile has landed
+// its rows are widened in shared memory to the bf16 tile the bf16 route
+// reads, each value bf16(float(q) * float(scale)) as repro's dequantize_kv
+// rounds it; from there on the code is the bf16 route's, so the int8 route
+// on (k_q, k_scale, ...) equals the bf16 route on the dequantized caches bit
+// for bit.
+//
 // Every __global__ here keeps "paged_attention_kernel" in its name: the
 // serving breakdown finds the attention kernels' device time by that name.
 // lengths[b] is read as min(lengths[b], S); it must lie in [1, S].
@@ -139,6 +161,22 @@ __host__ __device__ __forceinline__ int chunk_len(int len, int splits, int min_c
   return r > min_chunk ? r : min_chunk;
 }
 
+// The 16 int8 values at src times `scale`, rounded to bf16 (32 bytes at dst).
+__device__ __forceinline__ void widen_int8(unsigned char* dst, const unsigned char* src,
+                                           float scale) {
+  const int4 raw = *reinterpret_cast<const int4*>(src);
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 pair =
+        __floats2bfloat162_rn(float(e[2 * i]) * scale, float(e[2 * i + 1]) * scale);
+    w[i] = *reinterpret_cast<const uint32_t*>(&pair);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
 // One 16-byte word of a row, as floats.
 template <typename T>
 struct Word {
@@ -152,19 +190,31 @@ struct Word {
   }
 };
 
-// HD: the key width; HDV: the value width.  HDV < HD is the latent route,
-// whose values are the first HDV columns of the key rows: its ring holds
-// the rows once.
-template <typename T, int HD, int HDV>
+// T: q's type and the type the scores and p @ v read; C: the cache's (T,
+// or int8_t on the int8 route, whose tiles are widened to T in shared
+// memory).  HD: the key width; HDV: the value width.  HDV < HD is the latent
+// route, whose values are the first HDV columns of the key rows: its ring
+// holds the rows once.
+template <typename T, typename C, int HD, int HDV>
 struct Layout {
   static constexpr bool kShared = HDV != HD;
+  static constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   static constexpr int kVec = 16 / int(sizeof(T));   // elements per 16-byte word
   static constexpr int kWords = HD / kVec;           // 16-byte words per key row
   static constexpr int kVWords = HDV / kVec;         // and per value row
   static constexpr int kRowBytes = HD * int(sizeof(T)) + 16;  // padded row
   static constexpr int kTileBytes = kTile * kRowBytes;
+  // The ring holds the cache's own rows, padded by 16 bytes.
+  static constexpr int kLoadVec = 16 / int(sizeof(C));
+  static constexpr int kLoadWords = HD / kLoadVec;
+  static constexpr int kLoadRowBytes = HD * int(sizeof(C)) + 16;
+  static constexpr int kLoadTileBytes = kTile * kLoadRowBytes;
   static constexpr int kStageTiles = kShared ? 1 : 2;  // K and V, or the shared rows
-  static constexpr int kRingBytes = kStages * kStageTiles * kTileBytes;
+  static constexpr int kRingBytes = kStages * kStageTiles * kLoadTileBytes;
+  // int8: the widened K and V tiles, then a tile's K and V scales.
+  static constexpr int kWideBytes = kInt8 ? 2 * kTileBytes : 0;
+  static constexpr int kScaleBytes = kInt8 ? 2 * kTile * int(sizeof(float)) : 0;
+  static constexpr int kQOffset = kRingBytes + kWideBytes + kScaleBytes;
   // p @ v: thread (word, head slot); slot ps holds heads ps, ps + kSlots, ...
   // (NH of them, a template argument chosen at launch, at most kMaxNh).
   static constexpr int kSlots = kThreads / kVWords;
@@ -180,19 +230,22 @@ struct Layout {
     return sizeof(T) == 2 ? size_t(gc) * HD * 2 : 0;
   }
   static size_t smem(int gc) {
-    return size_t(kRingBytes) + q_raw_bytes(gc) +
+    return size_t(kQOffset) + q_raw_bytes(gc) +
            sizeof(float) * (size_t(gc) * HD + size_t(gc) * kPStride + 3 * size_t(gc));
   }
 };
 
-template <typename T, int HD, int HDV, int NH>
+template <typename T, typename C, int HD, int HDV, int NH, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
-    paged_attention_kernel_split(const T* __restrict__ q, const T* __restrict__ kc,
-                                 const T* __restrict__ vc, const int32_t* __restrict__ lengths,
+    paged_attention_kernel_split(const T* __restrict__ q, const C* __restrict__ kc,
+                                 const C* __restrict__ vc,
+                                 const __nv_bfloat16* __restrict__ k_scale,
+                                 const __nv_bfloat16* __restrict__ v_scale,
+                                 const int32_t* __restrict__ lengths,
                                  float* __restrict__ part_acc, float* __restrict__ part_ml,
                                  int kv, int g, int s, int splits, int gc, int min_chunk,
-                                 float scale) {
-  using L = Layout<T, HD, HDV>;
+                                 float scale, float softcap) {
+  using L = Layout<T, C, HD, HDV>;
   const int split = blockIdx.x, b = blockIdx.z;
   const int groups = (g + gc - 1) / gc;
   const int h = blockIdx.y / groups, g0 = (blockIdx.y % groups) * gc;
@@ -200,11 +253,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;  // [stage][K, V or the shared rows][kTile][kRowBytes]
+  unsigned char* ring = smem;  // [stage][K, V or the shared rows][kTile][kLoadRowBytes]
+  unsigned char* wide = smem + L::kRingBytes;  // int8: [K, V][kTile][kRowBytes]
+  float* sc_s = reinterpret_cast<float*>(wide + L::kWideBytes);  // int8: [K, V][kTile]
   // q as f32, each head's float4s ordered so that the kSlices lanes of a
   // position read consecutive float4s: word w = r + kSlices * i of a row
   // goes to float4s (i * kVec / 4 + half) * kSlices + r (in order for f32).
-  float* q_s = reinterpret_cast<float*>(smem + L::kRingBytes);  // [gc][HD]
+  float* q_s = reinterpret_cast<float*>(smem + L::kQOffset);  // [gc][HD]
   unsigned char* q_raw = reinterpret_cast<unsigned char*>(q_s + gc * HD);
   float* p_s = reinterpret_cast<float*>(q_raw + L::q_raw_bytes(gc));  // [gc][kPStride]
   float* c_s = p_s + gc * kPStride;  // [gc] this tile's correction factors
@@ -228,17 +283,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   const int64_t pos_stride = int64_t(kv) * HD;
-  const T* kb = kc + (int64_t(b) * s * kv + h) * HD;
-  const T* vb = vc + (int64_t(b) * s * kv + h) * HD;
+  const int64_t row0 = int64_t(b) * s * kv + h;  // (b, position 0, h)
+  const C* kb = kc + row0 * HD;
+  const C* vb = vc + row0 * HD;
+  float scale_reg = 0.f;  // int8: the scale this thread loads for the tile in flight
   auto issue = [&](int t0, int stage) {
     const int rows = min(kTile, hi - t0);
-    unsigned char* kd = ring + stage * L::kStageTiles * L::kTileBytes;
-    unsigned char* vd = kd + L::kTileBytes;
-    for (int i = tid; i < rows * L::kWords; i += kThreads) {
-      const int r = i / L::kWords, w = i % L::kWords;
-      const int64_t off = int64_t(t0 + r) * pos_stride + w * L::kVec;
-      cp_async_16(kd + r * L::kRowBytes + w * 16, kb + off);
-      if constexpr (!L::kShared) cp_async_16(vd + r * L::kRowBytes + w * 16, vb + off);
+    unsigned char* kd = ring + stage * L::kStageTiles * L::kLoadTileBytes;
+    unsigned char* vd = kd + L::kLoadTileBytes;
+    for (int i = tid; i < rows * L::kLoadWords; i += kThreads) {
+      const int r = i / L::kLoadWords, w = i % L::kLoadWords;
+      const int64_t off = int64_t(t0 + r) * pos_stride + w * L::kLoadVec;
+      cp_async_16(kd + r * L::kLoadRowBytes + w * 16, kb + off);
+      if constexpr (!L::kShared) cp_async_16(vd + r * L::kLoadRowBytes + w * 16, vb + off);
+    }
+    if constexpr (L::kInt8) {
+      if (tid < 2 * kTile) {  // warp 0 the K scales, warp 1 the V scales
+        const int r = tid % kTile;
+        const __nv_bfloat16* sb = tid < kTile ? k_scale : v_scale;
+        scale_reg = r < rows ? __bfloat162float(sb[row0 + int64_t(t0 + r) * kv]) : 0.f;
+      }
     }
     cp_async_commit();
   };
@@ -275,6 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int e = 0; e < L::kVec; ++e) acc[j][e] = 0.f;
   }
+  const float cap_k = CAP ? hopper::softcap_k(softcap) : 0.f;
   // Scores: position sp of the tile, lane slice sr.
   const int sp = warp * L::kSlicePos + lane / L::kSlices, sr = lane % L::kSlices;
   const int sp_row = min(sp, kTile - 1);
@@ -282,6 +347,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_tiles = (hi - lo + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = lo + tile * kTile, stage = tile % kStages;
+    if constexpr (L::kInt8) {
+      if (tid < 2 * kTile) sc_s[tid] = scale_reg;  // this tile's, before the next load
+    }
     if (tile + 1 < n_tiles) {
       issue(t0 + kTile, (tile + 1) % kStages);
       cp_async_wait<1>();
@@ -290,8 +358,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // this tile's rows (and, at the first, q_s, m_s, l_s) are in
     const int tn = min(kTile, hi - t0);
-    const unsigned char* kt = ring + stage * L::kStageTiles * L::kTileBytes;
-    const unsigned char* vt = L::kShared ? kt : kt + L::kTileBytes;
+    const unsigned char* kt = ring + stage * L::kStageTiles * L::kLoadTileBytes;
+    const unsigned char* vt = L::kShared ? kt : kt + L::kLoadTileBytes;
+    if constexpr (L::kInt8) {
+      // Widen the landed int8 rows to bf16 tiles; rows past tn are left stale,
+      // as in the ring.
+      constexpr int kHalf = kTile * L::kLoadWords;
+      for (int i = tid; i < 2 * kHalf; i += kThreads) {
+        const int kv_sel = i / kHalf, r = (i % kHalf) / L::kLoadWords, w = i % L::kLoadWords;
+        if (r < tn)
+          widen_int8(wide + kv_sel * L::kTileBytes + r * L::kRowBytes + w * 32,
+                     kt + kv_sel * L::kLoadTileBytes + r * L::kLoadRowBytes + w * 16,
+                     sc_s[kv_sel * kTile + r]);
+      }
+      __syncthreads();
+      kt = wide;
+      vt = wide + L::kTileBytes;
+    }
 
     // Scores: the slice's K words in registers, eight heads at a time, one
     // 3-step reduction over the slices per head.  Rows past tn hold stale
@@ -329,8 +412,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int o = L::kSlices / 2; o > 0; o >>= 1)
             sc[jj] += __shfl_xor_sync(0xffffffffu, sc[jj], o);
-          if (writes && h0 + jj < gn)
-            p_s[(h0 + jj) * kPStride + sp] = valid ? sc[jj] * scale : kNegInf;
+          float x = sc[jj] * scale;
+          if constexpr (CAP) x = hopper::softcap<sizeof(T) == 2>(x, softcap, cap_k);
+          if (writes && h0 + jj < gn) p_s[(h0 + jj) * kPStride + sp] = valid ? x : kNegInf;
         }
       }
     }
@@ -376,13 +460,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Partials of row (b, h, g0 + hh), split `split`: acc [rows][splits][HDV],
   // (m, l) [rows][splits][2].
-  const int64_t row0 = (int64_t(b) * kv + h) * g + g0;
+  const int64_t out0 = (int64_t(b) * kv + h) * g + g0;
 #pragma unroll
   for (int j = 0; j < NH; ++j) {
     const int hh = ps + L::kSlots * j;
     if (hh < gn) {
       float4* dst = reinterpret_cast<float4*>(
-          part_acc + ((row0 + hh) * splits + split) * HDV + pw * L::kVec);
+          part_acc + ((out0 + hh) * splits + split) * HDV + pw * L::kVec);
 #pragma unroll
       for (int e4 = 0; e4 < L::kVec / 4; ++e4)
         dst[e4] = make_float4(acc[j][4 * e4], acc[j][4 * e4 + 1], acc[j][4 * e4 + 2],
@@ -390,7 +474,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   for (int hh = tid; hh < gn; hh += kThreads) {
-    float* dst = part_ml + ((row0 + hh) * splits + split) * 2;
+    float* dst = part_ml + ((out0 + hh) * splits + split) * 2;
     dst[0] = m_s[hh];
     dst[1] = l_s[hh];
   }
@@ -484,12 +568,13 @@ int with_nh(int need, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// Calls f with the split kernel for gc heads a CTA and its shared memory.
-template <typename T, int HD, int HDV, typename F>
+// Calls f with the split kernel for gc heads a CTA, with or without the cap,
+// and its shared memory.
+template <typename T, typename C, int HD, int HDV, bool CAP, typename F>
 int with_split(int gc, F&& f) {
-  using L = Layout<T, HD, HDV>;
+  using L = Layout<T, C, HD, HDV>;
   return with_nh<L::kMaxNh>((gc + L::kSlots - 1) / L::kSlots, [&](auto nh_c) -> int {
-    auto kernel = paged_attention_kernel_split<T, HD, HDV, decltype(nh_c)::value>;
+    auto kernel = paged_attention_kernel_split<T, C, HD, HDV, decltype(nh_c)::value, CAP>;
     const size_t smem = L::smem(gc);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -498,20 +583,31 @@ int with_split(int gc, F&& f) {
   });
 }
 
-template <typename T, int HD, int HDV>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
-           void* scratch, int b, int kv, int g, int s, int splits, int gc, int min_chunk,
-           float scale, cudaStream_t stream) {
+// The caches and, on the int8 route, their scales.
+struct Cache {
+  const void* k;
+  const void* v;
+  const void* k_scale;
+  const void* v_scale;
+};
+
+template <typename T, typename C, int HD, int HDV>
+int launch(const void* q, const Cache& cache, const void* lengths, void* o, void* scratch,
+           int b, int kv, int g, int s, int splits, int gc, int min_chunk, float scale,
+           float softcap, cudaStream_t stream) {
   float* part_acc = static_cast<float*>(scratch);
   float* part_ml = part_acc + int64_t(b) * kv * g * splits * HDV;
   const int groups = (g + gc - 1) / gc;
-  const int err = with_split<T, HD, HDV>(gc, [&](auto kernel, size_t smem) -> int {
+  auto run = [&](auto kernel, size_t smem) -> int {
     kernel<<<dim3(splits, kv * groups, b), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const int32_t*>(lengths), part_acc, part_ml, kv, g, s, splits, gc,
-        min_chunk, scale);
+        static_cast<const T*>(q), static_cast<const C*>(cache.k), static_cast<const C*>(cache.v),
+        static_cast<const __nv_bfloat16*>(cache.k_scale),
+        static_cast<const __nv_bfloat16*>(cache.v_scale), static_cast<const int32_t*>(lengths),
+        part_acc, part_ml, kv, g, s, splits, gc, min_chunk, scale, softcap);
     return cudaGetLastError();
-  });
+  };
+  const int err = softcap > 0.f ? with_split<T, C, HD, HDV, true>(gc, run)
+                                : with_split<T, C, HD, HDV, false>(gc, run);
   if (err != cudaSuccess) return err;
   paged_attention_kernel_combine<T>
       <<<dim3(unsigned(int64_t(b) * kv * g), (HDV + kCombineCols - 1) / kCombineCols),
@@ -540,17 +636,18 @@ bool shape_ok(int b, int kv, int g, int s, int splits, int gc) {
   return b <= 65535 && int64_t(kv) * groups <= 65535 && int64_t(b) * kv * g < (int64_t(1) << 31);
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* lengths, void* o,
-             void* scratch, int b, int kv, int g, int s, int hd, int splits, int gc,
-             float scale, void* stream) {
+// C = T: the bf16 and f32 routes; C = int8_t: the int8 route (T bf16).
+template <typename T, typename C>
+int dispatch(const void* q, const Cache& cache, const void* lengths, void* o, void* scratch,
+             int b, int kv, int g, int s, int hd, int splits, int gc, float scale, float softcap,
+             void* stream) {
   if (b <= 0 || kv <= 0) return cudaSuccess;
-  if (!shape_ok(b, kv, g, s, splits, gc)) return cudaErrorInvalidValue;
+  if (!shape_ok(b, kv, g, s, splits, gc) || !(softcap >= 0.f)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return with_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    return launch<T, HD, HD>(q, k, v, lengths, o, scratch, b, kv, g, s, splits, gc, kMinChunk,
-                             scale, st);
+    return launch<T, C, HD, HD>(q, cache, lengths, o, scratch, b, kv, g, s, splits, gc,
+                                kMinChunk, scale, softcap, st);
   });
 }
 
@@ -563,17 +660,17 @@ int latent_dispatch(const void* q, const void* latent, const void* lengths, void
   if (!shape_ok(b, 1, h, s, splits, gc) || gc > kLatentMaxGroup || min_chunk < kMinChunk ||
       min_chunk % kMinChunk)
     return cudaErrorInvalidValue;
-  return launch<T, kLatentHd, kLatentHdv>(q, latent, latent, lengths, o, scratch, b, 1, h, s,
-                                          splits, gc, min_chunk, scale,
-                                          static_cast<cudaStream_t>(stream));
+  return launch<T, T, kLatentHd, kLatentHdv>(q, Cache{latent, latent, nullptr, nullptr}, lengths,
+                                             o, scratch, b, 1, h, s, splits, gc, min_chunk, scale,
+                                             0.f, static_cast<cudaStream_t>(stream));
 }
 
 // out: split kernel's registers, local (spilled) bytes a thread, dynamic
 // shared memory at gc heads, CTAs resident on one SM at gc heads; combine
 // kernel's registers and local bytes.
-template <typename T, int HD, int HDV>
+template <typename T, typename C, int HD, int HDV>
 int split_attributes(int gc, int* out) {
-  return with_split<T, HD, HDV>(gc, [&](auto kernel, size_t smem) -> int {
+  return with_split<T, C, HD, HDV, false>(gc, [&](auto kernel, size_t smem) -> int {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
@@ -590,12 +687,12 @@ int split_attributes(int gc, int* out) {
   });
 }
 
-template <typename T>
+template <typename T, typename C>
 int attributes(int hd, int gc, int* out) {
   if (gc < 1 || gc > kMaxGroup) return cudaErrorInvalidValue;
   return with_hd(hd, [&](auto hd_c) -> int {
     constexpr int HD = decltype(hd_c)::value;
-    return split_attributes<T, HD, HD>(gc, out);
+    return split_attributes<T, C, HD, HD>(gc, out);
   });
 }
 
@@ -603,25 +700,45 @@ int attributes(int hd, int gc, int* out) {
 
 extern "C" {
 
+// softcap: 0 for none, else the cap of the scaled scores.
 int remop_paged_attention_bf16(const void* q, const void* k, const void* v,
                                const void* lengths, void* o, void* scratch, int b, int kv,
                                int g, int s, int hd, int splits, int gc, float scale,
-                               void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, lengths, o, scratch, b, kv, g, s, hd, splits, gc,
-                                 scale, stream);
+                               float softcap, void* stream) {
+  return dispatch<__nv_bfloat16, __nv_bfloat16>(q, Cache{k, v, nullptr, nullptr}, lengths, o,
+                                                scratch, b, kv, g, s, hd, splits, gc, scale,
+                                                softcap, stream);
 }
 
 int remop_paged_attention_f32(const void* q, const void* k, const void* v,
                               const void* lengths, void* o, void* scratch, int b, int kv,
                               int g, int s, int hd, int splits, int gc, float scale,
-                              void* stream) {
-  return dispatch<float>(q, k, v, lengths, o, scratch, b, kv, g, s, hd, splits, gc, scale,
-                         stream);
+                              float softcap, void* stream) {
+  return dispatch<float, float>(q, Cache{k, v, nullptr, nullptr}, lengths, o, scratch, b, kv, g,
+                                s, hd, splits, gc, scale, softcap, stream);
 }
 
-// is_f32, hd, gc, &out[6] (see attributes above).
-int remop_paged_attention_attributes(int is_f32, int hd, int gc, int* out) {
-  return is_f32 ? attributes<float>(hd, gc, out) : attributes<__nv_bfloat16>(hd, gc, out);
+// The int8 route: q [B, KV, G, hd] bf16, k_q / v_q [B, S, KV, hd] int8,
+// k_scale / v_scale [B, S, KV, 1] bf16, out bf16.
+int remop_paged_attention_int8_bf16(const void* q, const void* k_q, const void* v_q,
+                                    const void* k_scale, const void* v_scale,
+                                    const void* lengths, void* o, void* scratch, int b, int kv,
+                                    int g, int s, int hd, int splits, int gc, float scale,
+                                    float softcap, void* stream) {
+  return dispatch<__nv_bfloat16, int8_t>(q, Cache{k_q, v_q, k_scale, v_scale}, lengths, o,
+                                         scratch, b, kv, g, s, hd, splits, gc, scale, softcap,
+                                         stream);
+}
+
+// route (0 bf16, 1 f32, 2 int8), hd, gc, &out[6] (see split_attributes above;
+// the instantiation without a cap).
+int remop_paged_attention_attributes(int route, int hd, int gc, int* out) {
+  switch (route) {
+    case 0: return attributes<__nv_bfloat16, __nv_bfloat16>(hd, gc, out);
+    case 1: return attributes<float, float>(hd, gc, out);
+    case 2: return attributes<__nv_bfloat16, int8_t>(hd, gc, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // MLA's absorbed decode: q [B, H, 576], latent [B, S, 576], lengths [B] int32,
@@ -644,8 +761,8 @@ int remop_latent_decode_f32(const void* q, const void* latent, const void* lengt
 // is_f32, gc, &out[6] (see split_attributes above).
 int remop_latent_decode_attributes(int is_f32, int gc, int* out) {
   if (gc < 1 || gc > kLatentMaxGroup) return cudaErrorInvalidValue;
-  return is_f32 ? split_attributes<float, kLatentHd, kLatentHdv>(gc, out)
-                : split_attributes<__nv_bfloat16, kLatentHd, kLatentHdv>(gc, out);
+  return is_f32 ? split_attributes<float, float, kLatentHd, kLatentHdv>(gc, out)
+                : split_attributes<__nv_bfloat16, __nv_bfloat16, kLatentHd, kLatentHdv>(gc, out);
 }
 
 const char* remop_paged_attention_error_string(int err) {

@@ -23,7 +23,11 @@ q and k, values of 128).  Unlike the TPU kernel it takes any ``S <= T``
 (any S at ``P >= T``; rows and columns past the ends are masked) and any
 strides with a contiguous last dimension, so the model hands it ``[B, S,
 H, hd]`` activations as transposed views and gets its output back in the
-same layout.
+same layout.  With ``softcap = c > 0`` every score is capped after the scale
+and before the mask, ``s = tanh(s / c) * c`` (``repro``'s attention logit
+softcap, which the TPU kernel does not compute either); a capped launch runs
+its own instantiation of either route, so a call without a cap keeps its
+code and its bits.
 
 Two routes, chosen on the host by :func:`route` from dtype, head widths and
 alignment alone:
@@ -156,7 +160,7 @@ def first_block(q_pos: int, window: int, bk: int) -> int:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bk: int = MAX_BLOCK, scale: float | None = None,
-                          window: int = 0, prefix: int = 0) -> torch.Tensor:
+                          window: int = 0, prefix: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: online softmax over KV blocks of ``bk``.
 
     All query rows take every block from the first row's first visible one
@@ -165,9 +169,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stays ``NEG_INF`` (each masked p is ``exp(0) = 1``), and the first live
     key's correction ``exp(NEG_INF - m)`` is exactly 0.  Key ``k`` is seen
     by the query at position ``q`` iff ``k <= q`` or ``k < prefix`` (inside
-    the window, if any).
+    the window, if any).  The cap comes before the mask, so a hidden score
+    is ``NEG_INF`` whatever the cap, and the argument holds with one.
     """
     _check_mask(q.shape[2], k.shape[2], window, prefix)
+    softcap = runtime.check_softcap(softcap)
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
@@ -179,7 +185,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for k0 in range(first_block(t - s, window, bk) * bk, t, bk):
         kb = k[:, :, k0:k0 + bk].float()
         vb = v[:, :, k0:k0 + bk].float()
-        sc = torch.einsum("bkgsd,bktd->bkgst", qf, kb) * scale
+        sc = runtime.cap_scores(torch.einsum("bkgsd,bktd->bkgst", qf, kb) * scale, softcap)
         k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
         hidden = (q_pos[:, None] < k_pos[None, :]) & (k_pos[None, :] >= prefix)
         if window:
@@ -210,12 +216,13 @@ def _empty_out(q: torch.Tensor, hd_v: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = MAX_BLOCK, bk: int = MAX_BLOCK,
                     split_p: bool = True, scale: float | None = None,
-                    window: int = 0, prefix: int = 0) -> torch.Tensor:
+                    window: int = 0, prefix: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
     offset T - S, and with ``window > 0`` only the last ``window`` keys up to
     each query's position, with ``prefix > 0`` also every key below
     ``prefix`` (every key at ``prefix >= T``, where S may exceed T); scores
-    scaled by ``scale`` (default ``1 / sqrt(hd)``).
+    scaled by ``scale`` (default ``1 / sqrt(hd)``), then capped by
+    ``softcap`` when it is positive.
 
     ``bq, bk`` must suit the call's :func:`route` (:func:`check_blocks`);
     on a CUDA tensor ``(hd, hd_v)`` must also lie in ``HEAD_PAIRS``.  The
@@ -226,15 +233,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     change any row's arithmetic, so the plain version takes only ``bk``.
     """
     _check(q, k, v, window, prefix)
+    softcap = runtime.check_softcap(softcap)
     b, h, s, hd = q.shape
     hd_v = v.shape[3]
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
     path = route(q, k, v)
     check_blocks(path, bq, bk, hd, hd_v)
-    if not split_p and path != "tc":
-        raise ValueError("split_p=False exists on the tensor-core route only")
+    if not split_p and (path != "tc" or softcap):
+        raise ValueError("split_p=False exists on the tensor-core route only, without a cap")
     if runtime.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, bk, scale, window, prefix)
+        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap)
     if (hd, hd_v) not in HEAD_PAIRS:
         raise ValueError(f"head_dim {hd} with value width {hd_v} not in {HEAD_PAIRS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
@@ -249,10 +257,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         if path == "tc":
             err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, window, prefix,
-                                               runtime.stream_of(q))
+                                               softcap, runtime.stream_of(q))
         else:
             err = getattr(lib, f"remop_flash_attention_{_DTYPES[q.dtype]}")(
-                *args, hd_v, window, prefix, runtime.stream_of(q))
+                *args, hd_v, window, prefix, softcap, runtime.stream_of(q))
     runtime.check("flash_attention", "flash_attention", err)
     runtime.launches["flash_attention"] += 1
     runtime.launches[f"flash_attention_{path}"] += 1
@@ -264,18 +272,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         runtime.launches["flash_attention_prefix"] += 1
     if prefix >= t:
         runtime.launches["flash_attention_full"] += 1
+    if softcap:
+        runtime.launches["flash_attention_softcap"] += 1
     return out
 
 
-def occupancy(hd: int, bq: int, bk: int, split_p: bool = True, hd_v: int | None = None) -> dict:
-    """The tensor-core instantiation these blocks launch, on the current
-    card: CTAs one SM holds at once (CUDA's occupancy calculator), registers
-    and local (spilled) bytes a thread, dynamic shared memory and threads a
-    CTA."""
+def occupancy(hd: int, bq: int, bk: int, split_p: bool = True, hd_v: int | None = None,
+              capped: bool = False) -> dict:
+    """The tensor-core instantiation these blocks launch (``capped``: the
+    one with a softcap), on the current card: CTAs one SM holds at once
+    (CUDA's occupancy calculator), registers and local (spilled) bytes a
+    thread, dynamic shared memory and threads a CTA."""
     hd_v = hd if hd_v is None else hd_v
     check_blocks("tc", bq, bk, hd, hd_v)
     out = (ctypes.c_int * 5)()
     err = runtime.library("flash_attention").remop_flash_attention_tc_occupancy(
-        hd, hd_v, bq, bk, int(split_p), ctypes.addressof(out))
+        hd, hd_v, bq, bk, int(split_p), int(capped), ctypes.addressof(out))
     runtime.check("flash_attention", "flash_attention", err)
     return dict(zip(("resident_ctas", "registers", "local_bytes", "smem_bytes", "threads"), out))

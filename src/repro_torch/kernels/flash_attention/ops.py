@@ -68,13 +68,15 @@ def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bq: Optional[int] = None,
                           bk: Optional[int] = None,
                           scale: Optional[float] = None,
-                          window: int = 0, prefix: int = 0) -> torch.Tensor:
+                          window: int = 0, prefix: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
     """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
     offset T - S, and with ``window > 0`` each query sees its last ``window``
     keys only, with ``prefix > 0`` also every key below ``prefix`` (all of
-    them at ``prefix >= T``); ``scale`` defaults to ``1 / sqrt(hd)``.  Blocks
-    are planned as without a window or a prefix, as ``repro``'s planner has
-    neither.
+    them at ``prefix >= T``); ``scale`` defaults to ``1 / sqrt(hd)``; with
+    ``softcap > 0`` the scaled scores are capped, ``tanh(s / softcap) *
+    softcap``.  Blocks are planned as without a window, a prefix or a cap,
+    as ``repro``'s planner has none of them.
 
     Blocks not given are planned for the route the call takes; on the
     CUDA-core route they are cut to S and T (its threads cover bq x bk).
@@ -87,4 +89,5 @@ def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bq, bk = bq or pbq, bk or pbk
     if path == "simt":
         bq, bk = min(bq, s), min(bk, t)
-    return flash_attention(q, k, v, bq=bq, bk=bk, scale=scale, window=window, prefix=prefix)
+    return flash_attention(q, k, v, bq=bq, bk=bk, scale=scale, window=window, prefix=prefix,
+                           softcap=softcap)

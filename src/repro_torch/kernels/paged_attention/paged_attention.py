@@ -28,6 +28,22 @@ so the f32 partials (``16 x 514`` floats a chunk at 16 heads) stay at most
 partials against 2,359,296 of cache; chunks of 16 would write 4.2 MB).
 Launches count under ``"paged_attention_latent"``.
 
+With ``softcap = c > 0`` the scaled scores are capped before the mask, ``s =
+tanh(s / c) * c`` (``repro``'s attention logit softcap), in an instantiation
+of its own, so a call without a cap keeps its code and its bits; capped
+launches also count under ``"paged_attention_softcap"``.  The latent route
+takes no cap: ``repro``'s ``mla_decode`` applies none.
+
+The int8 route, :func:`paged_attention_int8`, reads ``repro``'s int8 KV
+cache: int8 ``k_q``, ``v_q`` ``[B, S, KV, hd]`` and bf16 scales ``[B, S,
+KV, 1]``, q and the output bf16.  Its CTAs copy the int8 rows (half the
+bf16 route's bytes, plus two bytes a row of scale) into their ring, widen
+each landed tile in shared memory to the bf16 tile the bf16 route reads, a
+value ``bf16(float(q) * float(scale))`` as ``models.attention.dequantize_kv``
+rounds it, and from there run the bf16 route's code: its output equals the
+bf16 route on the dequantized caches bit for bit.  Launches count under
+``"paged_attention_int8"``.
+
 Beside each wrapper is its plain PyTorch version, the same split arithmetic:
 an online softmax page by page, kept per chunk, then the same fixed-order
 merge; with one split it is the TPU kernel's page-by-page online softmax.
@@ -135,9 +151,10 @@ def _check(q, k_cache, v_cache, lengths, page: int, pages_divide: bool) -> None:
 
 def _split_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      lengths: torch.Tensor, page: int, splits: int, scale: float,
-                     min_chunk: int) -> torch.Tensor:
+                     min_chunk: int, softcap: float = 0.0) -> torch.Tensor:
     """The split kernel's arithmetic: q [B, KV, G, hd], k [B, S, KV, hd],
-    v [B, S, KV, hd_v] -> [B, KV, G, hd_v]."""
+    v [B, S, KV, hd_v] -> [B, KV, G, hd_v]; scores capped before the mask
+    when ``softcap > 0``."""
     b, kv, g, _ = q.shape
     s, hd_v = k_cache.shape[1], v_cache.shape[3]
     qf = q.float()
@@ -147,9 +164,11 @@ def _split_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     m = torch.full((b, kv, g, splits), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kv, g, splits, hd_v), device=q.device)
-    for p0 in range(0, s, page):
+    # Pages past the longest length are not walked: every position there
+    # would add exactly 0 (p = 0, m and l unchanged).
+    for p0 in range(0, int(ln.max()), page):
         kp = k_cache[:, p0:p0 + page].float()
-        sc = torch.einsum("bkgd,btkd->bkgt", qf, kp) * scale
+        sc = runtime.cap_scores(torch.einsum("bkgd,btkd->bkgt", qf, kp) * scale, softcap)
         pos = torch.arange(p0, p0 + kp.shape[1], device=q.device)
         valid = pos[None, :] < ln[:, None]  # [B, page]
         # Rows past the length are never read by the kernel: zeroed here, so
@@ -173,19 +192,33 @@ def _split_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 def paged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                           lengths: torch.Tensor, page: int = 128,
-                          splits: Optional[int] = None) -> torch.Tensor:
+                          splits: Optional[int] = None, softcap: float = 0.0) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: ``splits`` chunks by the kernel's
     rule (by default :func:`plan`'s), an online softmax page by page in each,
     then the fixed-order merge of the chunks' partials.
 
     A position outside a chunk adds exactly 0 to that chunk's partial; a
-    chunk past the length is skipped by the merge.
+    chunk past the length is skipped by the merge; pages past the longest
+    length are not walked.
     """
     b, kv, g, hd = q.shape
     if splits is None:
         splits = plan(b, kv, g, k_cache.shape[1])[0]
     return _split_attention(q, k_cache, v_cache, lengths, page, splits, 1.0 / math.sqrt(hd),
-                            MIN_CHUNK)
+                            MIN_CHUNK, runtime.check_softcap(softcap))
+
+
+def paged_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+                               k_scale: torch.Tensor, v_scale: torch.Tensor,
+                               lengths: torch.Tensor, page: int = 128,
+                               splits: Optional[int] = None,
+                               softcap: float = 0.0) -> torch.Tensor:
+    """The int8 route's plain version: each cache value widened to q's dtype
+    as the kernel widens it, ``float(q) * float(scale)`` rounded once (what
+    ``models.attention.dequantize_kv`` computes), then
+    :func:`paged_attention_plain`."""
+    k, v = ((x.float() * s.float()).to(q.dtype) for x, s in ((k_q, k_scale), (v_q, v_scale)))
+    return paged_attention_plain(q, k, v, lengths, page, splits, softcap)
 
 
 def latent_decode_plain(q: torch.Tensor, latent: torch.Tensor, lengths: torch.Tensor,
@@ -208,19 +241,43 @@ def latent_decode_plain(q: torch.Tensor, latent: torch.Tensor, lengths: torch.Te
 def attributes(dtype: torch.dtype, hd: int, gc: int) -> dict:
     """The split kernel's registers, local (spilled) bytes, dynamic shared
     memory and CTAs resident on one SM at ``gc`` heads, and the combine
-    kernel's registers and local bytes, on the current card."""
+    kernel's registers and local bytes, on the current card; ``dtype``
+    ``torch.int8`` names the int8 route (bf16 q)."""
     check_shape(gc, hd)
     out = (ctypes.c_int * 6)()
+    route = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[dtype]
     err = runtime.library("paged_attention").remop_paged_attention_attributes(
-        int(dtype == torch.float32), hd, gc, ctypes.addressof(out))
+        route, hd, gc, ctypes.addressof(out))
     runtime.check("paged_attention", "paged_attention", err)
     return dict(zip(("registers", "local_bytes", "smem_bytes", "resident_ctas",
                      "combine_registers", "combine_local_bytes"), out))
 
 
+def _launch_args(q: torch.Tensor, tensors, s: int):
+    """Checks of a CUDA launch: the shape, contiguous tensors, 16-byte
+    aligned q and caches.  Returns (splits, gc, out, scratch)."""
+    b, kv, g, hd = q.shape
+    check_shape(g, hd)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("q, the caches, their scales and lengths must be contiguous")
+    if any(x.data_ptr() % 16 for x in tensors[:3]):
+        raise ValueError("q and the caches must start on a 16-byte boundary")
+    splits, gc = plan(b, kv, g, s)
+    scratch = torch.empty(scratch_floats(b, kv, g, hd, splits), dtype=torch.float32,
+                          device=q.device)
+    return splits, gc, torch.empty_like(q), scratch
+
+
+def _count(route: str, softcap: float) -> None:
+    runtime.launches[route] += 1
+    if softcap:
+        runtime.launches["paged_attention_softcap"] += 1
+
+
 def paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                    lengths: torch.Tensor, page: int = 128) -> torch.Tensor:
-    """q: [B, KV, G, hd]; k/v_cache: [B, S, KV, hd]; lengths: [B] int32 in [1, S].
+                    lengths: torch.Tensor, page: int = 128, softcap: float = 0.0) -> torch.Tensor:
+    """q: [B, KV, G, hd]; k/v_cache: [B, S, KV, hd]; lengths: [B] int32 in [1, S];
+    scores capped by ``softcap`` when it is positive.
 
     ``page`` is the plain version's page and must divide S on the CPU; the
     kernel walks its own tiles and takes any S.  On a CUDA tensor all four
@@ -228,28 +285,69 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     """
     cpu = runtime.on_cpu(q, k_cache, v_cache, lengths)
     _check(q, k_cache, v_cache, lengths, page, pages_divide=cpu)
+    softcap = runtime.check_softcap(softcap)
     if cpu:
-        return paged_attention_plain(q, k_cache, v_cache, lengths, page)
+        return paged_attention_plain(q, k_cache, v_cache, lengths, page, softcap=softcap)
     b, kv, g, hd = q.shape
     s = k_cache.shape[1]
-    check_shape(g, hd)
-    tensors = (q, k_cache, v_cache, lengths)
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("q, the caches and lengths must be contiguous")
-    if any(x.data_ptr() % 16 for x in tensors[:3]):
-        raise ValueError("q and the caches must start on a 16-byte boundary")
-    splits, gc = plan(b, kv, g, s)
-    out = torch.empty_like(q)
-    scratch = torch.empty(scratch_floats(b, kv, g, hd, splits), dtype=torch.float32,
-                          device=q.device)
+    splits, gc, out, scratch = _launch_args(q, (q, k_cache, v_cache, lengths), s)
     lib = runtime.library("paged_attention")
     with torch.cuda.device(q.device):
         err = getattr(lib, f"remop_paged_attention_{_DTYPES[q.dtype]}")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), b, kv, g, s, hd, splits, gc,
-            1.0 / math.sqrt(hd), runtime.stream_of(q))
+            1.0 / math.sqrt(hd), softcap, runtime.stream_of(q))
     runtime.check("paged_attention", "paged_attention", err)
-    runtime.launches["paged_attention"] += 1
+    _count("paged_attention", softcap)
+    return out
+
+
+def _check_int8(q, k_q, v_q, k_scale, v_scale, lengths, page: int, pages_divide: bool) -> None:
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
+        raise TypeError(f"the int8 route takes int8 caches, got {k_q.dtype}, {v_q.dtype}")
+    if k_scale.dtype != torch.bfloat16 or v_scale.dtype != torch.bfloat16:
+        raise TypeError(f"the int8 route takes bf16 scales, got {k_scale.dtype}, {v_scale.dtype}")
+    if k_q.dim() != 4 or tuple(k_scale.shape) != tuple(k_q.shape[:3]) + (1,) or (
+            k_scale.shape != v_scale.shape):
+        raise ValueError(f"scales must be [B, S, KV, 1] beside caches [B, S, KV, hd]; got "
+                         f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)}, {tuple(k_q.shape)}")
+    # The rest as the bf16 route checks it: the caches' shapes, in q's dtype.
+    _check(q, *(torch.empty(x.shape, dtype=q.dtype, device="meta") for x in (k_q, v_q)),
+           lengths, page, pages_divide)
+
+
+def paged_attention_int8(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor, lengths: torch.Tensor,
+                         page: int = 128, softcap: float = 0.0) -> torch.Tensor:
+    """q: [B, KV, G, hd]; int8 k_q/v_q: [B, S, KV, hd]; bf16 k_scale/v_scale:
+    [B, S, KV, 1]; lengths: [B] int32 in [1, S] -> [B, KV, G, hd]: the paged
+    attention of q over the dequantized caches, scores capped by ``softcap``
+    when it is positive.
+
+    On a CPU tensor q may be any float dtype (the caches dequantize to it);
+    on a CUDA tensor q is bf16, all six tensors contiguous, and the split
+    plan, chunks and combine are the bf16 route's.
+    """
+    tensors = (q, k_q, v_q, lengths, k_scale, v_scale)
+    cpu = runtime.on_cpu(*tensors)
+    _check_int8(q, k_q, v_q, k_scale, v_scale, lengths, page, pages_divide=cpu)
+    softcap = runtime.check_softcap(softcap)
+    if cpu:
+        return paged_attention_int8_plain(q, k_q, v_q, k_scale, v_scale, lengths, page,
+                                          softcap=softcap)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the int8 route takes bf16 q on the card, got {q.dtype}")
+    b, kv, g, hd = q.shape
+    s = k_q.shape[1]
+    splits, gc, out, scratch = _launch_args(q, tensors, s)
+    lib = runtime.library("paged_attention")
+    with torch.cuda.device(q.device):
+        err = lib.remop_paged_attention_int8_bf16(
+            q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, kv,
+            g, s, hd, splits, gc, 1.0 / math.sqrt(hd), softcap, runtime.stream_of(q))
+    runtime.check("paged_attention", "paged_attention", err)
+    _count("paged_attention_int8", softcap)
     return out
 
 

@@ -23,6 +23,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
@@ -34,9 +35,11 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention", "ssd_scan",
            "matmul")
+# ptxas splits its work over 8 threads: the same machine code, built in
+# less time (the attention libraries' ptxas was most of their build).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "--split-compile=8",
 )
 
 _P = ctypes.c_void_p
@@ -62,23 +65,27 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # q, k, v, out, &strides[12] (int64), b, h, kv, s, t, hd, bq, bk, scale, hd_v,
-        # window, prefix, stream
-        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 3 + [_P],
-                                          _I32)
+        # window, prefix, softcap, stream
+        **{f"remop_flash_attention_{t}": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 3
+                                          + [_F32, _P], _I32)
            for t in ("bf16", "f32")},
         # q, k, v, out, &strides[12], b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
-        # window, prefix, stream
-        "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 4 + [_P], _I32),
-        # hd, hd_v, bq, bk, split, &out[5]
-        "remop_flash_attention_tc_occupancy": ([_I32] * 5 + [_P], _I32),
+        # window, prefix, softcap, stream
+        "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 4 + [_F32, _P],
+                                     _I32),
+        # hd, hd_v, bq, bk, split, cap, &out[5]
+        "remop_flash_attention_tc_occupancy": ([_I32] * 6 + [_P], _I32),
         "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),
     },
     "paged_attention": {
         # q, k_cache, v_cache, lengths, out, scratch, b, kv, g, s, hd, splits, gc,
-        # scale, stream
-        **{f"remop_paged_attention_{t}": ([_P] * 6 + [_I32] * 7 + [_F32, _P], _I32)
+        # scale, softcap, stream
+        **{f"remop_paged_attention_{t}": ([_P] * 6 + [_I32] * 7 + [_F32, _F32, _P], _I32)
            for t in ("bf16", "f32")},
-        # is_f32, hd, gc, &out[6]
+        # q, k_q, v_q, k_scale, v_scale, lengths, out, scratch, b, kv, g, s, hd, splits, gc,
+        # scale, softcap, stream
+        "remop_paged_attention_int8_bf16": ([_P] * 8 + [_I32] * 7 + [_F32, _F32, _P], _I32),
+        # route (0 bf16, 1 f32, 2 int8), hd, gc, &out[6]
         "remop_paged_attention_attributes": ([_I32] * 3 + [_P], _I32),
         # q, latent, lengths, out, scratch, b, h, s, splits, gc, min_chunk, scale, stream
         **{f"remop_latent_decode_{t}": ([_P] * 5 + [_I32] * 6 + [_F32, _P], _I32)
@@ -141,6 +148,21 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cpu"
+
+
+def check_softcap(softcap: float) -> float:
+    """``softcap`` as a float; raise ``ValueError`` unless it is 0 (no cap)
+    or positive and finite.  The attention kernels' shared argument."""
+    softcap = float(softcap)
+    if not (softcap == 0.0 or 0.0 < softcap < math.inf):
+        raise ValueError(f"softcap={softcap} must be 0 (no cap) or positive and finite")
+    return softcap
+
+
+def cap_scores(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    """``tanh(s / softcap) * softcap``, or the scores as they are at 0: the
+    attention kernels' plain versions cap with it."""
+    return torch.tanh(scores / softcap) * softcap if softcap else scores
 
 
 def nvcc() -> str:

@@ -49,8 +49,22 @@ is ``prefix = S`` (every key).  Cross-attention (``gqa_forward(xa=...)``,
 decode (:func:`cross_decode`) is the paged kernel over the fixed ``[B,
 T_enc, KV, hd]`` cross cache at ``lengths = T_enc``.
 
-Logit softcap and int8 KV quantization raise ``NotImplementedError`` naming
-the slice they wait for.
+Attention logit softcap (``cfg.attn_softcap``, ``s = tanh(s / cap) * cap``
+after the scale and before the mask) is a kernel argument, given where
+``repro`` applies it: ``gqa_forward`` (every mask, cross-attention
+included), ``mla_forward`` and ``gqa_decode``.  ``repro``'s ``mla_decode``
+and its cross-attention decode (``block_decode``'s ``full_attention`` with
+no cap) ignore it, and so do :func:`mla_decode` and :func:`cross_decode`.
+
+int8 KV cache: ``repro``'s ``(k_q, v_q, k_scale, v_scale)``, int8 ``[B, S,
+KV, hd]`` values and bf16 ``[B, S, KV, 1]`` scales (:func:`quantize_kv`,
+:func:`dequantize_kv`, the ``KV_QUANT`` flag that :func:`cache_struct
+<repro_torch.models.transformer.cache_struct>` reads).  :func:`gqa_decode`
+takes such a cache: it quantizes the new row, writes it at the slot and
+attends through the paged kernel's int8 route, which reads the int8 rows and
+their scales.  As in ``repro``, nothing quantizes on its own (``prefill``
+gives bf16 caches; a caller quantizes them), and cross and MLA caches are
+never quantized.
 """
 
 from __future__ import annotations
@@ -63,19 +77,53 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import remop_flash_attention
-from repro_torch.kernels.paged_attention.ops import remop_latent_decode, remop_paged_attention
+from repro_torch.kernels.paged_attention.ops import (
+    remop_latent_decode, remop_paged_attention, remop_paged_attention_int8)
 from repro_torch.models.layers import (
     Params, apply_rope, dense, init_dense, init_rmsnorm, rmsnorm, rope_tables,
 )
 
-KVCache = Tuple[torch.Tensor, torch.Tensor]
+KVCache = Tuple[torch.Tensor, ...]  # (k, v), or (k_q, v_q, k_scale, v_scale) in int8
+
+# int8 KV-cache quantization (decode), as in repro: per-(token, head) scales.
+KV_QUANT = False
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.attn_softcap:
-        raise NotImplementedError("attention logit softcap: later slice")
+def set_kv_quant(flag: bool) -> None:
+    global KV_QUANT
+    KV_QUANT = flag
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [..., hd] -> (int8 values, bf16 scale [..., 1]): ``max(|x|, 1e-6) /
+    127`` in f32, the values rounded half to even against that f32 scale and
+    clipped to ±127, the scale stored rounded to bf16, as ``repro`` does."""
+    xf = x.float()
+    amax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-6)
+    # A tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, which rounds some scales a bit off repro's division.
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``repro``'s ``dequantize_kv``: ``float(q) * float(scale)`` rounded to
+    ``dtype`` once."""
+    return (q.float() * scale.float()).to(dtype)
+
+
+def _supported(cfg: ModelConfig) -> None:
     if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn_type} attention: not in the port")
+
+
+def _pair(cache: KVCache, what: str) -> KVCache:
+    if len(cache) != 2:
+        raise ValueError(f"{what} takes a (k, v) cache; repro never quantizes it, got "
+                         f"{len(cache)} tensors")
+    return cache
 
 
 def init_gqa(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
@@ -122,7 +170,7 @@ def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     :func:`gqa_decode` (:func:`cross_decode`) continues (a windowed caller
     packs them into a ring first).
     """
-    _unsupported(cfg)
+    _supported(cfg)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if xa is None:
@@ -135,7 +183,7 @@ def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     # [B, S, heads, hd] viewed as the kernel's [B, heads, S, hd]; the output
     # comes back in q's memory layout, so the reshape below is free.
     out = remop_flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                window=window, prefix=prefix)
+                                window=window, prefix=prefix, softcap=cfg.attn_softcap)
     out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim))
     return (out, (k, v)) if return_kv else out
 
@@ -156,27 +204,38 @@ def cache_length(pos: int, size: int) -> int:
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos: int,
                window: int = 0):
     """One-token decode. x: [B, 1, d]; cache (k, v): [B, S, KV, hd], a ring
-    of ``S = window`` slots when ``window > 0``; ``pos`` is the step's
-    position.  Returns (out [B, 1, d], cache) with the cache written in
-    place."""
-    _unsupported(cfg)
-    if len(cache) != 2:
-        raise NotImplementedError("int8 KV cache: later slice")
+    of ``S = window`` slots when ``window > 0``, or the int8 cache ``(k_q,
+    v_q, k_scale, v_scale)`` of the same slots (the new row quantized by
+    :func:`quantize_kv`, attended dequantized, as ``repro`` attends it);
+    ``pos`` is the step's position.  Returns (out [B, 1, d], cache) with the
+    cache written in place."""
+    _supported(cfg)
+    if len(cache) not in (2, 4):
+        raise ValueError(f"a decode cache is (k, v) or (k_q, v_q, k_scale, v_scale), got "
+                         f"{len(cache)} tensors")
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_t, v_t = _gqa_qkv(p, cfg, x, positions)
-    ck, cv = cache
-    s_cache = ck.shape[1]
+    s_cache = cache[0].shape[1]
     if window and s_cache != window:
         raise ValueError(f"a windowed decode takes a ring of {window} slots, got {s_cache}")
     slot = cache_slot(pos, s_cache, window)
-    ck[:, slot] = k_t[:, 0].to(ck.dtype)
-    cv[:, slot] = v_t[:, 0].to(cv.dtype)
     lengths = torch.full((b,), cache_length(pos, s_cache), dtype=torch.int32,
                          device=x.device)
-    out = remop_paged_attention(q.view(b, kv, h // kv, hd), ck, cv, lengths)
-    return dense(p["wo"], out.view(b, 1, h * hd)), (ck, cv)
+    qg = q.view(b, kv, h // kv, hd)
+    if len(cache) == 4:
+        ckq, cvq, cks, cvs = cache
+        (kq, ks), (vq, vs) = quantize_kv(k_t[:, 0]), quantize_kv(v_t[:, 0])
+        ckq[:, slot], cvq[:, slot], cks[:, slot], cvs[:, slot] = kq, vq, ks, vs
+        out = remop_paged_attention_int8(qg, ckq, cvq, cks, cvs, lengths,
+                                         softcap=cfg.attn_softcap)
+    else:
+        ck, cv = cache
+        ck[:, slot] = k_t[:, 0].to(ck.dtype)
+        cv[:, slot] = v_t[:, 0].to(cv.dtype)
+        out = remop_paged_attention(qg, ck, cv, lengths, softcap=cfg.attn_softcap)
+    return dense(p["wo"], out.view(b, 1, h * hd)), cache
 
 
 def cross_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
@@ -184,13 +243,13 @@ def cross_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache) -
     cache (k, v) [B, T_enc, KV, hd] from ``gqa_forward(xa=...)``, read and
     never written.  The paged kernel at ``lengths = T_enc`` with q unroped,
     as ``repro``'s decode computes it (``full_attention`` with every key
-    seen).  Returns out [B, 1, d]."""
-    _unsupported(cfg)
-    if len(cache) != 2:
-        raise NotImplementedError("int8 KV cache: later slice")
+    seen), with no softcap: ``repro``'s decode calls ``full_attention``
+    without ``cfg.attn_softcap`` here, though its prefill caps.  Returns out
+    [B, 1, d]."""
+    _supported(cfg)
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ck, cv = cache
+    ck, cv = _pair(cache, "cross_decode")
     q = dense(p["wq"], x).view(b, kv, h // kv, hd)
     lengths = torch.full((b,), ck.shape[1], dtype=torch.int32, device=x.device)
     out = remop_paged_attention(q, ck, cv, lengths)
@@ -299,8 +358,9 @@ def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     ``return_cache`` also the cache ``(c_kv, k_rope)`` that :func:`mla_decode`
     continues.  Per-head K is ``c_kv W_uk`` beside the shared rope head, V
     is ``c_kv W_uv``; the flash kernel attends at widths 192 / 128 with the
-    scale ``1 / sqrt(nope + rope)``.  ``cfg.window`` is ignored, as in ``repro``."""
-    _unsupported(cfg)
+    scale ``1 / sqrt(nope + rope)``, capped by ``cfg.attn_softcap``.
+    ``cfg.window`` is ignored, as in ``repro``."""
+    _supported(cfg)
     b, s, _ = x.shape
     h, nope, rope_d, v_hd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
@@ -312,7 +372,7 @@ def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     # [B, S, heads, width] viewed as the kernel's [B, heads, S, width]; the
     # output comes back in q's memory layout, so the reshape below is free.
     out = remop_flash_attention(q_full.transpose(1, 2), k_full.transpose(1, 2),
-                                v.transpose(1, 2))
+                                v.transpose(1, 2), softcap=cfg.attn_softcap)
     out = dense(p["wo"], out.transpose(1, 2).reshape(b, s, h * v_hd))
     return (out, mla_cache(c_kv, k_rope)) if return_cache else out
 
@@ -322,8 +382,10 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, pos
     ``(c_kv [B, S, lora], k_rope [B, S, rope])`` as :func:`mla_cache` makes
     it; ``pos`` is the step's position.  Returns (out [B, 1, d], cache) with
     the new row written in place, at slot ``min(pos, S - 1)``.  ``cfg.window``
-    is ignored, as in ``repro``."""
-    _unsupported(cfg)
+    and ``cfg.attn_softcap`` are ignored, as in ``repro``'s ``mla_decode``
+    (its forward caps)."""
+    _supported(cfg)
+    _pair(cache, "mla_decode")
     b = x.shape[0]
     h, nope, rope_d, v_hd, lora = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                                    cfg.v_head_dim, cfg.kv_lora_rank)

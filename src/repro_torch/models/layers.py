@@ -9,8 +9,6 @@ Conventions, as in the JAX package's ``models/layers.py``:
     device the weights live on.  They give other numbers than ``jax.random``
     from the same seed; ``models.convert`` carries JAX's weights over where
     the two must compute the same thing.
-
-``softmax_xent`` (training) waits for the training slice.
 """
 
 from __future__ import annotations
@@ -156,3 +154,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1, x2 = x.float().chunk(2, dim=-1)
     cos, sin = cos[..., None, :], sin[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in f32 (``repro``'s ``softmax_xent``); with
+    ``mask`` the mean over the masked-in tokens (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

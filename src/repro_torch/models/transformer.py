@@ -57,7 +57,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    dense, embed, init_dense, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, unembed,
+    dense, embed, init_dense, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, softmax_xent,
+    unembed,
 )
 
 Params = Dict[str, Any]
@@ -84,8 +85,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "hybrid" and not set(cfg.block_pattern or HYBRID_PATTERN) <= {
             "rec", "attn", "attn_local"}:
         raise NotImplementedError(f"{cfg.name}: hybrid pattern {cfg.block_pattern}")
-    if cfg.attn_softcap:
-        raise NotImplementedError(f"{cfg.name}: attention logit softcap: later slice")
 
 
 def is_moe_layer(cfg: ModelConfig, layer: int) -> bool:
@@ -333,6 +332,19 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return logits, aux, caches
 
 
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """``repro``'s ``loss_fn``, its forward value: the next-token cross
+    entropy of :func:`forward`'s logits (the VLM's text positions only)
+    against ``batch["targets"]`` shifted by one, under ``batch["mask"]`` if
+    given, plus ``router_aux_coef`` times the MoE aux loss.  Returns
+    (total, {"loss", "aux"})."""
+    logits, aux, _ = forward(params, cfg, batch)
+    if cfg.family == "vlm":  # only text positions carry loss
+        logits = logits[:, batch["patches"].shape[1]:]
+    loss = softmax_xent(logits[:, :-1], batch["targets"][:, 1:], batch.get("mask"))
+    return loss + cfg.router_aux_coef * aux, {"loss": loss, "aux": aux}
+
+
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             return_hidden: bool = False):
     """Returns (last_token_logits, caches[, last_hidden]) for decode.
@@ -373,11 +385,13 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches, token: torch.T
 def cache_struct(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
                  enc_len: Optional[int] = None) -> List[Any]:
     """(shape, dtype) of each layer's cache, mirroring ``prefill``'s: (k, v)
-    (a ring of ``cfg.window`` slots for ``"attn_local"``), (c_kv, k_rope) for
-    MLA, (conv, state) for SSM, (conv, h) for RG-LRU, ``{"self": (k, v),
-    "cross": (ck, cv)}`` for ``"cross"``, the cross pair over ``enc_len``
-    positions (by default ``cfg.frontend_seq``, else ``seq``), as in
-    ``repro``."""
+    (a ring of ``cfg.window`` slots for ``"attn_local"``; under
+    ``attention.KV_QUANT`` the int8 cache ``(k_q, v_q, k_scale, v_scale)``
+    of those slots for ``"attn"``, ``"moe"`` and ``"attn_local"``), (c_kv,
+    k_rope) for MLA, (conv, state) for SSM, (conv, h) for RG-LRU, ``{"self":
+    (k, v), "cross": (ck, cv)}`` for ``"cross"``, the cross pair over
+    ``enc_len`` positions (by default ``cfg.frontend_seq``, else ``seq``),
+    as in ``repro`` (without its stacked layer axis)."""
     check_supported(cfg)
     enc_len = enc_len or cfg.frontend_seq or seq
 
@@ -395,15 +409,19 @@ def cache_struct(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
         if kind in ("mla", "mla_moe"):
             c_sh, r_sh = attn.mla_cache_shapes(cfg, batch, seq)
             return (torch.Size(c_sh), dtype), (torch.Size(r_sh), dtype)
-        kv = (torch.Size(attn.gqa_cache_shape(cfg, batch, seq, _window(cfg, kind))), dtype)
-        return kv, kv
+        sh = torch.Size(attn.gqa_cache_shape(cfg, batch, seq, _window(cfg, kind)))
+        if attn.KV_QUANT:
+            values, scales = (sh, torch.int8), (sh[:-1] + (1,), torch.bfloat16)
+            return values, values, scales, scales
+        return (sh, dtype), (sh, dtype)
 
     return [spec(kind) for kind in layer_kinds(cfg)]
 
 
 def pad_caches(cfg: ModelConfig, caches: Caches, target_len: int) -> Caches:
     """Grow each KV cache's seq axis to ``target_len`` with zeros (decode
-    headroom); an MLA cache grows its shared buffer, so its two views still
+    headroom; an int8 cache's four tensors alike); an MLA cache grows its
+    shared buffer, so its two views still
     alias one buffer.  Ring (windowed), SSM and RG-LRU caches are fixed-size
     and pass through untouched, as does a cross block's ``"cross"`` pair
     (its ``"self"`` pair grows)."""
@@ -432,3 +450,21 @@ def param_count(params: Params) -> int:
         return sum(count(x) for x in items)
 
     return count(params)
+
+
+def active_param_count(params: Params, cfg: ModelConfig) -> int:
+    """``repro``'s ``active_param_count``: parameters a token uses, the
+    routed experts' counted at ``experts_per_token / n_experts`` (every
+    tensor under an ``"experts"`` key)."""
+    total = param_count(params)
+    if not cfg.n_experts:
+        return total
+
+    def expert_size(tree, under: bool = False) -> int:
+        if isinstance(tree, torch.Tensor):
+            return tree.numel() if under else 0
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return sum(expert_size(x, under or "experts" in str(key)) for key, x in items)
+
+    e_total = expert_size(params)
+    return int(total - e_total + e_total * (cfg.experts_per_token / cfg.n_experts))

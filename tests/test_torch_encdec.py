@@ -300,9 +300,9 @@ def test_kernel_entries_per_prefill_and_decode_step(models, monkeypatch):
         flash_calls.append((q.shape[2], k.shape[2], kw["prefix"]))
         return flash(q, k, v, **kw)
 
-    def recording_paged(q, kc, vc, lengths):
+    def recording_paged(q, kc, vc, lengths, **kw):
         paged_calls.append((kc.shape[1], lengths.tolist()))
-        return paged(q, kc, vc, lengths)
+        return paged(q, kc, vc, lengths, **kw)
 
     monkeypatch.setattr(attn, "remop_flash_attention", recording_flash)
     monkeypatch.setattr(attn, "remop_paged_attention", recording_paged)

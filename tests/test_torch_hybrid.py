@@ -24,6 +24,8 @@ build and run only on the card (``chip_smoke.py`` phase 5d).
 
 import contextlib
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -286,11 +288,32 @@ def test_full_size_layout():
 
 
 def test_check_supported_admits_the_hybrid():
-    _, cfg = _cfgs()
+    """The hybrid at both sizes, and with the attention softcap, which
+    raised before it was ported: one local-attention layer with a cap that
+    bites (0.5 on ``wq`` times 2; at least 10% of the visible scores above
+    it) equals ``repro``'s windowed layer within ``BF16_TOL`` and differs
+    from the uncapped layer by more than 10 ``BF16_TOL``."""
+    jcfg, cfg = _cfgs(attn_softcap=0.5)
     tf.check_supported(cfg)
     tf.check_supported(ARCHS[ARCH])
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tf.check_supported(reduced(ARCHS[ARCH], attn_softcap=50.0))
+    jp = jattn.init_gqa(jax.random.key(4), jcfg)
+    jp["wq"]["w"] = jp["wq"]["w"] * 2
+    p = {name: {"w": torch.from_numpy(np.array(w["w"])).to(torch.bfloat16)}
+         for name, w in jp.items()}
+    s, w = 50, cfg.window
+    jx, x = _bf16(np.random.default_rng(4), 2, s, cfg.d_model)
+    positions = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
+    tpos = torch.from_numpy(positions.copy())
+    want = jattn.gqa_forward(jp, jcfg, jx, jnp.asarray(positions), window=w)
+    _close(attn.gqa_forward(p, cfg, x, tpos, window=w), want, BF16_TOL)
+    q, k, _ = attn._gqa_qkv(p, cfg, x, tpos)
+    scores = torch.einsum("bshd,btkd->bhst", q.float(), k.float()) / cfg.head_dim ** 0.5
+    rows, cols = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    seen = (cols <= rows) & (rows - cols < w)
+    assert float((scores.abs() > 0.5)[:, :, seen].float().mean()) >= 0.1
+    uncapped = attn.gqa_forward(p, dataclasses.replace(cfg, attn_softcap=0.0), x, tpos, window=w)
+    assert float((uncapped.float() - torch.from_numpy(np.asarray(want, np.float32))).abs()
+                 .max()) > 10 * BF16_TOL * float(np.abs(np.asarray(want, np.float32)).max())
     with pytest.raises(NotImplementedError, match="pattern"):
         tf.check_supported(reduced(ARCHS[ARCH], block_pattern=("rec", "ssm")))
 

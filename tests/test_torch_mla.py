@@ -152,30 +152,55 @@ def test_mla_cache_views_share_one_buffer():
 
 
 def test_unported_variants_still_raise_on_mla():
-    """A softcap still raises; ``cfg.window`` is ignored by MLA, as by
-    ``repro``'s ``mla_forward`` and ``mla_decode`` (only ``"attn_local"``
-    blocks apply it)."""
-    _, cfg = _cfgs()
-    p = attn.init_mla(cfg, torch.Generator().manual_seed(0), "cpu")
-    x, positions = torch.zeros(1, 4, cfg.d_model), torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attn.mla_forward(p, dataclasses.replace(cfg, attn_softcap=50.0), x, positions)
-    xr = torch.from_numpy(np.random.default_rng(8).standard_normal((1, 12, cfg.d_model))
-                          .astype(np.float32))
-    pos12 = torch.arange(12)[None]
-    want, want_cache = attn.mla_forward(p, cfg, xr, pos12, return_cache=True)
-    got, got_cache = attn.mla_forward(p, dataclasses.replace(cfg, window=8), xr, pos12,
-                                      return_cache=True)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    stepped = [attn.mla_decode(p, c, xr[:, 11:], attn.mla_pad(got_cache, 16), 12)[0]
+    """The softcap, which raised before it was ported, follows ``repro``:
+    ``mla_forward`` with a cap that bites (0.5 on ``wq`` times 2: at least
+    10% of the scores above it) equals ``repro``'s within ``F32_TOL`` and
+    differs from the uncapped forward by more than 10 ``F32_TOL``;
+    ``mla_decode`` ignores the cap, bit for bit, in both packages.
+    ``cfg.window`` is ignored by MLA, as by ``repro``'s ``mla_forward`` and
+    ``mla_decode`` (only ``"attn_local"`` blocks apply it)."""
+    jcfg, cfg = _cfgs()
+    jcap, cap = (dataclasses.replace(c, attn_softcap=0.5) for c in (jcfg, cfg))
+    jp, p = _mla_params(jcfg, torch.float32)
+    jp["wq"]["w"], p["wq"]["w"] = jp["wq"]["w"] * 2, p["wq"]["w"] * 2
+    jx, x = _inputs(np.random.default_rng(8), (2, 12, cfg.d_model), "float32")
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12))
+    tpos = torch.from_numpy(pos.copy())
+    want = jattn.mla_forward(jp, jcap, jx, jnp.asarray(pos))
+    got, got_cache = attn.mla_forward(p, cap, x, tpos, return_cache=True)
+    _close(got, want, F32_TOL)
+    q_nope, q_rope = attn._mla_q(p, cfg, x, tpos)
+    c_kv, k_rope = attn._mla_ckv(p, cfg, x, tpos)
+    k_nope = (c_kv @ p["w_uk"]["w"]).view(2, 12, cfg.n_heads, cfg.nope_head_dim)
+    scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+              + torch.einsum("bshr,btr->bhst", q_rope, k_rope)) / math.sqrt(
+                  cfg.nope_head_dim + cfg.rope_head_dim)
+    causal = torch.ones(12, 12, dtype=torch.bool).tril()
+    assert float((scores.abs() > 0.5)[:, :, causal].float().mean()) >= 0.1
+    uncapped = attn.mla_forward(p, cfg, x, tpos)
+    assert float((uncapped - torch.from_numpy(np.asarray(want))).abs().max()) > (
+        10 * F32_TOL * float(np.abs(np.asarray(want)).max()))
+    # Decode: the same step with and without the cap, bit for bit, in both.
+    _, jcache = jattn.mla_forward(jp, jcfg, jx[:, :11], jnp.asarray(pos[:, :11]),
+                                  return_cache=True)
+    jcache = tuple(jnp.pad(a, ((0, 0), (0, 5), (0, 0))) for a in jcache)
+    jsteps = [jattn.mla_decode(jp, c, jx[:, 11:], jcache, jnp.asarray(11, jnp.int32))[0]
+              for c in (jcfg, jcap)]
+    np.testing.assert_array_equal(np.asarray(jsteps[1]), np.asarray(jsteps[0]))
+    _, prefix_cache = attn.mla_forward(p, cfg, x[:, :11], tpos[:, :11], return_cache=True)
+    steps = [attn.mla_decode(p, c, x[:, 11:], attn.mla_pad(prefix_cache, 16), 11)[0]
+             for c in (cfg, cap)]
+    torch.testing.assert_close(steps[1], steps[0], rtol=0, atol=0)
+    _close(steps[1], jsteps[1], F32_TOL)
+    # A window is ignored by MLA's forward and decode.
+    want_w, want_cache = attn.mla_forward(p, cfg, x, tpos, return_cache=True)
+    got_w, got_cache = attn.mla_forward(p, dataclasses.replace(cfg, window=8), x, tpos,
+                                        return_cache=True)
+    torch.testing.assert_close(got_w, want_w, rtol=0, atol=0)
+    stepped = [attn.mla_decode(p, c, x[:, 11:], attn.mla_pad(got_cache, 16), 12)[0]
                for c in (cfg, dataclasses.replace(cfg, window=8))]
     torch.testing.assert_close(stepped[1], stepped[0], rtol=0, atol=0)
-    cache = attn.mla_cache(torch.zeros(1, 8, cfg.kv_lora_rank),
-                           torch.zeros(1, 8, cfg.rope_head_dim))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attn.mla_decode(p, dataclasses.replace(cfg, attn_softcap=50.0), x[:, :1], cache, 4)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tf.check_supported(dataclasses.replace(cfg, attn_softcap=50.0))
+    tf.check_supported(cap)
     tf.check_supported(cfg)
     tf.check_supported(ARCHS[ARCH])
 

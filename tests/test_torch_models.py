@@ -48,6 +48,11 @@ def _close(got: torch.Tensor, want, tol: float = BF16_TOL) -> float:
     return err
 
 
+def _rel(got: torch.Tensor, want) -> float:
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+
+
 def _models(arch):
     jcfg, cfg = jax_reduced(JAX_ARCHS[arch]), reduced(ARCHS[arch])
     jparams = jtf.init_params(jax.random.key(0), jcfg)
@@ -141,32 +146,58 @@ def test_gqa_forward_and_decode_match_jax(models):
 
 
 def test_unported_attention_variants_raise():
-    """The attention softcap and the int8 KV cache still raise.  A window,
-    prefix-LM and bidirectional masks and cross-attention are ported
-    (held to ``repro`` in tests/test_torch_hybrid.py, test_torch_prefix.py,
-    test_torch_vlm.py and test_torch_encdec.py): ``gqa_forward(window=8)``
-    computes ``repro``'s, and recurrentgemma, paligemma and seamless-m4t
-    initialise."""
-    cfg = reduced(ARCHS["gemma-2b"])
-    x, positions = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16), torch.zeros(1, 4)
-    jcfg = jax_reduced(JAX_ARCHS["gemma-2b"])
+    """The attention softcap and the int8 KV cache, which raised before they
+    were ported, compute ``repro``'s at one layer of reduced gemma-2b:
+    ``gqa_forward`` and ``gqa_decode`` with a cap that bites (0.5 on ``wq``
+    times 2: at least 10% of the scores above it, the capped output apart
+    from the uncapped one by more than 10 ``BF16_TOL``), and ``gqa_decode``
+    over an int8 cache (every entry byte for byte); a 4-tuple cross cache
+    raises, as ``repro`` never quantizes one.  A window computes
+    ``repro``'s too, and recurrentgemma, paligemma and seamless-m4t
+    initialise with a cap."""
+    cfg = reduced(ARCHS["gemma-2b"], attn_softcap=0.5)
+    jcfg = jax_reduced(JAX_ARCHS["gemma-2b"], attn_softcap=0.5)
     jp = jattn.init_gqa(jax.random.key(5), jcfg)
+    jp["wq"]["w"] = jp["wq"]["w"] * 2
     p = {k: {"w": torch.from_numpy(np.array(v["w"])).to(torch.bfloat16)} for k, v in jp.items()}
-    jx, xs = _bf16(np.random.default_rng(5), 2, 20, cfg.d_model)
+    rng = np.random.default_rng(5)
+    jx, xs = _bf16(rng, 2, 20, cfg.d_model)
     pos = np.broadcast_to(np.arange(20, dtype=np.int32), (2, 20))
-    _close(attn.gqa_forward(p, cfg, xs, torch.from_numpy(pos.copy()), window=8),
+    tpos = torch.from_numpy(pos.copy())
+    _close(attn.gqa_forward(p, cfg, xs, tpos, window=8),
            jattn.gqa_forward(jp, jcfg, jx, jnp.asarray(pos), window=8))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        attn.gqa_forward({}, reduced(ARCHS["gemma-2b"], attn_softcap=50.0), x, positions)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tf.init_params(reduced(ARCHS["paligemma-3b"], attn_softcap=50.0), device="cpu")
-    cache = tuple(torch.zeros(1, 8, cfg.n_kv_heads, cfg.head_dim) for _ in range(4))
-    with pytest.raises(NotImplementedError, match="int8"):
-        attn.gqa_decode(p, cfg, x[:, :1], cache, 3)
-    with pytest.raises(NotImplementedError, match="int8"):
-        attn.cross_decode(p, cfg, x[:, :1], cache)
+    want, (jk, jv) = jattn.gqa_forward(jp, jcfg, jx, jnp.asarray(pos), return_kv=True)
+    got, (k, v) = attn.gqa_forward(p, cfg, xs, tpos, return_kv=True)
+    _close(got, want)
+    q, _, _ = attn._gqa_qkv(p, cfg, xs, tpos)
+    scores = torch.einsum("bshd,btkd->bhst", q.float(), k.float()) / cfg.head_dim ** 0.5
+    causal = torch.ones(20, 20, dtype=torch.bool).tril()
+    assert float((scores.abs() > 0.5)[:, :, causal].float().mean()) >= 0.1
+    uncapped = attn.gqa_forward(p, reduced(ARCHS["gemma-2b"]), xs, tpos)
+    assert _rel(uncapped, want) > 10 * BF16_TOL
+    # Decode, bf16 and int8 caches, from the prefill's rows.
+    jcache = tuple(jnp.pad(a, ((0, 0), (0, 4), (0, 0), (0, 0))) for a in (jk, jv))
+    cache = tuple(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 4)) for a in (k, v))
+    (jkq, jks), (jvq, jvs) = (jattn.quantize_kv(a) for a in jcache)
+    jq8 = (jkq, jvq, jks, jvs)
+    (kq, ks), (vq, vs) = (attn.quantize_kv(a) for a in cache)
+    q8 = (kq, vq, ks, vs)
+    for step in range(20, 24):
+        jx1, x1 = _bf16(rng, 2, 1, cfg.d_model)
+        jstep = jnp.asarray(step, jnp.int32)
+        jout, jcache = jattn.gqa_decode(jp, jcfg, jx1, jcache, jstep)
+        out, cache = attn.gqa_decode(p, cfg, x1, cache, step)
+        _close(out, jout)
+        jout8, jq8 = jattn.gqa_decode(jp, jcfg, jx1, jq8, jstep)
+        out8, q8 = attn.gqa_decode(p, cfg, x1, q8, step)
+        _close(out8, jout8)
+        for got8, want8 in zip(q8, jq8):
+            np.testing.assert_array_equal(
+                got8.contiguous().view(torch.uint8).numpy(), np.asarray(want8).view(np.uint8))
+    with pytest.raises(ValueError, match="never quantizes"):
+        attn.cross_decode(p, cfg, x1, q8)
     for arch in ("recurrentgemma-2b", "paligemma-3b", "seamless-m4t-large-v2"):
-        tf.init_params(reduced(ARCHS[arch]), device="cpu")
+        tf.init_params(reduced(ARCHS[arch], attn_softcap=50.0), device="cpu")
 
 
 # -- the whole model ----------------------------------------------------------------

@@ -353,13 +353,41 @@ def test_prefill_and_teacher_forced_decode_match_jax(models, jax_routing):
         token = jnp.argmax(jlogits, axis=-1).astype(jnp.int32)
 
 
-def test_mla_moe_still_waits_for_its_slice():
-    # MLA-MoE is served now (tests/test_torch_mla.py); what MLA has not got,
-    # a logit softcap, still waits.  A window is ignored by its MLA and MoE
-    # blocks, as in repro: the model computes what it computes without one.
-    tf.check_supported(reduced(ARCHS["deepseek-v2-lite-16b"]))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tf.check_supported(reduced(ARCHS["deepseek-v2-lite-16b"], attn_softcap=50.0))
+def test_mla_moe_still_waits_for_its_slice(monkeypatch):
+    # MLA-MoE is served (tests/test_torch_mla.py), and now with the logit
+    # softcap too: reduced deepseek's prefill with a cap that bites (0.25)
+    # equals repro's within BF16_TOL, routing read first (a near-tie goes
+    # where the router product's last bit puts it), and differs from the
+    # uncapped prefill by more than 10 BF16_TOL.  A window is ignored by its
+    # MLA and MoE blocks, as in repro: the model computes what it computes
+    # without one.
+    over = {"n_experts": 8, "attn_softcap": 0.25}
+    jcfg = jax_reduced(JAX_ARCHS["deepseek-v2-lite-16b"], **over)
+    capped = reduced(ARCHS["deepseek-v2-lite-16b"], **over)
+    tf.check_supported(capped)
+    monkeypatch.setattr(jtf, "_UNROLL", True)
+    jparams = jtf.init_params(jax.random.key(0), jcfg)
+    cparams = params_from_jax(jax.tree.map(np.asarray, jparams), capped, device="cpu")
+    prompt = np.random.default_rng(5).integers(0, capped.vocab_size, (2, 12), dtype=np.int32)
+    jax_ids = []
+    top_k = jax.lax.top_k
+
+    def recording(x, k):
+        out = top_k(x, k)
+        jax_ids.append(np.asarray(out[1]))
+        return out
+
+    monkeypatch.setattr(jax.lax, "top_k", recording)
+    jlogits, _ = jtf.prefill(jparams, jcfg, {"tokens": jnp.asarray(prompt)})
+    (logits, _), ids, _ = _routed(
+        lambda: tf.prefill(cparams, capped, {"tokens": torch.from_numpy(prompt)}))
+    assert len(ids) == len(jax_ids) == 1
+    np.testing.assert_array_equal(ids[0], jax_ids[0])
+    _close(logits, jlogits, BF16_TOL)
+    uncapped = tf.prefill(cparams, dataclasses.replace(capped, attn_softcap=0.0),
+                          {"tokens": torch.from_numpy(prompt)})[0].float().numpy()
+    assert float(np.abs(uncapped - np.asarray(jlogits, np.float32)).max()) > (
+        10 * BF16_TOL * float(np.abs(np.asarray(jlogits, np.float32)).max()))
     windowed = reduced(ARCHS["deepseek-v2-lite-16b"], window=8)
     tf.check_supported(windowed)
     params = tf.init_params(windowed, torch.Generator().manual_seed(0), device="cpu")

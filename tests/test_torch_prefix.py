@@ -245,7 +245,8 @@ def test_prefix_reaches_both_entry_points_and_is_counted(fake_card):
 
 def test_prefix_zero_calls_pass_what_they_passed_before(fake_card):
     """Without a prefix both entry points get the arguments of a causal
-    call, with 0 where the prefix goes, and no prefix counter moves."""
+    call, with 0 where the prefix goes (and 0.0 where the cap goes), and no
+    prefix counter moves."""
     lib = fake_card
     q = torch.zeros(1, 8, 2048, 256, dtype=torch.bfloat16)
     k = torch.zeros(1, 1, 2048, 256, dtype=torch.bfloat16)
@@ -254,11 +255,11 @@ def test_prefix_zero_calls_pass_what_they_passed_before(fake_card):
     scale = 1.0 / 16.0
     assert name == "remop_flash_attention_tc"
     assert args[:4] == (q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr())
-    assert args[5:] == (1, 8, 1, 2048, 2048, 256, 128, 64, scale, 1, 256, 0, 0, 0)
+    assert args[5:] == (1, 8, 1, 2048, 2048, 256, 128, 64, scale, 1, 256, 0, 0, 0.0, 0)
     fa.flash_attention(q.float(), k.float(), k.float(), bq=64, bk=64, window=512)
     name, args = lib.calls[-1]
     assert name == "remop_flash_attention_f32"
-    assert args[5:] == (1, 8, 1, 2048, 2048, 256, 64, 64, scale, 256, 512, 0, 0)
+    assert args[5:] == (1, 8, 1, 2048, 2048, 256, 64, 64, scale, 256, 512, 0, 0.0, 0)
     assert dict(runtime.launches) == {"flash_attention": 2, "flash_attention_tc": 1,
                                       "flash_attention_simt": 1, "flash_attention_windowed": 1}
 
@@ -283,5 +284,6 @@ def test_ctypes_signatures_match_the_c_entry_points(lib):
     number and kind (a pointer, an int, a float), so an argument added to a
     C entry (the flash kernel's ``prefix``) cannot be passed as another."""
     entries = _c_entries((runtime.CSRC / f"{lib}.cu").read_text())
+    assert set(entries) == set(runtime.SIGNATURES[lib])  # the paged int8 entry among them
     for name, (argtypes, _) in runtime.SIGNATURES[lib].items():
         assert entries[name] == list(argtypes), name

@@ -101,6 +101,11 @@ def _jax_decode(jp, jcfg, caches, token, pos):
 
 
 def test_config_is_admitted_at_both_sizes():
+    """paligemma at both sizes, and with the attention softcap, which raised
+    before it was ported: one prefix-LM layer with a cap that bites (0.5 on
+    ``wq`` times 2; at least 10% of the visible scores above it) equals
+    ``repro``'s at ``mask_pos = max(pos - P + 1, 0)`` within ``BF16_TOL``
+    and differs from the uncapped layer by more than 10 ``BF16_TOL``."""
     cfg = ARCHS[ARCH]
     assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.frontend_seq, cfg.frontend_dim) == (
@@ -108,10 +113,32 @@ def test_config_is_admitted_at_both_sizes():
     tf.check_supported(cfg)
     tf.check_supported(reduced(cfg))
     assert tf.layer_kinds(cfg) == ["attn"] * 18
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tf.check_supported(reduced(cfg, attn_softcap=50.0))
+    capped = reduced(cfg, attn_softcap=0.5)
+    tf.check_supported(capped)
     with pytest.raises(NotImplementedError, match="family"):
         tf.check_supported(reduced(cfg, n_encoder_layers=2))  # encoder layers: enc-dec only
+    jcfg = jax_reduced(JAX_ARCHS[ARCH], attn_softcap=0.5)
+    jp = jattn.init_gqa(jax.random.key(3), jcfg)
+    jp["wq"]["w"] = jp["wq"]["w"] * 2
+    p = {name: {"w": torch.from_numpy(np.array(w["w"])).to(torch.bfloat16)}
+         for name, w in jp.items()}
+    s, prefix = 21, capped.frontend_seq
+    x = np.random.default_rng(3).standard_normal((2, s, capped.d_model)).astype(np.float32)
+    xs = torch.from_numpy(x).to(torch.bfloat16)
+    positions = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s))
+    tpos = torch.from_numpy(positions.copy())
+    want = jattn.gqa_forward(jp, jcfg, jnp.asarray(x).astype(jnp.bfloat16),
+                             jnp.asarray(positions),
+                             mask_pos=jnp.maximum(jnp.asarray(positions) - prefix + 1, 0))
+    _close(attn.gqa_forward(p, capped, xs, tpos, prefix=prefix), want)
+    q, k, _ = attn._gqa_qkv(p, capped, xs, tpos)
+    scores = torch.einsum("bshd,btkd->bhst", q.float(), k.float()) / capped.head_dim ** 0.5
+    rows, cols = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    assert float((scores.abs() > 0.5)[:, :, (cols <= rows) | (cols < prefix)]
+                 .float().mean()) >= 0.1
+    uncapped = attn.gqa_forward(p, reduced(cfg), xs, tpos, prefix=prefix)
+    assert float((uncapped.float() - torch.from_numpy(np.asarray(want, np.float32))).abs()
+                 .max()) > 10 * BF16_TOL * float(np.abs(np.asarray(want, np.float32)).max())
 
 
 def test_gqa_forward_prefix_matches_jax_mask_pos():
@@ -261,7 +288,8 @@ def test_every_prefill_layer_passes_the_patch_count_as_prefix(models, monkeypatc
     _, _, batch = _batch(cfg, 5, 9)
     tf.prefill(params, cfg, batch)
     total = cfg.frontend_seq + 9
-    assert calls == [(total, total, {"window": 0, "prefix": cfg.frontend_seq})] * cfg.n_layers
+    assert calls == [(total, total, {"window": 0, "prefix": cfg.frontend_seq,
+                                     "softcap": cfg.attn_softcap})] * cfg.n_layers
 
 
 def test_serve_cli_refuses_the_vlm():
