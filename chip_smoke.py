@@ -180,6 +180,28 @@ Phases, each printing JSON objects, one per line:
    request), beside the same tokens through the bf16 caches, timed with
    only those on the card (the logits' gap and argmax agreement printed,
    tokens/s, step time, peak memory and idle share of both);
+5h. train: hold the flash backward kernel (``flash_attention_bwd``: dq, dk,
+   dv of the flash kernel) against its plain version under ``ATTN_TOL`` at
+   ``BWD_CHECKS``' shapes (qwen3-0.6b's training shape, gemma-2b, every
+   key, MLA's 192 / 128, window 2048, prefix 256, softcap 50, ragged, S <
+   T, cross S > T, f32), two calls equal bit for bit, the Function's forward
+   equal to the no-grad forward bit for bit, four planted faults rejected (D
+   dropped, dK and dV from head 0 of a group, a key one past the prefix, the
+   cap's derivative left out), registers and spills of every instantiation,
+   and time it beside its bound, its plain version and SDPA's backward;
+   hold one qwen3-0.6b block's gradients at 4 x 2048 tokens to the plain
+   path (``TRAIN_LAYER_TOL``; a backward without D rejected); train
+   qwen3-0.6b at full width through ``launch.train.main`` (20 steps of 4 x
+   2048 tokens, f32 masters, bf16 activations, full remat, checkpoints
+   every 10 steps; the launch counters set to 0 just before and read just
+   after), every loss and grad norm finite and the loss falling; restore the
+   step-10 checkpoint and run steps 11..20 again (losses within
+   ``TRAIN_RESUME_TOL``); repro's fixed-batch rule (30 steps on one [1,
+   2048] batch, the last loss below 0.7 of the first); one step's
+   whole-model gradients, kernel against plain, within ``CONSISTENCY_TOL``;
+   and one profiled step split into products, the flash forward and
+   backward, the optimizer and the rest, with step seconds, tokens/s, model
+   FLOPs and their share of the bf16 peak, and peak memory;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -523,6 +545,7 @@ SOURCES = {
     "flash_attention_softcap": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention_softcap": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_attention_int8": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -542,6 +565,8 @@ REPLACES = {
     "flash_attention_softcap": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention_softcap": "src/repro/kernels/paged_attention/paged_attention.py:65",
     "paged_attention_int8": "src/repro/kernels/paged_attention/paged_attention.py:65",
+    # The forward's gradient: repro takes it by XLA autodiff, no Pallas kernel.
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/flash_attention.py:72",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
@@ -629,9 +654,12 @@ def nvidia_smi() -> str:
 
 # Bench.device_ms: the spin launches that open each profiler window, the
 # windows taken at most, and the kernels of the primer (torch.cuda._sleep)
-# and of the L2 flush (zero_ of a uint8 tensor), known by name.
-PRIMER = 64
-WINDOWS = 3
+# and of the L2 flush (zero_ of a uint8 tensor), known by name.  A run has
+# seen the profiler drop 64 spins and a call's records in three windows in
+# a row (phase 5c's SDPA timing), so the primer is 256 spins (about a
+# millisecond) and a window is taken up to five times.
+PRIMER = 256
+WINDOWS = 5
 SPIN_KERNEL = "spin_kernel"
 FLUSH_KERNEL = "FillFunctor<unsigned char>"
 
@@ -4855,6 +4883,468 @@ def phase_matmul(torch, device, card: str):
     return errs, {"matmul": rows[MATMUL_REPORT]}, launches
 
 
+# --------------------------------------------------------------------------
+# Phase 8: train (the flash backward kernel, a qwen3-0.6b block, the trainer)
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-0.6b"
+# The flash backward against its plain version: (name, b, h, kv, s, t, hd,
+# hd_v, window, prefix, softcap, q gain, dtype).  The softcap row scales q
+# by 8 so the cap of 50 bites (scores to about 30, the cap's derivative
+# 0.7..1).  Inputs in the model's [B, S, heads, hd] memory, seen as [B,
+# heads, S, hd]; dout too.
+BWD_CHECKS = (
+    ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("gemma-2b", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("every key", 1, 16, 16, 4096, 4096, 64, 64, 0, 4096, 0.0, 1.0, "bfloat16"),
+    ("mla 192/128", 1, 16, 16, 2048, 2048, 192, 128, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("window 2048", 1, 10, 1, 4096, 4096, 256, 256, 2048, 0, 0.0, 1.0, "bfloat16"),
+    ("prefix 256", 1, 8, 1, 768, 768, 256, 256, 0, 256, 0.0, 1.0, "bfloat16"),
+    ("softcap 50", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 50.0, 8.0, "bfloat16"),
+    ("ragged", 2, 8, 2, 1000, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("S < T", 1, 8, 8, 300, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("cross S > T", 1, 16, 16, 300, 200, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
+    ("f32", 1, 16, 8, 512, 512, 128, 128, 0, 0, 0.0, 1.0, "float32"),
+    ("f32 hd 256", 1, 8, 1, 300, 333, 256, 256, 0, 0, 0.0, 1.0, "float32"),
+)
+BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape
+
+
+def bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=0, prefix=0):
+    """(bytes, flops) of the flash backward: q, k, v, o, do read once, dq,
+    dk, dv written once; 2 (3 hd + 2 hd_v) flops (S = Q K^T, dP = dO V^T,
+    dV, dQ, dK: 10 hd at equal widths) a visible (query, key) pair."""
+    pairs = sum(min(t, max(i + t - s + 1, prefix), window or t) for i in range(s))
+    return ((b * h * s * (2 * hd + 2 * hd_v) + b * kv * t * 2 * (hd + hd_v)) * elem,
+            2 * (3 * hd + 2 * hd_v) * pairs * b * h)
+
+
+def grads_close(torch, got, want):
+    """(every one of dq, dk, dv within ``ATTN_TOL``, the largest max abs
+    error, the largest relative L2 error)."""
+    res = [attn_close(torch, g, w) for g, w in zip(got, want)]
+    return (all(r[0] for r in res), max(r[1] for r in res), max(r[2] for r in res))
+
+
+def phase_train_kernels(torch, device):
+    """The flash backward kernel against its plain version at the shapes of
+    ``BWD_CHECKS``; two calls equal bit for bit; the Function's forward
+    equal to the no-grad forward bit for bit; four planted faults rejected;
+    registers and spills of every instantiation; then timed at the training
+    shape beside its bound, its plain version and SDPA's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    errs, rows, kept = {}, {}, {}
+
+    def model_layout(b, heads, s, hd, dtype, gain=1.0):
+        x = torch.randn(b, s, heads, hd, device=device, generator=gen) * gain
+        return x.to(getattr(torch, dtype)).transpose(1, 2)
+
+    for (name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain,
+         dtype) in BWD_CHECKS:
+        q = model_layout(b, h, s, hd, dtype, gain)
+        k, v = model_layout(b, kv, t, hd, dtype), model_layout(b, kv, t, hd_v, dtype)
+        mask = dict(window=window, prefix=prefix, softcap=cap)
+        with torch.no_grad():
+            out = remop_flash_attention(q, k, v, **mask)
+        dout = model_layout(b, h, s, hd_v, dtype)
+        before = runtime.launches["flash_attention_bwd"]
+        got = fab.flash_attention_bwd(q, k, v, out, dout, **mask)
+        again = fab.flash_attention_bwd(q, k, v, out, dout, **mask)
+        check(runtime.launches["flash_attention_bwd"] == before + 2,
+              f"flash_attention_bwd {name}: not one launch a call")
+        same = all(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                               c.view(torch.int16 if c.dtype == torch.bfloat16 else torch.int32))
+                   for a, c in zip(got, again))
+        check(same, f"flash_attention_bwd {name}: two calls differ")
+        check(all(g.shape == x.shape and g.dtype == x.dtype for g, x in zip(got, (q, k, v))),
+              f"flash_attention_bwd {name}: gradients not in their inputs' shapes and dtypes")
+        want = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)
+        ok, err, rel = grads_close(torch, got, want)
+        errs["flash_attention_bwd"] = max(errs.get("flash_attention_bwd", 0.0), err)
+        emit({"phase": "train", "check": "flash_attention_bwd", "case": name,
+              "shape": [b, h, kv, s, t, hd, hd_v], "dtype": dtype, **mask, "q_gain": gain,
+              "blocks": fab.plan_bwd_blocks(hd, hd_v, q.element_size()),
+              "tol": ATTN_TOL[str(q.dtype)], "max_abs_err": err, "rel_err": rel,
+              "per_grad_rel_err": [rel_err(torch, g, w) for g, w in zip(got, want)],
+              "equal_bits_twice": same})
+        check(ok, f"flash_attention_bwd {name}: kernel differs from its plain version beyond "
+                  f"ATTN_TOL (max abs err {err}, relative L2 {rel})")
+        if name in ("qwen3-0.6b train", "prefix 256", "softcap 50"):
+            kept[name] = (q, k, v, out, dout, mask, got)
+        if name == "qwen3-0.6b train":
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            fn_out = remop_flash_attention(qg, kg, vg)
+            check(fn_out.grad_fn is not None and torch.equal(fn_out.detach(), out),
+                  "FlashAttentionFn's forward differs from the no-grad forward")
+            emit({"phase": "train", "check": "function_forward", "case": name,
+                  "equal_bits_to_no_grad": True, "grad_fn": type(fn_out.grad_fn).__name__})
+            del qg, kg, vg, fn_out
+        del got, again, want
+
+    def fault(name, what, want):
+        got = kept[name][6]
+        ok, err, rel = grads_close(torch, got, want)
+        emit({"phase": "train", "planted_fault": "flash_attention_bwd", "case": name,
+              "fault": what, "max_abs_err": err, "rel_err": rel, "rejected": not ok})
+        check(not ok, f"flash_attention_bwd: ATTN_TOL passes a backward that {what}")
+
+    q, k, v, out, dout, mask, _ = kept["qwen3-0.6b train"]
+    fault("qwen3-0.6b train", "drops D = sum(dO * O)",
+          fab.flash_attention_bwd_plain(q, k, v, torch.zeros_like(out), dout, **mask))
+    g = q.shape[1] // k.shape[1]
+    _, dk0, dv0 = fab.flash_attention_bwd_plain(q[:, ::g], k, v, out[:, ::g], dout[:, ::g],
+                                                **mask)
+    dq_ok = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)[0]
+    fault("qwen3-0.6b train", "sums dK and dV over head 0 of each group only", (dq_ok, dk0, dv0))
+    q, k, v, out, dout, mask, _ = kept["prefix 256"]
+    fault("prefix 256", "shows every query the key one past the prefix",
+          fab.flash_attention_bwd_plain(q, k, v, out, dout, **{**mask, "prefix": 257}))
+    q, k, v, out, dout, mask, _ = kept["softcap 50"]
+    cap_grad = fab.cap_grad
+    fab.cap_grad = lambda capped, softcap: torch.ones_like(capped)
+    try:
+        want = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)
+    finally:
+        fab.cap_grad = cap_grad
+    fault("softcap 50", "leaves out the cap's derivative", want)
+    del kept, want, dq_ok, dk0, dv0
+
+    emit({"phase": "train", "flash_attention_bwd_instantiations": {
+        f"{dt} {hd}x{hd_v}": fab.bwd_attributes(getattr(torch, dt), hd, hd_v)
+        for dt in ("bfloat16", "float32") for hd, hd_v in fab.BWD_HEAD_PAIRS}})
+
+    # Timing at the training shape: kernel, plain version, and SDPA's
+    # backward (torch.autograd.grad of one causal GQA call) on the same inputs.
+    (_, b, h, kv, s, t, hd, hd_v, *_), = (c for c in BWD_CHECKS if c[0] == BWD_REPORT)
+    bench = Bench(torch, device)
+    q, k, v = (model_layout(b, n, s, w, "bfloat16") for n, w in ((h, hd), (kv, hd), (kv, hd_v)))
+    with torch.no_grad():
+        out = remop_flash_attention(q, k, v)
+    dout = model_layout(b, h, s, hd_v, "bfloat16")
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def kernel():
+        return fab.flash_attention_bwd(q, k, v, out, dout)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+
+    ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, 2), BF16_OPS_PER_S)
+    rows["flash_attention_bwd"] = dict(
+        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{t},{hd}] bf16, causal, the model's layout, "
+              f"blocks {fab.plan_bwd_blocks(hd, hd_v, 2)}",
+        ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
+        plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout)),
+        library_ms=bench.ms(library),
+        **{f"library_{key}": val for key, val in bench.device_ms(library, reps=10).items()},
+        bound_ms=ms_bound, bound_by=by)
+    emit({"phase": "train", "timing": "flash_attention_bwd", **rows["flash_attention_bwd"]})
+    del bench
+    return errs, rows
+
+
+# One qwen3-0.6b block at full width under training: f32 masters, bf16
+# activations; parameter and input gradients through the kernels against
+# the plain path (the flash kernel's plain forward and plain backward on
+# the card, plain_flash_training), per leaf.  Set before the first card run: the two forwards differ by an ulp
+# of bf16 here and there (the tensor-core kernel against the plain f32
+# softmax), which the backward carries into every gradient at about 1e-3.
+TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ = 4, 2048
+TRAIN_LAYER_TOL = 1e-2
+# The trainer: launch.train's command line at full width, then a resume of
+# steps 11..20 from the step-10 checkpoint, whose losses must equal the
+# first run's within TRAIN_RESUME_TOL relative (the same bits but for the
+# order of the embedding's gradient sum); then repro's fixed-batch rule.
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+TRAIN_ARGV = ("--arch", TRAIN_ARCH, "--global-batch", "4", "--seq-len", "2048", "--steps",
+              str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
+TRAIN_RESUME_TOL = 1e-5
+FIXED_BATCH_STEPS, FIXED_BATCH_RULE = 30, 0.7
+
+
+@contextlib.contextmanager
+def plain_flash_training():
+    """``FlashAttentionFn`` on the flash kernel's plain forward and plain
+    backward while the context lasts, CUDA tensors included: the training
+    checks' reference path (each kernel replaced by its plain version)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+
+    saved = fab.flash_attention, fab.flash_attention_bwd
+
+    def forward(q, k, v, bq=None, bk=64, scale=None, window=0, prefix=0, softcap=0.0):
+        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap)
+
+    fab.flash_attention, fab.flash_attention_bwd = forward, fab.flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        fab.flash_attention, fab.flash_attention_bwd = saved
+
+
+def train_layer_errors(torch, device, fault: bool = False):
+    """Per-leaf relative L2 of one qwen3-0.6b block's parameter and input
+    gradients, kernel path against plain path, at TRAIN_LAYER_BATCH x
+    TRAIN_LAYER_SEQ tokens; ``fault`` drops D in the backward kernel's
+    inputs (its ``out`` zeroed)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    cfg = ARCHS[TRAIN_ARCH]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with layers.matrix_dtype(torch.float32):
+        block = tf.init_block(cfg, gen, device, "attn")
+    b, s = TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ
+    x = torch.randn(b, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    w = torch.randn(b, s, cfg.d_model, device=device, generator=gen)
+    pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+    def grads():
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(), block)
+        xg = x.clone().requires_grad_()
+        out, _, _ = tf.block_forward(live, cfg, "attn", xg, pos)
+        return torch.autograd.grad((out.float() * w).sum(), leaves(live) + [xg])
+
+    bwd = fab.flash_attention_bwd
+    if fault:
+        fab.flash_attention_bwd = lambda q, k, v, out, dout, *a: bwd(
+            q, k, v, torch.zeros_like(out), dout, *a)
+    try:
+        before = runtime.launches["flash_attention_bwd"]
+        got = grads()
+        check(runtime.launches["flash_attention_bwd"] == before + 1,
+              "the block's backward did not launch flash_attention_bwd once")
+    finally:
+        fab.flash_attention_bwd = bwd
+    with plain_flash_training():
+        want = grads()
+    names = ["/".join(p) for p, _ in leaves_with_paths(block)] + ["x"]
+    return {n: rel_err(torch, g.float(), w_.float()) for n, g, w_ in zip(names, got, want)}
+
+
+def phase_train_layer(torch, device):
+    errs = train_layer_errors(torch, device)
+    emit({"phase": "train", "layer_check": TRAIN_ARCH, "tokens": [TRAIN_LAYER_BATCH,
+                                                                 TRAIN_LAYER_SEQ],
+          "per_leaf_rel_err": errs, "max_rel_err": max(errs.values()), "tol": TRAIN_LAYER_TOL})
+    check(max(errs.values()) <= TRAIN_LAYER_TOL,
+          f"{TRAIN_ARCH} block gradients: kernel path against plain path {max(errs.values())} "
+          f"beyond {TRAIN_LAYER_TOL}")
+    bad = train_layer_errors(torch, device, fault=True)
+    emit({"phase": "train", "planted_fault": "layer", "fault": "the backward kernel drops D",
+          "max_rel_err": max(bad.values()), "rejected": max(bad.values()) > TRAIN_LAYER_TOL})
+    check(max(bad.values()) > TRAIN_LAYER_TOL, "the layer check passes a backward without D")
+    torch.cuda.empty_cache()
+
+
+def train_model_flops(cfg, params, b, s) -> float:
+    """Model FLOPs of one training step (forward and backward, no remat):
+    3 x (2 x the matrix parameters x tokens, the tied unembedding once, plus
+    the attention's 4 hd H flops a visible pair a layer)."""
+    from repro_torch.tree import leaves
+
+    matrices = sum(x.numel() for x in leaves(params) if x.dim() == 2)
+    pairs = s * (s + 1) // 2
+    attention = 4 * cfg.head_dim * cfg.n_heads * pairs * b * cfg.n_layers
+    return 3.0 * (2.0 * matrices * b * s + attention)
+
+
+def train_breakdown(torch, step_fn, state, batch):
+    """One profiled training step: device seconds by kind (products, the
+    flash forward, the flash backward, the optimizer, the rest) and the
+    idle share, beside the same step unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as steps_lib
+
+    def step():
+        t0 = time.perf_counter()
+        out, metrics = step_fn(state, batch)
+        float(metrics["loss_total"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    unprofiled, _ = step()
+    with annotated(steps_lib, ["adamw_update"]):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled, _ = step()
+        optimizer = sum(ranged_kernels(torch, prof, ("adamw_update",)).values())
+    kinds = {"products": 0.0, "flash_forward": 0.0, "flash_backward": 0.0, "other": 0.0}
+    others = collections.Counter()
+    events = 0
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        name, us = e.key.lower(), e.self_device_time_total / 1e6
+        events += e.count
+        if any(w in name for w in ("prep_kernel", "dq_kernel", "dkdv_kernel")):
+            kinds["flash_backward"] += us
+        elif "flash_attention_kernel" in name:
+            kinds["flash_forward"] += us
+        elif any(w in name for w in MATMUL_NAMES):
+            kinds["products"] += us
+        else:
+            kinds["other"] += us
+            others[e.key[:80]] += us
+    kinds["optimizer"] = optimizer
+    kinds["elementwise"] = kinds.pop("other") - optimizer
+    return {"unprofiled_step_seconds": unprofiled, "profiled_step_seconds": profiled,
+            **busy_and_idle((kinds, events), profiled, unprofiled),
+            "largest_other_kernels_seconds": dict(others.most_common(8))}
+
+
+def phase_train_run(torch, device, card: str):
+    """Train qwen3-0.6b at full width through ``launch.train.main`` (the
+    launch counters set to 0 just before, read just after), resume steps
+    11..20 from the step-10 checkpoint, run repro's fixed-batch rule, hold
+    one step's whole-model gradients to the plain path, and profile a step.
+    Returns the launches of the training window."""
+    import shutil
+    import statistics as stats
+
+    import numpy as np
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.pipeline import PrefetchingLoader, synthetic_batches
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import LoopConfig, train
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    ckpt = ROOT / "src" / "repro_torch" / "kernels" / "_build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = [*TRAIN_ARGV, "--ckpt-dir", str(ckpt), "--device", str(device)]
+    emit({"phase": "train", "argv": argv, "disk_free_gb": shutil.disk_usage(ROOT).free / 1e9})
+    log = {}
+
+    def record(step, m):
+        log[step] = (time.perf_counter(), float(m["loss_total"]), float(m["grad_norm"]),
+                     float(m["lr"]))
+
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    state, losses = train_mod.main(argv, metrics_cb=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = sorted(log)
+    check(steps == list(range(1, TRAIN_STEPS + 1)) and int(state["step"]) == TRAIN_STEPS,
+          f"the trainer logged steps {steps}")
+    loss = [log[s][1] for s in steps]
+    gnorm = [log[s][2] for s in steps]
+    check(all(math.isfinite(x) for x in loss + gnorm), "a loss or grad norm is not finite")
+    check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
+          f"the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
+    step_s = stats.median(log[s][0] - log[s - 1][0] for s in steps[2:])
+    args = train_mod.parse_args(argv)
+    cfg, shape, opt_cfg, _ = train_mod.setup(args)
+    tokens = shape.global_batch * shape.seq_len
+    flops = train_model_flops(cfg, state["params"], shape.global_batch, shape.seq_len)
+    check(launches.get("flash_attention_bwd", 0) > 0, "training never launched the backward")
+    emit({"phase": "train", "card": card, "arch": cfg.name, "params": tf.param_count(
+              state["params"]), "tokens_per_step": tokens, "losses": loss, "grad_norms": gnorm,
+          "lr": [log[s][3] for s in steps], "wall_seconds": wall,
+          "step_seconds_median_3_20": step_s, "tokens_per_second": tokens / step_s,
+          "model_flops_per_step": flops, "model_flops_share_of_peak": flops / step_s
+          / BF16_OPS_PER_S, "peak_memory_bytes": peak, "launches": launches,
+          "checkpoints": sorted(os.listdir(ckpt))})
+
+    # Resume: the step-10 checkpoint into the final state's structure, then
+    # steps 11..20 again.
+    store = CheckpointStore(str(ckpt))
+    t1 = time.perf_counter()
+    mid, meta = store.restore(TRAIN_CKPT_EVERY, state)
+    restore_s = time.perf_counter() - t1
+    del state
+    check(int(mid["step"]) == TRAIN_CKPT_EVERY and meta["step"] == TRAIN_CKPT_EVERY,
+          "the step-10 checkpoint holds another step")
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    again = {}
+
+    def batches(start):
+        return PrefetchingLoader(synthetic_batches(cfg, shape, seed=args.seed,
+                                                   start_step=start), device=device)
+
+    out = train(step_fn, mid, batches, None,
+                LoopConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS + 1,
+                           log_every=1),
+                metrics_cb=lambda s, m: again.__setitem__(s, float(m["loss_total"])))
+    del mid, out
+    resumed = [again[s] for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)]
+    first = loss[TRAIN_CKPT_EVERY:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, first))
+    emit({"phase": "train", "resume_from_step": TRAIN_CKPT_EVERY, "restore_seconds": restore_s,
+          "losses": resumed, "first_run_losses": first, "max_rel_diff": worst,
+          "tol": TRAIN_RESUME_TOL})
+    check(worst <= TRAIN_RESUME_TOL, f"resumed losses differ from the first run's by {worst}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # repro's fixed-batch rule (tests/test_runtime.py:37) at full width.
+    fixed_cfg = AdamWConfig(lr=3e-3, total_steps=FIXED_BATCH_STEPS, warmup_steps=2,
+                            weight_decay=0.0)
+    step_fn = steps_lib.make_train_step(cfg, fixed_cfg)
+    state = steps_lib.init_state(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    raw = next(synthetic_batches(cfg, dataclasses.replace(shape, global_batch=1), seed=1))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+    fixed = []
+    for _ in range(FIXED_BATCH_STEPS):
+        state, m = step_fn(state, batch)
+        fixed.append(float(m["loss"]))
+    emit({"phase": "train", "fixed_batch": [1, shape.seq_len], "losses": fixed,
+          "last_over_first": fixed[-1] / fixed[0], "rule": FIXED_BATCH_RULE})
+    check(fixed[-1] < FIXED_BATCH_RULE * fixed[0],
+          f"fixed batch: last loss {fixed[-1]} not below {FIXED_BATCH_RULE} of {fixed[0]}")
+
+    # Whole-model gradients of one step at [1, 2048], kernel against plain.
+    params = state["params"]
+
+    def model_grads():
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        total, _ = tf.loss_fn(live, cfg, batch, remat=True)
+        return torch.autograd.grad(total, leaves(live))
+
+    got = model_grads()
+    with plain_flash_training():
+        want = model_grads()
+    errs = {"/".join(p): rel_err(torch, g, w) for (p, _), g, w in
+            zip(leaves_with_paths(params), got, want)}
+    emit({"phase": "train", "consistency": "whole-model gradients, kernel vs plain",
+          "tokens": [1, shape.seq_len], "per_leaf_rel_err_max": max(errs.values()),
+          "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+          "tol": CONSISTENCY_TOL})
+    check(max(errs.values()) <= CONSISTENCY_TOL,
+          f"whole-model gradients: kernel against plain {max(errs.values())}")
+    del got, want
+
+    # Where a step's time goes: one profiled step at the trainer's shape.
+    big = next(synthetic_batches(cfg, shape, seed=args.seed))
+    big = {k: torch.as_tensor(v, device=device) for k, v in big.items()}
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    emit({"phase": "train_breakdown", "card": card, "tokens": [shape.global_batch,
+                                                               shape.seq_len],
+          **train_breakdown(torch, step_fn, state, big)})
+    del state, params, batch, big
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -4909,7 +5399,9 @@ def main() -> int:
                   "and 24 decoder layers with cross-attention, d_model 1024, 4096 frames of "
                   "1024), random weights and frames; gemma-2b with Gemma 2's attention and "
                   "final logit softcaps (50, 30) at its published widths and all 18 layers, "
-                  "its decode also over its int8 KV cache at max_len 4096; nothing cut"})
+                  "its decode also over its int8 KV cache at max_len 4096; qwen3-0.6b "
+                  "trained at its published widths and all 28 layers (4 x 2048 tokens a "
+                  "step, 20 steps), random weights and synthetic tokens; nothing cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -5001,6 +5493,13 @@ def main() -> int:
     for name in ("flash_attention_softcap", "paged_attention_softcap"):
         launches[name] = sc_launches[name]
     launches["paged_attention_int8"] = int8_launches["paged_attention_int8"]
+    tr_errs, tr_rows = phase_train_kernels(torch, device)
+    errs.update(tr_errs)
+    rows.update(tr_rows)
+    lap("train_kernels")
+    phase_train_layer(torch, device)
+    launches["flash_attention_bwd"] = phase_train_run(torch, device, card)["flash_attention_bwd"]
+    lap("train")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)
@@ -5014,7 +5513,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "device_ms": row.get("device_ms"),
         })
     emit({"phase": "seconds", "by_part": laps, "total": time.perf_counter() - t0})
     emit({"card": card, "kernel_shapes": {n: r["shape"] for n, r in rows.items()}})

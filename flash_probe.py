@@ -4,6 +4,13 @@
 Run from the root of a checkout on a machine with one H100:
 
     python3 flash_probe.py [LOG_DIR]
+    python3 flash_probe.py --bwd [LOG_DIR]
+
+With ``--bwd`` it checks the backward kernel instead (the quick check after
+an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source,
+then ``chip_smoke.phase_train_kernels`` (every ``BWD_CHECKS`` shape against
+the plain version, equal bits twice, the planted faults, registers and
+spills, the timing row).  Without it:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -42,18 +49,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def ptxas_report(log_dir: Path) -> None:
+def ptxas_report(log_dir: Path, name: str = "flash_attention") -> None:
     from repro_torch.kernels import runtime
 
     t0 = time.time()
     r = subprocess.run([runtime.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                         "-std=c++17", "-O3", "-c", "-Xptxas", "-v", "-o",
-                        str(log_dir / "flash_attention.o"),
-                        str(runtime.CSRC / "flash_attention.cu")],
+                        str(log_dir / f"{name}.o"), str(runtime.CSRC / f"{name}.cu")],
                        capture_output=True, text=True)
     log = r.stdout + r.stderr
-    (log_dir / "ptxas_flash_attention.txt").write_text(log)
-    print("flash_attention rc", r.returncode, "secs", time.time() - t0, flush=True)
+    (log_dir / f"ptxas_{name}.txt").write_text(log)
+    print(name, "rc", r.returncode, "secs", time.time() - t0, flush=True)
     if r.returncode:
         print(log[-8000:])
         sys.exit(1)
@@ -80,8 +86,19 @@ def main() -> int:
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
-    log_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else runtime.BUILD_DIR
+    args = [a for a in sys.argv[1:] if a != "--bwd"]
+    log_dir = Path(args[0]) if args else runtime.BUILD_DIR
     log_dir.mkdir(parents=True, exist_ok=True)
+    if "--bwd" in sys.argv[1:]:
+        ptxas_report(log_dir, "flash_attention_bwd")
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        chip_smoke.load_peaks()
+        t1 = time.time()
+        runtime.build(["flash_attention", "flash_attention_bwd"])
+        print("build", time.time() - t1, flush=True)
+        chip_smoke.phase_train_kernels(torch, torch.device("cuda", 0))
+        print("ALL OK", flush=True)
+        return 0
     ptxas_report(log_dir)
     print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
     t1 = time.time()

@@ -123,6 +123,7 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"rows_per_block={rows_per_block} must divide len(idx)={n}")
     if runtime.on_cpu(x, idx):
         return gather_rows_plain(x, idx, rows_per_block)
+    runtime.refuse_grad("gather_rows", "its backward (a scatter-add kernel)", x)
     out = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
     src, rows = x, idx
     if rows_per_block > 1:

@@ -152,6 +152,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, prefi
         raise TypeError(f"q, k, v must share one dtype of {sorted(map(str, _DTYPES))}")
 
 
+def hidden_keys(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                prefix: int) -> torch.Tensor:
+    """[S, T] True where the query at ``q_pos`` does not see the key at
+    ``k_pos``: past its position and outside the prefix, or (with a window)
+    ``window`` or more positions back."""
+    hidden = (q_pos[:, None] < k_pos[None, :]) & (k_pos[None, :] >= prefix)
+    if window:
+        hidden |= q_pos[:, None] - k_pos[None, :] >= window
+    return hidden
+
+
 def first_block(q_pos: int, window: int, bk: int) -> int:
     """The first KV block of ``bk`` positions a query at ``q_pos`` can see
     (0 without a window), the kernels' ``j0`` for a query block's first row."""
@@ -187,10 +198,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vb = v[:, :, k0:k0 + bk].float()
         sc = runtime.cap_scores(torch.einsum("bkgsd,bktd->bkgst", qf, kb) * scale, softcap)
         k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-        hidden = (q_pos[:, None] < k_pos[None, :]) & (k_pos[None, :] >= prefix)
-        if window:
-            hidden |= q_pos[:, None] - k_pos[None, :] >= window
-        sc = sc.masked_fill(hidden, NEG_INF)
+        sc = sc.masked_fill(hidden_keys(q_pos, k_pos, window, prefix), NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
         corr = torch.exp(m - m_new)
@@ -229,7 +237,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output ``[B, H, S, hd_v]`` has q's strides where q is dense (its
     dimension order at unequal widths).  ``split_p=False`` (tensor-core route
     only) rounds P to bf16 once instead of keeping it as ``P_hi + P_lo``: a
-    probe of what the split costs, not the main path.  Query blocks do not
+    probe of what the split costs, not the main path (it raises under grad).
+    Under grad (an input requiring it) a CUDA call raises: its launch records
+    nothing for autograd, so training goes through ``remop_flash_attention``
+    (``FlashAttentionFn``).  Query blocks do not
     change any row's arithmetic, so the plain version takes only ``bk``.
     """
     _check(q, k, v, window, prefix)
@@ -241,8 +252,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_blocks(path, bq, bk, hd, hd_v)
     if not split_p and (path != "tc" or softcap):
         raise ValueError("split_p=False exists on the tensor-core route only, without a cap")
+    grad = runtime.needs_grad(q, k, v)
+    if grad and not split_p:
+        raise NotImplementedError("split_p=False is a probe, not a path: it has no backward")
     if runtime.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap)
+    if grad:
+        raise NotImplementedError(
+            "flash_attention launches the forward kernel alone, whose output carries no "
+            "gradient; under grad call remop_flash_attention, which goes through "
+            "FlashAttentionFn and its backward kernel")
     if (hd, hd_v) not in HEAD_PAIRS:
         raise ValueError(f"head_dim {hd} with value width {hd_v} not in {HEAD_PAIRS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):

@@ -8,6 +8,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.flash_attention import (
     MAX_BLOCK,
     SMEM_LIMIT,
@@ -17,6 +18,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     route,
     smem_bytes,
 )
+from repro_torch.kernels.flash_attention.flash_attention_bwd import FlashAttentionFn
 
 # Shared memory one CTA may use on an H100 (227 KB of the SM's 256 KB).
 HOPPER_SMEM_BYTES = SMEM_LIMIT
@@ -80,6 +82,10 @@ def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Blocks not given are planned for the route the call takes; on the
     CUDA-core route they are cut to S and T (its threads cover bq x bk).
+    Under grad (grad enabled and q, k or v requiring it) the call goes
+    through :class:`FlashAttentionFn`, whose backward is the flash
+    backward kernel; otherwise the kernel is called directly and no graph
+    is built.
     """
     s, hd = q.shape[2], q.shape[3]
     t, hd_v = k.shape[2], v.shape[3]
@@ -89,5 +95,7 @@ def remop_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bq, bk = bq or pbq, bk or pbk
     if path == "simt":
         bq, bk = min(bq, s), min(bk, t)
+    if runtime.needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, bq, bk, scale, window, prefix, softcap)
     return flash_attention(q, k, v, bq=bq, bk=bk, scale=scale, window=window, prefix=prefix,
                            softcap=softcap)

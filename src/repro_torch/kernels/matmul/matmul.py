@@ -169,6 +169,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
     out_dtype = _check(a, b, out_dtype)
     if runtime.on_cpu(a, b):
         raise ValueError("launch takes CUDA tensors; on the CPU use matmul_tiled_plain")
+    runtime.refuse_grad("remop_matmul", "its backward (two more planned products)", a, b)
     check_tiles(bm, bn, bk, a.element_size())
     if a.stride(1) != 1 or b.stride(1) != 1:
         raise ValueError("the elements of each row of a and b must be contiguous")

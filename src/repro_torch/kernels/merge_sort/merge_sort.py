@@ -288,6 +288,7 @@ def plan_array(launches: List[Launch]) -> ctypes.Array:
 
 
 def _launch(kernel: str, keys: torch.Tensor, values: torch.Tensor, arg: int) -> Pair:
+    runtime.refuse_grad(kernel, "a gradient through the sort", keys, values)
     launches = plan(keys.shape[0], kernel, arg)
     keys_out = torch.empty_like(keys)
     values_out = torch.empty_like(values)

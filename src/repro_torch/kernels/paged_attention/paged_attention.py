@@ -258,6 +258,8 @@ def _launch_args(q: torch.Tensor, tensors, s: int):
     aligned q and caches.  Returns (splits, gc, out, scratch)."""
     b, kv, g, hd = q.shape
     check_shape(g, hd)
+    runtime.refuse_grad("paged_attention", "a decode gradient (decode is inference only)",
+                        *tensors)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, the caches, their scales and lengths must be contiguous")
     if any(x.data_ptr() % 16 for x in tensors[:3]):
@@ -393,6 +395,8 @@ def latent_decode(q: torch.Tensor, latent: torch.Tensor, lengths: torch.Tensor, 
     if (d, v_dim) != LATENT_DIMS:
         raise ValueError(f"the latent route takes (D, v_dim) = {LATENT_DIMS}, got {(d, v_dim)}")
     tensors = (q, latent, lengths)
+    runtime.refuse_grad("paged_attention_latent", "a decode gradient (decode is inference only)",
+                        *tensors)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, latent and lengths must be contiguous")
     if any(x.data_ptr() % 16 for x in tensors[:2]):

@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("merge_sort", "gather_rows", "flash_attention", "paged_attention", "ssd_scan",
-           "matmul")
+SOURCES = ("merge_sort", "gather_rows", "flash_attention", "flash_attention_bwd",
+           "paged_attention", "ssd_scan", "matmul")
 # ptxas splits its work over 8 threads: the same machine code, built in
 # less time (the attention libraries' ptxas was most of their build).
 NVCC_FLAGS = (
@@ -76,6 +76,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # hd, hd_v, bq, bk, split, cap, &out[5]
         "remop_flash_attention_tc_occupancy": ([_I32] * 6 + [_P], _I32),
         "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, do, dq, dk, dv, lse, delta, &strides[24] (int64), b, h, kv, s, t, hd,
+        # bq, bk, scale, hd_v, window, prefix, softcap, stream
+        **{f"remop_flash_attention_bwd_{t}": ([_P] * 11 + [_I32] * 8 + [_F32] + [_I32] * 3
+                                              + [_F32, _P], _I32)
+           for t in ("bf16", "f32")},
+        # is_f32, hd, hd_v, &out[9]
+        "remop_flash_attention_bwd_attributes": ([_I32] * 3 + [_P], _I32),
+        "remop_flash_attention_bwd_error_string": ([_I32], ctypes.c_char_p),
     },
     "paged_attention": {
         # q, k_cache, v_cache, lengths, out, scratch, b, kv, g, s, hd, splits, gc,
@@ -148,6 +158,24 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cpu"
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record a call on ``tensors``: grad is
+    enabled and one of them requires it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, later: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when a launch of the kernel ``name``
+    would be recorded by autograd (:func:`needs_grad`): the kernel has no
+    backward yet, so its output would carry no gradient.  ``later`` names
+    the slice that brings it.  The kernels' CUDA branches call it; their
+    plain versions on the CPU are differentiable."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet, so a CUDA call under grad would return an "
+            f"output without a gradient; {later} waits for a later slice (ROADMAP queue 1)")
 
 
 def check_softcap(softcap: float) -> float:

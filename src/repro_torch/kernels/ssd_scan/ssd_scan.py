@@ -55,6 +55,8 @@ def ssd_scan(states: torch.Tensor, decays: torch.Tensor) -> Tuple[torch.Tensor, 
     _check(states, decays)
     if runtime.on_cpu(states, decays):
         return ssd_scan_plain(states, decays)
+    runtime.refuse_grad("ssd_scan", "the ssd_scan backward (and mamba2-370m training)",
+                        states, decays)
     if not (states.is_contiguous() and decays.is_contiguous()):
         raise ValueError("states and decays must be contiguous")
     b, nc, h, p, n = states.shape

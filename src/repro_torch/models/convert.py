@@ -21,15 +21,18 @@ the next segment; and ``"encoder"``, one ``"enc"`` layer a repeat.  Leaves
 arrive as numpy arrays (the caller converts them with ``np.asarray``), so
 this module needs nothing of JAX.  Matrices (the SSM's and RG-LRU's
 projections and conv weights, the MoE router and experts among them) become
-bf16: JAX casts each f32 master matrix to the bf16 activations per call,
-which computes the same products.  Norm scales, the SSM's ``a_log``,
-``dt_bias`` and ``d_skip`` and the RG-LRU's ``a_param`` stay f32, as JAX
-uses them in f32 arithmetic.
+bf16 by default: JAX casts each f32 master matrix to the bf16 activations
+per call, which computes the same products; ``dtype=torch.float32`` keeps
+them as the f32 masters that training updates.  Norm scales, the SSM's
+``a_log``, ``dt_bias`` and ``d_skip`` and the RG-LRU's ``a_param`` stay
+f32, as JAX uses them in f32 arithmetic.  :func:`state_from_jax` carries
+``repro``'s training state across: the parameters, AdamW's m and v (f32,
+the parameters' tree) and the step.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -43,18 +46,19 @@ from repro_torch.models.transformer import Params, check_supported, decoder_segm
 F32_LEAVES = ("scale", "a_log", "dt_bias", "d_skip", "a_param")
 
 
-def _leaf(name: str, a: np.ndarray, device: torch.device) -> torch.Tensor:
-    dtype = torch.float32 if name in F32_LEAVES else WEIGHT_DTYPE
+def _leaf(name: str, a: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    dtype = torch.float32 if name in F32_LEAVES else dtype
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
-def _tree(tree: Mapping[str, Any], device: torch.device, layer: int | None = None):
+def _tree(tree: Mapping[str, Any], device: torch.device, dtype: torch.dtype,
+          layer: int | None = None):
     out = {}
     for name, sub in tree.items():
         if isinstance(sub, Mapping):
-            out[name] = _tree(sub, device, layer)
+            out[name] = _tree(sub, device, dtype, layer)
         else:
-            out[name] = _leaf(name, sub if layer is None else sub[layer], device)
+            out[name] = _leaf(name, sub if layer is None else sub[layer], device, dtype)
     return out
 
 
@@ -65,8 +69,11 @@ def _segments(cfg: ModelConfig):
             for j, (kinds, repeats) in enumerate(decoder_segments(cfg))]
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> Params:
-    """The port's parameters from a numpy copy of ``tf.init_params(key, cfg)``.
+def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None,
+                    dtype: torch.dtype = WEIGHT_DTYPE) -> Params:
+    """The port's parameters from a numpy copy of ``tf.init_params(key, cfg)``
+    (or any tree of that structure: AdamW's moments too), matrices in
+    ``dtype``.
 
     ``device`` is ``cuda:0`` unless ``"cpu"`` is passed.
     """
@@ -85,15 +92,30 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> P
                          f"{ {k: sorted(v) for k, v in got.items()} }; expected "
                          f"{sorted(top)}, { {k: sorted(v) for k, v in want.items()} }")
     out = {
-        "embed": _tree(tree["embed"], device),
-        "final_norm": _tree(tree["final_norm"], device),
-        "layers": [_tree(tree[seg][block], device, layer)
+        "embed": _tree(tree["embed"], device, dtype),
+        "final_norm": _tree(tree["final_norm"], device, dtype),
+        "layers": [_tree(tree[seg][block], device, dtype, layer)
                    for seg, blocks, n in segs for layer in range(n) for block in blocks],
     }
     if cfg.frontend:
-        out["frontend"] = _tree(tree["frontend"], device)
+        out["frontend"] = _tree(tree["frontend"], device, dtype)
     if cfg.n_encoder_layers:
-        out["encoder"] = [_tree(tree["encoder"]["b0_enc"], device, layer)
+        out["encoder"] = [_tree(tree["encoder"]["b0_enc"], device, dtype, layer)
                           for layer in range(cfg.n_encoder_layers)]
-        out["enc_norm"] = _tree(tree["enc_norm"], device)
+        out["enc_norm"] = _tree(tree["enc_norm"], device, dtype)
     return out
+
+
+def state_from_jax(state: Mapping[str, Any], cfg: ModelConfig, device=None,
+                   param_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """The port's training state from a numpy copy of ``repro``'s
+    ``{"params", "opt": {"m", "v"}, "step"}``: the parameters' matrices in
+    ``param_dtype`` (f32 masters by default), m and v in f32, the step an
+    int32 scalar, all on ``device``."""
+    device = resolve_device(device)
+    return {
+        "params": params_from_jax(state["params"], cfg, device, param_dtype),
+        "opt": {k: params_from_jax(state["opt"][k], cfg, device, torch.float32)
+                for k in ("m", "v")},
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
+    }

@@ -1,9 +1,12 @@
 """Building-block layers as plain functions over dicts of tensors.
 
 Conventions, as in the JAX package's ``models/layers.py``:
-  * parameters are nested dicts; matrices are held in bf16 and norm scales
-    in f32 (JAX keeps f32 masters and casts each matrix to the activation
-    dtype per call, which computes the same bf16 product);
+  * parameters are nested dicts; matrices are held in bf16 by default and
+    norm scales in f32 (JAX keeps f32 masters and casts each matrix to the
+    activation dtype per call, which computes the same bf16 product);
+    training asks for f32 masters (:func:`matrix_dtype`), as JAX's
+    ``init_*`` give, and autograd carries each product's gradient back to
+    the f32 master through the cast;
   * every apply computes in the dtype of its input, rmsnorm and rope in f32;
   * the ``init_*`` functions draw from a seeded ``torch.Generator`` on the
     device the weights live on.  They give other numbers than ``jax.random``
@@ -13,20 +16,34 @@ Conventions, as in the JAX package's ``models/layers.py``:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 Params = Dict[str, torch.Tensor]
 WEIGHT_DTYPE = torch.bfloat16
+_MATRIX_DTYPE = [WEIGHT_DTYPE]  # what truncated_normal draws in by default
+
+
+@contextlib.contextmanager
+def matrix_dtype(dtype: torch.dtype) -> Iterator[None]:
+    """Draw every matrix in ``dtype`` inside the block (``init_params``'s
+    ``dtype``: f32 masters for training)."""
+    _MATRIX_DTYPE.append(dtype)
+    try:
+        yield
+    finally:
+        _MATRIX_DTYPE.pop()
 
 
 def truncated_normal(shape, scale: float, generator: torch.Generator,
-                     device: torch.device, dtype=WEIGHT_DTYPE) -> torch.Tensor:
-    """``scale`` times a standard normal truncated to [-2, 2]."""
-    w = torch.empty(shape, dtype=dtype, device=device)
+                     device: torch.device, dtype=None) -> torch.Tensor:
+    """``scale`` times a standard normal truncated to [-2, 2], in ``dtype``
+    (by default the matrix dtype of :func:`matrix_dtype`, bf16 outside it)."""
+    w = torch.empty(shape, dtype=dtype or _MATRIX_DTYPE[-1], device=device)
     return torch.nn.init.trunc_normal_(w, 0.0, scale, -2.0 * scale, 2.0 * scale,
                                        generator=generator)
 

@@ -45,10 +45,13 @@ caches have a sequence axis that :func:`pad_caches` grows.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
@@ -57,8 +60,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    dense, embed, init_dense, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm, softmax_xent,
-    unembed,
+    WEIGHT_DTYPE, dense, embed, init_dense, init_embedding, init_mlp, init_rmsnorm, matrix_dtype,
+    mlp, rmsnorm, softmax_xent, unembed,
 )
 
 Params = Dict[str, Any]
@@ -139,6 +142,38 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 # ===========================================================================
+# Rematerialization (repro's _checkpoint over each layer of the scan)
+# ===========================================================================
+
+# None: full remat (each decoder layer keeps only its input and recomputes
+# its forward in the backward pass); "dots": also keep the outputs of the
+# 2-D matrix products (aten.mm: the projections, the FFN, the unembedding),
+# what JAX's dots_with_no_batch_dims_saveable keeps.
+_REMAT_POLICY = None
+REMAT_POLICIES = (None, "dots")
+
+
+def set_remat_policy(name) -> None:
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {name!r} not in {REMAT_POLICIES}")
+    global _REMAT_POLICY
+    _REMAT_POLICY = name
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant) with
+    the policy of :func:`set_remat_policy`."""
+    context = (functools.partial(create_selective_checkpoint_contexts, _save_products)
+               if _REMAT_POLICY == "dots" else noop_context_fn)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+
+
+# ===========================================================================
 # Init
 # ===========================================================================
 
@@ -166,15 +201,20 @@ def init_block(cfg: ModelConfig, generator: torch.Generator, device: torch.devic
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Params:
-    """Random weights: matrices in bf16, norm scales (and the RG-LRU's
-    ``a_param``) in f32, on ``device`` (``cuda:0`` unless ``"cpu"`` is
-    passed).  ``generator`` must live on that device; the default is one
-    seeded with 0."""
+                device=None, dtype: torch.dtype = WEIGHT_DTYPE) -> Params:
+    """Random weights: matrices in ``dtype`` (bf16 by default; f32 masters
+    for training), norm scales (and the RG-LRU's ``a_param``) in f32, on
+    ``device`` (``cuda:0`` unless ``"cpu"`` is passed).  ``generator`` must
+    live on that device; the default is one seeded with 0."""
     check_supported(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    with matrix_dtype(dtype):
+        return _init_params(cfg, generator, device)
+
+
+def _init_params(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> Params:
     p = {
         "embed": init_embedding(cfg.vocab_size, cfg.d_model, generator, device),
         "final_norm": init_rmsnorm(cfg.d_model, device),
@@ -305,15 +345,19 @@ def encode(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> 
 
 
 def _hidden(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            want_cache: bool):
+            want_cache: bool, remat: bool = False):
+    """The decoder's final hidden state; with ``remat`` (and grad enabled)
+    each decoder layer runs under :func:`_checkpoint`, as ``repro``'s
+    training scan wraps each layer step (its encoder is not rematted)."""
     check_supported(cfg)
     enc_out = encode(params, cfg, batch) if cfg.n_encoder_layers else None
     x, positions, prefix = _embed_inputs(params, cfg, batch)
     caches = []
     aux_total = torch.zeros((), device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for kind, layer in zip(layer_kinds(cfg), params["layers"]):
-        x, cache, aux = block_forward(layer, cfg, kind, x, positions, want_cache, prefix,
-                                      enc_out)
+        args = (layer, cfg, kind, x, positions, want_cache, prefix, enc_out)
+        x, cache, aux = _checkpoint(block_forward, *args) if remat else block_forward(*args)
         caches.append(cache)
         if aux is not None:
             aux_total = aux_total + aux
@@ -322,23 +366,26 @@ def _hidden(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            want_cache: bool = False):
+            want_cache: bool = False, remat: bool = False):
     """Full-sequence forward over ``repro``'s batch: ``{"tokens"}``, with
     ``"patches"`` for the VLM (its logits cover patches and text) and
     ``"frames"`` for the encoder-decoder; returns (logits, aux_loss,
-    caches)."""
-    x, caches, aux = _hidden(params, cfg, batch, want_cache)
+    caches).  ``remat``: see :func:`_hidden`."""
+    x, caches, aux = _hidden(params, cfg, batch, want_cache, remat)
     logits = unembed(params["embed"], x, cfg.logit_softcap)
     return logits, aux, caches
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """``repro``'s ``loss_fn``, its forward value: the next-token cross
-    entropy of :func:`forward`'s logits (the VLM's text positions only)
-    against ``batch["targets"]`` shifted by one, under ``batch["mask"]`` if
-    given, plus ``router_aux_coef`` times the MoE aux loss.  Returns
-    (total, {"loss", "aux"})."""
-    logits, aux, _ = forward(params, cfg, batch)
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = True):
+    """``repro``'s ``loss_fn``: the next-token cross entropy of
+    :func:`forward`'s logits (the VLM's text positions only) against
+    ``batch["targets"]`` shifted by one, under ``batch["mask"]`` if given,
+    plus ``router_aux_coef`` times the MoE aux loss, each decoder layer
+    rematerialized under ``remat`` (:func:`set_remat_policy`).  Returns
+    (total, {"loss", "aux"}); differentiable in the parameters (the flash
+    kernel through its backward kernel on the card)."""
+    logits, aux, _ = forward(params, cfg, batch, remat=remat)
     if cfg.family == "vlm":  # only text positions carry loss
         logits = logits[:, batch["patches"].shape[1]:]
     loss = softmax_xent(logits[:, :-1], batch["targets"][:, 1:], batch.get("mask"))

@@ -1,1 +1,1 @@
-"""Serving runtime: ``Request`` and ``ServeEngine`` over the engine's ``SlotLoop``."""
+"""Serving and training runtimes: ``ServeEngine``, the fault-tolerant ``train`` loop."""
