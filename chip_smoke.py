@@ -181,20 +181,28 @@ Phases, each printing JSON objects, one per line:
    only those on the card (the logits' gap and argmax agreement printed,
    tokens/s, step time, peak memory and idle share of both);
 5h. train: hold the flash backward kernel (``flash_attention_bwd``: dq, dk,
-   dv of the flash kernel) against its plain version under ``ATTN_TOL`` at
-   ``BWD_CHECKS``' shapes (qwen3-0.6b's training shape, gemma-2b, every
-   key, MLA's 192 / 128, window 2048, prefix 256, softcap 50, ragged, S <
-   T, cross S > T, f32), two calls equal bit for bit, the Function's forward
-   equal to the no-grad forward bit for bit, four planted faults rejected (D
-   dropped, dK and dV from head 0 of a group, a key one past the prefix, the
-   cap's derivative left out), registers and spills of every instantiation,
-   and time it beside its bound, its plain version and SDPA's backward;
+   dv of the flash kernel, on its tensor-core route ``tc`` at bf16 hd 64 /
+   128 and its CUDA-core route ``simt`` elsewhere) against its plain version
+   under ``ATTN_TOL`` at ``BWD_CHECKS``' shapes (qwen3-0.6b's training
+   shape, gemma-2b, every key, MLA's 192 / 128, window 2048, prefix 256,
+   softcap 50, ragged, S < T, cross S > T, f32; each row's route asserted
+   by the launch counters), two calls equal bit for bit, the Function's
+   forward equal to the no-grad forward bit for bit, the forward's lse
+   against its plain version (qwen3-0.6b's shape and prefix 200 at hd 64), five
+   planted faults rejected (D dropped, dK and dV from head 0 of a group, a
+   key one past the prefix, the cap's derivative left out, lse one row
+   off), registers and spills of every instantiation, and time each route
+   (``tc`` at qwen3-0.6b's shape, ``simt`` at gemma-2b's) beside its bound,
+   its plain version and SDPA's backward;
    hold one qwen3-0.6b block's gradients at 4 x 2048 tokens to the plain
    path (``TRAIN_LAYER_TOL``; a backward without D rejected); train
    qwen3-0.6b at full width through ``launch.train.main`` (20 steps of 4 x
    2048 tokens, f32 masters, bf16 activations, full remat, checkpoints
    every 10 steps; the launch counters set to 0 just before and read just
-   after), every loss and grad norm finite and the loss falling; restore the
+   after; every backward launch on the ``tc`` route), every loss and grad
+   norm finite and the loss falling; train gemma-2b at its published widths
+   cut to ``TRAIN_SIMT_LAYERS`` layers for ``TRAIN_SIMT_STEPS`` steps (hd
+   256: the ``simt`` route's main path); restore the
    step-10 checkpoint and run steps 11..20 again (losses within
    ``TRAIN_RESUME_TOL``); repro's fixed-batch rule (30 steps on one [1,
    2048] batch, the last loss below 0.7 of the first); one step's
@@ -545,7 +553,8 @@ SOURCES = {
     "flash_attention_softcap": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention_softcap": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_attention_int8": "src/repro_torch/kernels/csrc/paged_attention.cu",
-    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_tc": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_simt": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -565,8 +574,10 @@ REPLACES = {
     "flash_attention_softcap": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "paged_attention_softcap": "src/repro/kernels/paged_attention/paged_attention.py:65",
     "paged_attention_int8": "src/repro/kernels/paged_attention/paged_attention.py:65",
-    # The forward's gradient: repro takes it by XLA autodiff, no Pallas kernel.
-    "flash_attention_bwd": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    # The forward's gradient (both routes): repro takes it by XLA autodiff,
+    # no Pallas kernel.
+    "flash_attention_bwd_tc": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "flash_attention_bwd_simt": "src/repro/kernels/flash_attention/flash_attention.py:72",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
@@ -4901,13 +4912,17 @@ BWD_CHECKS = (
     ("window 2048", 1, 10, 1, 4096, 4096, 256, 256, 2048, 0, 0.0, 1.0, "bfloat16"),
     ("prefix 256", 1, 8, 1, 768, 768, 256, 256, 0, 256, 0.0, 1.0, "bfloat16"),
     ("softcap 50", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 50.0, 8.0, "bfloat16"),
+    ("window 1000 hd 128", 1, 16, 8, 2048, 2048, 128, 128, 1000, 0, 0.0, 1.0, "bfloat16"),
+    ("prefix 200 hd 64", 1, 8, 2, 700, 700, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
+    ("softcap 50 hd 128", 1, 8, 8, 1024, 1024, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
     ("ragged", 2, 8, 2, 1000, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("S < T", 1, 8, 8, 300, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("cross S > T", 1, 16, 16, 300, 200, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
     ("f32", 1, 16, 8, 512, 512, 128, 128, 0, 0, 0.0, 1.0, "float32"),
     ("f32 hd 256", 1, 8, 1, 300, 333, 256, 256, 0, 0, 0.0, 1.0, "float32"),
 )
-BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape
+BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape of the tc route
+BWD_SIMT_REPORT = "gemma-2b"  # and of the simt route
 
 
 def bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=0, prefix=0):
@@ -4926,15 +4941,37 @@ def grads_close(torch, got, want):
     return (all(r[0] for r in res), max(r[1] for r in res), max(r[2] for r in res))
 
 
+def _bwd_route_of(dtype, hd, hd_v):
+    """The backward route a TMA-aligned call at these widths takes."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    return "tc" if dtype == "bfloat16" and (hd, hd_v) in fab.BWD_TC_HEAD_PAIRS else "simt"
+
+
+def forward_with_lse(torch, q, k, v, **mask):
+    """The tensor-core forward's output and each row's log-sum-exp, at the
+    blocks ``remop_flash_attention`` plans."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import plan_blocks
+
+    bq, bk = plan_blocks(q.shape[2], k.shape[2], q.shape[3], 2, path="tc", hd_v=v.shape[3])
+    with torch.no_grad():
+        return fa.flash_attention(q, k, v, bq=bq, bk=bk, return_lse=True, **mask)
+
+
 def phase_train_kernels(torch, device):
     """The flash backward kernel against its plain version at the shapes of
-    ``BWD_CHECKS``; two calls equal bit for bit; the Function's forward
-    equal to the no-grad forward bit for bit; four planted faults rejected;
-    registers and spills of every instantiation; then timed at the training
-    shape beside its bound, its plain version and SDPA's backward."""
+    ``BWD_CHECKS``, each on the route its dtype and widths give (asserted by
+    the launch counters); two calls equal bit for bit; the Function's
+    forward equal to the no-grad forward bit for bit; the forward's lse
+    against its plain version; five planted faults rejected; registers and
+    spills of every instantiation; then each route timed (``tc`` at the
+    training shape, ``simt`` at gemma-2b's) beside its bound, its plain
+    version and SDPA's backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4946,6 +4983,9 @@ def phase_train_kernels(torch, device):
         x = torch.randn(b, s, heads, hd, device=device, generator=gen) * gain
         return x.to(getattr(torch, dtype)).transpose(1, 2)
 
+    def bits(x):
+        return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
     for (name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain,
          dtype) in BWD_CHECKS:
         q = model_layout(b, h, s, hd, dtype, gain)
@@ -4954,30 +4994,40 @@ def phase_train_kernels(torch, device):
         with torch.no_grad():
             out = remop_flash_attention(q, k, v, **mask)
         dout = model_layout(b, h, s, hd_v, dtype)
-        before = runtime.launches["flash_attention_bwd"]
-        got = fab.flash_attention_bwd(q, k, v, out, dout, **mask)
-        again = fab.flash_attention_bwd(q, k, v, out, dout, **mask)
-        check(runtime.launches["flash_attention_bwd"] == before + 2,
-              f"flash_attention_bwd {name}: not one launch a call")
-        same = all(torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
-                               c.view(torch.int16 if c.dtype == torch.bfloat16 else torch.int32))
-                   for a, c in zip(got, again))
+        path = fab.bwd_route(q, k, v, out, dout)
+        check(path == _bwd_route_of(dtype, hd, hd_v),
+              f"flash_attention_bwd {name}: route {path}")
+        lse = None
+        if path == "tc":
+            out_lse, lse = forward_with_lse(torch, q, k, v, **mask)
+            check(torch.equal(bits(out_lse), bits(out)),
+                  f"flash_attention {name}: the forward writing lse changed its output")
+        before = dict(runtime.launches)
+        got = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
+        again = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
+        added = {key: n - before.get(key, 0) for key, n in runtime.launches.items()
+                 if n != before.get(key, 0)}
+        check(added == {"flash_attention_bwd": 2, f"flash_attention_bwd_{path}": 2},
+              f"flash_attention_bwd {name}: launches {added}, not one {path} launch a call")
+        same = all(torch.equal(bits(a), bits(c)) for a, c in zip(got, again))
         check(same, f"flash_attention_bwd {name}: two calls differ")
         check(all(g.shape == x.shape and g.dtype == x.dtype for g, x in zip(got, (q, k, v))),
               f"flash_attention_bwd {name}: gradients not in their inputs' shapes and dtypes")
         want = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)
         ok, err, rel = grads_close(torch, got, want)
-        errs["flash_attention_bwd"] = max(errs.get("flash_attention_bwd", 0.0), err)
-        emit({"phase": "train", "check": "flash_attention_bwd", "case": name,
+        key = f"flash_attention_bwd_{path}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        emit({"phase": "train", "check": "flash_attention_bwd", "case": name, "route": path,
               "shape": [b, h, kv, s, t, hd, hd_v], "dtype": dtype, **mask, "q_gain": gain,
-              "blocks": fab.plan_bwd_blocks(hd, hd_v, q.element_size()),
+              "blocks": (fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0) if path == "tc"
+                         else fab.plan_bwd_blocks(hd, hd_v, q.element_size())),
               "tol": ATTN_TOL[str(q.dtype)], "max_abs_err": err, "rel_err": rel,
               "per_grad_rel_err": [rel_err(torch, g, w) for g, w in zip(got, want)],
               "equal_bits_twice": same})
         check(ok, f"flash_attention_bwd {name}: kernel differs from its plain version beyond "
                   f"ATTN_TOL (max abs err {err}, relative L2 {rel})")
-        if name in ("qwen3-0.6b train", "prefix 256", "softcap 50"):
-            kept[name] = (q, k, v, out, dout, mask, got)
+        if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64"):
+            kept[name] = (q, k, v, out, dout, mask, got, lse)
         if name == "qwen3-0.6b train":
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
             fn_out = remop_flash_attention(qg, kg, vg)
@@ -4988,14 +5038,26 @@ def phase_train_kernels(torch, device):
             del qg, kg, vg, fn_out
         del got, again, want
 
-    def fault(name, what, want):
-        got = kept[name][6]
+    # The forward's lse (tensor-core route) against its plain version, f32.
+    for name in ("qwen3-0.6b train", "prefix 200 hd 64"):
+        q, k, v, _, _, mask, _, _ = kept[name]
+        _, lse = forward_with_lse(torch, q, k, v, **mask)
+        _, want = flash_attention_plain(q, k, v, **mask, return_lse=True)
+        ok, err, rel, _ = attn_close(torch, lse, want)
+        errs["flash_attention_bwd_tc"] = max(errs["flash_attention_bwd_tc"], err)
+        emit({"phase": "train", "check": "forward_lse", "case": name, "shape": list(lse.shape),
+              "tol": ATTN_TOL["torch.float32"], "max_abs_err": err, "rel_err": rel})
+        check(ok, f"flash_attention {name}: lse differs from its plain version (max abs err "
+                  f"{err}, relative L2 {rel})")
+
+    def fault(name, what, want, got=None):
+        got = kept[name][6] if got is None else got
         ok, err, rel = grads_close(torch, got, want)
         emit({"phase": "train", "planted_fault": "flash_attention_bwd", "case": name,
               "fault": what, "max_abs_err": err, "rel_err": rel, "rejected": not ok})
         check(not ok, f"flash_attention_bwd: ATTN_TOL passes a backward that {what}")
 
-    q, k, v, out, dout, mask, _ = kept["qwen3-0.6b train"]
+    q, k, v, out, dout, mask, _, lse = kept["qwen3-0.6b train"]
     fault("qwen3-0.6b train", "drops D = sum(dO * O)",
           fab.flash_attention_bwd_plain(q, k, v, torch.zeros_like(out), dout, **mask))
     g = q.shape[1] // k.shape[1]
@@ -5003,10 +5065,14 @@ def phase_train_kernels(torch, device):
                                                 **mask)
     dq_ok = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)[0]
     fault("qwen3-0.6b train", "sums dK and dV over head 0 of each group only", (dq_ok, dk0, dv0))
-    q, k, v, out, dout, mask, _ = kept["prefix 256"]
+    shifted = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=torch.roll(lse, 1, dims=2))
+    fault("qwen3-0.6b train", "reads the lse of the row before (the tc kernel)",
+          fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask), got=shifted)
+    del shifted
+    q, k, v, out, dout, mask, _, _ = kept["prefix 256"]
     fault("prefix 256", "shows every query the key one past the prefix",
           fab.flash_attention_bwd_plain(q, k, v, out, dout, **{**mask, "prefix": 257}))
-    q, k, v, out, dout, mask, _ = kept["softcap 50"]
+    q, k, v, out, dout, mask, _, _ = kept["softcap 50"]
     cap_grad = fab.cap_grad
     fab.cap_grad = lambda capped, softcap: torch.ones_like(capped)
     try:
@@ -5019,34 +5085,50 @@ def phase_train_kernels(torch, device):
     emit({"phase": "train", "flash_attention_bwd_instantiations": {
         f"{dt} {hd}x{hd_v}": fab.bwd_attributes(getattr(torch, dt), hd, hd_v)
         for dt in ("bfloat16", "float32") for hd, hd_v in fab.BWD_HEAD_PAIRS}})
+    emit({"phase": "train", "flash_attention_bwd_tc_instantiations": {
+        f"{hd} kv_bq {kv_bq}{' capped' if capped else ''}": fab.bwd_tc_attributes(
+            hd, hd, capped, {"dq": fab.BWD_TC_BLOCKS["dq"][0], "dkdv": (128, kv_bq)})
+        for hd, _ in fab.BWD_TC_HEAD_PAIRS for kv_bq in (64, 32) for capped in (False, True)}})
 
-    # Timing at the training shape: kernel, plain version, and SDPA's
-    # backward (torch.autograd.grad of one causal GQA call) on the same inputs.
-    (_, b, h, kv, s, t, hd, hd_v, *_), = (c for c in BWD_CHECKS if c[0] == BWD_REPORT)
+    # Timing of each route at its report shape: kernel, plain version, and
+    # SDPA's backward (torch.autograd.grad of one causal GQA call) on the
+    # same inputs.
     bench = Bench(torch, device)
-    q, k, v = (model_layout(b, n, s, w, "bfloat16") for n, w in ((h, hd), (kv, hd), (kv, hd_v)))
-    with torch.no_grad():
-        out = remop_flash_attention(q, k, v)
-    dout = model_layout(b, h, s, hd_v, "bfloat16")
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
 
-    def kernel():
-        return fab.flash_attention_bwd(q, k, v, out, dout)
+    def timing(path, report):
+        (_, b, h, kv, s, t, hd, hd_v, *_), = (c for c in BWD_CHECKS if c[0] == report)
+        q, k, v = (model_layout(b, n, s, w, "bfloat16") for n, w in ((h, hd), (kv, hd),
+                                                                    (kv, hd_v)))
+        with torch.no_grad():
+            out = remop_flash_attention(q, k, v)
+        lse = forward_with_lse(torch, q, k, v)[1] if path == "tc" else None
+        dout = model_layout(b, h, s, hd_v, "bfloat16")
+        check(fab.bwd_route(q, k, v, out, dout) == path, f"the {report} timing is not {path}")
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
 
-    def library():
-        return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+        def kernel():
+            return fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
 
-    ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, 2), BF16_OPS_PER_S)
-    rows["flash_attention_bwd"] = dict(
-        shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{t},{hd}] bf16, causal, the model's layout, "
-              f"blocks {fab.plan_bwd_blocks(hd, hd_v, 2)}",
-        ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
-        plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout)),
-        library_ms=bench.ms(library),
-        **{f"library_{key}": val for key, val in bench.device_ms(library, reps=10).items()},
-        bound_ms=ms_bound, bound_by=by)
-    emit({"phase": "train", "timing": "flash_attention_bwd", **rows["flash_attention_bwd"]})
+        def library():
+            return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+
+        ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, 2), BF16_OPS_PER_S)
+        blocks = (fab.plan_bwd_tc_blocks(hd, hd_v) if path == "tc"
+                  else fab.plan_bwd_blocks(hd, hd_v, 2))
+        return dict(
+            shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{t},{hd}] bf16, causal, the model's "
+                  f"layout, route {path}, blocks {blocks}",
+            ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
+            plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout)),
+            library_ms=bench.ms(library),
+            **{f"library_{name}": val for name, val in bench.device_ms(library, reps=10).items()},
+            bound_ms=ms_bound, bound_by=by)
+
+    for path, report in (("tc", BWD_REPORT), ("simt", BWD_SIMT_REPORT)):
+        rows[f"flash_attention_bwd_{path}"] = timing(path, report)
+        emit({"phase": "train", "timing": "flash_attention_bwd", "route": path,
+              **rows[f"flash_attention_bwd_{path}"]})
     del bench
     return errs, rows
 
@@ -5080,10 +5162,15 @@ def plain_flash_training():
 
     saved = fab.flash_attention, fab.flash_attention_bwd
 
-    def forward(q, k, v, bq=None, bk=64, scale=None, window=0, prefix=0, softcap=0.0):
-        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap)
+    def forward(q, k, v, bq=None, bk=64, scale=None, window=0, prefix=0, softcap=0.0,
+                return_lse=False):
+        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap, return_lse)
 
-    fab.flash_attention, fab.flash_attention_bwd = forward, fab.flash_attention_bwd_plain
+    def backward(q, k, v, out, dout, scale, window, prefix, softcap, lse=None):
+        # The reference recomputes each row's log-sum-exp.
+        return fab.flash_attention_bwd_plain(q, k, v, out, dout, scale, window, prefix, softcap)
+
+    fab.flash_attention, fab.flash_attention_bwd = forward, backward
     try:
         yield
     finally:
@@ -5189,7 +5276,8 @@ def train_breakdown(torch, step_fn, state, batch):
             continue
         name, us = e.key.lower(), e.self_device_time_total / 1e6
         events += e.count
-        if any(w in name for w in ("prep_kernel", "dq_kernel", "dkdv_kernel")):
+        if any(w in name for w in ("prep_kernel", "dq_kernel", "dkdv_kernel", "dq_tc_kernel",
+                                   "dkdv_tc_kernel")):
             kinds["flash_backward"] += us
         elif "flash_attention_kernel" in name:
             kinds["flash_forward"] += us
@@ -5203,6 +5291,58 @@ def train_breakdown(torch, step_fn, state, batch):
     return {"unprofiled_step_seconds": unprofiled, "profiled_step_seconds": profiled,
             **busy_and_idle((kinds, events), profiled, unprofiled),
             "largest_other_kernels_seconds": dict(others.most_common(8))}
+
+
+# The simt route's main path: launch.train at gemma-2b's published widths
+# (hd 256, 8 heads on one KV head) with the depth cut to TRAIN_SIMT_LAYERS.
+TRAIN_SIMT_LAYERS, TRAIN_SIMT_STEPS = 2, 3
+TRAIN_SIMT_ARGV = ("--arch", "gemma-2b", "--reduced", "--reduced-overrides",
+                   f"n_layers={TRAIN_SIMT_LAYERS},d_model=2048,n_heads=8,n_kv_heads=1,"
+                   "head_dim=256,d_ff=16384,vocab_size=256000", "--global-batch", "1",
+                   "--seq-len", "2048", "--steps", str(TRAIN_SIMT_STEPS), "--checkpoint-every",
+                   "1000", "--seed", "0")
+
+
+def phase_train_simt_run(torch, device):
+    """Train gemma-2b (hd 256, the backward's simt route) at its published
+    widths, cut to TRAIN_SIMT_LAYERS layers, for TRAIN_SIMT_STEPS steps
+    through ``launch.train.main``, the launch counters set to 0 just before
+    and read just after: every backward launch on the simt route, the
+    losses finite.  Returns the launches."""
+    import statistics as stats
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train as train_mod
+
+    argv = [*TRAIN_SIMT_ARGV, "--device", str(device)]
+    cfg = train_mod.setup(train_mod.parse_args(argv))[0]
+    full = ARCHS["gemma-2b"]
+    check(all(getattr(cfg, f) == getattr(full, f) for f in
+              ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size")),
+          "the simt trainer's config is not gemma-2b's widths")
+    log = {}
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    state, losses = train_mod.main(argv, metrics_cb=lambda step, m: log.__setitem__(
+        step, (time.perf_counter(), float(m["loss_total"]))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.launches)
+    del state
+    torch.cuda.empty_cache()
+    bwd_calls = TRAIN_SIMT_STEPS * TRAIN_SIMT_LAYERS
+    steps = sorted(log)
+    emit({"phase": "train", "simt_trainer": "gemma-2b", "layers": TRAIN_SIMT_LAYERS,
+          "tokens_per_step": int(TRAIN_SIMT_ARGV[TRAIN_SIMT_ARGV.index("--seq-len") + 1]),
+          "losses": losses, "wall_seconds": wall,
+          "step_seconds_median": stats.median(log[s][0] - log[s - 1][0] for s in steps[1:]),
+          "launches": launches})
+    check(all(math.isfinite(x) for x in losses), "the simt trainer's loss is not finite")
+    check(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_simt")
+          == bwd_calls and "flash_attention_bwd_tc" not in launches,
+          f"the simt trainer launched the backward {launches}; want {bwd_calls}, all simt")
+    return launches
 
 
 def phase_train_run(torch, device, card: str):
@@ -5256,7 +5396,11 @@ def phase_train_run(torch, device, card: str):
     cfg, shape, opt_cfg, _ = train_mod.setup(args)
     tokens = shape.global_batch * shape.seq_len
     flops = train_model_flops(cfg, state["params"], shape.global_batch, shape.seq_len)
-    check(launches.get("flash_attention_bwd", 0) > 0, "training never launched the backward")
+    bwd_calls = TRAIN_STEPS * cfg.n_layers
+    check(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_tc")
+          == bwd_calls and "flash_attention_bwd_simt" not in launches,
+          f"training launched the backward {launches.get('flash_attention_bwd')} times, "
+          f"{launches.get('flash_attention_bwd_tc')} on the tc route; want {bwd_calls}, all tc")
     emit({"phase": "train", "card": card, "arch": cfg.name, "params": tf.param_count(
               state["params"]), "tokens_per_step": tokens, "losses": loss, "grad_norms": gnorm,
           "lr": [log[s][3] for s in steps], "wall_seconds": wall,
@@ -5498,7 +5642,10 @@ def main() -> int:
     rows.update(tr_rows)
     lap("train_kernels")
     phase_train_layer(torch, device)
-    launches["flash_attention_bwd"] = phase_train_run(torch, device, card)["flash_attention_bwd"]
+    launches["flash_attention_bwd_tc"] = phase_train_run(torch, device,
+                                                         card)["flash_attention_bwd_tc"]
+    launches["flash_attention_bwd_simt"] = phase_train_simt_run(
+        torch, device)["flash_attention_bwd_simt"]
     lap("train")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)

@@ -7,10 +7,14 @@ Run from the root of a checkout on a machine with one H100:
     python3 flash_probe.py --bwd [LOG_DIR]
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
-an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source,
-then ``chip_smoke.phase_train_kernels`` (every ``BWD_CHECKS`` shape against
-the plain version, equal bits twice, the planted faults, registers and
-spills, the timing row).  Without it:
+an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
+(registers and spills of both routes' kernels, ``dq_tc_kernel`` and
+``dkdv_tc_kernel`` among them), then ``chip_smoke.phase_train_kernels``
+(every ``BWD_CHECKS`` shape on its route against the plain version, equal
+bits twice, the forward's lse, the planted faults, registers and spills,
+each route's timing row), then the tensor-core route at qwen3-0.6b's
+training shape under each ``dkdv`` block of ``BWD_TC_BLOCKS`` (device ms,
+and the error against the plain version).  Without it:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -73,6 +77,33 @@ def ptxas_report(log_dir: Path, name: str = "flash_attention") -> None:
             print(line[:300])
 
 
+def bwd_tc_blocks(torch, chip_smoke) -> None:
+    """The tensor-core backward at qwen3-0.6b's training shape under each
+    dkdv block of ``BWD_TC_BLOCKS``: device ms a call and the error against
+    the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, dout = (torch.randn(4, 2048, n, 128, device=dev, generator=g).to(
+        torch.bfloat16).transpose(1, 2) for n in (16, 8, 8, 16))
+    out, lse = chip_smoke.forward_with_lse(torch, q, k, v)
+    want = fab.flash_attention_bwd_plain(q, k, v, out, dout)
+    bench = chip_smoke.Bench(torch, dev)
+    plan = fab.plan_bwd_tc_blocks
+    try:
+        for blocks in fab.BWD_TC_BLOCKS["dkdv"]:
+            fab.plan_bwd_tc_blocks = lambda hd, hd_v, capped=False, blocks=blocks: {
+                "dq": fab.BWD_TC_BLOCKS["dq"][0], "dkdv": blocks}
+            got = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+            ok, err, rel = chip_smoke.grads_close(torch, got, want)
+            print("bwd tc dkdv blocks", blocks, bench.device_ms(
+                lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse), reps=10),
+                f"ok {ok} maxabs {err:.3e} rel {rel:.3e}", flush=True)
+    finally:
+        fab.plan_bwd_tc_blocks = plan
+
+
 def main() -> int:
     import torch
 
@@ -97,6 +128,7 @@ def main() -> int:
         runtime.build(["flash_attention", "flash_attention_bwd"])
         print("build", time.time() - t1, flush=True)
         chip_smoke.phase_train_kernels(torch, torch.device("cuda", 0))
+        bwd_tc_blocks(torch, chip_smoke)
         print("ALL OK", flush=True)
         return 0
     ptxas_report(log_dir)

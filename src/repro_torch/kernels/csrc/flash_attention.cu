@@ -63,7 +63,13 @@
 // TPU kernel keeps it: P = P_hi + P_lo with P_hi = bf16(P), P_lo = bf16(P -
 // P_hi) (about 16 significant bits), two products into the same O, 1.5x
 // the tensor work of a bf16 P.  SPLIT = false (a probe off the main path)
-// rounds P to bf16 once.
+// rounds P to bf16 once.  Given an f32 [B, H, S] buffer `lse` (the entry
+// remop_flash_attention_tc_lse, at hd = hd_v = 64 or 128) the epilogue also
+// writes each row's log-sum-exp, m + log(l), in the scaled and capped score
+// domain P was formed in: the backward's tc route reads it instead of
+// recomputing Q K^T for it.  The write is a template argument (LSE), as the
+// cap is: a runtime pointer tested in the epilogue cost the calls without
+// one 1-3% of their device time (parent/change A/B on the card).
 //
 // CUDA-core route (flash_attention_kernel): every f32 call (f32 on a tensor
 // core would be TF32, which does not compute what the TPU kernel computes
@@ -400,12 +406,13 @@ struct TcParams {
 // One consumer warpgroup w of the CTA: query rows [q0 + 64w, q0 + 64w +
 // 64); this thread holds rows r0 and r0 + 8 of the accumulator fragments.
 // KV blocks j0 .. n_kv - 1; the i-th of them (i = j - j0) sits in ring stage
-// i % 2 at mbarrier parity (i / 2) % 2, as the producer counts it.
-template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP>
+// i % 2 at mbarrier parity (i / 2) % 2, as the producer counts it.  LSE:
+// also write each row's log-sum-exp to lse [B, H, S].
+template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP, bool LSE>
 __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, uint64_t* k_full,
                                         uint64_t* v_full, uint64_t* empty, const TcParams& p,
                                         int w, int warp, int lane, int q0, int head, int b,
-                                        int offset, int j0, int n_kv) {
+                                        int offset, int j0, int n_kv, float* lse) {
   using L = TcLayout<HD, HDV, BQ, BK>;
   const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
   const KeyRange seen0 = visible(r0 + offset, p.t, p.prefix, p.window);
@@ -526,6 +533,13 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
     l1 += __shfl_xor_sync(0xffffffffu, l1, d);
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  if constexpr (LSE) {
+    if ((lane & 3) == 0) {
+      float* lg = lse + (int64_t(b) * p.h + head) * p.s;
+      if (r0 < p.s) lg[r0] = m0 + logf(den0);
+      if (r0 + 8 < p.s) lg[r0 + 8] = m1 + logf(den1);
+    }
+  }
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.ost[0] + head * p.ost[1];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -543,11 +557,12 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* q_full, u
 // With two consumer warpgroups (384 threads) ptxas gives a thread at most
 // 168 registers at entry; the producer warpgroup then hands its registers
 // to the consumers (setmaxnreg: 40 and 232, 64,512 of the SM's 65,536).
-template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP, bool LSE>
 __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
     flash_attention_kernel_tc(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
-                              const __grid_constant__ CUtensorMap map_v, TcParams p) {
+                              const __grid_constant__ CUtensorMap map_v, TcParams p,
+                              float* lse) {
   using L = TcLayout<HD, HDV, BQ, BK>;
   constexpr int kWarpgroups = BQ / 64;
   constexpr int kSlabs = HD / 64;    // of Q and K
@@ -604,8 +619,8 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
   } else {
     // -- consumers --
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<HD, HDV, BQ, BK, SPLIT, CAP>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
-                               q0, head, b, offset, j0, n_kv);
+    consume<HD, HDV, BQ, BK, SPLIT, CAP, LSE>(smem, q_full, k_full, v_full, empty, p, warp / 4,
+                                              warp, lane, q0, head, b, offset, j0, n_kv, lse);
   }
 }
 
@@ -620,43 +635,59 @@ bool tc_ok(int hd, int hdv, int bq, int bk) {
 }
 
 // f(integral_constant<HD>, <HDV>, <BQ>, <BK>, bool_constant<SPLIT>,
-// bool_constant<CAP>) for a tc_ok shape.  A cap comes with the split P only
-// (split = 0 is a probe off the main path).
+// bool_constant<CAP>, bool_constant<LSE>) for a tc_ok shape.  A cap and an
+// lse come with the split P only (split = 0 is a probe off the main path);
+// an lse at the widths the backward's tc route takes, 64 and 128.
 template <typename F>
-int tc_dispatch(int hd, int hdv, int bq, int bk, int split, bool cap, F&& f) {
-#define REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, SPLIT, CAP)                                     \
+int tc_dispatch(int hd, int hdv, int bq, int bk, int split, bool cap, bool lse, F&& f) {
+#define REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, SPLIT, CAP, LSE)                                \
   f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},                   \
     std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},                    \
-    std::bool_constant<SPLIT>{}, std::bool_constant<CAP>{})
+    std::bool_constant<SPLIT>{}, std::bool_constant<CAP>{}, std::bool_constant<LSE>{})
+#define REMOP_FLASH_TC_NO_LSE(HD, HDV, BQ, BK)                                               \
+  if (cap)                                                                                   \
+    return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, true, false)                   \
+                 : cudaErrorInvalidValue;                                                    \
+  return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, false, false)                    \
+               : REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, false, false, false);
 #define REMOP_FLASH_TC(HD, HDV, BQ, BK)                                                      \
   if (hd == HD && hdv == HDV && bq == BQ && bk == BK) {                                      \
-    if (cap)                                                                                 \
-      return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, true) : cudaErrorInvalidValue; \
-    return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, false)                         \
-                 : REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, false, false);                       \
+    if (lse) return cudaErrorInvalidValue;                                                   \
+    REMOP_FLASH_TC_NO_LSE(HD, HDV, BQ, BK)                                                   \
   }
-  REMOP_FLASH_TC(64, 64, 64, 64)
-  REMOP_FLASH_TC(64, 64, 64, 128)
-  REMOP_FLASH_TC(64, 64, 128, 64)
-  REMOP_FLASH_TC(64, 64, 128, 128)
-  REMOP_FLASH_TC(128, 128, 64, 64)
-  REMOP_FLASH_TC(128, 128, 64, 128)
-  REMOP_FLASH_TC(128, 128, 128, 64)
-  REMOP_FLASH_TC(128, 128, 128, 128)
+#define REMOP_FLASH_TC_WITH_LSE(HD, BQ, BK)                                                  \
+  if (hd == HD && hdv == HD && bq == BQ && bk == BK) {                                       \
+    if (lse) {                                                                               \
+      if (!split) return cudaErrorInvalidValue;                                              \
+      return cap ? REMOP_FLASH_TC_CALL(HD, HD, BQ, BK, true, true, true)                     \
+                 : REMOP_FLASH_TC_CALL(HD, HD, BQ, BK, true, false, true);                   \
+    }                                                                                        \
+    REMOP_FLASH_TC_NO_LSE(HD, HD, BQ, BK)                                                    \
+  }
+  REMOP_FLASH_TC_WITH_LSE(64, 64, 64)
+  REMOP_FLASH_TC_WITH_LSE(64, 64, 128)
+  REMOP_FLASH_TC_WITH_LSE(64, 128, 64)
+  REMOP_FLASH_TC_WITH_LSE(64, 128, 128)
+  REMOP_FLASH_TC_WITH_LSE(128, 64, 64)
+  REMOP_FLASH_TC_WITH_LSE(128, 64, 128)
+  REMOP_FLASH_TC_WITH_LSE(128, 128, 64)
+  REMOP_FLASH_TC_WITH_LSE(128, 128, 128)
   REMOP_FLASH_TC(256, 256, 64, 64)
   REMOP_FLASH_TC(256, 256, 128, 64)
   REMOP_FLASH_TC(192, 128, 64, 64)
   REMOP_FLASH_TC(192, 128, 64, 128)
   REMOP_FLASH_TC(192, 128, 128, 64)
   REMOP_FLASH_TC(192, 128, 128, 128)
+#undef REMOP_FLASH_TC_WITH_LSE
 #undef REMOP_FLASH_TC
+#undef REMOP_FLASH_TC_NO_LSE
 #undef REMOP_FLASH_TC_CALL
   return cudaErrorInvalidValue;
 }
 
-template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP>
+template <int HD, int HDV, int BQ, int BK, bool SPLIT, bool CAP, bool LSE>
 auto tc_kernel_for(cudaError_t* err) {
-  auto kernel = flash_attention_kernel_tc<HD, HDV, BQ, BK, SPLIT, CAP>;
+  auto kernel = flash_attention_kernel_tc<HD, HDV, BQ, BK, SPLIT, CAP, LSE>;
   *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               TcLayout<HD, HDV, BQ, BK>::kSmem);
   return kernel;
@@ -686,9 +717,10 @@ bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* s
 // strides: q, k, v, o, each (batch, head, position), in elements.
 int launch_tc(const void* q, const void* k, const void* v, void* o, const long long* strides,
               int b, int h, int kv, int s, int t, int hd, int bq, int bk, float scale, int split,
-              int hd_v, int window, int prefix, float softcap, void* stream) {
+              int hd_v, int window, int prefix, float softcap, float* lse, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
-  if (!shape_ok(h, kv, s, t, window, prefix, softcap) || !tc_ok(hd, hd_v, bq, bk))
+  if (!shape_ok(h, kv, s, t, window, prefix, softcap) || !tc_ok(hd, hd_v, bq, bk) ||
+      reinterpret_cast<uintptr_t>(lse) % 4)
     return cudaErrorInvalidValue;
   const uint64_t dq[4] = {uint64_t(hd), uint64_t(s), uint64_t(h), uint64_t(b)};
   const uint64_t dkv[4] = {uint64_t(hd), uint64_t(t), uint64_t(kv), uint64_t(b)};
@@ -716,17 +748,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
              softcap};
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((s + bq - 1) / bq, h, b);
-  return tc_dispatch(hd, hd_v, bq, bk, split, softcap > 0.f,
+  return tc_dispatch(hd, hd_v, bq, bk, split, softcap > 0.f, lse != nullptr,
                      [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c,
-                         auto cap_c) -> int {
+                         auto cap_c, auto lse_c) -> int {
     constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
     constexpr int BQ = decltype(bq_c)::value, BK = decltype(bk_c)::value;
     cudaError_t err;
-    auto kernel =
-        tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value, decltype(cap_c)::value>(&err);
+    auto kernel = tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value,
+                                decltype(cap_c)::value, decltype(lse_c)::value>(&err);
     if (err != cudaSuccess) return err;
     kernel<<<grid, BQ / 64 * 128 + kProducerThreads, TcLayout<HD, HDV, BQ, BK>::kSmem, st>>>(
-        map_q, map_k, map_v, p);
+        map_q, map_k, map_v, p, lse);
     return cudaGetLastError();
   });
 }
@@ -735,14 +767,14 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, const long l
 // thread, local (spilled) bytes a thread, dynamic shared memory, threads.
 int occupancy_tc(int hd, int hd_v, int bq, int bk, int split, int cap, int* out) {
   if (!tc_ok(hd, hd_v, bq, bk)) return cudaErrorInvalidValue;
-  return tc_dispatch(hd, hd_v, bq, bk, split, cap != 0,
+  return tc_dispatch(hd, hd_v, bq, bk, split, cap != 0, false,
                      [&](auto hd_c, auto hdv_c, auto bq_c, auto bk_c, auto split_c,
-                         auto cap_c) -> int {
+                         auto cap_c, auto lse_c) -> int {
     constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
     constexpr int BQ = decltype(bq_c)::value, BK = decltype(bk_c)::value;
     cudaError_t err;
-    auto kernel =
-        tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value, decltype(cap_c)::value>(&err);
+    auto kernel = tc_kernel_for<HD, HDV, BQ, BK, decltype(split_c)::value,
+                                decltype(cap_c)::value, decltype(lse_c)::value>(&err);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
@@ -790,7 +822,18 @@ int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* 
                              int hd, int bq, int bk, float scale, int split, int hd_v,
                              int window, int prefix, float softcap, void* stream) {
   return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
-                   window, prefix, softcap, stream);
+                   window, prefix, softcap, nullptr, stream);
+}
+
+// The same launch that also writes each row's log-sum-exp into lse, f32 [B,
+// H, S], contiguous (hd = hd_v = 64 or 128; the LSE instantiations).
+int remop_flash_attention_tc_lse(const void* q, const void* k, const void* v, void* o,
+                                 const long long* strides, int b, int h, int kv, int s, int t,
+                                 int hd, int bq, int bk, float scale, int split, int hd_v,
+                                 int window, int prefix, float softcap, float* lse,
+                                 void* stream) {
+  return launch_tc(q, k, v, o, strides, b, h, kv, s, t, hd, bq, bk, scale, split, hd_v,
+                   window, prefix, softcap, lse, stream);
 }
 
 // Occupancy of the tensor-core instantiation these blocks launch (cap != 0:

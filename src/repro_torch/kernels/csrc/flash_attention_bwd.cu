@@ -1,24 +1,66 @@
 // The gradient of the causal GQA flash attention kernel (flash_attention.cu)
-// for Hopper (sm_90a), on the CUDA cores.
+// for Hopper (sm_90a): a tensor-core route and a CUDA-core route.
 //
-// The TPU kernel src/repro/kernels/flash_attention/flash_attention.py:72
-// has no backward: the JAX package trains through XLA's autodiff of
-// full_attention / chunked_attention (src/repro/models/attention.py:67-131).
-// The port's forward on the card is the hand-written flash kernel, so its
-// gradient is one too.  Given q [B, H, S, hd], k [B, KV, T, hd], v [B, KV,
-// T, hd_v], the forward's output o and its gradient do [B, H, S, hd_v], it
-// computes dq, dk and dv of what the forward computes, with the forward's
-// mask (causal with the query positions offset by T - S, `window`, `prefix`
-// including every key and S > T, visible() copied from the forward), its
-// `scale` and its `softcap` (bf16 through hopper::softcap's exp2f form, f32
-// through tanhf, as the forward caps).  Three launches a call, on the
-// caller's stream, in this order:
+// It replaces no Pallas kernel: the TPU kernel
+// src/repro/kernels/flash_attention/flash_attention.py:72 has no backward,
+// and the JAX package trains through XLA's autodiff of full_attention /
+// chunked_attention (src/repro/models/attention.py:67-131).  The port's
+// forward on the card is the hand-written flash kernel, whose launch records
+// nothing for autograd, so its gradient is hand-written too.  Given q [B, H,
+// S, hd], k [B, KV, T, hd], v [B, KV, T, hd_v], the forward's output o and
+// its gradient do [B, H, S, hd_v], it computes dq, dk and dv of what the
+// forward computes, with the forward's mask (causal with the query positions
+// offset by T - S, `window`, `prefix` including every key and S > T,
+// visible() and the KV walk copied from the forward), its `scale` and its
+// `softcap` (bf16 through hopper::softcap's exp2f form, f32 through tanhf,
+// as the forward caps).  Per visible (query, key) pair: P = exp(s_c - lse),
+// dV += P^T dO, dP = dO V^T, dS = P (dP - D) with D = sum(dO * O) (times 1
+// - (s_c / c)^2 when capped), dQ += dS K, dK += dS^T Q; dQ and dK times
+// `scale`, each gradient rounded once.  Neither route uses atomics: two
+// calls give the same bits.
+//
+// What bounds it on this card: the operations.  Five products of 2 hd
+// flops (at hd = hd_v) make 10 hd flops a visible pair (0.174 ms at
+// qwen3-0.6b's [4, 16, 2048, 128] at 989 TFLOP/s), against a few bytes a
+// pair.  Splitting dQ from dK/dV without atomics forms S and dP twice: 14 hd.
+//
+// Tensor-core route (dq_tc_kernel, dkdv_tc_kernel): bf16 at hd = hd_v = 64
+// or 128, TMA-aligned q, k, v and do, two launches on the caller's stream.
+// Each row's log-sum-exp comes from the forward (flash_attention.cu writes
+// it into an f32 [B, H, S] buffer when asked), so nothing recomputes Q K^T
+// for it.  Both kernels take the forward's tensor-core shape: one producer
+// warpgroup (setmaxnreg 40) whose first thread issues TMA copies over rank-4
+// maps with each tensor's own strides (boxes of 64 columns in the 128-byte
+// swizzle, rows past S or T zero-filled), two consumer warpgroups
+// (setmaxnreg 232), each owning 64 rows of the CTA's own tile, a two-stage
+// ring of streamed blocks on mbarriers, every product on wgmma with f32
+// accumulators in registers.
+//   dq_tc: one CTA per (128 query rows, head, batch), the heaviest (last)
+//     first.  Q and dO land once; the prologue forms D of its rows from O
+//     and dO (written to f32 scratch for dkdv_tc).  Per KV block of 64
+//     (K and V on separate barriers): S = Q K^T and dP = dO V^T (both
+//     operands K-major), then P and dS in registers, then dQ += dS K with
+//     dS as the register A operand and K read MN-major (the transpose bit).
+//   dkdv_tc: one CTA per (128 keys, KV head, batch), the first KV blocks
+//     (seen by the most queries) first.  K and V land once; for each query
+//     head of the GQA group and each query block of 64 rows that sees the
+//     tile, Q and dO stream through the ring and the producer's second warp
+//     stages the block's lse and D.  S^T = K Q^T and dP^T = V dO^T, then P^T
+//     and dS^T in registers, then dV += P^T dO and dK += dS^T Q (register A,
+//     dO and Q MN-major).  The group's sum stays inside the CTA.
+// P and dS keep f32 precision into their products as the forward keeps P:
+// x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each, so
+// the design does 14 hd + 6 hd = 20 hd flops a pair on the tensor cores.
+// The capped dkdv at hd 128 streams 32 query rows a block (at 64 it spills).
+//
+// CUDA-core route (prep_kernel, dq_kernel, dkdv_kernel): every f32 call, hd
+// 256, (192, 128), and bf16 the tensor-core route does not take.  Three
+// launches a call, in this order:
 //
 //   prep: one CTA per (query block, head, batch) walks the KV blocks its
 //     rows see, as the forward does, and keeps each row's running max and
 //     sum (16 threads a row) to give lse = m + log(l); it also forms
 //     D = sum(do * o) over the row.  Both land in f32 [B, H, S] scratch.
-//     The forward is not touched, so a call without grad keeps its bits.
 //   dq: one CTA per (query block, head, batch), the forward's walk over
 //     the visible KV blocks.  Per block: V is staged and dP = dO V^T formed,
 //     then K is staged where V was and S = Q K^T formed; P = exp(s_c -
@@ -30,23 +72,23 @@
 //     each, the query blocks that can see the tile; per block it forms S^T
 //     and dP^T (keys x queries), then P^T and dS^T through shared memory,
 //     and accumulates dV += P^T dO and dK += dS^T Q in registers.  The sum
-//     over the GQA group stays inside the CTA: no atomics, so two calls
-//     give the same bits.  dK * scale and dV are rounded once to k's dtype.
+//     over the GQA group stays inside the CTA.  dK * scale and dV are
+//     rounded once to k's dtype.
 //
 // 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16 i and columns
 // tx + 16 j of each 64 x 64 tile (bq, bk <= 64, planned on the host under
 // the 227 KB of shared memory a CTA may use), as the forward's CUDA-core
 // route does; staged rows are padded by one 32-bit word.  Every product
-// multiplies in f32 with FMAs.  What bounds it on this card: the
-// operations, 10 hd flops (five products) a visible (query, key) pair at
-// the widths the models train at, here on the CUDA cores; the tensor-core
-// redesign (wgmma, TMA, the log-sum-exp from the forward) is later work.
+// multiplies in f32 with FMAs.
 
 #include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -569,6 +611,665 @@ int attributes(int hd, int hd_v, int* out) {
   return cudaErrorInvalidValue;
 }
 
+// ----------------------------------------------------------------------------
+// Tensor-core route: bf16 at (hd, hd_v) = (64, 64) or (128, 128)
+// ----------------------------------------------------------------------------
+
+constexpr int kProducerThreads = 128;  // one warpgroup, after the consumers
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct TcParams {
+  const void* o;     // the forward's output, for D
+  const void* dout;  // its gradient, for D
+  void* dq;
+  void* dk;
+  void* dv;
+  const float* lse;  // [B, H, S], written by the forward
+  float* delta;      // [B, H, S], written by dq_tc, read by dkdv_tc
+  // Element strides: q, k, v, o, do, dq, dk, dv, each (batch, head, position).
+  int64_t st[24];
+  int h, kv, s, t;
+  float scale;
+  int window, prefix;
+  float softcap;
+};
+
+// Shared memory of dq_tc (byte offsets from a 1024-byte-aligned base): Q
+// then dO, each as hd / 64 slabs of BQ rows x 128 bytes; two stages of K
+// and V, each hd / 64 slabs of BK rows; the mbarriers q_full, k_full[2],
+// v_full[2], empty[2]; 1024 bytes of slack to align the base.
+__host__ __device__ constexpr int dq_tc_smem(int hd, int bq, int bk) {
+  return 1024 + 2 * bq * hd * 2 + 4 * bk * hd * 2 + 7 * 8;
+}
+// dkdv_tc: K then V, each hd / 64 slabs of BKV rows; two stages of Q and
+// dO, each hd / 64 slabs of BQ rows; lse (times log2 e) and D of each
+// stage's BQ rows, f32; the mbarriers kv_full, q_full[2], do_full[2],
+// empty[2]; 1024 bytes of slack.
+__host__ __device__ constexpr int dkdv_tc_smem(int hd, int bkv, int bq) {
+  return 1024 + 2 * bkv * hd * 2 + 4 * bq * hd * 2 + 4 * bq * 4 + 7 * 8;
+}
+
+template <int HD, int BQ, int BK>
+struct DqLayout {
+  static constexpr int kQBytes = BQ * HD * 2;  // Q, then dO
+  static constexpr int kKBytes = BK * HD * 2;  // one K or V block
+  static constexpr int kStage = 2 * kKBytes;
+  static constexpr int kBars = 2 * kQBytes + 2 * kStage;
+  static constexpr int kSmem = dq_tc_smem(HD, BQ, BK);
+};
+
+template <int HD, int BKV, int BQ>
+struct KvLayout {
+  static constexpr int kKBytes = BKV * HD * 2;  // K, then V
+  static constexpr int kQBytes = BQ * HD * 2;   // one Q or dO block
+  static constexpr int kStage = 2 * kQBytes;
+  static constexpr int kStats = 2 * kKBytes + 2 * kStage;  // lse[2][BQ], then D[2][BQ]
+  static constexpr int kBars = kStats + 4 * BQ * 4;
+  static constexpr int kSmem = dkdv_tc_smem(HD, BKV, BQ);
+};
+
+// The A fragments (hopper::wgmma_bf16_rs) of an f32 accumulator fragment
+// of N columns, as hi = bf16(x) and lo = bf16(x - hi): the product with
+// both keeps about 16 significant bits of x, as the forward keeps P.
+template <int N>
+__device__ __forceinline__ void split_frags(const float (&x)[N / 2], uint32_t (&hi)[N / 16][4],
+                                            uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = x[8 * kk + 2 * e], c = x[8 * kk + 2 * e + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+      const float2 back = __bfloat1622float2(h);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(a - back.x, c - back.y);
+      hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][e] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+  }
+}
+
+// P = exp(s_c - lse) of a visible pair (0 where hidden) and dS = P (dP -
+// D), times 1 - (s_c / c)^2 when capped; `dot` is the raw Q.K product,
+// lse2 = lse * log2 e.  P lands in `dot`'s place, dS in `dp`'s.
+template <bool CAP>
+__device__ __forceinline__ void p_and_ds(float& dot, float& dp, bool seen, float lse2, float d,
+                                         const TcParams& p, float cap_k) {
+  float x = dot * p.scale;
+  if constexpr (CAP) x = hopper::softcap<true>(x, p.softcap, cap_k);
+  const float pr = seen ? exp2f(fmaf(x, kLog2e, -lse2)) : 0.f;
+  float ds = pr * (dp - d);
+  if constexpr (CAP) {
+    const float u = x / p.softcap;
+    ds *= 1.f - u * u;
+  }
+  dot = pr;
+  dp = ds;
+}
+
+// Rows (r0, r0 + 8) of an accumulator fragment of W columns, times `mul`,
+// to bf16 rows of `g` (position stride `ps`); rows at or past `limit` skipped.
+template <int W>
+__device__ __forceinline__ void store_rows(const float (&acc)[W / 2], __nv_bfloat16* g,
+                                           int64_t ps, int r0, int limit, int lane, float mul) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= limit) continue;
+    __nv_bfloat16* out = g + int64_t(row) * ps + 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * half] * mul, acc[4 * c + 2 * half + 1] * mul);
+  }
+}
+
+// -- dq_tc ------------------------------------------------------------------------
+
+// One consumer warpgroup w: query rows [q0 + 64w, q0 + 64w + 64); this
+// thread holds rows r0 and r0 + 8 of the fragments.  KV blocks j0 .. n_kv -
+// 1; the i-th (i = j - j0) sits in ring stage i % 2 at parity (i / 2) % 2.
+template <int HD, int BQ, int BK, bool CAP>
+__device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full,
+                                           uint64_t* k_full, uint64_t* v_full, uint64_t* empty,
+                                           const TcParams& p, int w, int warp, int lane, int q0,
+                                           int head, int b, int offset, int j0, int n_kv) {
+  using L = DqLayout<HD, BQ, BK>;
+  const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
+  const KeyRange seen0 = visible(r0 + offset, p.t, p.prefix, p.window);
+  const KeyRange seen1 = visible(r0 + 8 + offset, p.t, p.prefix, p.window);
+  const uint32_t q_addr = hopper::smem_u32(smem) + w * 64 * 128;
+  const uint32_t do_addr = q_addr + L::kQBytes;
+  const int64_t bh = int64_t(b) * p.h + head;
+
+  // D = sum(dO * O) of rows r0 and r0 + 8 (the 4 lanes of a row split its
+  // columns), written for dkdv_tc; lse of the same rows, times log2 e.
+  float dd[2], lse2[2];
+  const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) + b * p.st[9] + head * p.st[10];
+  const __nv_bfloat16* dog =
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.st[12] + head * p.st[13];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    float d = 0.f;
+    if (row < p.s) {
+      const __nv_bfloat16* orow = og + int64_t(row) * p.st[11] + 2 * (lane & 3);
+      const __nv_bfloat16* drow = dog + int64_t(row) * p.st[14] + 2 * (lane & 3);
+#pragma unroll 4
+      for (int c = 0; c < HD / 8; ++c) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + 8 * c));
+        const float2 e = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + 8 * c));
+        d = fmaf(a.y, e.y, fmaf(a.x, e.x, d));
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    dd[half] = d;
+    lse2[half] = row < p.s ? p.lse[bh * p.s + row] * kLog2e : 0.f;
+    if (row < p.s && (lane & 3) == 0) p.delta[bh * p.s + row] = d;
+  }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) acc[r] = 0.f;
+  const float cap_k = CAP ? hopper::softcap_k(p.softcap) : 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int j = j0; j < n_kv; ++j) {
+    const int s = (j - j0) & 1;
+    const uint32_t parity = ((j - j0) >> 1) & 1;
+    const uint32_t k_addr = hopper::smem_u32(smem + 2 * L::kQBytes + s * L::kStage);
+    const uint32_t v_addr = k_addr + L::kKBytes;
+
+    // S = Q K^T and dP = dO V^T: column c of both fragments is key j * BK + c.
+    float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) sc[r] = dp[r] = 0.f;
+    hopper::mbar_wait(&k_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(sc);
+    hopper::fence_operands(dp);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_bf16<0, 0>(
+          sc, hopper::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024),
+          hopper::desc_sw128(k_addr + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::mbar_wait(&v_full[s], parity);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_bf16<0, 0>(
+          dp, hopper::desc_sw128(do_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024),
+          hopper::desc_sw128(v_addr + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+    hopper::fence_operands(dp);
+
+    const int k0 = j * BK;
+#pragma unroll
+    for (int r = 0; r < BK / 2; ++r) {
+      const int col = k0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      const int lower = (r >> 1) & 1;  // row r0 + 8
+      const KeyRange& seen = lower ? seen1 : seen0;
+      p_and_ds<CAP>(sc[r], dp[r], sees(seen, col, p.window), lse2[lower], dd[lower], p, cap_k);
+    }
+
+    // dQ += dS K: dS from registers, K MN-major through the transpose bit.
+    uint32_t dh[BK / 16][4], dl[BK / 16][4];
+    split_frags<BK>(dp, dh, dl);
+    hopper::wgmma_fence();
+    hopper::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = hopper::desc_sw128(k_addr + kk * 2048, BK * 128, 1024);
+      hopper::wgmma_bf16_rs<1>(acc, dh[kk], db);
+      hopper::wgmma_bf16_rs<1>(acc, dl[kk], db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      hopper::fence_operands(dh[kk]);
+      hopper::fence_operands(dl[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.st[15] + head * p.st[16];
+  store_rows<HD>(acc, dqg, p.st[17], r0, p.s, lane, p.scale);
+}
+
+// One CTA per (BQ query rows, head, batch), heaviest (last) blocks first:
+// BQ / 64 consumer warpgroups and one producer warpgroup (setmaxnreg 40 /
+// 232, as the forward's tensor-core kernel).
+template <int HD, int BQ, int BK, bool CAP>
+__global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
+    dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do, TcParams p) {
+  using L = DqLayout<HD, BQ, BK>;
+  constexpr int kWarpgroups = BQ / 64;
+  constexpr int kSlabs = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = q_full + 3;
+  uint64_t* empty = q_full + 5;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (p.h / p.kv);
+  const int offset = p.t - p.s;
+  const int q0 = qb * BQ;
+  const int q_last = min(q0 + BQ, p.s) - 1 + offset;
+  const int n_kv = kv_blocks(q_last, p.t, BK, p.prefix);
+  const int j0 = p.window ? max(0, q0 + offset - p.window + 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kWarpgroups);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * kWarpgroups) {
+    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * kWarpgroups && lane == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, 2 * L::kQBytes);
+      for (int i = 0; i < kSlabs; ++i) {
+        hopper::tma_load_4d(smem + i * BQ * 128, &map_q, q_full, 64 * i, q0, head, b);
+        hopper::tma_load_4d(smem + L::kQBytes + i * BQ * 128, &map_do, q_full, 64 * i, q0, head,
+                            b);
+      }
+      for (int j = j0; j < n_kv; ++j) {
+        const int s = (j - j0) & 1;
+        hopper::mbar_wait(&empty[s], (((j - j0) >> 1) & 1) ^ 1);
+        unsigned char* ks = smem + 2 * L::kQBytes + s * L::kStage;
+        hopper::mbar_arrive_expect_tx(&k_full[s], L::kKBytes);
+        for (int i = 0; i < kSlabs; ++i)
+          hopper::tma_load_4d(ks + i * BK * 128, &map_k, &k_full[s], 64 * i, j * BK, kvh, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], L::kKBytes);
+        for (int i = 0; i < kSlabs; ++i)
+          hopper::tma_load_4d(ks + L::kKBytes + i * BK * 128, &map_v, &v_full[s], 64 * i, j * BK,
+                              kvh, b);
+      }
+    }
+  } else {
+    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dq_consume<HD, BQ, BK, CAP>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane, q0,
+                                head, b, offset, j0, n_kv);
+  }
+}
+
+// -- dkdv_tc ------------------------------------------------------------------------
+
+// The query rows that see some key of [k0, k_last]: all of them when the
+// tile starts inside the prefix, else those at or past its first key;
+// under a window, those whose window still reaches its last key.
+struct RowRange {
+  int first, last;
+};
+__device__ __forceinline__ RowRange seeing_rows(int k0, int k_last, const TcParams& p) {
+  const int offset = p.t - p.s;
+  return {k0 < p.prefix ? 0 : max(0, k0 - offset),
+          min(p.s - 1, p.window ? k_last + p.window - 1 - offset : p.s - 1)};
+}
+
+// One consumer warpgroup w: keys [k0 + 64w, k0 + 64w + 64); this thread
+// holds keys kr0 and kr0 + 8.  Step i of the walk (head i / n_q of the
+// group, query block first_qb + i % n_q) sits in stage i % 2 at parity
+// (i / 2) % 2.
+template <int HD, int BKV, int BQ, bool CAP>
+__device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_full,
+                                             uint64_t* q_full, uint64_t* do_full,
+                                             uint64_t* empty, const TcParams& p, int w, int warp,
+                                             int lane, int k0, int kvh, int b, int first_qb,
+                                             int n_q, int steps) {
+  using L = KvLayout<HD, BKV, BQ>;
+  const int kr0 = k0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
+  const uint32_t k_addr = hopper::smem_u32(smem) + w * 64 * 128;
+  const uint32_t v_addr = k_addr + L::kKBytes;
+  const int offset = p.t - p.s;
+  const float cap_k = CAP ? hopper::softcap_k(p.softcap) : 0.f;
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) dk[r] = dv[r] = 0.f;
+
+  if (steps > 0) hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int q0 = (first_qb + i % n_q) * BQ;
+    const uint32_t q_addr = hopper::smem_u32(smem + 2 * L::kKBytes + s * L::kStage);
+    const uint32_t do_addr = q_addr + L::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::kStats) + s * BQ;
+    const float* d_s = lse_s + 2 * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: column c of both is query q0 + c.
+    float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) st[r] = dpt[r] = 0.f;
+    hopper::mbar_wait(&q_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(st);
+    hopper::fence_operands(dpt);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_bf16<0, 0>(
+          st, hopper::desc_sw128(k_addr + (kk >> 2) * BKV * 128 + (kk & 3) * 32, 16, 1024),
+          hopper::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::mbar_wait(&do_full[s], parity);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_bf16<0, 0>(
+          dpt, hopper::desc_sw128(v_addr + (kk >> 2) * BKV * 128 + (kk & 3) * 32, 16, 1024),
+          hopper::desc_sw128(do_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(st);
+    hopper::fence_operands(dpt);
+
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) {
+      const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      const int key = kr0 + 8 * ((r >> 1) & 1);
+      const int row = q0 + c, qpos = row + offset;
+      const bool seen = row < p.s && key < p.t && (key <= qpos || key < p.prefix) &&
+                        (!p.window || key > qpos - p.window);
+      p_and_ds<CAP>(st[r], dpt[r], seen, lse_s[c], d_s[c], p, cap_k);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers, dO and Q
+    // MN-major through the transpose bit.
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dl[BQ / 16][4];
+    split_frags<BQ>(st, ph, pl);
+    split_frags<BQ>(dpt, dh, dl);
+    hopper::wgmma_fence();
+    hopper::fence_operands(dv);
+    hopper::fence_operands(dk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint64_t ddo = hopper::desc_sw128(do_addr + kk * 2048, BQ * 128, 1024);
+      hopper::wgmma_bf16_rs<1>(dv, ph[kk], ddo);
+      hopper::wgmma_bf16_rs<1>(dv, pl[kk], ddo);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint64_t dqd = hopper::desc_sw128(q_addr + kk * 2048, BQ * 128, 1024);
+      hopper::wgmma_bf16_rs<1>(dk, dh[kk], dqd);
+      hopper::wgmma_bf16_rs<1>(dk, dl[kk], dqd);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dv);
+    hopper::fence_operands(dk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hopper::fence_operands(ph[kk]);
+      hopper::fence_operands(pl[kk]);
+      hopper::fence_operands(dh[kk]);
+      hopper::fence_operands(dl[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
+  store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
+  store_rows<HD>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
+}
+
+// One CTA per (BKV keys, KV head, batch), the first KV blocks (seen by the
+// most queries) first: BKV / 64 consumer warpgroups and one producer
+// warpgroup, whose first warp issues the copies (K and V once, then Q and
+// dO of each step) and whose second loads each step's lse and D.
+template <int HD, int BKV, int BQ, bool CAP>
+__global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
+    dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do, TcParams p) {
+  using L = KvLayout<HD, BKV, BQ>;
+  constexpr int kWarpgroups = BKV / 64;
+  constexpr int kSlabs = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* do_full = kv_full + 3;
+  uint64_t* empty = kv_full + 5;
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int group = p.h / p.kv;
+  const int k0 = blockIdx.x * BKV;
+  const RowRange rows = seeing_rows(k0, min(k0 + BKV, p.t) - 1, p);
+  const int first_qb = rows.first / BQ;
+  const int n_q = rows.first <= rows.last ? rows.last / BQ - first_qb + 1 : 0;
+  const int steps = group * n_q;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&do_full[s], 1 + 32);  // the copies, and each lane of the stats warp
+      hopper::mbar_init(&empty[s], 4 * kWarpgroups);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * kWarpgroups) {
+    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * kWarpgroups && lane == 0 && steps > 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * L::kKBytes);
+      for (int i = 0; i < kSlabs; ++i) {
+        hopper::tma_load_4d(smem + i * BKV * 128, &map_k, kv_full, 64 * i, k0, kvh, b);
+        hopper::tma_load_4d(smem + L::kKBytes + i * BKV * 128, &map_v, kv_full, 64 * i, k0, kvh,
+                            b);
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i & 1;
+        const int head = kvh * group + i / n_q, q0 = (first_qb + i % n_q) * BQ;
+        hopper::mbar_wait(&empty[s], ((i >> 1) & 1) ^ 1);
+        unsigned char* qs = smem + 2 * L::kKBytes + s * L::kStage;
+        hopper::mbar_arrive_expect_tx(&q_full[s], L::kQBytes);
+        for (int j = 0; j < kSlabs; ++j)
+          hopper::tma_load_4d(qs + j * BQ * 128, &map_q, &q_full[s], 64 * j, q0, head, b);
+        hopper::mbar_arrive_expect_tx(&do_full[s], L::kQBytes);
+        for (int j = 0; j < kSlabs; ++j)
+          hopper::tma_load_4d(qs + L::kQBytes + j * BQ * 128, &map_do, &do_full[s], 64 * j, q0,
+                              head, b);
+      }
+    } else if (warp == 4 * kWarpgroups + 1) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i & 1;
+        const int head = kvh * group + i / n_q, q0 = (first_qb + i % n_q) * BQ;
+        const int64_t base = (int64_t(b) * p.h + head) * p.s;
+        hopper::mbar_wait(&empty[s], ((i >> 1) & 1) ^ 1);
+        float* lse_s = reinterpret_cast<float*>(smem + L::kStats) + s * BQ;
+        float* d_s = lse_s + 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool live = q0 + r < p.s;
+          lse_s[r] = live ? p.lse[base + q0 + r] * kLog2e : 0.f;
+          d_s[r] = live ? p.delta[base + q0 + r] : 0.f;
+        }
+        hopper::mbar_arrive(&do_full[s]);
+      }
+    }
+  } else {
+    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dkdv_consume<HD, BKV, BQ, CAP>(smem, kv_full, q_full, do_full, empty, p, warp / 4, warp, lane,
+                                   k0, kvh, b, first_qb, n_q, steps);
+  }
+}
+
+// -- host (tensor-core route) --------------------------------------------------------
+
+// The blocks the route takes: dq_tc at (bq, bk) = (128, 64), dkdv_tc at
+// (bkv, bq) = (128, 64) or (128, 32), hd = hd_v = 64 or 128.
+// f(integral_constant<HD>, <DQ_BQ>, <DQ_BK>, <KV_BK>, <KV_BQ>, bool_constant<CAP>).
+template <typename F>
+int tc_dispatch(int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq, bool cap, F&& f) {
+#define REMOP_BWD_TC_CALL(HD, KV_BQ, CAP)                                                     \
+  f(std::integral_constant<int, HD>{}, std::integral_constant<int, 128>{},                   \
+    std::integral_constant<int, 64>{}, std::integral_constant<int, 128>{},                   \
+    std::integral_constant<int, KV_BQ>{}, std::bool_constant<CAP>{})
+#define REMOP_BWD_TC(HD, KV_BQ)                                                               \
+  if (hd == HD && kv_bq == KV_BQ)                                                            \
+    return cap ? REMOP_BWD_TC_CALL(HD, KV_BQ, true) : REMOP_BWD_TC_CALL(HD, KV_BQ, false);
+  if (dq_bq != 128 || dq_bk != 64 || kv_bk != 128) return cudaErrorInvalidValue;
+  REMOP_BWD_TC(64, 64)
+  REMOP_BWD_TC(64, 32)
+  REMOP_BWD_TC(128, 64)
+  REMOP_BWD_TC(128, 32)
+#undef REMOP_BWD_TC
+#undef REMOP_BWD_TC_CALL
+  return cudaErrorInvalidValue;
+}
+
+// TMA byte strides of dims 1..3 of a tensor with extents dims[0..3]
+// (innermost first) and element strides st[0..2] of dims 1..3 (the
+// forward's tma_strides: a dim of extent 1 is never stepped).
+void tma_strides(const uint64_t (&dims)[4], const long long* st, uint64_t (&out)[3]) {
+  uint64_t extent = dims[0] * 2;
+  for (int i = 0; i < 3; ++i) {
+    out[i] = dims[i + 1] == 1 ? extent : uint64_t(st[i]) * 2;
+    extent = out[i] * dims[i + 1] > extent ? out[i] * dims[i + 1] : extent;
+  }
+}
+
+bool tma_aligned(const void* base, const uint64_t (&dims)[4], const long long* st) {
+  if (reinterpret_cast<uintptr_t>(base) % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] > 1 && (st[i] <= 0 || st[i] % 8)) return false;
+  return true;
+}
+
+// A rank-4 map over (hd, position, head, batch) of a tensor whose (batch,
+// head, position) element strides are strides[3 * idx .. 3 * idx + 2],
+// read in boxes of `rows` positions; false if TMA cannot take it.
+bool encode(CUtensorMap* map, const void* base, const long long* strides, int idx, int hd,
+            int positions, int heads, int b, int rows) {
+  const uint64_t dims[4] = {uint64_t(hd), uint64_t(positions), uint64_t(heads), uint64_t(b)};
+  const long long st[3] = {strides[3 * idx + 2], strides[3 * idx + 1], strides[3 * idx]};
+  uint64_t bst[3];
+  if (!tma_aligned(base, dims, st)) return false;
+  tma_strides(dims, st, bst);
+  return hopper::encode_bf16_4d(map, base, dims, bst, rows);
+}
+
+template <int HD, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP>
+cudaError_t tc_kernels(const void** dq_kernel, const void** kv_kernel) {
+  auto dq = dq_tc_kernel<HD, DQ_BQ, DQ_BK, CAP>;
+  auto kv = dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DqLayout<HD, DQ_BQ, DQ_BK>::kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             KvLayout<HD, KV_BK, KV_BQ>::kSmem);
+  *dq_kernel = reinterpret_cast<const void*>(dq);
+  *kv_kernel = reinterpret_cast<const void*>(kv);
+  return err;
+}
+
+int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              void* dq, void* dk, void* dv, const void* lse, void* delta,
+              const long long* strides, int b, int h, int kv, int s, int t, int hd, int dq_bq,
+              int dq_bk, int kv_bk, int kv_bq, float scale, int window, int prefix,
+              float softcap, void* stream) {
+  if (b <= 0 || s <= 0) return cudaSuccess;
+  if (kv <= 0 || h % kv || t <= 0 || !(s <= t || prefix >= t) || window < 0 || prefix < 0 ||
+      (window > 0 && prefix > 0) || !(softcap >= 0.f) || lse == nullptr || delta == nullptr)
+    return cudaErrorInvalidValue;
+  // The outputs and O are read and written as bf16 pairs.
+  for (int i : {3, 5, 6, 7})
+    if (strides[3 * i] % 2 || strides[3 * i + 1] % 2 || strides[3 * i + 2] % 2)
+      return cudaErrorInvalidValue;
+  for (const void* x : {o, static_cast<const void*>(dq), static_cast<const void*>(dk),
+                        static_cast<const void*>(dv)})
+    if (reinterpret_cast<uintptr_t>(x) % 4) return cudaErrorInvalidValue;
+  CUtensorMap dq_q{}, dq_k{}, dq_v{}, dq_do{}, kv_q{}, kv_k{}, kv_v{}, kv_do{};
+  if (!encode(&dq_q, q, strides, 0, hd, s, h, b, dq_bq) ||
+      !encode(&dq_k, k, strides, 1, hd, t, kv, b, dq_bk) ||
+      !encode(&dq_v, v, strides, 2, hd, t, kv, b, dq_bk) ||
+      !encode(&dq_do, dout, strides, 4, hd, s, h, b, dq_bq) ||
+      !encode(&kv_q, q, strides, 0, hd, s, h, b, kv_bq) ||
+      !encode(&kv_k, k, strides, 1, hd, t, kv, b, kv_bk) ||
+      !encode(&kv_v, v, strides, 2, hd, t, kv, b, kv_bk) ||
+      !encode(&kv_do, dout, strides, 4, hd, s, h, b, kv_bq))
+    return cudaErrorNotSupported;
+  TcParams p{o, dout, dq, dk, dv, static_cast<const float*>(lse), static_cast<float*>(delta),
+             {}, h, kv, s, t, scale, window, prefix, softcap};
+  for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
+  auto st = static_cast<cudaStream_t>(stream);
+  return tc_dispatch(hd, dq_bq, dq_bk, kv_bk, kv_bq, softcap > 0.f,
+                     [&](auto hd_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c, auto kv_bq_c,
+                         auto cap_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, DQ_BQ = decltype(dq_bq_c)::value;
+    constexpr int DQ_BK = decltype(dq_bk_c)::value, KV_BK = decltype(kv_bk_c)::value;
+    constexpr int KV_BQ = decltype(kv_bq_c)::value;
+    constexpr bool CAP = decltype(cap_c)::value;
+    const void *dq_kernel, *kv_kernel;
+    cudaError_t err = tc_kernels<HD, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP>(&dq_kernel, &kv_kernel);
+    if (err != cudaSuccess) return err;
+    dq_tc_kernel<HD, DQ_BQ, DQ_BK, CAP>
+        <<<dim3((s + DQ_BQ - 1) / DQ_BQ, h, b), DQ_BQ / 64 * 128 + kProducerThreads,
+           DqLayout<HD, DQ_BQ, DQ_BK>::kSmem, st>>>(dq_q, dq_k, dq_v, dq_do, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // After dq_tc on the same stream: it wrote D.
+    dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP>
+        <<<dim3((t + KV_BK - 1) / KV_BK, kv, b), KV_BK / 64 * 128 + kProducerThreads,
+           KvLayout<HD, KV_BK, KV_BQ>::kSmem, st>>>(kv_q, kv_k, kv_v, kv_do, p);
+    return cudaGetLastError();
+  });
+}
+
+// out[10]: for dq_tc then dkdv_tc, CTAs resident on one SM, registers a
+// thread, local (spilled) bytes a thread, dynamic shared memory, threads.
+int attributes_tc(int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq, int cap, int* out) {
+  return tc_dispatch(hd, dq_bq, dq_bk, kv_bk, kv_bq, cap != 0,
+                     [&](auto hd_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c, auto kv_bq_c,
+                         auto cap_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, DQ_BQ = decltype(dq_bq_c)::value;
+    constexpr int DQ_BK = decltype(dq_bk_c)::value, KV_BK = decltype(kv_bk_c)::value;
+    constexpr int KV_BQ = decltype(kv_bq_c)::value;
+    const void* kernels[2];
+    cudaError_t err = tc_kernels<HD, DQ_BQ, DQ_BK, KV_BK, KV_BQ, decltype(cap_c)::value>(
+        &kernels[0], &kernels[1]);
+    if (err != cudaSuccess) return err;
+    const int threads[2] = {DQ_BQ / 64 * 128 + kProducerThreads,
+                            KV_BK / 64 * 128 + kProducerThreads};
+    const int smem[2] = {DqLayout<HD, DQ_BQ, DQ_BK>::kSmem, KvLayout<HD, KV_BK, KV_BQ>::kSmem};
+    for (int i = 0; i < 2; ++i) {
+      cudaFuncAttributes a;
+      err = cudaFuncGetAttributes(&a, kernels[i]);
+      if (err != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5 * i], kernels[i], threads[i],
+                                                          smem[i]);
+      if (err != cudaSuccess) return err;
+      out[5 * i + 1] = a.numRegs;
+      out[5 * i + 2] = int(a.localSizeBytes);
+      out[5 * i + 3] = smem[i];
+      out[5 * i + 4] = threads[i];
+    }
+    return cudaSuccess;
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -600,6 +1301,28 @@ int remop_flash_attention_bwd_f32(const void* q, const void* k, const void* v, c
 // widths, into out[9].
 int remop_flash_attention_bwd_attributes(int is_f32, int hd, int hd_v, int* out) {
   return is_f32 ? attributes<float>(hd, hd_v, out) : attributes<__nv_bfloat16>(hd, hd_v, out);
+}
+
+// The tensor-core route: bf16, hd = hd_v = 64 or 128, TMA-aligned q, k,
+// v and do; lse: the forward's f32 [B, H, S] log-sum-exp (contiguous);
+// delta: f32 [B, H, S] scratch.  Blocks: dq_tc's (dq_bq, dq_bk) = (128,
+// 64), dkdv_tc's (kv_bk, kv_bq) = (128, 64) or (128, 32).  Two launches.
+int remop_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, void* dq, void* dk, void* dv, const void* lse,
+                                 void* delta, const long long* strides, int b, int h, int kv,
+                                 int s, int t, int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq,
+                                 float scale, int window, int prefix, float softcap,
+                                 void* stream) {
+  return launch_tc(q, k, v, o, dout, dq, dk, dv, lse, delta, strides, b, h, kv, s, t, hd, dq_bq,
+                   dq_bk, kv_bk, kv_bq, scale, window, prefix, softcap, stream);
+}
+
+// Occupancy, registers, local bytes, shared memory and threads of dq_tc
+// and dkdv_tc at these blocks (cap != 0: the capped instantiations), into
+// out[10].
+int remop_flash_attention_bwd_tc_attributes(int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq,
+                                            int cap, int* out) {
+  return attributes_tc(hd, dq_bq, dq_bk, kv_bk, kv_bq, cap, out);
 }
 
 const char* remop_flash_attention_bwd_error_string(int err) {

@@ -50,6 +50,14 @@ under the route's own name, ``"flash_attention_tc"`` or
 ``"flash_attention_prefix"`` and, when the prefix covers every key, also
 under ``"flash_attention_full"``.
 
+With ``return_lse=True`` the call also returns each row's log-sum-exp,
+f32 ``[B, H, S]``, ``m + log(l)`` in the scaled and capped score domain P
+is formed in: the tensor-core route writes it in its epilogue at ``(hd,
+hd_v)`` in :data:`LSE_HEAD_PAIRS` (the entry ``remop_flash_attention_tc_lse``
+and instantiations of their own, so a call without it passes and runs what
+it did before), other CUDA calls refuse it, the plain version computes it.
+The backward's tensor-core route reads it (``flash_attention_bwd``).
+
 Beside the wrapper is its plain PyTorch version, the same online softmax
 over the same KV blocks; a CPU tensor takes it, a CUDA tensor launches the
 kernel or raises.
@@ -79,6 +87,9 @@ HEAD_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + (MLA_HEAD_PAIR,)
 TC_HEAD_DIMS = (64, 128, 256)
 TC_HEAD_PAIRS = tuple((hd, hd) for hd in TC_HEAD_DIMS) + (MLA_HEAD_PAIR,)
 TC_BLOCKS = (64, 128)
+# The widths whose tensor-core forward is built to write each row's
+# log-sum-exp (return_lse): those the backward's tensor-core route takes.
+LSE_HEAD_PAIRS = ((64, 64), (128, 128))
 SMEM_LIMIT = H100.vmem_bytes  # shared memory one CTA may use (227 KB)
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -171,7 +182,8 @@ def first_block(q_pos: int, window: int, bk: int) -> int:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bk: int = MAX_BLOCK, scale: float | None = None,
-                          window: int = 0, prefix: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                          window: int = 0, prefix: int = 0, softcap: float = 0.0,
+                          return_lse: bool = False):
     """The kernel's arithmetic in PyTorch: online softmax over KV blocks of ``bk``.
 
     All query rows take every block from the first row's first visible one
@@ -182,6 +194,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by the query at position ``q`` iff ``k <= q`` or ``k < prefix`` (inside
     the window, if any).  The cap comes before the mask, so a hidden score
     is ``NEG_INF`` whatever the cap, and the argument holds with one.
+    With ``return_lse`` it returns ``(out, lse)``, lse = m + log(l) of each
+    row, f32 ``[B, H, S]``.
     """
     _check_mask(q.shape[2], k.shape[2], window, prefix)
     softcap = runtime.check_softcap(softcap)
@@ -205,7 +219,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p, vb[:, :, None])
         m = m_new
-    return (acc / l.clamp_min(1e-30)).reshape(b, h, s, hd_v).to(q.dtype)
+    out = (acc / l.clamp_min(1e-30)).reshape(b, h, s, hd_v).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l.clamp_min(1e-30))).reshape(b, h, s)
+    return out
 
 
 def _empty_out(q: torch.Tensor, hd_v: int) -> torch.Tensor:
@@ -224,7 +241,8 @@ def _empty_out(q: torch.Tensor, hd_v: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = MAX_BLOCK, bk: int = MAX_BLOCK,
                     split_p: bool = True, scale: float | None = None,
-                    window: int = 0, prefix: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                    window: int = 0, prefix: int = 0, softcap: float = 0.0,
+                    return_lse: bool = False):
     """q: [B, H, S, hd]; k: [B, KV, T, hd]; v: [B, KV, T, hd_v]; causal with
     offset T - S, and with ``window > 0`` only the last ``window`` keys up to
     each query's position, with ``prefix > 0`` also every key below
@@ -242,6 +260,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing for autograd, so training goes through ``remop_flash_attention``
     (``FlashAttentionFn``).  Query blocks do not
     change any row's arithmetic, so the plain version takes only ``bk``.
+    ``return_lse=True`` returns ``(out, lse)`` with each row's log-sum-exp,
+    f32 ``[B, H, S]``; on a CUDA tensor only the tensor-core route writes it,
+    at ``(hd, hd_v)`` in :data:`LSE_HEAD_PAIRS`.
     """
     _check(q, k, v, window, prefix)
     softcap = runtime.check_softcap(softcap)
@@ -256,7 +277,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if grad and not split_p:
         raise NotImplementedError("split_p=False is a probe, not a path: it has no backward")
     if runtime.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap)
+        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap, return_lse)
     if grad:
         raise NotImplementedError(
             "flash_attention launches the forward kernel alone, whose output carries no "
@@ -266,8 +287,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {hd} with value width {hd_v} not in {HEAD_PAIRS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the last dimension of q, k and v must be contiguous")
+    if return_lse and (path != "tc" or (hd, hd_v) not in LSE_HEAD_PAIRS):
+        raise ValueError(f"only the tensor-core route at (hd, hd_v) in {LSE_HEAD_PAIRS} writes "
+                         f"the log-sum-exp (return_lse); got {path} at {(hd, hd_v)}")
     kv, t = k.shape[1], k.shape[2]
     out = _empty_out(q, hd_v)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in (x.stride(0), x.stride(1), x.stride(2))))
     lib = runtime.library("flash_attention")
@@ -275,8 +300,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, kv, s, t, hd, bq, bk, scale)
     with torch.cuda.device(q.device):
         if path == "tc":
-            err = lib.remop_flash_attention_tc(*args, int(split_p), hd_v, window, prefix,
-                                               softcap, runtime.stream_of(q))
+            tail = (int(split_p), hd_v, window, prefix, softcap)
+            if lse is None:
+                err = lib.remop_flash_attention_tc(*args, *tail, runtime.stream_of(q))
+            else:
+                err = lib.remop_flash_attention_tc_lse(*args, *tail, lse.data_ptr(),
+                                                       runtime.stream_of(q))
         else:
             err = getattr(lib, f"remop_flash_attention_{_DTYPES[q.dtype]}")(
                 *args, hd_v, window, prefix, softcap, runtime.stream_of(q))
@@ -293,7 +322,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         runtime.launches["flash_attention_full"] += 1
     if softcap:
         runtime.launches["flash_attention_softcap"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def occupancy(hd: int, bq: int, bk: int, split_p: bool = True, hd_v: int | None = None,

@@ -9,21 +9,36 @@ gradient is a hand-written kernel too (``csrc/flash_attention_bwd.cu``,
 the library ``flash_attention_bwd``): given q, k, v, the forward's output
 and that output's gradient it returns (dq, dk, dv) of what the forward
 computes, with the same mask (causal with offset ``T - S``, ``window``,
-``prefix``, every key at ``prefix >= T``), ``scale`` and ``softcap``.  It
-runs as three launches (``prep``: each row's log-sum-exp and ``D = sum(dO
-* O)``; ``dq``; ``dkdv``, the GQA group summed inside one CTA), on the CUDA
-cores, bf16 or f32, at ``(hd, hd_v)`` in :data:`BWD_HEAD_PAIRS`, with no
-atomics: two calls give the same bits.  ``runtime.launches`` counts every
-call under ``"flash_attention_bwd"``.
+``prefix``, every key at ``prefix >= T``), ``scale`` and ``softcap``.  No
+atomics on either route: two calls give the same bits.  Two routes, chosen
+on the host by :func:`bwd_route` from dtype, head widths and alignment
+alone:
+
+- ``"tc"``: bf16 at ``(hd, hd_v)`` in :data:`BWD_TC_HEAD_PAIRS` whose five
+  tensors are TMA-aligned (the forward's rule).  Two launches on the
+  tensor cores (``wgmma``, TMA rings): ``dq_tc`` (which also writes ``D =
+  sum(dO * O)``) and ``dkdv_tc`` (the GQA group summed inside one CTA),
+  reading each row's log-sum-exp from the forward (``flash_attention(...,
+  return_lse=True)``), blocks :func:`plan_bwd_tc_blocks`'.  A call this
+  route takes never runs on the CUDA-core kernel: a missing lse, a failed
+  build, encode or launch raises.
+- ``"simt"``: everything else, at ``(hd, hd_v)`` in
+  :data:`BWD_HEAD_PAIRS`: three launches on the CUDA cores (``prep``: each
+  row's log-sum-exp and D; ``dq``; ``dkdv``), bf16 or f32, blocks
+  :func:`plan_bwd_blocks`'.
+
+``runtime.launches`` counts every call under ``"flash_attention_bwd"`` and
+under ``"flash_attention_bwd_tc"`` or ``"flash_attention_bwd_simt"``.
 
 Beside it is its plain PyTorch version, the same formulas in f32 over the
-same KV blocks; a CPU tensor takes it, a CUDA tensor launches the kernel or
-raises.
+same KV blocks (given the forward's lse it uses it, else it recomputes it);
+a CPU tensor takes it, a CUDA tensor launches the kernel or raises.
 
-:class:`FlashAttentionFn` runs the forward wrapper unchanged and saves q,
-k, v and the output; its backward is :func:`flash_attention_bwd`.
-``ops.remop_flash_attention`` goes through it only under grad, so serving
-(``torch.inference_mode``) keeps its launches, bits and time.
+:class:`FlashAttentionFn` runs the forward wrapper and saves q, k, v and
+the output, and with a ``tc`` backward ahead also the forward's lse; its
+backward is :func:`flash_attention_bwd`.  ``ops.remop_flash_attention``
+goes through it only under grad, so serving (``torch.inference_mode``)
+keeps its launches, bits and time.
 """
 
 from __future__ import annotations
@@ -35,7 +50,8 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.flash_attention import (
-    NEG_INF, SMEM_LIMIT, _DTYPES, _check, first_block, flash_attention, hidden_keys,
+    LSE_HEAD_PAIRS, NEG_INF, SMEM_LIMIT, _DTYPES, _check, _tma_aligned, first_block,
+    flash_attention, hidden_keys,
 )
 
 # (hd, hd_v) the backward kernel takes: the widths the repo's configs train at.
@@ -43,6 +59,19 @@ BWD_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
 # Square blocks (bq = bk), largest first: the first whose three kernels fit a CTA.
 BWD_BLOCKS = (64, 32, 16)
 BWD_KERNELS = ("prep", "dq", "dkdv")
+# The tensor-core route: the widths it takes (the trained models' 128 and
+# the 64 of the every-key and cross shapes), its kernels and, per kernel,
+# the (rows of the CTA's own tile, rows of each streamed block) it is built
+# for: dq_tc holds 128 query rows and streams K/V blocks of 64 keys,
+# dkdv_tc holds 128 keys and streams Q/dO blocks of 64 (or 32) query rows;
+# one consumer warpgroup per 64 rows of the own tile.
+BWD_TC_HEAD_PAIRS = LSE_HEAD_PAIRS  # the forward writes lse at these
+BWD_TC_KERNELS = ("dq", "dkdv")
+BWD_TC_BLOCKS = {"dq": ((128, 64),), "dkdv": ((128, 64), (128, 32))}
+# Instantiations that spill at their first block pair (ptxas on sm_90a,
+# read on the card): the capped dkdv at hd 128 and 64 query rows (28 bytes);
+# the plan takes the next pair there.
+BWD_TC_SPILLS = {("dkdv", 128, True, (128, 64))}
 
 
 def bwd_smem_bytes(kernel: str, bq: int, bk: int, hd: int, hd_v: int, dtype_bytes: int) -> int:
@@ -68,6 +97,61 @@ def plan_bwd_blocks(hd: int, hd_v: int, dtype_bytes: int) -> int:
     raise ValueError(f"no backward block fits hd={hd}, hd_v={hd_v}")
 
 
+def bwd_tc_smem_bytes(kernel: str, rows: int, block: int, hd: int) -> int:
+    """Dynamic shared memory of one CTA of the tensor-core ``kernel``: its
+    own tile (Q and dO of ``rows`` queries for ``dq``, K and V of ``rows``
+    keys for ``dkdv``) and two ring stages of the streamed blocks (K and V,
+    or Q and dO, of ``block`` rows), bf16; ``dkdv`` also the f32 lse and D
+    of each stage; seven mbarriers and 1024 bytes to align the swizzled tiles."""
+    stats = 4 * block * 4 if kernel == "dkdv" else 0
+    return 1024 + 2 * rows * hd * 2 + 4 * block * hd * 2 + stats + 7 * 8
+
+
+def check_bwd_tc_blocks(kernel: str, rows: int, block: int, hd: int, hd_v: int) -> None:
+    """Raise ``ValueError`` for blocks or widths the tensor-core ``kernel``
+    is not built for, or whose CTA would not fit in shared memory."""
+    if ((hd, hd_v) not in BWD_TC_HEAD_PAIRS or (rows, block) not in BWD_TC_BLOCKS[kernel]
+            or bwd_tc_smem_bytes(kernel, rows, block, hd) > SMEM_LIMIT):
+        raise ValueError(f"the tensor-core backward's {kernel} takes (hd, hd_v) in "
+                         f"{BWD_TC_HEAD_PAIRS} and blocks in {BWD_TC_BLOCKS[kernel]} within "
+                         f"{SMEM_LIMIT} bytes; got {(rows, block)} at {(hd, hd_v)}")
+
+
+def plan_bwd_tc_blocks(hd: int, hd_v: int, capped: bool = False) -> dict:
+    """The tensor-core route's blocks at these widths (``capped``: with a
+    softcap): ``{"dq": (128, 64), "dkdv": (128, 64)}``, but dkdv at (128,
+    32) capped at hd 128; each kernel's first block pair of
+    :data:`BWD_TC_BLOCKS` that fits and does not spill (:data:`BWD_TC_SPILLS`)."""
+    plan = {}
+    for kernel in BWD_TC_KERNELS:
+        for rows, block in BWD_TC_BLOCKS[kernel]:
+            try:
+                check_bwd_tc_blocks(kernel, rows, block, hd, hd_v)
+            except ValueError:
+                continue
+            if (kernel, hd, bool(capped), (rows, block)) in BWD_TC_SPILLS:
+                continue
+            plan[kernel] = (rows, block)
+            break
+        else:
+            raise ValueError(f"no tensor-core backward block fits hd={hd}, hd_v={hd_v}")
+    return plan
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+              dout: torch.Tensor) -> str:
+    """``"tc"`` when all five tensors are bf16, ``(hd, hd_v)`` lies in
+    :data:`BWD_TC_HEAD_PAIRS` and all five are TMA-aligned (the forward's
+    rule: 16-byte base; every dimension of extent > 1 but the last stepped
+    by a positive multiple of 8 elements); else ``"simt"``."""
+    xs = (q, k, v, out, dout)
+    if (all(x.dtype == torch.bfloat16 for x in xs)
+            and (q.shape[-1], v.shape[-1]) in BWD_TC_HEAD_PAIRS
+            and all(_tma_aligned(x) for x in xs)):
+        return "tc"
+    return "simt"
+
+
 def check_bwd_widths(hd: int, hd_v: int) -> None:
     """Raise ``ValueError`` for head widths the backward kernel does not take."""
     if (hd, hd_v) not in BWD_HEAD_PAIRS:
@@ -90,13 +174,22 @@ def _check_grads(q, out, dout) -> None:
         raise TypeError(f"out and dout must be {q.dtype}, got {out.dtype} and {dout.dtype}")
 
 
+def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
+    want = tuple(q.shape[:3])
+    if tuple(lse.shape) != want or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 {want} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, dout: torch.Tensor,
                               scale: float | None = None, window: int = 0, prefix: int = 0,
-                              softcap: float = 0.0, bk: int = BWD_BLOCKS[0]):
+                              softcap: float = 0.0, bk: int = BWD_BLOCKS[0],
+                              lse: torch.Tensor | None = None):
     """The kernel's arithmetic in PyTorch, in f32 over KV blocks of ``bk``:
-    each row's log-sum-exp over its visible keys (an online max and sum)
-    and ``D = sum(dO * O)``, then per block ``P = exp(s_c - lse)`` (0 where
+    each row's log-sum-exp over its visible keys (an online max and sum;
+    ``lse``, the forward's f32 ``[B, H, S]``, when given) and ``D = sum(dO
+    * O)``, then per block ``P = exp(s_c - lse)`` (0 where
     hidden), ``dV += P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)`` times
     ``1 - (s_c / c)^2`` when capped, ``dQ += dS K``, ``dK += dS^T Q``; dQ
     and dK times ``scale``; each rounded once to the inputs' dtype.  The
@@ -121,15 +214,19 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
         return kb, sc, hidden_keys(q_pos, k_pos, window, prefix)
 
-    m = torch.full((b, kv, g, s, 1), NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    for k0 in blocks:
-        _, sc, hidden = scores(k0)
-        sc = sc.masked_fill(hidden, NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        l = l * torch.exp(m - m_new) + torch.exp(sc - m_new).sum(dim=-1, keepdim=True)
-        m = m_new
-    lse = m + torch.log(l)
+    if lse is None:
+        m = torch.full((b, kv, g, s, 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        for k0 in blocks:
+            _, sc, hidden = scores(k0)
+            sc = sc.masked_fill(hidden, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - m_new) + torch.exp(sc - m_new).sum(dim=-1, keepdim=True)
+            m = m_new
+        lse = m + torch.log(l)
+    else:
+        _check_lse(q, lse)
+        lse = lse.float().reshape(b, kv, g, s, 1)
 
     dq = torch.zeros_like(qf)
     dk = torch.zeros((b, kv, t, hd), device=q.device)
@@ -150,15 +247,20 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, scale: float | None = None,
-                        window: int = 0, prefix: int = 0, softcap: float = 0.0):
+                        window: int = 0, prefix: int = 0, softcap: float = 0.0,
+                        lse: torch.Tensor | None = None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, scale=scale, window=window,
     prefix=prefix, softcap=softcap)`` whose output is ``out``, given its
     gradient ``dout`` [B, H, S, hd_v]; each gradient in its input's shape,
-    dtype and (where it is dense) memory layout.
+    dtype and (where it is dense) memory layout.  ``lse`` is the forward's
+    log-sum-exp (``flash_attention(..., return_lse=True)``), f32 [B, H, S]:
+    the ``"tc"`` route (:func:`bwd_route`) requires it, the ``"simt"``
+    route recomputes it and ignores one given; on the CPU the plain version
+    uses it when given.
 
     On a CUDA tensor ``(hd, hd_v)`` must lie in :data:`BWD_HEAD_PAIRS` and
     the last dimension of all five inputs must be contiguous (any other
-    strides); blocks are :func:`plan_bwd_blocks`'.
+    strides); blocks are :func:`plan_bwd_tc_blocks`' or :func:`plan_bwd_blocks`'.
     """
     _check(q, k, v, window, prefix)
     _check_grads(q, out, dout)
@@ -167,26 +269,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
     if runtime.on_cpu(q, k, v, out, dout):
-        return flash_attention_bwd_plain(q, k, v, out, dout, scale, window, prefix, softcap)
+        return flash_attention_bwd_plain(q, k, v, out, dout, scale, window, prefix, softcap,
+                                         lse=lse)
     check_bwd_widths(hd, hd_v)
     if any(x.stride(-1) != 1 for x in (q, k, v, out, dout)):
         raise ValueError("the last dimension of q, k, v, out and dout must be contiguous")
-    blk = plan_bwd_blocks(hd, hd_v, q.element_size())
+    path = bwd_route(q, k, v, out, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(st for x in (q, k, v, out, dout, dq, dk, dv)
           for st in (x.stride(0), x.stride(1), x.stride(2))))
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     lib = runtime.library("flash_attention_bwd")
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"remop_flash_attention_bwd_{_DTYPES[q.dtype]}")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            ctypes.addressof(strides), b, h, kv, s, t, hd, blk, blk, scale, hd_v, window,
-            prefix, softcap, runtime.stream_of(q))
+    if path == "tc":
+        if lse is None:
+            raise ValueError("the tensor-core backward reads the forward's log-sum-exp: pass "
+                             "lse from flash_attention(..., return_lse=True)")
+        _check_lse(q, lse)
+        lse = lse.contiguous()
+        plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
+        with torch.cuda.device(q.device):
+            err = lib.remop_flash_attention_bwd_tc(
+                *pointers, lse.data_ptr(), delta.data_ptr(), ctypes.addressof(strides), b, h,
+                kv, s, t, hd, *plan["dq"], *plan["dkdv"], scale, window, prefix, softcap,
+                runtime.stream_of(q))
+    else:
+        blk = plan_bwd_blocks(hd, hd_v, q.element_size())
+        scratch = torch.empty_like(delta)  # prep's lse
+        with torch.cuda.device(q.device):
+            err = getattr(lib, f"remop_flash_attention_bwd_{_DTYPES[q.dtype]}")(
+                *pointers, scratch.data_ptr(), delta.data_ptr(), ctypes.addressof(strides), b,
+                h, kv, s, t, hd, blk, blk, scale, hd_v, window, prefix, softcap,
+                runtime.stream_of(q))
     runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     runtime.launches["flash_attention_bwd"] += 1
+    runtime.launches[f"flash_attention_bwd_{path}"] += 1
     return dq, dk, dv
 
 
@@ -202,11 +321,34 @@ def bwd_attributes(dtype: torch.dtype, hd: int, hd_v: int) -> dict:
             for i, kind in enumerate(BWD_KERNELS)}
 
 
+def bwd_tc_attributes(hd: int, hd_v: int, capped: bool = False,
+                      plan: dict | None = None) -> dict:
+    """Per tensor-core kernel (``dq``, ``dkdv``) at ``plan``'s blocks (by
+    default :func:`plan_bwd_tc_blocks`'), on the current card: CTAs one SM
+    holds, registers and local (spilled) bytes a thread, dynamic shared
+    memory and threads a CTA (``capped``: the instantiations with a cap)."""
+    plan = plan or plan_bwd_tc_blocks(hd, hd_v, capped)
+    for kernel in BWD_TC_KERNELS:
+        check_bwd_tc_blocks(kernel, *plan[kernel], hd, hd_v)
+    out = (ctypes.c_int * 10)()
+    err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_tc_attributes(
+        hd, *plan["dq"], *plan["dkdv"], int(capped), ctypes.addressof(out))
+    runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
+    keys = ("resident_ctas", "registers", "local_bytes", "smem_bytes", "threads")
+    return {kernel: {"blocks": list(plan[kernel]), **dict(zip(keys, out[5 * i:5 * i + 5]))}
+            for i, kernel in enumerate(BWD_TC_KERNELS)}
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """The flash kernel under autograd: the forward wrapper as it is (q, k,
-    v, the output saved), its gradient :func:`flash_attention_bwd`.  On a
-    CUDA tensor a width the backward does not take raises before the
-    forward runs."""
+    """The flash kernel under autograd: the forward wrapper (q, k, v, the
+    output saved and, when the backward's route will be ``"tc"``, the
+    forward's lse, which the forward then writes), its gradient
+    :func:`flash_attention_bwd`.  The route is decided at forward time by
+    :func:`bwd_route` with q standing in for the output (which takes q's
+    layout) and for dO (the backward hands the kernel an aligned copy where
+    it is not), so it is the route the backward then takes.  On a CUDA
+    tensor a width the backward does not take raises before the forward
+    runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, bq: int, bk: int, scale: float | None, window: int, prefix: int,
@@ -214,16 +356,20 @@ class FlashAttentionFn(torch.autograd.Function):
         if not runtime.on_cpu(q, k, v):
             check_bwd_widths(q.shape[3], v.shape[3])
         scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else float(scale)
-        out = flash_attention(q, k, v, bq=bq, bk=bk, scale=scale, window=window, prefix=prefix,
-                              softcap=softcap)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.path = bwd_route(q, k, v, q, q)
+        res = flash_attention(q, k, v, bq=bq, bk=bk, scale=scale, window=window, prefix=prefix,
+                              softcap=softcap, return_lse=ctx.path == "tc")
+        out, lse = res if ctx.path == "tc" else (res, None)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (scale, window, prefix, softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.args)
+        if ctx.path == "tc" and not _tma_aligned(dout):
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.args, lse)
         return dq, dk, dv, None, None, None, None, None, None

@@ -73,6 +73,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # window, prefix, softcap, stream
         "remop_flash_attention_tc": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 4 + [_F32, _P],
                                      _I32),
+        # the same, with lse (f32 [B, H, S]) before the stream
+        "remop_flash_attention_tc_lse": ([_P] * 5 + [_I32] * 8 + [_F32] + [_I32] * 4
+                                         + [_F32, _P, _P], _I32),
         # hd, hd_v, bq, bk, split, cap, &out[5]
         "remop_flash_attention_tc_occupancy": ([_I32] * 6 + [_P], _I32),
         "remop_flash_attention_error_string": ([_I32], ctypes.c_char_p),
@@ -85,6 +88,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
            for t in ("bf16", "f32")},
         # is_f32, hd, hd_v, &out[9]
         "remop_flash_attention_bwd_attributes": ([_I32] * 3 + [_P], _I32),
+        # q, k, v, o, do, dq, dk, dv, lse, delta, &strides[24], b, h, kv, s, t, hd, dq_bq,
+        # dq_bk, kv_bk, kv_bq, scale, window, prefix, softcap, stream
+        "remop_flash_attention_bwd_tc": ([_P] * 11 + [_I32] * 10 + [_F32] + [_I32] * 2
+                                         + [_F32, _P], _I32),
+        # hd, dq_bq, dq_bk, kv_bk, kv_bq, cap, &out[10]
+        "remop_flash_attention_bwd_tc_attributes": ([_I32] * 6 + [_P], _I32),
         "remop_flash_attention_bwd_error_string": ([_I32], ctypes.c_char_p),
     },
     "paged_attention": {

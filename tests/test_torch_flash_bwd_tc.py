@@ -1,0 +1,394 @@
+"""The flash backward's tensor-core route, its host decisions and the
+log-sum-exp it reads from the forward, on the CPU.
+
+Pinned here: :func:`bwd_route` (bf16 at hd 64 / 128 with five TMA-aligned
+tensors is ``"tc"``, the model's transposed views included; anything else,
+an f32 call, another width, a misaligned stride or base, is ``"simt"``);
+the route's block plan and shared memory (within 227 KB at hd 64 and 128,
+refused elsewhere); ``flash_attention_plain(..., return_lse=True)`` against
+``jax.nn.logsumexp`` of ``repro``'s masked, scaled and capped scores on the
+inputs of ``test_torch_flash_grad.py``'s ``CASES`` (f32, ``LSE_TOL``
+relative); ``flash_attention_bwd_plain`` given the forward's lse against
+the one that recomputes it (f32 rounding); ``FlashAttentionFn`` on the CPU
+through the lse flow against autograd of the reference; a planted fault
+(lse one row off) that must miss the f32 bound; and the CUDA branches
+through a stand-in library: a ``tc`` call goes to the tensor-core entry
+with its blocks and the forward's lse and counts under both names, a failed
+one raises and never re-routes, the forward writes an lse only ahead of a
+``tc`` backward.
+"""
+
+import contextlib
+import ctypes
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import attention as jattn
+
+import test_torch_flash_grad as cases
+from repro_torch.kernels import runtime
+from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+from repro_torch.kernels.flash_attention.flash_attention import (
+    SMEM_LIMIT, flash_attention, flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+BF16 = torch.bfloat16
+# The plain lse against jax.nn.logsumexp, both f32 over the same scores:
+# they differ by summation order only.
+LSE_TOL = 1e-5
+# Given the forward's lse the plain backward differs from the one that
+# recomputes it by the f32 rounding of lse (a few ulps of |lse| ~ 5).
+RECOMPUTE_TOL = 1e-6
+# bf16 inputs through the lse flow against autograd of the f32 reference on
+# the same (rounded) inputs: each gradient is rounded once to bf16 (2^-9).
+BF16_GRAD_TOL = 1e-2
+
+
+def _bf16(*shape, seed=0, gain=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g) * gain).to(BF16)
+
+
+def _five(b, h, kv, s, t, hd, dtype=BF16):
+    q, k, v = _bf16(b, h, s, hd, seed=1), _bf16(b, kv, t, hd, seed=2), _bf16(b, kv, t, hd, seed=3)
+    out, dout = _bf16(b, h, s, hd, seed=4), _bf16(b, h, s, hd, seed=5)
+    return tuple(x.to(dtype) for x in (q, k, v, out, dout))
+
+
+def _model_layout(b, heads, s, hd, seed):
+    return _bf16(b, s, heads, hd, seed=seed).transpose(1, 2)
+
+
+def _misaligned_stride(b, heads, s, hd, seed):
+    """[B, heads, S, hd] whose position stride is hd + 4 (not a multiple of 8)."""
+    return _bf16(b, heads, s, hd + 4, seed=seed)[..., :hd]
+
+
+def _misaligned_base(b, heads, s, hd, seed):
+    """Dense [B, heads, S, hd] starting 2 bytes past a 16-byte boundary."""
+    flat = _bf16(b * heads * s * hd + 1, seed=seed)
+    return flat[1:].view(b, heads, s, hd)
+
+
+def _route_case(name):
+    b, h, kv, s, t = 1, 4, 2, 40, 40
+    if name == "bf16 64":
+        return _five(b, h, kv, s, t, 64)
+    if name == "bf16 128":
+        return _five(b, h, kv, s, t, 128)
+    if name == "model layout":
+        return (_model_layout(b, h, s, 128, 1), _model_layout(b, kv, t, 128, 2),
+                _model_layout(b, kv, t, 128, 3), _model_layout(b, h, s, 128, 4),
+                _model_layout(b, h, s, 128, 5))
+    if name == "f32 128":
+        return _five(b, h, kv, s, t, 128, torch.float32)
+    if name in ("bf16 256", "bf16 32", "bf16 16"):
+        return _five(b, h, kv, s, t, int(name.split()[1]))
+    if name == "mla 192/128":
+        q, k, _, _, _ = _five(b, h, kv, s, t, 192)
+        _, _, v, out, dout = _five(b, h, kv, s, t, 128)
+        return q, k, v, out, dout
+    five = list(_five(b, h, kv, s, t, 128))
+    which, kind = name.split(" ", 1)
+    i = ("q", "k", "v", "out", "dout").index(which)
+    make = _misaligned_stride if kind == "misaligned stride" else _misaligned_base
+    heads, rows = (kv, t) if which in ("k", "v") else (h, s)
+    five[i] = make(b, heads, rows, 128, 9)
+    return tuple(five)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("bf16 64", "tc"), ("bf16 128", "tc"), ("model layout", "tc"),
+    ("f32 128", "simt"), ("bf16 256", "simt"), ("mla 192/128", "simt"), ("bf16 32", "simt"),
+    ("bf16 16", "simt"),
+    ("q misaligned stride", "simt"), ("k misaligned stride", "simt"),
+    ("dout misaligned stride", "simt"), ("v misaligned base", "simt"),
+    ("out misaligned base", "simt"), ("dout misaligned base", "simt"),
+])
+def test_bwd_route(name, want):
+    five = _route_case(name)
+    assert all(x.stride(-1) == 1 for x in five)
+    assert fab.bwd_route(*five) == want
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tc_plan_fits_shared_memory(hd):
+    plan = fab.plan_bwd_tc_blocks(hd, hd)
+    assert plan == {"dq": (128, 64), "dkdv": (128, 64)}
+    for kernel, pairs in fab.BWD_TC_BLOCKS.items():
+        for rows, block in pairs:
+            assert fab.bwd_tc_smem_bytes(kernel, rows, block, hd) <= SMEM_LIMIT
+            fab.check_bwd_tc_blocks(kernel, rows, block, hd, hd)
+    # Q and dO of 128 rows, two stages of K and V of 64 keys, 7 mbarriers, the slack.
+    assert fab.bwd_tc_smem_bytes("dq", 128, 64, hd) == 1024 + 4 * 128 * hd + 8 * 64 * hd + 56
+    assert (fab.bwd_tc_smem_bytes("dkdv", 128, 64, hd)
+            == fab.bwd_tc_smem_bytes("dq", 128, 64, hd) + 4 * 64 * 4)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128), (32, 32), (128, 64)])
+def test_tc_plan_refuses_other_widths(hd, hd_v):
+    with pytest.raises(ValueError, match="tensor-core backward"):
+        fab.plan_bwd_tc_blocks(hd, hd_v)
+    if hd == 256:  # the shared memory alone would refuse it
+        assert fab.bwd_tc_smem_bytes("dq", 128, 64, hd) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kernel,rows,block", [("dq", 64, 64), ("dq", 128, 128),
+                                               ("dkdv", 64, 64), ("dkdv", 128, 128)])
+def test_tc_blocks_outside_the_table_are_refused(kernel, rows, block):
+    with pytest.raises(ValueError, match="tensor-core backward"):
+        fab.check_bwd_tc_blocks(kernel, rows, block, 128, 128)
+
+
+def _jax_lse(case, arrays):
+    """jax.nn.logsumexp over the keys of repro's masked, scaled and capped
+    scores, [B, H, S], on the port's layout."""
+    q, k, _, _ = arrays
+    b, h, kv, s, t, hd, _, window, _, softcap, _ = cases.CASES[case]
+    q_pos, kv_pos = cases._positions(case)
+    kj = jnp.repeat(jnp.asarray(k), h // kv, axis=1)
+    sc = jnp.einsum("bhsd,bhtd->bhst", jnp.asarray(q), kj) * (1.0 / math.sqrt(hd))
+    if softcap:
+        sc = jnp.tanh(sc / softcap) * softcap
+    mask = jattn._mask(jnp.asarray(q_pos), jnp.asarray(kv_pos), window)[:, None]
+    return np.asarray(jax.nn.logsumexp(jnp.where(mask, sc, -jnp.inf), axis=-1))
+
+
+@pytest.mark.parametrize("case", sorted(cases.CASES))
+def test_plain_lse_matches_jax_logsumexp(case):
+    arrays, mask = cases._inputs(case)
+    q, k, v = (torch.from_numpy(x) for x in arrays[:3])
+    out, lse = flash_attention_plain(q, k, v, **mask, return_lse=True)
+    assert torch.equal(out, flash_attention_plain(q, k, v, **mask))
+    want = _jax_lse(case, arrays)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert cases._rel(lse, want) <= LSE_TOL, cases._rel(lse, want)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=LSE_TOL, atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(cases.CASES))
+def test_plain_backward_with_the_forward_lse_equals_the_recompute(case):
+    arrays, mask = cases._inputs(case)
+    q, k, v, do = (torch.from_numpy(x) for x in arrays)
+    out, lse = flash_attention(q, k, v, **mask, return_lse=True)
+    given = fab.flash_attention_bwd_plain(q, k, v, out, do, **mask, lse=lse)
+    recomputed = fab.flash_attention_bwd_plain(q, k, v, out, do, **mask)
+    for g, r in zip(given, recomputed):
+        assert cases._rel(g, r.double().numpy()) <= RECOMPUTE_TOL
+    assert fab.flash_attention_bwd(q, k, v, out, do, lse=lse, **mask)[0].equal(given[0])
+
+
+@pytest.mark.parametrize("case", ["causal", "prefix", "window", "cross"])
+def test_planted_fault_lse_one_row_off_misses_the_f32_bound(case):
+    arrays, mask = cases._inputs(case)
+    q, k, v, do = (torch.from_numpy(x) for x in arrays)
+    out, lse = flash_attention(q, k, v, **mask, return_lse=True)
+    want = cases._jax_grads(case, arrays, jnp.float32)
+    good = fab.flash_attention_bwd_plain(q, k, v, out, do, **mask, lse=lse)
+    assert max(cases._rel(g, w) for g, w in zip(good, want)) <= cases.F32_TOL
+    shifted = torch.roll(lse, 1, dims=2)
+    bad = fab.flash_attention_bwd_plain(q, k, v, out, do, **mask, lse=shifted)
+    worst = max(cases._rel(g, w) for g, w in zip(bad, want))
+    assert worst > 10 * cases.F32_TOL, worst
+
+
+def _spy_lse(monkeypatch):
+    """Records whether each plain backward was handed the forward's lse."""
+    seen, plain = [], fab.flash_attention_bwd_plain
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("lse") is not None)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(fab, "flash_attention_bwd_plain", spy)
+    return seen
+
+
+def _reference_grads(q, k, v, do, mask):
+    qs, ks, vs = (x.detach().float().requires_grad_() for x in (q, k, v))
+    if mask["window"]:
+        ref = flash_attention_plain(qs, ks, vs, **mask)
+    else:
+        ref = flash_attention_ref(qs, ks, vs, prefix=mask["prefix"], softcap=mask["softcap"])
+    return torch.autograd.grad(ref, (qs, ks, vs), do.float())
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "prefix", "cross", "softcap"])
+def test_function_takes_the_lse_flow_in_bf16(case, monkeypatch):
+    """bf16 at hd 64 routes ``tc``: the forward returns its lse and the
+    backward is handed it; the gradients match autograd of the f32
+    reference on the same inputs within one bf16 rounding."""
+    arrays, mask = cases._inputs(case)
+    rng = np.random.default_rng(7)
+    b, h, kv, s, t = cases.CASES[case][:5]
+    gain = cases.CASES[case][10]
+    q = torch.from_numpy(rng.standard_normal((b, h, s, 64)).astype(np.float32) * gain).to(BF16)
+    k, v = (torch.from_numpy(rng.standard_normal((b, kv, t, 64)).astype(np.float32)).to(BF16)
+            for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((b, h, s, 64)).astype(np.float32)).to(BF16)
+    assert fab.bwd_route(q, k, v, q, do) == "tc"
+    seen = _spy_lse(monkeypatch)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = remop_flash_attention(qg, kg, vg, **mask)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert seen == [True]
+    for g, w in zip(got, _reference_grads(q, k, v, do, mask)):
+        assert g.dtype == BF16
+        assert cases._rel(g.float(), w.double().numpy()) <= BF16_GRAD_TOL
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "prefix", "cross", "softcap"])
+def test_function_lse_flow_matches_autograd_of_the_reference_in_f32(case, monkeypatch):
+    """The same flow in f32 (the route rule bent to ``tc``) against autograd
+    of the reference, at the f32 bound; the simt flow recomputes lse."""
+    arrays, mask = cases._inputs(case)
+    q, k, v, do = (torch.from_numpy(x) for x in arrays)
+    want = _reference_grads(q, k, v, do, mask)
+    seen = _spy_lse(monkeypatch)
+    for route in ("simt", "tc"):
+        monkeypatch.setattr(fab, "bwd_route", lambda *xs, route=route: route)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        got = torch.autograd.grad(remop_flash_attention(qg, kg, vg, **mask), (qg, kg, vg), do)
+        for g, w in zip(got, want):
+            assert cases._rel(g, w.double().numpy()) <= cases.F32_TOL
+    assert seen == [False, True]
+
+
+# -- the CUDA branches through a stand-in library ------------------------------------
+# (the forward's entry without an lse keeps its arguments: test_torch_prefix.py)
+
+class _FakeLibrary:
+    def __init__(self, tc_error=0):
+        self.calls, self.tc_error = [], tc_error
+
+    def remop_flash_attention_bwd_tc(self, *args):
+        self.calls.append(("bwd_tc", args))
+        self.strides = ctypes.cast(args[10], ctypes.POINTER(ctypes.c_longlong))[:24]
+        return self.tc_error
+
+    def remop_flash_attention_bwd_bf16(self, *args):
+        self.calls.append(("bwd_bf16", args))
+        return 0
+
+    def remop_flash_attention_bwd_f32(self, *args):
+        self.calls.append(("bwd_f32", args))
+        return 0
+
+    def remop_flash_attention_tc(self, *args):
+        self.calls.append(("fwd_tc", args))
+        return 0
+
+    def remop_flash_attention_tc_lse(self, *args):
+        self.calls.append(("fwd_tc_lse", args))
+        return 0
+
+    def remop_flash_attention_bf16(self, *args):
+        self.calls.append(("fwd_bf16", args))
+        return 0
+
+    def remop_flash_attention_bwd_error_string(self, err):
+        return b"an illegal memory access was encountered"
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    monkeypatch.setattr(runtime, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(runtime, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    runtime.reset_launches()
+
+    def install(lib):
+        monkeypatch.setattr(runtime, "library", lambda name: lib)
+        return lib
+
+    yield install
+    runtime.reset_launches()
+
+
+def test_tc_calls_go_to_the_tc_entry_point_and_count(fake_card):
+    lib = fake_card(_FakeLibrary())
+    q, k, v, out, dout = _five(2, 16, 8, 300, 300, 128)
+    lse = torch.zeros(2, 16, 300)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+    (name, args), = lib.calls
+    assert name == "bwd_tc"
+    assert args[8] == lse.data_ptr()
+    assert lib.strides == [st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]]
+    assert args[11:21] == (2, 16, 8, 300, 300, 128, 128, 64, 128, 64)  # b h kv s t hd blocks
+    assert args[21] == pytest.approx(1 / math.sqrt(128))
+    assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1}
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fab.flash_attention_bwd(q, k, v, out, dout)
+    with pytest.raises(ValueError, match="lse must be"):
+        fab.flash_attention_bwd(q, k, v, out, dout, lse=lse[:, :, 1:])
+
+
+@pytest.mark.parametrize("name,entry", [("f32 128", "bwd_f32"), ("bf16 256", "bwd_bf16"),
+                                        ("dout misaligned stride", "bwd_bf16")])
+def test_other_calls_go_to_the_cuda_core_entry_point(fake_card, name, entry):
+    lib = fake_card(_FakeLibrary())
+    fab.flash_attention_bwd(*_route_case(name), lse=torch.zeros(1, 4, 40))
+    (called, _), = lib.calls
+    assert called == entry
+    assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_simt": 1}
+
+
+def test_a_failed_tc_call_raises_and_never_reroutes(fake_card):
+    lib = fake_card(_FakeLibrary(tc_error=700))
+    five = _five(1, 4, 2, 64, 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fab.flash_attention_bwd(*five, lse=torch.zeros(1, 4, 64))
+    assert [name for name, _ in lib.calls] == ["bwd_tc"]
+    assert sum(runtime.launches.values()) == 0
+
+
+@pytest.mark.parametrize("hd,lse_written", [(128, True), (64, True), (256, False)])
+def test_the_forward_writes_lse_only_ahead_of_a_tc_backward(fake_card, hd, lse_written):
+    lib = fake_card(_FakeLibrary())
+    q, k, v = (_model_layout(1, n, 256, hd, seed) for n, seed in ((8, 1), (2, 2), (2, 3)))
+    qg, kg, vg = (x.requires_grad_() for x in (q, k, v))
+    out = remop_flash_attention(qg, kg, vg)
+    (name, args), = lib.calls
+    assert name == ("fwd_tc_lse" if lse_written else "fwd_tc")
+    if lse_written:
+        assert len(args) == 21 and args[-2] is not None  # the lse pointer, before the stream
+    torch.autograd.grad(out, (qg, kg, vg), torch.ones_like(out))
+    assert lib.calls[-1][0] == ("bwd_tc" if lse_written else "bwd_bf16")
+    if lse_written:
+        assert lib.calls[-1][1][8] == args[-2]  # the forward's lse, handed on
+
+
+def test_capped_plan_avoids_the_spilling_instantiation():
+    """The capped dkdv at hd 128 spills at 64 query rows a block: the plan
+    takes 32 there, and keeps 64 everywhere else."""
+    assert fab.plan_bwd_tc_blocks(128, 128, capped=True) == {"dq": (128, 64), "dkdv": (128, 32)}
+    assert fab.plan_bwd_tc_blocks(64, 64, capped=True) == {"dq": (128, 64), "dkdv": (128, 64)}
+    for kernel, hd, capped, blocks in fab.BWD_TC_SPILLS:
+        assert blocks in fab.BWD_TC_BLOCKS[kernel]
+        assert fab.plan_bwd_tc_blocks(hd, hd, capped)[kernel] != blocks
+
+
+def test_a_capped_tc_call_takes_the_capped_plan(fake_card):
+    lib = fake_card(_FakeLibrary())
+    q, k, v, out, dout = _five(1, 4, 2, 64, 64, 128)
+    fab.flash_attention_bwd(q, k, v, out, dout, softcap=50.0, lse=torch.zeros(1, 4, 64))
+    (name, args), = lib.calls
+    assert name == "bwd_tc" and args[17:21] == (128, 64, 128, 32)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
+def test_the_forward_writes_lse_at_the_backward_widths_only(fake_card, hd, hd_v):
+    """The tensor-core forward is built to write lse at hd 64 and 128 only:
+    a CUDA call elsewhere that asks for it raises before any launch."""
+    lib = fake_card(_FakeLibrary())
+    q, k = _bf16(1, 4, 128, hd, seed=1), _bf16(1, 2, 128, hd, seed=2)
+    v = _bf16(1, 2, 128, hd_v, seed=3)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention(q, k, v, bq=128, bk=64, return_lse=True)
+    assert lib.calls == []
