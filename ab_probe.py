@@ -4,17 +4,25 @@
 Run from the root of a checkout on a machine with one card:
 
     python3 ab_probe.py PARENT_DIR
+    python3 ab_probe.py --train PARENT_DIR
 
 PARENT_DIR holds an unpacked checkout of the commit to compare with, for
 example ``git archive <commit> | tar -x -C .chip_parent`` (``.chip_parent/``
 is gitignored).  Four turns run in order, parent, change, change, parent,
 each a process of its own with that checkout's ``src`` first on
 ``sys.path`` (each builds its own kernels): the flash kernel at six causal
-and windowed serving shapes and the paged kernel at rows 5, 5c and 5d of
-``PERF.md``'s kernel table, each call's output digested bit for bit and
-timed by device ms (``chip_smoke.Bench.device_ms``).  One JSON line a turn,
+and windowed serving shapes, the paged kernel at rows 5, 5c and 5d of
+``PERF.md``'s kernel table, and the flash backward's tensor-core route at
+qwen3-0.6b's training shape and at hd 64 over every key (given the
+forward's lse, in the model's ``[B, S, heads, hd]`` memory), each call's
+output digested bit for bit and timed by device ms
+(``chip_smoke.Bench.device_ms``).  One JSON line a turn,
 then one with the card's ``nvidia-smi`` line and whether every turn's
-digests agree; exits 1 if they do not.
+digests agree; exits 1 if they do not.  With ``--train`` each turn instead
+trains qwen3-0.6b through ``launch.train.main`` at ``chip_smoke``'s command
+line cut to ``TRAIN_AB_STEPS`` steps and no checkpoints, and reports its
+losses (which must agree) and the median host seconds of steps 3 on: the
+trainer's step time, host launches included, parent against change.
 """
 
 import json
@@ -33,6 +41,38 @@ FLASH = (("gemma-2b", 8, 1, 2048, 256, 256, 0), ("granite-moe", 24, 8, 2048, 64,
          ("seamless causal", 16, 16, 4096, 64, 64, 0))
 PAGED = (("paged row 5", 1, 8, 256, 4096, 2048), ("paged row 5c ring", 1, 10, 256, 2048, 2048),
          ("paged row 5d", 16, 1, 64, 4096, 4096))
+# (name, b, h, kv, s, hd, prefix): the backward, causal or over every key.
+BWD = (("bwd qwen3-0.6b", 4, 16, 8, 2048, 128, 0), ("bwd every key hd 64", 1, 16, 16, 4096, 64,
+                                                    4096))
+TRAIN_AB_STEPS = 12
+
+
+def train_turn(src: str) -> dict:
+    """qwen3-0.6b's trainer through the kernels of ``src``: the losses'
+    digest and the median host seconds a step (steps 3 on)."""
+    import hashlib
+    import statistics
+    import time
+
+    sys.path.insert(0, src)
+    sys.path.insert(1, str(ROOT))
+    import torch
+
+    import chip_smoke
+    from repro_torch.launch import train as train_mod
+
+    argv = list(chip_smoke.TRAIN_ARGV)
+    argv[argv.index("--steps") + 1] = str(TRAIN_AB_STEPS)
+    argv[argv.index("--checkpoint-every") + 1] = "1000"
+    stamps = {}
+    _, losses = train_mod.main([*argv, "--device", "cuda:0"],
+                               metrics_cb=lambda step, m: stamps.__setitem__(
+                                   step, (time.perf_counter(), float(m["loss_total"]))))
+    torch.cuda.synchronize()
+    steps = sorted(stamps)
+    digest = hashlib.sha256(json.dumps([stamps[s][1] for s in steps]).encode()).hexdigest()
+    return {"trainer": {"digest": digest[:16], "step_seconds_median": statistics.median(
+        stamps[s][0] - stamps[s - 1][0] for s in steps[2:])}}
 
 
 def turn(src: str) -> dict:
@@ -46,6 +86,7 @@ def turn(src: str) -> dict:
 
     import chip_smoke
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention.ops import plan_blocks
     from repro_torch.kernels.paged_attention import paged_attention as pa
 
@@ -58,7 +99,9 @@ def turn(src: str) -> dict:
         return torch.randn(*shape, device=device, generator=gen).to(torch.bfloat16)
 
     def record(name, fn):
-        digest = hashlib.sha256(fn().view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        got = fn()
+        got = torch.cat([x.reshape(-1) for x in got]) if isinstance(got, tuple) else got
+        digest = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
         out[name] = {"digest": digest[:16], "device_ms": bench.device_ms(fn)["device_ms"]}
 
     for name, h, kv, s, hd, hd_v, window in FLASH:
@@ -70,21 +113,32 @@ def turn(src: str) -> dict:
         q, kc, vc = randn(1, kv, g, hd), randn(1, s, kv, hd), randn(1, s, kv, hd)
         ln = torch.full((1,), length, dtype=torch.int32, device=device)
         record(name, lambda q=q, kc=kc, vc=vc, ln=ln: pa.paged_attention(q, kc, vc, ln))
+    for name, b, h, kv, s, hd, prefix in BWD:
+        q, k, v, dout = (randn(b, s, n, hd).transpose(1, 2) for n in (h, kv, kv, h))
+        bq, bk = plan_blocks(s, s, hd, 2, path="tc", hd_v=hd)
+        with torch.no_grad():
+            o, lse = fa.flash_attention(q, k, v, bq=bq, bk=bk, prefix=prefix, return_lse=True)
+        record(name, lambda q=q, k=k, v=v, o=o, dout=dout, lse=lse, prefix=prefix:
+               fab.flash_attention_bwd(q, k, v, o, dout, prefix=prefix, lse=lse))
     return out
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--turn":
-        print(json.dumps({"turn": sys.argv[2], **turn(sys.argv[3])}), flush=True)
+    if len(sys.argv) == 5 and sys.argv[1] == "--turn":
+        fn = train_turn if sys.argv[2] == "train" else turn
+        print(json.dumps({"turn": sys.argv[3], **fn(sys.argv[4])}), flush=True)
         return 0
-    if len(sys.argv) != 2 or not (Path(sys.argv[1]) / "src" / "repro_torch").is_dir():
-        print("usage: ab_probe.py PARENT_DIR (an unpacked checkout with src/repro_torch)",
-              file=sys.stderr)
+    args = sys.argv[1:]
+    what = "train" if args[:1] == ["--train"] else "kernels"
+    args = args[1:] if what == "train" else args
+    if len(args) != 1 or not (Path(args[0]) / "src" / "repro_torch").is_dir():
+        print("usage: ab_probe.py [--train] PARENT_DIR (an unpacked checkout with "
+              "src/repro_torch)", file=sys.stderr)
         return 2
-    srcs = {"parent": str(Path(sys.argv[1]).resolve() / "src"), "change": str(ROOT / "src")}
+    srcs = {"parent": str(Path(args[0]).resolve() / "src"), "change": str(ROOT / "src")}
     runs = []
     for name in TURNS:
-        r = subprocess.run([sys.executable, __file__, "--turn", name, srcs[name]],
+        r = subprocess.run([sys.executable, __file__, "--turn", what, name, srcs[name]],
                            capture_output=True, text=True, check=True)
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)

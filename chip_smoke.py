@@ -181,19 +181,22 @@ Phases, each printing JSON objects, one per line:
    only those on the card (the logits' gap and argmax agreement printed,
    tokens/s, step time, peak memory and idle share of both);
 5h. train: hold the flash backward kernel (``flash_attention_bwd``: dq, dk,
-   dv of the flash kernel, on its tensor-core route ``tc`` at bf16 hd 64 /
-   128 and its CUDA-core route ``simt`` elsewhere) against its plain version
+   dv of the flash kernel, on its tensor-core route ``tc`` at every bf16
+   width, dkdv split over several CTAs a key block where KV heads are few,
+   and its CUDA-core route ``simt`` for f32) against its plain version
    under ``ATTN_TOL`` at ``BWD_CHECKS``' shapes (qwen3-0.6b's training
    shape, gemma-2b, every key, MLA's 192 / 128, window 2048, prefix 256,
    softcap 50, ragged, S < T, cross S > T, f32; each row's route asserted
-   by the launch counters), two calls equal bit for bit, the Function's
-   forward equal to the no-grad forward bit for bit, the forward's lse
-   against its plain version (qwen3-0.6b's shape and prefix 200 at hd 64), five
+   by the launch counters), two calls equal bit for bit (gemma-2b's with
+   its dkdv split over several CTAs), the Function's forward equal to the
+   no-grad forward bit for bit, the forward's lse against its plain version
+   (qwen3-0.6b's shape, prefix 200 at hd 64, gemma-2b's and MLA's), seven
    planted faults rejected (D dropped, dK and dV from head 0 of a group, a
    key one past the prefix, the cap's derivative left out, lse one row
-   off), registers and spills of every instantiation, and time each route
-   (``tc`` at qwen3-0.6b's shape, ``simt`` at gemma-2b's) beside its bound,
-   its plain version and SDPA's backward;
+   off, one split's partial dropped, dK's scale dropped), registers and
+   spills of every instantiation, and time the ``tc`` route at qwen3-0.6b's
+   shape, gemma-2b's and MLA's, and the ``simt`` route at the f32 shape,
+   beside each bound, plain version and SDPA's backward;
    hold one qwen3-0.6b block's gradients at 4 x 2048 tokens to the plain
    path (``TRAIN_LAYER_TOL``; a backward without D rejected); train
    qwen3-0.6b at full width through ``launch.train.main`` (20 steps of 4 x
@@ -201,8 +204,10 @@ Phases, each printing JSON objects, one per line:
    every 10 steps; the launch counters set to 0 just before and read just
    after; every backward launch on the ``tc`` route), every loss and grad
    norm finite and the loss falling; train gemma-2b at its published widths
-   cut to ``TRAIN_SIMT_LAYERS`` layers for ``TRAIN_SIMT_STEPS`` steps (hd
-   256: the ``simt`` route's main path); restore the
+   cut to ``TRAIN_GEMMA_LAYERS`` layers for ``TRAIN_GEMMA_STEPS`` steps (hd
+   256, one KV head: every backward launch on the ``tc`` route, its dkdv
+   split), then one f32 call of ``remop_flash_attention`` under autograd
+   (the ``simt`` route's launches: no model trains in f32); restore the
    step-10 checkpoint and run steps 11..20 again (losses within
    ``TRAIN_RESUME_TOL``); repro's fixed-batch rule (30 steps on one [1,
    2048] batch, the last loss below 0.7 of the first); one step's
@@ -4902,7 +4907,8 @@ TRAIN_ARCH = "qwen3-0.6b"
 # The flash backward against its plain version: (name, b, h, kv, s, t, hd,
 # hd_v, window, prefix, softcap, q gain, dtype).  The softcap row scales q
 # by 8 so the cap of 50 bites (scores to about 30, the cap's derivative
-# 0.7..1).  Inputs in the model's [B, S, heads, hd] memory, seen as [B,
+# 0.7..1); "q gain 8" does so without a cap: dK's entries reach 60 while
+# some cancel to near 0, which ATTN_TOL's atol holds to 1e-4.  Inputs in the model's [B, S, heads, hd] memory, seen as [B,
 # heads, S, hd]; dout too.
 BWD_CHECKS = (
     ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
@@ -4912,6 +4918,7 @@ BWD_CHECKS = (
     ("window 2048", 1, 10, 1, 4096, 4096, 256, 256, 2048, 0, 0.0, 1.0, "bfloat16"),
     ("prefix 256", 1, 8, 1, 768, 768, 256, 256, 0, 256, 0.0, 1.0, "bfloat16"),
     ("softcap 50", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 50.0, 8.0, "bfloat16"),
+    ("q gain 8", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 8.0, "bfloat16"),
     ("window 1000 hd 128", 1, 16, 8, 2048, 2048, 128, 128, 1000, 0, 0.0, 1.0, "bfloat16"),
     ("prefix 200 hd 64", 1, 8, 2, 700, 700, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
     ("softcap 50 hd 128", 1, 8, 8, 1024, 1024, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
@@ -4922,7 +4929,9 @@ BWD_CHECKS = (
     ("f32 hd 256", 1, 8, 1, 300, 333, 256, 256, 0, 0, 0.0, 1.0, "float32"),
 )
 BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape of the tc route
-BWD_SIMT_REPORT = "gemma-2b"  # and of the simt route
+BWD_SIMT_REPORT = "f32"  # and of the simt route (f32 only, since hd 256 went to tc)
+# Further timing rows of the tc route: hd 256 (dkdv split over CTAs) and (192, 128).
+BWD_TC_WIDE_REPORTS = ("gemma-2b", "mla 192/128")
 
 
 def bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=0, prefix=0):
@@ -4962,12 +4971,13 @@ def forward_with_lse(torch, q, k, v, **mask):
 def phase_train_kernels(torch, device):
     """The flash backward kernel against its plain version at the shapes of
     ``BWD_CHECKS``, each on the route its dtype and widths give (asserted by
-    the launch counters); two calls equal bit for bit; the Function's
-    forward equal to the no-grad forward bit for bit; the forward's lse
-    against its plain version; five planted faults rejected; registers and
-    spills of every instantiation; then each route timed (``tc`` at the
-    training shape, ``simt`` at gemma-2b's) beside its bound, its plain
-    version and SDPA's backward."""
+    the launch counters); two calls equal bit for bit (gemma-2b's with dkdv
+    split over several CTAs a key block); the Function's forward equal to
+    the no-grad forward bit for bit; the forward's lse against its plain
+    version; seven planted faults rejected; registers and spills of every
+    instantiation (none in what the plan launches); then the ``tc`` route
+    timed at the training shape, gemma-2b's and MLA's, and ``simt`` at the
+    f32 shape, beside each bound, plain version and SDPA's backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
@@ -4997,11 +5007,13 @@ def phase_train_kernels(torch, device):
         path = fab.bwd_route(q, k, v, out, dout)
         check(path == _bwd_route_of(dtype, hd, hd_v),
               f"flash_attention_bwd {name}: route {path}")
-        lse = None
+        lse, blocks = None, fab.plan_bwd_blocks(hd, hd_v, q.element_size())
         if path == "tc":
             out_lse, lse = forward_with_lse(torch, q, k, v, **mask)
             check(torch.equal(bits(out_lse), bits(out)),
                   f"flash_attention {name}: the forward writing lse changed its output")
+            blocks = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)
+            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, t, hd, hd_v)
         before = dict(runtime.launches)
         got = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
         again = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
@@ -5019,14 +5031,16 @@ def phase_train_kernels(torch, device):
         errs[key] = max(errs.get(key, 0.0), err)
         emit({"phase": "train", "check": "flash_attention_bwd", "case": name, "route": path,
               "shape": [b, h, kv, s, t, hd, hd_v], "dtype": dtype, **mask, "q_gain": gain,
-              "blocks": (fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0) if path == "tc"
-                         else fab.plan_bwd_blocks(hd, hd_v, q.element_size())),
-              "tol": ATTN_TOL[str(q.dtype)], "max_abs_err": err, "rel_err": rel,
+              "blocks": blocks, "tol": ATTN_TOL[str(q.dtype)], "max_abs_err": err, "rel_err": rel,
               "per_grad_rel_err": [rel_err(torch, g, w) for g, w in zip(got, want)],
+              "per_grad_tol_excess": [tol_excess(torch, g, w) for g, w in zip(got, want)],
               "equal_bits_twice": same})
         check(ok, f"flash_attention_bwd {name}: kernel differs from its plain version beyond "
                   f"ATTN_TOL (max abs err {err}, relative L2 {rel})")
-        if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64"):
+        if name == "gemma-2b":
+            check(blocks["kv_split"] > 1, f"gemma-2b's dkdv is not split: {blocks}")
+        if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64",
+                    "gemma-2b", "mla 192/128"):
             kept[name] = (q, k, v, out, dout, mask, got, lse)
         if name == "qwen3-0.6b train":
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -5039,7 +5053,7 @@ def phase_train_kernels(torch, device):
         del got, again, want
 
     # The forward's lse (tensor-core route) against its plain version, f32.
-    for name in ("qwen3-0.6b train", "prefix 200 hd 64"):
+    for name in ("qwen3-0.6b train", "prefix 200 hd 64", "gemma-2b", "mla 192/128"):
         q, k, v, _, _, mask, _, _ = kept[name]
         _, lse = forward_with_lse(torch, q, k, v, **mask)
         _, want = flash_attention_plain(q, k, v, **mask, return_lse=True)
@@ -5080,15 +5094,40 @@ def phase_train_kernels(torch, device):
     finally:
         fab.cap_grad = cap_grad
     fault("softcap 50", "leaves out the cap's derivative", want)
-    del kept, want, dq_ok, dk0, dv0
+    # The split's sum, planted through the kernel's own pieces: dkdv's
+    # partials of gemma-2b summed without the last one, then without dK's scale.
+    q, k, v, out, dout, mask, got, lse = kept["gemma-2b"]
+    scale = 1.0 / math.sqrt(q.shape[3])
+    dq_, dk_, dv_, part, n_split = fab.bwd_tc_launch(q, k, v, out, dout, lse, scale, **mask)
+    fab.kv_reduce(part, dk_, dv_, n_split, scale)
+    check(n_split > 1 and all(torch.equal(bits(a), bits(c)) for a, c in zip((dq_, dk_, dv_), got)),
+          "gemma-2b: the backward's pieces (dkdv's partials, their sum) differ from the call")
+    want = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)
+    fab.kv_reduce(part, dk_, dv_, n_split - 1, scale)
+    fault("gemma-2b", f"drops the last of {n_split} split partials of dK and dV", want,
+          got=(dq_, dk_, dv_))
+    fab.kv_reduce(part, dk_, dv_, n_split, 1.0)
+    fault("gemma-2b", "drops dK's scale in the split's sum", want, got=(dq_, dk_, dv_))
+    del kept, want, dq_ok, dk0, dv0, dq_, dk_, dv_, part
 
     emit({"phase": "train", "flash_attention_bwd_instantiations": {
         f"{dt} {hd}x{hd_v}": fab.bwd_attributes(getattr(torch, dt), hd, hd_v)
         for dt in ("bfloat16", "float32") for hd, hd_v in fab.BWD_HEAD_PAIRS}})
-    emit({"phase": "train", "flash_attention_bwd_tc_instantiations": {
-        f"{hd} kv_bq {kv_bq}{' capped' if capped else ''}": fab.bwd_tc_attributes(
-            hd, hd, capped, {"dq": fab.BWD_TC_BLOCKS["dq"][0], "dkdv": (128, kv_bq)})
-        for hd, _ in fab.BWD_TC_HEAD_PAIRS for kv_bq in (64, 32) for capped in (False, True)}})
+    tc_inst = {}
+    for (hd, hd_v), table in fab.BWD_TC_BLOCKS.items():
+        for blocks in table["dkdv"]:
+            for capped in (False, True):
+                tc_inst[f"{hd}x{hd_v} dkdv {list(blocks)}{' capped' if capped else ''}"] = (
+                    fab.bwd_tc_attributes(hd, hd_v, capped, {"dq": table["dq"][0],
+                                                              "dkdv": blocks}))
+    emit({"phase": "train", "flash_attention_bwd_tc_instantiations": tc_inst})
+    for (hd, hd_v), table in fab.BWD_TC_BLOCKS.items():
+        for capped in (False, True):
+            plan = fab.plan_bwd_tc_blocks(hd, hd_v, capped)
+            attrs = fab.bwd_tc_attributes(hd, hd_v, capped, plan)
+            check(all(attrs[kernel]["local_bytes"] == 0 for kernel in fab.BWD_TC_KERNELS),
+                  f"the tc plan at {(hd, hd_v)}{' capped' if capped else ''} launches an "
+                  f"instantiation that spills: {attrs}; add it to BWD_TC_SPILLS")
 
     # Timing of each route at its report shape: kernel, plain version, and
     # SDPA's backward (torch.autograd.grad of one causal GQA call) on the
@@ -5096,13 +5135,12 @@ def phase_train_kernels(torch, device):
     bench = Bench(torch, device)
 
     def timing(path, report):
-        (_, b, h, kv, s, t, hd, hd_v, *_), = (c for c in BWD_CHECKS if c[0] == report)
-        q, k, v = (model_layout(b, n, s, w, "bfloat16") for n, w in ((h, hd), (kv, hd),
-                                                                    (kv, hd_v)))
+        (_, b, h, kv, s, t, hd, hd_v, *_, dtype), = (c for c in BWD_CHECKS if c[0] == report)
+        q, k, v = (model_layout(b, n, s, w, dtype) for n, w in ((h, hd), (kv, hd), (kv, hd_v)))
         with torch.no_grad():
             out = remop_flash_attention(q, k, v)
         lse = forward_with_lse(torch, q, k, v)[1] if path == "tc" else None
-        dout = model_layout(b, h, s, hd_v, "bfloat16")
+        dout = model_layout(b, h, s, hd_v, dtype)
         check(fab.bwd_route(q, k, v, out, dout) == path, f"the {report} timing is not {path}")
         qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
@@ -5113,12 +5151,17 @@ def phase_train_kernels(torch, device):
         def library():
             return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
 
-        ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, 2), BF16_OPS_PER_S)
-        blocks = (fab.plan_bwd_tc_blocks(hd, hd_v) if path == "tc"
-                  else fab.plan_bwd_blocks(hd, hd_v, 2))
+        elem = q.element_size()
+        ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, elem),
+                             BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
+        if path == "tc":
+            blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
+            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, t, hd, hd_v)
+        else:
+            blocks = fab.plan_bwd_blocks(hd, hd_v, elem)
         return dict(
-            shape=f"q [{b},{h},{s},{hd}], k/v [{b},{kv},{t},{hd}] bf16, causal, the model's "
-                  f"layout, route {path}, blocks {blocks}",
+            shape=f"q [{b},{h},{s},{hd}], k [{b},{kv},{t},{hd}], v [{b},{kv},{t},{hd_v}] "
+                  f"{dtype}, causal, the model's layout, route {path}, blocks {blocks}",
             ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
             plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout)),
             library_ms=bench.ms(library),
@@ -5127,8 +5170,11 @@ def phase_train_kernels(torch, device):
 
     for path, report in (("tc", BWD_REPORT), ("simt", BWD_SIMT_REPORT)):
         rows[f"flash_attention_bwd_{path}"] = timing(path, report)
-        emit({"phase": "train", "timing": "flash_attention_bwd", "route": path,
+        emit({"phase": "train", "timing": "flash_attention_bwd", "route": path, "case": report,
               **rows[f"flash_attention_bwd_{path}"]})
+    for report in BWD_TC_WIDE_REPORTS:
+        emit({"phase": "train", "timing": "flash_attention_bwd", "route": "tc", "case": report,
+              **timing("tc", report)})
     del bench
     return errs, rows
 
@@ -5277,7 +5323,7 @@ def train_breakdown(torch, step_fn, state, batch):
         name, us = e.key.lower(), e.self_device_time_total / 1e6
         events += e.count
         if any(w in name for w in ("prep_kernel", "dq_kernel", "dkdv_kernel", "dq_tc_kernel",
-                                   "dkdv_tc_kernel")):
+                                   "dkdv_tc_kernel", "dkdv_wg_kernel", "kv_reduce_kernel")):
             kinds["flash_backward"] += us
         elif "flash_attention_kernel" in name:
             kinds["flash_forward"] += us
@@ -5293,34 +5339,41 @@ def train_breakdown(torch, step_fn, state, batch):
             "largest_other_kernels_seconds": dict(others.most_common(8))}
 
 
-# The simt route's main path: launch.train at gemma-2b's published widths
-# (hd 256, 8 heads on one KV head) with the depth cut to TRAIN_SIMT_LAYERS.
-TRAIN_SIMT_LAYERS, TRAIN_SIMT_STEPS = 2, 3
-TRAIN_SIMT_ARGV = ("--arch", "gemma-2b", "--reduced", "--reduced-overrides",
-                   f"n_layers={TRAIN_SIMT_LAYERS},d_model=2048,n_heads=8,n_kv_heads=1,"
-                   "head_dim=256,d_ff=16384,vocab_size=256000", "--global-batch", "1",
-                   "--seq-len", "2048", "--steps", str(TRAIN_SIMT_STEPS), "--checkpoint-every",
-                   "1000", "--seed", "0")
+# gemma-2b's training main path: launch.train at its published widths (hd
+# 256, 8 heads on one KV head: the tc route with dkdv split over CTAs) with
+# the depth cut to TRAIN_GEMMA_LAYERS.
+TRAIN_GEMMA_LAYERS, TRAIN_GEMMA_STEPS = 2, 3
+TRAIN_GEMMA_ARGV = ("--arch", "gemma-2b", "--reduced", "--reduced-overrides",
+                    f"n_layers={TRAIN_GEMMA_LAYERS},d_model=2048,n_heads=8,n_kv_heads=1,"
+                    "head_dim=256,d_ff=16384,vocab_size=256000", "--global-batch", "1",
+                    "--seq-len", "2048", "--steps", str(TRAIN_GEMMA_STEPS), "--checkpoint-every",
+                    "1000", "--seed", "0")
 
 
-def phase_train_simt_run(torch, device):
-    """Train gemma-2b (hd 256, the backward's simt route) at its published
-    widths, cut to TRAIN_SIMT_LAYERS layers, for TRAIN_SIMT_STEPS steps
-    through ``launch.train.main``, the launch counters set to 0 just before
-    and read just after: every backward launch on the simt route, the
-    losses finite.  Returns the launches."""
+def phase_train_gemma_tc_run(torch, device):
+    """Train gemma-2b (hd 256, one KV head) at its published widths, cut to
+    TRAIN_GEMMA_LAYERS layers, for TRAIN_GEMMA_STEPS steps through
+    ``launch.train.main``, the launch counters set to 0 just before and read
+    just after: every backward launch on the ``tc`` route, the losses
+    finite, the median step seconds printed.  Then the ``simt`` route's
+    main path, which no model trains on any more (every model's activations
+    are bf16 at a width the ``tc`` route takes): one f32 call of
+    ``remop_flash_attention`` under autograd at ``BWD_SIMT_REPORT``'s
+    shape, the counters set to 0 just before its backward and read just
+    after.  Returns the launches of both runs."""
     import statistics as stats
 
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
     from repro_torch.launch import train as train_mod
 
-    argv = [*TRAIN_SIMT_ARGV, "--device", str(device)]
+    argv = [*TRAIN_GEMMA_ARGV, "--device", str(device)]
     cfg = train_mod.setup(train_mod.parse_args(argv))[0]
     full = ARCHS["gemma-2b"]
     check(all(getattr(cfg, f) == getattr(full, f) for f in
               ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size")),
-          "the simt trainer's config is not gemma-2b's widths")
+          "the gemma-2b trainer's config is not gemma-2b's widths")
     log = {}
     runtime.reset_launches()
     t0 = time.perf_counter()
@@ -5331,17 +5384,36 @@ def phase_train_simt_run(torch, device):
     launches = dict(runtime.launches)
     del state
     torch.cuda.empty_cache()
-    bwd_calls = TRAIN_SIMT_STEPS * TRAIN_SIMT_LAYERS
+    bwd_calls = TRAIN_GEMMA_STEPS * TRAIN_GEMMA_LAYERS
     steps = sorted(log)
-    emit({"phase": "train", "simt_trainer": "gemma-2b", "layers": TRAIN_SIMT_LAYERS,
-          "tokens_per_step": int(TRAIN_SIMT_ARGV[TRAIN_SIMT_ARGV.index("--seq-len") + 1]),
-          "losses": losses, "wall_seconds": wall,
-          "step_seconds_median": stats.median(log[s][0] - log[s - 1][0] for s in steps[1:]),
+    median = stats.median(log[s][0] - log[s - 1][0] for s in steps[1:])
+    emit({"phase": "train", "gemma_tc_trainer": "gemma-2b", "layers": TRAIN_GEMMA_LAYERS,
+          "tokens_per_step": int(TRAIN_GEMMA_ARGV[TRAIN_GEMMA_ARGV.index("--seq-len") + 1]),
+          "losses": losses, "wall_seconds": wall, "step_seconds_median": median,
           "launches": launches})
-    check(all(math.isfinite(x) for x in losses), "the simt trainer's loss is not finite")
-    check(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_simt")
-          == bwd_calls and "flash_attention_bwd_tc" not in launches,
-          f"the simt trainer launched the backward {launches}; want {bwd_calls}, all simt")
+    print(f"gemma-2b tc trainer: median step {median:.4f} s", flush=True)
+    check(all(math.isfinite(x) for x in losses), "the gemma-2b trainer's loss is not finite")
+    check(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_tc")
+          == bwd_calls and "flash_attention_bwd_simt" not in launches,
+          f"the gemma-2b trainer launched the backward {launches}; want {bwd_calls}, all tc")
+
+    (_, b, h, kv, s, t, hd, hd_v, *_), = (c for c in BWD_CHECKS if c[0] == BWD_SIMT_REPORT)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn(b, n, length, w, device=device, generator=gen).requires_grad_()
+               for n, length, w in ((h, s, hd), (kv, t, hd), (kv, t, hd_v)))
+    out = remop_flash_attention(q, k, v)
+    runtime.reset_launches()
+    grads = torch.autograd.grad(out, (q, k, v), torch.randn_like(out))
+    torch.cuda.synchronize()
+    simt = dict(runtime.launches)
+    emit({"phase": "train", "simt_main_path": "remop_flash_attention f32 under autograd",
+          "shape": [b, h, kv, s, t, hd, hd_v], "launches": simt,
+          "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads)})
+    check(simt == {"flash_attention_bwd": 1, "flash_attention_bwd_simt": 1}
+          and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"the f32 backward launched {simt}, not one simt launch, or its gradients are not "
+          "finite")
+    launches["flash_attention_bwd_simt"] = simt["flash_attention_bwd_simt"]
     return launches
 
 
@@ -5644,7 +5716,7 @@ def main() -> int:
     phase_train_layer(torch, device)
     launches["flash_attention_bwd_tc"] = phase_train_run(torch, device,
                                                          card)["flash_attention_bwd_tc"]
-    launches["flash_attention_bwd_simt"] = phase_train_simt_run(
+    launches["flash_attention_bwd_simt"] = phase_train_gemma_tc_run(
         torch, device)["flash_attention_bwd_simt"]
     lap("train")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)

@@ -8,13 +8,18 @@ Run from the root of a checkout on a machine with one H100:
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
 an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
-(registers and spills of both routes' kernels, ``dq_tc_kernel`` and
-``dkdv_tc_kernel`` among them), then ``chip_smoke.phase_train_kernels``
+(registers and spills of both routes' kernels, ``dq_tc_kernel``,
+``dkdv_tc_kernel`` and ``dkdv_wg_kernel`` among them) and of the forward's
+(its lse instantiations), then ``chip_smoke.phase_train_kernels``
 (every ``BWD_CHECKS`` shape on its route against the plain version, equal
 bits twice, the forward's lse, the planted faults, registers and spills,
-each route's timing row), then the tensor-core route at qwen3-0.6b's
-training shape under each ``dkdv`` block of ``BWD_TC_BLOCKS`` (device ms,
-and the error against the plain version).  Without it:
+each route's timing row), then both routes and the plain version against
+an f64 reference at hd 256 and 128 on one KV head with q 8 times the unit
+scale, then the tensor-core route at qwen3-0.6b's
+training shape under each hd-128 ``dkdv`` block of ``BWD_TC_BLOCKS``, and
+at gemma-2b's, recurrentgemma's window and paligemma's prefix shapes (hd
+256, one KV head) under each dkdv split (device ms, and the error against
+the plain version).  Without it:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -44,6 +49,7 @@ with its error against the plain version or the error it raised;
 ``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
 """
 
+import math
 import subprocess
 import sys
 import time
@@ -79,29 +85,110 @@ def ptxas_report(log_dir: Path, name: str = "flash_attention") -> None:
 
 def bwd_tc_blocks(torch, chip_smoke) -> None:
     """The tensor-core backward at qwen3-0.6b's training shape under each
-    dkdv block of ``BWD_TC_BLOCKS``: device ms a call and the error against
-    the plain version."""
+    dkdv block of ``BWD_TC_BLOCKS[(128, 128)]``, then at three hd-256 shapes
+    on one KV head (gemma-2b's causal, recurrentgemma's window 2048,
+    paligemma's prefix 256) under each dkdv split of 1 ..
+    ``BWD_KV_SPLIT_MAX`` CTAs a key block: device ms a call and the error
+    against the plain version."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v, dout = (torch.randn(4, 2048, n, 128, device=dev, generator=g).to(
-        torch.bfloat16).transpose(1, 2) for n in (16, 8, 8, 16))
-    out, lse = chip_smoke.forward_with_lse(torch, q, k, v)
-    want = fab.flash_attention_bwd_plain(q, k, v, out, dout)
     bench = chip_smoke.Bench(torch, dev)
-    plan = fab.plan_bwd_tc_blocks
+
+    def inputs(b, h, kv, s, hd, **mask):
+        q, k, v, dout = (torch.randn(b, s, n, hd, device=dev, generator=g).to(
+            torch.bfloat16).transpose(1, 2) for n in (h, kv, kv, h))
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
+        return q, k, v, out, dout, lse, fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)
+
+    def report(what, q, k, v, out, dout, lse, want, **mask):
+        got = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse, **mask)
+        ok, err, rel = chip_smoke.grads_close(torch, got, want)
+        print(what, bench.device_ms(
+            lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse, **mask), reps=10),
+            f"ok {ok} maxabs {err:.3e} rel {rel:.3e}", flush=True)
+
+    plan, split = fab.plan_bwd_tc_blocks, fab.plan_bwd_kv_split
+    table = fab.BWD_TC_BLOCKS[(128, 128)]
     try:
-        for blocks in fab.BWD_TC_BLOCKS["dkdv"]:
+        case = inputs(4, 16, 8, 2048, 128)
+        for blocks in table["dkdv"]:
             fab.plan_bwd_tc_blocks = lambda hd, hd_v, capped=False, blocks=blocks: {
-                "dq": fab.BWD_TC_BLOCKS["dq"][0], "dkdv": blocks}
-            got = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
-            ok, err, rel = chip_smoke.grads_close(torch, got, want)
-            print("bwd tc dkdv blocks", blocks, bench.device_ms(
-                lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse), reps=10),
-                f"ok {ok} maxabs {err:.3e} rel {rel:.3e}", flush=True)
-    finally:
+                "dq": table["dq"][0], "dkdv": blocks}
+            report(f"bwd tc qwen3-0.6b dkdv blocks {blocks}", *case)
         fab.plan_bwd_tc_blocks = plan
+        for name, (b, h, kv, s, hd), mask in (("gemma-2b", (1, 8, 1, 2048, 256), {}),
+                                              ("window 2048", (1, 10, 1, 4096, 256),
+                                               {"window": 2048}),
+                                              ("prefix 256", (1, 8, 1, 768, 256),
+                                               {"prefix": 256})):
+            case = inputs(b, h, kv, s, hd, **mask)
+            print(f"bwd tc {name} planned kv_split", split(b, kv, s, h // kv, 64), flush=True)
+            for n in range(1, fab.BWD_KV_SPLIT_MAX + 1):
+                fab.plan_bwd_kv_split = lambda *args, n=n, **kw: n
+                report(f"bwd tc {name} kv_split {n}", *case, **mask)
+    finally:
+        fab.plan_bwd_tc_blocks, fab.plan_bwd_kv_split = plan, split
+
+
+def bwd_against_f64(torch, chip_smoke) -> None:
+    """Both backward routes and the plain version against an f64 reference
+    (softmax attention written out in float64 on the same bf16 inputs, with
+    D from the same bf16 forward output) at hd 256 and 128 on one KV head
+    with q 8 times the unit scale, capped at 50 or not: per gradient the
+    largest |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` (below 1
+    within it), the reference and the value there, and the count above 1."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    dev = torch.device("cuda", 0)
+
+    def reference(q, k, v, out, dout, softcap):
+        b, h, s, hd = q.shape
+        g = h // k.shape[1]
+        kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
+        qd, dod = q.double(), dout.double()
+        scale = 1 / math.sqrt(hd)
+        sc = torch.einsum("bhsd,bhtd->bhst", qd, kd) * scale
+        if softcap:
+            sc = torch.tanh(sc / softcap) * softcap
+        seen = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        p = torch.softmax(sc.masked_fill(~seen, float("-inf")), -1)
+        ds = p * (torch.einsum("bhsd,bhtd->bhst", dod, vd)
+                  - (dod * out.double()).sum(-1, keepdim=True))
+        if softcap:
+            ds = ds * (1 - (sc.masked_fill(~seen, 0) / softcap) ** 2)
+        dq = torch.einsum("bhst,bhtd->bhsd", ds, kd) * scale
+        dk = torch.einsum("bhst,bhsd->bhtd", ds, qd) * scale
+        dv = torch.einsum("bhst,bhsd->bhtd", p, dod)
+        return dq, dk.view(b, -1, g, s, hd).sum(2), dv.view(b, -1, g, s, vd.shape[3]).sum(2)
+
+    def excess(got, ref):
+        tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+        r = (got.double() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
+        i = int(r.argmax())
+        return [round(float(r.max()), 4), float(ref.reshape(-1)[i]),
+                float(got.reshape(-1)[i]), int((r > 1).sum())]
+
+    for hd, cap in ((256, 50.0), (256, 0.0), (128, 50.0)):
+        g = torch.Generator(device=dev).manual_seed(8)
+        q, k, v, dout = ((torch.randn(1, 2048, n, hd, device=dev, generator=g) * gain).to(
+            torch.bfloat16).transpose(1, 2) for n, gain in ((8, 8.0), (1, 1.0), (1, 1.0),
+                                                            (8, 1.0)))
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v, softcap=cap)
+        ref = reference(q, k, v, out, dout, cap)
+        route = fab.bwd_route
+        got = {"tc": fab.flash_attention_bwd(q, k, v, out, dout, softcap=cap, lse=lse)}
+        fab.bwd_route = lambda *xs: "simt"
+        try:
+            got["simt"] = fab.flash_attention_bwd(q, k, v, out, dout, softcap=cap)
+        finally:
+            fab.bwd_route = route
+        got["plain"] = fab.flash_attention_bwd_plain(q, k, v, out, dout, softcap=cap)
+        for who, grads in got.items():
+            print(f"bwd vs f64 hd {hd} cap {cap} q gain 8 {who}",
+                  {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
+                  flush=True)
 
 
 def main() -> int:
@@ -122,12 +209,14 @@ def main() -> int:
     log_dir.mkdir(parents=True, exist_ok=True)
     if "--bwd" in sys.argv[1:]:
         ptxas_report(log_dir, "flash_attention_bwd")
+        ptxas_report(log_dir, "flash_attention")  # the forward's lse instantiations
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.load_peaks()
         t1 = time.time()
         runtime.build(["flash_attention", "flash_attention_bwd"])
         print("build", time.time() - t1, flush=True)
         chip_smoke.phase_train_kernels(torch, torch.device("cuda", 0))
+        bwd_against_f64(torch, chip_smoke)
         bwd_tc_blocks(torch, chip_smoke)
         print("ALL OK", flush=True)
         return 0

@@ -140,6 +140,7 @@ class H100Spec:
     hbm_bandwidth: float = 3.35e12  # HBM3 bytes/s (data sheet)
     ici_bandwidth: float = 450e9  # NVLink bytes/s, one direction (data sheet)
     vmem_bytes: int = 232_448  # shared memory one CTA can use, 227 KB (data sheet)
+    sms: int = 132  # streaming multiprocessors (data sheet)
     hbm_bytes: int = 80 * 1024**3  # device memory, "80GB" (data sheet): five 16 GiB HBM3 stacks
     dma_overhead_s: float = H100_DMA_OVERHEAD_S  # one tile staging round: placeholder
     collective_launch_s: float = H100_COLLECTIVE_LAUNCH_S  # one NCCL launch: placeholder

@@ -64,7 +64,7 @@
 // P_hi) (about 16 significant bits), two products into the same O, 1.5x
 // the tensor work of a bf16 P.  SPLIT = false (a probe off the main path)
 // rounds P to bf16 once.  Given an f32 [B, H, S] buffer `lse` (the entry
-// remop_flash_attention_tc_lse, at hd = hd_v = 64 or 128) the epilogue also
+// remop_flash_attention_tc_lse, at every width of the route) the epilogue also
 // writes each row's log-sum-exp, m + log(l), in the scaled and capped score
 // domain P was formed in: the backward's tc route reads it instead of
 // recomputing Q K^T for it.  The write is a template argument (LSE), as the
@@ -637,50 +637,41 @@ bool tc_ok(int hd, int hdv, int bq, int bk) {
 // f(integral_constant<HD>, <HDV>, <BQ>, <BK>, bool_constant<SPLIT>,
 // bool_constant<CAP>, bool_constant<LSE>) for a tc_ok shape.  A cap and an
 // lse come with the split P only (split = 0 is a probe off the main path);
-// an lse at the widths the backward's tc route takes, 64 and 128.
+// an lse at every tc_ok shape, the widths the backward's tc route takes.
 template <typename F>
 int tc_dispatch(int hd, int hdv, int bq, int bk, int split, bool cap, bool lse, F&& f) {
 #define REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, SPLIT, CAP, LSE)                                \
   f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},                   \
     std::integral_constant<int, BQ>{}, std::integral_constant<int, BK>{},                    \
     std::bool_constant<SPLIT>{}, std::bool_constant<CAP>{}, std::bool_constant<LSE>{})
-#define REMOP_FLASH_TC_NO_LSE(HD, HDV, BQ, BK)                                               \
-  if (cap)                                                                                   \
-    return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, true, false)                   \
-                 : cudaErrorInvalidValue;                                                    \
-  return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, false, false)                    \
-               : REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, false, false, false);
-#define REMOP_FLASH_TC(HD, HDV, BQ, BK)                                                      \
+#define REMOP_FLASH_TC_WITH_LSE(HD, HDV, BQ, BK)                                             \
   if (hd == HD && hdv == HDV && bq == BQ && bk == BK) {                                      \
-    if (lse) return cudaErrorInvalidValue;                                                   \
-    REMOP_FLASH_TC_NO_LSE(HD, HDV, BQ, BK)                                                   \
-  }
-#define REMOP_FLASH_TC_WITH_LSE(HD, BQ, BK)                                                  \
-  if (hd == HD && hdv == HD && bq == BQ && bk == BK) {                                       \
     if (lse) {                                                                               \
       if (!split) return cudaErrorInvalidValue;                                              \
-      return cap ? REMOP_FLASH_TC_CALL(HD, HD, BQ, BK, true, true, true)                     \
-                 : REMOP_FLASH_TC_CALL(HD, HD, BQ, BK, true, false, true);                   \
+      return cap ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, true, true)                    \
+                 : REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, false, true);                  \
     }                                                                                        \
-    REMOP_FLASH_TC_NO_LSE(HD, HD, BQ, BK)                                                    \
+    if (cap)                                                                                 \
+      return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, true, false)                 \
+                   : cudaErrorInvalidValue;                                                  \
+    return split ? REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, true, false, false)                  \
+                 : REMOP_FLASH_TC_CALL(HD, HDV, BQ, BK, false, false, false);                \
   }
-  REMOP_FLASH_TC_WITH_LSE(64, 64, 64)
-  REMOP_FLASH_TC_WITH_LSE(64, 64, 128)
-  REMOP_FLASH_TC_WITH_LSE(64, 128, 64)
-  REMOP_FLASH_TC_WITH_LSE(64, 128, 128)
-  REMOP_FLASH_TC_WITH_LSE(128, 64, 64)
-  REMOP_FLASH_TC_WITH_LSE(128, 64, 128)
-  REMOP_FLASH_TC_WITH_LSE(128, 128, 64)
-  REMOP_FLASH_TC_WITH_LSE(128, 128, 128)
-  REMOP_FLASH_TC(256, 256, 64, 64)
-  REMOP_FLASH_TC(256, 256, 128, 64)
-  REMOP_FLASH_TC(192, 128, 64, 64)
-  REMOP_FLASH_TC(192, 128, 64, 128)
-  REMOP_FLASH_TC(192, 128, 128, 64)
-  REMOP_FLASH_TC(192, 128, 128, 128)
+  REMOP_FLASH_TC_WITH_LSE(64, 64, 64, 64)
+  REMOP_FLASH_TC_WITH_LSE(64, 64, 64, 128)
+  REMOP_FLASH_TC_WITH_LSE(64, 64, 128, 64)
+  REMOP_FLASH_TC_WITH_LSE(64, 64, 128, 128)
+  REMOP_FLASH_TC_WITH_LSE(128, 128, 64, 64)
+  REMOP_FLASH_TC_WITH_LSE(128, 128, 64, 128)
+  REMOP_FLASH_TC_WITH_LSE(128, 128, 128, 64)
+  REMOP_FLASH_TC_WITH_LSE(128, 128, 128, 128)
+  REMOP_FLASH_TC_WITH_LSE(256, 256, 64, 64)
+  REMOP_FLASH_TC_WITH_LSE(256, 256, 128, 64)
+  REMOP_FLASH_TC_WITH_LSE(192, 128, 64, 64)
+  REMOP_FLASH_TC_WITH_LSE(192, 128, 64, 128)
+  REMOP_FLASH_TC_WITH_LSE(192, 128, 128, 64)
+  REMOP_FLASH_TC_WITH_LSE(192, 128, 128, 128)
 #undef REMOP_FLASH_TC_WITH_LSE
-#undef REMOP_FLASH_TC
-#undef REMOP_FLASH_TC_NO_LSE
 #undef REMOP_FLASH_TC_CALL
   return cudaErrorInvalidValue;
 }
@@ -826,7 +817,8 @@ int remop_flash_attention_tc(const void* q, const void* k, const void* v, void* 
 }
 
 // The same launch that also writes each row's log-sum-exp into lse, f32 [B,
-// H, S], contiguous (hd = hd_v = 64 or 128; the LSE instantiations).
+// H, S], contiguous (every width and block of the route; the LSE
+// instantiations).
 int remop_flash_attention_tc_lse(const void* q, const void* k, const void* v, void* o,
                                  const long long* strides, int b, int h, int kv, int s, int t,
                                  int hd, int bq, int bk, float scale, int split, int hd_v,

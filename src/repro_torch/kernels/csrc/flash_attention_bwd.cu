@@ -24,37 +24,51 @@
 // qwen3-0.6b's [4, 16, 2048, 128] at 989 TFLOP/s), against a few bytes a
 // pair.  Splitting dQ from dK/dV without atomics forms S and dP twice: 14 hd.
 //
-// Tensor-core route (dq_tc_kernel, dkdv_tc_kernel): bf16 at hd = hd_v = 64
-// or 128, TMA-aligned q, k, v and do, two launches on the caller's stream.
-// Each row's log-sum-exp comes from the forward (flash_attention.cu writes
-// it into an f32 [B, H, S] buffer when asked), so nothing recomputes Q K^T
-// for it.  Both kernels take the forward's tensor-core shape: one producer
-// warpgroup (setmaxnreg 40) whose first thread issues TMA copies over rank-4
-// maps with each tensor's own strides (boxes of 64 columns in the 128-byte
-// swizzle, rows past S or T zero-filled), two consumer warpgroups
-// (setmaxnreg 232), each owning 64 rows of the CTA's own tile, a two-stage
-// ring of streamed blocks on mbarriers, every product on wgmma with f32
-// accumulators in registers.
-//   dq_tc: one CTA per (128 query rows, head, batch), the heaviest (last)
-//     first.  Q and dO land once; the prologue forms D of its rows from O
-//     and dO (written to f32 scratch for dkdv_tc).  Per KV block of 64
-//     (K and V on separate barriers): S = Q K^T and dP = dO V^T (both
-//     operands K-major), then P and dS in registers, then dQ += dS K with
-//     dS as the register A operand and K read MN-major (the transpose bit).
-//   dkdv_tc: one CTA per (128 keys, KV head, batch), the first KV blocks
-//     (seen by the most queries) first.  K and V land once; for each query
-//     head of the GQA group and each query block of 64 rows that sees the
-//     tile, Q and dO stream through the ring and the producer's second warp
-//     stages the block's lse and D.  S^T = K Q^T and dP^T = V dO^T, then P^T
-//     and dS^T in registers, then dV += P^T dO and dK += dS^T Q (register A,
-//     dO and Q MN-major).  The group's sum stays inside the CTA.
+// Tensor-core route (dq_tc_kernel, then dkdv_tc_kernel or dkdv_wg_kernel):
+// bf16 at (hd, hd_v) = (64, 64), (128, 128), (256, 256) or (192, 128),
+// TMA-aligned q, k, v and do, two launches on the caller's stream (three with
+// a split, below).  Each row's log-sum-exp comes from the forward
+// (flash_attention.cu writes it into an f32 [B, H, S] buffer when asked), so
+// nothing recomputes Q K^T for it.  The kernels take the forward's
+// tensor-core shape: one producer warpgroup whose first thread issues TMA
+// copies over rank-4 maps with each tensor's own strides (boxes of 64
+// columns in the 128-byte swizzle, rows past S or T zero-filled; q and k
+// hd / 64 such slabs, v and do hd_v / 64), consumer warpgroups on 64 rows
+// each, a two-stage ring of streamed blocks on mbarriers, every product on
+// wgmma with f32 accumulators in registers; at two consumer warpgroups the
+// producer hands them its registers (setmaxnreg 40 / 232).
+//   dq_tc: one CTA per (128 query rows, head, batch), 64 at hd 256 (128
+//     rows of Q and dO with the ring would not fit shared memory), the
+//     heaviest (last) first.  Q and dO land once; the prologue forms D of
+//     its rows from O and dO (written to f32 scratch for dkdv).  Per KV
+//     block of 64 (K and V on separate barriers): S = Q K^T and dP = dO V^T
+//     (both operands K-major), then P and dS in registers, then dQ += dS K
+//     with dS as the register A operand and K read MN-major (the transpose bit).
+//   dkdv_tc (hd 64, 128): one CTA per (128 keys, KV head, batch), the
+//     first KV blocks (seen by the most queries) first.  K and V land once;
+//     for each step (a query head of the GQA group and a query block of 64
+//     rows that sees the tile) Q and dO stream through the ring
+//     and the producer's second warp stages the block's lse and D.  S^T = K
+//     Q^T and dP^T = V dO^T, then P^T and dS^T in registers, then dV += P^T
+//     dO and dK += dS^T Q (register A, dO and Q MN-major), both in each
+//     consumer warpgroup's registers.
+//   dkdv_wg (256, (192, 128)): dK and dV of 64 keys no longer fit one
+//     warpgroup's registers, so its two consumer warpgroups share the 64
+//     keys, one gradient each, and pass P^T through shared memory (see
+//     dkdv_wg_kernel).
+// The split (dkdv_wg): where B * KV * (key blocks) CTAs leave most SMs idle
+// (few KV heads), the host asks for n_split CTAs a key block; each takes one
+// run of its steps (heads first, then query blocks) and writes f32 partial dK
+// and dV to scratch, and kv_reduce_kernel sums them in split order, applies
+// the scale and rounds once.  No atomics: two calls give the same bits.
 // P and dS keep f32 precision into their products as the forward keeps P:
 // x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each, so
-// the design does 14 hd + 6 hd = 20 hd flops a pair on the tensor cores.
-// The capped dkdv at hd 128 streams 32 query rows a block (at 64 it spills).
-//
-// CUDA-core route (prep_kernel, dq_kernel, dkdv_kernel): every f32 call, hd
-// 256, (192, 128), and bf16 the tensor-core route does not take.  Three
+// the design does 14 hd + 6 hd = 20 hd flops a pair on the tensor cores
+// (22 hd in dkdv_wg, whose dK takes dS^T in three terms).
+// The capped dkdv_tc at hd 128 streams 32 query rows a block (at 64 it spills).
+
+// CUDA-core route (prep_kernel, dq_kernel, dkdv_kernel): every f32 call, and
+// bf16 the tensor-core route does not take (strides TMA cannot load).  Three
 // launches a call, in this order:
 //
 //   prep: one CTA per (query block, head, batch) walks the KV blocks its
@@ -612,11 +626,13 @@ int attributes(int hd, int hd_v, int* out) {
 }
 
 // ----------------------------------------------------------------------------
-// Tensor-core route: bf16 at (hd, hd_v) = (64, 64) or (128, 128)
+// Tensor-core route: bf16 at (hd, hd_v) = (64, 64), (128, 128), (256, 256) or
+// (192, 128)
 // ----------------------------------------------------------------------------
 
 constexpr int kProducerThreads = 128;  // one warpgroup, after the consumers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSplit = 16;  // CTAs a key block at most (the partials' scratch)
 
 struct TcParams {
   const void* o;     // the forward's output, for D
@@ -625,47 +641,59 @@ struct TcParams {
   void* dk;
   void* dv;
   const float* lse;  // [B, H, S], written by the forward
-  float* delta;      // [B, H, S], written by dq_tc, read by dkdv_tc
+  float* delta;      // [B, H, S], written by dq_tc, read by dkdv
+  // n_split > 1: [n_split, B, KV, T, hd + hd_v] f32, each CTA's dK (unscaled)
+  // then dV, summed by kv_reduce_kernel; n_split = 1: dkdv writes dk, dv.
+  float* part;
   // Element strides: q, k, v, o, do, dq, dk, dv, each (batch, head, position).
   int64_t st[24];
   int h, kv, s, t;
   float scale;
   int window, prefix;
   float softcap;
+  int n_split;
 };
 
 // Shared memory of dq_tc (byte offsets from a 1024-byte-aligned base): Q
-// then dO, each as hd / 64 slabs of BQ rows x 128 bytes; two stages of K
-// and V, each hd / 64 slabs of BK rows; the mbarriers q_full, k_full[2],
-// v_full[2], empty[2]; 1024 bytes of slack to align the base.
-__host__ __device__ constexpr int dq_tc_smem(int hd, int bq, int bk) {
-  return 1024 + 2 * bq * hd * 2 + 4 * bk * hd * 2 + 7 * 8;
+// (hd / 64 slabs of BQ rows x 128 bytes) then dO (hd_v / 64 slabs); two
+// stages of K (hd / 64 slabs of BK rows) and V (hd_v / 64); the mbarriers
+// q_full, k_full[2], v_full[2], empty[2]; 1024 bytes of slack to align the base.
+__host__ __device__ constexpr int dq_tc_smem(int hd, int hdv, int bq, int bk) {
+  return 1024 + bq * (hd + hdv) * 2 + 2 * bk * (hd + hdv) * 2 + 7 * 8;
 }
-// dkdv_tc: K then V, each hd / 64 slabs of BKV rows; two stages of Q and
-// dO, each hd / 64 slabs of BQ rows; lse (times log2 e) and D of each
-// stage's BQ rows, f32; the mbarriers kv_full, q_full[2], do_full[2],
+// dkdv: K then V of BKV keys; two stages of Q and dO of BQ rows; lse (times
+// log2 e) and D of each stage's BQ rows, f32; at BKV = 64 (dkdv_wg) the
+// exchange, 64 x BQ f32; the mbarriers kv_full, q_full[2], do_full[2],
 // empty[2]; 1024 bytes of slack.
-__host__ __device__ constexpr int dkdv_tc_smem(int hd, int bkv, int bq) {
-  return 1024 + 2 * bkv * hd * 2 + 4 * bq * hd * 2 + 4 * bq * 4 + 7 * 8;
+__host__ __device__ constexpr int dkdv_tc_smem(int hd, int hdv, int bkv, int bq) {
+  return 1024 + bkv * (hd + hdv) * 2 + 2 * bq * (hd + hdv) * 2 + 4 * bq * 4 +
+         (bkv == 64 ? 64 * bq * 4 : 0) + 7 * 8;
 }
 
-template <int HD, int BQ, int BK>
+template <int HD, int HDV, int BQ, int BK>
 struct DqLayout {
-  static constexpr int kQBytes = BQ * HD * 2;  // Q, then dO
-  static constexpr int kKBytes = BK * HD * 2;  // one K or V block
-  static constexpr int kStage = 2 * kKBytes;
-  static constexpr int kBars = 2 * kQBytes + 2 * kStage;
-  static constexpr int kSmem = dq_tc_smem(HD, BQ, BK);
+  static constexpr int kQBytes = BQ * HD * 2;
+  static constexpr int kDoBytes = BQ * HDV * 2;
+  static constexpr int kKBytes = BK * HD * 2;  // one K block
+  static constexpr int kVBytes = BK * HDV * 2;  // one V block
+  static constexpr int kRing = kQBytes + kDoBytes;
+  static constexpr int kStage = kKBytes + kVBytes;
+  static constexpr int kBars = kRing + 2 * kStage;
+  static constexpr int kSmem = dq_tc_smem(HD, HDV, BQ, BK);
 };
 
-template <int HD, int BKV, int BQ>
+template <int HD, int HDV, int BKV, int BQ>
 struct KvLayout {
-  static constexpr int kKBytes = BKV * HD * 2;  // K, then V
-  static constexpr int kQBytes = BQ * HD * 2;   // one Q or dO block
-  static constexpr int kStage = 2 * kQBytes;
-  static constexpr int kStats = 2 * kKBytes + 2 * kStage;  // lse[2][BQ], then D[2][BQ]
-  static constexpr int kBars = kStats + 4 * BQ * 4;
-  static constexpr int kSmem = dkdv_tc_smem(HD, BKV, BQ);
+  static constexpr int kKBytes = BKV * HD * 2;
+  static constexpr int kVBytes = BKV * HDV * 2;
+  static constexpr int kQBytes = BQ * HD * 2;  // one Q block
+  static constexpr int kDoBytes = BQ * HDV * 2;  // one dO block
+  static constexpr int kRing = kKBytes + kVBytes;
+  static constexpr int kStage = kQBytes + kDoBytes;
+  static constexpr int kStats = kRing + 2 * kStage;  // lse[2][BQ], then D[2][BQ]
+  static constexpr int kExchange = kStats + 4 * BQ * 4;  // dkdv_wg: [32][128] f32
+  static constexpr int kBars = kExchange + (BKV == 64 ? 64 * BQ * 4 : 0);
+  static constexpr int kSmem = dkdv_tc_smem(HD, HDV, BKV, BQ);
 };
 
 // The A fragments (hopper::wgmma_bf16_rs) of an f32 accumulator fragment
@@ -683,6 +711,31 @@ __device__ __forceinline__ void split_frags(const float (&x)[N / 2], uint32_t (&
       const float2 back = __bfloat1622float2(h);
       const __nv_bfloat162 l = __floats2bfloat162_rn(a - back.x, c - back.y);
       hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][e] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+  }
+}
+
+// The same with a third term, x = hi + mid + lo (about 24 significant bits,
+// f32's): for dkdv_wg's dK, a sum of G S terms dS Q that cancel to near 0 in
+// places while Q is large (the models' query gains).
+template <int N>
+__device__ __forceinline__ void split3_frags(const float (&x)[N / 2], uint32_t (&hi)[N / 16][4],
+                                             uint32_t (&mid)[N / 16][4],
+                                             uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = x[8 * kk + 2 * e], c = x[8 * kk + 2 * e + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+      const float2 hb = __bfloat1622float2(h);
+      const float ra = a - hb.x, rc = c - hb.y;
+      const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rc);
+      const float2 mb = __bfloat1622float2(m);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mb.x, rc - mb.y);
+      hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h);
+      mid[kk][e] = *reinterpret_cast<const uint32_t*>(&m);
       lo[kk][e] = *reinterpret_cast<const uint32_t*>(&l);
     }
   }
@@ -723,17 +776,34 @@ __device__ __forceinline__ void store_rows(const float (&acc)[W / 2], __nv_bfloa
   }
 }
 
+// The same rows, unscaled f32, into columns [col, col + W) of f32 rows of
+// `width` values starting at `g` (row = key); keys at or past `limit` skipped.
+template <int W>
+__device__ __forceinline__ void store_part(const float (&acc)[W / 2], float* g, int width,
+                                           int col, int r0, int limit, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= limit) continue;
+    float* out = g + int64_t(row) * width + col + 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c) =
+          make_float2(acc[4 * c + 2 * half], acc[4 * c + 2 * half + 1]);
+  }
+}
+
 // -- dq_tc ------------------------------------------------------------------------
 
 // One consumer warpgroup w: query rows [q0 + 64w, q0 + 64w + 64); this
 // thread holds rows r0 and r0 + 8 of the fragments.  KV blocks j0 .. n_kv -
 // 1; the i-th (i = j - j0) sits in ring stage i % 2 at parity (i / 2) % 2.
-template <int HD, int BQ, int BK, bool CAP>
+template <int HD, int HDV, int BQ, int BK, bool CAP>
 __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full,
                                            uint64_t* k_full, uint64_t* v_full, uint64_t* empty,
                                            const TcParams& p, int w, int warp, int lane, int q0,
                                            int head, int b, int offset, int j0, int n_kv) {
-  using L = DqLayout<HD, BQ, BK>;
+  using L = DqLayout<HD, HDV, BQ, BK>;
   const int r0 = q0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
   const KeyRange seen0 = visible(r0 + offset, p.t, p.prefix, p.window);
   const KeyRange seen1 = visible(r0 + 8 + offset, p.t, p.prefix, p.window);
@@ -742,7 +812,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full
   const int64_t bh = int64_t(b) * p.h + head;
 
   // D = sum(dO * O) of rows r0 and r0 + 8 (the 4 lanes of a row split its
-  // columns), written for dkdv_tc; lse of the same rows, times log2 e.
+  // columns), written for dkdv; lse of the same rows, times log2 e.
   float dd[2], lse2[2];
   const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) + b * p.st[9] + head * p.st[10];
   const __nv_bfloat16* dog =
@@ -755,7 +825,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full
       const __nv_bfloat16* orow = og + int64_t(row) * p.st[11] + 2 * (lane & 3);
       const __nv_bfloat16* drow = dog + int64_t(row) * p.st[14] + 2 * (lane & 3);
 #pragma unroll 4
-      for (int c = 0; c < HD / 8; ++c) {
+      for (int c = 0; c < HDV / 8; ++c) {
         const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + 8 * c));
         const float2 e = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + 8 * c));
         d = fmaf(a.y, e.y, fmaf(a.x, e.x, d));
@@ -777,7 +847,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full
   for (int j = j0; j < n_kv; ++j) {
     const int s = (j - j0) & 1;
     const uint32_t parity = ((j - j0) >> 1) & 1;
-    const uint32_t k_addr = hopper::smem_u32(smem + 2 * L::kQBytes + s * L::kStage);
+    const uint32_t k_addr = hopper::smem_u32(smem + L::kRing + s * L::kStage);
     const uint32_t v_addr = k_addr + L::kKBytes;
 
     // S = Q K^T and dP = dO V^T: column c of both fragments is key j * BK + c.
@@ -796,7 +866,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full
     hopper::wgmma_commit();
     hopper::mbar_wait(&v_full[s], parity);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HDV / 16; ++kk)
       hopper::wgmma_bf16<0, 0>(
           dp, hopper::desc_sw128(do_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024),
           hopper::desc_sw128(v_addr + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024));
@@ -843,16 +913,15 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full
 
 // One CTA per (BQ query rows, head, batch), heaviest (last) blocks first:
 // BQ / 64 consumer warpgroups and one producer warpgroup (setmaxnreg 40 /
-// 232, as the forward's tensor-core kernel).
-template <int HD, int BQ, int BK, bool CAP>
+// 232 at two consumers, as the forward's tensor-core kernel).
+template <int HD, int HDV, int BQ, int BK, bool CAP>
 __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
     dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_do, TcParams p) {
-  using L = DqLayout<HD, BQ, BK>;
+  using L = DqLayout<HD, HDV, BQ, BK>;
   constexpr int kWarpgroups = BQ / 64;
-  constexpr int kSlabs = HD / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -884,33 +953,33 @@ __global__ void __launch_bounds__(BQ / 64 * 128 + kProducerThreads, 1)
   if (warp >= 4 * kWarpgroups) {
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 4 * kWarpgroups && lane == 0) {
-      hopper::mbar_arrive_expect_tx(q_full, 2 * L::kQBytes);
-      for (int i = 0; i < kSlabs; ++i) {
+      hopper::mbar_arrive_expect_tx(q_full, L::kQBytes + L::kDoBytes);
+      for (int i = 0; i < HD / 64; ++i)
         hopper::tma_load_4d(smem + i * BQ * 128, &map_q, q_full, 64 * i, q0, head, b);
+      for (int i = 0; i < HDV / 64; ++i)
         hopper::tma_load_4d(smem + L::kQBytes + i * BQ * 128, &map_do, q_full, 64 * i, q0, head,
                             b);
-      }
       for (int j = j0; j < n_kv; ++j) {
         const int s = (j - j0) & 1;
         hopper::mbar_wait(&empty[s], (((j - j0) >> 1) & 1) ^ 1);
-        unsigned char* ks = smem + 2 * L::kQBytes + s * L::kStage;
+        unsigned char* ks = smem + L::kRing + s * L::kStage;
         hopper::mbar_arrive_expect_tx(&k_full[s], L::kKBytes);
-        for (int i = 0; i < kSlabs; ++i)
+        for (int i = 0; i < HD / 64; ++i)
           hopper::tma_load_4d(ks + i * BK * 128, &map_k, &k_full[s], 64 * i, j * BK, kvh, b);
-        hopper::mbar_arrive_expect_tx(&v_full[s], L::kKBytes);
-        for (int i = 0; i < kSlabs; ++i)
+        hopper::mbar_arrive_expect_tx(&v_full[s], L::kVBytes);
+        for (int i = 0; i < HDV / 64; ++i)
           hopper::tma_load_4d(ks + L::kKBytes + i * BK * 128, &map_v, &v_full[s], 64 * i, j * BK,
                               kvh, b);
       }
     }
   } else {
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dq_consume<HD, BQ, BK, CAP>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane, q0,
-                                head, b, offset, j0, n_kv);
+    dq_consume<HD, HDV, BQ, BK, CAP>(smem, q_full, k_full, v_full, empty, p, warp / 4, warp, lane,
+                                     q0, head, b, offset, j0, n_kv);
   }
 }
 
-// -- dkdv_tc ------------------------------------------------------------------------
+// -- dkdv: dkdv_tc (hd = hd_v = 64, 128) and dkdv_wg (256, (192, 128)) ------------------
 
 // The query rows that see some key of [k0, k_last]: all of them when the
 // tile starts inside the prefix, else those at or past its first key;
@@ -924,33 +993,112 @@ __device__ __forceinline__ RowRange seeing_rows(int k0, int k_last, const TcPara
           min(p.s - 1, p.window ? k_last + p.window - 1 - offset : p.s - 1)};
 }
 
-// One consumer warpgroup w: keys [k0 + 64w, k0 + 64w + 64); this thread
-// holds keys kr0 and kr0 + 8.  Step i of the walk (head i / n_q of the
-// group, query block first_qb + i % n_q) sits in stage i % 2 at parity
-// (i / 2) % 2.
+// The walk of one dkdv CTA: blockIdx.x = key block * n_split + z.  The key
+// block's steps (head i / n_q of the group, query block first_qb + i % n_q,
+// i < group * n_q) are cut into n_split runs of consecutive steps, heads
+// first; the CTA takes run z, steps [lo, hi).  Its j-th step (i = lo + j)
+// sits in ring stage j % 2 at parity (j / 2) % 2.
+struct Walk {
+  int k0, z, first_qb, n_q, lo, hi;
+};
+template <int BKV, int BQ>
+__device__ __forceinline__ Walk walk_of(const TcParams& p) {
+  const int kb = blockIdx.x / p.n_split, z = blockIdx.x % p.n_split;
+  const int k0 = kb * BKV;
+  const RowRange rows = seeing_rows(k0, min(k0 + BKV, p.t) - 1, p);
+  const int first_qb = rows.first / BQ;
+  const int n_q = rows.first <= rows.last ? rows.last / BQ - first_qb + 1 : 0;
+  const int steps = (p.h / p.kv) * n_q;
+  return {k0, z, first_qb, n_q, int(int64_t(steps) * z / p.n_split),
+          int(int64_t(steps) * (z + 1) / p.n_split)};
+}
+
+// This CTA's f32 partial rows of [n_split, B, KV, T, hd + hd_v], from key 0.
+__device__ __forceinline__ float* part_rows(const TcParams& p, int z, int kvh, int b, int width) {
+  return p.part + ((int64_t(z) * gridDim.z + b) * p.kv + kvh) * int64_t(p.t) * width;
+}
+
+// The producer warpgroup of either dkdv kernel: its first warp issues the
+// copies (K and V once, then Q and dO of each step), its second loads each
+// step's lse (times log2 e) and D.
+template <int HD, int HDV, int BKV, int BQ>
+__device__ __forceinline__ void dkdv_produce(unsigned char* smem, uint64_t* kv_full,
+                                             uint64_t* q_full, uint64_t* do_full,
+                                             uint64_t* empty, const CUtensorMap* map_q,
+                                             const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                             const CUtensorMap* map_do, const TcParams& p,
+                                             const Walk& w, int warp_in_group, int lane,
+                                             int kvh, int b) {
+  using L = KvLayout<HD, HDV, BKV, BQ>;
+  const int group = p.h / p.kv;
+  if (warp_in_group == 0 && lane == 0 && w.hi > w.lo) {
+    hopper::mbar_arrive_expect_tx(kv_full, L::kKBytes + L::kVBytes);
+    for (int i = 0; i < HD / 64; ++i)
+      hopper::tma_load_4d(smem + i * BKV * 128, map_k, kv_full, 64 * i, w.k0, kvh, b);
+    for (int i = 0; i < HDV / 64; ++i)
+      hopper::tma_load_4d(smem + L::kKBytes + i * BKV * 128, map_v, kv_full, 64 * i, w.k0, kvh,
+                          b);
+    for (int i = w.lo; i < w.hi; ++i) {
+      const int j = i - w.lo, s = j & 1;
+      const int head = kvh * group + i / w.n_q, q0 = (w.first_qb + i % w.n_q) * BQ;
+      hopper::mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
+      unsigned char* qs = smem + L::kRing + s * L::kStage;
+      hopper::mbar_arrive_expect_tx(&q_full[s], L::kQBytes);
+      for (int c = 0; c < HD / 64; ++c)
+        hopper::tma_load_4d(qs + c * BQ * 128, map_q, &q_full[s], 64 * c, q0, head, b);
+      hopper::mbar_arrive_expect_tx(&do_full[s], L::kDoBytes);
+      for (int c = 0; c < HDV / 64; ++c)
+        hopper::tma_load_4d(qs + L::kQBytes + c * BQ * 128, map_do, &do_full[s], 64 * c, q0,
+                            head, b);
+    }
+  } else if (warp_in_group == 1) {
+    for (int i = w.lo; i < w.hi; ++i) {
+      const int j = i - w.lo, s = j & 1;
+      const int head = kvh * group + i / w.n_q, q0 = (w.first_qb + i % w.n_q) * BQ;
+      const int64_t base = (int64_t(b) * p.h + head) * p.s;
+      hopper::mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
+      float* lse_s = reinterpret_cast<float*>(smem + L::kStats) + s * BQ;
+      float* d_s = lse_s + 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool live = q0 + r < p.s;
+        lse_s[r] = live ? p.lse[base + q0 + r] * kLog2e : 0.f;
+        d_s[r] = live ? p.delta[base + q0 + r] : 0.f;
+      }
+      hopper::mbar_arrive(&do_full[s]);
+    }
+  }
+}
+
+// Whether key `key` is seen by query row `row` (its position row + T - S).
+__device__ __forceinline__ bool pair_seen(int key, int row, const TcParams& p) {
+  const int qpos = row + p.t - p.s;
+  return row < p.s && key < p.t && (key <= qpos || key < p.prefix) &&
+         (!p.window || key > qpos - p.window);
+}
+
+// One consumer warpgroup w of dkdv_tc: keys [k0 + 64w, k0 + 64w + 64);
+// this thread holds keys kr0 and kr0 + 8.
 template <int HD, int BKV, int BQ, bool CAP>
 __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_full,
                                              uint64_t* q_full, uint64_t* do_full,
                                              uint64_t* empty, const TcParams& p, int w, int warp,
-                                             int lane, int k0, int kvh, int b, int first_qb,
-                                             int n_q, int steps) {
-  using L = KvLayout<HD, BKV, BQ>;
-  const int kr0 = k0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
+                                             int lane, const Walk& walk, int kvh, int b) {
+  using L = KvLayout<HD, HD, BKV, BQ>;
+  const int kr0 = walk.k0 + 64 * w + 16 * (warp % 4) + (lane >> 2);
   const uint32_t k_addr = hopper::smem_u32(smem) + w * 64 * 128;
   const uint32_t v_addr = k_addr + L::kKBytes;
-  const int offset = p.t - p.s;
   const float cap_k = CAP ? hopper::softcap_k(p.softcap) : 0.f;
 
   float dk[HD / 2], dv[HD / 2];
 #pragma unroll
   for (int r = 0; r < HD / 2; ++r) dk[r] = dv[r] = 0.f;
 
-  if (steps > 0) hopper::mbar_wait(kv_full, 0);
-  for (int i = 0; i < steps; ++i) {
-    const int s = i & 1;
-    const uint32_t parity = (i >> 1) & 1;
-    const int q0 = (first_qb + i % n_q) * BQ;
-    const uint32_t q_addr = hopper::smem_u32(smem + 2 * L::kKBytes + s * L::kStage);
+  if (walk.hi > walk.lo) hopper::mbar_wait(kv_full, 0);
+  for (int i = walk.lo; i < walk.hi; ++i) {
+    const int s = (i - walk.lo) & 1;
+    const uint32_t parity = ((i - walk.lo) >> 1) & 1;
+    const int q0 = (walk.first_qb + i % walk.n_q) * BQ;
+    const uint32_t q_addr = hopper::smem_u32(smem + L::kRing + s * L::kStage);
     const uint32_t do_addr = q_addr + L::kQBytes;
     const float* lse_s = reinterpret_cast<const float*>(smem + L::kStats) + s * BQ;
     const float* d_s = lse_s + 2 * BQ;
@@ -983,10 +1131,7 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
 #pragma unroll
     for (int r = 0; r < BQ / 2; ++r) {
       const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
-      const int key = kr0 + 8 * ((r >> 1) & 1);
-      const int row = q0 + c, qpos = row + offset;
-      const bool seen = row < p.s && key < p.t && (key <= qpos || key < p.prefix) &&
-                        (!p.window || key > qpos - p.window);
+      const bool seen = pair_seen(kr0 + 8 * ((r >> 1) & 1), q0 + c, p);
       p_and_ds<CAP>(st[r], dpt[r], seen, lse_s[c], d_s[c], p, cap_k);
     }
 
@@ -1032,18 +1177,16 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
 }
 
 // One CTA per (BKV keys, KV head, batch), the first KV blocks (seen by the
-// most queries) first: BKV / 64 consumer warpgroups and one producer
-// warpgroup, whose first warp issues the copies (K and V once, then Q and
-// dO of each step) and whose second loads each step's lse and D.
+// most queries) first: BKV / 64 consumer warpgroups and the producer
+// warpgroup.  Never split (n_split = 1): its calls keep their bits.
 template <int HD, int BKV, int BQ, bool CAP>
 __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
     dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_do, TcParams p) {
-  using L = KvLayout<HD, BKV, BQ>;
+  using L = KvLayout<HD, HD, BKV, BQ>;
   constexpr int kWarpgroups = BKV / 64;
-  constexpr int kSlabs = HD / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -1052,12 +1195,7 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
   uint64_t* empty = kv_full + 5;
 
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const int group = p.h / p.kv;
-  const int k0 = blockIdx.x * BKV;
-  const RowRange rows = seeing_rows(k0, min(k0 + BKV, p.t) - 1, p);
-  const int first_qb = rows.first / BQ;
-  const int n_q = rows.first <= rows.last ? rows.last / BQ - first_qb + 1 : 0;
-  const int steps = group * n_q;
+  const Walk walk = walk_of<BKV, BQ>(p);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -1073,68 +1211,323 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= 4 * kWarpgroups) {
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (warp == 4 * kWarpgroups && lane == 0 && steps > 0) {
-      hopper::mbar_arrive_expect_tx(kv_full, 2 * L::kKBytes);
-      for (int i = 0; i < kSlabs; ++i) {
-        hopper::tma_load_4d(smem + i * BKV * 128, &map_k, kv_full, 64 * i, k0, kvh, b);
-        hopper::tma_load_4d(smem + L::kKBytes + i * BKV * 128, &map_v, kv_full, 64 * i, k0, kvh,
-                            b);
-      }
-      for (int i = 0; i < steps; ++i) {
-        const int s = i & 1;
-        const int head = kvh * group + i / n_q, q0 = (first_qb + i % n_q) * BQ;
-        hopper::mbar_wait(&empty[s], ((i >> 1) & 1) ^ 1);
-        unsigned char* qs = smem + 2 * L::kKBytes + s * L::kStage;
-        hopper::mbar_arrive_expect_tx(&q_full[s], L::kQBytes);
-        for (int j = 0; j < kSlabs; ++j)
-          hopper::tma_load_4d(qs + j * BQ * 128, &map_q, &q_full[s], 64 * j, q0, head, b);
-        hopper::mbar_arrive_expect_tx(&do_full[s], L::kQBytes);
-        for (int j = 0; j < kSlabs; ++j)
-          hopper::tma_load_4d(qs + L::kQBytes + j * BQ * 128, &map_do, &do_full[s], 64 * j, q0,
-                              head, b);
-      }
-    } else if (warp == 4 * kWarpgroups + 1) {
-      for (int i = 0; i < steps; ++i) {
-        const int s = i & 1;
-        const int head = kvh * group + i / n_q, q0 = (first_qb + i % n_q) * BQ;
-        const int64_t base = (int64_t(b) * p.h + head) * p.s;
-        hopper::mbar_wait(&empty[s], ((i >> 1) & 1) ^ 1);
-        float* lse_s = reinterpret_cast<float*>(smem + L::kStats) + s * BQ;
-        float* d_s = lse_s + 2 * BQ;
-        for (int r = lane; r < BQ; r += 32) {
-          const bool live = q0 + r < p.s;
-          lse_s[r] = live ? p.lse[base + q0 + r] * kLog2e : 0.f;
-          d_s[r] = live ? p.delta[base + q0 + r] : 0.f;
-        }
-        hopper::mbar_arrive(&do_full[s]);
-      }
-    }
+    dkdv_produce<HD, HD, BKV, BQ>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k, &map_v,
+                                  &map_do, p, walk, warp - 4 * kWarpgroups, lane, kvh, b);
   } else {
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     dkdv_consume<HD, BKV, BQ, CAP>(smem, kv_full, q_full, do_full, empty, p, warp / 4, warp, lane,
-                                   k0, kvh, b, first_qb, n_q, steps);
+                                   walk, kvh, b);
+  }
+}
+
+// -- dkdv_wg: dK and dV of 64 keys split across two warpgroups ---------------------------
+//
+// At hd 256 one warpgroup cannot hold dK and dV of its 64 keys (256 f32 a
+// thread before S^T, dP^T and the hi/lo fragments; (192, 128): 160 plus 128).
+// So both consumer warpgroups work on the same 64 keys, each holding one
+// gradient: A forms S^T = K Q^T, P^T from lse, and dV += P^T dO; B forms
+// dP^T = V dO^T and, once A has put P^T (times the cap's derivative when
+// capped) in the exchange, dS^T = P^T (dP^T - D) and dK += dS^T Q.  The
+// exchange is 64 x 64 f32 in shared memory, element r of consumer thread t at
+// [r][t] (both warpgroups hold the same fragment, so B's thread t reads what
+// A's thread t wrote; consecutive threads, consecutive words), passed on
+// named barriers: A arrives on kBarFull once it has written, B syncs on it;
+// B arrives on kBarEmpty once it has read, A syncs on it before writing the
+// next step.  Each product is formed once, as in dkdv_tc; dK's takes a third
+// term of dS^T (split3_frags), so the route computes 22 hd flops a pair here.
+
+constexpr int kBarFull = 1, kBarEmpty = 2;  // named barriers; 0 is __syncthreads
+constexpr int kPairThreads = 256;           // the two consumer warpgroups
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kPairThreads) : "memory");
+}
+// Arrives after this thread's shared-memory reads and writes so far are
+// ordered before the other warpgroup's accesses past its named_sync.
+__device__ __forceinline__ void named_arrive(int id) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(kPairThreads) : "memory");
+}
+
+// Warpgroup A: P^T into the exchange, dV += P^T dO.
+template <int HD, int HDV, bool CAP>
+__device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full,
+                                          uint64_t* q_full, uint64_t* do_full, uint64_t* empty,
+                                          const TcParams& p, int warp, int lane,
+                                          const Walk& walk, int kvh, int b) {
+  using L = KvLayout<HD, HDV, 64, 64>;
+  constexpr int BQ = 64;
+  const int tid = threadIdx.x & 127;
+  const int kr0 = walk.k0 + 16 * (warp % 4) + (lane >> 2);
+  const uint32_t k_addr = hopper::smem_u32(smem);
+  float* xs = reinterpret_cast<float*>(smem + L::kExchange);
+  const float cap_k = CAP ? hopper::softcap_k(p.softcap) : 0.f;
+
+  float dv[HDV / 2];
+#pragma unroll
+  for (int r = 0; r < HDV / 2; ++r) dv[r] = 0.f;
+
+  if (walk.hi > walk.lo) hopper::mbar_wait(kv_full, 0);
+  for (int i = walk.lo; i < walk.hi; ++i) {
+    const int j = i - walk.lo, s = j & 1;
+    const uint32_t parity = (j >> 1) & 1;
+    const int q0 = (walk.first_qb + i % walk.n_q) * BQ;
+    const uint32_t q_addr = hopper::smem_u32(smem + L::kRing + s * L::kStage);
+    const uint32_t do_addr = q_addr + L::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::kStats) + s * BQ;
+
+    float st[BQ / 2];
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) st[r] = 0.f;
+    hopper::mbar_wait(&q_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(st);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_bf16<0, 0>(
+          st, hopper::desc_sw128(k_addr + (kk >> 2) * 64 * 128 + (kk & 3) * 32, 16, 1024),
+          hopper::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(st);
+    hopper::mbar_wait(&do_full[s], parity);  // the stats, and dO
+
+    if (j > 0) named_sync(kBarEmpty);  // B has read the previous step's P^T
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) {
+      const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      float x = st[r] * p.scale;
+      if constexpr (CAP) x = hopper::softcap<true>(x, p.softcap, cap_k);
+      const bool seen = pair_seen(kr0 + 8 * ((r >> 1) & 1), q0 + c, p);
+      const float pr = seen ? exp2f(fmaf(x, kLog2e, -lse_s[c])) : 0.f;
+      float xv = pr;
+      if constexpr (CAP) {
+        const float u = x / p.softcap;
+        xv *= 1.f - u * u;
+      }
+      xs[r * 128 + tid] = xv;
+      st[r] = pr;
+    }
+    named_arrive(kBarFull);
+
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4];
+    split_frags<BQ>(st, ph, pl);
+    hopper::wgmma_fence();
+    hopper::fence_operands(dv);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint64_t ddo = hopper::desc_sw128(do_addr + kk * 2048, BQ * 128, 1024);
+      hopper::wgmma_bf16_rs<1>(dv, ph[kk], ddo);
+      hopper::wgmma_bf16_rs<1>(dv, pl[kk], ddo);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dv);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hopper::fence_operands(ph[kk]);
+      hopper::fence_operands(pl[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  if (p.n_split == 1) {
+    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
+    store_rows<HDV>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
+  } else {
+    store_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
+  }
+}
+
+// Warpgroup B: dP^T, dS^T from the exchange, dK += dS^T Q with dS^T in three
+// bf16 terms (split3_frags: with two, dK's entries near 0 missed the check's
+// 1e-4 at gemma-2b's shape with q 8 times the unit scale).
+template <int HD, int HDV>
+__device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_full,
+                                           uint64_t* q_full, uint64_t* do_full, uint64_t* empty,
+                                           const TcParams& p, int warp, int lane,
+                                           const Walk& walk, int kvh, int b) {
+  using L = KvLayout<HD, HDV, 64, 64>;
+  constexpr int BQ = 64;
+  const int tid = threadIdx.x & 127;
+  const int kr0 = walk.k0 + 16 * (warp % 4) + (lane >> 2);
+  const uint32_t v_addr = hopper::smem_u32(smem) + L::kKBytes;
+  const float* xs = reinterpret_cast<const float*>(smem + L::kExchange);
+
+  float dk[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) dk[r] = 0.f;
+
+  if (walk.hi > walk.lo) hopper::mbar_wait(kv_full, 0);
+  for (int i = walk.lo; i < walk.hi; ++i) {
+    const int j = i - walk.lo, s = j & 1;
+    const uint32_t parity = (j >> 1) & 1;
+    const uint32_t q_addr = hopper::smem_u32(smem + L::kRing + s * L::kStage);
+    const uint32_t do_addr = q_addr + L::kQBytes;
+    const float* d_s = reinterpret_cast<const float*>(smem + L::kStats) + 2 * BQ + s * BQ;
+
+    float dpt[BQ / 2];
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) dpt[r] = 0.f;
+    hopper::mbar_wait(&do_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(dpt);
+#pragma unroll
+    for (int kk = 0; kk < HDV / 16; ++kk)
+      hopper::wgmma_bf16<0, 0>(
+          dpt, hopper::desc_sw128(v_addr + (kk >> 2) * 64 * 128 + (kk & 3) * 32, 16, 1024),
+          hopper::desc_sw128(do_addr + (kk >> 2) * BQ * 128 + (kk & 3) * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dpt);
+
+    named_sync(kBarFull);  // A has written this step's P^T
+#pragma unroll
+    for (int r = 0; r < BQ / 2; ++r) {
+      const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+      dpt[r] = xs[r * 128 + tid] * (dpt[r] - d_s[c]);
+    }
+    if (i + 1 < walk.hi) named_arrive(kBarEmpty);
+
+    uint32_t dh[BQ / 16][4], dm[BQ / 16][4], dl[BQ / 16][4];
+    split3_frags<BQ>(dpt, dh, dm, dl);
+    hopper::mbar_wait(&q_full[s], parity);
+    hopper::wgmma_fence();
+    hopper::fence_operands(dk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint64_t dqd = hopper::desc_sw128(q_addr + kk * 2048, BQ * 128, 1024);
+      hopper::wgmma_bf16_rs<1>(dk, dh[kk], dqd);
+      hopper::wgmma_bf16_rs<1>(dk, dm[kk], dqd);
+      hopper::wgmma_bf16_rs<1>(dk, dl[kk], dqd);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hopper::fence_operands(dh[kk]);
+      hopper::fence_operands(dm[kk]);
+      hopper::fence_operands(dl[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  if (p.n_split == 1) {
+    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
+    store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
+  } else {
+    store_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
+  }
+}
+
+// One CTA per (64 keys, KV head, batch, run of steps): warpgroups A and B,
+// then the producer warpgroup (setmaxnreg 232 / 232 / 40).
+template <int HD, int HDV, bool CAP>
+__global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
+    dkdv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do, TcParams p) {
+  using L = KvLayout<HD, HDV, 64, 64>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* do_full = kv_full + 3;
+  uint64_t* empty = kv_full + 5;
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const Walk walk = walk_of<64, 64>(p);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&q_full[s], 1);
+      hopper::mbar_init(&do_full[s], 1 + 32);  // the copies, and each lane of the stats warp
+      hopper::mbar_init(&empty[s], 8);         // each warp of A and B
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    dkdv_produce<HD, HDV, 64, 64>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k, &map_v,
+                                  &map_do, p, walk, warp - 8, lane, kvh, b);
+  } else if (warp < 4) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dkdv_wg_p<HD, HDV, CAP>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh, b);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dkdv_wg_ds<HD, HDV>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh, b);
+  }
+}
+
+// -- the split's sum ------------------------------------------------------------------
+
+// dK = scale * (part[0] + part[1] + ...) and dV = part[0] + part[1] + ...,
+// summed in that order (no atomics: the same bits every call), rounded once
+// to bf16 rows of dk and dv (strides st[18..23]).  Four columns a thread.
+__global__ void __launch_bounds__(256) kv_reduce_kernel(const float* part, __nv_bfloat16* dk,
+                                                        __nv_bfloat16* dv, TcParams p, int hd,
+                                                        int hdv, int batch) {
+  const int width = hd + hdv, quads = width / 4;
+  const int64_t rows = int64_t(batch) * p.kv * p.t, plane = rows * width;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < rows * quads;
+       i += int64_t(gridDim.x) * blockDim.x) {
+    const int64_t row = i / quads;
+    const int c = int(i - row * quads) * 4;
+    const float* src = part + row * width + c;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int z = 1; z < p.n_split; ++z) {
+      const float4 x = *reinterpret_cast<const float4*>(src + z * plane);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int key = int(row % p.t);
+    const int64_t bk = row / p.t;
+    const int kvh = int(bk % p.kv), b = int(bk / p.kv);
+    const bool is_k = c < hd;
+    const int64_t st_b = is_k ? p.st[18] : p.st[21], st_h = is_k ? p.st[19] : p.st[22];
+    const int64_t st_t = is_k ? p.st[20] : p.st[23];
+    const float mul = is_k ? p.scale : 1.f;
+    __nv_bfloat16* out = (is_k ? dk : dv) + b * st_b + kvh * st_h + key * st_t + (is_k ? c : c - hd);
+    reinterpret_cast<__nv_bfloat162*>(out)[0] = __floats2bfloat162_rn(acc.x * mul, acc.y * mul);
+    reinterpret_cast<__nv_bfloat162*>(out)[1] = __floats2bfloat162_rn(acc.z * mul, acc.w * mul);
   }
 }
 
 // -- host (tensor-core route) --------------------------------------------------------
 
-// The blocks the route takes: dq_tc at (bq, bk) = (128, 64), dkdv_tc at
-// (bkv, bq) = (128, 64) or (128, 32), hd = hd_v = 64 or 128.
-// f(integral_constant<HD>, <DQ_BQ>, <DQ_BK>, <KV_BK>, <KV_BQ>, bool_constant<CAP>).
+// The blocks the route takes: at hd = hd_v = 64 or 128, dq_tc at (bq, bk) =
+// (128, 64) and dkdv_tc at (bkv, bq) = (128, 64) or (128, 32); at (256,
+// 256), dq_tc at (64, 64) and dkdv_wg at (64, 64); at (192, 128), dq_tc at
+// (128, 64) and dkdv_wg at (64, 64).  f(integral_constant<HD>, <HDV>,
+// <DQ_BQ>, <DQ_BK>, <KV_BK>, <KV_BQ>, bool_constant<CAP>).
 template <typename F>
-int tc_dispatch(int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq, bool cap, F&& f) {
-#define REMOP_BWD_TC_CALL(HD, KV_BQ, CAP)                                                     \
-  f(std::integral_constant<int, HD>{}, std::integral_constant<int, 128>{},                   \
-    std::integral_constant<int, 64>{}, std::integral_constant<int, 128>{},                   \
-    std::integral_constant<int, KV_BQ>{}, std::bool_constant<CAP>{})
-#define REMOP_BWD_TC(HD, KV_BQ)                                                               \
-  if (hd == HD && kv_bq == KV_BQ)                                                            \
-    return cap ? REMOP_BWD_TC_CALL(HD, KV_BQ, true) : REMOP_BWD_TC_CALL(HD, KV_BQ, false);
-  if (dq_bq != 128 || dq_bk != 64 || kv_bk != 128) return cudaErrorInvalidValue;
-  REMOP_BWD_TC(64, 64)
-  REMOP_BWD_TC(64, 32)
-  REMOP_BWD_TC(128, 64)
-  REMOP_BWD_TC(128, 32)
+int tc_dispatch(int hd, int hdv, int dq_bq, int dq_bk, int kv_bk, int kv_bq, bool cap, F&& f) {
+#define REMOP_BWD_TC_CALL(HD, HDV, DQ_BQ, KV_BK, KV_BQ, CAP)                                  \
+  f(std::integral_constant<int, HD>{}, std::integral_constant<int, HDV>{},                   \
+    std::integral_constant<int, DQ_BQ>{}, std::integral_constant<int, 64>{},                 \
+    std::integral_constant<int, KV_BK>{}, std::integral_constant<int, KV_BQ>{},              \
+    std::bool_constant<CAP>{})
+#define REMOP_BWD_TC(HD, HDV, DQ_BQ, KV_BK, KV_BQ)                                            \
+  if (hd == HD && hdv == HDV && dq_bq == DQ_BQ && kv_bk == KV_BK && kv_bq == KV_BQ)          \
+    return cap ? REMOP_BWD_TC_CALL(HD, HDV, DQ_BQ, KV_BK, KV_BQ, true)                        \
+               : REMOP_BWD_TC_CALL(HD, HDV, DQ_BQ, KV_BK, KV_BQ, false);
+  if (dq_bk != 64) return cudaErrorInvalidValue;
+  REMOP_BWD_TC(64, 64, 128, 128, 64)
+  REMOP_BWD_TC(64, 64, 128, 128, 32)
+  REMOP_BWD_TC(128, 128, 128, 128, 64)
+  REMOP_BWD_TC(128, 128, 128, 128, 32)
+  REMOP_BWD_TC(256, 256, 64, 64, 64)
+  REMOP_BWD_TC(192, 128, 128, 64, 64)
 #undef REMOP_BWD_TC
 #undef REMOP_BWD_TC_CALL
   return cudaErrorInvalidValue;
@@ -1171,28 +1564,38 @@ bool encode(CUtensorMap* map, const void* base, const long long* strides, int id
   return hopper::encode_bf16_4d(map, base, dims, bst, rows);
 }
 
-template <int HD, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP>
+template <int HD, int HDV, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP>
 cudaError_t tc_kernels(const void** dq_kernel, const void** kv_kernel) {
-  auto dq = dq_tc_kernel<HD, DQ_BQ, DQ_BK, CAP>;
-  auto kv = dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP>;
+  auto dq = dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>;
+  const void* kv;
+  if constexpr (KV_BK == 64)
+    kv = reinterpret_cast<const void*>(dkdv_wg_kernel<HD, HDV, CAP>);
+  else
+    kv = reinterpret_cast<const void*>(dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP>);
   cudaError_t err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DqLayout<HD, DQ_BQ, DQ_BK>::kSmem);
+                                         DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             KvLayout<HD, KV_BK, KV_BQ>::kSmem);
+                             KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem);
   *dq_kernel = reinterpret_cast<const void*>(dq);
-  *kv_kernel = reinterpret_cast<const void*>(kv);
+  *kv_kernel = kv;
   return err;
 }
 
+// Threads of either dkdv kernel: two consumer warpgroups (dkdv_tc's one a 64
+// of its 128 keys, dkdv_wg's A and B) and the producer.
+constexpr int kKvThreads = 2 * 128 + kProducerThreads;
+
 int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* dout,
-              void* dq, void* dk, void* dv, const void* lse, void* delta,
-              const long long* strides, int b, int h, int kv, int s, int t, int hd, int dq_bq,
-              int dq_bk, int kv_bk, int kv_bq, float scale, int window, int prefix,
-              float softcap, void* stream) {
+              void* dq, void* dk, void* dv, const void* lse, void* delta, void* part,
+              const long long* strides, int b, int h, int kv, int s, int t, int hd, int hd_v,
+              int dq_bq, int dq_bk, int kv_bk, int kv_bq, int n_split, float scale, int window,
+              int prefix, float softcap, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
   if (kv <= 0 || h % kv || t <= 0 || !(s <= t || prefix >= t) || window < 0 || prefix < 0 ||
-      (window > 0 && prefix > 0) || !(softcap >= 0.f) || lse == nullptr || delta == nullptr)
+      (window > 0 && prefix > 0) || !(softcap >= 0.f) || lse == nullptr || delta == nullptr ||
+      n_split < 1 || n_split > kMaxSplit || (n_split > 1 && (part == nullptr || kv_bk != 64)) ||
+      reinterpret_cast<uintptr_t>(part) % 16)
     return cudaErrorInvalidValue;
   // The outputs and O are read and written as bf16 pairs.
   for (int i : {3, 5, 6, 7})
@@ -1204,56 +1607,88 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
   CUtensorMap dq_q{}, dq_k{}, dq_v{}, dq_do{}, kv_q{}, kv_k{}, kv_v{}, kv_do{};
   if (!encode(&dq_q, q, strides, 0, hd, s, h, b, dq_bq) ||
       !encode(&dq_k, k, strides, 1, hd, t, kv, b, dq_bk) ||
-      !encode(&dq_v, v, strides, 2, hd, t, kv, b, dq_bk) ||
-      !encode(&dq_do, dout, strides, 4, hd, s, h, b, dq_bq) ||
+      !encode(&dq_v, v, strides, 2, hd_v, t, kv, b, dq_bk) ||
+      !encode(&dq_do, dout, strides, 4, hd_v, s, h, b, dq_bq) ||
       !encode(&kv_q, q, strides, 0, hd, s, h, b, kv_bq) ||
       !encode(&kv_k, k, strides, 1, hd, t, kv, b, kv_bk) ||
-      !encode(&kv_v, v, strides, 2, hd, t, kv, b, kv_bk) ||
-      !encode(&kv_do, dout, strides, 4, hd, s, h, b, kv_bq))
+      !encode(&kv_v, v, strides, 2, hd_v, t, kv, b, kv_bk) ||
+      !encode(&kv_do, dout, strides, 4, hd_v, s, h, b, kv_bq))
     return cudaErrorNotSupported;
   TcParams p{o, dout, dq, dk, dv, static_cast<const float*>(lse), static_cast<float*>(delta),
-             {}, h, kv, s, t, scale, window, prefix, softcap};
+             static_cast<float*>(part), {}, h, kv, s, t, scale, window, prefix, softcap, n_split};
   for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
-  return tc_dispatch(hd, dq_bq, dq_bk, kv_bk, kv_bq, softcap > 0.f,
-                     [&](auto hd_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c, auto kv_bq_c,
-                         auto cap_c) -> int {
-    constexpr int HD = decltype(hd_c)::value, DQ_BQ = decltype(dq_bq_c)::value;
-    constexpr int DQ_BK = decltype(dq_bk_c)::value, KV_BK = decltype(kv_bk_c)::value;
-    constexpr int KV_BQ = decltype(kv_bq_c)::value;
+  return tc_dispatch(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, softcap > 0.f,
+                     [&](auto hd_c, auto hdv_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c,
+                         auto kv_bq_c, auto cap_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
+    constexpr int DQ_BQ = decltype(dq_bq_c)::value, DQ_BK = decltype(dq_bk_c)::value;
+    constexpr int KV_BK = decltype(kv_bk_c)::value, KV_BQ = decltype(kv_bq_c)::value;
     constexpr bool CAP = decltype(cap_c)::value;
     const void *dq_kernel, *kv_kernel;
-    cudaError_t err = tc_kernels<HD, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP>(&dq_kernel, &kv_kernel);
+    cudaError_t err =
+        tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP>(&dq_kernel, &kv_kernel);
     if (err != cudaSuccess) return err;
-    dq_tc_kernel<HD, DQ_BQ, DQ_BK, CAP>
+    dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>
         <<<dim3((s + DQ_BQ - 1) / DQ_BQ, h, b), DQ_BQ / 64 * 128 + kProducerThreads,
-           DqLayout<HD, DQ_BQ, DQ_BK>::kSmem, st>>>(dq_q, dq_k, dq_v, dq_do, p);
+           DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem, st>>>(dq_q, dq_k, dq_v, dq_do, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     // After dq_tc on the same stream: it wrote D.
-    dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP>
-        <<<dim3((t + KV_BK - 1) / KV_BK, kv, b), KV_BK / 64 * 128 + kProducerThreads,
-           KvLayout<HD, KV_BK, KV_BQ>::kSmem, st>>>(kv_q, kv_k, kv_v, kv_do, p);
+    const dim3 kv_grid((t + KV_BK - 1) / KV_BK * n_split, kv, b);
+    const int kv_smem = KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem;
+    if constexpr (KV_BK == 64)
+      dkdv_wg_kernel<HD, HDV, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
+          kv_q, kv_k, kv_v, kv_do, p);
+    else
+      dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
+          kv_q, kv_k, kv_v, kv_do, p);
     return cudaGetLastError();
   });
 }
 
-// out[10]: for dq_tc then dkdv_tc, CTAs resident on one SM, registers a
-// thread, local (spilled) bytes a thread, dynamic shared memory, threads.
-int attributes_tc(int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq, int cap, int* out) {
-  return tc_dispatch(hd, dq_bq, dq_bk, kv_bk, kv_bq, cap != 0,
-                     [&](auto hd_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c, auto kv_bq_c,
-                         auto cap_c) -> int {
-    constexpr int HD = decltype(hd_c)::value, DQ_BQ = decltype(dq_bq_c)::value;
-    constexpr int DQ_BK = decltype(dq_bk_c)::value, KV_BK = decltype(kv_bk_c)::value;
-    constexpr int KV_BQ = decltype(kv_bq_c)::value;
+// Sums the split's partials (kv_reduce_kernel) into dk and dv.
+int launch_kv_reduce(const void* part, void* dk, void* dv, const long long* strides, int b,
+                     int kv, int t, int hd, int hd_v, int n_split, float scale, void* stream) {
+  if (b <= 0 || t <= 0) return cudaSuccess;
+  if (kv <= 0 || n_split < 1 || n_split > kMaxSplit || part == nullptr || (hd + hd_v) % 4 ||
+      reinterpret_cast<uintptr_t>(part) % 16 || reinterpret_cast<uintptr_t>(dk) % 4 ||
+      reinterpret_cast<uintptr_t>(dv) % 4)
+    return cudaErrorInvalidValue;
+  for (int i = 18; i < 24; ++i)
+    if (strides[i] % 2) return cudaErrorInvalidValue;
+  TcParams p{};
+  for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
+  p.kv = kv;
+  p.t = t;
+  p.scale = scale;
+  p.n_split = n_split;
+  const int64_t quads = int64_t(b) * kv * t * (hd + hd_v) / 4;
+  const int blocks = int(quads / 256 + 1 < 132 * 8 ? quads / 256 + 1 : 132 * 8);
+  kv_reduce_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), p, hd, hd_v, b);
+  return cudaGetLastError();
+}
+
+// out[10]: for dq_tc then dkdv (dkdv_tc or dkdv_wg), CTAs resident on one
+// SM, registers a thread, local (spilled) bytes a thread, dynamic shared
+// memory, threads.
+int attributes_tc(int hd, int hd_v, int dq_bq, int dq_bk, int kv_bk, int kv_bq, int cap,
+                  int* out) {
+  return tc_dispatch(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap != 0,
+                     [&](auto hd_c, auto hdv_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c,
+                         auto kv_bq_c, auto cap_c) -> int {
+    constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
+    constexpr int DQ_BQ = decltype(dq_bq_c)::value, DQ_BK = decltype(dq_bk_c)::value;
+    constexpr int KV_BK = decltype(kv_bk_c)::value, KV_BQ = decltype(kv_bq_c)::value;
     const void* kernels[2];
-    cudaError_t err = tc_kernels<HD, DQ_BQ, DQ_BK, KV_BK, KV_BQ, decltype(cap_c)::value>(
+    cudaError_t err = tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, decltype(cap_c)::value>(
         &kernels[0], &kernels[1]);
     if (err != cudaSuccess) return err;
-    const int threads[2] = {DQ_BQ / 64 * 128 + kProducerThreads,
-                            KV_BK / 64 * 128 + kProducerThreads};
-    const int smem[2] = {DqLayout<HD, DQ_BQ, DQ_BK>::kSmem, KvLayout<HD, KV_BK, KV_BQ>::kSmem};
+    const int threads[2] = {DQ_BQ / 64 * 128 + kProducerThreads, kKvThreads};
+    const int smem[2] = {DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem,
+                         KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem};
     for (int i = 0; i < 2; ++i) {
       cudaFuncAttributes a;
       err = cudaFuncGetAttributes(&a, kernels[i]);
@@ -1303,26 +1738,40 @@ int remop_flash_attention_bwd_attributes(int is_f32, int hd, int hd_v, int* out)
   return is_f32 ? attributes<float>(hd, hd_v, out) : attributes<__nv_bfloat16>(hd, hd_v, out);
 }
 
-// The tensor-core route: bf16, hd = hd_v = 64 or 128, TMA-aligned q, k,
-// v and do; lse: the forward's f32 [B, H, S] log-sum-exp (contiguous);
-// delta: f32 [B, H, S] scratch.  Blocks: dq_tc's (dq_bq, dq_bk) = (128,
-// 64), dkdv_tc's (kv_bk, kv_bq) = (128, 64) or (128, 32).  Two launches.
+// The tensor-core route: bf16 at (hd, hd_v) = (64, 64), (128, 128), (256,
+// 256) or (192, 128), TMA-aligned q, k, v and do; lse: the forward's f32 [B,
+// H, S] log-sum-exp (contiguous); delta: f32 [B, H, S] scratch.  Blocks (see
+// tc_dispatch): dq_tc's (dq_bq, dq_bk), dkdv's (kv_bk, kv_bq).  kv_split:
+// dkdv_wg's CTAs a key block (1 .. 16; dkdv_tc takes 1); above 1, part is
+// f32 scratch of [kv_split, B, KV, T, hd + hd_v] that dkdv fills instead of
+// dk and dv, and the caller sums it with remop_flash_attention_bwd_kv_reduce.
+// Two launches.
 int remop_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, void* dq, void* dk, void* dv, const void* lse,
-                                 void* delta, const long long* strides, int b, int h, int kv,
-                                 int s, int t, int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq,
-                                 float scale, int window, int prefix, float softcap,
-                                 void* stream) {
-  return launch_tc(q, k, v, o, dout, dq, dk, dv, lse, delta, strides, b, h, kv, s, t, hd, dq_bq,
-                   dq_bk, kv_bk, kv_bq, scale, window, prefix, softcap, stream);
+                                 void* delta, void* part, const long long* strides, int b, int h,
+                                 int kv, int s, int t, int hd, int hd_v, int dq_bq, int dq_bk,
+                                 int kv_bk, int kv_bq, int kv_split, float scale, int window,
+                                 int prefix, float softcap, void* stream) {
+  return launch_tc(q, k, v, o, dout, dq, dk, dv, lse, delta, part, strides, b, h, kv, s, t, hd,
+                   hd_v, dq_bq, dq_bk, kv_bk, kv_bq, kv_split, scale, window, prefix, softcap,
+                   stream);
+}
+
+// dk = scale * (part[0] + part[1] + ... + part[kv_split - 1]) and dv the same
+// sum unscaled, in that order (part: the tc entry's scratch, its dK columns
+// first); strides: the tc entry's 24 (dk's at 18..20, dv's at 21..23).
+int remop_flash_attention_bwd_kv_reduce(const void* part, void* dk, void* dv,
+                                        const long long* strides, int b, int kv, int t, int hd,
+                                        int hd_v, int kv_split, float scale, void* stream) {
+  return launch_kv_reduce(part, dk, dv, strides, b, kv, t, hd, hd_v, kv_split, scale, stream);
 }
 
 // Occupancy, registers, local bytes, shared memory and threads of dq_tc
-// and dkdv_tc at these blocks (cap != 0: the capped instantiations), into
+// and dkdv at these blocks (cap != 0: the capped instantiations), into
 // out[10].
-int remop_flash_attention_bwd_tc_attributes(int hd, int dq_bq, int dq_bk, int kv_bk, int kv_bq,
-                                            int cap, int* out) {
-  return attributes_tc(hd, dq_bq, dq_bk, kv_bk, kv_bq, cap, out);
+int remop_flash_attention_bwd_tc_attributes(int hd, int hd_v, int dq_bq, int dq_bk, int kv_bk,
+                                            int kv_bq, int cap, int* out) {
+  return attributes_tc(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap, out);
 }
 
 const char* remop_flash_attention_bwd_error_string(int err) {

@@ -53,9 +53,10 @@ under ``"flash_attention_full"``.
 With ``return_lse=True`` the call also returns each row's log-sum-exp,
 f32 ``[B, H, S]``, ``m + log(l)`` in the scaled and capped score domain P
 is formed in: the tensor-core route writes it in its epilogue at ``(hd,
-hd_v)`` in :data:`LSE_HEAD_PAIRS` (the entry ``remop_flash_attention_tc_lse``
-and instantiations of their own, so a call without it passes and runs what
-it did before), other CUDA calls refuse it, the plain version computes it.
+hd_v)`` in :data:`LSE_HEAD_PAIRS`, every width of the route (the entry
+``remop_flash_attention_tc_lse`` and instantiations of their own, so a call
+without it passes and runs what it did before), other CUDA calls refuse it,
+the plain version computes it.
 The backward's tensor-core route reads it (``flash_attention_bwd``).
 
 Beside the wrapper is its plain PyTorch version, the same online softmax
@@ -88,8 +89,9 @@ TC_HEAD_DIMS = (64, 128, 256)
 TC_HEAD_PAIRS = tuple((hd, hd) for hd in TC_HEAD_DIMS) + (MLA_HEAD_PAIR,)
 TC_BLOCKS = (64, 128)
 # The widths whose tensor-core forward is built to write each row's
-# log-sum-exp (return_lse): those the backward's tensor-core route takes.
-LSE_HEAD_PAIRS = ((64, 64), (128, 128))
+# log-sum-exp (return_lse): those the backward's tensor-core route takes,
+# every width of the route.
+LSE_HEAD_PAIRS = TC_HEAD_PAIRS
 SMEM_LIMIT = H100.vmem_bytes  # shared memory one CTA may use (227 KB)
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 

@@ -14,12 +14,22 @@ atomics on either route: two calls give the same bits.  Two routes, chosen
 on the host by :func:`bwd_route` from dtype, head widths and alignment
 alone:
 
-- ``"tc"``: bf16 at ``(hd, hd_v)`` in :data:`BWD_TC_HEAD_PAIRS` whose five
-  tensors are TMA-aligned (the forward's rule).  Two launches on the
-  tensor cores (``wgmma``, TMA rings): ``dq_tc`` (which also writes ``D =
-  sum(dO * O)``) and ``dkdv_tc`` (the GQA group summed inside one CTA),
-  reading each row's log-sum-exp from the forward (``flash_attention(...,
-  return_lse=True)``), blocks :func:`plan_bwd_tc_blocks`'.  A call this
+- ``"tc"``: bf16 at ``(hd, hd_v)`` in :data:`BWD_TC_HEAD_PAIRS` (every
+  width the backward takes) whose five tensors are TMA-aligned (the
+  forward's rule).  Two launches on the tensor cores (``wgmma``, TMA
+  rings): ``dq_tc`` (which also writes ``D = sum(dO * O)``) and a dkdv
+  kernel, reading each row's log-sum-exp from the forward
+  (``flash_attention(..., return_lse=True)``), blocks
+  :func:`plan_bwd_tc_blocks`'.  At hd 64 and 128 the dkdv kernel is
+  ``dkdv_tc`` (128 keys a CTA, dK and dV of 64 keys in each consumer
+  warpgroup); at (256, 256) and (192, 128) it is ``dkdv_wg`` (64 keys a
+  CTA, dV in one warpgroup and dK in the other, P^T passed between them in
+  shared memory).  There, where few KV heads leave most SMs idle,
+  :func:`plan_bwd_kv_split` cuts each key block's walk over the GQA group's
+  heads and query blocks into ``n`` runs, one CTA each: they write f32
+  partial dK and dV, and a third launch sums them in a fixed order
+  (:func:`kv_reduce`), so two calls still give the same bits.  ``dkdv_tc``
+  is never split: hd 64/128 calls keep their bits.  A call this
   route takes never runs on the CUDA-core kernel: a missing lse, a failed
   build, encode or launch raises.
 - ``"simt"``: everything else, at ``(hd, hd_v)`` in
@@ -48,9 +58,10 @@ import math
 
 import torch
 
+from repro_torch.core.cost_model import H100
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.flash_attention import (
-    LSE_HEAD_PAIRS, NEG_INF, SMEM_LIMIT, _DTYPES, _check, _tma_aligned, first_block,
+    NEG_INF, SMEM_LIMIT, _DTYPES, _check, _tma_aligned, first_block,
     flash_attention, hidden_keys,
 )
 
@@ -59,19 +70,33 @@ BWD_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
 # Square blocks (bq = bk), largest first: the first whose three kernels fit a CTA.
 BWD_BLOCKS = (64, 32, 16)
 BWD_KERNELS = ("prep", "dq", "dkdv")
-# The tensor-core route: the widths it takes (the trained models' 128 and
-# the 64 of the every-key and cross shapes), its kernels and, per kernel,
-# the (rows of the CTA's own tile, rows of each streamed block) it is built
-# for: dq_tc holds 128 query rows and streams K/V blocks of 64 keys,
-# dkdv_tc holds 128 keys and streams Q/dO blocks of 64 (or 32) query rows;
-# one consumer warpgroup per 64 rows of the own tile.
-BWD_TC_HEAD_PAIRS = LSE_HEAD_PAIRS  # the forward writes lse at these
+# The tensor-core route: every width the backward takes (the forward
+# writes lse at all of them), its kernels and, per width and kernel, the
+# (rows of the CTA's own tile, rows of each streamed block) it is built
+# for.  dq_tc holds 128 query rows (64 at hd 256, where 128 would not fit
+# shared memory) and streams K/V blocks of 64 keys, one consumer warpgroup
+# per 64 rows.  dkdv at hd 64 / 128 (dkdv_tc) holds 128 keys, one
+# warpgroup per 64, and streams Q/dO blocks of 64 (or 32) query rows; at
+# (256, 256) and (192, 128) (dkdv_wg, blocks (64, 64)) its two consumer
+# warpgroups share 64 keys, one holding dV, the other dK, and a key block
+# may take several CTAs (plan_bwd_kv_split).
+BWD_TC_HEAD_PAIRS = BWD_HEAD_PAIRS
+BWD_TC_WG_PAIRS = ((256, 256), (192, 128))
 BWD_TC_KERNELS = ("dq", "dkdv")
-BWD_TC_BLOCKS = {"dq": ((128, 64),), "dkdv": ((128, 64), (128, 32))}
+_NARROW_BLOCKS = {"dq": ((128, 64),), "dkdv": ((128, 64), (128, 32))}
+BWD_TC_BLOCKS = {
+    (64, 64): _NARROW_BLOCKS,
+    (128, 128): _NARROW_BLOCKS,
+    (256, 256): {"dq": ((64, 64),), "dkdv": ((64, 64),)},
+    (192, 128): {"dq": ((128, 64),), "dkdv": ((64, 64),)},
+}
 # Instantiations that spill at their first block pair (ptxas on sm_90a,
-# read on the card): the capped dkdv at hd 128 and 64 query rows (28 bytes);
-# the plan takes the next pair there.
+# read on the card), as (kernel, hd, capped, blocks): the capped dkdv at hd
+# 128 and 64 query rows (28 bytes); the plan takes the next pair there.
 BWD_TC_SPILLS = {("dkdv", 128, True, (128, 64))}
+# dkdv's CTAs a key block at most (its f32 partials are scratch of
+# kv_split x dK and dV).
+BWD_KV_SPLIT_MAX = 16
 
 
 def bwd_smem_bytes(kernel: str, bq: int, bk: int, hd: int, hd_v: int, dtype_bytes: int) -> int:
@@ -97,34 +122,44 @@ def plan_bwd_blocks(hd: int, hd_v: int, dtype_bytes: int) -> int:
     raise ValueError(f"no backward block fits hd={hd}, hd_v={hd_v}")
 
 
-def bwd_tc_smem_bytes(kernel: str, rows: int, block: int, hd: int) -> int:
+def bwd_tc_smem_bytes(kernel: str, rows: int, block: int, hd: int, hd_v: int | None = None
+                      ) -> int:
     """Dynamic shared memory of one CTA of the tensor-core ``kernel``: its
     own tile (Q and dO of ``rows`` queries for ``dq``, K and V of ``rows``
     keys for ``dkdv``) and two ring stages of the streamed blocks (K and V,
-    or Q and dO, of ``block`` rows), bf16; ``dkdv`` also the f32 lse and D
-    of each stage; seven mbarriers and 1024 bytes to align the swizzled tiles."""
-    stats = 4 * block * 4 if kernel == "dkdv" else 0
-    return 1024 + 2 * rows * hd * 2 + 4 * block * hd * 2 + stats + 7 * 8
+    or Q and dO, of ``block`` rows), bf16, q and k ``hd`` wide, v and dO
+    ``hd_v`` (default ``hd``); ``dkdv`` also the f32 lse and D of each
+    stage and, at 64 keys (``dkdv_wg``), the f32 P^T the two warpgroups
+    exchange; seven mbarriers and 1024 bytes to align the swizzled tiles."""
+    hd_v = hd if hd_v is None else hd_v
+    extra = 0
+    if kernel == "dkdv":
+        extra = 4 * block * 4 + (64 * block * 4 if rows == 64 else 0)
+    return 1024 + rows * (hd + hd_v) * 2 + 2 * block * (hd + hd_v) * 2 + extra + 7 * 8
 
 
 def check_bwd_tc_blocks(kernel: str, rows: int, block: int, hd: int, hd_v: int) -> None:
     """Raise ``ValueError`` for blocks or widths the tensor-core ``kernel``
     is not built for, or whose CTA would not fit in shared memory."""
-    if ((hd, hd_v) not in BWD_TC_HEAD_PAIRS or (rows, block) not in BWD_TC_BLOCKS[kernel]
-            or bwd_tc_smem_bytes(kernel, rows, block, hd) > SMEM_LIMIT):
+    built = BWD_TC_BLOCKS.get((hd, hd_v), {}).get(kernel, ())
+    if (rows, block) not in built or bwd_tc_smem_bytes(kernel, rows, block, hd,
+                                                       hd_v) > SMEM_LIMIT:
         raise ValueError(f"the tensor-core backward's {kernel} takes (hd, hd_v) in "
-                         f"{BWD_TC_HEAD_PAIRS} and blocks in {BWD_TC_BLOCKS[kernel]} within "
-                         f"{SMEM_LIMIT} bytes; got {(rows, block)} at {(hd, hd_v)}")
+                         f"{BWD_TC_HEAD_PAIRS} at the blocks of BWD_TC_BLOCKS ({built} at "
+                         f"these widths) within {SMEM_LIMIT} bytes; got {(rows, block)} at "
+                         f"{(hd, hd_v)}")
 
 
 def plan_bwd_tc_blocks(hd: int, hd_v: int, capped: bool = False) -> dict:
     """The tensor-core route's blocks at these widths (``capped``: with a
-    softcap): ``{"dq": (128, 64), "dkdv": (128, 64)}``, but dkdv at (128,
-    32) capped at hd 128; each kernel's first block pair of
-    :data:`BWD_TC_BLOCKS` that fits and does not spill (:data:`BWD_TC_SPILLS`)."""
+    softcap): each kernel's first block pair of :data:`BWD_TC_BLOCKS` that
+    fits and does not spill (:data:`BWD_TC_SPILLS`); at hd 64 / 128
+    ``{"dq": (128, 64), "dkdv": (128, 64)}``, but dkdv at (128, 32) capped
+    at hd 128; at (256, 256) ``(64, 64)`` both; at (192, 128) dq (128, 64)
+    and dkdv (64, 64)."""
     plan = {}
     for kernel in BWD_TC_KERNELS:
-        for rows, block in BWD_TC_BLOCKS[kernel]:
+        for rows, block in BWD_TC_BLOCKS.get((hd, hd_v), {}).get(kernel, ()):
             try:
                 check_bwd_tc_blocks(kernel, rows, block, hd, hd_v)
             except ValueError:
@@ -136,6 +171,34 @@ def plan_bwd_tc_blocks(hd: int, hd_v: int, capped: bool = False) -> dict:
         else:
             raise ValueError(f"no tensor-core backward block fits hd={hd}, hd_v={hd_v}")
     return plan
+
+
+def plan_bwd_kv_split(b: int, kv: int, t: int, group: int, keys_per_cta: int,
+                      sms: int = H100.sms) -> int:
+    """dkdv's CTAs a key block: 1 when its one CTA per (key block of
+    ``keys_per_cta``, KV head, batch) already fill the ``sms`` SMs, else as
+    many as two waves hold, ``2 sms // (b kv ceil(t / keys_per_cta))``, at
+    most :data:`BWD_KV_SPLIT_MAX`.  Two waves and not one: under the causal
+    mask the first key block has S / 64 query blocks to walk and the last
+    one, so more and shorter runs even the SMs out (gemma-2b's
+    ``[1,8,2048,256]`` on an H100: 0.347 ms device at 8, 0.457 at the one
+    wave's 4, 1.187 unsplit; ``flash_probe.py --bwd``).  Each CTA takes one run
+    of the key block's steps, the ``group`` query heads of its KV head
+    first, then their query blocks.  A pure function of its arguments."""
+    if min(b, kv, t, group, keys_per_cta, sms) < 1:
+        raise ValueError(f"plan_bwd_kv_split takes positive sizes, got b={b}, kv={kv}, t={t}, "
+                         f"group={group}, keys_per_cta={keys_per_cta}, sms={sms}")
+    ctas = b * kv * -(-t // keys_per_cta)
+    return 1 if ctas >= sms else min(2 * sms // ctas, BWD_KV_SPLIT_MAX)
+
+
+def bwd_tc_kv_split(b: int, h: int, kv: int, t: int, hd: int, hd_v: int) -> int:
+    """dkdv's CTAs a key block on the tensor-core route: at
+    :data:`BWD_TC_WG_PAIRS` (``dkdv_wg``, 64 keys a CTA)
+    :func:`plan_bwd_kv_split`'s, else 1."""
+    if (hd, hd_v) not in BWD_TC_WG_PAIRS:
+        return 1
+    return plan_bwd_kv_split(b, kv, t, h // kv, plan_bwd_tc_blocks(hd, hd_v)["dkdv"][0])
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -275,38 +338,150 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(x.stride(-1) != 1 for x in (q, k, v, out, dout)):
         raise ValueError("the last dimension of q, k, v, out and dout must be contiguous")
     path = bwd_route(q, k, v, out, dout)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(
-        *(st for x in (q, k, v, out, dout, dq, dk, dv)
-          for st in (x.stride(0), x.stride(1), x.stride(2))))
-    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    lib = runtime.library("flash_attention_bwd")
     if path == "tc":
         if lse is None:
             raise ValueError("the tensor-core backward reads the forward's log-sum-exp: pass "
                              "lse from flash_attention(..., return_lse=True)")
-        _check_lse(q, lse)
-        lse = lse.contiguous()
-        plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
-        with torch.cuda.device(q.device):
-            err = lib.remop_flash_attention_bwd_tc(
-                *pointers, lse.data_ptr(), delta.data_ptr(), ctypes.addressof(strides), b, h,
-                kv, s, t, hd, *plan["dq"], *plan["dkdv"], scale, window, prefix, softcap,
-                runtime.stream_of(q))
+        dq, dk, dv, part, n_split = bwd_tc_launch(q, k, v, out, dout, lse, scale, window, prefix,
+                                                  softcap)
+        if n_split > 1:
+            kv_reduce(part, dk, dv, n_split, scale)
     else:
-        blk = plan_bwd_blocks(hd, hd_v, q.element_size())
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         scratch = torch.empty_like(delta)  # prep's lse
+        blk = plan_bwd_blocks(hd, hd_v, q.element_size())
+        strides = _strides(q, k, v, out, dout, dq, dk, dv)
         with torch.cuda.device(q.device):
-            err = getattr(lib, f"remop_flash_attention_bwd_{_DTYPES[q.dtype]}")(
-                *pointers, scratch.data_ptr(), delta.data_ptr(), ctypes.addressof(strides), b,
-                h, kv, s, t, hd, blk, blk, scale, hd_v, window, prefix, softcap,
-                runtime.stream_of(q))
-    runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
+            err = getattr(runtime.library("flash_attention_bwd"),
+                          f"remop_flash_attention_bwd_{_DTYPES[q.dtype]}")(
+                *_pointers(q, k, v, out, dout, dq, dk, dv), scratch.data_ptr(),
+                delta.data_ptr(), ctypes.addressof(strides), b, h, kv, s, t, hd, blk, blk,
+                scale, hd_v, window, prefix, softcap, runtime.stream_of(q))
+        runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     runtime.launches["flash_attention_bwd"] += 1
     runtime.launches[f"flash_attention_bwd_{path}"] += 1
     return dq, dk, dv
+
+
+def _strides(*xs: torch.Tensor):
+    """The (batch, head, position) element strides of each tensor, as the
+    C entries take them."""
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *(st for x in xs for st in (x.stride(0), x.stride(1), x.stride(2))))
+
+
+def _pointers(*xs: torch.Tensor) -> tuple:
+    return tuple(x.data_ptr() for x in xs)
+
+
+def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  dout: torch.Tensor, lse: torch.Tensor, scale: float, window: int = 0,
+                  prefix: int = 0, softcap: float = 0.0):
+    """The tensor-core route's two launches (``dq_tc``, then dkdv) on CUDA
+    tensors the route takes, at :func:`plan_bwd_tc_blocks`' blocks and, at
+    :data:`BWD_TC_WG_PAIRS`, :func:`plan_bwd_kv_split`'s CTAs a key block
+    (``kv_split``; 1 elsewhere).
+    Returns ``(dq, dk, dv, part, kv_split)``: at ``kv_split`` 1 dk and dv
+    are written and ``part`` is None; above 1 dk and dv are empty and
+    ``part``, f32 ``[kv_split, B, KV, T, hd + hd_v]``, holds each CTA's
+    unscaled dK then dV, for :func:`kv_reduce`.  Counts no launch:
+    :func:`flash_attention_bwd` does."""
+    _check_lse(q, lse)
+    b, h, s, hd = q.shape
+    kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
+    kv_split = bwd_tc_kv_split(b, h, kv, t, hd, hd_v)
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    part = (torch.empty((kv_split, b, kv, t, hd + hd_v), dtype=torch.float32, device=q.device)
+            if kv_split > 1 else None)
+    strides = _strides(q, k, v, out, dout, dq, dk, dv)
+    with torch.cuda.device(q.device):
+        err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_tc(
+            *_pointers(q, k, v, out, dout, dq, dk, dv), lse.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), ctypes.addressof(strides), b, h, kv, s,
+            t, hd, hd_v, *plan["dq"], *plan["dkdv"], kv_split, scale, window, prefix, softcap,
+            runtime.stream_of(q))
+    runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
+    return dq, dk, dv, part, kv_split
+
+
+def kv_reduce(part: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, kv_split: int,
+              scale: float) -> None:
+    """Write ``dk = scale * (part[0] + part[1] + ... + part[kv_split - 1])``
+    and ``dv`` the same sum unscaled (``part``'s first ``hd`` columns are
+    dK's), summed in that order (no atomics), each rounded once:
+    :func:`bwd_tc_launch`'s partials into its dk and dv.  On the card one
+    launch of ``kv_reduce_kernel``; on the CPU its plain version, the same
+    f32 additions in the same order."""
+    b, kv, t, hd = dk.shape
+    hd_v = dv.shape[3]
+    if part.shape[1:] != (b, kv, t, hd + hd_v) or not 1 <= kv_split <= part.shape[0]:
+        raise ValueError(f"part {tuple(part.shape)} does not hold {kv_split} partials of dk "
+                         f"{tuple(dk.shape)} and dv {tuple(dv.shape)}")
+    if runtime.on_cpu(part, dk, dv):
+        total = part[0].clone()
+        for z in range(1, kv_split):
+            total += part[z]
+        dk.copy_(total[..., :hd] * scale)
+        dv.copy_(total[..., hd:])
+        return
+    strides = (ctypes.c_longlong * 24)(*([0] * 18), *(st for x in (dk, dv)
+                                                       for st in x.stride()[:3]))
+    with torch.cuda.device(dk.device):
+        err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_kv_reduce(
+            part.data_ptr(), dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), b, kv, t,
+            hd, hd_v, kv_split, scale, runtime.stream_of(dk))
+    runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
+
+
+def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                            kv_split: int, scale: float | None = None, window: int = 0,
+                            prefix: int = 0, softcap: float = 0.0, keys: int = 64,
+                            rows: int = 64) -> torch.Tensor:
+    """The partials the tensor-core dkdv writes with ``kv_split`` CTAs a key
+    block, in PyTorch: per key block of ``keys`` keys its steps (head ``i //
+    n_q`` of the GQA group, query block ``first + i % n_q`` of ``rows`` rows,
+    over the query blocks that see the block), cut into ``kv_split`` runs
+    ``[steps z / n, steps (z + 1) / n)``; run z's f32 dK (unscaled) and dV
+    of the block's keys in ``part[z]``, f32 ``[kv_split, B, KV, T, hd +
+    hd_v]`` (:func:`kv_reduce` sums them).  ``lse`` and ``delta`` (``D =
+    sum(dO * O)``) are f32 [B, H, S]."""
+    b, h, s, hd = q.shape
+    kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    softcap = runtime.check_softcap(softcap)
+    offset = t - s
+    part = torch.zeros((kv_split, b, kv, t, hd + hd_v), device=q.device)
+    qf, dof = q.float(), dout.float()
+    for k0 in range(0, t, keys):
+        k_last = min(k0 + keys, t) - 1
+        first = 0 if k0 < prefix else max(0, k0 - offset)
+        last = min(s - 1, k_last + window - 1 - offset if window else s - 1)
+        n_q = last // rows - first // rows + 1 if first <= last else 0
+        steps = g * n_q
+        kb, vb = k[:, :, k0:k_last + 1].float(), v[:, :, k0:k_last + 1].float()
+        k_pos = torch.arange(k0, k_last + 1, device=q.device)
+        for z in range(kv_split):
+            for i in range(steps * z // kv_split, steps * (z + 1) // kv_split):
+                head = torch.arange(kv, device=q.device) * g + i // n_q
+                q0 = (first // rows + i % n_q) * rows
+                qs, ds_ = qf[:, head, q0:q0 + rows], dof[:, head, q0:q0 + rows]
+                sc = runtime.cap_scores(torch.einsum("bksd,bktd->bkts", qs, kb) * scale, softcap)
+                q_pos = torch.arange(q0, q0 + qs.shape[2], device=q.device) + offset
+                hidden = hidden_keys(q_pos, k_pos, window, prefix).T
+                p = torch.exp(sc - lse[:, head, q0:q0 + rows][:, :, None]).masked_fill(hidden, 0.0)
+                dp = torch.einsum("bktd,bksd->bkts", vb, ds_)
+                dst = p * (dp - delta[:, head, q0:q0 + rows][:, :, None])
+                if softcap:
+                    dst = dst * cap_grad(sc, softcap)
+                part[z, :, :, k0:k_last + 1, :hd] += torch.einsum("bkts,bksd->bktd", dst, qs)
+                part[z, :, :, k0:k_last + 1, hd:] += torch.einsum("bkts,bksd->bktd", p, ds_)
+    return part
 
 
 def bwd_attributes(dtype: torch.dtype, hd: int, hd_v: int) -> dict:
@@ -332,7 +507,7 @@ def bwd_tc_attributes(hd: int, hd_v: int, capped: bool = False,
         check_bwd_tc_blocks(kernel, *plan[kernel], hd, hd_v)
     out = (ctypes.c_int * 10)()
     err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_tc_attributes(
-        hd, *plan["dq"], *plan["dkdv"], int(capped), ctypes.addressof(out))
+        hd, hd_v, *plan["dq"], *plan["dkdv"], int(capped), ctypes.addressof(out))
     runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     keys = ("resident_ctas", "registers", "local_bytes", "smem_bytes", "threads")
     return {kernel: {"blocks": list(plan[kernel]), **dict(zip(keys, out[5 * i:5 * i + 5]))}

@@ -1,19 +1,24 @@
 """The flash backward's tensor-core route, its host decisions and the
 log-sum-exp it reads from the forward, on the CPU.
 
-Pinned here: :func:`bwd_route` (bf16 at hd 64 / 128 with five TMA-aligned
-tensors is ``"tc"``, the model's transposed views included; anything else,
-an f32 call, another width, a misaligned stride or base, is ``"simt"``);
-the route's block plan and shared memory (within 227 KB at hd 64 and 128,
-refused elsewhere); ``flash_attention_plain(..., return_lse=True)`` against
+Pinned here: :func:`bwd_route` (bf16 at every width the backward takes,
+64, 128, 256 and (192, 128), with five TMA-aligned tensors is ``"tc"``, the
+model's transposed views included; anything else, an f32 call, another
+width, a misaligned stride or base, is ``"simt"``); the route's block plan
+and shared memory (within 227 KB at all four widths, refused elsewhere);
+:func:`plan_bwd_kv_split` (1 at qwen3-0.6b's training shape, more at the
+one-KV-head rows of gemma-2b, recurrentgemma and paligemma); the split's
+fixed-order sum (``kv_split_plain``) against ``jax.vjp`` of ``repro``'s
+``full_attention`` at f32; ``flash_attention_plain(..., return_lse=True)`` against
 ``jax.nn.logsumexp`` of ``repro``'s masked, scaled and capped scores on the
 inputs of ``test_torch_flash_grad.py``'s ``CASES`` (f32, ``LSE_TOL``
 relative); ``flash_attention_bwd_plain`` given the forward's lse against
 the one that recomputes it (f32 rounding); ``FlashAttentionFn`` on the CPU
 through the lse flow against autograd of the reference; a planted fault
 (lse one row off) that must miss the f32 bound; and the CUDA branches
-through a stand-in library: a ``tc`` call goes to the tensor-core entry
-with its blocks and the forward's lse and counts under both names, a failed
+through a stand-in library: a ``tc`` call (hd 256 and (192, 128) too) goes
+to the tensor-core entry with its blocks, its split and the forward's lse,
+then (split) to the fixed-order sum, and counts under both names, a failed
 one raises and never re-routes, the forward writes an lse only ahead of a
 ``tc`` backward.
 """
@@ -34,7 +39,7 @@ import test_torch_flash_grad as cases
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 from repro_torch.kernels.flash_attention.flash_attention import (
-    SMEM_LIMIT, flash_attention, flash_attention_plain)
+    LSE_HEAD_PAIRS, SMEM_LIMIT, flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -90,6 +95,10 @@ def _route_case(name):
         return _five(b, h, kv, s, t, 128, torch.float32)
     if name in ("bf16 256", "bf16 32", "bf16 16"):
         return _five(b, h, kv, s, t, int(name.split()[1]))
+    if name == "bf16 256 misaligned":
+        five = list(_five(b, h, kv, s, t, 256))
+        five[0] = _misaligned_stride(b, h, s, 256, 9)
+        return tuple(five)
     if name == "mla 192/128":
         q, k, _, _, _ = _five(b, h, kv, s, t, 192)
         _, _, v, out, dout = _five(b, h, kv, s, t, 128)
@@ -105,7 +114,7 @@ def _route_case(name):
 
 @pytest.mark.parametrize("name,want", [
     ("bf16 64", "tc"), ("bf16 128", "tc"), ("model layout", "tc"),
-    ("f32 128", "simt"), ("bf16 256", "simt"), ("mla 192/128", "simt"), ("bf16 32", "simt"),
+    ("f32 128", "simt"), ("bf16 256", "tc"), ("mla 192/128", "tc"), ("bf16 32", "simt"),
     ("bf16 16", "simt"),
     ("q misaligned stride", "simt"), ("k misaligned stride", "simt"),
     ("dout misaligned stride", "simt"), ("v misaligned base", "simt"),
@@ -117,26 +126,39 @@ def test_bwd_route(name, want):
     assert fab.bwd_route(*five) == want
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_tc_plan_fits_shared_memory(hd):
-    plan = fab.plan_bwd_tc_blocks(hd, hd)
-    assert plan == {"dq": (128, 64), "dkdv": (128, 64)}
-    for kernel, pairs in fab.BWD_TC_BLOCKS.items():
+@pytest.mark.parametrize("hd,hd_v,want", [
+    (64, 64, {"dq": (128, 64), "dkdv": (128, 64)}),
+    (128, 128, {"dq": (128, 64), "dkdv": (128, 64)}),
+    (256, 256, {"dq": (64, 64), "dkdv": (64, 64)}),
+    (192, 128, {"dq": (128, 64), "dkdv": (64, 64)}),
+])
+def test_tc_plan_fits_shared_memory(hd, hd_v, want):
+    assert (hd, hd_v) in LSE_HEAD_PAIRS  # the forward writes the lse the route reads
+    plan = fab.plan_bwd_tc_blocks(hd, hd_v)
+    assert plan == want
+    for kernel, pairs in fab.BWD_TC_BLOCKS[(hd, hd_v)].items():
         for rows, block in pairs:
-            assert fab.bwd_tc_smem_bytes(kernel, rows, block, hd) <= SMEM_LIMIT
-            fab.check_bwd_tc_blocks(kernel, rows, block, hd, hd)
-    # Q and dO of 128 rows, two stages of K and V of 64 keys, 7 mbarriers, the slack.
-    assert fab.bwd_tc_smem_bytes("dq", 128, 64, hd) == 1024 + 4 * 128 * hd + 8 * 64 * hd + 56
-    assert (fab.bwd_tc_smem_bytes("dkdv", 128, 64, hd)
-            == fab.bwd_tc_smem_bytes("dq", 128, 64, hd) + 4 * 64 * 4)
+            assert fab.bwd_tc_smem_bytes(kernel, rows, block, hd, hd_v) <= SMEM_LIMIT == 232_448
+            fab.check_bwd_tc_blocks(kernel, rows, block, hd, hd_v)
+    # Q (hd) and dO (hd_v) of the dq rows, two stages of K (hd) and V (hd_v), 7
+    # mbarriers, the slack.
+    rows, block = plan["dq"]
+    assert (fab.bwd_tc_smem_bytes("dq", rows, block, hd, hd_v)
+            == 1024 + 2 * rows * (hd + hd_v) + 4 * block * (hd + hd_v) + 56)
+    rows, block = plan["dkdv"]
+    exchange = 64 * block * 4 if rows == 64 else 0  # dkdv_wg's P^T
+    assert (fab.bwd_tc_smem_bytes("dkdv", rows, block, hd, hd_v)
+            == 1024 + 2 * rows * (hd + hd_v) + 4 * block * (hd + hd_v) + 4 * block * 4
+            + exchange + 56)
+    if hd == 256:  # 128 query rows of dq, or dK and dV of 128 keys, would not fit
+        assert fab.bwd_tc_smem_bytes("dq", 128, 64, 256) > SMEM_LIMIT
 
 
-@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128), (32, 32), (128, 64)])
+@pytest.mark.parametrize("hd,hd_v", [(16, 16), (256, 128), (32, 32), (128, 64)])
 def test_tc_plan_refuses_other_widths(hd, hd_v):
     with pytest.raises(ValueError, match="tensor-core backward"):
         fab.plan_bwd_tc_blocks(hd, hd_v)
-    if hd == 256:  # the shared memory alone would refuse it
-        assert fab.bwd_tc_smem_bytes("dq", 128, 64, hd) > SMEM_LIMIT
+    assert (hd, hd_v) not in fab.BWD_TC_HEAD_PAIRS
 
 
 @pytest.mark.parametrize("kernel,rows,block", [("dq", 64, 64), ("dq", 128, 128),
@@ -269,8 +291,13 @@ class _FakeLibrary:
 
     def remop_flash_attention_bwd_tc(self, *args):
         self.calls.append(("bwd_tc", args))
-        self.strides = ctypes.cast(args[10], ctypes.POINTER(ctypes.c_longlong))[:24]
+        self.strides = ctypes.cast(args[11], ctypes.POINTER(ctypes.c_longlong))[:24]
         return self.tc_error
+
+    def remop_flash_attention_bwd_kv_reduce(self, *args):
+        self.calls.append(("kv_reduce", args))
+        self.reduce_strides = ctypes.cast(args[3], ctypes.POINTER(ctypes.c_longlong))[:24]
+        return 0
 
     def remop_flash_attention_bwd_bf16(self, *args):
         self.calls.append(("bwd_bf16", args))
@@ -318,10 +345,11 @@ def test_tc_calls_go_to_the_tc_entry_point_and_count(fake_card):
     dq, dk, dv = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
     (name, args), = lib.calls
     assert name == "bwd_tc"
-    assert args[8] == lse.data_ptr()
+    assert args[8] == lse.data_ptr() and args[10] is None  # no split: no partials
     assert lib.strides == [st for x in (q, k, v, out, dout, dq, dk, dv) for st in x.stride()[:3]]
-    assert args[11:21] == (2, 16, 8, 300, 300, 128, 128, 64, 128, 64)  # b h kv s t hd blocks
-    assert args[21] == pytest.approx(1 / math.sqrt(128))
+    # b h kv s t hd hd_v, the blocks, kv_split
+    assert args[12:24] == (2, 16, 8, 300, 300, 128, 128, 128, 64, 128, 64, 1)
+    assert args[24] == pytest.approx(1 / math.sqrt(128))
     assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1}
     with pytest.raises(ValueError, match="log-sum-exp"):
         fab.flash_attention_bwd(q, k, v, out, dout)
@@ -329,7 +357,7 @@ def test_tc_calls_go_to_the_tc_entry_point_and_count(fake_card):
         fab.flash_attention_bwd(q, k, v, out, dout, lse=lse[:, :, 1:])
 
 
-@pytest.mark.parametrize("name,entry", [("f32 128", "bwd_f32"), ("bf16 256", "bwd_bf16"),
+@pytest.mark.parametrize("name,entry", [("f32 128", "bwd_f32"), ("bf16 256 misaligned", "bwd_bf16"),
                                         ("dout misaligned stride", "bwd_bf16")])
 def test_other_calls_go_to_the_cuda_core_entry_point(fake_card, name, entry):
     lib = fake_card(_FakeLibrary())
@@ -348,7 +376,7 @@ def test_a_failed_tc_call_raises_and_never_reroutes(fake_card):
     assert sum(runtime.launches.values()) == 0
 
 
-@pytest.mark.parametrize("hd,lse_written", [(128, True), (64, True), (256, False)])
+@pytest.mark.parametrize("hd,lse_written", [(128, True), (64, True), (256, True)])
 def test_the_forward_writes_lse_only_ahead_of_a_tc_backward(fake_card, hd, lse_written):
     lib = fake_card(_FakeLibrary())
     q, k, v = (_model_layout(1, n, 256, hd, seed) for n, seed in ((8, 1), (2, 2), (2, 3)))
@@ -359,9 +387,10 @@ def test_the_forward_writes_lse_only_ahead_of_a_tc_backward(fake_card, hd, lse_w
     if lse_written:
         assert len(args) == 21 and args[-2] is not None  # the lse pointer, before the stream
     torch.autograd.grad(out, (qg, kg, vg), torch.ones_like(out))
-    assert lib.calls[-1][0] == ("bwd_tc" if lse_written else "bwd_bf16")
-    if lse_written:
-        assert lib.calls[-1][1][8] == args[-2]  # the forward's lse, handed on
+    # 2 KV heads of 256 keys leave most SMs idle: dkdv_wg (hd 256) splits and
+    # its sum follows; dkdv_tc (64, 128) never splits.
+    assert [n for n, _ in lib.calls[1:]] == ["bwd_tc"] + (["kv_reduce"] if hd == 256 else [])
+    assert lib.calls[1][1][8] == args[-2]  # the forward's lse, handed on
 
 
 def test_capped_plan_avoids_the_spilling_instantiation():
@@ -370,7 +399,7 @@ def test_capped_plan_avoids_the_spilling_instantiation():
     assert fab.plan_bwd_tc_blocks(128, 128, capped=True) == {"dq": (128, 64), "dkdv": (128, 32)}
     assert fab.plan_bwd_tc_blocks(64, 64, capped=True) == {"dq": (128, 64), "dkdv": (128, 64)}
     for kernel, hd, capped, blocks in fab.BWD_TC_SPILLS:
-        assert blocks in fab.BWD_TC_BLOCKS[kernel]
+        assert blocks in fab.BWD_TC_BLOCKS[(hd, hd)][kernel]
         assert fab.plan_bwd_tc_blocks(hd, hd, capped)[kernel] != blocks
 
 
@@ -379,16 +408,160 @@ def test_a_capped_tc_call_takes_the_capped_plan(fake_card):
     q, k, v, out, dout = _five(1, 4, 2, 64, 64, 128)
     fab.flash_attention_bwd(q, k, v, out, dout, softcap=50.0, lse=torch.zeros(1, 4, 64))
     (name, args), = lib.calls
-    assert name == "bwd_tc" and args[17:21] == (128, 64, 128, 32)
+    assert name == "bwd_tc" and args[19:23] == (128, 64, 128, 32)
 
 
-@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
+@pytest.mark.parametrize("hd,hd_v", [(32, 32), (16, 16)])
 def test_the_forward_writes_lse_at_the_backward_widths_only(fake_card, hd, hd_v):
-    """The tensor-core forward is built to write lse at hd 64 and 128 only:
-    a CUDA call elsewhere that asks for it raises before any launch."""
+    """The tensor-core forward is built to write lse at the backward's
+    widths (64, 128, 256 and (192, 128)) only: a CUDA call elsewhere that
+    asks for it raises before any launch."""
     lib = fake_card(_FakeLibrary())
     q, k = _bf16(1, 4, 128, hd, seed=1), _bf16(1, 2, 128, hd, seed=2)
     v = _bf16(1, 2, 128, hd_v, seed=3)
     with pytest.raises(ValueError, match="log-sum-exp"):
-        flash_attention(q, k, v, bq=128, bk=64, return_lse=True)
+        flash_attention(q, k, v, bq=64, bk=64, return_lse=True)
     assert lib.calls == []
+
+
+# -- dkdv split over CTAs where KV heads are few ---------------------------------------
+
+@pytest.mark.parametrize("name,shape,keys,want", [
+    # (b, kv, t, group): 4 x 8 x 16 = 512 CTAs of 128 keys fill the card alone.
+    ("qwen3-0.6b train", (4, 8, 2048, 2), 128, 1),
+    # one KV head: 32, 64 and 12 CTAs of 64 keys, split as far as two waves hold
+    ("gemma-2b", (1, 1, 2048, 8), 64, 8),
+    ("recurrentgemma window", (1, 1, 4096, 10), 64, 4),
+    ("paligemma prefix", (1, 1, 768, 8), 64, 16),
+    # 16 KV heads of MLA: 512 CTAs
+    ("mla 192/128", (1, 16, 2048, 1), 64, 1),
+])
+def test_kv_split_plan(name, shape, keys, want):
+    b, kv, t, group = shape
+    got = fab.plan_bwd_kv_split(b, kv, t, group, keys)
+    assert got == want, (name, got)
+    # A pure function of its arguments: the same answer again, and the SM
+    # count an argument (a card of 66 SMs splits half as far).
+    assert fab.plan_bwd_kv_split(b, kv, t, group, keys) == got
+    assert fab.plan_bwd_kv_split(b, kv, t, group, keys, sms=132) == got
+    ctas = b * kv * -(-t // keys)
+    assert fab.plan_bwd_kv_split(b, kv, t, group, keys, sms=66) == (
+        1 if ctas >= 66 else min(132 // ctas, fab.BWD_KV_SPLIT_MAX))
+    if want > 1:  # two waves' worth of CTAs, short of the cap
+        assert want * ctas <= 264 < (want + 1) * ctas or want == fab.BWD_KV_SPLIT_MAX
+
+
+def test_kv_split_plan_caps_the_scratch_and_refuses_nonsense():
+    assert fab.plan_bwd_kv_split(1, 1, 64, 16, 64) == fab.BWD_KV_SPLIT_MAX
+    with pytest.raises(ValueError, match="positive sizes"):
+        fab.plan_bwd_kv_split(1, 0, 64, 16, 64)
+
+
+def _split_grads(case, kv_split, runs=None, scale=None):
+    """dk, dv through the split's plain partials (blocks of 16 keys and 16
+    query rows, so that runs end inside a head's query blocks) and the plain
+    fixed-order sum of the first ``runs`` of them (default all)."""
+    arrays, mask = cases._inputs(case)
+    q, k, v, do = (torch.from_numpy(x) for x in arrays)
+    out, lse = flash_attention(q, k, v, **mask, return_lse=True)
+    delta = (do * out).sum(-1)
+    part = fab.kv_split_partials_plain(q, k, v, do, lse, delta, kv_split, **mask, keys=16,
+                                       rows=16)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    scale = 1 / math.sqrt(q.shape[3]) if scale is None else scale
+    fab.kv_reduce(part, dk, dv, runs or kv_split, scale)
+    return arrays, (dk, dv)
+
+
+@pytest.mark.parametrize("kv_split", [1, 3, 8])
+@pytest.mark.parametrize("case", ["G 8", "window", "prefix", "cross", "softcap"])
+def test_split_sum_matches_jax_vjp(case, kv_split):
+    """The split's fixed-order sum (each run's f32 partial dK and dV, then
+    part[0] + part[1] + ..., dK times scale) in PyTorch against jax.vjp of
+    full_attention (f32, ``F32_TOL``)."""
+    arrays, (dk, dv) = _split_grads(case, kv_split)
+    _, dk_want, dv_want = cases._jax_grads(case, arrays, jnp.float32)
+    assert cases._rel(dk, dk_want) <= cases.F32_TOL, cases._rel(dk, dk_want)
+    assert cases._rel(dv, dv_want) <= cases.F32_TOL, cases._rel(dv, dv_want)
+
+
+@pytest.mark.parametrize("fault", ["the last run dropped", "dK's scale dropped"])
+def test_split_sum_planted_faults_miss_the_f32_bound(fault):
+    """Planted faults of the sum, G 8 on one KV head in 3 runs: the last
+    run's partial left out, or dK's scale; each must miss the bound by far."""
+    if fault == "the last run dropped":
+        arrays, (dk, dv) = _split_grads("G 8", 3, runs=2)
+    else:
+        arrays, (dk, dv) = _split_grads("G 8", 3, scale=1.0)
+    _, dk_want, dv_want = cases._jax_grads("G 8", arrays, jnp.float32)
+    assert cases._rel(dk, dk_want) > 10 * cases.F32_TOL
+    if fault == "the last run dropped":
+        assert cases._rel(dv, dv_want) > 10 * cases.F32_TOL
+
+
+def test_the_plain_sum_adds_in_split_order():
+    """kv_reduce's plain version: ((part[0] + part[1]) + part[2]) in f32, dK
+    times scale, each rounded once to dk's dtype; the runs past kv_split unread."""
+    g = torch.Generator().manual_seed(3)
+    part = torch.randn(4, 1, 2, 5, 12, generator=g) * torch.tensor([1e8, 1.0, -1e8, 1e-3])[
+        :, None, None, None, None]
+    dk, dv = torch.empty(1, 2, 5, 8, dtype=BF16), torch.empty(1, 2, 5, 4, dtype=BF16)
+    fab.kv_reduce(part, dk, dv, 3, 0.125)
+    total = (part[0] + part[1]) + part[2]
+    assert torch.equal(dk, (total[..., :8] * 0.125).to(BF16))
+    assert torch.equal(dv, total[..., 8:].to(BF16))
+    with pytest.raises(ValueError, match="does not hold"):
+        fab.kv_reduce(part, dk, dv, 5, 0.125)
+
+
+@pytest.mark.parametrize("hd,hd_v,kv,split", [(256, 256, 1, 8), (192, 128, 16, 1)])
+def test_wide_calls_go_to_the_tc_entry_point(fake_card, hd, hd_v, kv, split):
+    """hd 256 (gemma-2b's one KV head: dkdv split 8 ways, then summed) and
+    (192, 128) (MLA's 16 KV heads: no split) take the tensor-core entry."""
+    lib = fake_card(_FakeLibrary())
+    q, k = _bf16(1, 8 if kv == 1 else 16, 2048, hd, seed=1), _bf16(1, kv, 2048, hd, seed=2)
+    v = _bf16(1, kv, 2048, hd_v, seed=3)
+    out, dout = (_bf16(*q.shape[:3], hd_v, seed=s) for s in (4, 5))
+    h = q.shape[1]
+    lse = torch.zeros(1, h, 2048)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+    names = [name for name, _ in lib.calls]
+    assert names == (["bwd_tc", "kv_reduce"] if split > 1 else ["bwd_tc"])
+    args = lib.calls[0][1]
+    plan = fab.plan_bwd_tc_blocks(hd, hd_v)
+    assert args[12:24] == (1, h, kv, 2048, 2048, hd, hd_v, *plan["dq"], *plan["dkdv"], split)
+    assert (args[10] is None) == (split == 1)
+    if split > 1:
+        part, rdk, rdv, _, *rest = lib.calls[1][1]
+        assert part == args[10] and (rdk, rdv) == (dk.data_ptr(), dv.data_ptr())
+        assert tuple(rest[:6]) == (1, kv, 2048, hd, hd_v, split)
+        assert rest[6] == pytest.approx(1 / math.sqrt(hd))
+        assert lib.reduce_strides[18:] == [st for x in (dk, dv) for st in x.stride()[:3]]
+    assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1}
+
+
+@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
+def test_a_failed_wide_tc_call_raises_and_never_reroutes(fake_card, hd, hd_v):
+    lib = fake_card(_FakeLibrary(tc_error=700))
+    q, k = _bf16(1, 8, 128, hd, seed=1), _bf16(1, 1, 128, hd, seed=2)
+    v = _bf16(1, 1, 128, hd_v, seed=3)
+    out, dout = (_bf16(1, 8, 128, hd_v, seed=s) for s in (4, 5))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fab.flash_attention_bwd(q, k, v, out, dout, lse=torch.zeros(1, 8, 128))
+    assert [name for name, _ in lib.calls] == ["bwd_tc"]
+    assert sum(runtime.launches.values()) == 0
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        fab.flash_attention_bwd(q, k, v, out, dout)
+    assert [name for name, _ in lib.calls] == ["bwd_tc"]
+
+
+@pytest.mark.parametrize("b,h,kv,t,hd,hd_v,want", [
+    (1, 8, 1, 2048, 256, 256, 8),     # gemma-2b: dkdv_wg on one KV head
+    (1, 16, 16, 2048, 192, 128, 1),   # MLA: 512 CTAs
+    (1, 16, 8, 2048, 128, 128, 1),    # qwen3 at batch 1: 128 CTAs, but dkdv_tc
+    (1, 16, 16, 200, 64, 64, 1),      # cross-attention: 32 CTAs, dkdv_tc
+])
+def test_only_the_two_warpgroup_dkdv_splits(b, h, kv, t, hd, hd_v, want):
+    """The split is dkdv_wg's (256 and (192, 128)); hd 64/128 calls keep
+    dkdv_tc's one CTA a key block, and with it their bits."""
+    assert fab.bwd_tc_kv_split(b, h, kv, t, hd, hd_v) == want
