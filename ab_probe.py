@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one card:
 
-    python3 ab_probe.py PARENT_DIR
+    python3 ab_probe.py PARENT_DIR [--changes NAME,...]
     python3 ab_probe.py --train PARENT_DIR
 
 PARENT_DIR holds an unpacked checkout of the commit to compare with, for
@@ -13,12 +13,18 @@ each a process of its own with that checkout's ``src`` first on
 ``sys.path`` (each builds its own kernels): the flash kernel at six causal
 and windowed serving shapes, the paged kernel at rows 5, 5c and 5d of
 ``PERF.md``'s kernel table, and the flash backward's tensor-core route at
-qwen3-0.6b's training shape and at hd 64 over every key (given the
-forward's lse, in the model's ``[B, S, heads, hd]`` memory), each call's
-output digested bit for bit and timed by device ms
-(``chip_smoke.Bench.device_ms``).  One JSON line a turn,
-then one with the card's ``nvidia-smi`` line and whether every turn's
-digests agree; exits 1 if they do not.  With ``--train`` each turn instead
+qwen3-0.6b's training shape, at hd 64 over every key, at gemma-2b's hd 256
+and MLA's (192, 128), and at ``chip_smoke.BWD_CHECKS``' two "G 8" rows (8
+query heads on one KV head, q 8 times the unit scale, hd 128 capped at 50
+and hd 64; given the forward's lse, in the model's ``[B, S, heads, hd]``
+memory), each call's output digested bit for bit and timed by device ms
+(``chip_smoke.Bench.device_ms``); each backward also held to this tree's
+plain version under ``chip_smoke.ATTN_TOL`` (``within_attn_tol`` and
+``tol_excess``, the largest share of the elementwise bound).  One JSON
+line a turn, then one with the card's ``nvidia-smi`` line and, per shape,
+whether every turn's digests agree; exits 1 unless they do at every shape
+but those named by ``--changes`` (a change meant to move their bits).
+With ``--train`` each turn instead
 trains qwen3-0.6b through ``launch.train.main`` at ``chip_smoke``'s command
 line cut to ``TRAIN_AB_STEPS`` steps and no checkpoints, and reports its
 losses (which must agree) and the median host seconds of steps 3 on: the
@@ -41,9 +47,14 @@ FLASH = (("gemma-2b", 8, 1, 2048, 256, 256, 0), ("granite-moe", 24, 8, 2048, 64,
          ("seamless causal", 16, 16, 4096, 64, 64, 0))
 PAGED = (("paged row 5", 1, 8, 256, 4096, 2048), ("paged row 5c ring", 1, 10, 256, 2048, 2048),
          ("paged row 5d", 16, 1, 64, 4096, 4096))
-# (name, b, h, kv, s, hd, prefix): the backward, causal or over every key.
-BWD = (("bwd qwen3-0.6b", 4, 16, 8, 2048, 128, 0), ("bwd every key hd 64", 1, 16, 16, 4096, 64,
-                                                    4096))
+# (name, b, h, kv, s, hd, hd_v, prefix, softcap, q gain): the backward,
+# causal or over every key.
+BWD = (("bwd qwen3-0.6b", 4, 16, 8, 2048, 128, 128, 0, 0.0, 1.0),
+       ("bwd every key hd 64", 1, 16, 16, 4096, 64, 64, 4096, 0.0, 1.0),
+       ("bwd gemma-2b", 1, 8, 1, 2048, 256, 256, 0, 0.0, 1.0),
+       ("bwd mla 192/128", 1, 16, 16, 2048, 192, 128, 0, 0.0, 1.0),
+       ("bwd G 8 softcap 50 hd 128", 1, 8, 1, 2048, 128, 128, 0, 50.0, 8.0),
+       ("bwd G 8 q gain 8 hd 64", 1, 8, 1, 2048, 64, 64, 0, 0.0, 8.0))
 TRAIN_AB_STEPS = 12
 
 
@@ -95,14 +106,15 @@ def turn(src: str) -> dict:
     bench = chip_smoke.Bench(torch, device)
     out = {}
 
-    def randn(*shape):
-        return torch.randn(*shape, device=device, generator=gen).to(torch.bfloat16)
+    def randn(*shape, gain=1.0):
+        return (torch.randn(*shape, device=device, generator=gen) * gain).to(torch.bfloat16)
 
     def record(name, fn):
         got = fn()
-        got = torch.cat([x.reshape(-1) for x in got]) if isinstance(got, tuple) else got
-        digest = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        flat = torch.cat([x.reshape(-1) for x in got]) if isinstance(got, tuple) else got
+        digest = hashlib.sha256(flat.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
         out[name] = {"digest": digest[:16], "device_ms": bench.device_ms(fn)["device_ms"]}
+        return got
 
     for name, h, kv, s, hd, hd_v, window in FLASH:
         q, k, v = randn(1, h, s, hd), randn(1, kv, s, hd), randn(1, kv, s, hd_v)
@@ -113,13 +125,21 @@ def turn(src: str) -> dict:
         q, kc, vc = randn(1, kv, g, hd), randn(1, s, kv, hd), randn(1, s, kv, hd)
         ln = torch.full((1,), length, dtype=torch.int32, device=device)
         record(name, lambda q=q, kc=kc, vc=vc, ln=ln: pa.paged_attention(q, kc, vc, ln))
-    for name, b, h, kv, s, hd, prefix in BWD:
-        q, k, v, dout = (randn(b, s, n, hd).transpose(1, 2) for n in (h, kv, kv, h))
-        bq, bk = plan_blocks(s, s, hd, 2, path="tc", hd_v=hd)
+    for name, b, h, kv, s, hd, hd_v, prefix, cap, gain in BWD:
+        q = randn(b, s, h, hd, gain=gain).transpose(1, 2)
+        k, v, dout = (randn(b, s, n, w).transpose(1, 2) for n, w in ((kv, hd), (kv, hd_v),
+                                                                   (h, hd_v)))
+        bq, bk = plan_blocks(s, s, hd, 2, path="tc", hd_v=hd_v)
+        mask = dict(prefix=prefix, softcap=cap)
         with torch.no_grad():
-            o, lse = fa.flash_attention(q, k, v, bq=bq, bk=bk, prefix=prefix, return_lse=True)
-        record(name, lambda q=q, k=k, v=v, o=o, dout=dout, lse=lse, prefix=prefix:
-               fab.flash_attention_bwd(q, k, v, o, dout, prefix=prefix, lse=lse))
+            o, lse = fa.flash_attention(q, k, v, bq=bq, bk=bk, return_lse=True, **mask)
+        got = record(name, lambda q=q, k=k, v=v, o=o, dout=dout, lse=lse, mask=mask:
+                     fab.flash_attention_bwd(q, k, v, o, dout, lse=lse, **mask))
+        want = fab.flash_attention_bwd_plain(q, k, v, o, dout, **mask)
+        out[name].update(within_attn_tol=chip_smoke.grads_close(torch, got, want)[0],
+                         tol_excess=[chip_smoke.tol_excess(torch, g, w)
+                                     for g, w in zip(got, want)])
+        del got, want
     return out
 
 
@@ -131,9 +151,12 @@ def main() -> int:
     args = sys.argv[1:]
     what = "train" if args[:1] == ["--train"] else "kernels"
     args = args[1:] if what == "train" else args
+    changes = set()
+    if "--changes" in args[1:2]:
+        changes, args = set(args[2].split(",")), args[:1]
     if len(args) != 1 or not (Path(args[0]) / "src" / "repro_torch").is_dir():
-        print("usage: ab_probe.py [--train] PARENT_DIR (an unpacked checkout with "
-              "src/repro_torch)", file=sys.stderr)
+        print("usage: ab_probe.py [--train] PARENT_DIR [--changes NAME,...] (an unpacked "
+              "checkout with src/repro_torch)", file=sys.stderr)
         return 2
     srcs = {"parent": str(Path(args[0]).resolve() / "src"), "change": str(ROOT / "src")}
     runs = []
@@ -144,10 +167,12 @@ def main() -> int:
         print(json.dumps(runs[-1]), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    same = all(run[k]["digest"] == runs[0][k]["digest"] for run in runs for k in runs[0]
-               if k != "turn")
-    print(json.dumps({"card": card.strip(), "equal_bits": same}), flush=True)
-    return 0 if same else 1
+    same = {k: all(run[k]["digest"] == runs[0][k]["digest"] for run in runs)
+            for k in runs[0] if k != "turn"}
+    kept = all(ok for k, ok in same.items() if k not in changes)
+    print(json.dumps({"card": card.strip(), "equal_bits": same, "changes": sorted(changes),
+                      "equal_bits_where_kept": kept}), flush=True)
+    return 0 if kept else 1
 
 
 if __name__ == "__main__":

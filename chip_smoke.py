@@ -169,7 +169,7 @@ Phases, each printing JSON objects, one per line:
    logits 30) as phase 4 does (every flash and paged launch on the capped
    instantiation, the last decode step of two requests against a prefill
    replay), with its breakdown; then decode gemma-2b over its int8 cache
-   (prompts of 64, 512, 1024 and 2040 tokens, ``pad_caches`` to 4096,
+   (one prompt of 2040 tokens, ``pad_caches`` to 4096,
    ``quantize_kv`` on every layer, 32 greedy steps each, timed with only
    the int8 caches on the card, after one full-width layer's int8 decode
    within ``INT8_LAYER_TOL`` of its plain path: every ``gqa_decode`` call
@@ -186,7 +186,9 @@ Phases, each printing JSON objects, one per line:
    and its CUDA-core route ``simt`` for f32) against its plain version
    under ``ATTN_TOL`` at ``BWD_CHECKS``' shapes (qwen3-0.6b's training
    shape, gemma-2b, every key, MLA's 192 / 128, window 2048, prefix 256,
-   softcap 50, ragged, S < T, cross S > T, f32; each row's route asserted
+   softcap 50, 8 query heads on one KV head at hd 128 and 64 with q 8 times
+   the unit scale (their dkdv split into runs of at most 4,096 rows),
+   ragged, S < T, cross S > T, f32; each row's route asserted
    by the launch counters), two calls equal bit for bit (gemma-2b's with
    its dkdv split over several CTAs), the Function's forward equal to the
    no-grad forward bit for bit, the forward's lse against its plain version
@@ -215,6 +217,24 @@ Phases, each printing JSON objects, one per line:
    and one profiled step split into products, the flash forward and
    backward, the optimizer and the rest, with step seconds, tokens/s, model
    FLOPs and their share of the bf16 peak, and peak memory;
+8b. train_ssm: hold the scan's backward kernel (``ssd_scan_bwd``: dstates
+   and ddecays of the forward kernel) against its plain version at
+   ``SCAN_BWD_CASES``' shapes (mamba2-370m's training shape, the forward
+   checks' shapes: sigmoid decays, decays near 1, bf16, P * N = 15,
+   misaligned bases; dstates bit for bit, ddecays within its sum-order
+   bound, two calls equal bit for bit), reject a backward that drops the
+   carried G, and time it beside its bound and plain version; hold one
+   mamba2-370m SSD block's gradients at 4 x 2048 tokens with Mamba-2's dt
+   initialisation to the plain path (``SSM_LAYER_TOL``; a backward without
+   ddecays rejected); train mamba2-370m at full width and all 48 layers
+   through ``launch.train.main`` (20 steps of 4 x 2048 tokens, full remat,
+   checkpoints every 10 steps; the launch counters set to 0 just before and
+   read just after: the scan forward twice a layer a step, its backward
+   once), every loss and grad norm finite, steps 11..20 again from the
+   step-10 checkpoint, one profiled step split into products, the scan, its
+   backward, the optimizer and the rest, and one step's whole-model
+   gradients at Mamba-2's dt initialisation, kernel against plain, within
+   ``CONSISTENCY_TOL``;
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -519,7 +539,9 @@ INT8_FAULTS = (
     ("gemma-2b decode", 1, 1, 8, 256, 4096, (2077,), "reads the scale of the next position"),
     ("granite-moe decode", 1, 8, 3, 64, 4096, (2077,), "reads head 0's scale for every head"),
 )
-INT8_PROMPT_LENS = (64, 512, 1024, 2040)
+# Cut from (64, 512, 1024, 2040) to the longest prompt, so that the run
+# keeps its time with phase 8b added.
+INT8_PROMPT_LENS = (2040,)
 INT8_MAX_LEN = 4096
 INT8_STEPS = 32
 # The int8 decode's kernel path against its plain path, both on the card,
@@ -560,6 +582,7 @@ SOURCES = {
     "paged_attention_int8": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "flash_attention_bwd_tc": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_simt": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "sort_blocks": "src/repro/kernels/merge_sort/merge_sort.py:97",
@@ -583,6 +606,9 @@ REPLACES = {
     # no Pallas kernel.
     "flash_attention_bwd_tc": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "flash_attention_bwd_simt": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    # The scan's gradient: repro takes it by XLA autodiff of jax.lax.scan.
+    "ssd_scan_bwd": "ssd_scan's gradient (repro: XLA autodiff of lax.scan, "
+                    "src/repro/models/ssm.py:116)",
 }
 SESSION_KERNELS = ("sort_blocks", "merge_pass", "gather_rows")
 SERVE_KERNELS = ("flash_attention", "paged_attention")
@@ -4908,7 +4934,10 @@ TRAIN_ARCH = "qwen3-0.6b"
 # hd_v, window, prefix, softcap, q gain, dtype).  The softcap row scales q
 # by 8 so the cap of 50 bites (scores to about 30, the cap's derivative
 # 0.7..1); "q gain 8" does so without a cap: dK's entries reach 60 while
-# some cancel to near 0, which ATTN_TOL's atol holds to 1e-4.  Inputs in the model's [B, S, heads, hd] memory, seen as [B,
+# some cancel to near 0, which ATTN_TOL's atol holds to 1e-4.  The two "G 8"
+# rows do so at hd 128 and 64 (dkdv_tc) with 8 query heads on one KV head:
+# with one CTA summing a key block's 16,384 (head, query) rows dK missed
+# ATTN_TOL there (so dkdv_tc now splits such walks, plan_bwd_run_split).  Inputs in the model's [B, S, heads, hd] memory, seen as [B,
 # heads, S, hd]; dout too.
 BWD_CHECKS = (
     ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
@@ -4922,6 +4951,8 @@ BWD_CHECKS = (
     ("window 1000 hd 128", 1, 16, 8, 2048, 2048, 128, 128, 1000, 0, 0.0, 1.0, "bfloat16"),
     ("prefix 200 hd 64", 1, 8, 2, 700, 700, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
     ("softcap 50 hd 128", 1, 8, 8, 1024, 1024, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
+    ("G 8 softcap 50 hd 128", 1, 8, 1, 2048, 2048, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
+    ("G 8 q gain 8 hd 64", 1, 8, 1, 2048, 2048, 64, 64, 0, 0, 0.0, 8.0, "bfloat16"),
     ("ragged", 2, 8, 2, 1000, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("S < T", 1, 8, 8, 300, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("cross S > T", 1, 16, 16, 300, 200, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
@@ -5013,7 +5044,7 @@ def phase_train_kernels(torch, device):
             check(torch.equal(bits(out_lse), bits(out)),
                   f"flash_attention {name}: the forward writing lse changed its output")
             blocks = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)
-            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, t, hd, hd_v)
+            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
         before = dict(runtime.launches)
         got = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
         again = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
@@ -5037,8 +5068,8 @@ def phase_train_kernels(torch, device):
               "equal_bits_twice": same})
         check(ok, f"flash_attention_bwd {name}: kernel differs from its plain version beyond "
                   f"ATTN_TOL (max abs err {err}, relative L2 {rel})")
-        if name == "gemma-2b":
-            check(blocks["kv_split"] > 1, f"gemma-2b's dkdv is not split: {blocks}")
+        if name in ("gemma-2b", "G 8 softcap 50 hd 128", "G 8 q gain 8 hd 64"):
+            check(blocks["kv_split"] > 1, f"{name}'s dkdv is not split: {blocks}")
         if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64",
                     "gemma-2b", "mla 192/128"):
             kept[name] = (q, k, v, out, dout, mask, got, lse)
@@ -5156,7 +5187,7 @@ def phase_train_kernels(torch, device):
                              BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
         if path == "tc":
             blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
-            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, t, hd, hd_v)
+            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
         else:
             blocks = fab.plan_bwd_blocks(hd, hd_v, elem)
         return dict(
@@ -5294,10 +5325,19 @@ def train_model_flops(cfg, params, b, s) -> float:
     return 3.0 * (2.0 * matrices * b * s + attention)
 
 
-def train_breakdown(torch, step_fn, state, batch):
+# A training step's kernels by kind, beside products, the optimizer and the
+# rest: (kind, substrings of its kernels' names), the first that matches.
+FLASH_KINDS = (("flash_backward", ("prep_kernel", "dq_kernel", "dkdv_kernel", "dq_tc_kernel",
+                                   "dkdv_tc_kernel", "dkdv_wg_kernel", "kv_reduce_kernel")),
+               ("flash_forward", ("flash_attention_kernel",)))
+SCAN_KINDS = (("scan_backward", ("ssd_scan_bwd_kernel", "ssd_scan_bwd_reduce_kernel")),
+              ("scan", ("ssd_scan_kernel",)))
+
+
+def train_breakdown(torch, step_fn, state, batch, kernel_kinds=FLASH_KINDS):
     """One profiled training step: device seconds by kind (products, the
-    flash forward, the flash backward, the optimizer, the rest) and the
-    idle share, beside the same step unprofiled."""
+    ``kernel_kinds``, the optimizer, the rest) and the idle share, beside
+    the same step unprofiled."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps as steps_lib
 
@@ -5313,7 +5353,7 @@ def train_breakdown(torch, step_fn, state, batch):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled, _ = step()
         optimizer = sum(ranged_kernels(torch, prof, ("adamw_update",)).values())
-    kinds = {"products": 0.0, "flash_forward": 0.0, "flash_backward": 0.0, "other": 0.0}
+    kinds = {"products": 0.0, **{kind: 0.0 for kind, _ in kernel_kinds}, "other": 0.0}
     others = collections.Counter()
     events = 0
     for e in prof.key_averages():
@@ -5322,11 +5362,9 @@ def train_breakdown(torch, step_fn, state, batch):
             continue
         name, us = e.key.lower(), e.self_device_time_total / 1e6
         events += e.count
-        if any(w in name for w in ("prep_kernel", "dq_kernel", "dkdv_kernel", "dq_tc_kernel",
-                                   "dkdv_tc_kernel", "dkdv_wg_kernel", "kv_reduce_kernel")):
-            kinds["flash_backward"] += us
-        elif "flash_attention_kernel" in name:
-            kinds["flash_forward"] += us
+        kind = next((k for k, words in kernel_kinds if any(w in name for w in words)), None)
+        if kind:
+            kinds[kind] += us
         elif any(w in name for w in MATMUL_NAMES):
             kinds["products"] += us
         else:
@@ -5417,29 +5455,28 @@ def phase_train_gemma_tc_run(torch, device):
     return launches
 
 
-def phase_train_run(torch, device, card: str):
-    """Train qwen3-0.6b at full width through ``launch.train.main`` (the
-    launch counters set to 0 just before, read just after), resume steps
-    11..20 from the step-10 checkpoint, run repro's fixed-batch rule, hold
-    one step's whole-model gradients to the plain path, and profile a step.
-    Returns the launches of the training window."""
+def train_and_resume(torch, device, argv, ckpt_name: str):
+    """``launch.train.main(argv)`` with checkpoints under the gitignored
+    ``kernels/_build/<ckpt_name>`` (the launch counters set to 0 just
+    before and read just after), then steps ``TRAIN_CKPT_EVERY + 1 ..
+    TRAIN_STEPS`` again from the step-``TRAIN_CKPT_EVERY`` checkpoint,
+    whose losses must equal the first run's within ``TRAIN_RESUME_TOL``
+    (the ``resume_from_step`` line).  Every loss and grad norm finite.
+    Returns the run: its final state, launches, logged values, step
+    seconds (median of steps 3 on), peak memory and parsed setup."""
     import shutil
     import statistics as stats
 
-    import numpy as np
     from repro_torch.checkpoint.store import CheckpointStore
     from repro_torch.data.pipeline import PrefetchingLoader, synthetic_batches
     from repro_torch.kernels import runtime
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import transformer as tf
-    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.train_loop import LoopConfig, train
-    from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
-    ckpt = ROOT / "src" / "repro_torch" / "kernels" / "_build" / "train_ckpt"
+    ckpt = ROOT / "src" / "repro_torch" / "kernels" / "_build" / ckpt_name
     shutil.rmtree(ckpt, ignore_errors=True)
-    argv = [*TRAIN_ARGV, "--ckpt-dir", str(ckpt), "--device", str(device)]
+    argv = [*argv, "--ckpt-dir", str(ckpt), "--device", str(device)]
     emit({"phase": "train", "argv": argv, "disk_free_gb": shutil.disk_usage(ROOT).free / 1e9})
     log = {}
 
@@ -5450,36 +5487,21 @@ def phase_train_run(torch, device, card: str):
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     t0 = time.perf_counter()
-    state, losses = train_mod.main(argv, metrics_cb=record)
+    state, _ = train_mod.main(argv, metrics_cb=record)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(runtime.launches)
-    peak = torch.cuda.max_memory_allocated()
+    run = {"wall": time.perf_counter() - t0, "launches": dict(runtime.launches),
+           "peak": torch.cuda.max_memory_allocated()}
     steps = sorted(log)
     check(steps == list(range(1, TRAIN_STEPS + 1)) and int(state["step"]) == TRAIN_STEPS,
           f"the trainer logged steps {steps}")
-    loss = [log[s][1] for s in steps]
-    gnorm = [log[s][2] for s in steps]
-    check(all(math.isfinite(x) for x in loss + gnorm), "a loss or grad norm is not finite")
-    check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
-          f"the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
-    step_s = stats.median(log[s][0] - log[s - 1][0] for s in steps[2:])
+    run.update(loss=[log[s][1] for s in steps], gnorm=[log[s][2] for s in steps],
+               lr=[log[s][3] for s in steps], checkpoints=sorted(os.listdir(ckpt)),
+               step_s=stats.median(log[s][0] - log[s - 1][0] for s in steps[2:]))
+    check(all(math.isfinite(x) for x in run["loss"] + run["gnorm"]),
+          "a loss or grad norm is not finite")
     args = train_mod.parse_args(argv)
     cfg, shape, opt_cfg, _ = train_mod.setup(args)
-    tokens = shape.global_batch * shape.seq_len
-    flops = train_model_flops(cfg, state["params"], shape.global_batch, shape.seq_len)
-    bwd_calls = TRAIN_STEPS * cfg.n_layers
-    check(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_tc")
-          == bwd_calls and "flash_attention_bwd_simt" not in launches,
-          f"training launched the backward {launches.get('flash_attention_bwd')} times, "
-          f"{launches.get('flash_attention_bwd_tc')} on the tc route; want {bwd_calls}, all tc")
-    emit({"phase": "train", "card": card, "arch": cfg.name, "params": tf.param_count(
-              state["params"]), "tokens_per_step": tokens, "losses": loss, "grad_norms": gnorm,
-          "lr": [log[s][3] for s in steps], "wall_seconds": wall,
-          "step_seconds_median_3_20": step_s, "tokens_per_second": tokens / step_s,
-          "model_flops_per_step": flops, "model_flops_share_of_peak": flops / step_s
-          / BF16_OPS_PER_S, "peak_memory_bytes": peak, "launches": launches,
-          "checkpoints": sorted(os.listdir(ckpt))})
+    run.update(args=args, cfg=cfg, shape=shape, opt_cfg=opt_cfg)
 
     # Resume: the step-10 checkpoint into the final state's structure, then
     # steps 11..20 again.
@@ -5487,7 +5509,7 @@ def phase_train_run(torch, device, card: str):
     t1 = time.perf_counter()
     mid, meta = store.restore(TRAIN_CKPT_EVERY, state)
     restore_s = time.perf_counter() - t1
-    del state
+    run["state"] = state
     check(int(mid["step"]) == TRAIN_CKPT_EVERY and meta["step"] == TRAIN_CKPT_EVERY,
           "the step-10 checkpoint holds another step")
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)
@@ -5503,14 +5525,75 @@ def phase_train_run(torch, device, card: str):
                 metrics_cb=lambda s, m: again.__setitem__(s, float(m["loss_total"])))
     del mid, out
     resumed = [again[s] for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)]
-    first = loss[TRAIN_CKPT_EVERY:]
+    first = run["loss"][TRAIN_CKPT_EVERY:]
     worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, first))
-    emit({"phase": "train", "resume_from_step": TRAIN_CKPT_EVERY, "restore_seconds": restore_s,
-          "losses": resumed, "first_run_losses": first, "max_rel_diff": worst,
-          "tol": TRAIN_RESUME_TOL})
+    emit({"phase": "train", "arch": cfg.name, "resume_from_step": TRAIN_CKPT_EVERY,
+          "restore_seconds": restore_s, "losses": resumed, "first_run_losses": first,
+          "max_rel_diff": worst, "equal_bits": resumed == first, "tol": TRAIN_RESUME_TOL})
     check(worst <= TRAIN_RESUME_TOL, f"resumed losses differ from the first run's by {worst}")
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
+    return run
+
+
+def run_line(run, card, flops, params) -> dict:
+    """The trainer's line: losses, step seconds, tokens/s, model FLOPs and
+    their share of the bf16 peak, peak memory, launches."""
+    tokens = run["shape"].global_batch * run["shape"].seq_len
+    return {"phase": "train", "card": card, "arch": run["cfg"].name, "params": params,
+            "tokens_per_step": tokens, "losses": run["loss"], "grad_norms": run["gnorm"],
+            "lr": run["lr"], "wall_seconds": run["wall"],
+            "step_seconds_median_3_20": run["step_s"],
+            "tokens_per_second": tokens / run["step_s"], "model_flops_per_step": flops,
+            "model_flops_share_of_peak": flops / run["step_s"] / BF16_OPS_PER_S,
+            "peak_memory_bytes": run["peak"], "launches": run["launches"],
+            "checkpoints": run["checkpoints"]}
+
+
+def model_grad_errors(torch, cfg, params, batch, plain):
+    """Per-leaf relative L2 of one step's whole-model gradients (full
+    remat), the kernel path against the ``plain`` context's path."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    def model_grads():
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        total, _ = tf.loss_fn(live, cfg, batch, remat=True)
+        return torch.autograd.grad(total, leaves(live))
+
+    got = model_grads()
+    with plain():
+        want = model_grads()
+    return {"/".join(p): rel_err(torch, g, w) for (p, _), g, w in
+            zip(leaves_with_paths(params), got, want)}
+
+
+def phase_train_run(torch, device, card: str):
+    """Train qwen3-0.6b at full width through ``launch.train.main`` (the
+    launch counters set to 0 just before, read just after), resume steps
+    11..20 from the step-10 checkpoint, run repro's fixed-batch rule, hold
+    one step's whole-model gradients to the plain path, and profile a step.
+    Returns the launches of the training window."""
+    import statistics as stats
+
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+
+    run = train_and_resume(torch, device, TRAIN_ARGV, "train_ckpt")
+    state, launches, loss = run.pop("state"), run["launches"], run["loss"]
+    cfg, shape, opt_cfg, args = run["cfg"], run["shape"], run["opt_cfg"], run["args"]
+    check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
+          f"the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
+    flops = train_model_flops(cfg, state["params"], shape.global_batch, shape.seq_len)
+    bwd_calls = TRAIN_STEPS * cfg.n_layers
+    check(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_tc")
+          == bwd_calls and "flash_attention_bwd_simt" not in launches,
+          f"training launched the backward {launches.get('flash_attention_bwd')} times, "
+          f"{launches.get('flash_attention_bwd_tc')} on the tc route; want {bwd_calls}, all tc")
+    emit(run_line(run, card, flops, tf.param_count(state["params"])))
+    del state
 
     # repro's fixed-batch rule (tests/test_runtime.py:37) at full width.
     fixed_cfg = AdamWConfig(lr=3e-3, total_steps=FIXED_BATCH_STEPS, warmup_steps=2,
@@ -5529,25 +5612,13 @@ def phase_train_run(torch, device, card: str):
           f"fixed batch: last loss {fixed[-1]} not below {FIXED_BATCH_RULE} of {fixed[0]}")
 
     # Whole-model gradients of one step at [1, 2048], kernel against plain.
-    params = state["params"]
-
-    def model_grads():
-        live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        total, _ = tf.loss_fn(live, cfg, batch, remat=True)
-        return torch.autograd.grad(total, leaves(live))
-
-    got = model_grads()
-    with plain_flash_training():
-        want = model_grads()
-    errs = {"/".join(p): rel_err(torch, g, w) for (p, _), g, w in
-            zip(leaves_with_paths(params), got, want)}
+    errs = model_grad_errors(torch, cfg, state["params"], batch, plain_flash_training)
     emit({"phase": "train", "consistency": "whole-model gradients, kernel vs plain",
           "tokens": [1, shape.seq_len], "per_leaf_rel_err_max": max(errs.values()),
           "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
           "tol": CONSISTENCY_TOL})
     check(max(errs.values()) <= CONSISTENCY_TOL,
           f"whole-model gradients: kernel against plain {max(errs.values())}")
-    del got, want
 
     # Where a step's time goes: one profiled step at the trainer's shape.
     big = next(synthetic_batches(cfg, shape, seed=args.seed))
@@ -5556,7 +5627,297 @@ def phase_train_run(torch, device, card: str):
     emit({"phase": "train_breakdown", "card": card, "tokens": [shape.global_batch,
                                                                shape.seq_len],
           **train_breakdown(torch, step_fn, state, big)})
-    del state, params, batch, big
+    del state, batch, big
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 8b: train mamba2-370m (the scan's backward kernel, an SSD block, the
+# trainer)
+# --------------------------------------------------------------------------
+
+# The scan's backward against its plain version: the training shape (4 x
+# 2048 tokens: 8 chunks of 256, 32 heads of 64 x 128), then the forward
+# checks' shapes (phase_ssd_scan).  dstates must equal the plain version
+# bit for bit (the same f32 recurrence, rounded as the plain loop rounds);
+# ddecays, a sum over a row's n = P * N elements that the kernel takes in
+# another order, within n * 2^-24 * sum |G * prev| (each partial sum's
+# rounding at most 2^-24 of the terms summed so far), plus one ulp of the
+# dtype where both round an f32 sum to bf16.  Set before the first card run.
+SCAN_TRAIN_SHAPE = (4, 8, 32, 64, 128)
+SCAN_BWD_CASES = ((SCAN_TRAIN_SHAPE, "float32", "near 1"),
+                  (SCAN_TRAIN_SHAPE, "float32", "sigmoid"),
+                  ((1, 8, 32, 64, 128), "float32", "near 1"),
+                  ((2, 3, 32, 64, 128), "bfloat16", "sigmoid"),
+                  ((3, 7, 1, 5, 3), "float32", "sigmoid"),  # P * N = 15: element-wise path
+                  ((3, 7, 1, 5, 3), "bfloat16", "sigmoid"),
+                  ((2, 5, 3, 8, 16), "float32", "misaligned"))  # bases + 4 bytes
+# One SSD block of mamba2-370m at full width under training, [4, 2048]
+# tokens, f32 masters, bf16 activations, Mamba-2's dt initialisation:
+# parameter and input gradients through the scan's kernels against the plain
+# path (autograd of the plain loop on the card, plain_scan_training), per
+# leaf.  Set before the first card run: the forwards agree bit for bit and
+# so do dstates, so only ddecays' summation order (f32, ~1e-7 of the sum)
+# separates the paths, and bf16 roundings downstream of it.
+SSM_LAYER_BATCH, SSM_LAYER_SEQ = 4, 2048
+SSM_LAYER_TOL = 1e-3
+# The trainer at the published widths and all 48 layers, qwen3-0.6b's
+# command line otherwise: 4 x 2048 synthetic tokens a step (8 chunks of
+# 256), 20 steps, checkpoints every 10.
+SSM_TRAIN_ARGV = ("--arch", MAMBA_ARCH, "--global-batch", "4", "--seq-len", "2048", "--steps",
+                  str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
+
+
+@contextlib.contextmanager
+def plain_scan_training():
+    """The scan's plain loop, differentiated by autograd, in place of the
+    kernels while the context lasts, CUDA tensors included: the training
+    checks' reference path."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_plain
+
+    saved = ops.ssd_scan
+    ops.ssd_scan = ssd_scan_plain
+    try:
+        yield
+    finally:
+        ops.ssd_scan = saved
+
+
+def scan_bwd_bound(torch, dstates, prev, want_dd):
+    """The ddecays bound of SCAN_BWD_CASES, elementwise."""
+    n = prev.shape[-1] * prev.shape[-2]
+    terms = (dstates.double() * prev.double()).abs().sum(dim=(-2, -1))
+    ulp = 2.0 ** -7 if want_dd.dtype == torch.bfloat16 else 0.0
+    return n * 2.0 ** -24 * terms + ulp * want_dd.double().abs()
+
+
+def phase_scan_bwd_kernels(torch, device):
+    """The scan's backward kernel against its plain version at
+    SCAN_BWD_CASES' shapes on the forward kernel's prev (dstates bit for
+    bit, ddecays within its bound, two calls equal bit for bit), a planted
+    fault (the carried G dropped) rejected, then timed at the training
+    shape beside its bound and plain version."""
+    import numpy as np
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain)
+
+    gen = torch.Generator(device=device).manual_seed(30)
+    rng = np.random.default_rng(SEED + 30)
+    errs = {"ssd_scan_bwd": 0.0}
+
+    def randn(shape, dtype, misaligned=False):
+        if misaligned:  # a 16-byte row at base + 4 bytes: the element-wise path
+            n = int(np.prod(shape))
+            return torch.randn(n + 1, device=device, generator=gen)[1:].view(shape)
+        return torch.randn(shape, device=device, generator=gen).to(dtype)
+
+    def inputs(shape, dtype, kind):
+        dtype = getattr(torch, dtype)
+        if kind == "near 1":  # exp(dt * A) at A = -1 over Mamba-2's dt range
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), shape[:3]))
+            decays = torch.as_tensor(np.exp(-dt), dtype=torch.float32, device=device).to(dtype)
+        else:
+            decays = torch.sigmoid(torch.randn(shape[:3], device=device, generator=gen)).to(dtype)
+        mis = kind == "misaligned"
+        states = randn(shape, dtype, mis)
+        prev, _ = ssd_scan(states, decays)
+        if mis:  # prev as the kernel wrote it, copied to base + 4 bytes
+            prev = randn(shape, dtype, True).copy_(prev)
+        return (randn(shape, dtype, mis), randn((shape[0], *shape[2:]), dtype, mis), prev,
+                decays)
+
+    for shape, dtype, kind in SCAN_BWD_CASES:
+        args = inputs(shape, dtype, kind)
+        before = runtime.launches["ssd_scan_bwd"]
+        got = ssd_scan_bwd(*args)
+        again = ssd_scan_bwd(*args)
+        check(runtime.launches["ssd_scan_bwd"] == before + 2,
+              "ssd_scan_bwd: not one launch a call")
+        want = ssd_scan_bwd_plain(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ds_equal = torch.equal(got[0], want[0])
+        over = float(((got[1].double() - want[1].double()).abs()
+                      / scan_bwd_bound(torch, want[0], args[2], want[1]).clamp_min(1e-300)).max())
+        err = max_abs_err(torch, got[1], want[1])
+        errs["ssd_scan_bwd"] = max(errs["ssd_scan_bwd"], err, max_abs_err(torch, got[0], want[0]))
+        emit({"phase": "train_ssm", "check": "ssd_scan_bwd", "shape": list(shape),
+              "dtype": dtype, "decays": kind, "dstates_equal_bits": ds_equal,
+              "ddecays_max_abs_err": err, "ddecays_share_of_bound": over,
+              "equal_bits_twice": same})
+        check(ds_equal and over <= 1.0 and same,
+              f"ssd_scan_bwd {shape} {dtype} {kind}: dstates equal {ds_equal}, ddecays at "
+              f"{over} of its bound, equal twice {same}")
+
+    # The planted fault: the kernel with the carried G dropped (its decays
+    # zeroed: G_c = dprev[:, c]) against the plain version with them.
+    dprev, dfinal, prev, decays = inputs(SCAN_TRAIN_SHAPE, "float32", "near 1")
+    got = ssd_scan_bwd(dprev, dfinal, prev, torch.zeros_like(decays))
+    want = ssd_scan_bwd_plain(dprev, dfinal, prev, decays)
+    over = float(((got[1].double() - want[1].double()).abs()
+                  / scan_bwd_bound(torch, want[0], prev, want[1]).clamp_min(1e-300)).max())
+    rejected = not torch.equal(got[0], want[0]) and over > 1.0
+    emit({"phase": "train_ssm", "planted_fault": "ssd_scan_bwd",
+          "fault": "drops the carried G (G_c = dprev[:, c])",
+          "dstates_max_abs_err": max_abs_err(torch, got[0], want[0]),
+          "ddecays_share_of_bound": over, "rejected": rejected})
+    check(rejected, "ssd_scan_bwd: the checks pass a backward that drops the carried G")
+    torch.cuda.synchronize()
+
+    bench = Bench(torch, device)
+    b, nc, h, p, n = SCAN_TRAIN_SHAPE
+    numel = dprev.numel()
+    # dprev[:, 1:] (dprev[:, 0] is the gradient of the zero initial carry),
+    # prev and dfinal read, dstates written, the decays read and ddecays
+    # written; four f32 operations an element a chunk.
+    moved = 4 * (numel * (nc - 1) // nc + numel + numel // nc + numel + 2 * decays.numel())
+    ms_bound, by = bound(moved, 4 * numel)
+    row = dict(
+        shape=f"dprev, prev [{b},{nc},{h},{p},{n}] f32, dfinal [{b},{h},{p},{n}], "
+              f"decays [{b},{nc},{h}]",
+        ms=bench.ms(lambda: ssd_scan_bwd(dprev, dfinal, prev, decays)),
+        **bench.device_ms(lambda: ssd_scan_bwd(dprev, dfinal, prev, decays)),
+        plain_ms=bench.ms(lambda: ssd_scan_bwd_plain(dprev, dfinal, prev, decays)),
+        library_ms=None,  # no single PyTorch call computes this gradient
+        bound_ms=ms_bound, bound_by=by)
+    emit({"phase": "train_ssm", "timing": "ssd_scan_bwd", **row})
+    del bench
+    return errs, {"ssd_scan_bwd": row}
+
+
+def ssm_layer_errors(torch, device, fault: bool = False):
+    """Per-leaf relative L2 of one SSD block's parameter and input
+    gradients, kernel path against plain path, at SSM_LAYER_BATCH x
+    SSM_LAYER_SEQ tokens with Mamba-2's dt initialisation; ``fault`` drops
+    ddecays from the backward kernel's output."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssd_scan import ssd_scan as scan_mod
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    cfg = ARCHS[MAMBA_ARCH]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with layers.matrix_dtype(torch.float32):
+        block = tf.init_block(cfg, gen, device, "ssm")
+    bias = mamba2_dt_bias(np.random.default_rng(SEED), 1, cfg.n_ssm_heads)[0]
+    block["ssm"]["dt_bias"] = torch.as_tensor(bias, device=device)
+    b, s = SSM_LAYER_BATCH, SSM_LAYER_SEQ
+    x = torch.randn(b, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
+    w = torch.randn(b, s, cfg.d_model, device=device, generator=gen)
+    pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+    def grads():
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(), block)
+        xg = x.clone().requires_grad_()
+        out, _, _ = tf.block_forward(live, cfg, "ssm", xg, pos)
+        return torch.autograd.grad((out.float() * w).sum(), leaves(live) + [xg])
+
+    bwd = scan_mod.ssd_scan_bwd
+    if fault:
+        def dropped(*args):
+            dstates, ddecays = bwd(*args)
+            return dstates, torch.zeros_like(ddecays)
+        scan_mod.ssd_scan_bwd = dropped
+    try:
+        before = runtime.launches["ssd_scan_bwd"]
+        got = grads()
+        check(runtime.launches["ssd_scan_bwd"] == before + 1,
+              "the block's backward did not launch ssd_scan_bwd once")
+    finally:
+        scan_mod.ssd_scan_bwd = bwd
+    with plain_scan_training():
+        want = grads()
+    names = ["/".join(p) for p, _ in leaves_with_paths(block)] + ["x"]
+    return {n: rel_err(torch, g.float(), w_.float()) for n, g, w_ in zip(names, got, want)}
+
+
+def phase_ssm_train_layer(torch, device):
+    errs = ssm_layer_errors(torch, device)
+    emit({"phase": "train_ssm", "layer_check": MAMBA_ARCH, "dt_init": "mamba2",
+          "tokens": [SSM_LAYER_BATCH, SSM_LAYER_SEQ], "per_leaf_rel_err": errs,
+          "max_rel_err": max(errs.values()), "tol": SSM_LAYER_TOL})
+    check(max(errs.values()) <= SSM_LAYER_TOL,
+          f"{MAMBA_ARCH} block gradients: kernel path against plain path {max(errs.values())} "
+          f"beyond {SSM_LAYER_TOL}")
+    bad = ssm_layer_errors(torch, device, fault=True)
+    emit({"phase": "train_ssm", "planted_fault": "layer",
+          "fault": "the backward kernel drops ddecays", "max_rel_err": max(bad.values()),
+          "worst_leaf": max(bad, key=bad.get), "rejected": max(bad.values()) > SSM_LAYER_TOL})
+    check(max(bad.values()) > SSM_LAYER_TOL, "the layer check passes a backward without ddecays")
+    torch.cuda.empty_cache()
+
+
+def ssm_train_model_flops(cfg, params, b, s) -> float:
+    """Model FLOPs of one training step of the SSM family (forward and
+    backward, no remat): 3 x (2 x the matrix parameters x tokens, the tied
+    unembedding once and the depthwise conv's 2 W C a token among them,
+    plus each layer's chunk products: C B^T 2 S Q N, its product with dt x
+    2 S Q H P, the chunk states 2 S H P N and the carried states' output
+    2 S H P N a batch row, Q the chunk)."""
+    from repro_torch.tree import leaves
+
+    matrices = sum(x.numel() for x in leaves(params) if x.dim() == 2)
+    q, n, h, p = min(cfg.ssm_chunk, s), cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    chunks = 2 * s * (q * n + q * h * p + 2 * h * p * n) * b * cfg.n_layers
+    return 3.0 * (2.0 * matrices * b * s + chunks)
+
+
+def phase_ssm_train_run(torch, device, card: str):
+    """Train mamba2-370m at full width through ``launch.train.main`` (the
+    launch counters set to 0 just before, read just after: every layer's
+    scan through the forward kernel twice a step under remat and through the
+    backward kernel once), resume steps 11..20 from the step-10 checkpoint,
+    hold one step's whole-model gradients at Mamba-2's dt initialisation to
+    the plain path, and profile a step.  Returns the launches of the
+    training window."""
+    import numpy as np
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tf
+
+    run = train_and_resume(torch, device, SSM_TRAIN_ARGV, "train_ckpt_ssm")
+    state, launches = run.pop("state"), run["launches"]
+    cfg, shape, opt_cfg, args = run["cfg"], run["shape"], run["opt_cfg"], run["args"]
+    check(launches.get("ssd_scan") == 2 * TRAIN_STEPS * cfg.n_layers
+          and launches.get("ssd_scan_bwd") == TRAIN_STEPS * cfg.n_layers,
+          f"training launched the scan {launches.get('ssd_scan')} and its backward "
+          f"{launches.get('ssd_scan_bwd')} times; want {2 * TRAIN_STEPS * cfg.n_layers} and "
+          f"{TRAIN_STEPS * cfg.n_layers}")
+    flops = ssm_train_model_flops(cfg, state["params"], shape.global_batch, shape.seq_len)
+    emit(run_line(run, card, flops, tf.param_count(state["params"])))
+
+    # Where a step's time goes: one profiled step at the trainer's shape.
+    big = next(synthetic_batches(cfg, shape, seed=args.seed))
+    big = {k: torch.as_tensor(v, device=device) for k, v in big.items()}
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    emit({"phase": "train_breakdown", "card": card, "arch": cfg.name,
+          "tokens": [shape.global_batch, shape.seq_len],
+          **train_breakdown(torch, step_fn, state, big, SCAN_KINDS)})
+    del big
+
+    # Whole-model gradients of one step at [1, 2048], kernel against plain,
+    # with every layer's dt_bias from Mamba-2's initialisation (at the CLI's
+    # init of 0 each chunk's decay underflows to 0 and the scan is unseen).
+    params = state["params"]
+    bias = mamba2_dt_bias(np.random.default_rng(SEED), cfg.n_layers, cfg.n_ssm_heads)
+    for layer, row in zip(params["layers"], bias):
+        layer["ssm"]["dt_bias"] = torch.as_tensor(row, device=device)
+    raw = next(synthetic_batches(cfg, dataclasses.replace(shape, global_batch=1), seed=1))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+    errs = model_grad_errors(torch, cfg, params, batch, plain_scan_training)
+    emit({"phase": "train_ssm", "consistency": "whole-model gradients, kernel vs plain",
+          "dt_init": "mamba2", "tokens": [1, shape.seq_len],
+          "per_leaf_rel_err_max": max(errs.values()),
+          "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+          "tol": CONSISTENCY_TOL})
+    check(max(errs.values()) <= CONSISTENCY_TOL,
+          f"whole-model gradients: kernel against plain {max(errs.values())}")
+    del state, params, batch
     torch.cuda.empty_cache()
     return launches
 
@@ -5596,7 +5957,9 @@ def main() -> int:
     lap("build")
     card = nvidia_smi()
     print(card, flush=True)
-    emit({"phase": "scale", "reduced": [],
+    emit({"phase": "scale", "reduced": [
+              "gemma-2b's int8 decode (phase 5g): one prompt of 2040 tokens, cut from four "
+              "(64, 512, 1024 and 2040), to keep the run's time with phase 8b added"],
           "note": "TPC-H SF1 row counts and 256 KiB pages as stated; gemma-2b at its "
                   "published widths and all 18 layers, random weights; mamba2-370m at "
                   "its published widths and all 48 layers, random weights with dt_bias "
@@ -5617,7 +5980,9 @@ def main() -> int:
                   "final logit softcaps (50, 30) at its published widths and all 18 layers, "
                   "its decode also over its int8 KV cache at max_len 4096; qwen3-0.6b "
                   "trained at its published widths and all 28 layers (4 x 2048 tokens a "
-                  "step, 20 steps), random weights and synthetic tokens; nothing cut"})
+                  "step, 20 steps), random weights and synthetic tokens; mamba2-370m "
+                  "trained at its published widths and all 48 layers (4 x 2048 tokens a "
+                  "step, 20 steps), random weights and synthetic tokens; nothing else cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -5719,6 +6084,14 @@ def main() -> int:
     launches["flash_attention_bwd_simt"] = phase_train_gemma_tc_run(
         torch, device)["flash_attention_bwd_simt"]
     lap("train")
+    ssm_errs, ssm_rows = phase_scan_bwd_kernels(torch, device)
+    errs.update(ssm_errs)
+    rows.update(ssm_rows)
+    phase_ssm_train_layer(torch, device)
+    ssm_launches = phase_ssm_train_run(torch, device, card)
+    launches["ssd_scan"] += ssm_launches["ssd_scan"]
+    launches["ssd_scan_bwd"] = ssm_launches["ssd_scan_bwd"]
+    lap("train_ssm")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

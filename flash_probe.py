@@ -14,8 +14,9 @@ an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
 (every ``BWD_CHECKS`` shape on its route against the plain version, equal
 bits twice, the forward's lse, the planted faults, registers and spills,
 each route's timing row), then both routes and the plain version against
-an f64 reference at hd 256 and 128 on one KV head with q 8 times the unit
-scale, then the tensor-core route at qwen3-0.6b's
+an f64 reference at hd 256, 128 and 64 on one KV head with q 8 times the
+unit scale, capped and not (and the tensor-core route with each key
+block's walk cut into 1 .. 16 runs), then the tensor-core route at qwen3-0.6b's
 training shape under each hd-128 ``dkdv`` block of ``BWD_TC_BLOCKS``, and
 at gemma-2b's, recurrentgemma's window and paligemma's prefix shapes (hd
 256, one KV head) under each dkdv split (device ms, and the error against
@@ -109,7 +110,7 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
             lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse, **mask), reps=10),
             f"ok {ok} maxabs {err:.3e} rel {rel:.3e}", flush=True)
 
-    plan, split = fab.plan_bwd_tc_blocks, fab.plan_bwd_kv_split
+    plan, split = fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split
     table = fab.BWD_TC_BLOCKS[(128, 128)]
     try:
         case = inputs(4, 16, 8, 2048, 128)
@@ -124,19 +125,21 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
                                               ("prefix 256", (1, 8, 1, 768, 256),
                                                {"prefix": 256})):
             case = inputs(b, h, kv, s, hd, **mask)
-            print(f"bwd tc {name} planned kv_split", split(b, kv, s, h // kv, 64), flush=True)
+            print(f"bwd tc {name} planned kv_split", split(b, h, kv, s, s, hd, hd), flush=True)
             for n in range(1, fab.BWD_KV_SPLIT_MAX + 1):
-                fab.plan_bwd_kv_split = lambda *args, n=n, **kw: n
+                fab.bwd_tc_kv_split = lambda *args, n=n: n
                 report(f"bwd tc {name} kv_split {n}", *case, **mask)
     finally:
-        fab.plan_bwd_tc_blocks, fab.plan_bwd_kv_split = plan, split
+        fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split = plan, split
 
 
 def bwd_against_f64(torch, chip_smoke) -> None:
     """Both backward routes and the plain version against an f64 reference
     (softmax attention written out in float64 on the same bf16 inputs, with
-    D from the same bf16 forward output) at hd 256 and 128 on one KV head
-    with q 8 times the unit scale, capped at 50 or not: per gradient the
+    D from the same bf16 forward output) at hd 256, 128 and 64 with 8 query
+    heads on one KV head and q 8 times the unit scale, capped at 50 or not,
+    then the tensor-core route at hd 256 and 128 with each key block's walk
+    cut into 1 .. 16 runs (dK and dV only): per gradient the
     largest |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` (below 1
     within it), the reference and the value there, and the count above 1."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
@@ -170,13 +173,16 @@ def bwd_against_f64(torch, chip_smoke) -> None:
         return [round(float(r.max()), 4), float(ref.reshape(-1)[i]),
                 float(got.reshape(-1)[i]), int((r > 1).sum())]
 
-    for hd, cap in ((256, 50.0), (256, 0.0), (128, 50.0)):
+    def inputs(hd, cap):
         g = torch.Generator(device=dev).manual_seed(8)
         q, k, v, dout = ((torch.randn(1, 2048, n, hd, device=dev, generator=g) * gain).to(
             torch.bfloat16).transpose(1, 2) for n, gain in ((8, 8.0), (1, 1.0), (1, 1.0),
                                                             (8, 1.0)))
         out, lse = chip_smoke.forward_with_lse(torch, q, k, v, softcap=cap)
-        ref = reference(q, k, v, out, dout, cap)
+        return q, k, v, out, dout, lse, reference(q, k, v, out, dout, cap)
+
+    for hd, cap in ((256, 50.0), (256, 0.0), (128, 50.0), (128, 0.0), (64, 50.0), (64, 0.0)):
+        q, k, v, out, dout, lse, ref = inputs(hd, cap)
         route = fab.bwd_route
         got = {"tc": fab.flash_attention_bwd(q, k, v, out, dout, softcap=cap, lse=lse)}
         fab.bwd_route = lambda *xs: "simt"
@@ -189,6 +195,21 @@ def bwd_against_f64(torch, chip_smoke) -> None:
             print(f"bwd vs f64 hd {hd} cap {cap} q gain 8 {who}",
                   {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
                   flush=True)
+
+    # The tc route against the (head, query) rows one CTA sums into its
+    # wgmma accumulators: each key block's 16,384 rows cut into n runs.
+    split = fab.bwd_tc_kv_split
+    try:
+        for hd in (256, 128):
+            q, k, v, out, dout, lse, ref = inputs(hd, 0.0)
+            for n in (1, 2, 4, 8, 16):
+                fab.bwd_tc_kv_split = lambda *args, n=n: n
+                grads = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+                print(f"bwd vs f64 hd {hd} q gain 8 tc, {8 * 2048 // n} rows a run",
+                      {w: excess(x, r) for w, x, r in zip(("dk", "dv"), grads[1:], ref[1:])},
+                      flush=True)
+    finally:
+        fab.bwd_tc_kv_split = split
 
 
 def main() -> int:

@@ -51,20 +51,27 @@
 //     and the producer's second warp stages the block's lse and D.  S^T = K
 //     Q^T and dP^T = V dO^T, then P^T and dS^T in registers, then dV += P^T
 //     dO and dK += dS^T Q (register A, dO and Q MN-major), both in each
-//     consumer warpgroup's registers.
+//     consumer warpgroup's registers, dS^T in three bf16 terms (below).
 //   dkdv_wg (256, (192, 128)): dK and dV of 64 keys no longer fit one
 //     warpgroup's registers, so its two consumer warpgroups share the 64
 //     keys, one gradient each, and pass P^T through shared memory (see
 //     dkdv_wg_kernel).
-// The split (dkdv_wg): where B * KV * (key blocks) CTAs leave most SMs idle
-// (few KV heads), the host asks for n_split CTAs a key block; each takes one
-// run of its steps (heads first, then query blocks) and writes f32 partial dK
+// The split: the host asks for n_split CTAs a key block; each takes one run
+// of its steps (heads first, then query blocks) and writes f32 partial dK
 // and dV to scratch, and kv_reduce_kernel sums them in split order, applies
 // the scale and rounds once.  No atomics: two calls give the same bits.
+// Both dkdv kernels split where a key block's walk is long: wgmma's f32
+// sums lose more than the CUDA cores' over thousands of accumulated steps
+// (at G 8 on one KV head, 16,384 query rows into one accumulator, dK missed
+// ATTN_TOL's elementwise bound against f64 by 3.4x at hd 128; 4,096 rows
+// read 0.5), so no run takes more than 4,096 (head, query) rows; dkdv_wg
+// also where B * KV * (key blocks) CTAs leave most SMs idle (few KV heads).
 // P and dS keep f32 precision into their products as the forward keeps P:
-// x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each, so
-// the design does 14 hd + 6 hd = 20 hd flops a pair on the tensor cores
-// (22 hd in dkdv_wg, whose dK takes dS^T in three terms).
+// x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each; dK
+// takes dS^T in three terms (x = hi + mid + lo, split3_frags) in both dkdv
+// kernels: with two, dK's entries that cancel to near 0 missed ATTN_TOL's
+// elementwise bound at G 8 on one KV head with q 8 times the unit scale.  So
+// the design does 14 hd + 8 hd = 22 hd flops a pair on the tensor cores.
 // The capped dkdv_tc at hd 128 streams 32 query rows a block (at 64 it spills).
 
 // CUDA-core route (prep_kernel, dq_kernel, dkdv_kernel): every f32 call, and
@@ -717,8 +724,8 @@ __device__ __forceinline__ void split_frags(const float (&x)[N / 2], uint32_t (&
 }
 
 // The same with a third term, x = hi + mid + lo (about 24 significant bits,
-// f32's): for dkdv_wg's dK, a sum of G S terms dS Q that cancel to near 0 in
-// places while Q is large (the models' query gains).
+// f32's): for dK (dkdv_tc and dkdv_wg), a sum of G S terms dS Q that cancel
+// to near 0 in places while Q is large (the models' query gains).
 template <int N>
 __device__ __forceinline__ void split3_frags(const float (&x)[N / 2], uint32_t (&hi)[N / 16][4],
                                              uint32_t (&mid)[N / 16][4],
@@ -1137,9 +1144,9 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
 
     // dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers, dO and Q
     // MN-major through the transpose bit.
-    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dl[BQ / 16][4];
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dm[BQ / 16][4], dl[BQ / 16][4];
     split_frags<BQ>(st, ph, pl);
-    split_frags<BQ>(dpt, dh, dl);
+    split3_frags<BQ>(dpt, dh, dm, dl);
     hopper::wgmma_fence();
     hopper::fence_operands(dv);
     hopper::fence_operands(dk);
@@ -1153,6 +1160,7 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
     for (int kk = 0; kk < BQ / 16; ++kk) {
       const uint64_t dqd = hopper::desc_sw128(q_addr + kk * 2048, BQ * 128, 1024);
       hopper::wgmma_bf16_rs<1>(dk, dh[kk], dqd);
+      hopper::wgmma_bf16_rs<1>(dk, dm[kk], dqd);
       hopper::wgmma_bf16_rs<1>(dk, dl[kk], dqd);
     }
     hopper::wgmma_commit();
@@ -1164,21 +1172,30 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
       hopper::fence_operands(ph[kk]);
       hopper::fence_operands(pl[kk]);
       hopper::fence_operands(dh[kk]);
+      hopper::fence_operands(dm[kk]);
       hopper::fence_operands(dl[kk]);
     }
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
-  store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
-  store_rows<HD>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
+  if (p.n_split == 1) {
+    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
+    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
+    store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
+    store_rows<HD>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
+  } else {
+    float* rows = part_rows(p, walk.z, kvh, b, 2 * HD);
+    store_part<HD>(dk, rows, 2 * HD, 0, kr0, p.t, lane);
+    store_part<HD>(dv, rows, 2 * HD, HD, kr0, p.t, lane);
+  }
 }
 
-// One CTA per (BKV keys, KV head, batch), the first KV blocks (seen by the
-// most queries) first: BKV / 64 consumer warpgroups and the producer
-// warpgroup.  Never split (n_split = 1): its calls keep their bits.
+// One CTA per (BKV keys, KV head, batch, run of the key block's steps), the
+// first KV blocks (seen by the most queries) first: BKV / 64 consumer
+// warpgroups and the producer warpgroup.  Split (n_split > 1) only where a
+// key block's walk is long (see the split above): the runs write f32
+// partials, summed by kv_reduce_kernel.
 template <int HD, int BKV, int BQ, bool CAP>
 __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
     dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -1233,8 +1250,8 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
 // A's thread t wrote; consecutive threads, consecutive words), passed on
 // named barriers: A arrives on kBarFull once it has written, B syncs on it;
 // B arrives on kBarEmpty once it has read, A syncs on it before writing the
-// next step.  Each product is formed once, as in dkdv_tc; dK's takes a third
-// term of dS^T (split3_frags), so the route computes 22 hd flops a pair here.
+// next step.  Each product is formed once, as in dkdv_tc, dK's with dS^T in
+// three terms (split3_frags): 22 hd flops a pair, as there.
 
 constexpr int kBarFull = 1, kBarEmpty = 2;  // named barriers; 0 is __syncthreads
 constexpr int kPairThreads = 256;           // the two consumer warpgroups
@@ -1594,7 +1611,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
   if (b <= 0 || s <= 0) return cudaSuccess;
   if (kv <= 0 || h % kv || t <= 0 || !(s <= t || prefix >= t) || window < 0 || prefix < 0 ||
       (window > 0 && prefix > 0) || !(softcap >= 0.f) || lse == nullptr || delta == nullptr ||
-      n_split < 1 || n_split > kMaxSplit || (n_split > 1 && (part == nullptr || kv_bk != 64)) ||
+      n_split < 1 || n_split > kMaxSplit || (n_split > 1 && part == nullptr) ||
       reinterpret_cast<uintptr_t>(part) % 16)
     return cudaErrorInvalidValue;
   // The outputs and O are read and written as bf16 pairs.

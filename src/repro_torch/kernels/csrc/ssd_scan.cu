@@ -1,4 +1,4 @@
-// SSD inter-chunk state scan for Hopper (sm_90a).
+// SSD inter-chunk state scan for Hopper (sm_90a), and its gradient.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/ssd_scan.py:50
 // (ssd_scan): states [B, NC, H, P, N], decays [B, NC, H], one dtype (f32 or
@@ -25,7 +25,24 @@
 // two operations per element are nothing beside them.  Rows whose P * N is
 // not a multiple of VEC, or whose base is not 16-byte aligned, take
 // element-wise loads.
-
+//
+// The gradient (ssd_scan_bwd_kernel, then ssd_scan_bwd_reduce_kernel)
+// replaces no TPU kernel: the JAX package trains through XLA's autodiff of
+// the jax.lax.scan in src/repro/models/ssm.py:116, and the port's forward is
+// the kernel above, whose launch records nothing for autograd.  Given dprev
+// [B, NC, H, P, N], dfinal [B, H, P, N], the forward's prev and the decays,
+// with G_NC = dfinal and G_c = dprev[:, c] + G_{c+1} * decays[:, c] (f32),
+//     dstates[:, c] = G_{c+1},   ddecays[:, c, h] = sum_{p, n} G_{c+1} * prev[:, c],
+// both in the inputs' dtype.  The same layout as the forward: each thread
+// owns VEC elements of one (b, h) row, holds their G in registers and walks
+// the chunks backwards (chunk c - 1's prev and dprev in flight while chunk c
+// is stored), with __fmul_rn / __fadd_rn so that dstates equals the plain
+// version bit for bit.  ddecays is a sum over the P * N elements of a row,
+// which several CTAs share: each warp sums its lanes' products (a fixed
+// butterfly of shuffles) into one f32 partial of [B, NC, H, parts] scratch,
+// and the reduce kernel sums a row's partials in order and rounds once.  No
+// atomics, so two calls give the same bits.  Bound by the bytes as the
+// forward: dprev and prev read once, dstates written once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,6 +152,95 @@ __global__ void __launch_bounds__(kThreads)
   store_vec<T, VEC, WIDE>(final_state + (int64_t(b) * h + head) * pn + i0, valid, carry);
 }
 
+// The valid elements of a row's VEC at src (none past the row's end).
+template <typename T, int VEC, bool WIDE>
+__device__ __forceinline__ void load_row(const T* __restrict__ src, int valid,
+                                         float (&dst)[VEC]) {
+  if (valid > 0) {
+    load_vec<T, VEC, WIDE>(src, valid, dst);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dst[i] = 0.f;
+  }
+}
+
+constexpr int kWarps = kThreads / 32;
+
+// grid (ceil(P*N / (VEC * kThreads)), H, B), as the forward; partial holds
+// gridDim.x * kWarps f32 a (b, c, h) row, written by warp w of CTA x at
+// x * kWarps + w.
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_bwd_kernel(const T* __restrict__ dprev, const T* __restrict__ dfinal,
+                        const T* __restrict__ prev, const T* __restrict__ decays,
+                        T* __restrict__ dstates, float* __restrict__ partial, int nc, int h,
+                        int64_t pn) {
+  constexpr int VEC = 16 / int(sizeof(T));
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i0 = (int64_t(blockIdx.x) * kThreads + threadIdx.x) * VEC;
+  // Threads past the row take part in the warp's sum with zeros.
+  const int valid = i0 >= pn ? 0 : int(pn - i0 < VEC ? pn - i0 : VEC);
+  const int64_t chunk_stride = int64_t(h) * pn;
+  const int64_t row0 = (int64_t(b) * nc * h + head) * pn + i0;
+  const T* dec = decays + int64_t(b) * nc * h + head;
+  const int64_t parts = int64_t(gridDim.x) * kWarps;
+  float* part = partial + (int64_t(b) * nc * h + head) * parts + blockIdx.x * kWarps + warp;
+
+  float g[VEC], pv[VEC], dp[VEC], pv_next[VEC], dp_next[VEC];
+  load_row<T, VEC, WIDE>(dfinal + (int64_t(b) * h + head) * pn + i0, valid, g);
+  const int64_t last = row0 + int64_t(nc - 1) * chunk_stride;
+  load_row<T, VEC, WIDE>(prev + last, valid, pv_next);
+  load_row<T, VEC, WIDE>(dprev + last, nc > 1 ? valid : 0, dp_next);
+  float d_next = to_f32(__ldg(dec + int64_t(nc - 1) * h));
+
+  for (int c = nc - 1; c >= 0; --c) {
+    const float d = d_next;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      pv[i] = pv_next[i];
+      dp[i] = dp_next[i];
+    }
+    if (c > 0) {  // chunk c - 1 in flight while chunk c is stored
+      const int64_t at = row0 + int64_t(c - 1) * chunk_stride;
+      load_row<T, VEC, WIDE>(prev + at, valid, pv_next);
+      load_row<T, VEC, WIDE>(dprev + at, c > 1 ? valid : 0, dp_next);  // dprev[:, 0] unused
+      d_next = to_f32(__ldg(dec + int64_t(c - 1) * h));
+    }
+    if (valid > 0) store_vec<T, VEC, WIDE>(dstates + row0 + c * chunk_stride, valid, g);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s = __fadd_rn(s, __fmul_rn(g[i], pv[i]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)  // every lane ends with the same sum
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+    if (lane == 0) part[int64_t(c) * h * parts] = s;
+    if (c > 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) g[i] = __fadd_rn(__fmul_rn(g[i], d), dp[i]);
+    }
+  }
+}
+
+// One thread per (b, c, h) row: its partials summed in order, rounded once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_bwd_reduce_kernel(const float* __restrict__ partial, T* __restrict__ ddecays,
+                               int64_t rows, int parts) {
+  const int64_t r = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const float* p = partial + r * parts;
+  float s = 0.f;
+  for (int i = 0; i < parts; ++i) s = __fadd_rn(s, p[i]);
+  ddecays[r] = from_f32<T>(s);
+}
+
+template <typename T>
+int64_t bwd_blocks(int64_t pn) {
+  constexpr int VEC = 16 / int(sizeof(T));
+  return (pn + int64_t(VEC) * kThreads - 1) / (int64_t(VEC) * kThreads);
+}
+
 template <typename T>
 int launch(const void* states, const void* decays, void* prev, void* final_state, int b,
            int nc, int h, int64_t pn, void* stream) {
@@ -160,6 +266,42 @@ int launch(const void* states, const void* decays, void* prev, void* final_state
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_bwd(const void* dprev, const void* dfinal, const void* prev, const void* decays,
+               void* dstates, void* ddecays, void* partial, int b, int nc, int h, int64_t pn,
+               int parts, void* stream) {
+  if (b <= 0 || h <= 0 || pn <= 0) return cudaSuccess;
+  if (nc < 1) return cudaErrorInvalidValue;
+  constexpr int VEC = 16 / int(sizeof(T));
+  const int64_t blocks = bwd_blocks<T>(pn);
+  const int64_t rows = int64_t(b) * nc * h;
+  if (blocks > 0x7fffffff || h > 65535 || b > 65535 || parts != blocks * kWarps ||
+      (rows + kThreads - 1) / kThreads > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const bool aligned =
+      pn % VEC == 0 &&
+      (reinterpret_cast<uintptr_t>(dprev) | reinterpret_cast<uintptr_t>(dfinal) |
+       reinterpret_cast<uintptr_t>(prev) | reinterpret_cast<uintptr_t>(dstates)) % 16 == 0;
+  const dim3 grid(unsigned(blocks), h, b);
+  auto st = static_cast<cudaStream_t>(stream);
+  const T* dp = static_cast<const T*>(dprev);
+  const T* df = static_cast<const T*>(dfinal);
+  const T* pv = static_cast<const T*>(prev);
+  const T* d = static_cast<const T*>(decays);
+  T* ds = static_cast<T*>(dstates);
+  float* part = static_cast<float*>(partial);
+  if (aligned) {
+    ssd_scan_bwd_kernel<T, true><<<grid, kThreads, 0, st>>>(dp, df, pv, d, ds, part, nc, h, pn);
+  } else {
+    ssd_scan_bwd_kernel<T, false><<<grid, kThreads, 0, st>>>(dp, df, pv, d, ds, part, nc, h, pn);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd_reduce_kernel<T><<<unsigned((rows + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      part, static_cast<T*>(ddecays), rows, parts);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -172,6 +314,22 @@ int remop_ssd_scan_f32(const void* states, const void* decays, void* prev, void*
 int remop_ssd_scan_bf16(const void* states, const void* decays, void* prev, void* final_state,
                         int b, int nc, int h, long long pn, void* stream) {
   return launch<__nv_bfloat16>(states, decays, prev, final_state, b, nc, h, pn, stream);
+}
+
+// dprev, dfinal, prev, decays, dstates, ddecays, partial (f32 [B, NC, H, parts]),
+// b, nc, h, p * n, parts (ceil(p * n / (VEC * 256)) * 8), stream.
+int remop_ssd_scan_bwd_f32(const void* dprev, const void* dfinal, const void* prev,
+                           const void* decays, void* dstates, void* ddecays, void* partial, int b,
+                           int nc, int h, long long pn, int parts, void* stream) {
+  return launch_bwd<float>(dprev, dfinal, prev, decays, dstates, ddecays, partial, b, nc, h, pn,
+                           parts, stream);
+}
+
+int remop_ssd_scan_bwd_bf16(const void* dprev, const void* dfinal, const void* prev,
+                            const void* decays, void* dstates, void* ddecays, void* partial, int b,
+                            int nc, int h, long long pn, int parts, void* stream) {
+  return launch_bwd<__nv_bfloat16>(dprev, dfinal, prev, decays, dstates, ddecays, partial, b, nc,
+                                   h, pn, parts, stream);
 }
 
 const char* remop_ssd_scan_error_string(int err) {

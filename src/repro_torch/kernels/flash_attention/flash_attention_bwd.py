@@ -28,8 +28,11 @@ alone:
   :func:`plan_bwd_kv_split` cuts each key block's walk over the GQA group's
   heads and query blocks into ``n`` runs, one CTA each: they write f32
   partial dK and dV, and a third launch sums them in a fixed order
-  (:func:`kv_reduce`), so two calls still give the same bits.  ``dkdv_tc``
-  is never split: hd 64/128 calls keep their bits.  A call this
+  (:func:`kv_reduce`), so two calls still give the same bits.  Both dkdv
+  kernels also split a key block's walk where it is long
+  (:func:`plan_bwd_run_split`: wgmma's f32 sums over more than
+  :data:`BWD_RUN_ROWS` rows lose dK's precision), and form dK from dS^T in
+  three bf16 terms (hi + mid + lo).  A call this
   route takes never runs on the CUDA-core kernel: a missing lse, a failed
   build, encode or launch raises.
 - ``"simt"``: everything else, at ``(hd, hd_v)`` in
@@ -78,8 +81,9 @@ BWD_KERNELS = ("prep", "dq", "dkdv")
 # per 64 rows.  dkdv at hd 64 / 128 (dkdv_tc) holds 128 keys, one
 # warpgroup per 64, and streams Q/dO blocks of 64 (or 32) query rows; at
 # (256, 256) and (192, 128) (dkdv_wg, blocks (64, 64)) its two consumer
-# warpgroups share 64 keys, one holding dV, the other dK, and a key block
-# may take several CTAs (plan_bwd_kv_split).
+# warpgroups share 64 keys, one holding dV, the other dK.  A key block may
+# take several CTAs: where its walk is long (plan_bwd_run_split), and at
+# dkdv_wg where KV heads are few (plan_bwd_kv_split).
 BWD_TC_HEAD_PAIRS = BWD_HEAD_PAIRS
 BWD_TC_WG_PAIRS = ((256, 256), (192, 128))
 BWD_TC_KERNELS = ("dq", "dkdv")
@@ -92,11 +96,19 @@ BWD_TC_BLOCKS = {
 }
 # Instantiations that spill at their first block pair (ptxas on sm_90a,
 # read on the card), as (kernel, hd, capped, blocks): the capped dkdv at hd
-# 128 and 64 query rows (28 bytes); the plan takes the next pair there.
+# 128 and 64 query rows (16 bytes with dS^T in three terms, 28 with two);
+# the plan takes the next pair there.
 BWD_TC_SPILLS = {("dkdv", 128, True, (128, 64))}
 # dkdv's CTAs a key block at most (its f32 partials are scratch of
 # kv_split x dK and dV).
 BWD_KV_SPLIT_MAX = 16
+# The (head, query) rows one dkdv CTA sums into its wgmma accumulators at
+# most: wgmma's f32 sums lose more than the CUDA cores' over long walks (on
+# an H100, G 8 on one KV head with q 8 times the unit scale: dK at 3.4x
+# ATTN_TOL's elementwise bound against f64 with 16,384 rows a CTA at hd 128,
+# 1.4x at hd 64, 3.6x at hd 256; 0.50-0.82 with 4,096 rows; flash_probe.py
+# --bwd).
+BWD_RUN_ROWS = 4096
 
 
 def bwd_smem_bytes(kernel: str, bq: int, bk: int, hd: int, hd_v: int, dtype_bytes: int) -> int:
@@ -192,13 +204,25 @@ def plan_bwd_kv_split(b: int, kv: int, t: int, group: int, keys_per_cta: int,
     return 1 if ctas >= sms else min(2 * sms // ctas, BWD_KV_SPLIT_MAX)
 
 
-def bwd_tc_kv_split(b: int, h: int, kv: int, t: int, hd: int, hd_v: int) -> int:
-    """dkdv's CTAs a key block on the tensor-core route: at
-    :data:`BWD_TC_WG_PAIRS` (``dkdv_wg``, 64 keys a CTA)
-    :func:`plan_bwd_kv_split`'s, else 1."""
+def plan_bwd_run_split(group: int, s: int) -> int:
+    """dkdv's CTAs a key block for precision: runs of at most :data:`BWD_RUN_ROWS`
+    (head, query) rows of the ``group`` heads' ``s`` rows (the most that see
+    a key block), at most :data:`BWD_KV_SPLIT_MAX`: 1 at qwen3-0.6b's
+    training shape (2 x 2048 rows), 4 at 8 heads on one KV head of 2048."""
+    if min(group, s) < 1:
+        raise ValueError(f"plan_bwd_run_split takes positive sizes, got group={group}, s={s}")
+    return min(-(-group * s // BWD_RUN_ROWS), BWD_KV_SPLIT_MAX)
+
+
+def bwd_tc_kv_split(b: int, h: int, kv: int, s: int, t: int, hd: int, hd_v: int) -> int:
+    """dkdv's CTAs a key block on the tensor-core route:
+    :func:`plan_bwd_run_split`'s, and at :data:`BWD_TC_WG_PAIRS` (``dkdv_wg``,
+    64 keys a CTA) :func:`plan_bwd_kv_split`'s where that is more."""
+    runs = plan_bwd_run_split(h // kv, s)
     if (hd, hd_v) not in BWD_TC_WG_PAIRS:
-        return 1
-    return plan_bwd_kv_split(b, kv, t, h // kv, plan_bwd_tc_blocks(hd, hd_v)["dkdv"][0])
+        return runs
+    return max(runs, plan_bwd_kv_split(b, kv, t, h // kv,
+                                       plan_bwd_tc_blocks(hd, hd_v)["dkdv"][0]))
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -379,9 +403,8 @@ def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
                   dout: torch.Tensor, lse: torch.Tensor, scale: float, window: int = 0,
                   prefix: int = 0, softcap: float = 0.0):
     """The tensor-core route's two launches (``dq_tc``, then dkdv) on CUDA
-    tensors the route takes, at :func:`plan_bwd_tc_blocks`' blocks and, at
-    :data:`BWD_TC_WG_PAIRS`, :func:`plan_bwd_kv_split`'s CTAs a key block
-    (``kv_split``; 1 elsewhere).
+    tensors the route takes, at :func:`plan_bwd_tc_blocks`' blocks and
+    :func:`bwd_tc_kv_split`'s CTAs a key block (``kv_split``).
     Returns ``(dq, dk, dv, part, kv_split)``: at ``kv_split`` 1 dk and dv
     are written and ``part`` is None; above 1 dk and dv are empty and
     ``part``, f32 ``[kv_split, B, KV, T, hd + hd_v]``, holds each CTA's
@@ -391,7 +414,7 @@ def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
-    kv_split = bwd_tc_kv_split(b, h, kv, t, hd, hd_v)
+    kv_split = bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)

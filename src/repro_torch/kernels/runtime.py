@@ -119,6 +119,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # states, decays, prev, final, b, nc, h, p * n, stream
         **{f"remop_ssd_scan_{t}": ([_P] * 4 + [_I32] * 3 + [_I64, _P], _I32)
            for t in ("bf16", "f32")},
+        # dprev, dfinal, prev, decays, dstates, ddecays, partial, b, nc, h, p * n, parts, stream
+        **{f"remop_ssd_scan_bwd_{t}": ([_P] * 7 + [_I32] * 3 + [_I64, _I32, _P], _I32)
+           for t in ("bf16", "f32")},
         "remop_ssd_scan_error_string": ([_I32], ctypes.c_char_p),
     },
     "matmul": {

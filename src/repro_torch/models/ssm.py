@@ -4,7 +4,9 @@ As in the JAX package's ``models/ssm.py``: the sequence is cut into chunks
 of ``Q = min(ssm_chunk, S)`` positions (``S`` must be a multiple of ``Q``).
 Inside a chunk the work is dense contractions; between chunks a
 ``[H, P, N]`` state passes through a sequential scan, which here is one
-call of the CUDA kernel :func:`remop_ssd_scan` per layer.  Like the TPU
+call of the CUDA kernel :func:`remop_ssd_scan` per layer (under grad
+through ``SsdScanFn``, whose backward is the scan's backward kernel; the
+JAX package differentiates its ``jax.lax.scan``).  Like the TPU
 kernel it starts from a zero carry, so an ``initial_state`` adds its share
 outside the kernel: ``s0 * prod(decays before c)`` into each chunk's
 entering state and ``s0 * prod(all decays)`` into the final one.

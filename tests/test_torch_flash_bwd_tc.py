@@ -540,6 +540,26 @@ def test_wide_calls_go_to_the_tc_entry_point(fake_card, hd, hd_v, kv, split):
     assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1}
 
 
+@pytest.mark.parametrize("hd", [128, 64])
+def test_long_dkdv_tc_walks_split_then_sum(fake_card, hd):
+    """8 heads on one KV head of 2048 keys: dkdv_tc takes each key block's
+    16,384 (head, query) rows in 4 runs of its own CTAs, then the sum."""
+    lib = fake_card(_FakeLibrary())
+    q, k, v = _bf16(1, 8, 2048, hd, seed=1), _bf16(1, 1, 2048, hd, seed=2), _bf16(1, 1, 2048,
+                                                                                 hd, seed=3)
+    out, dout = (_bf16(1, 8, 2048, hd, seed=s) for s in (4, 5))
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, out, dout, softcap=50.0,
+                                         lse=torch.zeros(1, 8, 2048))
+    assert [name for name, _ in lib.calls] == ["bwd_tc", "kv_reduce"]
+    args = lib.calls[0][1]
+    plan = fab.plan_bwd_tc_blocks(hd, hd, capped=True)
+    assert args[12:24] == (1, 8, 1, 2048, 2048, hd, hd, *plan["dq"], *plan["dkdv"], 4)
+    part, rdk, rdv, _, *rest = lib.calls[1][1]
+    assert part == args[10] and (rdk, rdv) == (dk.data_ptr(), dv.data_ptr())
+    assert tuple(rest[:6]) == (1, 1, 2048, hd, hd, 4)
+    assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1}
+
+
 @pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
 def test_a_failed_wide_tc_call_raises_and_never_reroutes(fake_card, hd, hd_v):
     lib = fake_card(_FakeLibrary(tc_error=700))
@@ -555,13 +575,29 @@ def test_a_failed_wide_tc_call_raises_and_never_reroutes(fake_card, hd, hd_v):
     assert [name for name, _ in lib.calls] == ["bwd_tc"]
 
 
-@pytest.mark.parametrize("b,h,kv,t,hd,hd_v,want", [
-    (1, 8, 1, 2048, 256, 256, 8),     # gemma-2b: dkdv_wg on one KV head
-    (1, 16, 16, 2048, 192, 128, 1),   # MLA: 512 CTAs
-    (1, 16, 8, 2048, 128, 128, 1),    # qwen3 at batch 1: 128 CTAs, but dkdv_tc
-    (1, 16, 16, 200, 64, 64, 1),      # cross-attention: 32 CTAs, dkdv_tc
+@pytest.mark.parametrize("b,h,kv,s,t,hd,hd_v,want", [
+    (1, 8, 1, 2048, 2048, 256, 256, 8),     # gemma-2b: dkdv_wg on one KV head
+    (1, 16, 16, 2048, 2048, 192, 128, 1),   # MLA: 512 CTAs
+    (1, 16, 8, 2048, 2048, 128, 128, 1),    # qwen3 at batch 1: 128 CTAs, but dkdv_tc
+    (4, 16, 8, 2048, 2048, 128, 128, 1),    # qwen3's training shape: 2 x 2048 rows
+    (1, 16, 16, 300, 200, 64, 64, 1),       # cross-attention: 32 CTAs, dkdv_tc
+    (1, 8, 1, 2048, 2048, 128, 128, 4),     # G 8: 16,384 rows a key block, in 4 runs
+    (4, 64, 8, 2048, 2048, 64, 64, 4),      # G 8 on 512 CTAs: split all the same
+    (1, 48, 1, 2048, 2048, 128, 128, 16),   # granite-20b's 48 heads: at the cap
+    (4, 64, 8, 2048, 2048, 256, 256, 4),    # hd 256 G 8 on 1024 CTAs: the runs' split
+    (1, 10, 1, 4096, 4096, 256, 256, 10),   # recurrentgemma's 10 heads of 4096 rows
 ])
-def test_only_the_two_warpgroup_dkdv_splits(b, h, kv, t, hd, hd_v, want):
-    """The split is dkdv_wg's (256 and (192, 128)); hd 64/128 calls keep
-    dkdv_tc's one CTA a key block, and with it their bits."""
-    assert fab.bwd_tc_kv_split(b, h, kv, t, hd, hd_v) == want
+def test_only_the_two_warpgroup_dkdv_splits(b, h, kv, s, t, hd, hd_v, want):
+    """The occupancy split is dkdv_wg's (256 and (192, 128)); both kernels
+    split a key block where its walk passes BWD_RUN_ROWS (head, query) rows,
+    whatever the CTAs, so qwen3-0.6b keeps one CTA a key block."""
+    assert fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v) == want
+    runs = fab.plan_bwd_run_split(h // kv, s)
+    assert (runs - 1) * fab.BWD_RUN_ROWS < h // kv * s <= runs * fab.BWD_RUN_ROWS or (
+        runs == fab.BWD_KV_SPLIT_MAX)
+    assert want == runs if (hd, hd_v) not in fab.BWD_TC_WG_PAIRS else want >= runs
+
+
+def test_run_split_refuses_nonsense():
+    with pytest.raises(ValueError, match="positive sizes"):
+        fab.plan_bwd_run_split(0, 2048)

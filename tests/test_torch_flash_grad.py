@@ -240,8 +240,8 @@ def test_kernels_without_a_backward_refuse_grad():
     raises naming what is missing; without grad, or with nothing requiring
     it, it lets the launch go."""
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
-        runtime.refuse_grad("ssd_scan", "the ssd_scan backward", x)
-    runtime.refuse_grad("ssd_scan", "the ssd_scan backward", x.detach())
+    with pytest.raises(NotImplementedError, match="gather_rows has no backward"):
+        runtime.refuse_grad("gather_rows", "its backward (a scatter-add kernel)", x)
+    runtime.refuse_grad("gather_rows", "its backward (a scatter-add kernel)", x.detach())
     with torch.no_grad():
-        runtime.refuse_grad("ssd_scan", "the ssd_scan backward", x)
+        runtime.refuse_grad("gather_rows", "its backward (a scatter-add kernel)", x)
