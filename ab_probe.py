@@ -13,11 +13,12 @@ each a process of its own with that checkout's ``src`` first on
 ``sys.path`` (each builds its own kernels): the flash kernel at six causal
 and windowed serving shapes, the paged kernel at rows 5, 5c and 5d of
 ``PERF.md``'s kernel table, and the flash backward's tensor-core route at
-qwen3-0.6b's training shape, at hd 64 over every key, at gemma-2b's hd 256
-and MLA's (192, 128), and at ``chip_smoke.BWD_CHECKS``' two "G 8" rows (8
-query heads on one KV head, q 8 times the unit scale, hd 128 capped at 50
-and hd 64; given the forward's lse, in the model's ``[B, S, heads, hd]``
-memory), each call's output digested bit for bit and timed by device ms
+every bf16 row of this tree's ``chip_smoke.BWD_CHECKS`` (named ``"bwd "``
+and the row's name: qwen3-0.6b's training shape, gemma-2b's, MLA's, the
+windowed, prefix and capped rows, the "G 8" and "G 48" rows of query heads
+on one KV head with q 8 times the unit scale; given the forward's lse, in
+the model's ``[B, S, heads, hd]`` memory), each call's output digested bit
+for bit and timed by device ms
 (``chip_smoke.Bench.device_ms``); each backward also held to this tree's
 plain version under ``chip_smoke.ATTN_TOL`` (``within_attn_tol`` and
 ``tol_excess``, the largest share of the elementwise bound).  One JSON
@@ -47,14 +48,6 @@ FLASH = (("gemma-2b", 8, 1, 2048, 256, 256, 0), ("granite-moe", 24, 8, 2048, 64,
          ("seamless causal", 16, 16, 4096, 64, 64, 0))
 PAGED = (("paged row 5", 1, 8, 256, 4096, 2048), ("paged row 5c ring", 1, 10, 256, 2048, 2048),
          ("paged row 5d", 16, 1, 64, 4096, 4096))
-# (name, b, h, kv, s, hd, hd_v, prefix, softcap, q gain): the backward,
-# causal or over every key.
-BWD = (("bwd qwen3-0.6b", 4, 16, 8, 2048, 128, 128, 0, 0.0, 1.0),
-       ("bwd every key hd 64", 1, 16, 16, 4096, 64, 64, 4096, 0.0, 1.0),
-       ("bwd gemma-2b", 1, 8, 1, 2048, 256, 256, 0, 0.0, 1.0),
-       ("bwd mla 192/128", 1, 16, 16, 2048, 192, 128, 0, 0.0, 1.0),
-       ("bwd G 8 softcap 50 hd 128", 1, 8, 1, 2048, 128, 128, 0, 50.0, 8.0),
-       ("bwd G 8 q gain 8 hd 64", 1, 8, 1, 2048, 64, 64, 0, 0.0, 8.0))
 TRAIN_AB_STEPS = 12
 
 
@@ -125,12 +118,16 @@ def turn(src: str) -> dict:
         q, kc, vc = randn(1, kv, g, hd), randn(1, s, kv, hd), randn(1, s, kv, hd)
         ln = torch.full((1,), length, dtype=torch.int32, device=device)
         record(name, lambda q=q, kc=kc, vc=vc, ln=ln: pa.paged_attention(q, kc, vc, ln))
-    for name, b, h, kv, s, hd, hd_v, prefix, cap, gain in BWD:
+    for (name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain,
+         dtype) in chip_smoke.BWD_CHECKS:
+        if dtype != "bfloat16":
+            continue
+        name = f"bwd {name}"
         q = randn(b, s, h, hd, gain=gain).transpose(1, 2)
-        k, v, dout = (randn(b, s, n, w).transpose(1, 2) for n, w in ((kv, hd), (kv, hd_v),
-                                                                   (h, hd_v)))
-        bq, bk = plan_blocks(s, s, hd, 2, path="tc", hd_v=hd_v)
-        mask = dict(prefix=prefix, softcap=cap)
+        k, v = (randn(b, t, kv, w).transpose(1, 2) for w in (hd, hd_v))
+        dout = randn(b, s, h, hd_v).transpose(1, 2)
+        bq, bk = plan_blocks(s, t, hd, 2, path="tc", hd_v=hd_v)
+        mask = dict(window=window, prefix=prefix, softcap=cap)
         with torch.no_grad():
             o, lse = fa.flash_attention(q, k, v, bq=bq, bk=bk, return_lse=True, **mask)
         got = record(name, lambda q=q, k=k, v=v, o=o, dout=dout, lse=lse, mask=mask:

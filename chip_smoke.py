@@ -4937,8 +4937,12 @@ TRAIN_ARCH = "qwen3-0.6b"
 # some cancel to near 0, which ATTN_TOL's atol holds to 1e-4.  The two "G 8"
 # rows do so at hd 128 and 64 (dkdv_tc) with 8 query heads on one KV head:
 # with one CTA summing a key block's 16,384 (head, query) rows dK missed
-# ATTN_TOL there (so dkdv_tc now splits such walks, plan_bwd_run_split).  Inputs in the model's [B, S, heads, hd] memory, seen as [B,
-# heads, S, hd]; dout too.
+# ATTN_TOL there (so dkdv_tc now splits such walks, plan_bwd_run_split).
+# "G 48" is granite-20b's 48 heads on one KV head: 98,304 rows a key block,
+# past the 16 CTAs' cap, so dkdv runs once per run of 1,024 rows of each
+# CTA's part (plan_bwd_run_steps).
+# Inputs in the model's [B, S, heads, hd] memory, seen as [B, heads, S, hd];
+# dout too.
 BWD_CHECKS = (
     ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("gemma-2b", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 1.0, "bfloat16"),
@@ -4953,6 +4957,7 @@ BWD_CHECKS = (
     ("softcap 50 hd 128", 1, 8, 8, 1024, 1024, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
     ("G 8 softcap 50 hd 128", 1, 8, 1, 2048, 2048, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
     ("G 8 q gain 8 hd 64", 1, 8, 1, 2048, 2048, 64, 64, 0, 0, 0.0, 8.0, "bfloat16"),
+    ("G 48 q gain 8 hd 128", 1, 48, 1, 2048, 2048, 128, 128, 0, 0, 0.0, 8.0, "bfloat16"),
     ("ragged", 2, 8, 2, 1000, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("S < T", 1, 8, 8, 300, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("cross S > T", 1, 16, 16, 300, 200, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),

@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one H100:
 
     python3 flash_probe.py [LOG_DIR]
     python3 flash_probe.py --bwd [LOG_DIR]
+    python3 flash_probe.py --bwd-long-runs [LOG_DIR]
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
 an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
@@ -15,12 +16,20 @@ an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
 bits twice, the forward's lse, the planted faults, registers and spills,
 each route's timing row), then both routes and the plain version against
 an f64 reference at hd 256, 128 and 64 on one KV head with q 8 times the
-unit scale, capped and not (and the tensor-core route with each key
-block's walk cut into 1 .. 16 runs), then the tensor-core route at qwen3-0.6b's
-training shape under each hd-128 ``dkdv`` block of ``BWD_TC_BLOCKS``, and
-at gemma-2b's, recurrentgemma's window and paligemma's prefix shapes (hd
-256, one KV head) under each dkdv split (device ms, and the error against
-the plain version).  Without it:
+unit scale, capped and not, and at hd 128 with 48 query heads on one KV
+head (granite-20b's, past the split's cap of 16 CTAs) (and the tensor-core
+route with each key block's walk cut into 1 .. 16 CTAs), then the
+tensor-core route at qwen3-0.6b's training shape under each hd-128
+``dkdv`` block of ``BWD_TC_BLOCKS``, and at gemma-2b's, recurrentgemma's
+window and paligemma's prefix shapes (hd 256, one KV head) under each dkdv
+split (device ms, and the error against the plain version).  With
+``--bwd-long-runs`` it prints ``-Xptxas -v`` of the backward, then builds
+it once for each run length of ``LONG_RUNS`` (``-DREMOP_BWD_LONG_RUN_ROWS``,
+in parallel) and holds the tensor-core route at 48 heads on one KV head of
+2048 (hd 128, q 8 times the unit scale: 16 CTAs a key block, each part
+walked in runs of that length) to the f64 reference under each, beside the
+CUDA-core route and the plain version, with each one's device ms.  Without
+either:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -110,8 +119,9 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
             lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse, **mask), reps=10),
             f"ok {ok} maxabs {err:.3e} rel {rel:.3e}", flush=True)
 
-    plan, split = fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split
+    plan, split, runs = fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split, fab.check_bwd_runs
     table = fab.BWD_TC_BLOCKS[(128, 128)]
+    fab.check_bwd_runs = lambda *args, **kwargs: None  # the sweeps' splits pass 4,096 rows
     try:
         case = inputs(4, 16, 8, 2048, 128)
         for blocks in table["dkdv"]:
@@ -130,7 +140,30 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
                 fab.bwd_tc_kv_split = lambda *args, n=n: n
                 report(f"bwd tc {name} kv_split {n}", *case, **mask)
     finally:
-        fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split = plan, split
+        fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split, fab.check_bwd_runs = plan, split, runs
+
+
+def f64_reference(torch, q, k, v, out, dout, softcap):
+    """(dq, dk, dv) of causal softmax attention written out in float64 on
+    the same bf16 inputs, with D from the same bf16 forward output."""
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
+    qd, dod = q.double(), dout.double()
+    scale = 1 / math.sqrt(hd)
+    sc = torch.einsum("bhsd,bhtd->bhst", qd, kd) * scale
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    seen = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(sc.masked_fill(~seen, float("-inf")), -1)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", dod, vd)
+              - (dod * out.double()).sum(-1, keepdim=True))
+    if softcap:
+        ds = ds * (1 - (sc.masked_fill(~seen, 0) / softcap) ** 2)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kd) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qd) * scale
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dod)
+    return dq, dk.view(b, -1, g, s, hd).sum(2), dv.view(b, -1, g, s, vd.shape[3]).sum(2)
 
 
 def bwd_against_f64(torch, chip_smoke) -> None:
@@ -138,8 +171,9 @@ def bwd_against_f64(torch, chip_smoke) -> None:
     (softmax attention written out in float64 on the same bf16 inputs, with
     D from the same bf16 forward output) at hd 256, 128 and 64 with 8 query
     heads on one KV head and q 8 times the unit scale, capped at 50 or not,
-    then the tensor-core route at hd 256 and 128 with each key block's walk
-    cut into 1 .. 16 runs (dK and dV only): per gradient the
+    and at hd 128 with 48 heads on one KV head; then the tensor-core route
+    at hd 256 and 128 with each key block's walk cut over 1 .. 16 CTAs (dK
+    and dV only): per gradient the
     largest |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` (below 1
     within it), the reference and the value there, and the count above 1."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
@@ -147,24 +181,7 @@ def bwd_against_f64(torch, chip_smoke) -> None:
     dev = torch.device("cuda", 0)
 
     def reference(q, k, v, out, dout, softcap):
-        b, h, s, hd = q.shape
-        g = h // k.shape[1]
-        kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
-        qd, dod = q.double(), dout.double()
-        scale = 1 / math.sqrt(hd)
-        sc = torch.einsum("bhsd,bhtd->bhst", qd, kd) * scale
-        if softcap:
-            sc = torch.tanh(sc / softcap) * softcap
-        seen = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
-        p = torch.softmax(sc.masked_fill(~seen, float("-inf")), -1)
-        ds = p * (torch.einsum("bhsd,bhtd->bhst", dod, vd)
-                  - (dod * out.double()).sum(-1, keepdim=True))
-        if softcap:
-            ds = ds * (1 - (sc.masked_fill(~seen, 0) / softcap) ** 2)
-        dq = torch.einsum("bhst,bhtd->bhsd", ds, kd) * scale
-        dk = torch.einsum("bhst,bhsd->bhtd", ds, qd) * scale
-        dv = torch.einsum("bhst,bhsd->bhtd", p, dod)
-        return dq, dk.view(b, -1, g, s, hd).sum(2), dv.view(b, -1, g, s, vd.shape[3]).sum(2)
+        return f64_reference(torch, q, k, v, out, dout, softcap)
 
     def excess(got, ref):
         tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
@@ -173,16 +190,19 @@ def bwd_against_f64(torch, chip_smoke) -> None:
         return [round(float(r.max()), 4), float(ref.reshape(-1)[i]),
                 float(got.reshape(-1)[i]), int((r > 1).sum())]
 
-    def inputs(hd, cap):
+    def inputs(hd, cap, heads=8):
         g = torch.Generator(device=dev).manual_seed(8)
         q, k, v, dout = ((torch.randn(1, 2048, n, hd, device=dev, generator=g) * gain).to(
-            torch.bfloat16).transpose(1, 2) for n, gain in ((8, 8.0), (1, 1.0), (1, 1.0),
-                                                            (8, 1.0)))
+            torch.bfloat16).transpose(1, 2) for n, gain in ((heads, 8.0), (1, 1.0), (1, 1.0),
+                                                            (heads, 1.0)))
         out, lse = chip_smoke.forward_with_lse(torch, q, k, v, softcap=cap)
         return q, k, v, out, dout, lse, reference(q, k, v, out, dout, cap)
 
-    for hd, cap in ((256, 50.0), (256, 0.0), (128, 50.0), (128, 0.0), (64, 50.0), (64, 0.0)):
-        q, k, v, out, dout, lse, ref = inputs(hd, cap)
+    # G 48: granite-20b's 48 heads on one KV head, 98,304 rows a key block,
+    # 16 CTAs (the cap) each walking runs of 4,096 rows.
+    for hd, cap, heads in ((256, 50.0, 8), (256, 0.0, 8), (128, 50.0, 8), (128, 0.0, 8),
+                           (64, 50.0, 8), (64, 0.0, 8), (128, 0.0, 48)):
+        q, k, v, out, dout, lse, ref = inputs(hd, cap, heads)
         route = fab.bwd_route
         got = {"tc": fab.flash_attention_bwd(q, k, v, out, dout, softcap=cap, lse=lse)}
         fab.bwd_route = lambda *xs: "simt"
@@ -192,24 +212,98 @@ def bwd_against_f64(torch, chip_smoke) -> None:
             fab.bwd_route = route
         got["plain"] = fab.flash_attention_bwd_plain(q, k, v, out, dout, softcap=cap)
         for who, grads in got.items():
-            print(f"bwd vs f64 hd {hd} cap {cap} q gain 8 {who}",
+            print(f"bwd vs f64 hd {hd} cap {cap} G {heads} q gain 8 {who}",
                   {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
                   flush=True)
+        del got, ref
 
     # The tc route against the (head, query) rows one CTA sums into its
-    # wgmma accumulators: each key block's 16,384 rows cut into n runs.
-    split = fab.bwd_tc_kv_split
+    # wgmma accumulators: each key block's 16,384 rows cut into n parts,
+    # one CTA each (a split CTA sums at most BWD_RUN_ROWS rows a run).
+    split, runs = fab.bwd_tc_kv_split, fab.check_bwd_runs
+    fab.check_bwd_runs = lambda *args, **kwargs: None  # 1 CTA: runs of 16,384 rows
     try:
         for hd in (256, 128):
             q, k, v, out, dout, lse, ref = inputs(hd, 0.0)
             for n in (1, 2, 4, 8, 16):
                 fab.bwd_tc_kv_split = lambda *args, n=n: n
                 grads = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
-                print(f"bwd vs f64 hd {hd} q gain 8 tc, {8 * 2048 // n} rows a run",
+                run = 8 * 2048 // n if n == 1 else min(8 * 2048 // n, fab.BWD_RUN_ROWS)
+                print(f"bwd vs f64 hd {hd} q gain 8 tc, {8 * 2048 // n} rows a CTA, runs of "
+                      f"{run}",
                       {w: excess(x, r) for w, x, r in zip(("dk", "dv"), grads[1:], ref[1:])},
                       flush=True)
     finally:
-        fab.bwd_tc_kv_split = split
+        fab.bwd_tc_kv_split, fab.check_bwd_runs = split, runs
+
+
+# The run lengths --bwd-long-runs builds the backward for.
+LONG_RUNS = (4096, 2048, 1024, 512)
+
+
+def bwd_long_runs(torch, chip_smoke) -> None:
+    """The tensor-core backward at G 48 (``[1, 48, 2048, 128]`` on one KV
+    head, q gain 8) against f64 under each run length of ``LONG_RUNS``,
+    each from its own build of ``csrc/flash_attention_bwd.cu``; the CUDA-core
+    route and the plain version beside them."""
+    import ctypes
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    procs = {}
+    for rows in LONG_RUNS:
+        out = runtime.BUILD_DIR / f"libflash_attention_bwd_long_run_{rows}.so"
+        cmd = [runtime.nvcc(), *runtime.NVCC_FLAGS, f"-DREMOP_BWD_LONG_RUN_ROWS={rows}", "-o",
+               str(out), str(runtime.CSRC / "flash_attention_bwd.cu")]
+        procs[rows] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    libs = {}
+    for rows, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            print(log[-4000:])
+            raise RuntimeError(f"nvcc at REMOP_BWD_LONG_RUN_ROWS={rows} failed")
+        lib = ctypes.CDLL(str(out))
+        for fn, (argtypes, restype) in runtime.SIGNATURES["flash_attention_bwd"].items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+        libs[rows] = lib
+    print("built", sorted(libs), flush=True)
+    dev = torch.device("cuda", 0)
+    bench = chip_smoke.Bench(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, dout = ((torch.randn(1, 2048, n, 128, device=dev, generator=g) * gain).to(
+        torch.bfloat16).transpose(1, 2) for n, gain in ((48, 8.0), (1, 1.0), (1, 1.0), (48, 1.0)))
+    out, lse = chip_smoke.forward_with_lse(torch, q, k, v)
+    ref = f64_reference(torch, q, k, v, out, dout, 0.0)
+    tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+
+    def excess(got, want):
+        r = (got.double() - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
+        return [round(float(r.max()), 4), int((r > 1).sum())]
+
+    def report(what, fn):
+        grads = fn()
+        ms = bench.device_ms(fn, reps=10)["device_ms"]
+        print(f"bwd vs f64 G 48 hd 128 q gain 8 {what}: device ms {ms:.4f}",
+              {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)}, flush=True)
+
+    library = runtime.library
+    try:
+        for rows, lib in libs.items():
+            runtime.library = lambda name, lib=lib: lib if name == "flash_attention_bwd" else (
+                library(name))
+            report(f"tc, runs of {rows} rows",
+                   lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse))
+    finally:
+        runtime.library = library
+    route = fab.bwd_route
+    fab.bwd_route = lambda *xs: "simt"
+    try:
+        report("simt", lambda: fab.flash_attention_bwd(q, k, v, out, dout))
+    finally:
+        fab.bwd_route = route
+    report("plain", lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout))
 
 
 def main() -> int:
@@ -225,9 +319,17 @@ def main() -> int:
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
-    args = [a for a in sys.argv[1:] if a != "--bwd"]
+    args = [a for a in sys.argv[1:] if a not in ("--bwd", "--bwd-long-runs")]
     log_dir = Path(args[0]) if args else runtime.BUILD_DIR
     log_dir.mkdir(parents=True, exist_ok=True)
+    if "--bwd-long-runs" in sys.argv[1:]:
+        ptxas_report(log_dir, "flash_attention_bwd")
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        chip_smoke.load_peaks()
+        runtime.build(["flash_attention", "flash_attention_bwd"])
+        bwd_long_runs(torch, chip_smoke)
+        print("ALL OK", flush=True)
+        return 0
     if "--bwd" in sys.argv[1:]:
         ptxas_report(log_dir, "flash_attention_bwd")
         ptxas_report(log_dir, "flash_attention")  # the forward's lse instantiations

@@ -66,6 +66,15 @@
 // ATTN_TOL's elementwise bound against f64 by 3.4x at hd 128; 4,096 rows
 // read 0.5), so no run takes more than 4,096 (head, query) rows; dkdv_wg
 // also where B * KV * (key blocks) CTAs leave most SMs idle (few KV heads).
+// The CTAs a key block stop at kMaxSplit (16), so past 16 x 4,096 rows (48
+// heads on one KV head of 2048: 98,304) a CTA's part outnumbers one run's
+// rows.  Then dkdv is launched once per run (a pass): pass r takes run r of
+// every CTA's part, kLongRunRows / BQ steps from the accumulators' 0, and
+// adds its sums into the CTA's f32 partial (pass 0 stores them), in pass
+// order.  Such walks hold more runs, so the runs are shorter (kLongRunRows):
+// at G 48 runs of 4,096 rows left dK at 1.7x ATTN_TOL's bound against the
+// plain version.  A walk of one run a CTA (every walk of at most 16 x 4,096
+// rows) is one launch with the arithmetic it had.
 // P and dS keep f32 precision into their products as the forward keeps P:
 // x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each; dK
 // takes dS^T in three terms (x = hi + mid + lo, split3_frags) in both dkdv
@@ -640,6 +649,13 @@ int attributes(int hd, int hd_v, int* out) {
 constexpr int kProducerThreads = 128;  // one warpgroup, after the consumers
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSplit = 16;  // CTAs a key block at most (the partials' scratch)
+// (head, query) rows one dkdv accumulator sums at most (BWD_RUN_ROWS on the
+// host), and the run of a walk that needs several (BWD_LONG_RUN_ROWS).
+constexpr int kRunRows = 4096;
+#ifndef REMOP_BWD_LONG_RUN_ROWS
+#define REMOP_BWD_LONG_RUN_ROWS 1024
+#endif
+constexpr int kLongRunRows = REMOP_BWD_LONG_RUN_ROWS;
 
 struct TcParams {
   const void* o;     // the forward's output, for D
@@ -659,6 +675,9 @@ struct TcParams {
   int window, prefix;
   float softcap;
   int n_split;
+  // Several runs a CTA (see the split above): this launch takes run `pass`
+  // of run_steps steps of each CTA's part; run_steps 0: the whole part.
+  int run_steps, pass;
 };
 
 // Shared memory of dq_tc (byte offsets from a 1024-byte-aligned base): Q
@@ -797,6 +816,24 @@ __device__ __forceinline__ void store_part(const float (&acc)[W / 2], float* g, 
     for (int c = 0; c < W / 8; ++c)
       *reinterpret_cast<float2*>(out + 8 * c) =
           make_float2(acc[4 * c + 2 * half], acc[4 * c + 2 * half + 1]);
+  }
+}
+
+// The same rows added onto what the earlier passes left there.
+template <int W>
+__device__ __forceinline__ void add_part(const float (&acc)[W / 2], float* g, int width, int col,
+                                         int r0, int limit, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= limit) continue;
+    float* out = g + int64_t(row) * width + col + 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c) {
+      const float2 y = *reinterpret_cast<const float2*>(out + 8 * c);
+      *reinterpret_cast<float2*>(out + 8 * c) =
+          make_float2(y.x + acc[4 * c + 2 * half], y.y + acc[4 * c + 2 * half + 1]);
+    }
   }
 }
 
@@ -1016,8 +1053,12 @@ __device__ __forceinline__ Walk walk_of(const TcParams& p) {
   const int first_qb = rows.first / BQ;
   const int n_q = rows.first <= rows.last ? rows.last / BQ - first_qb + 1 : 0;
   const int steps = (p.h / p.kv) * n_q;
-  return {k0, z, first_qb, n_q, int(int64_t(steps) * z / p.n_split),
-          int(int64_t(steps) * (z + 1) / p.n_split)};
+  int lo = int(int64_t(steps) * z / p.n_split), hi = int(int64_t(steps) * (z + 1) / p.n_split);
+  if (p.run_steps) {
+    lo = min(lo + p.pass * p.run_steps, hi);
+    hi = min(lo + p.run_steps, hi);
+  }
+  return {k0, z, first_qb, n_q, lo, hi};
 }
 
 // This CTA's f32 partial rows of [n_split, B, KV, T, hd + hd_v], from key 0.
@@ -1184,10 +1225,14 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
     store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
     store_rows<HD>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
-  } else {
+  } else if (p.pass == 0) {
     float* rows = part_rows(p, walk.z, kvh, b, 2 * HD);
     store_part<HD>(dk, rows, 2 * HD, 0, kr0, p.t, lane);
     store_part<HD>(dv, rows, 2 * HD, HD, kr0, p.t, lane);
+  } else if (walk.hi > walk.lo) {
+    float* rows = part_rows(p, walk.z, kvh, b, 2 * HD);
+    add_part<HD>(dk, rows, 2 * HD, 0, kr0, p.t, lane);
+    add_part<HD>(dv, rows, 2 * HD, HD, kr0, p.t, lane);
   }
 }
 
@@ -1352,8 +1397,10 @@ __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full
   if (p.n_split == 1) {
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
     store_rows<HDV>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
-  } else {
+  } else if (p.pass == 0) {
     store_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
+  } else if (walk.hi > walk.lo) {
+    add_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
   }
 }
 
@@ -1435,8 +1482,10 @@ __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_ful
   if (p.n_split == 1) {
     __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
     store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
-  } else {
+  } else if (p.pass == 0) {
     store_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
+  } else if (walk.hi > walk.lo) {
+    add_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
   }
 }
 
@@ -1632,7 +1681,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
       !encode(&kv_do, dout, strides, 4, hd_v, s, h, b, kv_bq))
     return cudaErrorNotSupported;
   TcParams p{o, dout, dq, dk, dv, static_cast<const float*>(lse), static_cast<float*>(delta),
-             static_cast<float*>(part), {}, h, kv, s, t, scale, window, prefix, softcap, n_split};
+             static_cast<float*>(part), {}, h, kv, s, t, scale, window, prefix, softcap, n_split,
+             0, 0};
   for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   return tc_dispatch(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, softcap > 0.f,
@@ -1651,16 +1701,28 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
            DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem, st>>>(dq_q, dq_k, dq_v, dq_do, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    // After dq_tc on the same stream: it wrote D.
+    // After dq_tc on the same stream: it wrote D.  One launch a pass: where
+    // the longest part (key block 0's steps over n_split) passes kRunRows
+    // rows, runs of kLongRunRows rows, pass r adding run r of every part.
+    const int longest = ((h / kv) * ((s + KV_BQ - 1) / KV_BQ) + n_split - 1) / n_split;
+    int passes = 1;
+    if (n_split > 1 && longest > kRunRows / KV_BQ) {
+      p.run_steps = kLongRunRows / KV_BQ;
+      passes = (longest + p.run_steps - 1) / p.run_steps;
+    }
     const dim3 kv_grid((t + KV_BK - 1) / KV_BK * n_split, kv, b);
     const int kv_smem = KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem;
-    if constexpr (KV_BK == 64)
-      dkdv_wg_kernel<HD, HDV, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
-          kv_q, kv_k, kv_v, kv_do, p);
-    else
-      dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
-          kv_q, kv_k, kv_v, kv_do, p);
-    return cudaGetLastError();
+    for (p.pass = 0; p.pass < passes; ++p.pass) {
+      if constexpr (KV_BK == 64)
+        dkdv_wg_kernel<HD, HDV, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
+            kv_q, kv_k, kv_v, kv_do, p);
+      else
+        dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
+            kv_q, kv_k, kv_v, kv_do, p);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
   });
 }
 
@@ -1759,10 +1821,11 @@ int remop_flash_attention_bwd_attributes(int is_f32, int hd, int hd_v, int* out)
 // 256) or (192, 128), TMA-aligned q, k, v and do; lse: the forward's f32 [B,
 // H, S] log-sum-exp (contiguous); delta: f32 [B, H, S] scratch.  Blocks (see
 // tc_dispatch): dq_tc's (dq_bq, dq_bk), dkdv's (kv_bk, kv_bq).  kv_split:
-// dkdv_wg's CTAs a key block (1 .. 16; dkdv_tc takes 1); above 1, part is
-// f32 scratch of [kv_split, B, KV, T, hd + hd_v] that dkdv fills instead of
-// dk and dv, and the caller sums it with remop_flash_attention_bwd_kv_reduce.
-// Two launches.
+// dkdv's CTAs a key block (1 .. 16); above 1, part is f32 scratch of
+// [kv_split, B, KV, T, hd + hd_v] that dkdv fills instead of dk and dv, and
+// the caller sums it with remop_flash_attention_bwd_kv_reduce.  Two
+// launches, and one more dkdv launch for each further run of a walk past
+// kv_split x kRunRows rows.
 int remop_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, void* dq, void* dk, void* dv, const void* lse,
                                  void* delta, void* part, const long long* strides, int b, int h,

@@ -26,12 +26,15 @@ alone:
   CTA, dV in one warpgroup and dK in the other, P^T passed between them in
   shared memory).  There, where few KV heads leave most SMs idle,
   :func:`plan_bwd_kv_split` cuts each key block's walk over the GQA group's
-  heads and query blocks into ``n`` runs, one CTA each: they write f32
+  heads and query blocks into ``n`` parts, one CTA each: they write f32
   partial dK and dV, and a third launch sums them in a fixed order
   (:func:`kv_reduce`), so two calls still give the same bits.  Both dkdv
   kernels also split a key block's walk where it is long
   (:func:`plan_bwd_run_split`: wgmma's f32 sums over more than
-  :data:`BWD_RUN_ROWS` rows lose dK's precision), and form dK from dS^T in
+  :data:`BWD_RUN_ROWS` rows lose dK's precision); where the CTAs' cap
+  leaves a CTA's part longer than that, dkdv runs once per run of
+  :data:`BWD_LONG_RUN_ROWS` rows, each pass adding its run's sums into each
+  CTA's partial in order (:func:`dkdv_runs`).  Both form dK from dS^T in
   three bf16 terms (hi + mid + lo).  A call this
   route takes never runs on the CUDA-core kernel: a missing lse, a failed
   build, encode or launch raises.
@@ -43,7 +46,7 @@ alone:
 ``runtime.launches`` counts every call under ``"flash_attention_bwd"`` and
 under ``"flash_attention_bwd_tc"`` or ``"flash_attention_bwd_simt"``.
 
-Beside it is its plain PyTorch version, the same formulas in f32 over the
+Beside it is its plain PyTorch version, the same formulas in f64 over the
 same KV blocks (given the forward's lse it uses it, else it recomputes it);
 a CPU tensor takes it, a CUDA tensor launches the kernel or raises.
 
@@ -57,6 +60,7 @@ keeps its launches, bits and time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -102,13 +106,19 @@ BWD_TC_SPILLS = {("dkdv", 128, True, (128, 64))}
 # dkdv's CTAs a key block at most (its f32 partials are scratch of
 # kv_split x dK and dV).
 BWD_KV_SPLIT_MAX = 16
-# The (head, query) rows one dkdv CTA sums into its wgmma accumulators at
-# most: wgmma's f32 sums lose more than the CUDA cores' over long walks (on
-# an H100, G 8 on one KV head with q 8 times the unit scale: dK at 3.4x
+# The (head, query) rows one dkdv accumulator sums at most (the kernels'
+# kRunRows): wgmma's f32 sums lose more than the CUDA cores' over long walks
+# (on an H100, G 8 on one KV head with q 8 times the unit scale: dK at 3.4x
 # ATTN_TOL's elementwise bound against f64 with 16,384 rows a CTA at hd 128,
 # 1.4x at hd 64, 3.6x at hd 256; 0.50-0.82 with 4,096 rows; flash_probe.py
 # --bwd).
 BWD_RUN_ROWS = 4096
+# The run of a walk whose CTAs' parts pass BWD_RUN_ROWS (past
+# BWD_KV_SPLIT_MAX x BWD_RUN_ROWS rows a key block): the kernels'
+# kLongRunRows.  Shorter, as such walks sum more runs: at 48 heads on one KV
+# head of 2048 with q 8 times the unit scale, runs of 4,096 rows left dK at
+# 1.7x ATTN_TOL's bound against the plain version (an H100).
+BWD_LONG_RUN_ROWS = 1024
 
 
 def bwd_smem_bytes(kernel: str, bq: int, bk: int, hd: int, hd_v: int, dtype_bytes: int) -> int:
@@ -205,13 +215,72 @@ def plan_bwd_kv_split(b: int, kv: int, t: int, group: int, keys_per_cta: int,
 
 
 def plan_bwd_run_split(group: int, s: int) -> int:
-    """dkdv's CTAs a key block for precision: runs of at most :data:`BWD_RUN_ROWS`
+    """dkdv's CTAs a key block for precision: parts of at most :data:`BWD_RUN_ROWS`
     (head, query) rows of the ``group`` heads' ``s`` rows (the most that see
     a key block), at most :data:`BWD_KV_SPLIT_MAX`: 1 at qwen3-0.6b's
-    training shape (2 x 2048 rows), 4 at 8 heads on one KV head of 2048."""
+    training shape (2 x 2048 rows), 4 at 8 heads on one KV head of 2048, 16
+    at granite-20b's 48 heads on one KV head of 2048, whose parts of 6,144
+    rows are walked in runs (:func:`plan_bwd_run_steps`)."""
     if min(group, s) < 1:
         raise ValueError(f"plan_bwd_run_split takes positive sizes, got group={group}, s={s}")
     return min(-(-group * s // BWD_RUN_ROWS), BWD_KV_SPLIT_MAX)
+
+
+def plan_bwd_run_steps(group: int, s: int, bq: int, kv_split: int) -> int:
+    """The steps (query blocks of ``bq`` rows) of one dkdv run, as the
+    kernels' host code plans them: 0 (each CTA's part in one run, one dkdv
+    launch) unless ``kv_split`` > 1 and the longest part, ``ceil(group
+    ceil(s / bq) / kv_split)`` steps, passes :data:`BWD_RUN_ROWS` rows; then
+    runs of :data:`BWD_LONG_RUN_ROWS` rows, one dkdv launch (pass) each."""
+    longest = -(-group * -(-s // bq) // kv_split)
+    if kv_split > 1 and longest > BWD_RUN_ROWS // bq:
+        return BWD_LONG_RUN_ROWS // bq
+    return 0
+
+
+def dkdv_runs(steps: int, kv_split: int, run_steps: int) -> list:
+    """The runs each dkdv CTA sums into one set of accumulators, as both
+    dkdv kernels walk a key block's ``steps`` (a query block of one head
+    each): CTA z of ``kv_split`` takes the part ``[steps z / n, steps (z +
+    1) / n)``, in runs of ``run_steps`` steps (pass r takes run r, storing
+    its sums into the CTA's f32 partial at r = 0 and adding them after), or
+    in one run at ``run_steps`` 0.  A list per CTA of the ``range`` of steps
+    of each run."""
+    if min(steps + 1, kv_split, run_steps + 1) < 1:
+        raise ValueError(f"dkdv_runs takes sizes of at least 0, got steps={steps}, "
+                         f"kv_split={kv_split}, run_steps={run_steps}")
+    ctas = []
+    for z in range(kv_split):
+        lo, hi = steps * z // kv_split, steps * (z + 1) // kv_split
+        run = run_steps or max(hi - lo, 1)
+        ctas.append([range(a, min(a + run, hi)) for a in range(lo, hi, run)])
+    return ctas
+
+
+@functools.lru_cache(maxsize=256)
+def longest_bwd_run(group: int, s: int, bq: int, kv_split: int,
+                    run_steps: int | None = None) -> int:
+    """The most (head, query) rows one dkdv accumulator sums when a key
+    block seen by all ``s`` query rows of the ``group`` heads (the longest
+    walk: ``ceil(s / bq)`` query blocks of ``bq`` rows a head) is walked by
+    ``kv_split`` CTAs in runs of ``run_steps`` steps (by default
+    :func:`plan_bwd_run_steps`'; :func:`dkdv_runs`)."""
+    n_q = -(-s // bq)
+    if run_steps is None:
+        run_steps = plan_bwd_run_steps(group, s, bq, kv_split)
+    return max((sum(min(bq, s - (i % n_q) * bq) for i in run)
+                for cta in dkdv_runs(group * n_q, kv_split, run_steps) for run in cta),
+               default=0)
+
+
+def check_bwd_runs(group: int, s: int, bq: int, kv_split: int,
+                   run_steps: int | None = None) -> None:
+    """Raise ``ValueError`` where a dkdv plan (:func:`longest_bwd_run`'s
+    arguments) lets one accumulator sum more than :data:`BWD_RUN_ROWS` rows."""
+    longest = longest_bwd_run(group, s, bq, kv_split, run_steps)
+    if longest > BWD_RUN_ROWS:
+        raise ValueError(f"a dkdv run of {longest} (head, query) rows at group={group}, s={s}, "
+                         f"bq={bq}, kv_split={kv_split}: at most {BWD_RUN_ROWS}")
 
 
 def bwd_tc_kv_split(b: int, h: int, kv: int, s: int, t: int, hd: int, hd_v: int) -> int:
@@ -273,14 +342,19 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float | None = None, window: int = 0, prefix: int = 0,
                               softcap: float = 0.0, bk: int = BWD_BLOCKS[0],
                               lse: torch.Tensor | None = None):
-    """The kernel's arithmetic in PyTorch, in f32 over KV blocks of ``bk``:
+    """The kernel's arithmetic in PyTorch, over KV blocks of ``bk``, in f64:
     each row's log-sum-exp over its visible keys (an online max and sum;
     ``lse``, the forward's f32 ``[B, H, S]``, when given) and ``D = sum(dO
-    * O)``, then per block ``P = exp(s_c - lse)`` (0 where
-    hidden), ``dV += P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)`` times
-    ``1 - (s_c / c)^2`` when capped, ``dQ += dS K``, ``dK += dS^T Q``; dQ
-    and dK times ``scale``; each rounded once to the inputs' dtype.  The
-    blocks before the first one any row sees (under a window) get 0."""
+    * O)``, then per block ``P = exp(s_c - lse)`` (0 where hidden), ``dV
+    += P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)`` times ``1 - (s_c /
+    c)^2`` when capped, ``dQ += dS K``, ``dK += dS^T Q``; dQ and dK times
+    ``scale``; each rounded once to the inputs' dtype.  The blocks before
+    the first one any row sees (under a window) get 0.  f64 and not the
+    kernel's f32: where a KV head's G x S rows are many, an f32 reference's
+    own rounding of the scores and of the sums over the rows is as large as
+    the kernel's (at 48 heads of 2048 on one KV head, q 8 times the unit
+    scale, dK at 0.82-0.86 of ``ATTN_TOL``'s bound against f64 on an H100,
+    the kernel's at 0.58), and would count against the kernel."""
     _check(q, k, v, window, prefix)
     _check_grads(q, out, dout)
     softcap = runtime.check_softcap(softcap)
@@ -288,21 +362,22 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     g = h // kv
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
-    qf = q.float().reshape(b, kv, g, s, hd)
-    dof = dout.float().reshape(b, kv, g, s, hd_v)
-    delta = (dof * out.float().reshape(b, kv, g, s, hd_v)).sum(-1, keepdim=True)
+    wd = torch.float64
+    qf = q.to(wd).reshape(b, kv, g, s, hd)
+    dof = dout.to(wd).reshape(b, kv, g, s, hd_v)
+    delta = (dof * out.to(wd).reshape(b, kv, g, s, hd_v)).sum(-1, keepdim=True)
     q_pos = torch.arange(s, device=q.device) + (t - s)
     start = first_block(t - s, window, bk) * bk
     blocks = range(start, t, bk)
 
     def scores(k0):
-        kb = k[:, :, k0:k0 + bk].float()
+        kb = k[:, :, k0:k0 + bk].to(wd)
         sc = runtime.cap_scores(torch.einsum("bkgsd,bktd->bkgst", qf, kb) * scale, softcap)
         k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
         return kb, sc, hidden_keys(q_pos, k_pos, window, prefix)
 
     if lse is None:
-        m = torch.full((b, kv, g, s, 1), NEG_INF, device=q.device)
+        m = torch.full((b, kv, g, s, 1), NEG_INF, dtype=wd, device=q.device)
         l = torch.zeros_like(m)
         for k0 in blocks:
             _, sc, hidden = scores(k0)
@@ -313,14 +388,14 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse = m + torch.log(l)
     else:
         _check_lse(q, lse)
-        lse = lse.float().reshape(b, kv, g, s, 1)
+        lse = lse.to(wd).reshape(b, kv, g, s, 1)
 
     dq = torch.zeros_like(qf)
-    dk = torch.zeros((b, kv, t, hd), device=q.device)
-    dv = torch.zeros((b, kv, t, hd_v), device=q.device)
+    dk = torch.zeros((b, kv, t, hd), dtype=wd, device=q.device)
+    dv = torch.zeros((b, kv, t, hd_v), dtype=wd, device=q.device)
     for k0 in blocks:
         kb, sc, hidden = scores(k0)
-        vb = v[:, :, k0:k0 + bk].float()
+        vb = v[:, :, k0:k0 + bk].to(wd)
         p = torch.exp(sc - lse).masked_fill(hidden, 0.0)
         dv[:, :, k0:k0 + bk] = torch.einsum("bkgst,bkgsd->bktd", p, dof)
         ds = p * (torch.einsum("bkgsd,bktd->bkgst", dof, vb) - delta)
@@ -415,6 +490,7 @@ def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
     kv_split = bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
+    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -464,15 +540,17 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                             kv_split: int, scale: float | None = None, window: int = 0,
                             prefix: int = 0, softcap: float = 0.0, keys: int = 64,
-                            rows: int = 64) -> torch.Tensor:
+                            rows: int = 64, run_steps: int | None = None) -> torch.Tensor:
     """The partials the tensor-core dkdv writes with ``kv_split`` CTAs a key
     block, in PyTorch: per key block of ``keys`` keys its steps (head ``i //
     n_q`` of the GQA group, query block ``first + i % n_q`` of ``rows`` rows,
-    over the query blocks that see the block), cut into ``kv_split`` runs
-    ``[steps z / n, steps (z + 1) / n)``; run z's f32 dK (unscaled) and dV
-    of the block's keys in ``part[z]``, f32 ``[kv_split, B, KV, T, hd +
-    hd_v]`` (:func:`kv_reduce` sums them).  ``lse`` and ``delta`` (``D =
-    sum(dO * O)``) are f32 [B, H, S]."""
+    over the query blocks that see the block), CTA z's part ``[steps z / n,
+    steps (z + 1) / n)`` walked in :func:`dkdv_runs`' runs of ``run_steps``
+    steps (by default :func:`plan_bwd_run_steps`' for the longest walk), each
+    run's f32 sums from 0 added into ``part[z]`` in order:
+    CTA z's f32 dK (unscaled) and dV of the block's keys, f32 ``[kv_split, B,
+    KV, T, hd + hd_v]`` (:func:`kv_reduce` sums them).  ``lse`` and ``delta``
+    (``D = sum(dO * O)``) are f32 [B, H, S]."""
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     g = h // kv
@@ -481,6 +559,8 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     offset = t - s
     part = torch.zeros((kv_split, b, kv, t, hd + hd_v), device=q.device)
     qf, dof = q.float(), dout.float()
+    if run_steps is None:
+        run_steps = plan_bwd_run_steps(g, s, rows, kv_split)
     for k0 in range(0, t, keys):
         k_last = min(k0 + keys, t) - 1
         first = 0 if k0 < prefix else max(0, k0 - offset)
@@ -489,21 +569,26 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         steps = g * n_q
         kb, vb = k[:, :, k0:k_last + 1].float(), v[:, :, k0:k_last + 1].float()
         k_pos = torch.arange(k0, k_last + 1, device=q.device)
-        for z in range(kv_split):
-            for i in range(steps * z // kv_split, steps * (z + 1) // kv_split):
-                head = torch.arange(kv, device=q.device) * g + i // n_q
-                q0 = (first // rows + i % n_q) * rows
-                qs, ds_ = qf[:, head, q0:q0 + rows], dof[:, head, q0:q0 + rows]
-                sc = runtime.cap_scores(torch.einsum("bksd,bktd->bkts", qs, kb) * scale, softcap)
-                q_pos = torch.arange(q0, q0 + qs.shape[2], device=q.device) + offset
-                hidden = hidden_keys(q_pos, k_pos, window, prefix).T
-                p = torch.exp(sc - lse[:, head, q0:q0 + rows][:, :, None]).masked_fill(hidden, 0.0)
-                dp = torch.einsum("bktd,bksd->bkts", vb, ds_)
-                dst = p * (dp - delta[:, head, q0:q0 + rows][:, :, None])
-                if softcap:
-                    dst = dst * cap_grad(sc, softcap)
-                part[z, :, :, k0:k_last + 1, :hd] += torch.einsum("bkts,bksd->bktd", dst, qs)
-                part[z, :, :, k0:k_last + 1, hd:] += torch.einsum("bkts,bksd->bktd", p, ds_)
+        for z, runs in enumerate(dkdv_runs(steps, kv_split, run_steps)):
+            for run in runs:
+                acc = torch.zeros_like(part[z, :, :, k0:k_last + 1])
+                for i in run:
+                    head = torch.arange(kv, device=q.device) * g + i // n_q
+                    q0 = (first // rows + i % n_q) * rows
+                    qs, ds_ = qf[:, head, q0:q0 + rows], dof[:, head, q0:q0 + rows]
+                    sc = runtime.cap_scores(torch.einsum("bksd,bktd->bkts", qs, kb) * scale,
+                                            softcap)
+                    q_pos = torch.arange(q0, q0 + qs.shape[2], device=q.device) + offset
+                    hidden = hidden_keys(q_pos, k_pos, window, prefix).T
+                    p = torch.exp(sc - lse[:, head, q0:q0 + rows][:, :, None]).masked_fill(
+                        hidden, 0.0)
+                    dp = torch.einsum("bktd,bksd->bkts", vb, ds_)
+                    dst = p * (dp - delta[:, head, q0:q0 + rows][:, :, None])
+                    if softcap:
+                        dst = dst * cap_grad(sc, softcap)
+                    acc[..., :hd] += torch.einsum("bkts,bksd->bktd", dst, qs)
+                    acc[..., hd:] += torch.einsum("bkts,bksd->bktd", p, ds_)
+                part[z, :, :, k0:k_last + 1] += acc
     return part
 
 
