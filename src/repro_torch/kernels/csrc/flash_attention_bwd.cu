@@ -72,9 +72,11 @@
 // every CTA's part, kLongRunRows / BQ steps from the accumulators' 0, and
 // adds its sums into the CTA's f32 partial (pass 0 stores them), in pass
 // order.  Such walks hold more runs, so the runs are shorter (kLongRunRows):
-// at G 48 runs of 4,096 rows left dK at 1.7x ATTN_TOL's bound against the
-// plain version.  A walk of one run a CTA (every walk of at most 16 x 4,096
-// rows) is one launch with the arithmetic it had.
+// at G 48 runs of 4,096 rows left dK at 1.4x ATTN_TOL's bound against f64,
+// runs of 1,024 at 0.58.  The passes run the dkdv kernels' PASSES
+// instantiations; a walk of one run a CTA (every walk of at most 16 x 4,096
+// rows) runs the others, which are the kernels it had (in a shared one the
+// pass's code cost some rows 2-5% of their time on an H100).
 // P and dS keep f32 precision into their products as the forward keeps P:
 // x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each; dK
 // takes dS^T in three terms (x = hi + mid + lo, split3_frags) in both dkdv
@@ -1041,11 +1043,12 @@ __device__ __forceinline__ RowRange seeing_rows(int k0, int k_last, const TcPara
 // block's steps (head i / n_q of the group, query block first_qb + i % n_q,
 // i < group * n_q) are cut into n_split runs of consecutive steps, heads
 // first; the CTA takes run z, steps [lo, hi).  Its j-th step (i = lo + j)
-// sits in ring stage j % 2 at parity (j / 2) % 2.
+// sits in ring stage j % 2 at parity (j / 2) % 2.  With PASSES, run
+// p.pass of it (p.run_steps steps).
 struct Walk {
   int k0, z, first_qb, n_q, lo, hi;
 };
-template <int BKV, int BQ>
+template <int BKV, int BQ, bool PASSES>
 __device__ __forceinline__ Walk walk_of(const TcParams& p) {
   const int kb = blockIdx.x / p.n_split, z = blockIdx.x % p.n_split;
   const int k0 = kb * BKV;
@@ -1054,7 +1057,7 @@ __device__ __forceinline__ Walk walk_of(const TcParams& p) {
   const int n_q = rows.first <= rows.last ? rows.last / BQ - first_qb + 1 : 0;
   const int steps = (p.h / p.kv) * n_q;
   int lo = int(int64_t(steps) * z / p.n_split), hi = int(int64_t(steps) * (z + 1) / p.n_split);
-  if (p.run_steps) {
+  if constexpr (PASSES) {
     lo = min(lo + p.pass * p.run_steps, hi);
     hi = min(lo + p.run_steps, hi);
   }
@@ -1126,7 +1129,7 @@ __device__ __forceinline__ bool pair_seen(int key, int row, const TcParams& p) {
 
 // One consumer warpgroup w of dkdv_tc: keys [k0 + 64w, k0 + 64w + 64);
 // this thread holds keys kr0 and kr0 + 8.
-template <int HD, int BKV, int BQ, bool CAP>
+template <int HD, int BKV, int BQ, bool CAP, bool PASSES>
 __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_full,
                                              uint64_t* q_full, uint64_t* do_full,
                                              uint64_t* empty, const TcParams& p, int w, int warp,
@@ -1225,7 +1228,7 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
     store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
     store_rows<HD>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
-  } else if (p.pass == 0) {
+  } else if (!PASSES || p.pass == 0) {
     float* rows = part_rows(p, walk.z, kvh, b, 2 * HD);
     store_part<HD>(dk, rows, 2 * HD, 0, kr0, p.t, lane);
     store_part<HD>(dv, rows, 2 * HD, HD, kr0, p.t, lane);
@@ -1241,7 +1244,7 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
 // warpgroups and the producer warpgroup.  Split (n_split > 1) only where a
 // key block's walk is long (see the split above): the runs write f32
 // partials, summed by kv_reduce_kernel.
-template <int HD, int BKV, int BQ, bool CAP>
+template <int HD, int BKV, int BQ, bool CAP, bool PASSES>
 __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
     dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -1257,7 +1260,7 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
   uint64_t* empty = kv_full + 5;
 
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const Walk walk = walk_of<BKV, BQ>(p);
+  const Walk walk = walk_of<BKV, BQ, PASSES>(p);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -1277,8 +1280,8 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
                                   &map_do, p, walk, warp - 4 * kWarpgroups, lane, kvh, b);
   } else {
     if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dkdv_consume<HD, BKV, BQ, CAP>(smem, kv_full, q_full, do_full, empty, p, warp / 4, warp, lane,
-                                   walk, kvh, b);
+    dkdv_consume<HD, BKV, BQ, CAP, PASSES>(smem, kv_full, q_full, do_full, empty, p, warp / 4,
+                                           warp, lane, walk, kvh, b);
   }
 }
 
@@ -1312,7 +1315,7 @@ __device__ __forceinline__ void named_arrive(int id) {
 }
 
 // Warpgroup A: P^T into the exchange, dV += P^T dO.
-template <int HD, int HDV, bool CAP>
+template <int HD, int HDV, bool CAP, bool PASSES>
 __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full,
                                           uint64_t* q_full, uint64_t* do_full, uint64_t* empty,
                                           const TcParams& p, int warp, int lane,
@@ -1397,7 +1400,7 @@ __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full
   if (p.n_split == 1) {
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
     store_rows<HDV>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
-  } else if (p.pass == 0) {
+  } else if (!PASSES || p.pass == 0) {
     store_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
   } else if (walk.hi > walk.lo) {
     add_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
@@ -1407,7 +1410,7 @@ __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full
 // Warpgroup B: dP^T, dS^T from the exchange, dK += dS^T Q with dS^T in three
 // bf16 terms (split3_frags: with two, dK's entries near 0 missed the check's
 // 1e-4 at gemma-2b's shape with q 8 times the unit scale).
-template <int HD, int HDV>
+template <int HD, int HDV, bool PASSES>
 __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_full,
                                            uint64_t* q_full, uint64_t* do_full, uint64_t* empty,
                                            const TcParams& p, int warp, int lane,
@@ -1482,7 +1485,7 @@ __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_ful
   if (p.n_split == 1) {
     __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
     store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
-  } else if (p.pass == 0) {
+  } else if (!PASSES || p.pass == 0) {
     store_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
   } else if (walk.hi > walk.lo) {
     add_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
@@ -1491,7 +1494,7 @@ __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_ful
 
 // One CTA per (64 keys, KV head, batch, run of steps): warpgroups A and B,
 // then the producer warpgroup (setmaxnreg 232 / 232 / 40).
-template <int HD, int HDV, bool CAP>
+template <int HD, int HDV, bool CAP, bool PASSES>
 __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
     dkdv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -1506,7 +1509,7 @@ __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
   uint64_t* empty = kv_full + 5;
 
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const Walk walk = walk_of<64, 64>(p);
+  const Walk walk = walk_of<64, 64, PASSES>(p);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -1526,10 +1529,12 @@ __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
                                   &map_do, p, walk, warp - 8, lane, kvh, b);
   } else if (warp < 4) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dkdv_wg_p<HD, HDV, CAP>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh, b);
+    dkdv_wg_p<HD, HDV, CAP, PASSES>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk,
+                                    kvh, b);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dkdv_wg_ds<HD, HDV>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh, b);
+    dkdv_wg_ds<HD, HDV, PASSES>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh,
+                                b);
   }
 }
 
@@ -1630,14 +1635,15 @@ bool encode(CUtensorMap* map, const void* base, const long long* strides, int id
   return hopper::encode_bf16_4d(map, base, dims, bst, rows);
 }
 
-template <int HD, int HDV, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP>
+template <int HD, int HDV, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP,
+          bool PASSES = false>
 cudaError_t tc_kernels(const void** dq_kernel, const void** kv_kernel) {
   auto dq = dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>;
   const void* kv;
   if constexpr (KV_BK == 64)
-    kv = reinterpret_cast<const void*>(dkdv_wg_kernel<HD, HDV, CAP>);
+    kv = reinterpret_cast<const void*>(dkdv_wg_kernel<HD, HDV, CAP, PASSES>);
   else
-    kv = reinterpret_cast<const void*>(dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP>);
+    kv = reinterpret_cast<const void*>(dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP, PASSES>);
   cudaError_t err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem);
   if (err != cudaSuccess) return err;
@@ -1692,37 +1698,42 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
     constexpr int DQ_BQ = decltype(dq_bq_c)::value, DQ_BK = decltype(dq_bk_c)::value;
     constexpr int KV_BK = decltype(kv_bk_c)::value, KV_BQ = decltype(kv_bq_c)::value;
     constexpr bool CAP = decltype(cap_c)::value;
-    const void *dq_kernel, *kv_kernel;
-    cudaError_t err =
-        tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP>(&dq_kernel, &kv_kernel);
-    if (err != cudaSuccess) return err;
-    dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>
-        <<<dim3((s + DQ_BQ - 1) / DQ_BQ, h, b), DQ_BQ / 64 * 128 + kProducerThreads,
-           DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem, st>>>(dq_q, dq_k, dq_v, dq_do, p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    // After dq_tc on the same stream: it wrote D.  One launch a pass: where
-    // the longest part (key block 0's steps over n_split) passes kRunRows
-    // rows, runs of kLongRunRows rows, pass r adding run r of every part.
+    // One dkdv launch a pass: where the longest part (key block 0's steps
+    // over n_split) passes kRunRows rows, runs of kLongRunRows rows, pass r
+    // adding run r of every part (the PASSES instantiations).
     const int longest = ((h / kv) * ((s + KV_BQ - 1) / KV_BQ) + n_split - 1) / n_split;
     int passes = 1;
     if (n_split > 1 && longest > kRunRows / KV_BQ) {
       p.run_steps = kLongRunRows / KV_BQ;
       passes = (longest + p.run_steps - 1) / p.run_steps;
     }
-    const dim3 kv_grid((t + KV_BK - 1) / KV_BK * n_split, kv, b);
-    const int kv_smem = KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem;
-    for (p.pass = 0; p.pass < passes; ++p.pass) {
-      if constexpr (KV_BK == 64)
-        dkdv_wg_kernel<HD, HDV, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
-            kv_q, kv_k, kv_v, kv_do, p);
-      else
-        dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP><<<kv_grid, kKvThreads, kv_smem, st>>>(
-            kv_q, kv_k, kv_v, kv_do, p);
+    auto run = [&](auto passes_c) -> int {
+      constexpr bool PASSES = decltype(passes_c)::value;
+      const void *dq_kernel, *kv_kernel;
+      cudaError_t err = tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP, PASSES>(
+          &dq_kernel, &kv_kernel);
+      if (err != cudaSuccess) return err;
+      dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>
+          <<<dim3((s + DQ_BQ - 1) / DQ_BQ, h, b), DQ_BQ / 64 * 128 + kProducerThreads,
+             DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem, st>>>(dq_q, dq_k, dq_v, dq_do, p);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-    }
-    return cudaSuccess;
+      // After dq_tc on the same stream: it wrote D.
+      const dim3 kv_grid((t + KV_BK - 1) / KV_BK * n_split, kv, b);
+      const int kv_smem = KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem;
+      for (p.pass = 0; p.pass < passes; ++p.pass) {
+        if constexpr (KV_BK == 64)
+          dkdv_wg_kernel<HD, HDV, CAP, PASSES><<<kv_grid, kKvThreads, kv_smem, st>>>(
+              kv_q, kv_k, kv_v, kv_do, p);
+        else
+          dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP, PASSES>
+              <<<kv_grid, kKvThreads, kv_smem, st>>>(kv_q, kv_k, kv_v, kv_do, p);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+      }
+      return cudaSuccess;
+    };
+    return passes > 1 ? run(std::true_type{}) : run(std::false_type{});
   });
 }
 
