@@ -187,7 +187,8 @@ Phases, each printing JSON objects, one per line:
    under ``ATTN_TOL`` at ``BWD_CHECKS``' shapes (qwen3-0.6b's training
    shape, gemma-2b, every key, MLA's 192 / 128, window 2048, prefix 256,
    softcap 50, 8 query heads on one KV head at hd 128 and 64 with q 8 times
-   the unit scale (their dkdv split into runs of at most 4,096 rows),
+   the unit scale (their dkdv split into runs of at most 4,096 rows), 48
+   on one KV head at hd 128 (past the split's cap: runs of 1,024 rows),
    ragged, S < T, cross S > T, f32; each row's route asserted
    by the launch counters), two calls equal bit for bit (gemma-2b's with
    its dkdv split over several CTAs), the Function's forward equal to the
@@ -235,6 +236,21 @@ Phases, each printing JSON objects, one per line:
    backward, the optimizer and the rest, and one step's whole-model
    gradients at Mamba-2's dt initialisation, kernel against plain, within
    ``CONSISTENCY_TOL``;
+8c. train_moe: train the MoE families at their published widths through
+   ``launch.train.main`` (20 steps of 4 x 2048 tokens, f32 masters updated
+   in place, full remat; the launch counters set to 0 just before and read
+   just after: every flash backward on the ``tc`` route, one a layer a
+   step, deepseek-v2-lite's at (192, 128)): granite-moe-3b-a800m at all 32
+   layers without checkpoints, deepseek-v2-lite-16b (MLA with MoE) cut to
+   3 layers (``MOE_TRAIN_FAMILIES``); per family the losses finite and
+   falling, step seconds, tokens/s, model FLOPs of the active parameters
+   and their share of the bf16 peak, peak memory, the assignments the
+   dispatch drops a step, one profiled step by kind, the first step's
+   whole-model gradients kernel against plain within ``CONSISTENCY_TOL``
+   (the plain path replays the kernel path's routing; under remat the
+   recomputed forward must route as the forward did), and steps 11..20
+   again from the step-10 checkpoint (granite-moe at 4 layers, deepseek at
+   its 3);
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -5354,10 +5370,11 @@ def train_breakdown(torch, step_fn, state, batch, kernel_kinds=FLASH_KINDS):
         return time.perf_counter() - t0, out
 
     unprofiled, _ = step()
-    with annotated(steps_lib, ["adamw_update"]):
+    updates = ("adamw_update", "adamw_update_")  # the pure step's, the donating step's
+    with annotated(steps_lib, updates):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled, _ = step()
-        optimizer = sum(ranged_kernels(torch, prof, ("adamw_update",)).values())
+        optimizer = sum(ranged_kernels(torch, prof, updates).values())
     kinds = {"products": 0.0, **{kind: 0.0 for kind, _ in kernel_kinds}, "other": 0.0}
     others = collections.Counter()
     events = 0
@@ -5460,29 +5477,18 @@ def phase_train_gemma_tc_run(torch, device):
     return launches
 
 
-def train_and_resume(torch, device, argv, ckpt_name: str):
-    """``launch.train.main(argv)`` with checkpoints under the gitignored
-    ``kernels/_build/<ckpt_name>`` (the launch counters set to 0 just
-    before and read just after), then steps ``TRAIN_CKPT_EVERY + 1 ..
-    TRAIN_STEPS`` again from the step-``TRAIN_CKPT_EVERY`` checkpoint,
-    whose losses must equal the first run's within ``TRAIN_RESUME_TOL``
-    (the ``resume_from_step`` line).  Every loss and grad norm finite.
-    Returns the run: its final state, launches, logged values, step
-    seconds (median of steps 3 on), peak memory and parsed setup."""
-    import shutil
+def train_window(torch, device, argv):
+    """``launch.train.main(argv + ["--device", device])``, the launch
+    counters set to 0 just before and read just after, the peak memory
+    reset before: every loss and grad norm finite.  Returns the run: its
+    final state, launches, logged values, step seconds (median of steps 3
+    on), wall seconds, peak memory and parsed setup."""
     import statistics as stats
 
-    from repro_torch.checkpoint.store import CheckpointStore
-    from repro_torch.data.pipeline import PrefetchingLoader, synthetic_batches
     from repro_torch.kernels import runtime
-    from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train as train_mod
-    from repro_torch.runtime.train_loop import LoopConfig, train
 
-    ckpt = ROOT / "src" / "repro_torch" / "kernels" / "_build" / ckpt_name
-    shutil.rmtree(ckpt, ignore_errors=True)
-    argv = [*argv, "--ckpt-dir", str(ckpt), "--device", str(device)]
-    emit({"phase": "train", "argv": argv, "disk_free_gb": shutil.disk_usage(ROOT).free / 1e9})
+    argv = [*argv, "--device", str(device)]
     log = {}
 
     def record(step, m):
@@ -5495,18 +5501,55 @@ def train_and_resume(torch, device, argv, ckpt_name: str):
     state, _ = train_mod.main(argv, metrics_cb=record)
     torch.cuda.synchronize()
     run = {"wall": time.perf_counter() - t0, "launches": dict(runtime.launches),
-           "peak": torch.cuda.max_memory_allocated()}
+           "peak": torch.cuda.max_memory_allocated(), "state": state}
+    args = train_mod.parse_args(argv)
     steps = sorted(log)
-    check(steps == list(range(1, TRAIN_STEPS + 1)) and int(state["step"]) == TRAIN_STEPS,
+    check(steps == list(range(1, args.steps + 1)) and int(state["step"]) == args.steps,
           f"the trainer logged steps {steps}")
     run.update(loss=[log[s][1] for s in steps], gnorm=[log[s][2] for s in steps],
-               lr=[log[s][3] for s in steps], checkpoints=sorted(os.listdir(ckpt)),
+               lr=[log[s][3] for s in steps],
                step_s=stats.median(log[s][0] - log[s - 1][0] for s in steps[2:]))
     check(all(math.isfinite(x) for x in run["loss"] + run["gnorm"]),
           "a loss or grad norm is not finite")
-    args = train_mod.parse_args(argv)
     cfg, shape, opt_cfg, _ = train_mod.setup(args)
     run.update(args=args, cfg=cfg, shape=shape, opt_cfg=opt_cfg)
+    return run
+
+
+def train_and_resume(torch, device, argv, ckpt_name: str):
+    """:func:`train_window` with checkpoints under the gitignored
+    ``kernels/_build/<ckpt_name>`` (``disk_free_gb`` printed first; the
+    trainer's store writes only the step-``TRAIN_CKPT_EVERY`` checkpoint of
+    the three its loop asks for, 10, 20 and 20 again: a card's machine may
+    write 45 GiB to its disk a run, and deepseek-v2-lite's 3 layers take
+    17.5 GB a checkpoint), then steps ``TRAIN_CKPT_EVERY + 1 ..
+    TRAIN_STEPS`` again from that checkpoint through the donating step,
+    whose losses must equal the first run's within ``TRAIN_RESUME_TOL`` (the
+    ``resume_from_step`` line).  Returns the run (its ``checkpoints`` too)."""
+    import shutil
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.pipeline import PrefetchingLoader, synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.train_loop import LoopConfig, train
+
+    class ResumeStore(CheckpointStore):
+        def save(self, step, state, metadata=None, blocking=True):
+            if step == TRAIN_CKPT_EVERY:
+                super().save(step, state, metadata, blocking)
+
+    ckpt = ROOT / "src" / "repro_torch" / "kernels" / "_build" / ckpt_name
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = [*argv, "--ckpt-dir", str(ckpt)]
+    emit({"phase": "train", "argv": argv, "disk_free_gb": shutil.disk_usage(ROOT).free / 1e9})
+    train_mod.CheckpointStore = ResumeStore
+    try:
+        run = train_window(torch, device, argv)
+    finally:
+        train_mod.CheckpointStore = CheckpointStore
+    run["checkpoints"] = {f: os.path.getsize(ckpt / f) for f in sorted(os.listdir(ckpt))}
+    state, cfg, shape, args = run["state"], run["cfg"], run["shape"], run["args"]
 
     # Resume: the step-10 checkpoint into the final state's structure, then
     # steps 11..20 again.
@@ -5514,10 +5557,9 @@ def train_and_resume(torch, device, argv, ckpt_name: str):
     t1 = time.perf_counter()
     mid, meta = store.restore(TRAIN_CKPT_EVERY, state)
     restore_s = time.perf_counter() - t1
-    run["state"] = state
     check(int(mid["step"]) == TRAIN_CKPT_EVERY and meta["step"] == TRAIN_CKPT_EVERY,
           "the step-10 checkpoint holds another step")
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    step_fn = steps_lib.make_train_step(cfg, run["opt_cfg"], donate=True)
     again = {}
 
     def batches(start):
@@ -5532,9 +5574,10 @@ def train_and_resume(torch, device, argv, ckpt_name: str):
     resumed = [again[s] for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)]
     first = run["loss"][TRAIN_CKPT_EVERY:]
     worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, first))
-    emit({"phase": "train", "arch": cfg.name, "resume_from_step": TRAIN_CKPT_EVERY,
-          "restore_seconds": restore_s, "losses": resumed, "first_run_losses": first,
-          "max_rel_diff": worst, "equal_bits": resumed == first, "tol": TRAIN_RESUME_TOL})
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+          "resume_from_step": TRAIN_CKPT_EVERY, "restore_seconds": restore_s,
+          "losses": resumed, "first_run_losses": first, "max_rel_diff": worst,
+          "equal_bits": resumed == first, "tol": TRAIN_RESUME_TOL})
     check(worst <= TRAIN_RESUME_TOL, f"resumed losses differ from the first run's by {worst}")
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5552,7 +5595,7 @@ def run_line(run, card, flops, params) -> dict:
             "tokens_per_second": tokens / run["step_s"], "model_flops_per_step": flops,
             "model_flops_share_of_peak": flops / run["step_s"] / BF16_OPS_PER_S,
             "peak_memory_bytes": run["peak"], "launches": run["launches"],
-            "checkpoints": run["checkpoints"]}
+            "checkpoints": run.get("checkpoints", [])}
 
 
 def model_grad_errors(torch, cfg, params, batch, plain):
@@ -5927,6 +5970,224 @@ def phase_ssm_train_run(torch, device, card: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 8c: train the MoE families (granite-moe-3b-a800m; deepseek-v2-lite-16b,
+# MLA with MoE)
+# --------------------------------------------------------------------------
+
+# (arch, layers of the timed run (0: all), layers of the resume check), each
+# at its published widths.  granite-moe-3b-a800m's 3.30B parameters take 53
+# GB of f32 masters, gradients and AdamW moments, so it trains at all 32
+# layers, without checkpoints (its state would be 40 GB a checkpoint); its
+# resume runs at 4 layers (5.8 GB).  deepseek-v2-lite-16b's 15.7B would take
+# 251 GB: 3 layers (the dense first and two MoE layers, 1.46B parameters, 23
+# GB; 17.5 GB a checkpoint), timed and resumed in the one run.
+MOE_TRAIN_FAMILIES = ((MOE_ARCH, 0, 4), (MLA_ARCH, 3, 3))
+MOE_TRAIN_ARGV = ("--global-batch", "4", "--seq-len", "2048", "--steps", str(TRAIN_STEPS),
+                  "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
+MOE_FLOPS_FORMULA = ("3 (2 (M + X C / S) B S + 2 (hd_qk + hd_v) H B L S (S + 1) / 2): M the 2-D "
+                     "matrices (tied unembedding once, routers and shared experts whole), X the "
+                     "routed experts' parameters, C = int(cf S k / E) the rows each expert "
+                     "computes a sequence, so X C / S is top-k times the capacity factor over E")
+
+
+def family_argv(arch: str, layers: int) -> tuple:
+    """``launch.train``'s command line for ``arch`` at its published widths,
+    cut to ``layers`` layers through ``--reduced --reduced-overrides`` (0:
+    all, no cut)."""
+    from repro_torch.configs import ARCHS, reduced
+
+    if not layers:
+        return ("--arch", arch, *MOE_TRAIN_ARGV)
+    full = ARCHS[arch]
+    small = reduced(full)
+    over = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)
+            if getattr(small, f.name) != getattr(full, f.name)}
+    over["n_layers"] = layers
+    return ("--arch", arch, "--reduced", "--reduced-overrides",
+            ",".join(f"{k}={v}" for k, v in over.items()), *MOE_TRAIN_ARGV)
+
+
+def moe_train_model_flops(cfg, params, b, s) -> float:
+    """Model FLOPs of one training step of an MoE decoder, its active
+    parameters only (``MOE_FLOPS_FORMULA``; forward and backward, no remat)."""
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves_with_paths
+
+    matrices = experts = 0
+    for path, x in leaves_with_paths(params):
+        if "experts" in path:
+            experts += x.numel()
+        elif x.dim() == 2:
+            matrices += x.numel()
+    if cfg.attn_type == "mla":
+        hd_qk, hd_v = cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim
+    else:
+        hd_qk = hd_v = cfg.head_dim
+    attention = 2 * (hd_qk + hd_v) * cfg.n_heads * b * cfg.n_layers * s * (s + 1) // 2
+    return 3.0 * (2.0 * (matrices + experts * moe.capacity(cfg, s) / s) * b * s + attention)
+
+
+@contextlib.contextmanager
+def counted_drops(torch, device):
+    """The dense dispatch's calls and the assignments they drop (summed on
+    the card) while the context lasts."""
+    from repro_torch.models import moe
+
+    dispatch = moe.dispatch_dense
+    tally = {"calls": 0, "dropped": torch.zeros((), dtype=torch.int64, device=device)}
+
+    def counting(x, ids, n_experts, cap):
+        out = dispatch(x, ids, n_experts, cap)
+        tally["calls"] += 1
+        tally["dropped"] += (~out[1]).sum()
+        return out
+
+    moe.dispatch_dense = counting
+    try:
+        yield tally
+    finally:
+        moe.dispatch_dense = dispatch
+
+
+class RoutingLog:
+    """In place of ``moe._top_k``: records each call's expert ids (the
+    kernel path's), then, once ``replaying``, hands them back in the same
+    order (the plain path's calls follow the kernel path's: the forward in
+    layer order, under remat the recompute in reverse), with the top-k
+    values gathered from the plain path's own probabilities, and keeps the
+    share of rows whose own top-k would have agreed."""
+
+    def __init__(self, top_k):
+        self.top_k, self.calls, self.agree, self.replaying = top_k, [], [], False
+
+    def __call__(self, probs, k):
+        if not self.replaying:
+            values, ids = self.top_k(probs, k)
+            self.calls.append(ids)
+            return values, ids
+        ids = self.calls[len(self.agree)]
+        own = self.top_k(probs, k)[1]
+        self.agree.append(float((own == ids).all(-1).float().mean()))
+        return probs.gather(-1, ids), ids
+
+
+def moe_grad_errors(torch, cfg, params, batch):
+    """:func:`model_grad_errors` of an MoE decoder with the plain path on
+    the kernel path's routing (a near-tie that the two paths' last bits
+    route apart would move the gradients by far more than the tolerance);
+    the kernel path's recomputed forward must route as its forward did.
+    Returns (errors, routing facts)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    log = RoutingLog(moe._top_k)
+
+    @contextlib.contextmanager
+    def plain():
+        log.replaying = True
+        with plain_flash_training():
+            yield
+
+    moe._top_k = log
+    try:
+        errs = model_grad_errors(torch, cfg, params, batch, plain)
+    finally:
+        moe._top_k = log.top_k
+    n = sum(tf.is_moe_layer(cfg, i) for i in range(cfg.n_layers))
+    check(len(log.calls) == len(log.agree) == 2 * n,
+          f"{len(log.calls)} routings on the kernel path, {len(log.agree)} replayed; want "
+          f"{2 * n} (forward and recompute of {n} MoE layers)")
+    same = all(torch.equal(a, b) for a, b in zip(log.calls[:n], reversed(log.calls[n:])))
+    check(same, "under remat the recomputed forward routed otherwise than the forward")
+    return errs, {"moe_calls": len(log.calls), "remat_recompute_routes_equal": same,
+                  "plain_path_routing": "the kernel path's, replayed",
+                  "unforced_agreement_min": min(log.agree)}
+
+
+def phase_moe_train(torch, device, card: str):
+    """Train each of ``MOE_TRAIN_FAMILIES`` (see 8c in the module's text).
+    Returns the launches of the training windows."""
+    import statistics as stats
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    launches = collections.Counter()
+    for arch, layers, resume_layers in MOE_TRAIN_FAMILIES:
+        argv = family_argv(arch, layers)
+        with counted_drops(torch, device) as drops:
+            if layers == resume_layers:
+                run = train_and_resume(torch, device, argv, "train_ckpt_moe")
+            else:
+                emit({"phase": "train_moe", "argv": list(argv)})
+                run = train_window(torch, device, argv)
+        state, cfg, shape, args = run.pop("state"), run["cfg"], run["shape"], run["args"]
+        check(cfg == dataclasses.replace(ARCHS[arch], n_layers=cfg.n_layers),
+              f"the {arch} trainer's config is not {arch}'s widths")
+        loss, found = run["loss"], run["launches"]
+        check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
+              f"{arch}: the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
+        bwd_calls = TRAIN_STEPS * cfg.n_layers
+        check(found.get("flash_attention_bwd") == found.get("flash_attention_bwd_tc")
+              == bwd_calls and "flash_attention_bwd_simt" not in found,
+              f"{arch}: training launched the backward {found.get('flash_attention_bwd')} "
+              f"times, {found.get('flash_attention_bwd_tc')} on the tc route; want {bwd_calls}")
+        if cfg.attn_type == "mla":  # every forward (and its recompute) at (192, 128)
+            check(found.get("flash_attention_tc_192x128") == found.get("flash_attention")
+                  == 2 * bwd_calls, f"{arch}: the flash forward's launches {found}")
+        launches["flash_attention_bwd_tc"] += found["flash_attention_bwd_tc"]
+        n_moe = sum(tf.is_moe_layer(cfg, i) for i in range(cfg.n_layers))
+        b, s = shape.global_batch, shape.seq_len
+        line = run_line(run, card, moe_train_model_flops(cfg, state["params"], b, s),
+                        tf.param_count(state["params"]))
+        line.update(phase="train_moe", layers=cfg.n_layers,
+                    active_params=tf.active_param_count(state["params"], cfg),
+                    capacity=moe.capacity(cfg, s), model_flops_formula=MOE_FLOPS_FORMULA,
+                    dropped_assignments_per_step=int(drops["dropped"]) / drops["calls"] * n_moe,
+                    assignments_per_step=b * s * cfg.experts_per_token * n_moe)
+        emit(line)
+
+        # Where a step's time goes: one profiled step, the state updated in place.
+        big = next(synthetic_batches(cfg, shape, seed=args.seed))
+        big = {k: torch.as_tensor(v, device=device) for k, v in big.items()}
+        step_fn = steps_lib.make_train_step(cfg, run["opt_cfg"], donate=True)
+        emit({"phase": "train_breakdown", "card": card, "arch": cfg.name,
+              "layers": cfg.n_layers, "tokens": [b, s],
+              **train_breakdown(torch, step_fn, state, big)})
+        del state, step_fn
+        torch.cuda.empty_cache()
+
+        # Whole-model gradients of the run's first step (its initial weights,
+        # its first batch), kernel against plain.  After 20 steps the
+        # attention weights' gradients are small beside the two paths' bf16
+        # differences, so a trained state reads them larger (PERF.md, PR 32).
+        params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                                device, dtype=torch.float32)
+        errs, routing = moe_grad_errors(torch, cfg, params, big)
+        emit({"phase": "train_moe", "arch": cfg.name, "layers": cfg.n_layers,
+              "consistency": "whole-model gradients, kernel vs plain", "step": 1,
+              "tokens": [b, s],
+              "per_leaf_rel_err_max": max(errs.values()),
+              "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+              "routing": routing, "tol": CONSISTENCY_TOL})
+        check(max(errs.values()) <= CONSISTENCY_TOL,
+              f"{arch}: whole-model gradients, kernel against plain {max(errs.values())}")
+        del params, big
+        torch.cuda.empty_cache()
+
+        if layers != resume_layers:  # the resume check at its own depth
+            cut = train_and_resume(torch, device, family_argv(arch, resume_layers),
+                                   "train_ckpt_moe")
+            del cut["state"]
+            launches["flash_attention_bwd_tc"] += cut["launches"]["flash_attention_bwd_tc"]
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -5964,7 +6225,16 @@ def main() -> int:
     print(card, flush=True)
     emit({"phase": "scale", "reduced": [
               "gemma-2b's int8 decode (phase 5g): one prompt of 2040 tokens, cut from four "
-              "(64, 512, 1024 and 2040), to keep the run's time with phase 8b added"],
+              "(64, 512, 1024 and 2040), to keep the run's time with phase 8b added",
+              "the trainers' checkpoints (phases 5h, 8b, 8c): only step 10's of the three "
+              "the loop asks for (10, 20, 20 again), which the resume reads: a run may write "
+              "45 GiB to the machine's disk",
+              "deepseek-v2-lite-16b trained (phase 8c) at its published widths cut to 3 layers "
+              "of 27 (the dense first layer and two MoE layers, 1.46B parameters): all 27 "
+              "layers' f32 masters, gradients and AdamW moments would take 251 GB",
+              "granite-moe-3b-a800m's resume check (phase 8c) at its published widths cut to "
+              "4 layers of 32: a checkpoint of all 32 layers' state would be 40 GB (its timed "
+              "run trains all 32 layers, without checkpoints)"],
           "note": "TPC-H SF1 row counts and 256 KiB pages as stated; gemma-2b at its "
                   "published widths and all 18 layers, random weights; mamba2-370m at "
                   "its published widths and all 48 layers, random weights with dt_bias "
@@ -5987,7 +6257,10 @@ def main() -> int:
                   "trained at its published widths and all 28 layers (4 x 2048 tokens a "
                   "step, 20 steps), random weights and synthetic tokens; mamba2-370m "
                   "trained at its published widths and all 48 layers (4 x 2048 tokens a "
-                  "step, 20 steps), random weights and synthetic tokens; nothing else cut"})
+                  "step, 20 steps), random weights and synthetic tokens; granite-moe-3b-a800m "
+                  "trained at its published widths and all 32 layers (4 x 2048 tokens a step, "
+                  "20 steps, capacity factor 1.25), random weights and synthetic tokens; "
+                  "nothing else cut"})
 
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
@@ -6097,6 +6370,9 @@ def main() -> int:
     launches["ssd_scan"] += ssm_launches["ssd_scan"]
     launches["ssd_scan_bwd"] = ssm_launches["ssd_scan_bwd"]
     lap("train_ssm")
+    launches["flash_attention_bwd_tc"] += phase_moe_train(torch, device,
+                                                          card)["flash_attention_bwd_tc"]
+    lap("train_moe")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

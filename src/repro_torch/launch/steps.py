@@ -5,9 +5,14 @@ and the ``Sharder`` wait for the distributed slice): the same step runs on
 one card or, with ``device="cpu"``, on the CPU.  The train step is
 ``repro``'s run without a ``Sharder``: the loss and its gradient in the
 parameters (full remat, :func:`~repro_torch.models.transformer.loss_fn`),
-over ``microbatches`` equal slices of the batch with the gradients summed
-in f32 and divided by ``microbatches``, then AdamW; metrics ``loss``,
-``aux``, ``loss_total``, ``grad_norm`` and ``lr`` as 0-d tensors.
+over ``microbatches`` equal slices of the batch (each with its own MoE aux
+loss, as ``repro``'s scan of ``value_and_grad`` over them) with the
+gradients summed in f32 and divided by ``microbatches``, then AdamW;
+metrics ``loss``, ``aux``, ``loss_total``, ``grad_norm`` and ``lr`` as 0-d
+tensors.  ``donate=True`` updates the state's parameters and moments in
+place (:func:`~repro_torch.optim.adamw.adamw_update_`), as ``repro``'s
+driver donates the state to its jitted step (``donate_argnums=0``): the
+same bits, one copy of the state on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, adamw_update_, init_opt_state
 from repro_torch.tree import leaves, tree_map, tree_unflatten
 
 
@@ -37,8 +42,11 @@ def _value_and_grad(params, cfg: ModelConfig, batch):
                                                                                       flat)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
-    """Returns train_step(state, batch) -> (state, metrics)."""
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1,
+                    donate: bool = False):
+    """Returns train_step(state, batch) -> (state, metrics); with ``donate``
+    the returned state holds ``state``'s parameter and moment tensors,
+    updated in place."""
 
     def train_step(state, batch):
         params = state["params"]
@@ -51,13 +59,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
             loss, parts = 0.0, []
             for i in range(microbatches):
                 l, m, g = _value_and_grad(params, cfg, {k: v[i] for k, v in mbs.items()})
-                grads = tree_map(torch.add, grads, g)
+                tree_map(lambda total, part: total.add_(part), grads, g)
+                del g
                 loss = loss + l
                 parts.append(m)
-            grads = tree_map(lambda g: g / microbatches, grads)
+            tree_map(lambda g: g.div_(microbatches), grads)
             loss = loss / microbatches
             metrics = {k: torch.stack([m[k] for m in parts]).mean() for k in parts[0]}
-        new_params, new_opt, opt_metrics = adamw_update(
+        update = adamw_update_ if donate else adamw_update
+        new_params, new_opt, opt_metrics = update(
             opt_cfg, params, grads, state["opt"], state["step"])
         metrics = dict(metrics)
         metrics.update(opt_metrics)

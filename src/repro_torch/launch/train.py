@@ -6,7 +6,8 @@ versions, as the tests do) and no mesh: ``--production-mesh`` and
 ``--multi-pod`` raise until the distributed slice.  ``--reduced`` trains
 the tiny same-family config (``python -m repro_torch.launch.train --reduced
 --device cpu --steps 5``); without it the published widths.  The state is
-f32 master parameters and AdamW moments (``steps.init_state``), the
+f32 master parameters and AdamW moments (``steps.init_state``), updated in
+place (the step donates them, as ``repro``'s jitted step does), the
 activations bf16, each decoder layer rematerialized; weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed`` on the device, and
 the batches are ``synthetic_batches`` keyed by ``(seed, step)``, moved by
@@ -77,7 +78,8 @@ def main(argv=None, metrics_cb: Optional[Callable[[int, Dict], None]] = None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg, shape, opt_cfg, device = setup(args)
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg, microbatches=args.microbatches,
+                                        donate=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = steps_lib.init_state(cfg, gen, device)
 

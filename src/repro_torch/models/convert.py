@@ -27,7 +27,8 @@ them as the f32 masters that training updates.  Norm scales, the SSM's
 ``a_log``, ``dt_bias`` and ``d_skip`` and the RG-LRU's ``a_param`` stay
 f32, as JAX uses them in f32 arithmetic.  :func:`state_from_jax` carries
 ``repro``'s training state across: the parameters, AdamW's m and v (f32,
-the parameters' tree) and the step.
+the parameters' tree, MoE experts and MLA projections among them) and the
+step.
 """
 
 from __future__ import annotations

@@ -13,6 +13,14 @@ Top-k breaks ties to the lower expert index, as ``jax.lax.top_k`` does
 (``torch.topk`` does not promise it): routing is a stable descending sort.
 bf16 logits tie often, so the rule decides real routings.
 
+Under grad it differentiates as ``repro``'s: the top-k values carry the
+gradient into the router through the bf16 combine weights, the Switch aux
+loss only through the mean of ``probs`` (its expert fractions are counts),
+and an assignment past its expert's capacity gets none.  The gradient
+repeats bit for bit on the card: a token's k copies are summed by an
+expand's reduction, and the combine's gather adds only zeros (a dropped
+assignment's) where its rows meet.
+
 The expert-parallel ``"ep_shard_map"`` strategy waits for the distributed
 slice; :func:`set_moe_impl` accepts it and :func:`moe_apply` then raises.
 """
@@ -112,7 +120,10 @@ def dispatch_dense(x: torch.Tensor, ids: torch.Tensor, n_experts: int, cap: int)
     rows = used + s * k  # spare rows: one a dropped assignment could take
     spare = used + torch.arange(s * k, device=x.device)
     dest = torch.where(keep, slot, spare) + rows * torch.arange(b, device=x.device)[:, None]
-    updates = x.repeat_interleave(k, dim=1).reshape(b * s * k, d)
+    # Each token's row once a choice: an expand, whose gradient is a sum
+    # over the k copies (repeat_interleave's is an index_add, whose atomics
+    # on the card would sum them in a varying order).
+    updates = x[:, :, None].expand(b, s, k, d).reshape(b * s * k, d)
     buf = torch.zeros((b * rows, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, dest.reshape(-1), updates)
     expert_in = buf.view(b, rows, d)[:, :used].reshape(b, n_experts, cap, d)

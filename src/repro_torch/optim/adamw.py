@@ -8,8 +8,12 @@ weight decay added to the update before the learning rate multiplies it
 (``p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)``, computed in f32 and
 rounded once to the parameter's dtype).  ``torch.optim.AdamW`` applies its
 decay as a separate ``p * (1 - lr * wd)`` and rounds differently, so it is
-not used.  Every function is pure: it returns new trees and leaves its
-arguments as they are, as ``repro``'s do.  The step and the schedule's
+not used.  Every function but :func:`adamw_update_` is pure: it returns new
+trees and leaves its arguments as they are, as ``repro``'s do.
+:func:`adamw_update_` is the same update written into the parameters' and
+moments' own tensors, leaf by leaf (the donated state of ``repro``'s
+``jax.jit(..., donate_argnums=0)`` step): equal bits, without a second copy
+of the state and of the clipped gradients.  The step and the schedule's
 values are f32 tensors on the parameters' device, so no step waits for the
 host.
 """
@@ -56,16 +60,19 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float):
+    """(the factor ``min(1, max_norm / max(norm, 1e-9))``, the global norm)."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    return torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0), norm
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    scale, norm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
-@torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step: torch.Tensor):
-    """One AdamW step; returns (new_params, new_opt_state, {"grad_norm", "lr"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def _leaf_update(cfg: AdamWConfig, step: torch.Tensor):
+    """(lr, the update of one leaf: (p, g, m, v) -> (p, m, v) new)."""
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     t = (step + 1).to(torch.float32)
@@ -81,6 +88,30 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step: torch.Tensor)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
         return (p.float() - lr * delta).to(p.dtype), m, v
 
+    return lr, upd
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step: torch.Tensor):
+    """One AdamW step; returns (new_params, new_opt_state, {"grad_norm", "lr"})."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    lr, upd = _leaf_update(cfg, step)
     out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     new_p, new_m, new_v = (tree_map(lambda p, o, i=i: o[i], params, out) for i in range(3))
     return new_p, {"m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, params, grads, opt_state, step: torch.Tensor):
+    """:func:`adamw_update` written into ``params`` and ``opt_state``'s own
+    tensors, one leaf at a time (each gradient clipped as it is used), with
+    the same arithmetic and so the same bits; returns (params, opt_state,
+    {"grad_norm", "lr"}), the same trees."""
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
+    lr, upd = _leaf_update(cfg, step)
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
+                          leaves(opt_state["v"])):
+        new = upd(p, (g.float() * scale).to(g.dtype), m, v)
+        for old, x in zip((p, m, v), new):
+            old.copy_(x)
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr}
