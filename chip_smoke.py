@@ -6164,7 +6164,7 @@ def phase_moe_train(torch, device, card: str):
         # Whole-model gradients of the run's first step (its initial weights,
         # its first batch), kernel against plain.  After 20 steps the
         # attention weights' gradients are small beside the two paths' bf16
-        # differences, so a trained state reads them larger (PERF.md, PR 32).
+        # differences, so a trained state reads them larger (PERF.md).
         params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
                                 device, dtype=torch.float32)
         errs, routing = moe_grad_errors(torch, cfg, params, big)

@@ -11,8 +11,8 @@ gradients summed in f32 and divided by ``microbatches``, then AdamW;
 metrics ``loss``, ``aux``, ``loss_total``, ``grad_norm`` and ``lr`` as 0-d
 tensors.  ``donate=True`` updates the state's parameters and moments in
 place (:func:`~repro_torch.optim.adamw.adamw_update_`), as ``repro``'s
-driver donates the state to its jitted step (``donate_argnums=0``): the
-same bits, one copy of the state on the card.
+``launch/train.py`` donates the state to its jitted step
+(``donate_argnums=0``): the same bits, one copy of the state on the card.
 """
 
 from __future__ import annotations

@@ -33,8 +33,8 @@ the first forward did (asserted too).
    "cpu"])`` runs to the end.
 6. A planted fault the checks must reject: the combine weights detached
    from the router (its gradient then comes from the aux loss alone).
-7. The in-place AdamW of the donating step (``adamw_update_``, the driver's)
-   equals the pure update bit for bit.
+7. The in-place AdamW of the donating step (``adamw_update_``, the one
+   ``launch.train`` steps with) equals the pure update bit for bit.
 
 Tolerances are ``test_torch_train.py``'s.  The JAX model runs without a
 ``Sharder`` (its sharded step is red under jax 0.9.0).
@@ -377,7 +377,7 @@ def test_in_place_adamw_equals_the_pure_update():
 
 
 def test_the_donating_step_equals_the_pure_step():
-    """The driver's step (``donate=True``) gives the pure step's state and
+    """``launch.train``'s step (``donate=True``) gives the pure step's state and
     metrics bit for bit, in the state's own tensors."""
     cfg = reduced(ARCHS[ARCH], **DROPS)
     opt = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1)
