@@ -16,7 +16,8 @@ and windowed serving shapes, the paged kernel at rows 5, 5c and 5d of
 every bf16 row of this tree's ``chip_smoke.BWD_CHECKS`` (named ``"bwd "``
 and the row's name: qwen3-0.6b's training shape, gemma-2b's, MLA's, the
 windowed, prefix and capped rows, the "G 8" and "G 48" rows of query heads
-on one KV head with q 8 times the unit scale; given the forward's lse, in
+on one KV head with q 8 times the unit scale, granite-moe-3b-a800m's
+training shape (G 3, dkdv split in two inside a head) plain and at q gain 8; given the forward's lse, in
 the model's ``[B, S, heads, hd]`` memory), each call's output digested bit
 for bit and timed by device ms
 (``chip_smoke.Bench.device_ms``); each backward also held to this tree's

@@ -189,7 +189,8 @@ Phases, each printing JSON objects, one per line:
    softcap 50, 8 query heads on one KV head at hd 128 and 64 with q 8 times
    the unit scale (their dkdv split into runs of at most 4,096 rows), 48
    on one KV head at hd 128 (past the split's cap: runs of 1,024 rows),
-   ragged, S < T, cross S > T, f32; each row's route asserted
+   granite-moe-3b-a800m's training shape (G 3 split in two inside a head)
+   plain and with q 8 times the unit scale, ragged, S < T, cross S > T, f32; each row's route asserted
    by the launch counters), two calls equal bit for bit (gemma-2b's with
    its dkdv split over several CTAs), the Function's forward equal to the
    no-grad forward bit for bit, the forward's lse against its plain version
@@ -4956,7 +4957,10 @@ TRAIN_ARCH = "qwen3-0.6b"
 # ATTN_TOL there (so dkdv_tc now splits such walks, plan_bwd_run_split).
 # "G 48" is granite-20b's 48 heads on one KV head: 98,304 rows a key block,
 # past the 16 CTAs' cap, so dkdv runs once per run of 1,024 rows of each
-# CTA's part (plan_bwd_run_steps).
+# CTA's part (plan_bwd_run_steps).  The two "granite-moe" rows are the
+# shape its trainer gives the kernel (24 heads on 8 KV heads of 64: G 3,
+# 6,144 rows a key block, so dkdv_tc splits it in two with a part boundary
+# inside a head), plain and with q 8 times the unit scale.
 # Inputs in the model's [B, S, heads, hd] memory, seen as [B, heads, S, hd];
 # dout too.
 BWD_CHECKS = (
@@ -4974,6 +4978,8 @@ BWD_CHECKS = (
     ("G 8 softcap 50 hd 128", 1, 8, 1, 2048, 2048, 128, 128, 0, 0, 50.0, 8.0, "bfloat16"),
     ("G 8 q gain 8 hd 64", 1, 8, 1, 2048, 2048, 64, 64, 0, 0, 0.0, 8.0, "bfloat16"),
     ("G 48 q gain 8 hd 128", 1, 48, 1, 2048, 2048, 128, 128, 0, 0, 0.0, 8.0, "bfloat16"),
+    ("granite-moe train", 4, 24, 8, 2048, 2048, 64, 64, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("granite-moe q gain 8", 4, 24, 8, 2048, 2048, 64, 64, 0, 0, 0.0, 8.0, "bfloat16"),
     ("ragged", 2, 8, 2, 1000, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("S < T", 1, 8, 8, 300, 1000, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("cross S > T", 1, 16, 16, 300, 200, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
@@ -5089,7 +5095,8 @@ def phase_train_kernels(torch, device):
               "equal_bits_twice": same})
         check(ok, f"flash_attention_bwd {name}: kernel differs from its plain version beyond "
                   f"ATTN_TOL (max abs err {err}, relative L2 {rel})")
-        if name in ("gemma-2b", "G 8 softcap 50 hd 128", "G 8 q gain 8 hd 64"):
+        if name in ("gemma-2b", "G 8 softcap 50 hd 128", "G 8 q gain 8 hd 64",
+                    "granite-moe train"):
             check(blocks["kv_split"] > 1, f"{name}'s dkdv is not split: {blocks}")
         if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64",
                     "gemma-2b", "mla 192/128"):
@@ -5251,24 +5258,27 @@ FIXED_BATCH_STEPS, FIXED_BATCH_RULE = 30, 0.7
 
 
 @contextlib.contextmanager
-def plain_flash_training():
+def plain_flash_training(forward: bool = True, backward: bool = True):
     """``FlashAttentionFn`` on the flash kernel's plain forward and plain
     backward while the context lasts, CUDA tensors included: the training
-    checks' reference path (each kernel replaced by its plain version)."""
+    checks' reference path (each kernel replaced by its plain version);
+    ``forward``/``backward`` False keeps that half on the kernel (which
+    then reads the plain forward's lse)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 
     saved = fab.flash_attention, fab.flash_attention_bwd
 
-    def forward(q, k, v, bq=None, bk=64, scale=None, window=0, prefix=0, softcap=0.0,
-                return_lse=False):
+    def plain_fwd(q, k, v, bq=None, bk=64, scale=None, window=0, prefix=0, softcap=0.0,
+                  return_lse=False):
         return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap, return_lse)
 
-    def backward(q, k, v, out, dout, scale, window, prefix, softcap, lse=None):
+    def plain_bwd(q, k, v, out, dout, scale, window, prefix, softcap, lse=None):
         # The reference recomputes each row's log-sum-exp.
         return fab.flash_attention_bwd_plain(q, k, v, out, dout, scale, window, prefix, softcap)
 
-    fab.flash_attention, fab.flash_attention_bwd = forward, backward
+    fab.flash_attention, fab.flash_attention_bwd = (
+        plain_fwd if forward else saved[0], plain_bwd if backward else saved[1])
     try:
         yield
     finally:
@@ -6162,9 +6172,11 @@ def phase_moe_train(torch, device, card: str):
         torch.cuda.empty_cache()
 
         # Whole-model gradients of the run's first step (its initial weights,
-        # its first batch), kernel against plain.  After 20 steps the
-        # attention weights' gradients are small beside the two paths' bf16
-        # differences, so a trained state reads them larger (PERF.md).
+        # its first batch), kernel against plain.  A trained state reads
+        # larger (granite-moe 2.1% after 20 steps, 8.5% after the profiled
+        # step's two more updates on this batch), and all but 0.5% of it
+        # follows the flash forward's bf16 output: the plain forward under
+        # the kernel backward reads 0.5% there (flash_probe.py --grad-swap).
         params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed),
                                 device, dtype=torch.float32)
         errs, routing = moe_grad_errors(torch, cfg, params, big)

@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one H100:
     python3 flash_probe.py [LOG_DIR]
     python3 flash_probe.py --bwd [LOG_DIR]
     python3 flash_probe.py --bwd-long-runs [LOG_DIR]
+    python3 flash_probe.py --grad-swap
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
 an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
@@ -23,12 +24,17 @@ tensor-core route at qwen3-0.6b's training shape under each hd-128
 ``dkdv`` block of ``BWD_TC_BLOCKS``, and at gemma-2b's, recurrentgemma's
 window and paligemma's prefix shapes (hd 256, one KV head) under each dkdv
 split (device ms, and the error against the plain version).  With
-``--bwd-long-runs`` it prints ``-Xptxas -v`` of the backward, then builds
-it once for each run length of ``LONG_RUNS`` (``-DREMOP_BWD_LONG_RUN_ROWS``,
-in parallel) and holds the tensor-core route at 48 heads on one KV head of
-2048 (hd 128, q 8 times the unit scale: 16 CTAs a key block, each part
-walked in runs of that length) to the f64 reference under each, beside the
-CUDA-core route and the plain version, with each one's device ms.  Without
+``--bwd-long-runs`` it prints ``-Xptxas -v`` of the backward, then holds
+the tensor-core route at 48 heads on one KV head of 2048 (hd 128, q 8
+times the unit scale: 16 CTAs a key block, each part walked in runs of
+each length of ``LONG_RUNS``, handed to the launch) to the f64 reference,
+on the inputs of each seed of ``LONG_RUN_SEEDS``, beside the CUDA-core
+route and the plain version, with each one's device ms.  With
+``--grad-swap`` it trains granite-moe-3b-a800m and deepseek-v2-lite-16b
+as ``chip_smoke.py``'s phase 8c does and reads which half of the flash
+kernel, forward or backward, carries the whole-model gradients' gap to
+the plain path, on the trained weights, after the profiled step and at
+init (``grad_swap``).  Without
 either:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
@@ -59,6 +65,8 @@ with its error against the plain version or the error it raised;
 ``chip_smoke.py`` is the full check.  Exits 1 if any check fails.
 """
 
+import contextlib
+import json
 import math
 import subprocess
 import sys
@@ -237,73 +245,162 @@ def bwd_against_f64(torch, chip_smoke) -> None:
         fab.bwd_tc_kv_split, fab.check_bwd_runs = split, runs
 
 
-# The run lengths --bwd-long-runs builds the backward for.
+# The run lengths --bwd-long-runs hands the backward (run_steps), and the
+# seeds of its inputs.
 LONG_RUNS = (4096, 2048, 1024, 512)
+LONG_RUN_SEEDS = (8, 1, 2)
 
 
 def bwd_long_runs(torch, chip_smoke) -> None:
     """The tensor-core backward at G 48 (``[1, 48, 2048, 128]`` on one KV
-    head, q gain 8) against f64 under each run length of ``LONG_RUNS``,
-    each from its own build of ``csrc/flash_attention_bwd.cu``; the CUDA-core
-    route and the plain version beside them."""
-    import ctypes
-
-    from repro_torch.kernels import runtime
+    head, q gain 8) against f64 under each run length of ``LONG_RUNS``
+    (one build: the launch takes the run length), on inputs of each seed of
+    ``LONG_RUN_SEEDS``; the CUDA-core route and the plain version beside
+    them."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
-    procs = {}
-    for rows in LONG_RUNS:
-        out = runtime.BUILD_DIR / f"libflash_attention_bwd_long_run_{rows}.so"
-        cmd = [runtime.nvcc(), *runtime.NVCC_FLAGS, f"-DREMOP_BWD_LONG_RUN_ROWS={rows}", "-o",
-               str(out), str(runtime.CSRC / "flash_attention_bwd.cu")]
-        procs[rows] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), out)
-    libs = {}
-    for rows, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(log[-4000:])
-            raise RuntimeError(f"nvcc at REMOP_BWD_LONG_RUN_ROWS={rows} failed")
-        lib = ctypes.CDLL(str(out))
-        for fn, (argtypes, restype) in runtime.SIGNATURES["flash_attention_bwd"].items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
-        libs[rows] = lib
-    print("built", sorted(libs), flush=True)
     dev = torch.device("cuda", 0)
     bench = chip_smoke.Bench(torch, dev)
-    g = torch.Generator(device=dev).manual_seed(8)
-    q, k, v, dout = ((torch.randn(1, 2048, n, 128, device=dev, generator=g) * gain).to(
-        torch.bfloat16).transpose(1, 2) for n, gain in ((48, 8.0), (1, 1.0), (1, 1.0), (48, 1.0)))
-    out, lse = chip_smoke.forward_with_lse(torch, q, k, v)
-    ref = f64_reference(torch, q, k, v, out, dout, 0.0)
     tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+    bq = fab.plan_bwd_tc_blocks(128, 128)["dkdv"][1]
+    for seed in LONG_RUN_SEEDS:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, dout = ((torch.randn(1, 2048, n, 128, device=dev, generator=g) * gain).to(
+            torch.bfloat16).transpose(1, 2)
+            for n, gain in ((48, 8.0), (1, 1.0), (1, 1.0), (48, 1.0)))
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v)
+        ref = f64_reference(torch, q, k, v, out, dout, 0.0)
 
-    def excess(got, want):
-        r = (got.double() - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
-        return [round(float(r.max()), 4), int((r > 1).sum())]
+        def excess(got, want):
+            r = (got.double() - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
+            return [round(float(r.max()), 4), int((r > 1).sum())]
 
-    def report(what, fn):
-        grads = fn()
-        ms = bench.device_ms(fn, reps=10)["device_ms"]
-        print(f"bwd vs f64 G 48 hd 128 q gain 8 {what}: device ms {ms:.4f}",
-              {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)}, flush=True)
+        def report(what, fn):
+            grads = fn()
+            ms = bench.device_ms(fn, reps=10)["device_ms"]
+            print(f"bwd vs f64 G 48 hd 128 q gain 8 seed {seed} {what}: device ms {ms:.4f}",
+                  {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
+                  flush=True)
 
-    library = runtime.library
+        plan = fab.plan_bwd_run_steps
+        try:
+            for rows in LONG_RUNS:
+                fab.plan_bwd_run_steps = lambda *args, rows=rows: rows // bq
+                report(f"tc, runs of {rows} rows",
+                       lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse))
+        finally:
+            fab.plan_bwd_run_steps = plan
+        route = fab.bwd_route
+        fab.bwd_route = lambda *xs: "simt"
+        try:
+            report("simt", lambda: fab.flash_attention_bwd(q, k, v, out, dout))
+        finally:
+            fab.bwd_route = route
+        report("plain", lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout))
+        del q, k, v, dout, out, lse, ref
+
+
+@contextlib.contextmanager
+def unsplit_dkdv():
+    """The kernel backward's dkdv walks each key block in one CTA and one
+    run while the context lasts."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    saved = fab.bwd_tc_kv_split, fab.check_bwd_runs
+    fab.bwd_tc_kv_split = lambda *args: 1
+    fab.check_bwd_runs = lambda *args, **kwargs: None
     try:
-        for rows, lib in libs.items():
-            runtime.library = lambda name, lib=lib: lib if name == "flash_attention_bwd" else (
-                library(name))
-            report(f"tc, runs of {rows} rows",
-                   lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse))
+        yield
     finally:
-        runtime.library = library
-    route = fab.bwd_route
-    fab.bwd_route = lambda *xs: "simt"
-    try:
-        report("simt", lambda: fab.flash_attention_bwd(q, k, v, out, dout))
-    finally:
-        fab.bwd_route = route
-    report("plain", lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout))
+        fab.bwd_tc_kv_split, fab.check_bwd_runs = saved
+
+
+# (label, plain forward, plain backward, unsplit dkdv) of --grad-swap's paths,
+# each held to the plain forward and plain backward (chip_smoke.plain_flash_training).
+SWAP_PATHS = (("kernel forward, kernel backward", False, False, False),
+              ("plain forward, kernel backward", True, False, False),
+              ("kernel forward, plain backward", False, True, False),
+              ("kernel forward, kernel backward, dkdv unsplit", False, False, True))
+
+
+def grad_swap(torch, chip_smoke, dev) -> None:
+    """Which half of the flash kernel carries the whole-model gradients'
+    kernel-against-plain gap of a trained MoE decoder: each family of
+    ``chip_smoke.MOE_TRAIN_FAMILIES`` trained as phase 8c trains it (20
+    steps, no checkpoints), then one step's gradients (its first batch,
+    full remat) on each path of ``SWAP_PATHS`` against the plain forward and
+    backward, every path on the first path's routing (``chip_smoke.
+    RoutingLog``, replayed), on three sets of weights: after 8c's profiled
+    step (``chip_smoke.train_breakdown``: two more donating updates on that
+    batch, the state phase 8c's gradient check first read), after the 20
+    steps, and the initial ones."""
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    for arch, layers, _ in chip_smoke.MOE_TRAIN_FAMILIES:
+        run = chip_smoke.train_window(torch, dev, chip_smoke.family_argv(arch, layers))
+        cfg, args = run["cfg"], run["args"]
+        state = run.pop("state")
+        batch = next(synthetic_batches(cfg, run["shape"], seed=args.seed))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "losses": run["loss"]}),
+              flush=True)
+        trained = tree_map(lambda t: t.to("cpu", copy=True), state["params"])
+        chip_smoke.train_breakdown(
+            torch, steps_lib.make_train_step(cfg, run["opt_cfg"], donate=True), state, batch)
+        weights = {"after the profiled step": state["params"]}
+        del state
+        torch.cuda.empty_cache()
+        for label in ("after the profiled step", "trained", "init"):
+            if label == "trained":
+                params = tree_map(lambda t: t.to(dev), trained)
+            elif label == "init":
+                params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                        dev, dtype=torch.float32)
+            else:
+                params = weights.pop(label)
+            names = ["/".join(p) for p, _ in leaves_with_paths(params)]
+            log = chip_smoke.RoutingLog(moe._top_k)
+
+            def model_grads():
+                log.agree = []
+                live = tree_map(lambda t: t.detach().requires_grad_(), params)
+                total, _ = tf.loss_fn(live, cfg, batch, remat=True)
+                return torch.autograd.grad(total, leaves(live))
+
+            moe._top_k = log
+            try:
+                first = model_grads()
+                log.replaying = True
+                with chip_smoke.plain_flash_training():
+                    want = model_grads()
+                for path, fwd, bwd, unsplit in SWAP_PATHS:
+                    try:
+                        if path != SWAP_PATHS[0][0]:
+                            with chip_smoke.plain_flash_training(fwd, bwd), (
+                                    unsplit_dkdv() if unsplit else contextlib.nullcontext()):
+                                first = model_grads()
+                    except Exception as e:  # report and go on to the next path
+                        print(json.dumps({"arch": cfg.name, "weights": label, "path": path,
+                                          "raised": repr(e)[:300]}), flush=True)
+                        continue
+                    errs = {n: chip_smoke.rel_err(torch, g, w)
+                            for n, g, w in zip(names, first, want)}
+                    print(json.dumps({
+                        "arch": cfg.name, "weights": label, "path": path,
+                        "against": "plain forward, plain backward",
+                        "per_leaf_rel_err_max": max(errs.values()),
+                        "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:6],
+                        "routing_agreement_min": min(log.agree)}), flush=True)
+                    first = None
+            finally:
+                moe._top_k = log.top_k
+            del params, want
+            torch.cuda.empty_cache()
+        del trained
 
 
 def main() -> int:
@@ -319,9 +416,16 @@ def main() -> int:
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
-    args = [a for a in sys.argv[1:] if a not in ("--bwd", "--bwd-long-runs")]
+    args = [a for a in sys.argv[1:] if a not in ("--bwd", "--bwd-long-runs", "--grad-swap")]
     log_dir = Path(args[0]) if args else runtime.BUILD_DIR
     log_dir.mkdir(parents=True, exist_ok=True)
+    if "--grad-swap" in sys.argv[1:]:
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        chip_smoke.load_peaks()
+        runtime.build()
+        grad_swap(torch, chip_smoke, torch.device("cuda", 0))
+        print("ALL OK", flush=True)
+        return 0
     if "--bwd-long-runs" in sys.argv[1:]:
         ptxas_report(log_dir, "flash_attention_bwd")
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)

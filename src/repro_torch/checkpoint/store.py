@@ -6,8 +6,10 @@ dicts and lists:
     by ``::`` (list indices as numbers: ``params::layers::3::attn::wq::w``);
   * saves are atomic (write to a tmp file, fsync, rename), so a crash
     mid-save never corrupts the latest checkpoint;
-  * ``save`` copies every leaf to the host first, then writes, in the
-    background unless ``blocking``; one write is outstanding at a time, and
+  * ``save`` copies every leaf to the host first (a copy of its own, a
+    CPU leaf too: a step that updates the state in place may run while the
+    copy is written), then writes, in the background unless ``blocking``;
+    one write is outstanding at a time, and
     its error is raised by the next ``wait`` (or ``save``);
   * the newest ``keep`` checkpoints are kept, older ones removed;
   * ``restore`` loads into a template's structure and places each leaf on
@@ -34,7 +36,7 @@ _FLAT_SEP = "::"
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy()

@@ -68,14 +68,14 @@
 // also where B * KV * (key blocks) CTAs leave most SMs idle (few KV heads).
 // The CTAs a key block stop at kMaxSplit (16), so past 16 x 4,096 rows (48
 // heads on one KV head of 2048: 98,304) a CTA's part outnumbers one run's
-// rows.  Then dkdv is launched once per run (a pass): pass r takes run r of
-// every CTA's part, kLongRunRows / BQ steps from the accumulators' 0, and
+// rows.  Then the host hands the tc entry a run length (run_steps, planned
+// and checked by flash_attention_bwd.py's plan_bwd_run_steps and
+// check_bwd_runs) and dkdv is launched once per run (a pass): pass r takes
+// run r of every CTA's part, run_steps steps from the accumulators' 0, and
 // adds its sums into the CTA's f32 partial (pass 0 stores them), in pass
-// order.  Such walks hold more runs, so the runs are shorter (kLongRunRows):
-// at G 48 runs of 4,096 rows left dK at 1.4x ATTN_TOL's bound against f64,
-// runs of 1,024 at 0.58.  The passes run the dkdv kernels' PASSES
-// instantiations; a walk of one run a CTA (every walk of at most 16 x 4,096
-// rows) runs the others, which are the kernels it had (in a shared one the
+// order, as many passes as cover the longest part.  The passes run the dkdv
+// kernels' PASSES instantiations; a walk of one run a CTA (run_steps 0)
+// runs the others, which are the kernels it had (in a shared one the
 // pass's code cost some rows 2-5% of their time on an H100).
 // P and dS keep f32 precision into their products as the forward keeps P:
 // x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each; dK
@@ -651,14 +651,6 @@ int attributes(int hd, int hd_v, int* out) {
 constexpr int kProducerThreads = 128;  // one warpgroup, after the consumers
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSplit = 16;  // CTAs a key block at most (the partials' scratch)
-// (head, query) rows one dkdv accumulator sums at most (BWD_RUN_ROWS on the
-// host), and the run of a walk that needs several (BWD_LONG_RUN_ROWS).
-constexpr int kRunRows = 4096;
-#ifndef REMOP_BWD_LONG_RUN_ROWS
-#define REMOP_BWD_LONG_RUN_ROWS 1024
-#endif
-constexpr int kLongRunRows = REMOP_BWD_LONG_RUN_ROWS;
-
 struct TcParams {
   const void* o;     // the forward's output, for D
   const void* dout;  // its gradient, for D
@@ -1662,12 +1654,12 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
               void* dq, void* dk, void* dv, const void* lse, void* delta, void* part,
               const long long* strides, int b, int h, int kv, int s, int t, int hd, int hd_v,
               int dq_bq, int dq_bk, int kv_bk, int kv_bq, int n_split, float scale, int window,
-              int prefix, float softcap, void* stream) {
+              int prefix, float softcap, int run_steps, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
   if (kv <= 0 || h % kv || t <= 0 || !(s <= t || prefix >= t) || window < 0 || prefix < 0 ||
       (window > 0 && prefix > 0) || !(softcap >= 0.f) || lse == nullptr || delta == nullptr ||
       n_split < 1 || n_split > kMaxSplit || (n_split > 1 && part == nullptr) ||
-      reinterpret_cast<uintptr_t>(part) % 16)
+      reinterpret_cast<uintptr_t>(part) % 16 || run_steps < 0 || (run_steps > 0 && n_split < 2))
     return cudaErrorInvalidValue;
   // The outputs and O are read and written as bf16 pairs.
   for (int i : {3, 5, 6, 7})
@@ -1688,7 +1680,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
     return cudaErrorNotSupported;
   TcParams p{o, dout, dq, dk, dv, static_cast<const float*>(lse), static_cast<float*>(delta),
              static_cast<float*>(part), {}, h, kv, s, t, scale, window, prefix, softcap, n_split,
-             0, 0};
+             run_steps, 0};
   for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   return tc_dispatch(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, softcap > 0.f,
@@ -1698,15 +1690,11 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
     constexpr int DQ_BQ = decltype(dq_bq_c)::value, DQ_BK = decltype(dq_bk_c)::value;
     constexpr int KV_BK = decltype(kv_bk_c)::value, KV_BQ = decltype(kv_bq_c)::value;
     constexpr bool CAP = decltype(cap_c)::value;
-    // One dkdv launch a pass: where the longest part (key block 0's steps
-    // over n_split) passes kRunRows rows, runs of kLongRunRows rows, pass r
-    // adding run r of every part (the PASSES instantiations).
+    // One dkdv launch a pass, pass r adding run r of every part (the PASSES
+    // instantiations): as many as the longest part (key block 0's steps
+    // over n_split) takes at the host's run_steps.
     const int longest = ((h / kv) * ((s + KV_BQ - 1) / KV_BQ) + n_split - 1) / n_split;
-    int passes = 1;
-    if (n_split > 1 && longest > kRunRows / KV_BQ) {
-      p.run_steps = kLongRunRows / KV_BQ;
-      passes = (longest + p.run_steps - 1) / p.run_steps;
-    }
+    const int passes = run_steps > 0 ? (longest + run_steps - 1) / run_steps : 1;
     auto run = [&](auto passes_c) -> int {
       constexpr bool PASSES = decltype(passes_c)::value;
       const void *dq_kernel, *kv_kernel;
@@ -1834,18 +1822,19 @@ int remop_flash_attention_bwd_attributes(int is_f32, int hd, int hd_v, int* out)
 // tc_dispatch): dq_tc's (dq_bq, dq_bk), dkdv's (kv_bk, kv_bq).  kv_split:
 // dkdv's CTAs a key block (1 .. 16); above 1, part is f32 scratch of
 // [kv_split, B, KV, T, hd + hd_v] that dkdv fills instead of dk and dv, and
-// the caller sums it with remop_flash_attention_bwd_kv_reduce.  Two
-// launches, and one more dkdv launch for each further run of a walk past
-// kv_split x kRunRows rows.
+// the caller sums it with remop_flash_attention_bwd_kv_reduce.  run_steps:
+// 0, or (kv_split > 1) the query blocks of dkdv's runs (each CTA's part
+// walked in runs of that many steps, one dkdv launch a run).  Two
+// launches, and one more dkdv launch for each further run.
 int remop_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, void* dq, void* dk, void* dv, const void* lse,
                                  void* delta, void* part, const long long* strides, int b, int h,
                                  int kv, int s, int t, int hd, int hd_v, int dq_bq, int dq_bk,
                                  int kv_bk, int kv_bq, int kv_split, float scale, int window,
-                                 int prefix, float softcap, void* stream) {
+                                 int prefix, float softcap, int run_steps, void* stream) {
   return launch_tc(q, k, v, o, dout, dq, dk, dv, lse, delta, part, strides, b, h, kv, s, t, hd,
                    hd_v, dq_bq, dq_bk, kv_bk, kv_bq, kv_split, scale, window, prefix, softcap,
-                   stream);
+                   run_steps, stream);
 }
 
 // dk = scale * (part[0] + part[1] + ... + part[kv_split - 1]) and dv the same

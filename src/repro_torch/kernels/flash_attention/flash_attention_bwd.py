@@ -106,18 +106,18 @@ BWD_TC_SPILLS = {("dkdv", 128, True, (128, 64))}
 # dkdv's CTAs a key block at most (its f32 partials are scratch of
 # kv_split x dK and dV).
 BWD_KV_SPLIT_MAX = 16
-# The (head, query) rows one dkdv accumulator sums at most (the kernels'
-# kRunRows): wgmma's f32 sums lose more than the CUDA cores' over long walks
-# (on an H100, G 8 on one KV head with q 8 times the unit scale: dK at 3.4x
-# ATTN_TOL's elementwise bound against f64 with 16,384 rows a CTA at hd 128,
-# 1.4x at hd 64, 3.6x at hd 256; 0.50-0.82 with 4,096 rows; flash_probe.py
-# --bwd).
+# The (head, query) rows one dkdv accumulator sums at most: wgmma's f32
+# sums lose more than the CUDA cores' over long walks (on an H100, G 8 on
+# one KV head with q 8 times the unit scale: dK at 3.4x ATTN_TOL's
+# elementwise bound against f64 with 16,384 rows a CTA at hd 128, 1.4x at hd
+# 64, 3.6x at hd 256; 0.50-0.82 with 4,096 rows; flash_probe.py --bwd).
 BWD_RUN_ROWS = 4096
 # The run of a walk whose CTAs' parts pass BWD_RUN_ROWS (past
-# BWD_KV_SPLIT_MAX x BWD_RUN_ROWS rows a key block): the kernels'
-# kLongRunRows.  Shorter, as such walks sum more runs: at 48 heads on one KV
+# BWD_KV_SPLIT_MAX x BWD_RUN_ROWS rows a key block), handed to the kernels
+# as run_steps.  Shorter, as such walks sum more runs: at 48 heads on one KV
 # head of 2048 with q 8 times the unit scale, runs of 4,096 rows left dK at
-# 1.7x ATTN_TOL's bound against the plain version (an H100).
+# 1.7x ATTN_TOL's bound against the plain version (an H100;
+# flash_probe.py --bwd-long-runs sweeps the length).
 BWD_LONG_RUN_ROWS = 1024
 
 
@@ -227,9 +227,9 @@ def plan_bwd_run_split(group: int, s: int) -> int:
 
 
 def plan_bwd_run_steps(group: int, s: int, bq: int, kv_split: int) -> int:
-    """The steps (query blocks of ``bq`` rows) of one dkdv run, as the
-    kernels' host code plans them: 0 (each CTA's part in one run, one dkdv
-    launch) unless ``kv_split`` > 1 and the longest part, ``ceil(group
+    """The steps (query blocks of ``bq`` rows) of one dkdv run, which
+    :func:`bwd_tc_launch` hands the kernels: 0 (each CTA's part in one run,
+    one dkdv launch) unless ``kv_split`` > 1 and the longest part, ``ceil(group
     ceil(s / bq) / kv_split)`` steps, passes :data:`BWD_RUN_ROWS` rows; then
     runs of :data:`BWD_LONG_RUN_ROWS` rows, one dkdv launch (pass) each."""
     longest = -(-group * -(-s // bq) // kv_split)
@@ -476,11 +476,13 @@ def _pointers(*xs: torch.Tensor) -> tuple:
 
 def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                   dout: torch.Tensor, lse: torch.Tensor, scale: float, window: int = 0,
-                  prefix: int = 0, softcap: float = 0.0):
+                  prefix: int = 0, softcap: float = 0.0, run_steps: int | None = None):
     """The tensor-core route's two launches (``dq_tc``, then dkdv) on CUDA
     tensors the route takes, at :func:`plan_bwd_tc_blocks`' blocks and
-    :func:`bwd_tc_kv_split`'s CTAs a key block (``kv_split``).
-    Returns ``(dq, dk, dv, part, kv_split)``: at ``kv_split`` 1 dk and dv
+    :func:`bwd_tc_kv_split`'s CTAs a key block (``kv_split``), each CTA's
+    part walked in runs of ``run_steps`` query blocks (by default
+    :func:`plan_bwd_run_steps`'; held to :func:`check_bwd_runs`), one dkdv
+    launch a run.  Returns ``(dq, dk, dv, part, kv_split)``: at ``kv_split`` 1 dk and dv
     are written and ``part`` is None; above 1 dk and dv are empty and
     ``part``, f32 ``[kv_split, B, KV, T, hd + hd_v]``, holds each CTA's
     unscaled dK then dV, for :func:`kv_reduce`.  Counts no launch:
@@ -490,7 +492,9 @@ def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
     kv_split = bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
-    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split)
+    if run_steps is None:
+        run_steps = plan_bwd_run_steps(h // kv, s, plan["dkdv"][1], kv_split)
+    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split, run_steps)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -502,7 +506,7 @@ def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
             *_pointers(q, k, v, out, dout, dq, dk, dv), lse.data_ptr(), delta.data_ptr(),
             None if part is None else part.data_ptr(), ctypes.addressof(strides), b, h, kv, s,
             t, hd, hd_v, *plan["dq"], *plan["dkdv"], kv_split, scale, window, prefix, softcap,
-            runtime.stream_of(q))
+            run_steps, runtime.stream_of(q))
     runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     return dq, dk, dv, part, kv_split
 

@@ -74,6 +74,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
         metrics["loss_total"] = loss
         return {"params": new_params, "opt": new_opt, "step": state["step"] + 1}, metrics
 
+    train_step.donates = donate
     return train_step
 
 

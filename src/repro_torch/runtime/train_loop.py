@@ -6,7 +6,11 @@ strict about *how*: resumable data (step-keyed), atomic async checkpoints,
 restart from the latest checkpoint on failure, straggler accounting.  The
 port waits for the device where ``repro`` calls ``block_until_ready``
 (the step's loss, so a step's time is its device time) and reads tensors
-back where ``repro`` calls ``device_get``.
+back where ``repro`` calls ``device_get``.  A step that updates its state
+in place (``step_fn.donates``, ``make_train_step(..., donate=True)``)
+consumes the starting state, as ``repro``'s donated buffers are: a restart
+with no checkpoint to resume from then raises rather than start again from
+half-updated tensors.
 """
 
 from __future__ import annotations
@@ -49,20 +53,22 @@ def train(
     """Run to total_steps with restart-from-checkpoint on failure."""
     watch = StragglerWatch()
     start_state = state
+    donates = getattr(step_fn, "donates", False)
 
     def current_step(s) -> int:
         return int(_host(s["step"]))
 
-    def resume():
-        if store is None:
-            return start_state
-        step, restored, _ = store.restore_latest(start_state)
-        if restored is None:
-            return start_state
-        log.info("resumed from checkpoint at step %d", step)
-        return restored
+    def resume(err):
+        step, restored = (None, None) if store is None else store.restore_latest(start_state)[:2]
+        if restored is not None:
+            log.info("resumed from checkpoint at step %d", step)
+            return restored
+        if holder["consumed"]:
+            raise RuntimeError("no checkpoint to restart from, and the step updated the "
+                               "starting state in place") from err
+        return start_state
 
-    holder = {"state": state}
+    holder = {"state": state, "consumed": False}
 
     def body():
         state = holder["state"]
@@ -71,6 +77,7 @@ def train(
         while step < loop_cfg.total_steps:
             batch = next(it)
             t0 = time.time()
+            holder["consumed"] |= donates
             state, metrics = step_fn(state, batch)
             _host(metrics["loss_total"])  # waits for the step
             dt = time.time() - t0
@@ -89,7 +96,7 @@ def train(
         return holder["state"]
 
     def on_restart(attempt, err):
-        holder["state"] = resume()
+        holder["state"] = resume(err)
 
     return RetryPolicy(max_restarts=loop_cfg.max_restarts).run(
         body, on_restart=on_restart)

@@ -92,6 +92,20 @@ def test_writer_error_surfaces_on_wait(tmp_path, monkeypatch):
     assert store.latest_step() is None  # nothing published
 
 
+def test_the_snapshot_is_a_copy_of_its_own():
+    """``save``'s host snapshot shares no memory with a CPU state, so a
+    step that updates the state in place while an async write runs cannot
+    reach the checkpoint."""
+    state = _state()
+    flat = store_mod._flatten(state)
+    for path, leaf in leaves_with_paths(state):
+        assert not np.shares_memory(flat["::".join(path)], _bits(leaf).numpy()), path
+    before = {k: v.copy() for k, v in flat.items()}
+    for leaf in leaves(state):
+        leaf.add_(1)
+    assert all(np.array_equal(flat[k], before[k]) for k in flat)
+
+
 def test_shape_mismatch_and_missing_leaf_raise(tmp_path):
     store = CheckpointStore(str(tmp_path))
     store.save(1, _state())

@@ -5,8 +5,8 @@
 past 16 x 4,096 rows (granite-20b's 48 heads on one KV head of 2048, G 8 at
 S 16,384) each CTA's part is walked in runs of ``BWD_LONG_RUN_ROWS`` rows,
 one dkdv launch (pass) a run, each adding its f32 sums into the CTA's
-partial in order (``plan_bwd_run_steps``, ``dkdv_runs``; the kernels'
-``kRunRows`` and ``kLongRunRows``).  Pinned here: the runs of every plan up
+partial in order (``plan_bwd_run_steps``, ``dkdv_runs``; the launch hands
+the kernels the run length, which plan nothing of their own).  Pinned here: the runs of every plan up
 to 48 x 8192 rows; the planted fault of the capped plan without the walk of
 several runs, rejected by ``check_bwd_runs`` and by the launch; every
 ``chip_smoke.BWD_CHECKS`` row at or below 65,536 rows keeping one run a CTA
@@ -15,6 +15,7 @@ several runs a CTA summing to the unsplit plain dK and dV and to
 ``jax.vjp`` of ``repro``'s ``full_attention``.
 """
 
+import contextlib
 import importlib.util
 import math
 import re
@@ -46,15 +47,43 @@ def _dkdv_bq(hd, hd_v, capped=False):
 
 
 def test_kernel_run_rows_match_the_host():
-    """The kernels' kRunRows is BWD_RUN_ROWS, their long runs'
-    BWD_LONG_RUN_ROWS and their CTA cap BWD_KV_SPLIT_MAX."""
+    """The kernels take their runs from the host (``run_steps``, no run
+    length of their own to drift from :data:`BWD_LONG_RUN_ROWS`), and their
+    CTA cap is BWD_KV_SPLIT_MAX."""
     src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu").read_text()
-    assert re.search(r"constexpr int kRunRows = (\d+);", src).group(1) == str(fab.BWD_RUN_ROWS)
-    assert re.search(r"#define REMOP_BWD_LONG_RUN_ROWS (\d+)", src).group(1) == str(
-        fab.BWD_LONG_RUN_ROWS)
+    assert not re.search(r"RUN_ROWS|kRunRows|kLongRunRows", src)
+    assert re.search(r"int prefix, float softcap, int run_steps, void\* stream\)", src)
     assert fab.BWD_RUN_ROWS % fab.BWD_LONG_RUN_ROWS == 0
     assert re.search(r"constexpr int kMaxSplit = (\d+);", src).group(1) == str(
         fab.BWD_KV_SPLIT_MAX)
+
+
+def test_the_launch_hands_the_kernels_the_planned_runs(monkeypatch):
+    """The tc entry's run_steps (before the stream) is the host's plan: 0
+    where each CTA walks one run, BWD_LONG_RUN_ROWS / bq at granite-20b's
+    G 48; a run length given by the caller goes through the same check."""
+    lib = _Recorder()
+    monkeypatch.setattr(fab.runtime, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fab.runtime, "library", lambda name: lib)
+    monkeypatch.setattr(fab.runtime, "stream_of", lambda x: None)
+    monkeypatch.setattr(fab.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    lse = torch.zeros(1, 48, 2048)
+    for heads, want in ((8, 0), (48, fab.BWD_LONG_RUN_ROWS // 64)):
+        q = torch.zeros(1, heads, 2048, 128, dtype=torch.bfloat16)
+        k = torch.zeros(1, 1, 2048, 128, dtype=torch.bfloat16)
+        fab.bwd_tc_launch(q, k, k, q, q, lse[:, :heads], 0.1)
+        assert lib.args[-2] == want and lib.args[23] == fab.bwd_tc_kv_split(
+            1, heads, 1, 2048, 2048, 128, 128)
+    fab.bwd_tc_launch(q, k, k, q, q, lse, 0.1, run_steps=4096 // 64)
+    assert lib.args[-2] == 64
+    with pytest.raises(ValueError, match="dkdv run of 6144"):  # each CTA's whole part
+        fab.bwd_tc_launch(q, k, k, q, q, lse, 0.1, run_steps=8192 // 64)
+
+
+class _Recorder:
+    def remop_flash_attention_bwd_tc(self, *args):
+        self.args = args
+        return 0
 
 
 @pytest.mark.parametrize("hd,hd_v,capped", [(128, 128, False), (128, 128, True), (64, 64, False),

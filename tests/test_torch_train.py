@@ -22,12 +22,17 @@
 5. ``train()`` with checkpoint and resume, restart after an injected
    failure, the straggler watch and a retry policy that gives up
    (``tests/test_runtime.py:51-124``, two of which are red for ``repro``
-   because of its sharded step).
+   because of its sharded step); under the donating step an async
+   checkpoint holds its step's state bit for bit while the next steps
+   update the state in place, and a restart with no checkpoint raises.
 6. ``tests/test_runtime.py:37``'s rule: on one fixed batch the last loss is
    below 0.7 of the first within 30 steps at the reduced config.
 7. ``launch.train.main([..., "--reduced", "--device", "cpu"])`` runs to the
    end; without a card the default device raises, and so do the mesh flags.
 """
+
+import functools
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +45,7 @@ from repro.launch import steps as jsteps
 from repro.models import transformer as jtf
 from repro.optim import adamw as jadamw
 
+from repro_torch.checkpoint import store as store_mod
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.base import ShapeSpec
@@ -297,6 +303,77 @@ def test_restart_after_injected_failure(tmp_path):
                            async_checkpoint=False, max_restarts=2))
     assert int(out["step"]) == 8
     assert calls["n"] == 10  # 5 good steps, the failure, steps 5..8 again from step 4
+
+
+def _donating_trainer(steps):
+    cfg, shape, _, state = _trainer(steps=steps)
+    opt = AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=2, weight_decay=0.0)
+    return cfg, shape, opt, steps_lib.make_train_step(cfg, opt, donate=True), state
+
+
+def test_async_checkpoint_under_the_donating_step_restores_bit_for_bit(tmp_path, monkeypatch):
+    """The step-10 checkpoint, written in the background while steps 11 on
+    update the state in place (its writer held until step 11 is done),
+    restores the pure step's step-10 state bit for bit."""
+    cfg, shape, opt, step_fn, state = _donating_trainer(steps=14)
+    pure = steps_lib.make_train_step(cfg, opt)
+    want = steps_lib.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    it = iter(_batches(cfg, shape)(0))
+    for _ in range(10):
+        want, _ = pure(want, next(it))
+
+    stepped_11 = threading.Event()
+    savez = store_mod.np.savez
+
+    def held_savez(f, **arrays):
+        if "ckpt_00000010" in f.name:
+            assert stepped_11.wait(timeout=60)
+        return savez(f, **arrays)
+
+    def step(state, batch):
+        out = step_fn(state, batch)
+        if int(out[0]["step"]) == 11:
+            stepped_11.set()
+        return out
+
+    step.donates = True
+    monkeypatch.setattr(store_mod.np, "savez", held_savez)
+    store = CheckpointStore(str(tmp_path), keep=3)
+    out = train(step, state, _batches(cfg, shape), store,
+                LoopConfig(total_steps=14, checkpoint_every=10, log_every=100,
+                           async_checkpoint=True))
+    assert stepped_11.is_set() and int(out["step"]) == 14
+    got, meta = store.restore(10, out)
+    assert meta["step"] == 10 and int(got["step"]) == 10
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_restart_with_no_checkpoint(tmp_path, donate):
+    """A failure before the first checkpoint: the pure step starts again
+    from the starting state; the donating step, which updated it in place,
+    raises."""
+    cfg, shape, opt, _, state = _donating_trainer(steps=6)
+    step_fn = steps_lib.make_train_step(cfg, opt, donate=donate)
+    calls = {"n": 0}
+
+    def flaky_step(state, batch):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("injected node failure")
+        return step_fn(state, batch)
+
+    flaky_step.donates = step_fn.donates
+    run = functools.partial(train, flaky_step, state, _batches(cfg, shape),
+                            CheckpointStore(str(tmp_path)),
+                            LoopConfig(total_steps=6, checkpoint_every=5, log_every=100,
+                                       max_restarts=2))
+    if donate:
+        with pytest.raises(RuntimeError, match="no checkpoint to restart from"):
+            run()
+        assert calls["n"] == 3
+    else:
+        assert int(run()["step"]) == 6 and calls["n"] == 9
 
 
 def test_straggler_watch():
