@@ -58,7 +58,7 @@ Phases, each printing JSON objects, one per line:
    sorted, its DAG makespan no longer than the serial latency, no fallback,
    and every sort and gather kernel launched;
 4. serve: serve gemma-2b at full width (random bf16 weights from a seeded
-   generator on the card) through ``ServeEngine.submit``: 8 requests, 4
+   generator on the card) through ``ServeEngine.submit``: 4 requests, 2
    slots, the launch counters set to 0 just before and read just after;
    every attention call must have gone through the flash (prefill, every
    launch on its tensor-core route) and paged (decode) kernels, and the
@@ -68,13 +68,13 @@ Phases, each printing JSON objects, one per line:
    the device time into attention kernels, matrix products and the rest;
 5. mamba: hold the SSD scan kernel against its plain version bit for bit
    (and reject a planted fault), then serve mamba2-370m at full width and
-   all 48 layers the same way (8 requests, 4 slots; every prefill layer's
+   all 48 layers the same way (4 requests, 2 slots; every prefill layer's
    inter-chunk scan through the kernel), with two decode-against-prefill
    checks, the second across chunks and shown to reject a planted state
    fault, and profiler windows over a prefill and over decode steps split
    into the scan kernel, matrix products and the rest;
 5b. moe: serve granite-moe-3b-a800m at full width and all 32 layers the same
-   way (8 requests, 4 slots, capacity factor 1.25, dropped assignments
+   way (4 requests, 2 slots, capacity factor 1.25, dropped assignments
    counted per prefill; every prefill layer through the flash kernel's
    tensor-core route, every decode layer through the paged kernel), check
    decode against prefill at capacity factor 40 (nothing drops) on hidden
@@ -190,8 +190,9 @@ Phases, each printing JSON objects, one per line:
    the unit scale (their dkdv split into runs of at most 4,096 rows), 48
    on one KV head at hd 128 (past the split's cap: runs of 1,024 rows),
    granite-moe-3b-a800m's training shape (G 3 split in two inside a head)
-   plain and with q 8 times the unit scale, ragged, S < T, cross S > T, f32; each row's route asserted
-   by the launch counters), two calls equal bit for bit (gemma-2b's with
+   plain and with q 8 times the unit scale, recurrentgemma-2b's training
+   shape, ragged, S < T, cross S > T, f32; each row's route and mask kinds
+   asserted by the launch counters), two calls equal bit for bit (gemma-2b's with
    its dkdv split over several CTAs), the Function's forward equal to the
    no-grad forward bit for bit, the forward's lse against its plain version
    (qwen3-0.6b's shape, prefix 200 at hd 64, gemma-2b's and MLA's), seven
@@ -199,8 +200,8 @@ Phases, each printing JSON objects, one per line:
    key one past the prefix, the cap's derivative left out, lse one row
    off, one split's partial dropped, dK's scale dropped), registers and
    spills of every instantiation, and time the ``tc`` route at qwen3-0.6b's
-   shape, gemma-2b's and MLA's, and the ``simt`` route at the f32 shape,
-   beside each bound, plain version and SDPA's backward;
+   shape, gemma-2b's, MLA's and G 48's, and the ``simt`` route at the f32
+   shape, beside each bound, plain version and SDPA's backward;
    hold one qwen3-0.6b block's gradients at 4 x 2048 tokens to the plain
    path (``TRAIN_LAYER_TOL``; a backward without D rejected); train
    qwen3-0.6b at full width through ``launch.train.main`` (20 steps of 4 x
@@ -243,15 +244,33 @@ Phases, each printing JSON objects, one per line:
    just after: every flash backward on the ``tc`` route, one a layer a
    step, deepseek-v2-lite's at (192, 128)): granite-moe-3b-a800m at all 32
    layers without checkpoints, deepseek-v2-lite-16b (MLA with MoE) cut to
-   3 layers (``MOE_TRAIN_FAMILIES``); per family the losses finite and
+   2 layers (``MOE_TRAIN_FAMILIES``); per family the losses finite and
    falling, step seconds, tokens/s, model FLOPs of the active parameters
    and their share of the bf16 peak, peak memory, the assignments the
    dispatch drops a step, one profiled step by kind, the first step's
    whole-model gradients kernel against plain within ``CONSISTENCY_TOL``
    (the plain path replays the kernel path's routing; under remat the
    recomputed forward must route as the forward did), and steps 11..20
-   again from the step-10 checkpoint (granite-moe at 4 layers, deepseek at
-   its 3);
+   again from the step-10 checkpoint (granite-moe at 2 layers, deepseek at
+   its 2);
+8d. train_hybrid: hold one recurrentgemma-2b local-attention block's
+   gradients at 2 x 4096 tokens to the plain path (``TRAIN_LAYER_TOL``; a
+   backward handed window 0 rejected); train recurrentgemma-2b at its
+   published widths and all 26 layers through ``launch.train.main`` (20
+   steps of 2 x 4096 tokens, past the window of 2048; f32 masters updated in
+   place, full remat, no checkpoints; the launch counters set to 0 just
+   before and read just after: one windowed ``tc`` backward a local layer
+   a step, the windowed forward twice), the losses finite and falling, step
+   seconds, tokens/s, model FLOPs over the window's pairs and their share
+   of the bf16 peak, peak memory, one profiled step split into products,
+   the flash forward and backward, AdamW, the RG-LRU's scan and its other
+   work (each with its backward) and the rest, the first step's
+   whole-model gradients kernel against plain within ``CONSISTENCY_TOL``,
+   steps 11..20 again from the step-10 checkpoint at one Griffin period (3
+   layers), and the windowed backward timed at the trainer's shape beside
+   its bound, plain version and SDPA's backward with the band as a mask;
+   the trainers' checkpoint bytes are reckoned before the run
+   (``checkpoint_reckoning``, at most ``CHECKPOINT_LIMIT_GIB``);
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
    the five LLM products of ``benchmarks/bench_kernel_policy.py`` (full
    widths and token blocks) with each kernel instantiation's occupancy,
@@ -317,25 +336,27 @@ CUSTOMER_ROWS = 150_000
 CUSTOMER_FILTER = 0.2
 TPCH_QUERIES = ("q3", "q18")
 
-# gemma-2b serving: 8 requests through 4 slots.
+# gemma-2b serving: 4 requests through 2 slots, so that a slot takes a
+# second request after its first; every phase through ServeEngine serves as
+# many (the "scale" line names the cut).
 SERVE_ARCH = "gemma-2b"
-PROMPT_LENS = (2048, 1536, 1000, 777, 2048, 512, 1300, 64)
+PROMPT_LENS = (2048, 1000, 777, 64)
 MAX_NEW_TOKENS = 32
 MAX_LEN = 4096
-SLOTS = 4
+SLOTS = 2
 SEED = 0
-CHECK_RIDS = (2, 3)  # the 1000- and 777-token prompts: ragged blocks and pages
+CHECK_RIDS = (1, 2)  # the 1000- and 777-token prompts: ragged blocks and pages
 # Decode step against a prefill of the same tokens, relative L2 error of the
 # final hidden state and of the logits: the two paths round differently in
 # bf16 (matrix products of 1 row against products of S rows, the paged
 # kernel against the flash kernel), nothing else.
 CONSISTENCY_TOL = 3e-2
 
-# mamba2-370m serving: 8 requests through 4 slots.  A prompt is at most one
-# chunk (256) or a multiple of it, as ``ssd_forward`` requires.
+# mamba2-370m serving: 4 requests through SLOTS slots.  A prompt is at most
+# one chunk (256) or a multiple of it, as ``ssd_forward`` requires.
 MAMBA_ARCH = "mamba2-370m"
-MAMBA_PROMPT_LENS = (2048, 1536, 1024, 768, 2048, 512, 1280, 225)
-MAMBA_CHECK_RID = 7  # 225 + 31 = 256 tokens at its last decode step: one chunk
+MAMBA_PROMPT_LENS = (2048, 1280, 768, 225)
+MAMBA_CHECK_RID = 3  # 225 + 31 = 256 tokens at its last decode step: one chunk
 MAMBA_CROSS = (1792, 2048)  # prefill 7 chunks, decode to 8; against a prefill of 8
 # Decode against prefill, set before the first run at 48 layers: the
 # relative L2 error of the final hidden state and of the logits (bf16
@@ -386,12 +407,12 @@ MLA_LAYER_SEQ = 2048
 MLA_LAYER_POSITIONS = (0, 1, 2, 5, 17, 63, 64, 127, 300, 511, 777, 1024, 1500, 1999, 2046, 2047)
 MLA_LAYER_TOL = 2e-2
 
-# recurrentgemma-2b serving (RG-LRU + local attention, window 2048): 8
-# requests through 4 slots, 32 new tokens each.  4096 and 3000 exceed the
+# recurrentgemma-2b serving (RG-LRU + local attention, window 2048): 4
+# requests through SLOTS slots, 32 new tokens each.  4096 and 3000 exceed the
 # window in prefill, 2040's decode crosses the ring's wrap at position
-# 2048, 777 and 1300 are ragged.
+# 2048, 777 is ragged.
 HYBRID_ARCH = "recurrentgemma-2b"
-HYBRID_PROMPT_LENS = (4096, 2040, 3000, 777, 2048, 512, 1300, 64)
+HYBRID_PROMPT_LENS = (4096, 2040, 3000, 777)
 HYBRID_MAX_LEN = 4160
 HYBRID_CHECK_RID = 1  # the 2040-token prompt: its decode steps 2040 .. 2070
 # jax.eval_shape of repro's init_params(recurrentgemma-2b), counted.
@@ -3242,24 +3263,56 @@ def annotated(module, names):
             setattr(module, name, fn)
 
 
+def _innermost(spans, items):
+    """For each item ``(start, end, thread, key)`` the name of the
+    innermost span ``(start, end, thread, name)`` on its thread that holds
+    it, or None; the spans nest or are disjoint, as profiler ranges are."""
+    found = {}
+    for thread in {sp[2] for sp in spans}:
+        marks = sorted([(lo, 0, -hi, hi, name) for lo, hi, th, name in spans if th == thread]
+                       + [(lo, 1, 0, hi, key) for lo, hi, th, key in items if th == thread],
+                       key=lambda mark: mark[:3])
+        stack = []
+        for lo, is_item, _, hi, what in marks:
+            while stack and stack[-1][0] < lo:
+                stack.pop()
+            if not is_item:
+                stack.append((hi, what))
+            elif stack and stack[-1][0] >= hi:
+                found[what] = stack[-1][1]
+    return [found.get(key) for *_, key in items]
+
+
 def ranged_kernels(torch, prof, names):
-    """Device seconds of the kernels launched inside each profiler range of
-    ``names`` (innermost range wins), split into products and the rest."""
+    """Device seconds and kernels launched inside each profiler range of
+    ``names`` (innermost wins: the forward and, under remat, its recompute)
+    and by the autograd nodes whose forward op ran inside it (matched by
+    thread and sequence number: the backward pass), split into products
+    and the rest."""
     events = [e for e in prof.events() if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CPU]
-    spans = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
-                    if e.name in names), key=lambda span: span[1] - span[0])
-    out = {f"{name}_{kind}": 0.0 for name in names for kind in ("matmul", "other")}
-    for e in events:
-        if e.name in names or not e.kernels:
-            continue
-        inner = next((name for lo, hi, name in spans
-                      if lo <= e.time_range.start and e.time_range.end <= hi), None)
-        if inner is None:
+    spans = [(e.time_range.start, e.time_range.end, e.thread, e.name) for e in events
+             if e.name in names]
+    ops = [e for e in events if e.sequence_nr >= 0 and e.name not in names
+           and not e.name.startswith("autograd::")]
+    owner = {(e.thread, e.sequence_nr): name for e, name in zip(ops, _innermost(
+        spans, [(e.time_range.start, e.time_range.end, e.thread, i) for i, e in enumerate(ops)]))
+        if name}
+    spans += [(e.time_range.start, e.time_range.end, e.thread,
+               owner[(e.fwd_thread, e.sequence_nr)])
+              for e in events if e.name.startswith("autograd::engine::evaluate_function")
+              and (e.fwd_thread, e.sequence_nr) in owner]
+    launching = [e for e in events if e.kernels and e.name not in names]
+    out = {f"{name}_{kind}": 0.0 for name in names for kind in ("matmul", "other", "kernels")}
+    for e, name in zip(launching, _innermost(
+            spans, [(e.time_range.start, e.time_range.end, e.thread, i)
+                    for i, e in enumerate(launching)])):
+        if name is None:
             continue
         for kernel in e.kernels:
             kind = "matmul" if any(w in kernel.name.lower() for w in MATMUL_NAMES) else "other"
-            out[f"{inner}_{kind}"] += kernel.duration / 1e6
+            out[f"{name}_{kind}"] += kernel.duration / 1e6
+            out[f"{name}_kernels"] += 1
     return out
 
 
@@ -4960,15 +5013,18 @@ TRAIN_ARCH = "qwen3-0.6b"
 # CTA's part (plan_bwd_run_steps).  The two "granite-moe" rows are the
 # shape its trainer gives the kernel (24 heads on 8 KV heads of 64: G 3,
 # 6,144 rows a key block, so dkdv_tc splits it in two with a part boundary
-# inside a head), plain and with q 8 times the unit scale.
-# Inputs in the model's [B, S, heads, hd] memory, seen as [B, heads, S, hd];
-# dout too.
+# inside a head), plain and with q 8 times the unit scale.  "recurrentgemma
+# train" is the shape recurrentgemma-2b's trainer gives the kernel (2 x 4096
+# tokens, 10 heads on one KV head of 256, window 2048: half the queries lose
+# keys to the window).  Inputs in the model's [B, S, heads, hd] memory,
+# seen as [B, heads, S, hd]; dout too.
 BWD_CHECKS = (
     ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("gemma-2b", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 1.0, "bfloat16"),
     ("every key", 1, 16, 16, 4096, 4096, 64, 64, 0, 4096, 0.0, 1.0, "bfloat16"),
     ("mla 192/128", 1, 16, 16, 2048, 2048, 192, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("window 2048", 1, 10, 1, 4096, 4096, 256, 256, 2048, 0, 0.0, 1.0, "bfloat16"),
+    ("recurrentgemma train", 2, 10, 1, 4096, 4096, 256, 256, 2048, 0, 0.0, 1.0, "bfloat16"),
     ("prefix 256", 1, 8, 1, 768, 768, 256, 256, 0, 256, 0.0, 1.0, "bfloat16"),
     ("softcap 50", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 50.0, 8.0, "bfloat16"),
     ("q gain 8", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 8.0, "bfloat16"),
@@ -4988,8 +5044,9 @@ BWD_CHECKS = (
 )
 BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape of the tc route
 BWD_SIMT_REPORT = "f32"  # and of the simt route (f32 only, since hd 256 went to tc)
-# Further timing rows of the tc route: hd 256 (dkdv split over CTAs) and (192, 128).
-BWD_TC_WIDE_REPORTS = ("gemma-2b", "mla 192/128")
+# Further timing rows of the tc route: hd 256 (dkdv split over CTAs), (192, 128)
+# and G 48 (dkdv in passes of 1,024-row runs).
+BWD_TC_WIDE_REPORTS = ("gemma-2b", "mla 192/128", "G 48 q gain 8 hd 128")
 
 
 def bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=0, prefix=0):
@@ -4999,6 +5056,12 @@ def bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=0, prefix=0):
     pairs = sum(min(t, max(i + t - s + 1, prefix), window or t) for i in range(s))
     return ((b * h * s * (2 * hd + 2 * hd_v) + b * kv * t * 2 * (hd + hd_v)) * elem,
             2 * (3 * hd + 2 * hd_v) * pairs * b * h)
+
+
+def bwd_mask_kinds(window, prefix, t):
+    """The mask kinds a backward call also counts its launch under."""
+    return [kind for kind, on in (("windowed", window), ("prefix", prefix),
+                                  ("full", prefix >= t)) if on]
 
 
 def grads_close(torch, got, want):
@@ -5034,9 +5097,8 @@ def phase_train_kernels(torch, device):
     the no-grad forward bit for bit; the forward's lse against its plain
     version; seven planted faults rejected; registers and spills of every
     instantiation (none in what the plan launches); then the ``tc`` route
-    timed at the training shape, gemma-2b's and MLA's, and ``simt`` at the
-    f32 shape, beside each bound, plain version and SDPA's backward."""
-    import torch.nn.functional as F
+    timed at the training shape, gemma-2b's, MLA's and G 48's, and ``simt``
+    at the f32 shape, beside each bound, plain version and SDPA's backward."""
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
@@ -5077,8 +5139,11 @@ def phase_train_kernels(torch, device):
         again = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
         added = {key: n - before.get(key, 0) for key, n in runtime.launches.items()
                  if n != before.get(key, 0)}
-        check(added == {"flash_attention_bwd": 2, f"flash_attention_bwd_{path}": 2},
-              f"flash_attention_bwd {name}: launches {added}, not one {path} launch a call")
+        want_added = {"flash_attention_bwd": 2, f"flash_attention_bwd_{path}": 2,
+                      **{f"flash_attention_bwd_{kind}": 2 for kind in bwd_mask_kinds(
+                          window, prefix, t)}}
+        check(added == want_added,
+              f"flash_attention_bwd {name}: launches {added}, not {want_added}")
         same = all(torch.equal(bits(a), bits(c)) for a, c in zip(got, again))
         check(same, f"flash_attention_bwd {name}: two calls differ")
         check(all(g.shape == x.shape and g.dtype == x.dtype for g, x in zip(got, (q, k, v))),
@@ -5188,44 +5253,11 @@ def phase_train_kernels(torch, device):
                   f"the tc plan at {(hd, hd_v)}{' capped' if capped else ''} launches an "
                   f"instantiation that spills: {attrs}; add it to BWD_TC_SPILLS")
 
-    # Timing of each route at its report shape: kernel, plain version, and
-    # SDPA's backward (torch.autograd.grad of one causal GQA call) on the
-    # same inputs.
+    # Timing of each route at its report shape (bwd_timing).
     bench = Bench(torch, device)
 
     def timing(path, report):
-        (_, b, h, kv, s, t, hd, hd_v, *_, dtype), = (c for c in BWD_CHECKS if c[0] == report)
-        q, k, v = (model_layout(b, n, s, w, dtype) for n, w in ((h, hd), (kv, hd), (kv, hd_v)))
-        with torch.no_grad():
-            out = remop_flash_attention(q, k, v)
-        lse = forward_with_lse(torch, q, k, v)[1] if path == "tc" else None
-        dout = model_layout(b, h, s, hd_v, dtype)
-        check(fab.bwd_route(q, k, v, out, dout) == path, f"the {report} timing is not {path}")
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-
-        def kernel():
-            return fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
-
-        def library():
-            return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
-
-        elem = q.element_size()
-        ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, elem),
-                             BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
-        if path == "tc":
-            blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
-            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
-        else:
-            blocks = fab.plan_bwd_blocks(hd, hd_v, elem)
-        return dict(
-            shape=f"q [{b},{h},{s},{hd}], k [{b},{kv},{t},{hd}], v [{b},{kv},{t},{hd_v}] "
-                  f"{dtype}, causal, the model's layout, route {path}, blocks {blocks}",
-            ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
-            plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout)),
-            library_ms=bench.ms(library),
-            **{f"library_{name}": val for name, val in bench.device_ms(library, reps=10).items()},
-            bound_ms=ms_bound, bound_by=by)
+        return bwd_timing(torch, device, bench, gen, report, path)
 
     for path, report in (("tc", BWD_REPORT), ("simt", BWD_SIMT_REPORT)):
         rows[f"flash_attention_bwd_{path}"] = timing(path, report)
@@ -5236,6 +5268,65 @@ def phase_train_kernels(torch, device):
               **timing("tc", report)})
     del bench
     return errs, rows
+
+
+def bwd_timing(torch, device, bench, gen, report, path="tc"):
+    """The backward at ``BWD_CHECKS``' row ``report`` (its mask and q
+    gain): the kernel's event and device ms beside its bound, its plain
+    version and SDPA's backward (``torch.autograd.grad`` of one GQA call,
+    causal, or with the band as ``attn_mask`` where the row has a window)
+    on the same inputs, in the model's layout."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+
+    (_, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain, dtype), = (
+        c for c in BWD_CHECKS if c[0] == report)
+    check(not prefix and not cap and s == t, f"bwd_timing takes no prefix or cap: {report}")
+
+    def model_layout(heads, n, width, scale=1.0):
+        x = torch.randn(b, n, heads, width, device=device, generator=gen) * scale
+        return x.to(getattr(torch, dtype)).transpose(1, 2)
+
+    q, k, v = model_layout(h, s, hd, gain), model_layout(kv, t, hd), model_layout(kv, t, hd_v)
+    with torch.no_grad():
+        out = remop_flash_attention(q, k, v, window=window)
+    lse = forward_with_lse(torch, q, k, v, window=window)[1] if path == "tc" else None
+    dout = model_layout(h, s, hd_v)
+    check(fab.bwd_route(q, k, v, out, dout) == path, f"the {report} timing is not {path}")
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    if window:
+        pos = torch.arange(s, device=device)
+        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band, enable_gqa=True)
+    else:
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def kernel():
+        return fab.flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
+
+    elem = q.element_size()
+    ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=window),
+                         BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
+    if path == "tc":
+        blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
+        blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
+    else:
+        blocks = fab.plan_bwd_blocks(hd, hd_v, elem)
+    mask = f"window {window}" if window else "causal"
+    return dict(
+        shape=f"q [{b},{h},{s},{hd}], k [{b},{kv},{t},{hd}], v [{b},{kv},{t},{hd_v}] "
+              f"{dtype}, {mask}, q gain {gain}, the model's layout, route {path}, blocks "
+              f"{blocks}",
+        ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
+        plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout,
+                                                                 window=window)),
+        library_ms=bench.ms(library),
+        **{f"library_{name}": val for name, val in bench.device_ms(library, reps=10).items()},
+        bound_ms=ms_bound, bound_by=by)
 
 
 # One qwen3-0.6b block at full width under training: f32 masters, bf16
@@ -5258,12 +5349,13 @@ FIXED_BATCH_STEPS, FIXED_BATCH_RULE = 30, 0.7
 
 
 @contextlib.contextmanager
-def plain_flash_training(forward: bool = True, backward: bool = True):
+def plain_flash_training(forward: bool = True, backward: bool = True, key_blocks: int = 1):
     """``FlashAttentionFn`` on the flash kernel's plain forward and plain
     backward while the context lasts, CUDA tensors included: the training
     checks' reference path (each kernel replaced by its plain version);
     ``forward``/``backward`` False keeps that half on the kernel (which
-    then reads the plain forward's lse)."""
+    then reads the plain forward's lse); ``key_blocks`` times the call's
+    key block in the plain forward sums its f32 softmax in another order."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 
@@ -5271,7 +5363,8 @@ def plain_flash_training(forward: bool = True, backward: bool = True):
 
     def plain_fwd(q, k, v, bq=None, bk=64, scale=None, window=0, prefix=0, softcap=0.0,
                   return_lse=False):
-        return flash_attention_plain(q, k, v, bk, scale, window, prefix, softcap, return_lse)
+        return flash_attention_plain(q, k, v, bk * key_blocks, scale, window, prefix, softcap,
+                                     return_lse)
 
     def plain_bwd(q, k, v, out, dout, scale, window, prefix, softcap, lse=None):
         # The reference recomputes each row's log-sum-exp.
@@ -5285,23 +5378,51 @@ def plain_flash_training(forward: bool = True, backward: bool = True):
         fab.flash_attention, fab.flash_attention_bwd = saved
 
 
-def train_layer_errors(torch, device, fault: bool = False):
-    """Per-leaf relative L2 of one qwen3-0.6b block's parameter and input
-    gradients, kernel path against plain path, at TRAIN_LAYER_BATCH x
-    TRAIN_LAYER_SEQ tokens; ``fault`` drops D in the backward kernel's
-    inputs (its ``out`` zeroed)."""
+def drop_delta(bwd):
+    """``bwd`` with D dropped from its inputs (its ``out`` zeroed)."""
+    def faulty(q, k, v, out, dout, *args):
+        return bwd(q, k, v, out.new_zeros(out.shape), dout, *args)
+    return faulty
+
+
+def window_zero(bwd):
+    """``bwd`` handed ``window = 0`` whatever its forward saw."""
+    def faulty(q, k, v, out, dout, scale, window, *args):
+        return bwd(q, k, v, out, dout, scale, 0, *args)
+    return faulty
+
+
+@contextlib.contextmanager
+def faulty_backward(fault):
+    """The flash backward's wrapper wrapped by ``fault`` (:func:`drop_delta`,
+    :func:`window_zero`) while the context lasts."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    bwd = fab.flash_attention_bwd
+    fab.flash_attention_bwd = fault(bwd)
+    try:
+        yield
+    finally:
+        fab.flash_attention_bwd = bwd
+
+
+def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
+                       tokens=(TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ)):
+    """Per-leaf relative L2 of one ``kind`` block's parameter and input
+    gradients at ``arch``'s widths, kernel path against plain path, at
+    ``tokens`` = (batch, sequence); ``fault`` wraps the backward kernel's
+    wrapper (:func:`faulty_backward`)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.models import layers
     from repro_torch.models import transformer as tf
     from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
-    cfg = ARCHS[TRAIN_ARCH]
+    cfg = ARCHS[arch]
     gen = torch.Generator(device=device).manual_seed(SEED)
     with layers.matrix_dtype(torch.float32):
-        block = tf.init_block(cfg, gen, device, "attn")
-    b, s = TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ
+        block = tf.init_block(cfg, gen, device, kind)
+    b, s = tokens
     x = torch.randn(b, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
     w = torch.randn(b, s, cfg.d_model, device=device, generator=gen)
     pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
@@ -5309,20 +5430,18 @@ def train_layer_errors(torch, device, fault: bool = False):
     def grads():
         live = tree_map(lambda t: t.detach().clone().requires_grad_(), block)
         xg = x.clone().requires_grad_()
-        out, _, _ = tf.block_forward(live, cfg, "attn", xg, pos)
+        out, _, _ = tf.block_forward(live, cfg, kind, xg, pos)
         return torch.autograd.grad((out.float() * w).sum(), leaves(live) + [xg])
 
-    bwd = fab.flash_attention_bwd
-    if fault:
-        fab.flash_attention_bwd = lambda q, k, v, out, dout, *a: bwd(
-            q, k, v, torch.zeros_like(out), dout, *a)
-    try:
-        before = runtime.launches["flash_attention_bwd"]
+    before = dict(runtime.launches)
+    with faulty_backward(fault) if fault else contextlib.nullcontext():
         got = grads()
-        check(runtime.launches["flash_attention_bwd"] == before + 1,
-              "the block's backward did not launch flash_attention_bwd once")
-    finally:
-        fab.flash_attention_bwd = bwd
+    added = {k: n - before.get(k, 0) for k, n in runtime.launches.items()
+             if k.startswith("flash_attention_bwd") and n != before.get(k, 0)}
+    want_added = {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1,
+                  **({"flash_attention_bwd_windowed": 1} if kind == "attn_local" else {})}
+    check(fault is not None or added == want_added,
+          f"the {kind} block's backward launched {added}, not {want_added}")
     with plain_flash_training():
         want = grads()
     names = ["/".join(p) for p, _ in leaves_with_paths(block)] + ["x"]
@@ -5337,7 +5456,7 @@ def phase_train_layer(torch, device):
     check(max(errs.values()) <= TRAIN_LAYER_TOL,
           f"{TRAIN_ARCH} block gradients: kernel path against plain path {max(errs.values())} "
           f"beyond {TRAIN_LAYER_TOL}")
-    bad = train_layer_errors(torch, device, fault=True)
+    bad = train_layer_errors(torch, device, fault=drop_delta)
     emit({"phase": "train", "planted_fault": "layer", "fault": "the backward kernel drops D",
           "max_rel_err": max(bad.values()), "rejected": max(bad.values()) > TRAIN_LAYER_TOL})
     check(max(bad.values()) > TRAIN_LAYER_TOL, "the layer check passes a backward without D")
@@ -5365,10 +5484,12 @@ SCAN_KINDS = (("scan_backward", ("ssd_scan_bwd_kernel", "ssd_scan_bwd_reduce_ker
               ("scan", ("ssd_scan_kernel",)))
 
 
-def train_breakdown(torch, step_fn, state, batch, kernel_kinds=FLASH_KINDS):
+def train_breakdown(torch, step_fn, state, batch, kernel_kinds=FLASH_KINDS, rglru=False):
     """One profiled training step: device seconds by kind (products, the
     ``kernel_kinds``, the optimizer, the rest) and the idle share, beside
-    the same step unprofiled."""
+    the same step unprofiled; with ``rglru`` the RG-LRU's scan, its other
+    elementwise work and its products apart, each with the backward of its
+    ops (:func:`ranged_kernels` over ``HYBRID_RANGES``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps as steps_lib
 
@@ -5379,12 +5500,15 @@ def train_breakdown(torch, step_fn, state, batch, kernel_kinds=FLASH_KINDS):
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
+    from repro_torch.models import rglru as rglru_mod
+
     unprofiled, _ = step()
     updates = ("adamw_update", "adamw_update_")  # the pure step's, the donating step's
-    with annotated(steps_lib, updates):
+    with annotated(steps_lib, updates), annotated(rglru_mod, HYBRID_RANGES if rglru else ()):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled, _ = step()
-        optimizer = sum(ranged_kernels(torch, prof, updates).values())
+        optimizer = sum(v for k, v in ranged_kernels(torch, prof, updates).items()
+                        if not k.endswith("_kernels"))
     kinds = {"products": 0.0, **{kind: 0.0 for kind, _ in kernel_kinds}, "other": 0.0}
     others = collections.Counter()
     events = 0
@@ -5404,8 +5528,22 @@ def train_breakdown(torch, step_fn, state, batch, kernel_kinds=FLASH_KINDS):
             others[e.key[:80]] += us
     kinds["optimizer"] = optimizer
     kinds["elementwise"] = kinds.pop("other") - optimizer
+    split = {}
+    if rglru:
+        rec = ranged_kernels(torch, prof, HYBRID_RANGES)
+        scan, products = rec["associative_scan_other"], sum(
+            rec[f"{name}_matmul"] for name in HYBRID_RANGES)
+        check(scan + rec["rglru_forward_other"] <= kinds["elementwise"] * (1 + 1e-6)
+              and products <= kinds["products"] * (1 + 1e-6),
+              f"RG-LRU ranges {rec} exceed the step's {kinds}")
+        kinds.update(rglru_scan=scan, rglru_other_elementwise=rec["rglru_forward_other"],
+                     rglru_products=products, products=kinds["products"] - products,
+                     elementwise=kinds["elementwise"] - scan - rec["rglru_forward_other"])
+        split = {"rglru_split": "measured" if scan > 0 else "not measured",
+                 "rglru_scan_kernels": rec["associative_scan_kernels"],
+                 "rglru_outside_scan_kernels": rec["rglru_forward_kernels"]}
     return {"unprofiled_step_seconds": unprofiled, "profiled_step_seconds": profiled,
-            **busy_and_idle((kinds, events), profiled, unprofiled),
+            **busy_and_idle((kinds, events), profiled, unprofiled), **split,
             "largest_other_kernels_seconds": dict(others.most_common(8))}
 
 
@@ -5531,8 +5669,8 @@ def train_and_resume(torch, device, argv, ckpt_name: str):
     ``kernels/_build/<ckpt_name>`` (``disk_free_gb`` printed first; the
     trainer's store writes only the step-``TRAIN_CKPT_EVERY`` checkpoint of
     the three its loop asks for, 10, 20 and 20 again: a card's machine may
-    write 45 GiB to its disk a run, and deepseek-v2-lite's 3 layers take
-    17.5 GB a checkpoint), then steps ``TRAIN_CKPT_EVERY + 1 ..
+    write 45 GiB to its disk a run, and recurrentgemma-2b's 3 layers take
+    10.95 GB a checkpoint), then steps ``TRAIN_CKPT_EVERY + 1 ..
     TRAIN_STEPS`` again from that checkpoint through the donating step,
     whose losses must equal the first run's within ``TRAIN_RESUME_TOL`` (the
     ``resume_from_step`` line).  Returns the run (its ``checkpoints`` too)."""
@@ -5569,7 +5707,8 @@ def train_and_resume(torch, device, argv, ckpt_name: str):
     restore_s = time.perf_counter() - t1
     check(int(mid["step"]) == TRAIN_CKPT_EVERY and meta["step"] == TRAIN_CKPT_EVERY,
           "the step-10 checkpoint holds another step")
-    step_fn = steps_lib.make_train_step(cfg, run["opt_cfg"], donate=True)
+    step_fn = steps_lib.make_train_step(cfg, run["opt_cfg"], microbatches=args.microbatches,
+                                        donate=True)
     again = {}
 
     def batches(start):
@@ -5586,6 +5725,7 @@ def train_and_resume(torch, device, argv, ckpt_name: str):
     worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, first))
     emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
           "resume_from_step": TRAIN_CKPT_EVERY, "restore_seconds": restore_s,
+          "checkpoint_bytes": sum(run["checkpoints"].values()),
           "losses": resumed, "first_run_losses": first, "max_rel_diff": worst,
           "equal_bits": resumed == first, "tol": TRAIN_RESUME_TOL})
     check(worst <= TRAIN_RESUME_TOL, f"resumed losses differ from the first run's by {worst}")
@@ -5608,22 +5748,35 @@ def run_line(run, card, flops, params) -> dict:
             "checkpoints": run.get("checkpoints", [])}
 
 
-def model_grad_errors(torch, cfg, params, batch, plain):
-    """Per-leaf relative L2 of one step's whole-model gradients (full
-    remat), the kernel path against the ``plain`` context's path."""
+def model_grads(torch, cfg, params, batch, context):
+    """One step's whole-model gradients (full remat) under ``context``, by
+    leaf path."""
     from repro_torch.models import transformer as tf
     from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
-    def model_grads():
+    with context():
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         total, _ = tf.loss_fn(live, cfg, batch, remat=True)
-        return torch.autograd.grad(total, leaves(live))
+        grads = torch.autograd.grad(total, leaves(live))
+    return {"/".join(p): g for (p, _), g in zip(leaves_with_paths(params), grads)}
 
-    got = model_grads()
-    with plain():
-        want = model_grads()
-    return {"/".join(p): rel_err(torch, g, w) for (p, _), g, w in
-            zip(leaves_with_paths(params), got, want)}
+
+def path_grad_errors(torch, cfg, params, batch, plain, paths):
+    """Per-leaf relative L2 of one step's whole-model gradients under each
+    context of ``paths`` against those under ``plain``; one path's
+    gradients beside the plain path's at a time."""
+    want = model_grads(torch, cfg, params, batch, plain)
+    return [{n: rel_err(torch, g, want[n])
+             for n, g in model_grads(torch, cfg, params, batch, path).items()} for path in paths]
+
+
+def model_grad_errors(torch, cfg, params, batch, plain):
+    """Per-leaf relative L2 of one step's whole-model gradients (full
+    remat), the kernel path (run first: the MoE checks replay its routing)
+    against the ``plain`` context's path."""
+    got = model_grads(torch, cfg, params, batch, contextlib.nullcontext)
+    want = model_grads(torch, cfg, params, batch, plain)
+    return {n: rel_err(torch, g, want[n]) for n, g in got.items()}
 
 
 def phase_train_run(torch, device, card: str):
@@ -5989,10 +6142,11 @@ def phase_ssm_train_run(torch, device, card: str):
 # at its published widths.  granite-moe-3b-a800m's 3.30B parameters take 53
 # GB of f32 masters, gradients and AdamW moments, so it trains at all 32
 # layers, without checkpoints (its state would be 40 GB a checkpoint); its
-# resume runs at 4 layers (5.8 GB).  deepseek-v2-lite-16b's 15.7B would take
-# 251 GB: 3 layers (the dense first and two MoE layers, 1.46B parameters, 23
-# GB; 17.5 GB a checkpoint), timed and resumed in the one run.
-MOE_TRAIN_FAMILIES = ((MOE_ARCH, 0, 4), (MLA_ARCH, 3, 3))
+# resume runs at 2 layers (3.3 GB), so that the run's checkpoints stay within
+# CHECKPOINT_LIMIT_GIB.  deepseek-v2-lite-16b's 15.7B would take 251 GB: 2
+# layers (the dense first and one MoE layer, 876M parameters, 14 GB; 10.5 GB
+# a checkpoint), timed and resumed in the one run.
+MOE_TRAIN_FAMILIES = ((MOE_ARCH, 0, 2), (MLA_ARCH, 2, 2))
 MOE_TRAIN_ARGV = ("--global-batch", "4", "--seq-len", "2048", "--steps", str(TRAIN_STEPS),
                   "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
 MOE_FLOPS_FORMULA = ("3 (2 (M + X C / S) B S + 2 (hd_qk + hd_v) H B L S (S + 1) / 2): M the 2-D "
@@ -6001,21 +6155,23 @@ MOE_FLOPS_FORMULA = ("3 (2 (M + X C / S) B S + 2 (hd_qk + hd_v) H B L S (S + 1) 
                      "computes a sequence, so X C / S is top-k times the capacity factor over E")
 
 
-def family_argv(arch: str, layers: int) -> tuple:
-    """``launch.train``'s command line for ``arch`` at its published widths,
-    cut to ``layers`` layers through ``--reduced --reduced-overrides`` (0:
-    all, no cut)."""
+def family_argv(arch: str, layers: int, tail: tuple | None = None) -> tuple:
+    """``launch.train``'s command line (``tail`` after the config, by
+    default ``MOE_TRAIN_ARGV``) for ``arch`` at its published widths, cut to
+    ``layers`` layers through ``--reduced --reduced-overrides`` (0: all, no
+    cut)."""
     from repro_torch.configs import ARCHS, reduced
 
+    tail = MOE_TRAIN_ARGV if tail is None else tail
     if not layers:
-        return ("--arch", arch, *MOE_TRAIN_ARGV)
+        return ("--arch", arch, *tail)
     full = ARCHS[arch]
     small = reduced(full)
     over = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)
             if getattr(small, f.name) != getattr(full, f.name)}
     over["n_layers"] = layers
     return ("--arch", arch, "--reduced", "--reduced-overrides",
-            ",".join(f"{k}={v}" for k, v in over.items()), *MOE_TRAIN_ARGV)
+            ",".join(f"{k}={v}" for k, v in over.items()), *tail)
 
 
 def moe_train_model_flops(cfg, params, b, s) -> float:
@@ -6200,6 +6356,213 @@ def phase_moe_train(torch, device, card: str):
     return launches
 
 
+# A chip call may write 45 GiB to its machine's disk, counted even when
+# deleted; the trainers' step-10 checkpoints (train_and_resume) may take
+# CHECKPOINT_LIMIT_GIB of it, the rest is for the builds and caches.
+CHECKPOINT_LIMIT_GIB = 41.0
+
+
+def checkpointed_argvs() -> dict:
+    """The command line of every trainer that writes a checkpoint, by name."""
+    return {"qwen3-0.6b (5h)": TRAIN_ARGV, "mamba2-370m (8b)": SSM_TRAIN_ARGV,
+            **{f"{arch} at {n} layers (8c)": family_argv(arch, n)
+               for arch, _, n in MOE_TRAIN_FAMILIES},
+            f"{HYBRID_ARCH} at {HYBRID_RESUME_LAYERS} layers (8d)": family_argv(
+                HYBRID_ARCH, HYBRID_RESUME_LAYERS, HYBRID_TRAIN_ARGV)}
+
+
+def checkpoint_reckoning(torch) -> dict:
+    """Bytes of each trainer's step-10 checkpoint, reckoned before any runs:
+    its parameters (counted on the meta device) times 12 (f32 masters and
+    both AdamW moments).  Fails past CHECKPOINT_LIMIT_GIB."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    for name, argv in checkpointed_argvs().items():
+        cfg = train_mod.setup(train_mod.parse_args([*argv, "--device", "cpu"]))[0]
+        with layers.matrix_dtype(torch.float32):
+            params = tf._init_params(cfg, torch.Generator(), torch.device("meta"))
+        out[name] = 12 * tf.param_count(params)
+    total = sum(out.values()) / 2 ** 30
+    emit({"phase": "disk", "checkpoint_bytes": out, "total_gib": total,
+          "limit_gib": CHECKPOINT_LIMIT_GIB})
+    check(total <= CHECKPOINT_LIMIT_GIB, f"the trainers' checkpoints would take {total} GiB")
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 8d: train recurrentgemma-2b (RG-LRU + local attention)
+# --------------------------------------------------------------------------
+
+# 2 x 4096 tokens a step: the same 8,192 tokens as the other trainers, but
+# past the window of 2048, so half the queries lose keys to it (at 2048 the
+# largest gap is 2047 and the window hides nothing).  All 26 layers at the
+# published widths, 20 steps, f32 masters, bf16 activations, full remat, the
+# donating step, no checkpoints (all 26 layers' state is 34.7 GB a
+# checkpoint); the resume check at one Griffin period (rec, rec,
+# attn_local: 912M parameters, 10.95 GB a checkpoint).  In two microbatches
+# (repro's --microbatches): in one, the f32 logits of 2 x 4096 x 256,000
+# (7.8 GiB) and their softmax's backward on top of the 46 GB of state and
+# gradients ran out of the card's memory at step 3 on an H100.  One local
+# block's gradients at the trainer's tokens are held to the plain path
+# within TRAIN_LAYER_TOL, and a backward handed window 0 must miss it.
+HYBRID_TRAIN_TOKENS = (2, 4096)
+HYBRID_MICROBATCHES = 2
+HYBRID_TRAIN_ARGV = ("--global-batch", str(HYBRID_TRAIN_TOKENS[0]), "--seq-len",
+                     str(HYBRID_TRAIN_TOKENS[1]), "--microbatches", str(HYBRID_MICROBATCHES),
+                     "--steps", str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY),
+                     "--seed", "0")
+HYBRID_RESUME_LAYERS = 3
+HYBRID_REPORT = "recurrentgemma train"  # BWD_CHECKS' row at the trainer's shape
+# The RG-LRU's profiler ranges in a training step (models/rglru.py).
+HYBRID_RANGES = ("associative_scan", "rglru_forward")
+HYBRID_FLOPS_FORMULA = ("3 (2 M B S + 4 hd H B L P): M the 2-D parameters (tied unembedding "
+                        "once; the RG-LRU's projections, gates and depthwise conv among them), "
+                        "L the attn_local layers (8 of 26), P = sum over i < S of min(i + 1, W) "
+                        "the (query, key) pairs the window W lets through a sequence")
+
+
+def hybrid_train_model_flops(cfg, params, b, s) -> float:
+    """Model FLOPs of one training step of the RG-LRU hybrid
+    (``HYBRID_FLOPS_FORMULA``; forward and backward, no remat)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves
+
+    matrices = sum(x.numel() for x in leaves(params) if x.dim() == 2)
+    pairs = sum(min(i + 1, cfg.window) for i in range(s))
+    local = tf.layer_kinds(cfg).count("attn_local")
+    return 3.0 * (2.0 * matrices * b * s + 4 * cfg.head_dim * cfg.n_heads * b * local * pairs)
+
+
+def phase_hybrid_train_layer(torch, device):
+    """One ``attn_local`` block of recurrentgemma-2b at full width under
+    training at HYBRID_TRAIN_TOKENS, kernel path against plain path; a
+    backward handed window 0 must be rejected."""
+    kw = dict(arch=HYBRID_ARCH, kind="attn_local", tokens=HYBRID_TRAIN_TOKENS)
+    errs = train_layer_errors(torch, device, **kw)
+    emit({"phase": "train_hybrid", "layer_check": HYBRID_ARCH, "kind": "attn_local",
+          "tokens": list(HYBRID_TRAIN_TOKENS), "per_leaf_rel_err": errs,
+          "max_rel_err": max(errs.values()), "tol": TRAIN_LAYER_TOL})
+    check(max(errs.values()) <= TRAIN_LAYER_TOL,
+          f"{HYBRID_ARCH} local block gradients: kernel path against plain path "
+          f"{max(errs.values())} beyond {TRAIN_LAYER_TOL}")
+    bad = train_layer_errors(torch, device, fault=window_zero, **kw)
+    rejected = not max(bad.values()) <= TRAIN_LAYER_TOL  # a NaN is rejected too
+    emit({"phase": "train_hybrid", "planted_fault": "layer",
+          "fault": "the backward kernel handed window 0", "max_rel_err": max(bad.values()),
+          "worst_leaf": max(bad, key=bad.get), "rejected": rejected})
+    check(rejected, "the layer check passes a backward handed window 0")
+    torch.cuda.empty_cache()
+
+
+def phase_hybrid_train(torch, device, card: str):
+    """Train recurrentgemma-2b at all 26 layers through ``launch.train.main``
+    (the launch counters set to 0 just before, read just after: every local
+    layer's backward on the tc route and windowed, its forward windowed
+    twice a step under remat), profile a step, hold the first step's
+    whole-model gradients to the plain path, resume one Griffin period from
+    its step-10 checkpoint, and time the windowed backward at the trainer's
+    shape.  Returns (the launches of the training windows, the timing row)."""
+    import statistics as stats
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tf
+
+    argv = family_argv(HYBRID_ARCH, 0, HYBRID_TRAIN_ARGV)
+    emit({"phase": "train_hybrid", "argv": list(argv)})
+    run = train_window(torch, device, argv)
+    state, cfg, shape, args = run.pop("state"), run["cfg"], run["shape"], run["args"]
+    check(cfg == ARCHS[HYBRID_ARCH], f"the {HYBRID_ARCH} trainer's config is not its own")
+    loss, found = run["loss"], run["launches"]
+    check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
+          f"{HYBRID_ARCH}: the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
+    local = tf.layer_kinds(cfg).count("attn_local")
+    # One backward a local layer and microbatch a step; the forward twice
+    # (the forward and remat's recompute).
+    bwd_calls = TRAIN_STEPS * local * args.microbatches
+    want = {"flash_attention_bwd": bwd_calls, "flash_attention_bwd_tc": bwd_calls,
+            "flash_attention_bwd_windowed": bwd_calls, "flash_attention": 2 * bwd_calls,
+            "flash_attention_tc": 2 * bwd_calls, "flash_attention_windowed": 2 * bwd_calls}
+    got = {k: n for k, n in found.items() if k.startswith("flash_attention")}
+    check(got == want, f"{HYBRID_ARCH}: the flash launches {got}; want {want} "
+                       f"({local} local layers x {TRAIN_STEPS} steps x {args.microbatches} "
+                       "microbatches, the forward twice under remat)")
+    b, s = shape.global_batch, shape.seq_len
+    line = run_line(run, card, hybrid_train_model_flops(cfg, state["params"], b, s),
+                    tf.param_count(state["params"]))
+    line.update(phase="train_hybrid", layers=cfg.n_layers, local_layers=local,
+                window=cfg.window, microbatches=args.microbatches,
+                model_flops_formula=HYBRID_FLOPS_FORMULA)
+    emit(line)
+
+    # Where a step's time goes: one profiled step, the state updated in place.
+    big = next(synthetic_batches(cfg, shape, seed=args.seed))
+    big = {k: torch.as_tensor(v, device=device) for k, v in big.items()}
+    step_fn = steps_lib.make_train_step(cfg, run["opt_cfg"], microbatches=args.microbatches,
+                                        donate=True)
+    emit({"phase": "train_breakdown", "card": card, "arch": cfg.name, "layers": cfg.n_layers,
+          "tokens": [b, s], **train_breakdown(torch, step_fn, state, big, rglru=True)})
+    del state, step_fn, run
+    torch.cuda.empty_cache()
+
+    # Whole-model gradients of the run's first step (its initial weights, its
+    # first batch's first microbatch), kernel against plain, each leaf within
+    # CONSISTENCY_TOL of the plain path plus the plain path's own floor: how
+    # far it moves when its forward sums the same f32 softmax in another
+    # order (twice the key block).  At 26 random-init layers that order
+    # alone moved layer 23's wq and wk gradients by 3.6% on an H100, the
+    # kernel path 3.9%.  A backward handed window 0 must miss the rule.
+    params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device,
+                            dtype=torch.float32)
+    first = {k: v[:b // args.microbatches] for k, v in big.items()}
+    errs, floor, bad = path_grad_errors(
+        torch, cfg, params, first, plain_flash_training,
+        (contextlib.nullcontext, lambda: plain_flash_training(key_blocks=2),
+         lambda: faulty_backward(window_zero)))
+    over = {n: errs[n] - floor[n] for n in errs}
+    bad_over = max(e - floor[n] for n, e in bad.items())
+    emit({"phase": "train_hybrid", "arch": cfg.name, "layers": cfg.n_layers,
+          "consistency": "whole-model gradients, kernel vs plain", "step": 1,
+          "microbatch": 1, "tokens": list(first["tokens"].shape),
+          "per_leaf_rel_err_max": max(errs.values()),
+          "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+          "plain_floor_max": max(floor.values()),
+          "worst_floor_leaves": sorted(floor.items(), key=lambda kv: -kv[1])[:5],
+          "per_leaf_rel_err_over_floor_max": max(over.values()),
+          "within_tol_without_floor": max(errs.values()) <= CONSISTENCY_TOL,
+          "tol": CONSISTENCY_TOL,
+          "planted_fault": "the backward handed window 0",
+          "fault_rel_err_over_floor_max": bad_over, "fault_rejected": bad_over > CONSISTENCY_TOL})
+    check(max(over.values()) <= CONSISTENCY_TOL,
+          f"{HYBRID_ARCH}: whole-model gradients, kernel against plain, past the plain path's "
+          f"own floor by {max(over.values())}")
+    check(bad_over > CONSISTENCY_TOL, "the whole-model check passes a backward handed window 0")
+    del params, big, first
+    torch.cuda.empty_cache()
+
+    # The resume check at one Griffin period.
+    cut = train_and_resume(torch, device,
+                           family_argv(HYBRID_ARCH, HYBRID_RESUME_LAYERS, HYBRID_TRAIN_ARGV),
+                           "train_ckpt_hybrid")
+    del cut["state"]
+    torch.cuda.empty_cache()
+    launches = {k: found[k] + cut["launches"].get(k, 0)
+                for k in ("flash_attention_bwd_tc", "flash_attention_bwd_windowed")}
+
+    # The windowed backward at the trainer's shape (row 4l of PERF.md).
+    bench = Bench(torch, device)
+    row = bwd_timing(torch, device, bench, torch.Generator(device=device).manual_seed(33),
+                     HYBRID_REPORT)
+    emit({"phase": "train_hybrid", "timing": "flash_attention_bwd", "route": "tc",
+          "case": HYBRID_REPORT, "launches": launches["flash_attention_bwd_windowed"], **row})
+    del bench
+    return launches, row
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -6212,6 +6575,10 @@ def main() -> int:
     os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(build / "inductor")
     os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
     os.environ["TORCHINDUCTOR_COMPILE_THREADS"] = "1"
+    # The allocator grows its segments in place: with fixed cached segments
+    # recurrentgemma-2b's trainer (phase 8d) ran out of the card's memory at
+    # step 18 of 20 with 13.7 GiB cached but unallocated between them.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -6241,12 +6608,25 @@ def main() -> int:
               "the trainers' checkpoints (phases 5h, 8b, 8c): only step 10's of the three "
               "the loop asks for (10, 20, 20 again), which the resume reads: a run may write "
               "45 GiB to the machine's disk",
-              "deepseek-v2-lite-16b trained (phase 8c) at its published widths cut to 3 layers "
-              "of 27 (the dense first layer and two MoE layers, 1.46B parameters): all 27 "
-              "layers' f32 masters, gradients and AdamW moments would take 251 GB",
+              "deepseek-v2-lite-16b trained (phase 8c) at its published widths cut to 2 layers "
+              "of 27 (the dense first layer and one MoE layer, 876M parameters; 3 until phase "
+              "8d took the time and the disk): all 27 layers' f32 masters, gradients and AdamW "
+              "moments would take 251 GB",
               "granite-moe-3b-a800m's resume check (phase 8c) at its published widths cut to "
-              "4 layers of 32: a checkpoint of all 32 layers' state would be 40 GB (its timed "
-              "run trains all 32 layers, without checkpoints)"],
+              "2 layers of 32 (4 until phase 8d's checkpoint needed the disk): a checkpoint "
+              "of all 32 layers' state would be 40 GB (its timed run trains all 32 layers, "
+              "without checkpoints)",
+              "serving through ServeEngine (phases 4, 5, 5b, 5c, 5d, 5g): four requests each "
+              "through two slots, cut from eight through four, to keep the run's time with "
+              "phase 8d added",
+              f"recurrentgemma-2b's resume check (phase 8d) at its published widths cut to "
+              f"{HYBRID_RESUME_LAYERS} layers of 26 (one Griffin period: rec, rec, "
+              "attn_local): a checkpoint of all 26 layers' state would be 34.7 GB (its timed "
+              "run trains all 26 layers, without checkpoints)",
+              f"recurrentgemma-2b's training (phase 8d) in {HYBRID_MICROBATCHES} microbatches "
+              "of its 2 x 4096 tokens (repro's --microbatches): in one, its f32 logits and "
+              "their softmax's backward ran out of the card's memory; its first-step gradient "
+              "check on the first microbatch"],
           "note": "TPC-H SF1 row counts and 256 KiB pages as stated; gemma-2b at its "
                   "published widths and all 18 layers, random weights; mamba2-370m at "
                   "its published widths and all 48 layers, random weights with dt_bias "
@@ -6272,8 +6652,11 @@ def main() -> int:
                   "step, 20 steps), random weights and synthetic tokens; granite-moe-3b-a800m "
                   "trained at its published widths and all 32 layers (4 x 2048 tokens a step, "
                   "20 steps, capacity factor 1.25), random weights and synthetic tokens; "
-                  "nothing else cut"})
+                  "recurrentgemma-2b trained at its published widths and all 26 layers (2 x "
+                  "4096 tokens a step, past its window of 2048; 20 steps), random weights and "
+                  "synthetic tokens; nothing else cut"})
 
+    checkpoint_reckoning(torch)
     errs, rows = phase_kernels(torch, device)
     attn_errs, attn_rows = phase_attention(torch, device)
     errs.update(attn_errs)
@@ -6385,6 +6768,10 @@ def main() -> int:
     launches["flash_attention_bwd_tc"] += phase_moe_train(torch, device,
                                                           card)["flash_attention_bwd_tc"]
     lap("train_moe")
+    phase_hybrid_train_layer(torch, device)
+    hyb_train, _ = phase_hybrid_train(torch, device, card)
+    launches["flash_attention_bwd_tc"] += hyb_train["flash_attention_bwd_tc"]
+    lap("train_hybrid")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

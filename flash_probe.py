@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one H100:
     python3 flash_probe.py --bwd [LOG_DIR]
     python3 flash_probe.py --bwd-long-runs [LOG_DIR]
     python3 flash_probe.py --grad-swap
+    python3 flash_probe.py --hybrid-swap
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
 an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
@@ -34,8 +35,10 @@ route and the plain version, with each one's device ms.  With
 as ``chip_smoke.py``'s phase 8c does and reads which half of the flash
 kernel, forward or backward, carries the whole-model gradients' gap to
 the plain path, on the trained weights, after the profiled step and at
-init (``grad_swap``).  Without
-either:
+init (``grad_swap``).  With ``--hybrid-swap`` it reads the same of
+recurrentgemma-2b's first-step gradients at phase 8d's widths and tokens,
+and how far the plain path moves when its forward sums in another order
+(``hybrid_swap``).  Without any of these:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -66,6 +69,7 @@ with its error against the plain version or the error it raised;
 """
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -403,6 +407,46 @@ def grad_swap(torch, chip_smoke, dev) -> None:
         del trained
 
 
+# (label, plain forward, plain backward, the plain forward's key blocks as a
+# multiple of the call's) of --hybrid-swap's paths, each held to the plain
+# forward and backward at the call's key blocks.
+HYBRID_SWAP_PATHS = (("kernel forward, kernel backward", False, False, 1),
+                     ("plain forward, kernel backward", True, False, 1),
+                     ("kernel forward, plain backward", False, True, 1),
+                     ("plain forward at twice the key blocks, plain backward", True, True, 2))
+
+
+def hybrid_swap(torch, chip_smoke, dev) -> None:
+    """Which half of the flash kernel carries recurrentgemma-2b's first-step
+    whole-model gradient gap (phase 8d's check), and how far the plain path
+    moves when its forward sums the same f32 softmax in another order: the
+    initial weights and the first batch's first microbatch, as phase 8d
+    reads them, on each path of ``HYBRID_SWAP_PATHS``."""
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as tf
+
+    argv = [*chip_smoke.family_argv(chip_smoke.HYBRID_ARCH, 0, chip_smoke.HYBRID_TRAIN_ARGV),
+            "--device", str(dev)]
+    args = train_mod.parse_args(argv)
+    cfg, shape, _, _ = train_mod.setup(args)
+    rows = shape.global_batch // args.microbatches
+    batch = {k: torch.as_tensor(v[:rows], device=dev)
+             for k, v in next(synthetic_batches(cfg, shape, seed=args.seed)).items()}
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev,
+                            dtype=torch.float32)
+    paths = [functools.partial(chip_smoke.plain_flash_training, fwd, bwd, blocks)
+             if fwd or bwd else contextlib.nullcontext
+             for _, fwd, bwd, blocks in HYBRID_SWAP_PATHS]
+    for (path, *_), errs in zip(HYBRID_SWAP_PATHS, chip_smoke.path_grad_errors(
+            torch, cfg, params, batch, chip_smoke.plain_flash_training, paths)):
+        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "tokens": [rows, shape.seq_len],
+                          "path": path, "against": "plain forward, plain backward",
+                          "per_leaf_rel_err_max": max(errs.values()),
+                          "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:6]}),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -416,9 +460,17 @@ def main() -> int:
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
-    args = [a for a in sys.argv[1:] if a not in ("--bwd", "--bwd-long-runs", "--grad-swap")]
+    args = [a for a in sys.argv[1:]
+            if a not in ("--bwd", "--bwd-long-runs", "--grad-swap", "--hybrid-swap")]
     log_dir = Path(args[0]) if args else runtime.BUILD_DIR
     log_dir.mkdir(parents=True, exist_ok=True)
+    if "--hybrid-swap" in sys.argv[1:]:
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        chip_smoke.load_peaks()
+        runtime.build(["flash_attention", "flash_attention_bwd"])
+        hybrid_swap(torch, chip_smoke, torch.device("cuda", 0))
+        print("ALL OK", flush=True)
+        return 0
     if "--grad-swap" in sys.argv[1:]:
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.load_peaks()

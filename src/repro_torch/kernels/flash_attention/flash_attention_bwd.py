@@ -44,7 +44,11 @@ alone:
   :func:`plan_bwd_blocks`'.
 
 ``runtime.launches`` counts every call under ``"flash_attention_bwd"`` and
-under ``"flash_attention_bwd_tc"`` or ``"flash_attention_bwd_simt"``.
+under ``"flash_attention_bwd_tc"`` or ``"flash_attention_bwd_simt"``, and,
+as the forward counts its mask kinds, a windowed call under
+``"flash_attention_bwd_windowed"``, one with a prefix under
+``"flash_attention_bwd_prefix"`` and, where the prefix covers every key,
+also under ``"flash_attention_bwd_full"``.
 
 Beside it is its plain PyTorch version, the same formulas in f64 over the
 same KV blocks (given the forward's lse it uses it, else it recomputes it);
@@ -460,6 +464,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     runtime.launches["flash_attention_bwd"] += 1
     runtime.launches[f"flash_attention_bwd_{path}"] += 1
+    if window:
+        runtime.launches["flash_attention_bwd_windowed"] += 1
+    if prefix:
+        runtime.launches["flash_attention_bwd_prefix"] += 1
+    if prefix >= t:
+        runtime.launches["flash_attention_bwd_full"] += 1
     return dq, dk, dv
 
 

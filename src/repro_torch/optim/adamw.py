@@ -101,17 +101,28 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step: torch.Tensor)
     return new_p, {"m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
 
 
+# The in-place update takes a leaf UPDATE_SLICE elements at a time: its f32
+# temporaries (about seven the size of what is updated) then stay small
+# beside the state, where a whole leaf's would not (recurrentgemma-2b's
+# embedding table is 2.6 GB in f32, and its state and gradients 46 GB).
+UPDATE_SLICE = 1 << 24
+
+
 @torch.no_grad()
 def adamw_update_(cfg: AdamWConfig, params, grads, opt_state, step: torch.Tensor):
     """:func:`adamw_update` written into ``params`` and ``opt_state``'s own
-    tensors, one leaf at a time (each gradient clipped as it is used), with
-    the same arithmetic and so the same bits; returns (params, opt_state,
+    tensors, one slice of ``UPDATE_SLICE`` elements of a leaf at a time
+    (each gradient clipped as it is used), with the same elementwise
+    arithmetic and so the same bits; returns (params, opt_state,
     {"grad_norm", "lr"}), the same trees."""
     scale, gnorm = _clip_scale(grads, cfg.clip_norm)
     lr, upd = _leaf_update(cfg, step)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
                           leaves(opt_state["v"])):
-        new = upd(p, (g.float() * scale).to(g.dtype), m, v)
-        for old, x in zip((p, m, v), new):
-            old.copy_(x)
+        p, m, v, g = p.view(-1), m.view(-1), v.view(-1), g.reshape(-1)
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            part = slice(i, i + UPDATE_SLICE)
+            new = upd(p[part], (g[part].float() * scale).to(g.dtype), m[part], v[part])
+            for old, x in zip((p[part], m[part], v[part]), new):
+                old.copy_(x)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
