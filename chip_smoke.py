@@ -191,7 +191,10 @@ Phases, each printing JSON objects, one per line:
    on one KV head at hd 128 (past the split's cap: runs of 1,024 rows),
    granite-moe-3b-a800m's training shape (G 3 split in two inside a head)
    plain and with q 8 times the unit scale, recurrentgemma-2b's training
-   shape, ragged, S < T, cross S > T, f32; each row's route and mask kinds
+   shape, ragged, S < T, cross S > T, f32, paligemma-3b's training shape
+   (prefix 256 on one KV head at B 4, S 2048: a call with a prefix walks
+   runs of at most 256 rows) plain and with q 8 times the unit scale; each
+   row's route and mask kinds
    asserted by the launch counters), two calls equal bit for bit (gemma-2b's with
    its dkdv split over several CTAs), the Function's forward equal to the
    no-grad forward bit for bit, the forward's lse against its plain version
@@ -205,21 +208,23 @@ Phases, each printing JSON objects, one per line:
    hold one qwen3-0.6b block's gradients at 4 x 2048 tokens to the plain
    path (``TRAIN_LAYER_TOL``; a backward without D rejected); train
    qwen3-0.6b at full width through ``launch.train.main`` (20 steps of 4 x
-   2048 tokens, f32 masters, bf16 activations, full remat, checkpoints
-   every 10 steps; the launch counters set to 0 just before and read just
-   after; every backward launch on the ``tc`` route), every loss and grad
+   2048 tokens, f32 masters, bf16 activations, full remat, no checkpoints;
+   the launch counters set to 0 just before and read just after; every
+   backward launch on the ``tc`` route), every loss and grad
    norm finite and the loss falling; train gemma-2b at its published widths
    cut to ``TRAIN_GEMMA_LAYERS`` layers for ``TRAIN_GEMMA_STEPS`` steps (hd
    256, one KV head: every backward launch on the ``tc`` route, its dkdv
    split), then one f32 call of ``remop_flash_attention`` under autograd
-   (the ``simt`` route's launches: no model trains in f32); restore the
-   step-10 checkpoint and run steps 11..20 again (losses within
-   ``TRAIN_RESUME_TOL``); repro's fixed-batch rule (30 steps on one [1,
-   2048] batch, the last loss below 0.7 of the first); one step's
-   whole-model gradients, kernel against plain, within ``CONSISTENCY_TOL``;
-   and one profiled step split into products, the flash forward and
-   backward, the optimizer and the rest, with step seconds, tokens/s, model
-   FLOPs and their share of the bf16 peak, and peak memory;
+   (the ``simt`` route's launches: no model trains in f32); repro's
+   fixed-batch rule (30 steps on one [1, 2048] batch, the last loss below
+   0.7 of the first); one step's whole-model gradients on the state those
+   steps leave, kernel against plain, within ``CONSISTENCY_TOL``; one
+   profiled step split into
+   products, the flash forward and backward, the optimizer and the rest,
+   with step seconds, tokens/s, model FLOPs and their share of the bf16
+   peak, and peak memory; then at the published widths cut to
+   ``TRAIN_RESUME_LAYERS`` layers, the step-10 checkpoint restored and
+   steps 11..20 run again (losses within ``TRAIN_RESUME_TOL``);
 8b. train_ssm: hold the scan's backward kernel (``ssd_scan_bwd``: dstates
    and ddecays of the forward kernel) against its plain version at
    ``SCAN_BWD_CASES``' shapes (mamba2-370m's training shape, the forward
@@ -269,6 +274,23 @@ Phases, each printing JSON objects, one per line:
    steps 11..20 again from the step-10 checkpoint at one Griffin period (3
    layers), and the windowed backward timed at the trainer's shape beside
    its bound, plain version and SDPA's backward with the band as a mask;
+8e. train_vlm: hold one paligemma-3b attn block's gradients at 4 x 2048
+   positions with the 256 patches as prefix to the plain path
+   (``TRAIN_LAYER_TOL``; a backward handed prefix 0 rejected); train
+   paligemma-3b at its published widths and all 18 layers through
+   ``launch.train.main`` (20 steps of 4 x 2048 positions, 256 patches and
+   1792 text tokens each; f32 masters updated in place, full remat, no
+   checkpoints; the launch counters set to 0 just before and read just
+   after: one prefix ``tc`` backward a layer a step, the prefix forward
+   twice), the losses finite and falling, step seconds, tokens/s, model
+   FLOPs over the prefix mask's pairs and their share of the bf16 peak,
+   peak memory, one profiled step by kind, the first step's whole-model
+   gradients (``frontend/proj_in/w`` and the embedding among them) kernel
+   against plain within ``CONSISTENCY_TOL`` beyond the plain path's own
+   floor (a backward handed prefix 0 rejected), steps 11..20 again from the
+   step-10 checkpoint at ``VLM_RESUME_LAYERS`` layers, and the prefix
+   backward timed at the trainer's shape beside its bound, plain version
+   and SDPA's backward with the prefix-LM mask;
    the trainers' checkpoint bytes are reckoned before the run
    (``checkpoint_reckoning``, at most ``CHECKPOINT_LIMIT_GIB``);
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
@@ -306,6 +328,7 @@ import statistics
 import subprocess
 import sys
 import time
+import typing
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5016,8 +5039,17 @@ TRAIN_ARCH = "qwen3-0.6b"
 # inside a head), plain and with q 8 times the unit scale.  "recurrentgemma
 # train" is the shape recurrentgemma-2b's trainer gives the kernel (2 x 4096
 # tokens, 10 heads on one KV head of 256, window 2048: half the queries lose
-# keys to the window).  Inputs in the model's [B, S, heads, hd] memory,
-# seen as [B, heads, S, hd]; dout too.
+# keys to the window).  "paligemma train" is the shape paligemma-3b's
+# trainer gives the kernel (4 x 2048 positions, 8 heads on one KV head of
+# 256, prefix 256: each key block of the prefix is seen by all 16,384
+# (head, query) rows of a sequence, the longest walk the prefix takes),
+# plain and with q 8 times the unit scale (with parts of 4,096 rows a CTA
+# its dK missed ATTN_TOL against f64 by 1.15x; a call with a prefix now
+# walks runs of BWD_PREFIX_RUN_ROWS, 256, which hold it).  Inputs in the
+# model's [B, S, heads, hd] memory, seen as [B, heads, S, hd]; dout too, all
+# drawn from one generator in row order, so new rows go last and the other
+# rows keep their inputs (flash_probe.py --bwd-run-rows also reads "q gain
+# 8" on the inputs it gets with the paligemma rows drawn before it).
 BWD_CHECKS = (
     ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("gemma-2b", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 1.0, "bfloat16"),
@@ -5041,6 +5073,8 @@ BWD_CHECKS = (
     ("cross S > T", 1, 16, 16, 300, 200, 64, 64, 0, 200, 0.0, 1.0, "bfloat16"),
     ("f32", 1, 16, 8, 512, 512, 128, 128, 0, 0, 0.0, 1.0, "float32"),
     ("f32 hd 256", 1, 8, 1, 300, 333, 256, 256, 0, 0, 0.0, 1.0, "float32"),
+    ("paligemma train", 4, 8, 1, 2048, 2048, 256, 256, 0, 256, 0.0, 1.0, "bfloat16"),
+    ("paligemma q gain 8", 4, 8, 1, 2048, 2048, 256, 256, 0, 256, 0.0, 8.0, "bfloat16"),
 )
 BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape of the tc route
 BWD_SIMT_REPORT = "f32"  # and of the simt route (f32 only, since hd 256 went to tc)
@@ -5133,7 +5167,7 @@ def phase_train_kernels(torch, device):
             check(torch.equal(bits(out_lse), bits(out)),
                   f"flash_attention {name}: the forward writing lse changed its output")
             blocks = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)
-            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
+            blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
         before = dict(runtime.launches)
         got = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
         again = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
@@ -5274,15 +5308,17 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
     """The backward at ``BWD_CHECKS``' row ``report`` (its mask and q
     gain): the kernel's event and device ms beside its bound, its plain
     version and SDPA's backward (``torch.autograd.grad`` of one GQA call,
-    causal, or with the band as ``attn_mask`` where the row has a window)
-    on the same inputs, in the model's layout."""
+    causal, or with the band or the prefix-LM mask as a bool ``attn_mask``
+    where the row has a window or a prefix) on the same inputs, in the
+    model's layout."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
     (_, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain, dtype), = (
         c for c in BWD_CHECKS if c[0] == report)
-    check(not prefix and not cap and s == t, f"bwd_timing takes no prefix or cap: {report}")
+    check(not cap and s == t, f"bwd_timing takes no cap and S = T only: {report}")
+    mask = dict(window=window, prefix=prefix)
 
     def model_layout(heads, n, width, scale=1.0):
         x = torch.randn(b, n, heads, width, device=device, generator=gen) * scale
@@ -5290,40 +5326,42 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
 
     q, k, v = model_layout(h, s, hd, gain), model_layout(kv, t, hd), model_layout(kv, t, hd_v)
     with torch.no_grad():
-        out = remop_flash_attention(q, k, v, window=window)
-    lse = forward_with_lse(torch, q, k, v, window=window)[1] if path == "tc" else None
+        out = remop_flash_attention(q, k, v, **mask)
+    lse = forward_with_lse(torch, q, k, v, **mask)[1] if path == "tc" else None
     dout = model_layout(h, s, hd_v)
     check(fab.bwd_route(q, k, v, out, dout) == path, f"the {report} timing is not {path}")
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    if window:
+    if window or prefix:
         pos = torch.arange(s, device=device)
-        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band, enable_gqa=True)
+        seen = pos[:, None] >= pos[None, :]
+        if window:
+            seen &= pos[:, None] - pos[None, :] < window
+        seen |= pos[None, :] < prefix
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=seen, enable_gqa=True)
     else:
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
 
     def kernel():
-        return fab.flash_attention_bwd(q, k, v, out, dout, window=window, lse=lse)
+        return fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
 
     def library():
         return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
 
     elem = q.element_size()
-    ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=window),
+    ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, elem, **mask),
                          BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
     if path == "tc":
         blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
-        blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
+        blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
     else:
         blocks = fab.plan_bwd_blocks(hd, hd_v, elem)
-    mask = f"window {window}" if window else "causal"
+    kind = f"window {window}" if window else f"prefix {prefix}" if prefix else "causal"
     return dict(
         shape=f"q [{b},{h},{s},{hd}], k [{b},{kv},{t},{hd}], v [{b},{kv},{t},{hd_v}] "
-              f"{dtype}, {mask}, q gain {gain}, the model's layout, route {path}, blocks "
+              f"{dtype}, {kind}, q gain {gain}, the model's layout, route {path}, blocks "
               f"{blocks}",
         ms=bench.ms(kernel), **bench.device_ms(kernel, reps=10),
-        plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout,
-                                                                 window=window)),
+        plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)),
         library_ms=bench.ms(library),
         **{f"library_{name}": val for name, val in bench.device_ms(library, reps=10).items()},
         bound_ms=ms_bound, bound_by=by)
@@ -5337,13 +5375,17 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
 # softmax), which the backward carries into every gradient at about 1e-3.
 TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ = 4, 2048
 TRAIN_LAYER_TOL = 1e-2
-# The trainer: launch.train's command line at full width, then a resume of
-# steps 11..20 from the step-10 checkpoint, whose losses must equal the
-# first run's within TRAIN_RESUME_TOL relative (the same bits but for the
-# order of the embedding's gradient sum); then repro's fixed-batch rule.
+# The trainer: launch.train's command line at full width, without
+# checkpoints; then repro's fixed-batch rule; then, at the published widths
+# cut to TRAIN_RESUME_LAYERS layers (a checkpoint of all 28 layers' state is
+# 7.15 GB, of 2 layers 2.2 GB), a resume of steps 11..20 from the step-10
+# checkpoint, whose losses must equal the first run's within
+# TRAIN_RESUME_TOL relative (the same bits but for the order of the
+# embedding's gradient sum).
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
 TRAIN_ARGV = ("--arch", TRAIN_ARCH, "--global-batch", "4", "--seq-len", "2048", "--steps",
               str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
+TRAIN_RESUME_LAYERS = 2
 TRAIN_RESUME_TOL = 1e-5
 FIXED_BATCH_STEPS, FIXED_BATCH_RULE = 30, 0.7
 
@@ -5392,10 +5434,17 @@ def window_zero(bwd):
     return faulty
 
 
+def prefix_zero(bwd):
+    """``bwd`` handed ``prefix = 0`` whatever its forward saw."""
+    def faulty(q, k, v, out, dout, scale, window, prefix, *args):
+        return bwd(q, k, v, out, dout, scale, window, 0, *args)
+    return faulty
+
+
 @contextlib.contextmanager
 def faulty_backward(fault):
     """The flash backward's wrapper wrapped by ``fault`` (:func:`drop_delta`,
-    :func:`window_zero`) while the context lasts."""
+    :func:`window_zero`, :func:`prefix_zero`) while the context lasts."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
     bwd = fab.flash_attention_bwd
@@ -5407,11 +5456,12 @@ def faulty_backward(fault):
 
 
 def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
-                       tokens=(TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ)):
+                       tokens=(TRAIN_LAYER_BATCH, TRAIN_LAYER_SEQ), prefix=0):
     """Per-leaf relative L2 of one ``kind`` block's parameter and input
     gradients at ``arch``'s widths, kernel path against plain path, at
-    ``tokens`` = (batch, sequence); ``fault`` wraps the backward kernel's
-    wrapper (:func:`faulty_backward`)."""
+    ``tokens`` = (batch, sequence), every query seeing the first ``prefix``
+    keys; ``fault`` wraps the backward kernel's wrapper
+    (:func:`faulty_backward`)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import runtime
     from repro_torch.models import layers
@@ -5430,7 +5480,7 @@ def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
     def grads():
         live = tree_map(lambda t: t.detach().clone().requires_grad_(), block)
         xg = x.clone().requires_grad_()
-        out, _, _ = tf.block_forward(live, cfg, kind, xg, pos)
+        out, _, _ = tf.block_forward(live, cfg, kind, xg, pos, prefix=prefix)
         return torch.autograd.grad((out.float() * w).sum(), leaves(live) + [xg])
 
     before = dict(runtime.launches)
@@ -5439,7 +5489,8 @@ def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
     added = {k: n - before.get(k, 0) for k, n in runtime.launches.items()
              if k.startswith("flash_attention_bwd") and n != before.get(k, 0)}
     want_added = {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1,
-                  **({"flash_attention_bwd_windowed": 1} if kind == "attn_local" else {})}
+                  **{f"flash_attention_bwd_{mask}": 1
+                     for mask in bwd_mask_kinds(tf._window(cfg, kind), prefix, s)}}
     check(fault is not None or added == want_added,
           f"the {kind} block's backward launched {added}, not {want_added}")
     with plain_flash_training():
@@ -5779,12 +5830,53 @@ def model_grad_errors(torch, cfg, params, batch, plain):
     return {n: rel_err(torch, g, want[n]) for n, g in got.items()}
 
 
+def floor_consistency(torch, cfg, params, batch, fault, fault_name: str, phase: str,
+                      named_leaves: tuple = ()) -> None:
+    """Whole-model gradients of one step on ``params`` and ``batch``, the
+    kernel path against the plain path, each leaf within CONSISTENCY_TOL of
+    the plain path plus the plain path's own floor: how far it moves when
+    its forward sums the same f32 softmax in another order (twice the key
+    block), measured here.  Deep random-init models amplify the forward's
+    bf16 noise past a flat tolerance: at 26 layers of recurrentgemma-2b that
+    order alone moved layer 23's wq and wk gradients by 3.6% on an H100, the
+    kernel path 3.9%.  The backward wrapped by ``fault``
+    (:func:`faulty_backward`) must miss the rule.  Emits the line."""
+    errs, floor, bad = path_grad_errors(
+        torch, cfg, params, batch, plain_flash_training,
+        (contextlib.nullcontext, lambda: plain_flash_training(key_blocks=2),
+         lambda: faulty_backward(fault)))
+    check(set(named_leaves) <= set(errs),
+          f"the gradient check's leaves miss {set(named_leaves) - set(errs)}")
+    over = {n: errs[n] - floor[n] for n in errs}
+    bad_over = {n: e - floor[n] for n, e in bad.items()}
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "consistency": "whole-model gradients, kernel vs plain", "step": 1,
+          "microbatch": 1, "tokens": list(batch["tokens"].shape),
+          "per_leaf_rel_err_max": max(errs.values()),
+          "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+          "named_leaves": {n: errs[n] for n in named_leaves},
+          "plain_floor_max": max(floor.values()),
+          "worst_floor_leaves": sorted(floor.items(), key=lambda kv: -kv[1])[:5],
+          "per_leaf_rel_err_over_floor_max": max(over.values()),
+          "within_tol_without_floor": max(errs.values()) <= CONSISTENCY_TOL,
+          "tol": CONSISTENCY_TOL, "planted_fault": f"the backward {fault_name}",
+          "fault_rel_err_over_floor_max": max(bad_over.values()),
+          "fault_worst_leaf": max(bad_over, key=bad_over.get),
+          "fault_rejected": max(bad_over.values()) > CONSISTENCY_TOL})
+    check(max(over.values()) <= CONSISTENCY_TOL,
+          f"{cfg.name}: whole-model gradients, kernel against plain, past the plain path's "
+          f"own floor by {max(over.values())}")
+    check(max(bad_over.values()) > CONSISTENCY_TOL,
+          f"the whole-model check passes a backward that {fault_name}")
+
+
 def phase_train_run(torch, device, card: str):
     """Train qwen3-0.6b at full width through ``launch.train.main`` (the
-    launch counters set to 0 just before, read just after), resume steps
-    11..20 from the step-10 checkpoint, run repro's fixed-batch rule, hold
-    one step's whole-model gradients to the plain path, and profile a step.
-    Returns the launches of the training window."""
+    launch counters set to 0 just before, read just after), run repro's
+    fixed-batch rule, hold one step's whole-model gradients to the plain
+    path, profile a step, and resume steps 11..20 from the step-10
+    checkpoint at ``TRAIN_RESUME_LAYERS`` layers.  Returns the launches of
+    the training windows."""
     import statistics as stats
 
     from repro_torch.data.pipeline import synthetic_batches
@@ -5792,7 +5884,8 @@ def phase_train_run(torch, device, card: str):
     from repro_torch.models import transformer as tf
     from repro_torch.optim.adamw import AdamWConfig
 
-    run = train_and_resume(torch, device, TRAIN_ARGV, "train_ckpt")
+    emit({"phase": "train", "argv": list(TRAIN_ARGV)})
+    run = train_window(torch, device, TRAIN_ARGV)
     state, launches, loss = run.pop("state"), run["launches"], run["loss"]
     cfg, shape, opt_cfg, args = run["cfg"], run["shape"], run["opt_cfg"], run["args"]
     check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
@@ -5840,7 +5933,13 @@ def phase_train_run(torch, device, card: str):
           **train_breakdown(torch, step_fn, state, big)})
     del state, batch, big
     torch.cuda.empty_cache()
-    return launches
+
+    cut = train_and_resume(torch, device, family_argv(TRAIN_ARCH, TRAIN_RESUME_LAYERS,
+                                                      TRAIN_ARGV[2:]), "train_ckpt")
+    del cut["state"]
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd_tc": launches["flash_attention_bwd_tc"]
+            + cut["launches"]["flash_attention_bwd_tc"]}
 
 
 # --------------------------------------------------------------------------
@@ -6364,11 +6463,15 @@ CHECKPOINT_LIMIT_GIB = 41.0
 
 def checkpointed_argvs() -> dict:
     """The command line of every trainer that writes a checkpoint, by name."""
-    return {"qwen3-0.6b (5h)": TRAIN_ARGV, "mamba2-370m (8b)": SSM_TRAIN_ARGV,
+    return {f"{TRAIN_ARCH} at {TRAIN_RESUME_LAYERS} layers (5h)": family_argv(
+                TRAIN_ARCH, TRAIN_RESUME_LAYERS, TRAIN_ARGV[2:]),
+            "mamba2-370m (8b)": SSM_TRAIN_ARGV,
             **{f"{arch} at {n} layers (8c)": family_argv(arch, n)
                for arch, _, n in MOE_TRAIN_FAMILIES},
             f"{HYBRID_ARCH} at {HYBRID_RESUME_LAYERS} layers (8d)": family_argv(
-                HYBRID_ARCH, HYBRID_RESUME_LAYERS, HYBRID_TRAIN_ARGV)}
+                HYBRID_ARCH, HYBRID_RESUME_LAYERS, HYBRID_TRAIN_ARGV),
+            f"{VLM_ARCH} at {VLM_RESUME_LAYERS} layers (8e)": family_argv(
+                VLM_ARCH, VLM_RESUME_LAYERS, VLM_TRAIN_ARGV)}
 
 
 def checkpoint_reckoning(torch) -> dict:
@@ -6436,35 +6539,70 @@ def hybrid_train_model_flops(cfg, params, b, s) -> float:
     return 3.0 * (2.0 * matrices * b * s + 4 * cfg.head_dim * cfg.n_heads * b * local * pairs)
 
 
-def phase_hybrid_train_layer(torch, device):
-    """One ``attn_local`` block of recurrentgemma-2b at full width under
-    training at HYBRID_TRAIN_TOKENS, kernel path against plain path; a
-    backward handed window 0 must be rejected."""
-    kw = dict(arch=HYBRID_ARCH, kind="attn_local", tokens=HYBRID_TRAIN_TOKENS)
+class MaskedTrainer(typing.NamedTuple):
+    """A family whose ``kind`` layers train through the flash kernels with a
+    mask they count (``mask``: "windowed" or "prefix"), as phases 8d and 8e
+    run it (:func:`phase_masked_train_layer`, :func:`phase_masked_train`):
+    one block at ``tokens`` (every query seeing the first ``prefix`` keys),
+    the family at all layers with ``launch.train``'s ``tail``, its first-step
+    gradients, a resume at ``resume_layers``, the backward timed at
+    ``BWD_CHECKS``' row ``report``; ``fault`` wraps the backward as the
+    checks' planted fault (the backward handed ``fault_name``)."""
+    phase: str
+    arch: str
+    kind: str
+    mask: str
+    tokens: tuple
+    tail: tuple
+    resume_layers: int
+    report: str
+    fault: object
+    fault_name: str
+    flops: object
+    flops_formula: str
+    prefix: int = 0
+    rglru: bool = False
+    named_leaves: tuple = ()
+
+
+HYBRID_TRAINER = MaskedTrainer(
+    phase="train_hybrid", arch=HYBRID_ARCH, kind="attn_local", mask="windowed",
+    tokens=HYBRID_TRAIN_TOKENS, tail=HYBRID_TRAIN_ARGV, resume_layers=HYBRID_RESUME_LAYERS,
+    report=HYBRID_REPORT, fault=window_zero, fault_name="window 0",
+    flops=hybrid_train_model_flops, flops_formula=HYBRID_FLOPS_FORMULA, rglru=True)
+
+
+def phase_masked_train_layer(torch, device, fam: MaskedTrainer):
+    """One ``fam.kind`` block of ``fam.arch`` at full width under training
+    at ``fam.tokens``, kernel path against plain path; a backward handed
+    ``fam.fault_name`` must be rejected."""
+    kw = dict(arch=fam.arch, kind=fam.kind, tokens=fam.tokens, prefix=fam.prefix)
     errs = train_layer_errors(torch, device, **kw)
-    emit({"phase": "train_hybrid", "layer_check": HYBRID_ARCH, "kind": "attn_local",
-          "tokens": list(HYBRID_TRAIN_TOKENS), "per_leaf_rel_err": errs,
+    emit({"phase": fam.phase, "layer_check": fam.arch, "kind": fam.kind, "prefix": fam.prefix,
+          "tokens": list(fam.tokens), "per_leaf_rel_err": errs,
           "max_rel_err": max(errs.values()), "tol": TRAIN_LAYER_TOL})
     check(max(errs.values()) <= TRAIN_LAYER_TOL,
-          f"{HYBRID_ARCH} local block gradients: kernel path against plain path "
+          f"{fam.arch} {fam.kind} block gradients: kernel path against plain path "
           f"{max(errs.values())} beyond {TRAIN_LAYER_TOL}")
-    bad = train_layer_errors(torch, device, fault=window_zero, **kw)
+    bad = train_layer_errors(torch, device, fault=fam.fault, **kw)
     rejected = not max(bad.values()) <= TRAIN_LAYER_TOL  # a NaN is rejected too
-    emit({"phase": "train_hybrid", "planted_fault": "layer",
-          "fault": "the backward kernel handed window 0", "max_rel_err": max(bad.values()),
-          "worst_leaf": max(bad, key=bad.get), "rejected": rejected})
-    check(rejected, "the layer check passes a backward handed window 0")
+    emit({"phase": fam.phase, "planted_fault": "layer",
+          "fault": f"the backward kernel handed {fam.fault_name}",
+          "max_rel_err": max(bad.values()), "worst_leaf": max(bad, key=bad.get),
+          "rejected": rejected})
+    check(rejected, f"the layer check passes a backward handed {fam.fault_name}")
     torch.cuda.empty_cache()
 
 
-def phase_hybrid_train(torch, device, card: str):
-    """Train recurrentgemma-2b at all 26 layers through ``launch.train.main``
-    (the launch counters set to 0 just before, read just after: every local
-    layer's backward on the tc route and windowed, its forward windowed
-    twice a step under remat), profile a step, hold the first step's
-    whole-model gradients to the plain path, resume one Griffin period from
-    its step-10 checkpoint, and time the windowed backward at the trainer's
-    shape.  Returns (the launches of the training windows, the timing row)."""
+def phase_masked_train(torch, device, card: str, fam: MaskedTrainer):
+    """Train ``fam.arch`` at all its layers through ``launch.train.main``
+    (the launch counters set to 0 just before, read just after: every
+    ``fam.kind`` layer's backward on the tc route and counted under
+    ``fam.mask``, its forward so twice a step under remat), profile a step,
+    hold the first step's whole-model gradients to the plain path, resume
+    at ``fam.resume_layers`` layers from the step-10 checkpoint, and time
+    the backward at the trainer's shape.  Returns (the launches of the
+    training windows, the timing row)."""
     import statistics as stats
 
     from repro_torch.configs import ARCHS
@@ -6472,31 +6610,33 @@ def phase_hybrid_train(torch, device, card: str):
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import transformer as tf
 
-    argv = family_argv(HYBRID_ARCH, 0, HYBRID_TRAIN_ARGV)
-    emit({"phase": "train_hybrid", "argv": list(argv)})
+    argv = family_argv(fam.arch, 0, fam.tail)
+    emit({"phase": fam.phase, "argv": list(argv)})
     run = train_window(torch, device, argv)
     state, cfg, shape, args = run.pop("state"), run["cfg"], run["shape"], run["args"]
-    check(cfg == ARCHS[HYBRID_ARCH], f"the {HYBRID_ARCH} trainer's config is not its own")
+    check(cfg == ARCHS[fam.arch] and fam.prefix == cfg.frontend_seq,
+          f"the {fam.arch} trainer's config is not its own, or its prefix not its patches")
     loss, found = run["loss"], run["launches"]
     check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
-          f"{HYBRID_ARCH}: the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
-    local = tf.layer_kinds(cfg).count("attn_local")
-    # One backward a local layer and microbatch a step; the forward twice
+          f"{fam.arch}: the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
+    n = tf.layer_kinds(cfg).count(fam.kind)
+    # One backward a masked layer and microbatch a step; the forward twice
     # (the forward and remat's recompute).
-    bwd_calls = TRAIN_STEPS * local * args.microbatches
+    bwd_calls = TRAIN_STEPS * n * args.microbatches
     want = {"flash_attention_bwd": bwd_calls, "flash_attention_bwd_tc": bwd_calls,
-            "flash_attention_bwd_windowed": bwd_calls, "flash_attention": 2 * bwd_calls,
-            "flash_attention_tc": 2 * bwd_calls, "flash_attention_windowed": 2 * bwd_calls}
-    got = {k: n for k, n in found.items() if k.startswith("flash_attention")}
-    check(got == want, f"{HYBRID_ARCH}: the flash launches {got}; want {want} "
-                       f"({local} local layers x {TRAIN_STEPS} steps x {args.microbatches} "
-                       "microbatches, the forward twice under remat)")
+            f"flash_attention_bwd_{fam.mask}": bwd_calls, "flash_attention": 2 * bwd_calls,
+            "flash_attention_tc": 2 * bwd_calls, f"flash_attention_{fam.mask}": 2 * bwd_calls}
+    got = {k: v for k, v in found.items() if k.startswith("flash_attention")}
+    check(got == want, f"{fam.arch}: the flash launches {got}; want {want} ({n} {fam.kind} "
+                       f"layers x {TRAIN_STEPS} steps x {args.microbatches} microbatches, the "
+                       "forward twice under remat)")
     b, s = shape.global_batch, shape.seq_len
-    line = run_line(run, card, hybrid_train_model_flops(cfg, state["params"], b, s),
+    line = run_line(run, card, fam.flops(cfg, state["params"], b, s),
                     tf.param_count(state["params"]))
-    line.update(phase="train_hybrid", layers=cfg.n_layers, local_layers=local,
-                window=cfg.window, microbatches=args.microbatches,
-                model_flops_formula=HYBRID_FLOPS_FORMULA)
+    line.update(phase=fam.phase, layers=cfg.n_layers, **{f"{fam.kind}_layers": n},
+                microbatches=args.microbatches, model_flops_formula=fam.flops_formula,
+                **({"window": cfg.window} if fam.mask == "windowed" else
+                   {"prefix": fam.prefix, "text_tokens_per_step": b * (s - fam.prefix)}))
     emit(line)
 
     # Where a step's time goes: one profiled step, the state updated in place.
@@ -6505,62 +6645,89 @@ def phase_hybrid_train(torch, device, card: str):
     step_fn = steps_lib.make_train_step(cfg, run["opt_cfg"], microbatches=args.microbatches,
                                         donate=True)
     emit({"phase": "train_breakdown", "card": card, "arch": cfg.name, "layers": cfg.n_layers,
-          "tokens": [b, s], **train_breakdown(torch, step_fn, state, big, rglru=True)})
+          "tokens": [b, s], **train_breakdown(torch, step_fn, state, big, rglru=fam.rglru)})
     del state, step_fn, run
     torch.cuda.empty_cache()
 
     # Whole-model gradients of the run's first step (its initial weights, its
-    # first batch's first microbatch), kernel against plain, each leaf within
-    # CONSISTENCY_TOL of the plain path plus the plain path's own floor: how
-    # far it moves when its forward sums the same f32 softmax in another
-    # order (twice the key block).  At 26 random-init layers that order
-    # alone moved layer 23's wq and wk gradients by 3.6% on an H100, the
-    # kernel path 3.9%.  A backward handed window 0 must miss the rule.
+    # first batch's first microbatch), kernel against plain beyond the plain
+    # path's own floor.
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device,
                             dtype=torch.float32)
     first = {k: v[:b // args.microbatches] for k, v in big.items()}
-    errs, floor, bad = path_grad_errors(
-        torch, cfg, params, first, plain_flash_training,
-        (contextlib.nullcontext, lambda: plain_flash_training(key_blocks=2),
-         lambda: faulty_backward(window_zero)))
-    over = {n: errs[n] - floor[n] for n in errs}
-    bad_over = max(e - floor[n] for n, e in bad.items())
-    emit({"phase": "train_hybrid", "arch": cfg.name, "layers": cfg.n_layers,
-          "consistency": "whole-model gradients, kernel vs plain", "step": 1,
-          "microbatch": 1, "tokens": list(first["tokens"].shape),
-          "per_leaf_rel_err_max": max(errs.values()),
-          "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
-          "plain_floor_max": max(floor.values()),
-          "worst_floor_leaves": sorted(floor.items(), key=lambda kv: -kv[1])[:5],
-          "per_leaf_rel_err_over_floor_max": max(over.values()),
-          "within_tol_without_floor": max(errs.values()) <= CONSISTENCY_TOL,
-          "tol": CONSISTENCY_TOL,
-          "planted_fault": "the backward handed window 0",
-          "fault_rel_err_over_floor_max": bad_over, "fault_rejected": bad_over > CONSISTENCY_TOL})
-    check(max(over.values()) <= CONSISTENCY_TOL,
-          f"{HYBRID_ARCH}: whole-model gradients, kernel against plain, past the plain path's "
-          f"own floor by {max(over.values())}")
-    check(bad_over > CONSISTENCY_TOL, "the whole-model check passes a backward handed window 0")
+    floor_consistency(torch, cfg, params, first, fam.fault, f"handed {fam.fault_name}",
+                      fam.phase, fam.named_leaves)
     del params, big, first
     torch.cuda.empty_cache()
 
-    # The resume check at one Griffin period.
-    cut = train_and_resume(torch, device,
-                           family_argv(HYBRID_ARCH, HYBRID_RESUME_LAYERS, HYBRID_TRAIN_ARGV),
-                           "train_ckpt_hybrid")
+    cut = train_and_resume(torch, device, family_argv(fam.arch, fam.resume_layers, fam.tail),
+                           fam.phase.replace("train_", "train_ckpt_"))
     del cut["state"]
     torch.cuda.empty_cache()
     launches = {k: found[k] + cut["launches"].get(k, 0)
-                for k in ("flash_attention_bwd_tc", "flash_attention_bwd_windowed")}
+                for k in ("flash_attention_bwd_tc", f"flash_attention_bwd_{fam.mask}")}
 
-    # The windowed backward at the trainer's shape (row 4l of PERF.md).
+    # The backward at the trainer's shape (rows 4l and 4m of PERF.md).
     bench = Bench(torch, device)
     row = bwd_timing(torch, device, bench, torch.Generator(device=device).manual_seed(33),
-                     HYBRID_REPORT)
-    emit({"phase": "train_hybrid", "timing": "flash_attention_bwd", "route": "tc",
-          "case": HYBRID_REPORT, "launches": launches["flash_attention_bwd_windowed"], **row})
+                     fam.report)
+    emit({"phase": fam.phase, "timing": "flash_attention_bwd", "route": "tc",
+          "case": fam.report, "launches": launches[f"flash_attention_bwd_{fam.mask}"], **row})
     del bench
     return launches, row
+
+
+# --------------------------------------------------------------------------
+# Phase 8e: train paligemma-3b (prefix-LM VLM)
+# --------------------------------------------------------------------------
+
+# 4 x 2048 positions a step: 256 patch embeddings (of 1152, through
+# frontend.proj_in) then 1792 text tokens a sequence, every position seeing
+# the 256 patches (the flash kernel's prefix), the loss on text positions
+# only.  All 18 layers at the published widths, 20 steps in one microbatch
+# (peak 68.9 GB on an H100), f32 masters, bf16 activations, full remat, the
+# donating step, no checkpoints (all 18 layers' state is 30.1 GB a
+# checkpoint); the resume check at 2 layers (749.3M parameters, the
+# embedding's 526.8M among them: 9.0 GB a checkpoint).  One attn block's
+# gradients at the trainer's tokens are held to the plain path within
+# TRAIN_LAYER_TOL, and a backward handed prefix 0 must miss it.
+VLM_TRAIN_TOKENS = (4, 2048)
+VLM_PREFIX = 256  # paligemma-3b's frontend_seq: the patches every position sees
+VLM_TRAIN_ARGV = ("--global-batch", str(VLM_TRAIN_TOKENS[0]), "--seq-len",
+                  str(VLM_TRAIN_TOKENS[1]), "--steps", str(TRAIN_STEPS), "--checkpoint-every",
+                  str(TRAIN_CKPT_EVERY), "--seed", "0")
+VLM_RESUME_LAYERS = 2
+VLM_REPORT = "paligemma train"  # BWD_CHECKS' row at the trainer's shape
+VLM_FLOPS_FORMULA = ("3 (2 M B S + 2 F B P + 4 hd H B L Q): M the 2-D parameters but "
+                     "frontend.proj_in (tied unembedding once, over all S positions as the "
+                     "logits are), F proj_in's parameters over the B P patch rows only, P the "
+                     "patches a sequence, Q = sum over i < S of max(i + 1, P) the (query, key) "
+                     "pairs the prefix-LM mask lets through a sequence")
+
+
+def vlm_train_model_flops(cfg, params, b, s) -> float:
+    """Model FLOPs of one training step of the prefix-LM VLM
+    (``VLM_FLOPS_FORMULA``; forward and backward, no remat)."""
+    from repro_torch.tree import leaves_with_paths
+
+    frontend = matrices = 0
+    for path, x in leaves_with_paths(params):
+        if x.dim() == 2:
+            if path[0] == "frontend":
+                frontend += x.numel()
+            else:
+                matrices += x.numel()
+    p = cfg.frontend_seq
+    pairs = sum(max(i + 1, p) for i in range(s))
+    return 3.0 * (2.0 * matrices * b * s + 2.0 * frontend * b * p
+                  + 4 * cfg.head_dim * cfg.n_heads * b * cfg.n_layers * pairs)
+
+
+VLM_TRAINER = MaskedTrainer(
+    phase="train_vlm", arch=VLM_ARCH, kind="attn", mask="prefix", tokens=VLM_TRAIN_TOKENS,
+    tail=VLM_TRAIN_ARGV, resume_layers=VLM_RESUME_LAYERS, report=VLM_REPORT, fault=prefix_zero,
+    fault_name="prefix 0", flops=vlm_train_model_flops, flops_formula=VLM_FLOPS_FORMULA,
+    prefix=VLM_PREFIX, named_leaves=("frontend/proj_in/w", "embed/table"))
 
 
 def main() -> int:
@@ -6605,7 +6772,7 @@ def main() -> int:
     emit({"phase": "scale", "reduced": [
               "gemma-2b's int8 decode (phase 5g): one prompt of 2040 tokens, cut from four "
               "(64, 512, 1024 and 2040), to keep the run's time with phase 8b added",
-              "the trainers' checkpoints (phases 5h, 8b, 8c): only step 10's of the three "
+              "the trainers' checkpoints (phases 5h, 8b-8e): only step 10's of the three "
               "the loop asks for (10, 20, 20 again), which the resume reads: a run may write "
               "45 GiB to the machine's disk",
               "deepseek-v2-lite-16b trained (phase 8c) at its published widths cut to 2 layers "
@@ -6623,6 +6790,13 @@ def main() -> int:
               f"{HYBRID_RESUME_LAYERS} layers of 26 (one Griffin period: rec, rec, "
               "attn_local): a checkpoint of all 26 layers' state would be 34.7 GB (its timed "
               "run trains all 26 layers, without checkpoints)",
+              f"qwen3-0.6b's resume check (phase 5h) at its published widths cut to "
+              f"{TRAIN_RESUME_LAYERS} layers of 28 (all 28 until phase 8e's checkpoint needed "
+              "the disk): a checkpoint of all 28 layers' state is 7.15 GB, of 2 layers 2.2 GB "
+              "(its timed run trains all 28 layers, without checkpoints)",
+              f"paligemma-3b's resume check (phase 8e) at its published widths cut to "
+              f"{VLM_RESUME_LAYERS} layers of 18: a checkpoint of all 18 layers' state would be "
+              "30.1 GB (its timed run trains all 18 layers, without checkpoints)",
               f"recurrentgemma-2b's training (phase 8d) in {HYBRID_MICROBATCHES} microbatches "
               "of its 2 x 4096 tokens (repro's --microbatches): in one, its f32 logits and "
               "their softmax's backward ran out of the card's memory; its first-step gradient "
@@ -6654,6 +6828,9 @@ def main() -> int:
                   "20 steps, capacity factor 1.25), random weights and synthetic tokens; "
                   "recurrentgemma-2b trained at its published widths and all 26 layers (2 x "
                   "4096 tokens a step, past its window of 2048; 20 steps), random weights and "
+                  "synthetic tokens; paligemma-3b trained at its published widths and all 18 "
+                  "layers (4 x 2048 positions a step: 256 patches and 1792 text tokens, "
+                  "one microbatch, 20 steps), random weights, patches and "
                   "synthetic tokens; nothing else cut"})
 
     checkpoint_reckoning(torch)
@@ -6768,10 +6945,11 @@ def main() -> int:
     launches["flash_attention_bwd_tc"] += phase_moe_train(torch, device,
                                                           card)["flash_attention_bwd_tc"]
     lap("train_moe")
-    phase_hybrid_train_layer(torch, device)
-    hyb_train, _ = phase_hybrid_train(torch, device, card)
-    launches["flash_attention_bwd_tc"] += hyb_train["flash_attention_bwd_tc"]
-    lap("train_hybrid")
+    for fam in (HYBRID_TRAINER, VLM_TRAINER):
+        phase_masked_train_layer(torch, device, fam)
+        trained, _ = phase_masked_train(torch, device, card, fam)
+        launches["flash_attention_bwd_tc"] += trained["flash_attention_bwd_tc"]
+        lap(fam.phase)
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

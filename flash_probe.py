@@ -5,9 +5,8 @@ Run from the root of a checkout on a machine with one H100:
 
     python3 flash_probe.py [LOG_DIR]
     python3 flash_probe.py --bwd [LOG_DIR]
-    python3 flash_probe.py --bwd-long-runs [LOG_DIR]
-    python3 flash_probe.py --grad-swap
-    python3 flash_probe.py --hybrid-swap
+    python3 flash_probe.py --bwd-run-rows
+    python3 flash_probe.py --swap ARCH {init,trained}
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
 an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
@@ -18,27 +17,27 @@ an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
 bits twice, the forward's lse, the planted faults, registers and spills,
 each route's timing row), then both routes and the plain version against
 an f64 reference at hd 256, 128 and 64 on one KV head with q 8 times the
-unit scale, capped and not, and at hd 128 with 48 query heads on one KV
-head (granite-20b's, past the split's cap of 16 CTAs) (and the tensor-core
+unit scale, capped and not, at hd 128 with 48 query heads on one KV
+head (granite-20b's, past the split's cap of 16 CTAs), and the tensor-core
+route and the plain version at paligemma-3b's training shape (prefix 256)
+plain and with q 8 times the unit scale (and the tensor-core
 route with each key block's walk cut into 1 .. 16 CTAs), then the
 tensor-core route at qwen3-0.6b's training shape under each hd-128
 ``dkdv`` block of ``BWD_TC_BLOCKS``, and at gemma-2b's, recurrentgemma's
 window and paligemma's prefix shapes (hd 256, one KV head) under each dkdv
 split (device ms, and the error against the plain version).  With
-``--bwd-long-runs`` it prints ``-Xptxas -v`` of the backward, then holds
-the tensor-core route at 48 heads on one KV head of 2048 (hd 128, q 8
-times the unit scale: 16 CTAs a key block, each part walked in runs of
-each length of ``LONG_RUNS``, handed to the launch) to the f64 reference,
-on the inputs of each seed of ``LONG_RUN_SEEDS``, beside the CUDA-core
-route and the plain version, with each one's device ms.  With
-``--grad-swap`` it trains granite-moe-3b-a800m and deepseek-v2-lite-16b
-as ``chip_smoke.py``'s phase 8c does and reads which half of the flash
-kernel, forward or backward, carries the whole-model gradients' gap to
-the plain path, on the trained weights, after the profiled step and at
-init (``grad_swap``).  With ``--hybrid-swap`` it reads the same of
-recurrentgemma-2b's first-step gradients at phase 8d's widths and tokens,
-and how far the plain path moves when its forward sums in another order
-(``hybrid_swap``).  Without any of these:
+``--bwd-run-rows`` it holds the tensor-core backward's dK to the f64
+reference under each of ``RUN_ROW_CANDIDATES`` as the rows one dkdv
+accumulator may sum (``bwd_run_rows``, every call's bounds) at the q-gain-8
+rows of ``BWD_CHECKS`` (G 3 to 48, paligemma-3b's prefix row among them),
+on ``chip_smoke.py``'s inputs and on fresh draws, and times the backward's
+model shapes under each.  With ``--swap ARCH STATE`` it reads which half
+of the flash kernel, forward or backward, carries the gap between the
+kernel and plain paths of one whole-model gradient check of
+``chip_smoke.py`` (qwen3-0.6b's of phase 5h, or that of the trainer of
+phases 8c-8e that trains ARCH), and how far the plain path moves when its
+forward sums in another order, on the initial weights or the trained ones
+(``swap``).  Without any of these:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -133,7 +132,7 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
 
     plan, split, runs = fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split, fab.check_bwd_runs
     table = fab.BWD_TC_BLOCKS[(128, 128)]
-    fab.check_bwd_runs = lambda *args, **kwargs: None  # the sweeps' splits pass 4,096 rows
+    fab.check_bwd_runs = lambda *args, **kwargs: None  # the sweeps' splits pass BWD_RUN_ROWS
     try:
         case = inputs(4, 16, 8, 2048, 128)
         for blocks in table["dkdv"]:
@@ -155,9 +154,10 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
         fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split, fab.check_bwd_runs = plan, split, runs
 
 
-def f64_reference(torch, q, k, v, out, dout, softcap):
-    """(dq, dk, dv) of causal softmax attention written out in float64 on
-    the same bf16 inputs, with D from the same bf16 forward output."""
+def f64_reference(torch, q, k, v, out, dout, softcap, prefix=0):
+    """(dq, dk, dv) of causal softmax attention (every query also seeing the
+    first ``prefix`` keys) written out in float64 on the same bf16 inputs,
+    with D from the same bf16 forward output."""
     b, h, s, hd = q.shape
     g = h // k.shape[1]
     kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
@@ -167,6 +167,7 @@ def f64_reference(torch, q, k, v, out, dout, softcap):
     if softcap:
         sc = torch.tanh(sc / softcap) * softcap
     seen = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    seen[:, :prefix] = True
     p = torch.softmax(sc.masked_fill(~seen, float("-inf")), -1)
     ds = p * (torch.einsum("bhsd,bhtd->bhst", dod, vd)
               - (dod * out.double()).sum(-1, keepdim=True))
@@ -183,8 +184,10 @@ def bwd_against_f64(torch, chip_smoke) -> None:
     (softmax attention written out in float64 on the same bf16 inputs, with
     D from the same bf16 forward output) at hd 256, 128 and 64 with 8 query
     heads on one KV head and q 8 times the unit scale, capped at 50 or not,
-    and at hd 128 with 48 heads on one KV head; then the tensor-core route
-    at hd 256 and 128 with each key block's walk cut over 1 .. 16 CTAs (dK
+    at hd 128 with 48 heads on one KV head, and (the tensor-core route and
+    the plain version) at paligemma-3b's training shape ``[4, 8, 2048, 256]``
+    on one KV head with prefix 256, q at gain 1 and 8; then the tensor-core
+    route at hd 256 and 128 with each key block's walk cut over 1 .. 16 CTAs (dK
     and dV only): per gradient the
     largest |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` (below 1
     within it), the reference and the value there, and the count above 1."""
@@ -211,7 +214,7 @@ def bwd_against_f64(torch, chip_smoke) -> None:
         return q, k, v, out, dout, lse, reference(q, k, v, out, dout, cap)
 
     # G 48: granite-20b's 48 heads on one KV head, 98,304 rows a key block,
-    # 16 CTAs (the cap) each walking runs of 4,096 rows.
+    # 16 CTAs (the cap) each walking runs of BWD_LONG_RUN_ROWS rows.
     for hd, cap, heads in ((256, 50.0, 8), (256, 0.0, 8), (128, 50.0, 8), (128, 0.0, 8),
                            (64, 50.0, 8), (64, 0.0, 8), (128, 0.0, 48)):
         q, k, v, out, dout, lse, ref = inputs(hd, cap, heads)
@@ -228,6 +231,23 @@ def bwd_against_f64(torch, chip_smoke) -> None:
                   {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
                   flush=True)
         del got, ref
+
+    # paligemma-3b's training shape: 4 x 2048 positions, 8 heads on one KV
+    # head of 256, prefix 256 (BWD_CHECKS' "paligemma train" rows).
+    for gain in (1.0, 8.0):
+        g = torch.Generator(device=dev).manual_seed(8)
+        q, k, v, dout = ((torch.randn(4, 2048, n, 256, device=dev, generator=g) * x).to(
+            torch.bfloat16).transpose(1, 2) for n, x in ((8, gain), (1, 1.0), (1, 1.0),
+                                                         (8, 1.0)))
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v, prefix=256)
+        ref = f64_reference(torch, q, k, v, out, dout, 0.0, prefix=256)
+        got = {"tc": fab.flash_attention_bwd(q, k, v, out, dout, prefix=256, lse=lse),
+               "plain": fab.flash_attention_bwd_plain(q, k, v, out, dout, prefix=256)}
+        for who, grads in got.items():
+            print(f"bwd vs f64 paligemma train [4,8,2048,256] prefix 256 q gain {gain} {who}",
+                  {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
+                  flush=True)
+        del got, ref, q, k, v, dout, out, lse
 
     # The tc route against the (head, query) rows one CTA sums into its
     # wgmma accumulators: each key block's 16,384 rows cut into n parts,
@@ -249,199 +269,253 @@ def bwd_against_f64(torch, chip_smoke) -> None:
         fab.bwd_tc_kv_split, fab.check_bwd_runs = split, runs
 
 
-# The run lengths --bwd-long-runs hands the backward (run_steps), and the
-# seeds of its inputs.
-LONG_RUNS = (4096, 2048, 1024, 512)
-LONG_RUN_SEEDS = (8, 1, 2)
+# The seeds of --bwd-run-rows' fresh draws of each row.
+ROW_SEEDS = range(8)
 
 
-def bwd_long_runs(torch, chip_smoke) -> None:
-    """The tensor-core backward at G 48 (``[1, 48, 2048, 128]`` on one KV
-    head, q gain 8) against f64 under each run length of ``LONG_RUNS``
-    (one build: the launch takes the run length), on inputs of each seed of
-    ``LONG_RUN_SEEDS``; the CUDA-core route and the plain version beside
-    them."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+def check_inputs(torch, chip_smoke, dev, names, first=()):
+    """The (q, k, v, dout) of each ``BWD_CHECKS`` row in ``names``, drawn as
+    ``chip_smoke.phase_train_kernels`` draws them (its generator replayed
+    over every row before), in the model's layout; with the rows named in
+    ``first`` drawn right after "prefix 256" instead of last."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = [c for c in chip_smoke.BWD_CHECKS if c[0] not in first]
+    at = next(i for i, c in enumerate(rows) if c[0] == "prefix 256") + 1
+    rows[at:at] = [c for c in chip_smoke.BWD_CHECKS if c[0] in first]
+    out = {}
+    for name, b, h, kv, s, t, hd, hd_v, *_, gain, dtype in rows:
+        q, k, v, dout = (
+            (torch.randn(b, n, heads, width, device=dev, generator=gen) * x).to(
+                getattr(torch, dtype)).transpose(1, 2)
+            for heads, n, width, x in ((h, s, hd, gain), (kv, t, hd, 1.0), (kv, t, hd_v, 1.0),
+                                       (h, s, hd_v, 1.0)))
+        if name in names:
+            out[name] = (q, k, v, dout)
+    return out
 
-    dev = torch.device("cuda", 0)
-    bench = chip_smoke.Bench(torch, dev)
-    tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
-    bq = fab.plan_bwd_tc_blocks(128, 128)["dkdv"][1]
-    for seed in LONG_RUN_SEEDS:
-        g = torch.Generator(device=dev).manual_seed(seed)
-        q, k, v, dout = ((torch.randn(1, 2048, n, 128, device=dev, generator=g) * gain).to(
-            torch.bfloat16).transpose(1, 2)
-            for n, gain in ((48, 8.0), (1, 1.0), (1, 1.0), (48, 1.0)))
-        out, lse = chip_smoke.forward_with_lse(torch, q, k, v)
-        ref = f64_reference(torch, q, k, v, out, dout, 0.0)
 
-        def excess(got, want):
-            r = (got.double() - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
-            return [round(float(r.max()), 4), int((r > 1).sum())]
+def seeded_inputs(torch, dev, row, seed):
+    """(q, k, v, dout) of the ``BWD_CHECKS`` row ``row`` drawn afresh from
+    ``seed``, in the model's layout."""
+    _, b, h, kv, s, t, hd, hd_v, *_, gain, dtype = row
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple((torch.randn(b, n, heads, width, device=dev, generator=gen) * x).to(
+        getattr(torch, dtype)).transpose(1, 2) for heads, n, width, x in (
+            (h, s, hd, gain), (kv, t, hd, 1.0), (kv, t, hd_v, 1.0), (h, s, hd_v, 1.0)))
 
-        def report(what, fn):
-            grads = fn()
-            ms = bench.device_ms(fn, reps=10)["device_ms"]
-            print(f"bwd vs f64 G 48 hd 128 q gain 8 seed {seed} {what}: device ms {ms:.4f}",
-                  {n: excess(x, r) for n, x, r in zip(("dq", "dk", "dv"), grads, ref)},
-                  flush=True)
 
-        plan = fab.plan_bwd_run_steps
-        try:
-            for rows in LONG_RUNS:
-                fab.plan_bwd_run_steps = lambda *args, rows=rows: rows // bq
-                report(f"tc, runs of {rows} rows",
-                       lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse=lse))
-        finally:
-            fab.plan_bwd_run_steps = plan
-        route = fab.bwd_route
-        fab.bwd_route = lambda *xs: "simt"
-        try:
-            report("simt", lambda: fab.flash_attention_bwd(q, k, v, out, dout))
-        finally:
-            fab.bwd_route = route
-        report("plain", lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout))
-        del q, k, v, dout, out, lse, ref
+def cancelled_terms(torch, q, k, v, out, dout, index, prefix, softcap):
+    """The sum of |dS q| / sqrt(hd) in f64 over the (head, query) rows that
+    dK's entry ``index`` = (b, KV head, key, column) sums: the magnitude its
+    terms cancel from."""
+    bi, ki, ti, di = index
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    heads = slice(ki * g, (ki + 1) * g)
+    qd, dod = q[bi, heads].double(), dout[bi, heads].double()
+    kd, vd = k[bi, ki].double(), v[bi, ki].double()
+    pos = torch.arange(s, device=q.device)
+    seen = (pos[:, None] >= pos[None, :]) | (pos[None, :] < prefix)
+    sc = qd @ kd.T / math.sqrt(hd)
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    p = torch.softmax(sc.masked_fill(~seen, float("-inf")), -1)
+    ds = p * (dod @ vd.T - (dod * out[bi, heads].double()).sum(-1, keepdim=True))
+    if softcap:
+        ds = ds * (1 - (sc.masked_fill(~seen, 0) / softcap) ** 2)
+    return float((ds[:, :, ti].abs() * qd[:, :, di].abs()).sum() / math.sqrt(hd))
+
+
+# The (head, query) rows one dkdv accumulator may sum that --bwd-run-rows
+# tries as both bounds of every call (4,096 with runs of 1,024 past the CTAs'
+# cap is the plan of a call without a prefix, 256 a call's with one), the
+# rows it reads against f64 on every draw, and the rows it times.
+RUN_ROW_CANDIDATES = (4096, 2048, 1024, 512, 256)
+RUN_ROW_PRECISION = ("q gain 8", "G 8 q gain 8 hd 64", "G 8 softcap 50 hd 128",
+                     "granite-moe q gain 8", "G 48 q gain 8 hd 128", "paligemma q gain 8")
+RUN_ROW_TIMED = ("qwen3-0.6b train", "gemma-2b", "recurrentgemma train", "paligemma train",
+                 "granite-moe train", "mla 192/128", "G 48 q gain 8 hd 128")
 
 
 @contextlib.contextmanager
-def unsplit_dkdv():
-    """The kernel backward's dkdv walks each key block in one CTA and one
-    run while the context lasts."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
-
-    saved = fab.bwd_tc_kv_split, fab.check_bwd_runs
-    fab.bwd_tc_kv_split = lambda *args: 1
-    fab.check_bwd_runs = lambda *args, **kwargs: None
+def run_rows(fab, rows):
+    """The backward's plans with every call's bounds (``bwd_run_rows``,
+    with a prefix or not) at parts of at most ``rows`` rows and, past the
+    CTAs' cap, runs of ``min(rows, 1024)`` rows while the context lasts."""
+    saved = fab.bwd_run_rows
+    fab.bwd_run_rows = lambda prefix=0: (rows, min(rows, 1024))
+    fab.longest_bwd_run.cache_clear()
     try:
         yield
     finally:
-        fab.bwd_tc_kv_split, fab.check_bwd_runs = saved
+        fab.bwd_run_rows = saved
+        fab.longest_bwd_run.cache_clear()
 
 
-# (label, plain forward, plain backward, unsplit dkdv) of --grad-swap's paths,
-# each held to the plain forward and plain backward (chip_smoke.plain_flash_training).
-SWAP_PATHS = (("kernel forward, kernel backward", False, False, False),
-              ("plain forward, kernel backward", True, False, False),
-              ("kernel forward, plain backward", False, True, False),
-              ("kernel forward, kernel backward, dkdv unsplit", False, False, True))
+def bwd_run_rows(torch, chip_smoke) -> None:
+    """The tensor-core backward's dK against the f64 reference under each
+    run length of ``RUN_ROW_CANDIDATES`` (the largest |got - ref| / (atol +
+    rtol |ref|) of ``ATTN_TOL``) at the rows of ``RUN_ROW_PRECISION``, on
+    ``chip_smoke.py``'s inputs, on those "q gain 8" has with the paligemma
+    rows drawn first, and on fresh draws from each seed of ``ROW_SEEDS``,
+    with the count of draws over 1 (and for each draw over 1, and the
+    shortest length on chip_smoke's inputs, the worst entry: its reference,
+    kernel and plain values, the kernel against the plain version, and the
+    magnitude its terms cancel from); then each row of ``RUN_ROW_TIMED``
+    timed under each length (device ms, seed 0), with its kv_split and run
+    steps."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+    rows = {c[0]: c for c in chip_smoke.BWD_CHECKS}
+    bench = chip_smoke.Bench(torch, dev)
 
-def grad_swap(torch, chip_smoke, dev) -> None:
-    """Which half of the flash kernel carries the whole-model gradients'
-    kernel-against-plain gap of a trained MoE decoder: each family of
-    ``chip_smoke.MOE_TRAIN_FAMILIES`` trained as phase 8c trains it (20
-    steps, no checkpoints), then one step's gradients (its first batch,
-    full remat) on each path of ``SWAP_PATHS`` against the plain forward and
-    backward, every path on the first path's routing (``chip_smoke.
-    RoutingLog``, replayed), on three sets of weights: after 8c's profiled
-    step (``chip_smoke.train_breakdown``: two more donating updates on that
-    batch, the state phase 8c's gradient check first read), after the 20
-    steps, and the initial ones."""
-    from repro_torch.data.pipeline import synthetic_batches
-    from repro_torch.launch import steps as steps_lib
-    from repro_torch.models import moe
-    from repro_torch.models import transformer as tf
-    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+    def mask_of(name):
+        return dict(window=rows[name][8], prefix=rows[name][9], softcap=rows[name][10])
 
-    for arch, layers, _ in chip_smoke.MOE_TRAIN_FAMILIES:
-        run = chip_smoke.train_window(torch, dev, chip_smoke.family_argv(arch, layers))
-        cfg, args = run["cfg"], run["args"]
-        state = run.pop("state")
-        batch = next(synthetic_batches(cfg, run["shape"], seed=args.seed))
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "losses": run["loss"]}),
-              flush=True)
-        trained = tree_map(lambda t: t.to("cpu", copy=True), state["params"])
-        chip_smoke.train_breakdown(
-            torch, steps_lib.make_train_step(cfg, run["opt_cfg"], donate=True), state, batch)
-        weights = {"after the profiled step": state["params"]}
-        del state
-        torch.cuda.empty_cache()
-        for label in ("after the profiled step", "trained", "init"):
-            if label == "trained":
-                params = tree_map(lambda t: t.to(dev), trained)
-            elif label == "init":
-                params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                                        dev, dtype=torch.float32)
-            else:
-                params = weights.pop(label)
-            names = ["/".join(p) for p, _ in leaves_with_paths(params)]
-            log = chip_smoke.RoutingLog(moe._top_k)
-
-            def model_grads():
-                log.agree = []
-                live = tree_map(lambda t: t.detach().requires_grad_(), params)
-                total, _ = tf.loss_fn(live, cfg, batch, remat=True)
-                return torch.autograd.grad(total, leaves(live))
-
-            moe._top_k = log
-            try:
-                first = model_grads()
-                log.replaying = True
-                with chip_smoke.plain_flash_training():
-                    want = model_grads()
-                for path, fwd, bwd, unsplit in SWAP_PATHS:
-                    try:
-                        if path != SWAP_PATHS[0][0]:
-                            with chip_smoke.plain_flash_training(fwd, bwd), (
-                                    unsplit_dkdv() if unsplit else contextlib.nullcontext()):
-                                first = model_grads()
-                    except Exception as e:  # report and go on to the next path
-                        print(json.dumps({"arch": cfg.name, "weights": label, "path": path,
-                                          "raised": repr(e)[:300]}), flush=True)
-                        continue
-                    errs = {n: chip_smoke.rel_err(torch, g, w)
-                            for n, g, w in zip(names, first, want)}
-                    print(json.dumps({
-                        "arch": cfg.name, "weights": label, "path": path,
-                        "against": "plain forward, plain backward",
-                        "per_leaf_rel_err_max": max(errs.values()),
-                        "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:6],
-                        "routing_agreement_min": min(log.agree)}), flush=True)
-                    first = None
-            finally:
-                moe._top_k = log.top_k
-            del params, want
-            torch.cuda.empty_cache()
-        del trained
+    draws = {name: [("chip_smoke", xs)]
+             for name, xs in check_inputs(torch, chip_smoke, dev, RUN_ROW_PRECISION).items()}
+    draws["q gain 8"].append(("paligemma rows first", check_inputs(
+        torch, chip_smoke, dev, ["q gain 8"],
+        first=("paligemma train", "paligemma q gain 8"))["q gain 8"]))
+    for name in RUN_ROW_PRECISION:
+        found = {c: [] for c in RUN_ROW_CANDIDATES}
+        for label, xs in draws[name] + [(f"seed {seed}", seeded_inputs(
+                torch, dev, rows[name], seed)) for seed in ROW_SEEDS]:
+            q, k, v, dout = xs
+            mask = mask_of(name)
+            out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
+            ref = f64_reference(torch, q, k, v, out, dout, mask["softcap"],
+                                prefix=mask["prefix"])[1]
+            plain = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)[1]
+            for c in RUN_ROW_CANDIDATES:
+                with run_rows(fab, c):
+                    dk = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)[1]
+                r = (dk.double() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
+                found[c].append(round(float(r.max()), 4))
+                if r.max() > 1 or (c == RUN_ROW_CANDIDATES[-1] and label == "chip_smoke"):
+                    at = tuple(int(x) for x in torch.unravel_index(r.argmax(), r.shape))
+                    cancel = cancelled_terms(torch, q, k, v, out, dout, at, mask["prefix"],
+                                             mask["softcap"])
+                    print(f"bwd run rows {c} {name} {label}: worst dk at {list(at)}, ref "
+                          f"{float(ref[at]):.6g}, kernel {float(dk[at]):.6g}, plain "
+                          f"{float(plain[at]):.6g}, against the plain version "
+                          f"{chip_smoke.tol_excess(torch, dk, plain):.4f}, sum |dS q| "
+                          f"{cancel:.6g}", flush=True)
+            del ref, plain, out, lse
+        for c in RUN_ROW_CANDIDATES:
+            print(f"bwd run rows {c} {name}: dk excess vs f64 on "
+                  f"{[label for label, _ in draws[name]] + [f'seeds {list(ROW_SEEDS)}']}: "
+                  f"{found[c]}, {sum(x > 1 for x in found[c])} over 1", flush=True)
+    for name in RUN_ROW_TIMED:
+        q, k, v, dout = seeded_inputs(torch, dev, rows[name], 0)
+        mask = mask_of(name)
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
+        b, h, s_, hd = q.shape
+        hd_v = v.shape[3]
+        for c in RUN_ROW_CANDIDATES:
+            with run_rows(fab, c):
+                split = fab.bwd_tc_kv_split(b, h, k.shape[1], s_, k.shape[2], hd, hd_v,
+                                            mask["prefix"])
+                steps = fab.plan_bwd_run_steps(h // k.shape[1], s_, fab.plan_bwd_tc_blocks(
+                    hd, hd_v, mask["softcap"] > 0)["dkdv"][1], split, mask["prefix"])
+                ms = bench.device_ms(lambda: fab.flash_attention_bwd(
+                    q, k, v, out, dout, **mask, lse=lse), reps=10)["device_ms"]
+            print(f"bwd run rows {c} {name}: device ms {ms:.4f} kv_split {split} run steps "
+                  f"{steps}", flush=True)
+        del q, k, v, dout, out, lse
 
 
 # (label, plain forward, plain backward, the plain forward's key blocks as a
-# multiple of the call's) of --hybrid-swap's paths, each held to the plain
-# forward and backward at the call's key blocks.
-HYBRID_SWAP_PATHS = (("kernel forward, kernel backward", False, False, 1),
-                     ("plain forward, kernel backward", True, False, 1),
-                     ("kernel forward, plain backward", False, True, 1),
-                     ("plain forward at twice the key blocks, plain backward", True, True, 2))
+# multiple of the call's) of --swap's paths, each held to the plain forward
+# and backward at the call's key blocks: which half of the flash kernel
+# carries the gap, and (the last) how far the plain path moves when its
+# forward sums the same f32 softmax in another order.
+SWAP_PATHS = (("kernel forward, kernel backward", False, False, 1),
+              ("plain forward, kernel backward", True, False, 1),
+              ("kernel forward, plain backward", False, True, 1),
+              ("plain forward at twice the key blocks, plain backward", True, True, 2))
+SWAP_STATES = ("init", "trained")
 
 
-def hybrid_swap(torch, chip_smoke, dev) -> None:
-    """Which half of the flash kernel carries recurrentgemma-2b's first-step
-    whole-model gradient gap (phase 8d's check), and how far the plain path
-    moves when its forward sums the same f32 softmax in another order: the
-    initial weights and the first batch's first microbatch, as phase 8d
-    reads them, on each path of ``HYBRID_SWAP_PATHS``."""
+def swap_case(torch, chip_smoke, dev, arch: str, state: str):
+    """(cfg, params, batch) of ``arch``'s whole-model gradient check as
+    ``chip_smoke.py`` reads it.  qwen3-0.6b (phase 5h): one [1, 2048] batch
+    on the initial weights or on those its fixed-batch steps leave
+    (``trained``).  The trainers of phases 8c-8e: their first batch's first
+    microbatch on the initial weights or on those their 20 steps leave."""
+    import dataclasses
+
     from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train as train_mod
     from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
 
-    argv = [*chip_smoke.family_argv(chip_smoke.HYBRID_ARCH, 0, chip_smoke.HYBRID_TRAIN_ARGV),
-            "--device", str(dev)]
-    args = train_mod.parse_args(argv)
+    if arch == chip_smoke.TRAIN_ARCH:
+        args = train_mod.parse_args([*chip_smoke.TRAIN_ARGV, "--device", str(dev)])
+        cfg, shape, _, _ = train_mod.setup(args)
+        raw = next(synthetic_batches(cfg, dataclasses.replace(shape, global_batch=1), seed=1))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        st = steps_lib.init_state(cfg, torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
+                                  dev)
+        if state == "trained":
+            step_fn = steps_lib.make_train_step(cfg, AdamWConfig(
+                lr=3e-3, total_steps=chip_smoke.FIXED_BATCH_STEPS, warmup_steps=2,
+                weight_decay=0.0))
+            for _ in range(chip_smoke.FIXED_BATCH_STEPS):
+                st, _ = step_fn(st, batch)
+        return cfg, st["params"], batch
+    layers = {a: n for a, n, _ in chip_smoke.MOE_TRAIN_FAMILIES}
+    tails = {fam.arch: fam.tail for fam in (chip_smoke.HYBRID_TRAINER, chip_smoke.VLM_TRAINER)}
+    if arch not in layers and arch not in tails:
+        raise SystemExit(f"flash_probe.py --swap: no trainer of chip_smoke.py trains {arch}")
+    argv = chip_smoke.family_argv(arch, layers.get(arch, 0), tails.get(arch))
+    args = train_mod.parse_args([*argv, "--device", str(dev)])
     cfg, shape, _, _ = train_mod.setup(args)
     rows = shape.global_batch // args.microbatches
     batch = {k: torch.as_tensor(v[:rows], device=dev)
              for k, v in next(synthetic_batches(cfg, shape, seed=args.seed)).items()}
-    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev,
-                            dtype=torch.float32)
-    paths = [functools.partial(chip_smoke.plain_flash_training, fwd, bwd, blocks)
-             if fwd or bwd else contextlib.nullcontext
-             for _, fwd, bwd, blocks in HYBRID_SWAP_PATHS]
-    for (path, *_), errs in zip(HYBRID_SWAP_PATHS, chip_smoke.path_grad_errors(
-            torch, cfg, params, batch, chip_smoke.plain_flash_training, paths)):
-        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "tokens": [rows, shape.seq_len],
-                          "path": path, "against": "plain forward, plain backward",
+    if state == "trained":
+        params = chip_smoke.train_window(torch, dev, argv)["state"]["params"]
+    else:
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev,
+                                dtype=torch.float32)
+    return cfg, params, batch
+
+
+def swap(torch, chip_smoke, dev, arch: str, state: str) -> None:
+    """``arch``'s whole-model gradients (:func:`swap_case`'s weights and
+    batch, full remat) on each path of ``SWAP_PATHS`` against the plain
+    forward and backward; an MoE decoder's paths all on the kernel path's
+    routing (``chip_smoke.RoutingLog``, recorded once, then replayed)."""
+    from repro_torch.models import moe
+
+    cfg, params, batch = swap_case(torch, chip_smoke, dev, arch, state)
+    log = chip_smoke.RoutingLog(moe._top_k)
+
+    def path(fwd, bwd, blocks):
+        @contextlib.contextmanager
+        def context():
+            log.agree, log.replaying = [], True
+            with (chip_smoke.plain_flash_training(fwd, bwd, blocks) if fwd or bwd
+                  else contextlib.nullcontext()):
+                yield
+        return context
+
+    moe._top_k = log
+    try:
+        chip_smoke.model_grads(torch, cfg, params, batch, contextlib.nullcontext)  # routing
+        errors = chip_smoke.path_grad_errors(
+            torch, cfg, params, batch, path(True, True, 1), [path(*p[1:]) for p in SWAP_PATHS])
+    finally:
+        moe._top_k = log.top_k
+    for (name, *_), errs in zip(SWAP_PATHS, errors):
+        print(json.dumps({"arch": cfg.name, "layers": cfg.n_layers, "weights": state,
+                          "tokens": list(batch["tokens"].shape), "path": name,
+                          "against": "plain forward, plain backward",
                           "per_leaf_rel_err_max": max(errs.values()),
                           "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:6]}),
               flush=True)
@@ -460,30 +534,25 @@ def main() -> int:
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
-    args = [a for a in sys.argv[1:]
-            if a not in ("--bwd", "--bwd-long-runs", "--grad-swap", "--hybrid-swap")]
-    log_dir = Path(args[0]) if args else runtime.BUILD_DIR
-    log_dir.mkdir(parents=True, exist_ok=True)
-    if "--hybrid-swap" in sys.argv[1:]:
-        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
-        chip_smoke.load_peaks()
-        runtime.build(["flash_attention", "flash_attention_bwd"])
-        hybrid_swap(torch, chip_smoke, torch.device("cuda", 0))
-        print("ALL OK", flush=True)
-        return 0
-    if "--grad-swap" in sys.argv[1:]:
+    if sys.argv[1:2] == ["--swap"]:
+        if len(sys.argv) != 4 or sys.argv[3] not in SWAP_STATES:
+            print(f"usage: flash_probe.py --swap ARCH {{{','.join(SWAP_STATES)}}}",
+                  file=sys.stderr)
+            return 2
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.load_peaks()
         runtime.build()
-        grad_swap(torch, chip_smoke, torch.device("cuda", 0))
+        swap(torch, chip_smoke, torch.device("cuda", 0), sys.argv[2], sys.argv[3])
         print("ALL OK", flush=True)
         return 0
-    if "--bwd-long-runs" in sys.argv[1:]:
-        ptxas_report(log_dir, "flash_attention_bwd")
+    args = [a for a in sys.argv[1:] if a not in ("--bwd", "--bwd-run-rows")]
+    log_dir = Path(args[0]) if args else runtime.BUILD_DIR
+    log_dir.mkdir(parents=True, exist_ok=True)
+    if "--bwd-run-rows" in sys.argv[1:]:
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.load_peaks()
         runtime.build(["flash_attention", "flash_attention_bwd"])
-        bwd_long_runs(torch, chip_smoke)
+        bwd_run_rows(torch, chip_smoke)
         print("ALL OK", flush=True)
         return 0
     if "--bwd" in sys.argv[1:]:

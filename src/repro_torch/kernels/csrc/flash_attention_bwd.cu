@@ -64,11 +64,13 @@
 // sums lose more than the CUDA cores' over thousands of accumulated steps
 // (at G 8 on one KV head, 16,384 query rows into one accumulator, dK missed
 // ATTN_TOL's elementwise bound against f64 by 3.4x at hd 128; 4,096 rows
-// read 0.5), so no run takes more than 4,096 (head, query) rows; dkdv_wg
-// also where B * KV * (key blocks) CTAs leave most SMs idle (few KV heads).
-// The CTAs a key block stop at kMaxSplit (16), so past 16 x 4,096 rows (48
-// heads on one KV head of 2048: 98,304) a CTA's part outnumbers one run's
-// rows.  Then the host hands the tc entry a run length (run_steps, planned
+// read 0.5), so no run takes more than 4,096 (head, query) rows, and 256
+// in a call with a prefix (whose keys every row sees: at paligemma-3b's
+// [4, 8, 2048, 256] with q 8 times the unit scale 4,096 rows still missed
+// it on 6 of 9 draws); dkdv_wg also where B * KV * (key blocks) CTAs leave
+// most SMs idle (few KV heads).  The CTAs a key block stop at kMaxSplit
+// (16), so past 16 runs' rows (48 heads on one KV head of 2048: 98,304) a
+// CTA's part outnumbers one run's rows.  Then the host hands the tc entry a run length (run_steps, planned
 // and checked by flash_attention_bwd.py's plan_bwd_run_steps and
 // check_bwd_runs) and dkdv is launched once per run (a pass): pass r takes
 // run r of every CTA's part, run_steps steps from the accumulators' 0, and

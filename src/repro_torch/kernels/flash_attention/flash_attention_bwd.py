@@ -31,10 +31,12 @@ alone:
   (:func:`kv_reduce`), so two calls still give the same bits.  Both dkdv
   kernels also split a key block's walk where it is long
   (:func:`plan_bwd_run_split`: wgmma's f32 sums over more than
-  :data:`BWD_RUN_ROWS` rows lose dK's precision); where the CTAs' cap
-  leaves a CTA's part longer than that, dkdv runs once per run of
-  :data:`BWD_LONG_RUN_ROWS` rows, each pass adding its run's sums into each
-  CTA's partial in order (:func:`dkdv_runs`).  Both form dK from dS^T in
+  :data:`BWD_RUN_ROWS` rows, :data:`BWD_PREFIX_RUN_ROWS` in a call with a
+  prefix, lose dK's precision); where the CTAs' cap leaves a CTA's part
+  longer than that, dkdv runs once per run of :data:`BWD_LONG_RUN_ROWS`
+  rows (:data:`BWD_PREFIX_RUN_ROWS` with a prefix), each pass adding its
+  run's sums into each CTA's partial in order (:func:`dkdv_runs`;
+  :func:`bwd_run_rows` gives both bounds).  Both form dK from dS^T in
   three bf16 terms (hi + mid + lo).  A call this
   route takes never runs on the CUDA-core kernel: a missing lse, a failed
   build, encode or launch raises.
@@ -121,8 +123,17 @@ BWD_RUN_ROWS = 4096
 # as run_steps.  Shorter, as such walks sum more runs: at 48 heads on one KV
 # head of 2048 with q 8 times the unit scale, runs of 4,096 rows left dK at
 # 1.7x ATTN_TOL's bound against the plain version (an H100;
-# flash_probe.py --bwd-long-runs sweeps the length).
+# flash_probe.py --bwd-run-rows sweeps the length).
 BWD_LONG_RUN_ROWS = 1024
+# Both bounds of a call with a prefix (prefix-LM and every-key calls): a
+# CTA's part and its runs of at most this many rows.  A prefix shows its keys
+# to every row, so each of its key blocks takes the longest walk.  On an
+# H100 with q 8 times the unit scale (flash_probe.py --bwd-run-rows, 9 draws
+# a length), parts of 4,096 rows left dK past ATTN_TOL's elementwise bound
+# against f64 on 6 draws of paligemma-3b's [4, 8, 2048, 256] with prefix 256
+# (up to 1.33x), 256 rows on none (at most 0.58x); calls without a prefix
+# keep the bounds above, their plan and their bits.
+BWD_PREFIX_RUN_ROWS = 256
 
 
 def bwd_smem_bytes(kernel: str, bq: int, bk: int, hd: int, hd_v: int, dtype_bytes: int) -> int:
@@ -218,27 +229,40 @@ def plan_bwd_kv_split(b: int, kv: int, t: int, group: int, keys_per_cta: int,
     return 1 if ctas >= sms else min(2 * sms // ctas, BWD_KV_SPLIT_MAX)
 
 
-def plan_bwd_run_split(group: int, s: int) -> int:
-    """dkdv's CTAs a key block for precision: parts of at most :data:`BWD_RUN_ROWS`
-    (head, query) rows of the ``group`` heads' ``s`` rows (the most that see
-    a key block), at most :data:`BWD_KV_SPLIT_MAX`: 1 at qwen3-0.6b's
-    training shape (2 x 2048 rows), 4 at 8 heads on one KV head of 2048, 16
-    at granite-20b's 48 heads on one KV head of 2048, whose parts of 6,144
-    rows are walked in runs (:func:`plan_bwd_run_steps`)."""
+def bwd_run_rows(prefix: int = 0) -> tuple:
+    """(the rows a dkdv CTA's part may sum in one run, the rows of its runs
+    where the CTAs' cap leaves it longer) of a call with ``prefix``:
+    :data:`BWD_PREFIX_RUN_ROWS` for both where it has one, else
+    :data:`BWD_RUN_ROWS` and :data:`BWD_LONG_RUN_ROWS`."""
+    if prefix:
+        return BWD_PREFIX_RUN_ROWS, BWD_PREFIX_RUN_ROWS
+    return BWD_RUN_ROWS, BWD_LONG_RUN_ROWS
+
+
+def plan_bwd_run_split(group: int, s: int, prefix: int = 0) -> int:
+    """dkdv's CTAs a key block for precision: parts of at most
+    :func:`bwd_run_rows`' (head, query) rows of the ``group`` heads' ``s``
+    rows (the most that see a key block), at most :data:`BWD_KV_SPLIT_MAX`:
+    without a prefix 1 at qwen3-0.6b's training shape (2 x 2048 rows), 4 at 8
+    heads on one KV head of 2048, 16 at granite-20b's 48 heads on one KV head
+    of 2048, whose parts of 6,144 rows are walked in runs
+    (:func:`plan_bwd_run_steps`); with one 16 at paligemma-3b's 8 heads on
+    one KV head of 2048, whose parts of 1,024 rows are walked in runs."""
     if min(group, s) < 1:
         raise ValueError(f"plan_bwd_run_split takes positive sizes, got group={group}, s={s}")
-    return min(-(-group * s // BWD_RUN_ROWS), BWD_KV_SPLIT_MAX)
+    return min(-(-group * s // bwd_run_rows(prefix)[0]), BWD_KV_SPLIT_MAX)
 
 
-def plan_bwd_run_steps(group: int, s: int, bq: int, kv_split: int) -> int:
+def plan_bwd_run_steps(group: int, s: int, bq: int, kv_split: int, prefix: int = 0) -> int:
     """The steps (query blocks of ``bq`` rows) of one dkdv run, which
     :func:`bwd_tc_launch` hands the kernels: 0 (each CTA's part in one run,
     one dkdv launch) unless ``kv_split`` > 1 and the longest part, ``ceil(group
-    ceil(s / bq) / kv_split)`` steps, passes :data:`BWD_RUN_ROWS` rows; then
-    runs of :data:`BWD_LONG_RUN_ROWS` rows, one dkdv launch (pass) each."""
+    ceil(s / bq) / kv_split)`` steps, passes :func:`bwd_run_rows`' first
+    bound; then runs of its second, one dkdv launch (pass) each."""
+    rows, run_rows = bwd_run_rows(prefix)
     longest = -(-group * -(-s // bq) // kv_split)
-    if kv_split > 1 and longest > BWD_RUN_ROWS // bq:
-        return BWD_LONG_RUN_ROWS // bq
+    if kv_split > 1 and longest > rows // bq:
+        return run_rows // bq
     return 0
 
 
@@ -263,35 +287,39 @@ def dkdv_runs(steps: int, kv_split: int, run_steps: int) -> list:
 
 @functools.lru_cache(maxsize=256)
 def longest_bwd_run(group: int, s: int, bq: int, kv_split: int,
-                    run_steps: int | None = None) -> int:
+                    run_steps: int | None = None, prefix: int = 0) -> int:
     """The most (head, query) rows one dkdv accumulator sums when a key
     block seen by all ``s`` query rows of the ``group`` heads (the longest
     walk: ``ceil(s / bq)`` query blocks of ``bq`` rows a head) is walked by
     ``kv_split`` CTAs in runs of ``run_steps`` steps (by default
-    :func:`plan_bwd_run_steps`'; :func:`dkdv_runs`)."""
+    :func:`plan_bwd_run_steps`' at ``prefix``; :func:`dkdv_runs`)."""
     n_q = -(-s // bq)
     if run_steps is None:
-        run_steps = plan_bwd_run_steps(group, s, bq, kv_split)
+        run_steps = plan_bwd_run_steps(group, s, bq, kv_split, prefix)
     return max((sum(min(bq, s - (i % n_q) * bq) for i in run)
                 for cta in dkdv_runs(group * n_q, kv_split, run_steps) for run in cta),
                default=0)
 
 
 def check_bwd_runs(group: int, s: int, bq: int, kv_split: int,
-                   run_steps: int | None = None) -> None:
+                   run_steps: int | None = None, prefix: int = 0) -> None:
     """Raise ``ValueError`` where a dkdv plan (:func:`longest_bwd_run`'s
-    arguments) lets one accumulator sum more than :data:`BWD_RUN_ROWS` rows."""
-    longest = longest_bwd_run(group, s, bq, kv_split, run_steps)
-    if longest > BWD_RUN_ROWS:
+    arguments) lets one accumulator sum more rows than
+    :func:`bwd_run_rows` allows a call with ``prefix``."""
+    longest = longest_bwd_run(group, s, bq, kv_split, run_steps, prefix)
+    rows = bwd_run_rows(prefix)[0]
+    if longest > rows:
         raise ValueError(f"a dkdv run of {longest} (head, query) rows at group={group}, s={s}, "
-                         f"bq={bq}, kv_split={kv_split}: at most {BWD_RUN_ROWS}")
+                         f"bq={bq}, kv_split={kv_split}, prefix={prefix}: at most {rows}")
 
 
-def bwd_tc_kv_split(b: int, h: int, kv: int, s: int, t: int, hd: int, hd_v: int) -> int:
+def bwd_tc_kv_split(b: int, h: int, kv: int, s: int, t: int, hd: int, hd_v: int,
+                    prefix: int = 0) -> int:
     """dkdv's CTAs a key block on the tensor-core route:
-    :func:`plan_bwd_run_split`'s, and at :data:`BWD_TC_WG_PAIRS` (``dkdv_wg``,
-    64 keys a CTA) :func:`plan_bwd_kv_split`'s where that is more."""
-    runs = plan_bwd_run_split(h // kv, s)
+    :func:`plan_bwd_run_split`'s at ``prefix``, and at :data:`BWD_TC_WG_PAIRS`
+    (``dkdv_wg``, 64 keys a CTA) :func:`plan_bwd_kv_split`'s where that is
+    more."""
+    runs = plan_bwd_run_split(h // kv, s, prefix)
     if (hd, hd_v) not in BWD_TC_WG_PAIRS:
         return runs
     return max(runs, plan_bwd_kv_split(b, kv, t, h // kv,
@@ -501,10 +529,10 @@ def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
-    kv_split = bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
+    kv_split = bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
     if run_steps is None:
-        run_steps = plan_bwd_run_steps(h // kv, s, plan["dkdv"][1], kv_split)
-    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split, run_steps)
+        run_steps = plan_bwd_run_steps(h // kv, s, plan["dkdv"][1], kv_split, prefix)
+    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split, run_steps, prefix)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -574,7 +602,7 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part = torch.zeros((kv_split, b, kv, t, hd + hd_v), device=q.device)
     qf, dof = q.float(), dout.float()
     if run_steps is None:
-        run_steps = plan_bwd_run_steps(g, s, rows, kv_split)
+        run_steps = plan_bwd_run_steps(g, s, rows, kv_split, prefix)
     for k0 in range(0, t, keys):
         k_last = min(k0 + keys, t) - 1
         first = 0 if k0 < prefix else max(0, k0 - offset)

@@ -10,7 +10,10 @@ the kernels the run length, which plan nothing of their own).  Pinned here: the 
 to 48 x 8192 rows; the planted fault of the capped plan without the walk of
 several runs, rejected by ``check_bwd_runs`` and by the launch; every
 ``chip_smoke.BWD_CHECKS`` row at or below 65,536 rows keeping one run a CTA
-(so its one launch and its bits); and ``kv_split_partials_plain`` over
+(so its one launch and its bits); a call with a prefix held to
+``BWD_PREFIX_RUN_ROWS`` for its parts and its runs (``bwd_run_rows``:
+paligemma-3b's 16,384 rows a key block in 16 CTAs of 4 runs); and
+``kv_split_partials_plain`` over
 several runs a CTA summing to the unsplit plain dK and dV and to
 ``jax.vjp`` of ``repro``'s ``full_attention``.
 """
@@ -169,22 +172,83 @@ def test_planted_fault_the_launch_refuses_a_walk_of_one_run(monkeypatch):
 
 def test_every_bwd_check_row_keeps_one_run_a_cta():
     """Every tensor-core row of chip_smoke's BWD_CHECKS at or below 16 x
-    4,096 rows keeps one run a CTA (the arithmetic and bits it had); the
-    G 48 row above it walks several."""
+    its bound's rows (4,096, or 256 with a prefix) keeps one run a CTA (the
+    arithmetic and bits it had); the G 48 row and the prefix rows of G 8
+    above it walk several."""
     rows = _chip_smoke().BWD_CHECKS
-    names = set()
+    several = set()
     for name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain, dtype in rows:
         if dtype != "bfloat16":
             continue
         bq = _dkdv_bq(hd, hd_v, cap > 0)
-        kv_split = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v)
+        kv_split = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
         n_q = -(-s // bq)
-        run = fab.plan_bwd_run_steps(h // kv, s, bq, kv_split)
+        run = fab.plan_bwd_run_steps(h // kv, s, bq, kv_split, prefix)
         runs = max(len(cta) for cta in fab.dkdv_runs(h // kv * n_q, kv_split, run))
-        fab.check_bwd_runs(h // kv, s, bq, kv_split)
-        assert (runs > 1) == (h // kv * s > fab.BWD_KV_SPLIT_MAX * fab.BWD_RUN_ROWS), name
-        names.add(name)
-    assert "G 48 q gain 8 hd 128" in names
+        fab.check_bwd_runs(h // kv, s, bq, kv_split, prefix=prefix)
+        bound = fab.bwd_run_rows(prefix)[0]
+        assert (runs > 1) == (h // kv * s > fab.BWD_KV_SPLIT_MAX * bound), name
+        if runs > 1:
+            several.add(name)
+    assert several == {"G 48 q gain 8 hd 128", "prefix 256", "paligemma train",
+                       "paligemma q gain 8"}
+
+
+@pytest.mark.parametrize("hd,hd_v,capped", [(256, 256, False), (128, 128, False),
+                                            (128, 128, True), (64, 64, False)])
+@pytest.mark.parametrize("b,h,kv,s,prefix", [
+    (4, 8, 1, 2048, 256),     # paligemma-3b's training shape: 16,384 rows
+    (1, 8, 1, 700, 200),      # prefix 200, ragged
+    (1, 16, 16, 4096, 4096),  # every key (an encoder's self-attention)
+    (1, 16, 16, 300, 200),    # cross-attention, S > T: every key
+    (1, 48, 1, 2048, 2048),   # 48 heads on one KV head, every key: 98,304 rows
+])
+def test_every_prefix_run_stays_within_the_prefix_rows(b, h, kv, s, prefix, hd, hd_v, capped):
+    """A call with a prefix: the plan's longest accumulator run is at most
+    BWD_PREFIX_RUN_ROWS rows, its runs cover each step once, in order, and
+    the launch's check passes; the plan without the prefix passes 256 rows
+    here, and the check at the prefix rejects it."""
+    bq = _dkdv_bq(hd, hd_v, capped)
+    group = h // kv
+    kv_split = fab.bwd_tc_kv_split(b, h, kv, s, s, hd, hd_v, prefix)
+    assert 1 <= kv_split <= fab.BWD_KV_SPLIT_MAX
+    run = fab.plan_bwd_run_steps(group, s, bq, kv_split, prefix)
+    assert 0 < fab.longest_bwd_run(group, s, bq, kv_split, prefix=prefix) <= fab.BWD_PREFIX_RUN_ROWS
+    fab.check_bwd_runs(group, s, bq, kv_split, prefix=prefix)
+    n_q = -(-s // bq)
+    ctas = fab.dkdv_runs(group * n_q, kv_split, run)
+    assert [i for cta in ctas for r in cta for i in r] == list(range(group * n_q))
+    causal = fab.bwd_tc_kv_split(b, h, kv, s, s, hd, hd_v)
+    causal_run = fab.plan_bwd_run_steps(group, s, bq, causal)
+    if fab.longest_bwd_run(group, s, bq, causal, causal_run) > fab.BWD_PREFIX_RUN_ROWS:
+        with pytest.raises(ValueError, match="dkdv run of"):
+            fab.check_bwd_runs(group, s, bq, causal, causal_run, prefix=prefix)
+
+
+def test_the_launch_plans_a_prefix_call_on_the_prefix_rows(monkeypatch):
+    """paligemma-3b's [4, 8, 2048, 256] with prefix 256 on one KV head: 16
+    CTAs a key block, each walking its 1,024 rows in runs of
+    BWD_PREFIX_RUN_ROWS (run_steps before the stream); the same call without
+    a prefix keeps 4 CTAs of 4,096 rows and one run each (its plan and bits
+    before the prefix bound), and a prefix call handed the causal run
+    length is refused before any launch."""
+    lib = _Recorder()
+    monkeypatch.setattr(fab.runtime, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fab.runtime, "library", lambda name: lib)
+    monkeypatch.setattr(fab.runtime, "stream_of", lambda x: None)
+    monkeypatch.setattr(fab.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    q = torch.zeros(4, 8, 2048, 256, dtype=torch.bfloat16)
+    k = torch.zeros(4, 1, 2048, 256, dtype=torch.bfloat16)
+    lse = torch.zeros(4, 8, 2048)
+    bq = _dkdv_bq(256, 256)
+    for prefix, split, run in ((256, 16, fab.BWD_PREFIX_RUN_ROWS // bq), (0, 4, 0)):
+        fab.bwd_tc_launch(q, k, k, q, q, lse, 0.0625, prefix=prefix)
+        assert (lib.args[23], lib.args[-2]) == (split, run), prefix
+        assert lib.args[-4] == prefix  # prefix, softcap, run_steps, stream
+    lib.args = None
+    with pytest.raises(ValueError, match="dkdv run of 1024"):
+        fab.bwd_tc_launch(q, k, k, q, q, lse, 0.0625, prefix=256, run_steps=1024 // bq)
+    assert lib.args is None
 
 
 def _partials(case, kv_split, run_steps):
