@@ -17,8 +17,10 @@ every bf16 row of this tree's ``chip_smoke.BWD_CHECKS`` (named ``"bwd "``
 and the row's name: qwen3-0.6b's training shape, gemma-2b's, MLA's, the
 windowed, prefix and capped rows, the "G 8" and "G 48" rows of query heads
 on one KV head with q 8 times the unit scale, granite-moe-3b-a800m's
-training shape (G 3, dkdv split in two inside a head) plain and at q gain 8; given the forward's lse, in
-the model's ``[B, S, heads, hd]`` memory), each call's output digested bit
+training shape (G 3) plain and at q gain 8, qwen3-0.6b's and MLA's training
+shapes at q gain 8 (rows that keep one run a CTA and no flush), and
+seamless-m4t-large-v2's every-key and cross calls; given the forward's lse,
+in the model's ``[B, S, heads, hd]`` memory), each call's output digested bit
 for bit and timed by device ms
 (``chip_smoke.Bench.device_ms``); each backward also held to this tree's
 plain version under ``chip_smoke.ATTN_TOL`` (``within_attn_tol`` and

@@ -236,18 +236,18 @@ Phases, each printing JSON objects, one per line:
    initialisation to the plain path (``SSM_LAYER_TOL``; a backward without
    ddecays rejected); train mamba2-370m at full width and all 48 layers
    through ``launch.train.main`` (20 steps of 4 x 2048 tokens, full remat,
-   checkpoints every 10 steps; the launch counters set to 0 just before and
-   read just after: the scan forward twice a layer a step, its backward
-   once), every loss and grad norm finite, steps 11..20 again from the
-   step-10 checkpoint, one profiled step split into products, the scan, its
-   backward, the optimizer and the rest, and one step's whole-model
+   no checkpoints; the launch counters set to 0 just before and read just
+   after: the scan forward twice a layer a step, its backward once), every
+   loss and grad norm finite, one profiled step split into products, the
+   scan, its backward, the optimizer and the rest, one step's whole-model
    gradients at Mamba-2's dt initialisation, kernel against plain, within
-   ``CONSISTENCY_TOL``;
+   ``CONSISTENCY_TOL``, and steps 11..20 again from the step-10 checkpoint
+   at ``SSM_RESUME_LAYERS`` layers;
 8c. train_moe: train the MoE families at their published widths through
    ``launch.train.main`` (20 steps of 4 x 2048 tokens, f32 masters updated
    in place, full remat; the launch counters set to 0 just before and read
    just after: every flash backward on the ``tc`` route, one a layer a
-   step, deepseek-v2-lite's at (192, 128)): granite-moe-3b-a800m at all 32
+   step, deepseek-v2-lite's at (192, 128)): granite-moe-3b-a800m cut to 16
    layers without checkpoints, deepseek-v2-lite-16b (MLA with MoE) cut to
    2 layers (``MOE_TRAIN_FAMILIES``); per family the losses finite and
    falling, step seconds, tokens/s, model FLOPs of the active parameters
@@ -261,7 +261,7 @@ Phases, each printing JSON objects, one per line:
 8d. train_hybrid: hold one recurrentgemma-2b local-attention block's
    gradients at 2 x 4096 tokens to the plain path (``TRAIN_LAYER_TOL``; a
    backward handed window 0 rejected); train recurrentgemma-2b at its
-   published widths and all 26 layers through ``launch.train.main`` (20
+   published widths cut to 14 of 26 layers through ``launch.train.main`` (20
    steps of 2 x 4096 tokens, past the window of 2048; f32 masters updated in
    place, full remat, no checkpoints; the launch counters set to 0 just
    before and read just after: one windowed ``tc`` backward a local layer
@@ -291,6 +291,26 @@ Phases, each printing JSON objects, one per line:
    step-10 checkpoint at ``VLM_RESUME_LAYERS`` layers, and the prefix
    backward timed at the trainer's shape beside its bound, plain version
    and SDPA's backward with the prefix-LM mask;
+8f. train_encdec: hold one seamless-m4t-large-v2 encoder block's (every
+   key) and one decoder block's (causal self-attention, then
+   cross-attention over an encoder output drawn apart) gradients at 4 x
+   2048 rows to the plain path (``TRAIN_LAYER_TOL``; a cross backward
+   handed prefix 0 rejected); train seamless-m4t-large-v2 at its published
+   widths and all 24 + 24 layers through ``launch.train.main`` (20 steps of
+   4 x 2048 tokens and 4 x 2048 frames in two microbatches; f32 masters
+   updated in place, the decoder rematted, the encoder not; no
+   checkpoints; the launch counters set to 0 just before and read just
+   after: ``encdec_launches``, 48 every-key ``tc`` backwards and 24 causal
+   ones a step and microbatch), the losses finite and falling, step
+   seconds, tokens/s, model FLOPs and their share of the bf16 peak, peak
+   memory, one profiled step by kind, the first step's whole-model
+   gradients (``frontend/proj_in/w`` and the encoder's among them) kernel
+   against plain within ``CONSISTENCY_TOL`` beyond the plain path's own
+   floor (a cross backward handed prefix 0 rejected), steps 11..20 again
+   from the step-10 checkpoint at ``ENCDEC_RESUME_LAYERS`` +
+   ``ENCDEC_RESUME_LAYERS`` layers, and the encoder's every-key backward
+   timed at the trainer's shape beside its bound, plain version and SDPA's
+   ``is_causal=False`` backward;
    the trainers' checkpoint bytes are reckoned before the run
    (``checkpoint_reckoning``, at most ``CHECKPOINT_LIMIT_GIB``);
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
@@ -321,6 +341,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -5030,23 +5051,30 @@ TRAIN_ARCH = "qwen3-0.6b"
 # some cancel to near 0, which ATTN_TOL's atol holds to 1e-4.  The two "G 8"
 # rows do so at hd 128 and 64 (dkdv_tc) with 8 query heads on one KV head:
 # with one CTA summing a key block's 16,384 (head, query) rows dK missed
-# ATTN_TOL there (so dkdv_tc now splits such walks, plan_bwd_run_split).
-# "G 48" is granite-20b's 48 heads on one KV head: 98,304 rows a key block,
-# past the 16 CTAs' cap, so dkdv runs once per run of 1,024 rows of each
-# CTA's part (plan_bwd_run_steps).  The two "granite-moe" rows are the
-# shape its trainer gives the kernel (24 heads on 8 KV heads of 64: G 3,
-# 6,144 rows a key block, so dkdv_tc splits it in two with a part boundary
-# inside a head), plain and with q 8 times the unit scale.  "recurrentgemma
-# train" is the shape recurrentgemma-2b's trainer gives the kernel (2 x 4096
-# tokens, 10 heads on one KV head of 256, window 2048: half the queries lose
-# keys to the window).  "paligemma train" is the shape paligemma-3b's
-# trainer gives the kernel (4 x 2048 positions, 8 heads on one KV head of
-# 256, prefix 256: each key block of the prefix is seen by all 16,384
-# (head, query) rows of a sequence, the longest walk the prefix takes),
-# plain and with q 8 times the unit scale (with parts of 4,096 rows a CTA
-# its dK missed ATTN_TOL against f64 by 1.15x; a call with a prefix now
-# walks runs of BWD_PREFIX_RUN_ROWS, 256, which hold it).  Inputs in the
-# model's [B, S, heads, hd] memory, seen as [B, heads, S, hd]; dout too, all
+# ATTN_TOL there (a walk that long now flushes, bwd_flushes).  "G 48" is
+# granite-20b's 48 heads on one KV head: 98,304 rows a key block, past the 16
+# CTAs' cap.  The two "granite-moe" rows are the shape its trainer gives the
+# kernel (24 heads on 8 KV heads of 64: G 3, 6,144 rows a key block),
+# plain and with q 8 times the unit scale.  "recurrentgemma train" is the
+# shape recurrentgemma-2b's trainer gives the kernel (2 x 4096 tokens, 10
+# heads on one KV head of 256, window 2048: half the queries lose keys to
+# the window).  "paligemma train" is the shape paligemma-3b's trainer gives
+# the kernel (4 x 2048 positions, 8 heads on one KV head of 256, prefix
+# 256: each key block of the prefix is seen by all 16,384 (head, query) rows
+# of a sequence, the longest walk the prefix takes), plain and with q 8
+# times the unit scale (with parts of 4,096 rows a CTA its dK missed
+# ATTN_TOL against f64 by 1.15x).  Every call that may sum more than
+# BWD_RUN_ROWS rows into one accumulator, or has a prefix, now flushes its
+# sums every BWD_FLUSH_ROWS (256) rows.  "qwen3-0.6b q gain 8" and "mla q
+# gain 8" are the two trainers' shapes whose walks fit one 4,096-row part
+# (4,096 and 2,048 rows), at q 8 times the unit scale: qwen3-0.6b's missed
+# ATTN_TOL against f64 on some draws without a flush, so it flushes too.
+# "seamless encoder train" is the encoder's every-key call in
+# seamless-m4t-large-v2's trainer (4 x 2048 frames, 16 heads on 16 KV heads
+# of 64), plain and at q gain 8; "seamless cross train" is its
+# cross-attention at the trainer's shape: the decoder's 2048 queries over the
+# encoder's 2048 rows (prefix = T), keys and values drawn apart from the
+# queries.  Inputs in the model's [B, S, heads, hd] memory, seen as [B, heads, S, hd]; dout too, all
 # drawn from one generator in row order, so new rows go last and the other
 # rows keep their inputs (flash_probe.py --bwd-run-rows also reads "q gain
 # 8" on the inputs it gets with the paligemma rows drawn before it).
@@ -5075,12 +5103,22 @@ BWD_CHECKS = (
     ("f32 hd 256", 1, 8, 1, 300, 333, 256, 256, 0, 0, 0.0, 1.0, "float32"),
     ("paligemma train", 4, 8, 1, 2048, 2048, 256, 256, 0, 256, 0.0, 1.0, "bfloat16"),
     ("paligemma q gain 8", 4, 8, 1, 2048, 2048, 256, 256, 0, 256, 0.0, 8.0, "bfloat16"),
+    ("qwen3-0.6b q gain 8", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 8.0, "bfloat16"),
+    ("mla q gain 8", 4, 16, 16, 2048, 2048, 192, 128, 0, 0, 0.0, 8.0, "bfloat16"),
+    ("seamless encoder train", 4, 16, 16, 2048, 2048, 64, 64, 0, 2048, 0.0, 1.0, "bfloat16"),
+    ("seamless encoder q gain 8", 4, 16, 16, 2048, 2048, 64, 64, 0, 2048, 0.0, 8.0,
+     "bfloat16"),
+    ("seamless cross train", 4, 16, 16, 2048, 2048, 64, 64, 0, 2048, 0.0, 1.0, "bfloat16"),
 )
 BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape of the tc route
 BWD_SIMT_REPORT = "f32"  # and of the simt route (f32 only, since hd 256 went to tc)
 # Further timing rows of the tc route: hd 256 (dkdv split over CTAs), (192, 128)
-# and G 48 (dkdv in passes of 1,024-row runs).
+# and G 48 (dkdv split 16 ways, flushing).
 BWD_TC_WIDE_REPORTS = ("gemma-2b", "mla 192/128", "G 48 q gain 8 hd 128")
+# The rows whose calls keep one run a CTA and no flush (their plan and bits
+# before the flush: walks of at most BWD_RUN_ROWS, 2,048 rows, and no
+# prefix); every other bf16 row flushes.
+BWD_UNFLUSHED = ("mla 192/128", "softcap 50 hd 128", "S < T", "mla q gain 8")
 
 
 def bwd_cost(b, h, kv, s, t, hd, hd_v, elem, window=0, prefix=0):
@@ -5168,6 +5206,10 @@ def phase_train_kernels(torch, device):
                   f"flash_attention {name}: the forward writing lse changed its output")
             blocks = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)
             blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
+            blocks["flush_steps"] = fab.plan_bwd_flush_steps(h // kv, s, blocks["dkdv"][1],
+                                                             prefix)
+            check((blocks["flush_steps"] == 0) == (name in BWD_UNFLUSHED),
+                  f"flash_attention_bwd {name}: flush steps {blocks['flush_steps']}")
         before = dict(runtime.launches)
         got = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
         again = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)
@@ -5194,8 +5236,7 @@ def phase_train_kernels(torch, device):
               "equal_bits_twice": same})
         check(ok, f"flash_attention_bwd {name}: kernel differs from its plain version beyond "
                   f"ATTN_TOL (max abs err {err}, relative L2 {rel})")
-        if name in ("gemma-2b", "G 8 softcap 50 hd 128", "G 8 q gain 8 hd 64",
-                    "granite-moe train"):
+        if name in ("gemma-2b", "G 8 softcap 50 hd 128", "G 8 q gain 8 hd 64"):
             check(blocks["kv_split"] > 1, f"{name}'s dkdv is not split: {blocks}")
         if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64",
                     "gemma-2b", "mla 192/128"):
@@ -5275,17 +5316,20 @@ def phase_train_kernels(torch, device):
     for (hd, hd_v), table in fab.BWD_TC_BLOCKS.items():
         for blocks in table["dkdv"]:
             for capped in (False, True):
-                tc_inst[f"{hd}x{hd_v} dkdv {list(blocks)}{' capped' if capped else ''}"] = (
-                    fab.bwd_tc_attributes(hd, hd_v, capped, {"dq": table["dq"][0],
-                                                              "dkdv": blocks}))
+                for flush in (False, True):
+                    tc_inst[f"{hd}x{hd_v} dkdv {list(blocks)}{' capped' if capped else ''}"
+                            f"{' flush' if flush else ''}"] = fab.bwd_tc_attributes(
+                        hd, hd_v, capped, {"dq": table["dq"][0], "dkdv": blocks}, flush)
     emit({"phase": "train", "flash_attention_bwd_tc_instantiations": tc_inst})
     for (hd, hd_v), table in fab.BWD_TC_BLOCKS.items():
         for capped in (False, True):
-            plan = fab.plan_bwd_tc_blocks(hd, hd_v, capped)
-            attrs = fab.bwd_tc_attributes(hd, hd_v, capped, plan)
-            check(all(attrs[kernel]["local_bytes"] == 0 for kernel in fab.BWD_TC_KERNELS),
-                  f"the tc plan at {(hd, hd_v)}{' capped' if capped else ''} launches an "
-                  f"instantiation that spills: {attrs}; add it to BWD_TC_SPILLS")
+            for flush in (False, True):
+                plan = fab.plan_bwd_tc_blocks(hd, hd_v, capped)
+                attrs = fab.bwd_tc_attributes(hd, hd_v, capped, plan, flush)
+                check(all(attrs[kernel]["local_bytes"] == 0 for kernel in fab.BWD_TC_KERNELS),
+                      f"the tc plan at {(hd, hd_v)}{' capped' if capped else ''}"
+                      f"{' flushing' if flush else ''} launches an instantiation that spills: "
+                      f"{attrs}; add it to BWD_TC_SPILLS")
 
     # Timing of each route at its report shape (bwd_timing).
     bench = Bench(torch, device)
@@ -5308,9 +5352,9 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
     """The backward at ``BWD_CHECKS``' row ``report`` (its mask and q
     gain): the kernel's event and device ms beside its bound, its plain
     version and SDPA's backward (``torch.autograd.grad`` of one GQA call,
-    causal, or with the band or the prefix-LM mask as a bool ``attn_mask``
-    where the row has a window or a prefix) on the same inputs, in the
-    model's layout."""
+    causal, with the band or the prefix-LM mask as a bool ``attn_mask``
+    where the row has a window or a prefix, ``is_causal=False`` where the
+    prefix covers every key) on the same inputs, in the model's layout."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
@@ -5331,7 +5375,9 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
     dout = model_layout(h, s, hd_v)
     check(fab.bwd_route(q, k, v, out, dout) == path, f"the {report} timing is not {path}")
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    if window or prefix:
+    if prefix >= t:  # every key
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=False, enable_gqa=True)
+    elif window or prefix:
         pos = torch.arange(s, device=device)
         seen = pos[:, None] >= pos[None, :]
         if window:
@@ -5353,6 +5399,7 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
     if path == "tc":
         blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
         blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
+        blocks["flush_steps"] = fab.plan_bwd_flush_steps(h // kv, s, blocks["dkdv"][1], prefix)
     else:
         blocks = fab.plan_bwd_blocks(hd, hd_v, elem)
     kind = f"window {window}" if window else f"prefix {prefix}" if prefix else "causal"
@@ -5420,39 +5467,92 @@ def plain_flash_training(forward: bool = True, backward: bool = True, key_blocks
         fab.flash_attention, fab.flash_attention_bwd = saved
 
 
+def planted_in_backward(wrap):
+    """A planted fault as a context manager: while it lasts, the flash
+    backward's wrapper is ``wrap`` of it (``wrap``'s name and doc kept)."""
+    @contextlib.contextmanager
+    def plant():
+        from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+        bwd = fab.flash_attention_bwd
+        fab.flash_attention_bwd = wrap(bwd)
+        try:
+            yield
+        finally:
+            fab.flash_attention_bwd = bwd
+    return functools.wraps(wrap)(plant)
+
+
+@planted_in_backward
 def drop_delta(bwd):
-    """``bwd`` with D dropped from its inputs (its ``out`` zeroed)."""
+    """The backward with D dropped from its inputs (its ``out`` zeroed)."""
     def faulty(q, k, v, out, dout, *args):
         return bwd(q, k, v, out.new_zeros(out.shape), dout, *args)
     return faulty
 
 
+@planted_in_backward
 def window_zero(bwd):
-    """``bwd`` handed ``window = 0`` whatever its forward saw."""
+    """The backward handed ``window = 0`` whatever its forward saw."""
     def faulty(q, k, v, out, dout, scale, window, *args):
         return bwd(q, k, v, out, dout, scale, 0, *args)
     return faulty
 
 
+@planted_in_backward
 def prefix_zero(bwd):
-    """``bwd`` handed ``prefix = 0`` whatever its forward saw."""
+    """The backward handed ``prefix = 0`` whatever its forward saw."""
     def faulty(q, k, v, out, dout, scale, window, prefix, *args):
         return bwd(q, k, v, out, dout, scale, window, 0, *args)
     return faulty
 
 
 @contextlib.contextmanager
-def faulty_backward(fault):
-    """The flash backward's wrapper wrapped by ``fault`` (:func:`drop_delta`,
-    :func:`window_zero`, :func:`prefix_zero`) while the context lasts."""
+def cross_prefix_zero():
+    """Every cross-attention call's backward handed ``prefix = 0`` (causal)
+    whatever its forward saw, while the context lasts: each
+    ``attention.gqa_forward`` over an encoder's output (``xa``, every key
+    seen) runs its flash call through a ``FlashAttentionFn`` whose forward
+    saves prefix 0 for the backward; the encoder's every-key calls and the
+    decoder's causal ones are untouched."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention
 
-    bwd = fab.flash_attention_bwd
-    fab.flash_attention_bwd = fault(bwd)
+    class CausalBackward(fab.FlashAttentionFn):
+        @staticmethod
+        def forward(ctx, *args):
+            out = fab.FlashAttentionFn.forward(ctx, *args)
+            scale, window, _, softcap = ctx.args
+            ctx.args = (scale, window, 0, softcap)
+            return out
+
+    gqa = attention.gqa_forward
+
+    def gqa_forward(*args, xa=None, **kwargs):
+        if xa is None:
+            return gqa(*args, **kwargs)
+        fn, ops.FlashAttentionFn = ops.FlashAttentionFn, CausalBackward
+        try:
+            return gqa(*args, xa=xa, **kwargs)
+        finally:
+            ops.FlashAttentionFn = fn
+
+    attention.gqa_forward = gqa_forward
     try:
         yield
     finally:
-        fab.flash_attention_bwd = bwd
+        attention.gqa_forward = gqa
+
+
+def block_bwd_calls(kind, window, prefix, s, t_enc):
+    """(window, prefix, T) of each flash backward one ``kind`` block takes
+    at ``s`` query rows: a ``"cross"`` block its causal self-attention and
+    its cross-attention over ``t_enc`` encoder rows (every key), an
+    ``"enc"`` block every key of its own."""
+    if kind == "cross":
+        return [(0, 0, s), (0, t_enc, t_enc)]
+    return [(window, s if kind == "enc" else prefix, s)]
 
 
 def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
@@ -5460,8 +5560,9 @@ def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
     """Per-leaf relative L2 of one ``kind`` block's parameter and input
     gradients at ``arch``'s widths, kernel path against plain path, at
     ``tokens`` = (batch, sequence), every query seeing the first ``prefix``
-    keys; ``fault`` wraps the backward kernel's wrapper
-    (:func:`faulty_backward`)."""
+    keys (a ``"cross"`` block over an encoder output of as many rows, drawn
+    apart from its input, whose gradient is a leaf too); ``fault`` is a
+    planted fault's context (:func:`drop_delta` and the like)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import runtime
     from repro_torch.models import layers
@@ -5476,26 +5577,36 @@ def train_layer_errors(torch, device, fault=None, arch=TRAIN_ARCH, kind="attn",
     x = torch.randn(b, s, cfg.d_model, device=device, generator=gen).to(torch.bfloat16)
     w = torch.randn(b, s, cfg.d_model, device=device, generator=gen)
     pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    enc = None
+    if kind == "cross":
+        apart = torch.Generator(device=device).manual_seed(SEED + 1)
+        enc = torch.randn(b, s, cfg.d_model, device=device, generator=apart).to(torch.bfloat16)
 
     def grads():
         live = tree_map(lambda t: t.detach().clone().requires_grad_(), block)
         xg = x.clone().requires_grad_()
-        out, _, _ = tf.block_forward(live, cfg, kind, xg, pos, prefix=prefix)
-        return torch.autograd.grad((out.float() * w).sum(), leaves(live) + [xg])
+        eg = None if enc is None else enc.clone().requires_grad_()
+        out, _, _ = tf.block_forward(live, cfg, kind, xg, pos, prefix=prefix, enc_out=eg)
+        return torch.autograd.grad((out.float() * w).sum(),
+                                   leaves(live) + [xg] + ([] if eg is None else [eg]))
 
     before = dict(runtime.launches)
-    with faulty_backward(fault) if fault else contextlib.nullcontext():
+    with fault() if fault else contextlib.nullcontext():
         got = grads()
     added = {k: n - before.get(k, 0) for k, n in runtime.launches.items()
              if k.startswith("flash_attention_bwd") and n != before.get(k, 0)}
-    want_added = {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1,
-                  **{f"flash_attention_bwd_{mask}": 1
-                     for mask in bwd_mask_kinds(tf._window(cfg, kind), prefix, s)}}
-    check(fault is not None or added == want_added,
-          f"the {kind} block's backward launched {added}, not {want_added}")
+    calls = block_bwd_calls(kind, tf._window(cfg, kind), prefix, s, s)
+    want_added = collections.Counter({"flash_attention_bwd": len(calls),
+                                      "flash_attention_bwd_tc": len(calls)})
+    for window_, prefix_, t in calls:
+        want_added.update(f"flash_attention_bwd_{m}"
+                          for m in bwd_mask_kinds(window_, prefix_, t))
+    check(fault is not None or added == dict(want_added),
+          f"the {kind} block's backward launched {added}, not {dict(want_added)}")
     with plain_flash_training():
         want = grads()
-    names = ["/".join(p) for p, _ in leaves_with_paths(block)] + ["x"]
+    names = ["/".join(p) for p, _ in leaves_with_paths(block)] + ["x"] + (
+        [] if enc is None else ["enc_out"])
     return {n: rel_err(torch, g.float(), w_.float()) for n, g, w_ in zip(names, got, want)}
 
 
@@ -5839,12 +5950,12 @@ def floor_consistency(torch, cfg, params, batch, fault, fault_name: str, phase: 
     block), measured here.  Deep random-init models amplify the forward's
     bf16 noise past a flat tolerance: at 26 layers of recurrentgemma-2b that
     order alone moved layer 23's wq and wk gradients by 3.6% on an H100, the
-    kernel path 3.9%.  The backward wrapped by ``fault``
-    (:func:`faulty_backward`) must miss the rule.  Emits the line."""
+    kernel path 3.9%.  The run under the planted fault ``fault`` (a
+    context: :func:`drop_delta` and the like) must miss the rule.  Emits the line."""
     errs, floor, bad = path_grad_errors(
         torch, cfg, params, batch, plain_flash_training,
         (contextlib.nullcontext, lambda: plain_flash_training(key_blocks=2),
-         lambda: faulty_backward(fault)))
+         fault))
     check(set(named_leaves) <= set(errs),
           f"the gradient check's leaves miss {set(named_leaves) - set(errs)}")
     over = {n: errs[n] - floor[n] for n in errs}
@@ -5977,6 +6088,11 @@ SSM_LAYER_TOL = 1e-3
 # 256), 20 steps, checkpoints every 10.
 SSM_TRAIN_ARGV = ("--arch", MAMBA_ARCH, "--global-batch", "4", "--seq-len", "2048", "--steps",
                   str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
+# The resume check at the published widths cut to 2 layers of 48 (a
+# checkpoint of all 48 layers' state is 4.42 GB, of 2 layers 0.80 GB), so
+# that phase 8f's checkpoint fits CHECKPOINT_LIMIT_GIB; the timed run trains
+# all 48 layers without checkpoints.
+SSM_RESUME_LAYERS = 2
 
 
 @contextlib.contextmanager
@@ -6181,17 +6297,19 @@ def phase_ssm_train_run(torch, device, card: str):
     """Train mamba2-370m at full width through ``launch.train.main`` (the
     launch counters set to 0 just before, read just after: every layer's
     scan through the forward kernel twice a step under remat and through the
-    backward kernel once), resume steps 11..20 from the step-10 checkpoint,
-    hold one step's whole-model gradients at Mamba-2's dt initialisation to
-    the plain path, and profile a step.  Returns the launches of the
-    training window."""
+    backward kernel once), hold one step's whole-model gradients at
+    Mamba-2's dt initialisation to the plain path, profile a step, then
+    resume steps 11..20 from the step-10 checkpoint at
+    ``SSM_RESUME_LAYERS`` layers.  Returns the launches of the training
+    windows."""
     import numpy as np
     from repro_torch.data.pipeline import synthetic_batches
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import transformer as tf
 
-    run = train_and_resume(torch, device, SSM_TRAIN_ARGV, "train_ckpt_ssm")
-    state, launches = run.pop("state"), run["launches"]
+    emit({"phase": "train_ssm", "argv": list(SSM_TRAIN_ARGV)})
+    run = train_window(torch, device, SSM_TRAIN_ARGV)
+    state, launches = run.pop("state"), dict(run["launches"])
     cfg, shape, opt_cfg, args = run["cfg"], run["shape"], run["opt_cfg"], run["args"]
     check(launches.get("ssd_scan") == 2 * TRAIN_STEPS * cfg.n_layers
           and launches.get("ssd_scan_bwd") == TRAIN_STEPS * cfg.n_layers,
@@ -6229,6 +6347,12 @@ def phase_ssm_train_run(torch, device, card: str):
           f"whole-model gradients: kernel against plain {max(errs.values())}")
     del state, params, batch
     torch.cuda.empty_cache()
+    cut = train_and_resume(torch, device, family_argv(MAMBA_ARCH, SSM_RESUME_LAYERS,
+                                                      SSM_TRAIN_ARGV[2:]), "train_ckpt_ssm")
+    del cut["state"]
+    torch.cuda.empty_cache()
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        launches[name] += cut["launches"][name]
     return launches
 
 
@@ -6238,14 +6362,14 @@ def phase_ssm_train_run(torch, device, card: str):
 # --------------------------------------------------------------------------
 
 # (arch, layers of the timed run (0: all), layers of the resume check), each
-# at its published widths.  granite-moe-3b-a800m's 3.30B parameters take 53
-# GB of f32 masters, gradients and AdamW moments, so it trains at all 32
-# layers, without checkpoints (its state would be 40 GB a checkpoint); its
-# resume runs at 2 layers (3.3 GB), so that the run's checkpoints stay within
+# at its published widths.  granite-moe-3b-a800m trains at 16 of its 32
+# layers (all 32, 3.30B parameters, 53 GB of f32 masters, gradients and AdamW
+# moments, until phase 8f needed the time), without checkpoints; its resume
+# runs at 2 layers (3.3 GB), so that the run's checkpoints stay within
 # CHECKPOINT_LIMIT_GIB.  deepseek-v2-lite-16b's 15.7B would take 251 GB: 2
 # layers (the dense first and one MoE layer, 876M parameters, 14 GB; 10.5 GB
 # a checkpoint), timed and resumed in the one run.
-MOE_TRAIN_FAMILIES = ((MOE_ARCH, 0, 2), (MLA_ARCH, 2, 2))
+MOE_TRAIN_FAMILIES = ((MOE_ARCH, 16, 2), (MLA_ARCH, 2, 2))
 MOE_TRAIN_ARGV = ("--global-batch", "4", "--seq-len", "2048", "--steps", str(TRAIN_STEPS),
                   "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
 MOE_FLOPS_FORMULA = ("3 (2 (M + X C / S) B S + 2 (hd_qk + hd_v) H B L S (S + 1) / 2): M the 2-D "
@@ -6257,8 +6381,8 @@ MOE_FLOPS_FORMULA = ("3 (2 (M + X C / S) B S + 2 (hd_qk + hd_v) H B L S (S + 1) 
 def family_argv(arch: str, layers: int, tail: tuple | None = None) -> tuple:
     """``launch.train``'s command line (``tail`` after the config, by
     default ``MOE_TRAIN_ARGV``) for ``arch`` at its published widths, cut to
-    ``layers`` layers through ``--reduced --reduced-overrides`` (0: all, no
-    cut)."""
+    ``layers`` layers (an encoder-decoder's encoder too) through
+    ``--reduced --reduced-overrides`` (0: all, no cut)."""
     from repro_torch.configs import ARCHS, reduced
 
     tail = MOE_TRAIN_ARGV if tail is None else tail
@@ -6269,6 +6393,8 @@ def family_argv(arch: str, layers: int, tail: tuple | None = None) -> tuple:
     over = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)
             if getattr(small, f.name) != getattr(full, f.name)}
     over["n_layers"] = layers
+    if full.n_encoder_layers:  # an encoder-decoder: as many encoder layers
+        over["n_encoder_layers"] = layers
     return ("--arch", arch, "--reduced", "--reduced-overrides",
             ",".join(f"{k}={v}" for k, v in over.items()), *tail)
 
@@ -6465,13 +6591,16 @@ def checkpointed_argvs() -> dict:
     """The command line of every trainer that writes a checkpoint, by name."""
     return {f"{TRAIN_ARCH} at {TRAIN_RESUME_LAYERS} layers (5h)": family_argv(
                 TRAIN_ARCH, TRAIN_RESUME_LAYERS, TRAIN_ARGV[2:]),
-            "mamba2-370m (8b)": SSM_TRAIN_ARGV,
+            f"{MAMBA_ARCH} at {SSM_RESUME_LAYERS} layers (8b)": family_argv(
+                MAMBA_ARCH, SSM_RESUME_LAYERS, SSM_TRAIN_ARGV[2:]),
             **{f"{arch} at {n} layers (8c)": family_argv(arch, n)
                for arch, _, n in MOE_TRAIN_FAMILIES},
             f"{HYBRID_ARCH} at {HYBRID_RESUME_LAYERS} layers (8d)": family_argv(
                 HYBRID_ARCH, HYBRID_RESUME_LAYERS, HYBRID_TRAIN_ARGV),
             f"{VLM_ARCH} at {VLM_RESUME_LAYERS} layers (8e)": family_argv(
-                VLM_ARCH, VLM_RESUME_LAYERS, VLM_TRAIN_ARGV)}
+                VLM_ARCH, VLM_RESUME_LAYERS, VLM_TRAIN_ARGV),
+            f"{ENCDEC_ARCH} at {ENCDEC_RESUME_LAYERS} + {ENCDEC_RESUME_LAYERS} layers (8f)":
+                family_argv(ENCDEC_ARCH, ENCDEC_RESUME_LAYERS, ENCDEC_TRAIN_ARGV)}
 
 
 def checkpoint_reckoning(torch) -> dict:
@@ -6501,10 +6630,10 @@ def checkpoint_reckoning(torch) -> dict:
 
 # 2 x 4096 tokens a step: the same 8,192 tokens as the other trainers, but
 # past the window of 2048, so half the queries lose keys to it (at 2048 the
-# largest gap is 2047 and the window hides nothing).  All 26 layers at the
-# published widths, 20 steps, f32 masters, bf16 activations, full remat, the
-# donating step, no checkpoints (all 26 layers' state is 34.7 GB a
-# checkpoint); the resume check at one Griffin period (rec, rec,
+# largest gap is 2047 and the window hides nothing).  At the published widths
+# cut to HYBRID_TIMED_LAYERS of 26 layers, 20 steps, f32 masters, bf16
+# activations, full remat, the donating step, no checkpoints (all 26 layers'
+# state is 34.7 GB a checkpoint); the resume check at one Griffin period (rec, rec,
 # attn_local: 912M parameters, 10.95 GB a checkpoint).  In two microbatches
 # (repro's --microbatches): in one, the f32 logits of 2 x 4096 x 256,000
 # (7.8 GiB) and their softmax's backward on top of the 46 GB of state and
@@ -6517,6 +6646,9 @@ HYBRID_TRAIN_ARGV = ("--global-batch", str(HYBRID_TRAIN_TOKENS[0]), "--seq-len",
                      str(HYBRID_TRAIN_TOKENS[1]), "--microbatches", str(HYBRID_MICROBATCHES),
                      "--steps", str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY),
                      "--seed", "0")
+# The timed run at 14 of the 26 layers (4 Griffin periods and 2 rec layers;
+# all 26 until phase 8f took the time): 4 attn_local layers of the 8.
+HYBRID_TIMED_LAYERS = 14
 HYBRID_RESUME_LAYERS = 3
 HYBRID_REPORT = "recurrentgemma train"  # BWD_CHECKS' row at the trainer's shape
 # The RG-LRU's profiler ranges in a training step (models/rglru.py).
@@ -6539,15 +6671,35 @@ def hybrid_train_model_flops(cfg, params, b, s) -> float:
     return 3.0 * (2.0 * matrices * b * s + 4 * cfg.head_dim * cfg.n_heads * b * local * pairs)
 
 
+def masked_launches(kind: str, mask: str):
+    """The flash launches of one training step and microbatch of a family
+    whose ``kind`` layers take the flash kernels with ``mask`` (the only
+    flash layers): one backward a layer, the forward twice (the forward
+    and remat's recompute), each counted under ``mask`` too."""
+    def launches(cfg) -> dict:
+        from repro_torch.models import transformer as tf
+
+        n = tf.layer_kinds(cfg).count(kind)
+        return {"flash_attention_bwd": n, "flash_attention_bwd_tc": n,
+                f"flash_attention_bwd_{mask}": n, "flash_attention": 2 * n,
+                "flash_attention_tc": 2 * n, f"flash_attention_{mask}": 2 * n}
+    return launches
+
+
 class MaskedTrainer(typing.NamedTuple):
     """A family whose ``kind`` layers train through the flash kernels with a
-    mask they count (``mask``: "windowed" or "prefix"), as phases 8d and 8e
-    run it (:func:`phase_masked_train_layer`, :func:`phase_masked_train`):
-    one block at ``tokens`` (every query seeing the first ``prefix`` keys),
-    the family at all layers with ``launch.train``'s ``tail``, its first-step
-    gradients, a resume at ``resume_layers``, the backward timed at
-    ``BWD_CHECKS``' row ``report``; ``fault`` wraps the backward as the
-    checks' planted fault (the backward handed ``fault_name``)."""
+    mask they count (``mask``: "windowed", "prefix" or "full"), as phases
+    8d-8f run it (:func:`phase_masked_train_layer`,
+    :func:`phase_masked_train`): one block of each of ``layer_kinds`` (by
+    default ``kind``) at ``tokens`` (every query seeing the first ``prefix``
+    keys), the family at ``layers`` layers (0: all) with ``launch.train``'s
+    ``tail`` (its
+    flash launches a step and microbatch ``launches(cfg)``, by default
+    :func:`masked_launches`'), its first-step gradients, a resume at
+    ``resume_layers``, the backward timed at ``BWD_CHECKS``' row ``report``;
+    ``fault`` wraps the backward as the checks' planted fault (the backward
+    handed ``fault_name``; in the layer check on the ``fault_kind`` block,
+    by default ``kind``); ``extras(cfg, b, s)`` adds to the trainer's line."""
     phase: str
     arch: str
     kind: str
@@ -6560,43 +6712,54 @@ class MaskedTrainer(typing.NamedTuple):
     fault_name: str
     flops: object
     flops_formula: str
+    extras: object
     prefix: int = 0
     rglru: bool = False
     named_leaves: tuple = ()
+    layer_kinds: tuple = ()
+    fault_kind: str = ""
+    launches: object = None
+    layers: int = 0
 
 
 HYBRID_TRAINER = MaskedTrainer(
     phase="train_hybrid", arch=HYBRID_ARCH, kind="attn_local", mask="windowed",
     tokens=HYBRID_TRAIN_TOKENS, tail=HYBRID_TRAIN_ARGV, resume_layers=HYBRID_RESUME_LAYERS,
     report=HYBRID_REPORT, fault=window_zero, fault_name="window 0",
-    flops=hybrid_train_model_flops, flops_formula=HYBRID_FLOPS_FORMULA, rglru=True)
+    flops=hybrid_train_model_flops, flops_formula=HYBRID_FLOPS_FORMULA,
+    extras=lambda cfg, b, s: {"window": cfg.window}, rglru=True, layers=HYBRID_TIMED_LAYERS)
 
 
 def phase_masked_train_layer(torch, device, fam: MaskedTrainer):
-    """One ``fam.kind`` block of ``fam.arch`` at full width under training
-    at ``fam.tokens``, kernel path against plain path; a backward handed
+    """One block of each of ``fam.layer_kinds`` (by default ``fam.kind``) of
+    ``fam.arch`` at full width under training at ``fam.tokens``, kernel path
+    against plain path; the ``fam.fault_kind`` block's backward handed
     ``fam.fault_name`` must be rejected."""
-    kw = dict(arch=fam.arch, kind=fam.kind, tokens=fam.tokens, prefix=fam.prefix)
-    errs = train_layer_errors(torch, device, **kw)
-    emit({"phase": fam.phase, "layer_check": fam.arch, "kind": fam.kind, "prefix": fam.prefix,
-          "tokens": list(fam.tokens), "per_leaf_rel_err": errs,
-          "max_rel_err": max(errs.values()), "tol": TRAIN_LAYER_TOL})
-    check(max(errs.values()) <= TRAIN_LAYER_TOL,
-          f"{fam.arch} {fam.kind} block gradients: kernel path against plain path "
-          f"{max(errs.values())} beyond {TRAIN_LAYER_TOL}")
-    bad = train_layer_errors(torch, device, fault=fam.fault, **kw)
-    rejected = not max(bad.values()) <= TRAIN_LAYER_TOL  # a NaN is rejected too
-    emit({"phase": fam.phase, "planted_fault": "layer",
-          "fault": f"the backward kernel handed {fam.fault_name}",
-          "max_rel_err": max(bad.values()), "worst_leaf": max(bad, key=bad.get),
-          "rejected": rejected})
-    check(rejected, f"the layer check passes a backward handed {fam.fault_name}")
-    torch.cuda.empty_cache()
+    for kind in fam.layer_kinds or (fam.kind,):
+        kw = dict(arch=fam.arch, kind=kind, tokens=fam.tokens, prefix=fam.prefix)
+        errs = train_layer_errors(torch, device, **kw)
+        emit({"phase": fam.phase, "layer_check": fam.arch, "kind": kind, "prefix": fam.prefix,
+              "tokens": list(fam.tokens), "per_leaf_rel_err": errs,
+              "max_rel_err": max(errs.values()), "tol": TRAIN_LAYER_TOL})
+        check(max(errs.values()) <= TRAIN_LAYER_TOL,
+              f"{fam.arch} {kind} block gradients: kernel path against plain path "
+              f"{max(errs.values())} beyond {TRAIN_LAYER_TOL}")
+        if kind != (fam.fault_kind or fam.kind):
+            continue
+        bad = train_layer_errors(torch, device, fault=fam.fault, **kw)
+        rejected = not max(bad.values()) <= TRAIN_LAYER_TOL  # a NaN is rejected too
+        emit({"phase": fam.phase, "planted_fault": "layer", "kind": kind,
+              "fault": f"the backward kernel handed {fam.fault_name}",
+              "max_rel_err": max(bad.values()), "worst_leaf": max(bad, key=bad.get),
+              "rejected": rejected})
+        check(rejected, f"the layer check passes a backward handed {fam.fault_name}")
+        torch.cuda.empty_cache()
 
 
 def phase_masked_train(torch, device, card: str, fam: MaskedTrainer):
-    """Train ``fam.arch`` at all its layers through ``launch.train.main``
-    (the launch counters set to 0 just before, read just after: every
+    """Train ``fam.arch`` at ``fam.layers`` layers (0: all) through
+    ``launch.train.main`` (the launch counters set to 0 just before, read just
+    after: every
     ``fam.kind`` layer's backward on the tc route and counted under
     ``fam.mask``, its forward so twice a step under remat), profile a step,
     hold the first step's whole-model gradients to the plain path, resume
@@ -6610,33 +6773,30 @@ def phase_masked_train(torch, device, card: str, fam: MaskedTrainer):
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import transformer as tf
 
-    argv = family_argv(fam.arch, 0, fam.tail)
+    argv = family_argv(fam.arch, fam.layers, fam.tail)
     emit({"phase": fam.phase, "argv": list(argv)})
     run = train_window(torch, device, argv)
     state, cfg, shape, args = run.pop("state"), run["cfg"], run["shape"], run["args"]
-    check(cfg == ARCHS[fam.arch] and fam.prefix == cfg.frontend_seq,
+    check(cfg == dataclasses.replace(ARCHS[fam.arch], n_layers=cfg.n_layers)
+          and cfg.n_layers == (fam.layers or ARCHS[fam.arch].n_layers)
+          and fam.prefix == (cfg.frontend_seq if cfg.family == "vlm" else 0),
           f"the {fam.arch} trainer's config is not its own, or its prefix not its patches")
     loss, found = run["loss"], run["launches"]
     check(stats.mean(loss[-5:]) < stats.mean(loss[:5]),
           f"{fam.arch}: the loss did not fall: first 5 {loss[:5]}, last 5 {loss[-5:]}")
     n = tf.layer_kinds(cfg).count(fam.kind)
-    # One backward a masked layer and microbatch a step; the forward twice
-    # (the forward and remat's recompute).
-    bwd_calls = TRAIN_STEPS * n * args.microbatches
-    want = {"flash_attention_bwd": bwd_calls, "flash_attention_bwd_tc": bwd_calls,
-            f"flash_attention_bwd_{fam.mask}": bwd_calls, "flash_attention": 2 * bwd_calls,
-            "flash_attention_tc": 2 * bwd_calls, f"flash_attention_{fam.mask}": 2 * bwd_calls}
+    a_step = (fam.launches or masked_launches(fam.kind, fam.mask))(cfg)
+    want = {k: TRAIN_STEPS * args.microbatches * v for k, v in a_step.items()}
     got = {k: v for k, v in found.items() if k.startswith("flash_attention")}
-    check(got == want, f"{fam.arch}: the flash launches {got}; want {want} ({n} {fam.kind} "
-                       f"layers x {TRAIN_STEPS} steps x {args.microbatches} microbatches, the "
-                       "forward twice under remat)")
+    check(got == want, f"{fam.arch}: the flash launches {got}; want {want} ({a_step} a step "
+                       f"and microbatch x {TRAIN_STEPS} steps x {args.microbatches} "
+                       "microbatches)")
     b, s = shape.global_batch, shape.seq_len
     line = run_line(run, card, fam.flops(cfg, state["params"], b, s),
                     tf.param_count(state["params"]))
     line.update(phase=fam.phase, layers=cfg.n_layers, **{f"{fam.kind}_layers": n},
                 microbatches=args.microbatches, model_flops_formula=fam.flops_formula,
-                **({"window": cfg.window} if fam.mask == "windowed" else
-                   {"prefix": fam.prefix, "text_tokens_per_step": b * (s - fam.prefix)}))
+                **fam.extras(cfg, b, s))
     emit(line)
 
     # Where a step's time goes: one profiled step, the state updated in place.
@@ -6727,7 +6887,81 @@ VLM_TRAINER = MaskedTrainer(
     phase="train_vlm", arch=VLM_ARCH, kind="attn", mask="prefix", tokens=VLM_TRAIN_TOKENS,
     tail=VLM_TRAIN_ARGV, resume_layers=VLM_RESUME_LAYERS, report=VLM_REPORT, fault=prefix_zero,
     fault_name="prefix 0", flops=vlm_train_model_flops, flops_formula=VLM_FLOPS_FORMULA,
+    extras=lambda cfg, b, s: {"prefix": VLM_PREFIX,
+                              "text_tokens_per_step": b * (s - VLM_PREFIX)},
     prefix=VLM_PREFIX, named_leaves=("frontend/proj_in/w", "embed/table"))
+
+
+# --------------------------------------------------------------------------
+# Phase 8f: train seamless-m4t-large-v2 (encoder-decoder)
+# --------------------------------------------------------------------------
+
+# 4 x 2048 tokens and 4 x 2048 frames a step (repro's pipeline draws as many
+# frames as tokens, so cross-attention runs at S = T = 2048): the frames (of
+# 1024, the w2v-BERT stub) through frontend.proj_in and 24 bidirectional
+# encoder layers (every key: the flash kernel's prefix = T), then 24 decoder
+# layers, each causal self-attention then cross-attention over the
+# encoder's output (every key, prefix = T).  All 24 + 24 layers at the
+# published widths, 20 steps in two microbatches (repro's --microbatches: in
+# one, the f32 logits of 4 x 2048 x 256,206 on top of the un-rematted
+# encoder's activations ran out of the card's memory at step 3 with 71.2 GiB
+# allocated, a step's gradients then still held by a reference cycle in
+# tree_unflatten, since removed), f32 masters, bf16 activations, the decoder
+# rematted and the encoder not (repro's training scan), the donating step,
+# no checkpoints (all layers' state is 16.4 GB a checkpoint); the resume
+# check at 2 + 2 layers (355.5M parameters, the embedding's 262.4M among
+# them: 4.27 GB a checkpoint).  An enc and a cross block's gradients at the
+# trainer's tokens are held to the plain path within TRAIN_LAYER_TOL, and a
+# cross backward handed prefix 0 (causal) must miss it.
+ENCDEC_TRAIN_TOKENS = (4, 2048)
+ENCDEC_MICROBATCHES = 2
+ENCDEC_TRAIN_ARGV = ("--global-batch", str(ENCDEC_TRAIN_TOKENS[0]), "--seq-len",
+                     str(ENCDEC_TRAIN_TOKENS[1]), "--microbatches", str(ENCDEC_MICROBATCHES),
+                     "--steps", str(TRAIN_STEPS), "--checkpoint-every", str(TRAIN_CKPT_EVERY),
+                     "--seed", "0")
+ENCDEC_RESUME_LAYERS = 2  # encoder and decoder layers each
+ENCDEC_REPORT = "seamless encoder train"  # BWD_CHECKS' row of the encoder's calls
+ENCDEC_FLOPS_FORMULA = ("3 (2 M B S + 4 hd H B (E S T + L S (S + 1) / 2 + L S T)): M the 2-D "
+                        "parameters (tied unembedding once; the encoder's and proj_in over the "
+                        "B T frame rows, T = S), E the encoder layers (every key), L the "
+                        "decoder layers (causal self-attention, then cross-attention over the "
+                        "T encoder rows)")
+
+
+def encdec_train_model_flops(cfg, params, b, s) -> float:
+    """Model FLOPs of one training step of the encoder-decoder
+    (``ENCDEC_FLOPS_FORMULA``, T = S frames; forward and backward, no
+    remat)."""
+    from repro_torch.tree import leaves
+
+    matrices = sum(x.numel() for x in leaves(params) if x.dim() == 2)
+    e, d = cfg.n_encoder_layers, cfg.n_layers
+    pairs = e * s * s + d * s * (s + 1) // 2 + d * s * s
+    return 3.0 * (2.0 * matrices * b * s + 4 * cfg.head_dim * cfg.n_heads * b * pairs)
+
+
+def encdec_launches(cfg) -> dict:
+    """The flash launches of one encoder-decoder training step and
+    microbatch: each encoder layer's every-key forward once (not rematted),
+    each decoder layer's causal and cross forwards twice (the forward and
+    remat's recompute), one backward an encoder layer and two a decoder
+    layer; every-key calls (the encoder's and cross-attention's) counted
+    under ``_prefix`` and ``_full`` too."""
+    e, d = cfg.n_encoder_layers, cfg.n_layers
+    return {"flash_attention": e + 4 * d, "flash_attention_tc": e + 4 * d,
+            "flash_attention_prefix": e + 2 * d, "flash_attention_full": e + 2 * d,
+            "flash_attention_bwd": e + 2 * d, "flash_attention_bwd_tc": e + 2 * d,
+            "flash_attention_bwd_prefix": e + d, "flash_attention_bwd_full": e + d}
+
+
+ENCDEC_TRAINER = MaskedTrainer(
+    phase="train_encdec", arch=ENCDEC_ARCH, kind="cross", mask="full",
+    tokens=ENCDEC_TRAIN_TOKENS, tail=ENCDEC_TRAIN_ARGV, resume_layers=ENCDEC_RESUME_LAYERS,
+    report=ENCDEC_REPORT, fault=cross_prefix_zero, fault_name="prefix 0 on cross-attention",
+    flops=encdec_train_model_flops, flops_formula=ENCDEC_FLOPS_FORMULA,
+    extras=lambda cfg, b, s: {"encoder_layers": cfg.n_encoder_layers, "frames_per_step": b * s},
+    named_leaves=("frontend/proj_in/w", "encoder/0/attn/wq/w", "layers/0/xattn/wk/w"),
+    layer_kinds=("enc", "cross"), fault_kind="cross", launches=encdec_launches)
 
 
 def main() -> int:
@@ -6772,7 +7006,7 @@ def main() -> int:
     emit({"phase": "scale", "reduced": [
               "gemma-2b's int8 decode (phase 5g): one prompt of 2040 tokens, cut from four "
               "(64, 512, 1024 and 2040), to keep the run's time with phase 8b added",
-              "the trainers' checkpoints (phases 5h, 8b-8e): only step 10's of the three "
+              "the trainers' checkpoints (phases 5h, 8b-8f): only step 10's of the three "
               "the loop asks for (10, 20, 20 again), which the resume reads: a run may write "
               "45 GiB to the machine's disk",
               "deepseek-v2-lite-16b trained (phase 8c) at its published widths cut to 2 layers "
@@ -6781,15 +7015,20 @@ def main() -> int:
               "moments would take 251 GB",
               "granite-moe-3b-a800m's resume check (phase 8c) at its published widths cut to "
               "2 layers of 32 (4 until phase 8d's checkpoint needed the disk): a checkpoint "
-              "of all 32 layers' state would be 40 GB (its timed run trains all 32 layers, "
-              "without checkpoints)",
+              "of all 32 layers' state would be 40 GB (its timed run trains without "
+              "checkpoints)",
+              "granite-moe-3b-a800m's timed run (phase 8c) at its published widths cut to 16 "
+              "layers of 32 (all 32 until phase 8f took the time)",
               "serving through ServeEngine (phases 4, 5, 5b, 5c, 5d, 5g): four requests each "
               "through two slots, cut from eight through four, to keep the run's time with "
               "phase 8d added",
+              f"recurrentgemma-2b's timed run (phase 8d) at its published widths cut to "
+              f"{HYBRID_TIMED_LAYERS} layers of 26 (4 of its 8 attn_local layers; all 26 "
+              "until phase 8f took the time)",
               f"recurrentgemma-2b's resume check (phase 8d) at its published widths cut to "
               f"{HYBRID_RESUME_LAYERS} layers of 26 (one Griffin period: rec, rec, "
               "attn_local): a checkpoint of all 26 layers' state would be 34.7 GB (its timed "
-              "run trains all 26 layers, without checkpoints)",
+              "run trains without checkpoints)",
               f"qwen3-0.6b's resume check (phase 5h) at its published widths cut to "
               f"{TRAIN_RESUME_LAYERS} layers of 28 (all 28 until phase 8e's checkpoint needed "
               "the disk): a checkpoint of all 28 layers' state is 7.15 GB, of 2 layers 2.2 GB "
@@ -6797,6 +7036,18 @@ def main() -> int:
               f"paligemma-3b's resume check (phase 8e) at its published widths cut to "
               f"{VLM_RESUME_LAYERS} layers of 18: a checkpoint of all 18 layers' state would be "
               "30.1 GB (its timed run trains all 18 layers, without checkpoints)",
+              f"mamba2-370m's resume check (phase 8b) at its published widths cut to "
+              f"{SSM_RESUME_LAYERS} layers of 48 (all 48 until phase 8f's checkpoint needed the "
+              "disk): a checkpoint of all 48 layers' state is 4.42 GB, of 2 layers 0.80 GB (its "
+              "timed run trains all 48 layers, without checkpoints)",
+              f"seamless-m4t-large-v2's resume check (phase 8f) at its published widths cut to "
+              f"{ENCDEC_RESUME_LAYERS} encoder and {ENCDEC_RESUME_LAYERS} decoder layers of 24 + "
+              "24: a checkpoint of all layers' state would be 16.4 GB (its timed run trains all "
+              "48 layers, without checkpoints)",
+              f"seamless-m4t-large-v2's training (phase 8f) in {ENCDEC_MICROBATCHES} "
+              "microbatches of its 4 x 2048 tokens and frames (repro's --microbatches): in one, "
+              "its f32 logits ran out of the card's memory at step 3; its first-step gradient "
+              "check on the first microbatch",
               f"recurrentgemma-2b's training (phase 8d) in {HYBRID_MICROBATCHES} microbatches "
               "of its 2 x 4096 tokens (repro's --microbatches): in one, its f32 logits and "
               "their softmax's backward ran out of the card's memory; its first-step gradient "
@@ -6824,14 +7075,17 @@ def main() -> int:
                   "step, 20 steps), random weights and synthetic tokens; mamba2-370m "
                   "trained at its published widths and all 48 layers (4 x 2048 tokens a "
                   "step, 20 steps), random weights and synthetic tokens; granite-moe-3b-a800m "
-                  "trained at its published widths and all 32 layers (4 x 2048 tokens a step, "
-                  "20 steps, capacity factor 1.25), random weights and synthetic tokens; "
-                  "recurrentgemma-2b trained at its published widths and all 26 layers (2 x "
+                  "trained at its published widths and 16 of its 32 layers (4 x 2048 tokens a "
+                  "step, 20 steps, capacity factor 1.25), random weights and synthetic tokens; "
+                  "recurrentgemma-2b trained at its published widths and 14 of its 26 layers (2 x "
                   "4096 tokens a step, past its window of 2048; 20 steps), random weights and "
                   "synthetic tokens; paligemma-3b trained at its published widths and all 18 "
                   "layers (4 x 2048 positions a step: 256 patches and 1792 text tokens, "
                   "one microbatch, 20 steps), random weights, patches and "
-                  "synthetic tokens; nothing else cut"})
+                  "synthetic tokens; seamless-m4t-large-v2 trained at its published widths and "
+                  "all 24 + 24 layers (4 x 2048 tokens and 4 x 2048 frames a step, two "
+                  "microbatches, 20 steps), random weights and frames and synthetic tokens; "
+                  "nothing else cut"})
 
     checkpoint_reckoning(torch)
     errs, rows = phase_kernels(torch, device)
@@ -6945,7 +7199,7 @@ def main() -> int:
     launches["flash_attention_bwd_tc"] += phase_moe_train(torch, device,
                                                           card)["flash_attention_bwd_tc"]
     lap("train_moe")
-    for fam in (HYBRID_TRAINER, VLM_TRAINER):
+    for fam in (HYBRID_TRAINER, VLM_TRAINER, ENCDEC_TRAINER):
         phase_masked_train_layer(torch, device, fam)
         trained, _ = phase_masked_train(torch, device, card, fam)
         launches["flash_attention_bwd_tc"] += trained["flash_attention_bwd_tc"]

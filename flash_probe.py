@@ -5,8 +5,10 @@ Run from the root of a checkout on a machine with one H100:
 
     python3 flash_probe.py [LOG_DIR]
     python3 flash_probe.py --bwd [LOG_DIR]
-    python3 flash_probe.py --bwd-run-rows
+    python3 flash_probe.py --bwd-run-rows [ROW FLUSH_ROWS,...]
+    python3 flash_probe.py --emulate ROW SEED,...
     python3 flash_probe.py --swap ARCH {init,trained}
+    python3 flash_probe.py --layer-f64 ARCH {init,trained}
 
 With ``--bwd`` it checks the backward kernel instead (the quick check after
 an edit of ``csrc/flash_attention_bwd.cu``): ``-Xptxas -v`` of that source
@@ -21,23 +23,31 @@ unit scale, capped and not, at hd 128 with 48 query heads on one KV
 head (granite-20b's, past the split's cap of 16 CTAs), and the tensor-core
 route and the plain version at paligemma-3b's training shape (prefix 256)
 plain and with q 8 times the unit scale (and the tensor-core
-route with each key block's walk cut into 1 .. 16 CTAs), then the
-tensor-core route at qwen3-0.6b's training shape under each hd-128
-``dkdv`` block of ``BWD_TC_BLOCKS``, and at gemma-2b's, recurrentgemma's
-window and paligemma's prefix shapes (hd 256, one KV head) under each dkdv
-split (device ms, and the error against the plain version).  With
-``--bwd-run-rows`` it holds the tensor-core backward's dK to the f64
-reference under each of ``RUN_ROW_CANDIDATES`` as the rows one dkdv
-accumulator may sum (``bwd_run_rows``, every call's bounds) at the q-gain-8
-rows of ``BWD_CHECKS`` (G 3 to 48, paligemma-3b's prefix row among them),
-on ``chip_smoke.py``'s inputs and on fresh draws, and times the backward's
-model shapes under each.  With ``--swap ARCH STATE`` it reads which half
+route with each key block's walk cut into 1 .. 16 CTAs, flushing and
+not), then the tensor-core route at qwen3-0.6b's training shape under
+each hd-128 ``dkdv`` block of ``BWD_TC_BLOCKS``, at gemma-2b's,
+recurrentgemma's window and paligemma's prefix shapes (hd 256, one KV
+head) under each dkdv split, and at the trainers' flushing shapes under
+each split flushing and not (device ms, and the error against the plain
+version).  With ``--bwd-run-rows`` it holds the tensor-core backward's dK
+to the f64 reference under each of ``FLUSH_CANDIDATES`` as the rows one
+dkdv accumulator sums between flushes (0: no flush) at the q-gain-8 rows
+of ``BWD_CHECKS`` (G 1 to 48, the prefix and every-key rows among them),
+on ``chip_smoke.py``'s inputs and on 40 fresh draws each, and times the
+backward's model shapes under each (given a row and flush lengths, that row
+under those only, e.g. ``--bwd-run-rows "G 48 q gain 8 hd 128" 128,256``).  With
+``--emulate ROW SEED,...`` it holds that row's dK, the kernel's and its
+plan written out in f32 (``emulate``), to the f64 reference on the draws
+of those seeds (-1: ``chip_smoke.py``'s).  With ``--swap ARCH STATE`` it reads which half
 of the flash kernel, forward or backward, carries the gap between the
 kernel and plain paths of one whole-model gradient check of
 ``chip_smoke.py`` (qwen3-0.6b's of phase 5h, or that of the trainer of
 phases 8c-8e that trains ARCH), and how far the plain path moves when its
 forward sums in another order, on the initial weights or the trained ones
-(``swap``).  Without any of these:
+(``swap``).  With ``--layer-f64 ARCH STATE`` it holds each flash call of
+that gradient check (the kernel path) to float64 on its own inputs, the
+forward's output and the backward's gradients, layer by layer.  Without any
+of these:
 
 It compiles ``csrc/flash_attention.cu`` with ``-Xptxas -v`` (the full log
 goes to LOG_DIR, by default the gitignored ``src/repro_torch/kernels/_build``)
@@ -104,13 +114,38 @@ def ptxas_report(log_dir: Path, name: str = "flash_attention") -> None:
             print(line[:300])
 
 
+def tc_grads(torch, fab, q, k, v, out, dout, lse, kv_split, flush_steps, **mask):
+    """(dq, dk, dv) of the tensor-core route with ``kv_split`` CTAs a key
+    block flushing every ``flush_steps`` query blocks (0: none), the plan's
+    bounds set aside: the kernel's launches, then ``kv_reduce`` where split."""
+    split, runs = fab.bwd_tc_kv_split, fab.check_bwd_runs
+    fab.bwd_tc_kv_split = lambda *args: kv_split
+    fab.check_bwd_runs = lambda *args, **kwargs: None
+    try:
+        scale = 1 / math.sqrt(q.shape[3])
+        dq, dk, dv, part, n = fab.bwd_tc_launch(q, k, v, out, dout, lse, scale, **mask,
+                                                flush_steps=flush_steps)
+    finally:
+        fab.bwd_tc_kv_split, fab.check_bwd_runs = split, runs
+    if n > 1:
+        fab.kv_reduce(part, dk, dv, n, scale)
+    return dq, dk, dv
+
+
+# The splits the sweeps below try at the trainers' flushing shapes.
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
 def bwd_tc_blocks(torch, chip_smoke) -> None:
     """The tensor-core backward at qwen3-0.6b's training shape under each
     dkdv block of ``BWD_TC_BLOCKS[(128, 128)]``, then at three hd-256 shapes
     on one KV head (gemma-2b's causal, recurrentgemma's window 2048,
     paligemma's prefix 256) under each dkdv split of 1 ..
-    ``BWD_KV_SPLIT_MAX`` CTAs a key block: device ms a call and the error
-    against the plain version."""
+    ``BWD_KV_SPLIT_MAX`` CTAs a key block, and at the flushing rows of the
+    trainers' shapes (``BWD_CHECKS``' "paligemma train", "recurrentgemma
+    train", "granite-moe train", "seamless encoder train" and "G 8 q gain 8
+    hd 64") under each split of ``SWEEP_SPLITS``, flushing as planned and
+    not: device ms a call and the error against the plain version."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
     dev = torch.device("cuda", 0)
@@ -132,7 +167,7 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
 
     plan, split, runs = fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split, fab.check_bwd_runs
     table = fab.BWD_TC_BLOCKS[(128, 128)]
-    fab.check_bwd_runs = lambda *args, **kwargs: None  # the sweeps' splits pass BWD_RUN_ROWS
+    fab.check_bwd_runs = lambda *args, **kwargs: None  # the sweeps' plans pass the bounds
     try:
         case = inputs(4, 16, 8, 2048, 128)
         for blocks in table["dkdv"]:
@@ -152,6 +187,28 @@ def bwd_tc_blocks(torch, chip_smoke) -> None:
                 report(f"bwd tc {name} kv_split {n}", *case, **mask)
     finally:
         fab.plan_bwd_tc_blocks, fab.bwd_tc_kv_split, fab.check_bwd_runs = plan, split, runs
+    rows = {c[0]: c for c in chip_smoke.BWD_CHECKS}
+    for name in ("paligemma train", "recurrentgemma train", "granite-moe train",
+                 "seamless encoder train", "G 8 q gain 8 hd 64"):
+        _, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain, _ = rows[name]
+        q, k, v, dout = seeded_inputs(torch, dev, rows[name], 0)
+        mask = dict(window=window, prefix=prefix, softcap=cap)
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
+        want = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)
+        bq = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)["dkdv"][1]
+        planned = (fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix),
+                   fab.plan_bwd_flush_steps(h // kv, s, bq, prefix))
+        for n in SWEEP_SPLITS:
+            for flush in (planned[1], 0):
+                ms = bench.device_ms(lambda: tc_grads(torch, fab, q, k, v, out, dout, lse, n,
+                                                      flush, **mask), reps=10)["device_ms"]
+                ok, err, rel = chip_smoke.grads_close(
+                    torch, tc_grads(torch, fab, q, k, v, out, dout, lse, n, flush, **mask),
+                    want)
+                print(f"bwd tc {name} kv_split {n} flush_steps {flush}"
+                      f"{' (planned)' if (n, flush) == planned else ''}: device ms {ms:.4f} "
+                      f"ok {ok} maxabs {err:.3e} rel {rel:.3e}", flush=True)
+        del q, k, v, dout, out, lse, want
 
 
 def f64_reference(torch, q, k, v, out, dout, softcap, prefix=0):
@@ -214,7 +271,7 @@ def bwd_against_f64(torch, chip_smoke) -> None:
         return q, k, v, out, dout, lse, reference(q, k, v, out, dout, cap)
 
     # G 48: granite-20b's 48 heads on one KV head, 98,304 rows a key block,
-    # 16 CTAs (the cap) each walking runs of BWD_LONG_RUN_ROWS rows.
+    # 16 CTAs (the cap) each flushing every BWD_FLUSH_ROWS rows.
     for hd, cap, heads in ((256, 50.0, 8), (256, 0.0, 8), (128, 50.0, 8), (128, 0.0, 8),
                            (64, 50.0, 8), (64, 0.0, 8), (128, 0.0, 48)):
         q, k, v, out, dout, lse, ref = inputs(hd, cap, heads)
@@ -249,28 +306,23 @@ def bwd_against_f64(torch, chip_smoke) -> None:
                   flush=True)
         del got, ref, q, k, v, dout, out, lse
 
-    # The tc route against the (head, query) rows one CTA sums into its
-    # wgmma accumulators: each key block's 16,384 rows cut into n parts,
-    # one CTA each (a split CTA sums at most BWD_RUN_ROWS rows a run).
-    split, runs = fab.bwd_tc_kv_split, fab.check_bwd_runs
-    fab.check_bwd_runs = lambda *args, **kwargs: None  # 1 CTA: runs of 16,384 rows
-    try:
-        for hd in (256, 128):
-            q, k, v, out, dout, lse, ref = inputs(hd, 0.0)
-            for n in (1, 2, 4, 8, 16):
-                fab.bwd_tc_kv_split = lambda *args, n=n: n
-                grads = fab.flash_attention_bwd(q, k, v, out, dout, lse=lse)
-                run = 8 * 2048 // n if n == 1 else min(8 * 2048 // n, fab.BWD_RUN_ROWS)
+    # The tc route against the (head, query) rows one accumulator sums:
+    # each key block's 16,384 rows cut into n parts, one CTA each, without
+    # a flush (runs of 16,384 / n rows) and flushing every BWD_FLUSH_ROWS.
+    for hd in (256, 128):
+        q, k, v, out, dout, lse, ref = inputs(hd, 0.0)
+        bq = fab.plan_bwd_tc_blocks(hd, hd)["dkdv"][1]
+        for n in (1, 2, 4, 8, 16):
+            for flush in (0, fab.BWD_FLUSH_ROWS // bq):
+                grads = tc_grads(torch, fab, q, k, v, out, dout, lse, n, flush)
                 print(f"bwd vs f64 hd {hd} q gain 8 tc, {8 * 2048 // n} rows a CTA, runs of "
-                      f"{run}",
+                      f"{flush * bq if flush else 8 * 2048 // n}",
                       {w: excess(x, r) for w, x, r in zip(("dk", "dv"), grads[1:], ref[1:])},
                       flush=True)
-    finally:
-        fab.bwd_tc_kv_split, fab.check_bwd_runs = split, runs
 
 
 # The seeds of --bwd-run-rows' fresh draws of each row.
-ROW_SEEDS = range(8)
+ROW_SEEDS = range(40)
 
 
 def check_inputs(torch, chip_smoke, dev, names, first=()):
@@ -326,44 +378,37 @@ def cancelled_terms(torch, q, k, v, out, dout, index, prefix, softcap):
     return float((ds[:, :, ti].abs() * qd[:, :, di].abs()).sum() / math.sqrt(hd))
 
 
-# The (head, query) rows one dkdv accumulator may sum that --bwd-run-rows
-# tries as both bounds of every call (4,096 with runs of 1,024 past the CTAs'
-# cap is the plan of a call without a prefix, 256 a call's with one), the
-# rows it reads against f64 on every draw, and the rows it times.
-RUN_ROW_CANDIDATES = (4096, 2048, 1024, 512, 256)
+# The rows one dkdv accumulator sums between flushes that --bwd-run-rows
+# tries at each row's planned split (0: no flush, each CTA's part in one
+# run; the plan of a call that does not flush), the q-gain-8 rows it reads
+# against f64 on every draw, and the rows it times.
+FLUSH_CANDIDATES = (256, 1024, 4096, 0)
 RUN_ROW_PRECISION = ("q gain 8", "G 8 q gain 8 hd 64", "G 8 softcap 50 hd 128",
-                     "granite-moe q gain 8", "G 48 q gain 8 hd 128", "paligemma q gain 8")
+                     "granite-moe q gain 8", "G 48 q gain 8 hd 128", "paligemma q gain 8",
+                     "qwen3-0.6b q gain 8", "mla q gain 8", "seamless encoder q gain 8")
 RUN_ROW_TIMED = ("qwen3-0.6b train", "gemma-2b", "recurrentgemma train", "paligemma train",
-                 "granite-moe train", "mla 192/128", "G 48 q gain 8 hd 128")
+                 "granite-moe train", "mla 192/128", "G 48 q gain 8 hd 128",
+                 "seamless encoder train")
 
 
-@contextlib.contextmanager
-def run_rows(fab, rows):
-    """The backward's plans with every call's bounds (``bwd_run_rows``,
-    with a prefix or not) at parts of at most ``rows`` rows and, past the
-    CTAs' cap, runs of ``min(rows, 1024)`` rows while the context lasts."""
-    saved = fab.bwd_run_rows
-    fab.bwd_run_rows = lambda prefix=0: (rows, min(rows, 1024))
-    fab.longest_bwd_run.cache_clear()
-    try:
-        yield
-    finally:
-        fab.bwd_run_rows = saved
-        fab.longest_bwd_run.cache_clear()
+def flush_label(rows: int) -> str:
+    return f"flush {rows}" if rows else "no flush"
 
 
-def bwd_run_rows(torch, chip_smoke) -> None:
-    """The tensor-core backward's dK against the f64 reference under each
-    run length of ``RUN_ROW_CANDIDATES`` (the largest |got - ref| / (atol +
-    rtol |ref|) of ``ATTN_TOL``) at the rows of ``RUN_ROW_PRECISION``, on
-    ``chip_smoke.py``'s inputs, on those "q gain 8" has with the paligemma
-    rows drawn first, and on fresh draws from each seed of ``ROW_SEEDS``,
-    with the count of draws over 1 (and for each draw over 1, and the
-    shortest length on chip_smoke's inputs, the worst entry: its reference,
-    kernel and plain values, the kernel against the plain version, and the
-    magnitude its terms cancel from); then each row of ``RUN_ROW_TIMED``
-    timed under each length (device ms, seed 0), with its kv_split and run
-    steps."""
+def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CANDIDATES,
+                 timed=RUN_ROW_TIMED) -> None:
+    """The tensor-core backward's dK against the f64 reference at each row
+    of ``names`` (by default ``RUN_ROW_PRECISION``), on ``chip_smoke.py``'s
+    inputs (for "q gain 8" also on those it has with the paligemma rows
+    drawn first) and on fresh draws from each seed of ``ROW_SEEDS``: the
+    largest |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` under each of
+    ``candidates`` (by default ``FLUSH_CANDIDATES``) at the row's planned
+    split, the planned plan marked, with the count of draws
+    over 1 (and for each draw over 1, and the planned plan on chip_smoke's
+    inputs, the worst entry: its reference, kernel and plain values, the
+    kernel against the plain version, and the magnitude its terms cancel
+    from); then each row of ``timed`` timed under each candidate (device
+    ms, seed 0), with its kv_split and flush steps."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
     dev = torch.device("cuda", 0)
@@ -372,60 +417,112 @@ def bwd_run_rows(torch, chip_smoke) -> None:
     rows = {c[0]: c for c in chip_smoke.BWD_CHECKS}
     bench = chip_smoke.Bench(torch, dev)
 
-    def mask_of(name):
-        return dict(window=rows[name][8], prefix=rows[name][9], softcap=rows[name][10])
+    def plan_of(name):
+        _, b, h, kv, s_, t, hd, hd_v, window, prefix, cap, *_ = rows[name]
+        bq = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)["dkdv"][1]
+        return (dict(window=window, prefix=prefix, softcap=cap), bq,
+                fab.bwd_tc_kv_split(b, h, kv, s_, t, hd, hd_v, prefix),
+                fab.plan_bwd_flush_steps(h // kv, s_, bq, prefix) * bq)
 
     draws = {name: [("chip_smoke", xs)]
-             for name, xs in check_inputs(torch, chip_smoke, dev, RUN_ROW_PRECISION).items()}
-    draws["q gain 8"].append(("paligemma rows first", check_inputs(
-        torch, chip_smoke, dev, ["q gain 8"],
-        first=("paligemma train", "paligemma q gain 8"))["q gain 8"]))
-    for name in RUN_ROW_PRECISION:
-        found = {c: [] for c in RUN_ROW_CANDIDATES}
+             for name, xs in check_inputs(torch, chip_smoke, dev, names).items()}
+    if "q gain 8" in draws:
+        draws["q gain 8"].append(("paligemma rows first", check_inputs(
+            torch, chip_smoke, dev, ["q gain 8"],
+            first=("paligemma train", "paligemma q gain 8"))["q gain 8"]))
+    for name in names:
+        mask, bq, split, planned = plan_of(name)
+        found = {c: [] for c in candidates}
         for label, xs in draws[name] + [(f"seed {seed}", seeded_inputs(
                 torch, dev, rows[name], seed)) for seed in ROW_SEEDS]:
             q, k, v, dout = xs
-            mask = mask_of(name)
             out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
             ref = f64_reference(torch, q, k, v, out, dout, mask["softcap"],
                                 prefix=mask["prefix"])[1]
-            plain = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)[1]
-            for c in RUN_ROW_CANDIDATES:
-                with run_rows(fab, c):
-                    dk = fab.flash_attention_bwd(q, k, v, out, dout, **mask, lse=lse)[1]
+            plain = None
+            for c in candidates:
+                dk = tc_grads(torch, fab, q, k, v, out, dout, lse, split, c // bq, **mask)[1]
                 r = (dk.double() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
                 found[c].append(round(float(r.max()), 4))
-                if r.max() > 1 or (c == RUN_ROW_CANDIDATES[-1] and label == "chip_smoke"):
+                if r.max() > 1 or (c == planned and label == "chip_smoke"):
+                    if plain is None:
+                        plain = fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)[1]
                     at = tuple(int(x) for x in torch.unravel_index(r.argmax(), r.shape))
                     cancel = cancelled_terms(torch, q, k, v, out, dout, at, mask["prefix"],
                                              mask["softcap"])
-                    print(f"bwd run rows {c} {name} {label}: worst dk at {list(at)}, ref "
-                          f"{float(ref[at]):.6g}, kernel {float(dk[at]):.6g}, plain "
+                    print(f"bwd run rows {flush_label(c)} {name} {label}: worst dk at {list(at)}, "
+                          f"ref {float(ref[at]):.6g}, kernel {float(dk[at]):.6g}, plain "
                           f"{float(plain[at]):.6g}, against the plain version "
                           f"{chip_smoke.tol_excess(torch, dk, plain):.4f}, sum |dS q| "
                           f"{cancel:.6g}", flush=True)
             del ref, plain, out, lse
-        for c in RUN_ROW_CANDIDATES:
-            print(f"bwd run rows {c} {name}: dk excess vs f64 on "
-                  f"{[label for label, _ in draws[name]] + [f'seeds {list(ROW_SEEDS)}']}: "
-                  f"{found[c]}, {sum(x > 1 for x in found[c])} over 1", flush=True)
-    for name in RUN_ROW_TIMED:
+        for c in candidates:
+            print(f"bwd run rows {flush_label(c)}{' (planned)' if c == planned else ''} {name} "
+                  f"kv_split {split}: dk excess vs f64 on {len(found[c])} draws "
+                  f"({[label for label, _ in draws[name]]} and seeds {ROW_SEEDS.start}.."
+                  f"{ROW_SEEDS.stop - 1}): max {max(found[c])}, {sum(x > 1 for x in found[c])} "
+                  f"over 1: {found[c]}", flush=True)
+    for name in timed:
         q, k, v, dout = seeded_inputs(torch, dev, rows[name], 0)
-        mask = mask_of(name)
+        mask, bq, split, planned = plan_of(name)
         out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
-        b, h, s_, hd = q.shape
-        hd_v = v.shape[3]
-        for c in RUN_ROW_CANDIDATES:
-            with run_rows(fab, c):
-                split = fab.bwd_tc_kv_split(b, h, k.shape[1], s_, k.shape[2], hd, hd_v,
-                                            mask["prefix"])
-                steps = fab.plan_bwd_run_steps(h // k.shape[1], s_, fab.plan_bwd_tc_blocks(
-                    hd, hd_v, mask["softcap"] > 0)["dkdv"][1], split, mask["prefix"])
-                ms = bench.device_ms(lambda: fab.flash_attention_bwd(
-                    q, k, v, out, dout, **mask, lse=lse), reps=10)["device_ms"]
-            print(f"bwd run rows {c} {name}: device ms {ms:.4f} kv_split {split} run steps "
-                  f"{steps}", flush=True)
+        for c in candidates:
+            ms = bench.device_ms(lambda: tc_grads(torch, fab, q, k, v, out, dout, lse, split,
+                                                  c // bq, **mask), reps=10)["device_ms"]
+            print(f"bwd run rows {flush_label(c)}{' (planned)' if c == planned else ''} {name}: "
+                  f"device ms {ms:.4f} kv_split {split} flush steps {c // bq}", flush=True)
         del q, k, v, dout, out, lse
+
+
+def emulate(torch, chip_smoke, name, seeds) -> None:
+    """dK of the ``BWD_CHECKS`` row ``name`` against the f64 reference on
+    the draws of ``seeds`` (``seeded_inputs``' seeds; -1: chip_smoke's
+    draw): the tensor-core kernel's, and the kernel's plan written out in
+    f32 on the same inputs, lse and D (``kv_split_partials_plain`` at the
+    row's blocks, split and flush, and without the flush, summed in split
+    order and rounded to bf16 as ``kv_reduce`` does), each as the largest
+    |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` and at the kernel's
+    worst entry: whether f32 sums in the kernel's order alone miss where
+    the kernel does."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+    row = next(c for c in chip_smoke.BWD_CHECKS if c[0] == name)
+    _, b, h, kv, s, t, hd, hd_v, window, prefix, cap, *_ = row
+    mask = dict(window=window, prefix=prefix, softcap=cap)
+    keys, bq = fab.plan_bwd_tc_blocks(hd, hd_v, cap > 0)["dkdv"]
+    split = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
+    flush = fab.plan_bwd_flush_steps(h // kv, s, bq, prefix)
+    scale = 1 / math.sqrt(hd)
+    for seed in seeds:
+        q, k, v, dout = (check_inputs(torch, chip_smoke, dev, [name])[name] if seed < 0
+                         else seeded_inputs(torch, dev, row, seed))
+        out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
+        ref = f64_reference(torch, q, k, v, out, dout, cap, prefix=prefix)[1]
+        delta = (dout.float() * out.float()).sum(-1)
+
+        def excess(dk):
+            return (dk.double() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
+
+        kernel = excess(tc_grads(torch, fab, q, k, v, out, dout, lse, split, flush, **mask)[1])
+        at = tuple(int(x) for x in torch.unravel_index(kernel.argmax(), kernel.shape))
+        found = {"kernel": kernel}
+        for label, steps in (("f32 plan", flush), ("f32 plan, no flush", 0)):
+            part = fab.kv_split_partials_plain(q, k, v, dout, lse, delta, split, **mask,
+                                               keys=keys, rows=bq, flush_steps=steps)
+            total = part[0].clone()
+            for z in range(1, split):
+                total += part[z]
+            found[label] = excess((total[..., :hd] * scale).to(torch.bfloat16))
+            del part, total
+        print(f"emulate {name} seed {seed} kv_split {split} flush steps {flush} blocks "
+              f"{(keys, bq)}: ref at {list(at)} {float(ref[at]):.6g}; " + "; ".join(
+                  f"{label} max {float(r.max()):.4f} ({int((r > 1).sum())} entries over 1), "
+                  f"at the kernel's worst {float(r[at]):.4f}" for label, r in found.items()),
+              flush=True)
+        del q, k, v, dout, out, lse, ref, delta, found
 
 
 # (label, plain forward, plain backward, the plain forward's key blocks as a
@@ -521,6 +618,70 @@ def swap(torch, chip_smoke, dev, arch: str, state: str) -> None:
               flush=True)
 
 
+def f64_forward(torch, q, k, v, prefix=0):
+    """The output of causal softmax attention (every query also seeing the
+    first ``prefix`` keys) written out in float64 on the same bf16 inputs."""
+    g = q.shape[1] // k.shape[1]
+    kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
+    s, t = q.shape[2], k.shape[2]
+    sc = torch.einsum("bhsd,bhtd->bhst", q.double(), kd) / math.sqrt(q.shape[3])
+    pos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    seen = (torch.arange(t, device=q.device)[None, :] <= pos) | (
+        torch.arange(t, device=q.device)[None, :] < prefix)
+    return torch.einsum("bhst,bhtd->bhsd", torch.softmax(sc.masked_fill(~seen, float("-inf")),
+                                                         -1), vd)
+
+
+def layer_f64(torch, chip_smoke, dev, arch: str, state: str) -> None:
+    """Each flash call of ``arch``'s whole-model gradient check (:func:`swap_case`'s
+    weights and batch, the kernel path, full remat) held to float64 on its
+    own inputs: the forward's output against softmax attention written out
+    in f64, the backward's dq, dk and dv against :func:`f64_reference`, each
+    as the largest share of ``ATTN_TOL``'s elementwise bound and the relative
+    L2 error; a call past ``ATTN_TOL`` (an excess over 1 or a relative L2
+    over its 5e-3) is a fault of the kernels.  One line a layer, then the
+    worst of each."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+
+    cfg, params, batch = swap_case(torch, chip_smoke, dev, arch, state)
+    tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+    calls, bwd = [], fab.flash_attention_bwd
+
+    def recording(q, k, v, out, dout, scale, window, prefix, softcap, lse=None):
+        if window or softcap:
+            raise SystemExit("flash_probe.py --layer-f64 takes causal and prefix calls only")
+        got = bwd(q, k, v, out, dout, scale, window, prefix, softcap, lse)
+        calls.append((q, k, v, out, dout, prefix, got))
+        return got
+
+    def excess(got, ref):
+        d = (got.double() - ref).abs()
+        return (round(float((d / (tol["atol"] + tol["rtol"] * ref.abs())).max()), 4),
+                float(d.norm() / ref.norm()))
+
+    fab.flash_attention_bwd = recording
+    try:
+        chip_smoke.model_grads(torch, cfg, params, batch, contextlib.nullcontext)
+    finally:
+        fab.flash_attention_bwd = bwd
+    worst = {"forward": (0.0, 0.0), "dq": (0.0, 0.0), "dk": (0.0, 0.0), "dv": (0.0, 0.0)}
+    past = []
+    # The backward runs the layers last to first.
+    for layer, (q, k, v, out, dout, prefix, got) in zip(reversed(range(len(calls))), calls):
+        row = {"forward": excess(out, f64_forward(torch, q, k, v, prefix))}
+        row.update(zip(("dq", "dk", "dv"), (excess(g, r) for g, r in zip(
+            got, f64_reference(torch, q, k, v, out, dout, 0.0, prefix=prefix)))))
+        for key, (ex, rel) in row.items():
+            worst[key] = (max(worst[key][0], ex), max(worst[key][1], rel))
+            if ex > 1 or rel > tol["rel"]:
+                past.append([layer, key, ex, rel])
+        print(json.dumps({"arch": cfg.name, "weights": state, "layer": layer,
+                          "shape": list(q.shape), "prefix": prefix,
+                          "excess_and_rel_l2_vs_f64": row}), flush=True)
+    print(json.dumps({"arch": cfg.name, "weights": state, "calls": len(calls),
+                      "worst_excess_and_rel_l2": worst, "past_attn_tol": past}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -534,6 +695,17 @@ def main() -> int:
         route, smem_bytes)
     from repro_torch.kernels.flash_attention.ops import remop_flash_attention
 
+    if sys.argv[1:2] == ["--layer-f64"]:
+        if len(sys.argv) != 4 or sys.argv[3] not in SWAP_STATES:
+            print(f"usage: flash_probe.py --layer-f64 ARCH {{{','.join(SWAP_STATES)}}}",
+                  file=sys.stderr)
+            return 2
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        chip_smoke.load_peaks()
+        runtime.build()
+        layer_f64(torch, chip_smoke, torch.device("cuda", 0), sys.argv[2], sys.argv[3])
+        print("ALL OK", flush=True)
+        return 0
     if sys.argv[1:2] == ["--swap"]:
         if len(sys.argv) != 4 or sys.argv[3] not in SWAP_STATES:
             print(f"usage: flash_probe.py --swap ARCH {{{','.join(SWAP_STATES)}}}",
@@ -545,16 +717,30 @@ def main() -> int:
         swap(torch, chip_smoke, torch.device("cuda", 0), sys.argv[2], sys.argv[3])
         print("ALL OK", flush=True)
         return 0
-    args = [a for a in sys.argv[1:] if a not in ("--bwd", "--bwd-run-rows")]
-    log_dir = Path(args[0]) if args else runtime.BUILD_DIR
-    log_dir.mkdir(parents=True, exist_ok=True)
-    if "--bwd-run-rows" in sys.argv[1:]:
+    if sys.argv[1:2] == ["--emulate"]:
+        if len(sys.argv) != 4:
+            print("usage: flash_probe.py --emulate ROW SEED,...", file=sys.stderr)
+            return 2
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.load_peaks()
         runtime.build(["flash_attention", "flash_attention_bwd"])
-        bwd_run_rows(torch, chip_smoke)
+        emulate(torch, chip_smoke, sys.argv[2], [int(x) for x in sys.argv[3].split(",")])
         print("ALL OK", flush=True)
         return 0
+    if sys.argv[1:2] == ["--bwd-run-rows"]:
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        chip_smoke.load_peaks()
+        runtime.build(["flash_attention", "flash_attention_bwd"])
+        if len(sys.argv) == 4:  # one row of BWD_CHECKS under the given flush lengths (0: none)
+            row, flush = sys.argv[2], tuple(int(x) for x in sys.argv[3].split(","))
+            bwd_run_rows(torch, chip_smoke, (row,), flush, (row,))
+        else:
+            bwd_run_rows(torch, chip_smoke)
+        print("ALL OK", flush=True)
+        return 0
+    args = [a for a in sys.argv[1:] if a != "--bwd"]
+    log_dir = Path(args[0]) if args else runtime.BUILD_DIR
+    log_dir.mkdir(parents=True, exist_ok=True)
     if "--bwd" in sys.argv[1:]:
         ptxas_report(log_dir, "flash_attention_bwd")
         ptxas_report(log_dir, "flash_attention")  # the forward's lse instantiations

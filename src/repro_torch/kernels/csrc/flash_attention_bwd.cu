@@ -56,29 +56,29 @@
 //     warpgroup's registers, so its two consumer warpgroups share the 64
 //     keys, one gradient each, and pass P^T through shared memory (see
 //     dkdv_wg_kernel).
-// The split: the host asks for n_split CTAs a key block; each takes one run
-// of its steps (heads first, then query blocks) and writes f32 partial dK
-// and dV to scratch, and kv_reduce_kernel sums them in split order, applies
-// the scale and rounds once.  No atomics: two calls give the same bits.
-// Both dkdv kernels split where a key block's walk is long: wgmma's f32
-// sums lose more than the CUDA cores' over thousands of accumulated steps
-// (at G 8 on one KV head, 16,384 query rows into one accumulator, dK missed
-// ATTN_TOL's elementwise bound against f64 by 3.4x at hd 128; 4,096 rows
-// read 0.5), so no run takes more than 4,096 (head, query) rows, and 256
-// in a call with a prefix (whose keys every row sees: at paligemma-3b's
-// [4, 8, 2048, 256] with q 8 times the unit scale 4,096 rows still missed
-// it on 6 of 9 draws); dkdv_wg also where B * KV * (key blocks) CTAs leave
-// most SMs idle (few KV heads).  The CTAs a key block stop at kMaxSplit
-// (16), so past 16 runs' rows (48 heads on one KV head of 2048: 98,304) a
-// CTA's part outnumbers one run's rows.  Then the host hands the tc entry a run length (run_steps, planned
-// and checked by flash_attention_bwd.py's plan_bwd_run_steps and
-// check_bwd_runs) and dkdv is launched once per run (a pass): pass r takes
-// run r of every CTA's part, run_steps steps from the accumulators' 0, and
-// adds its sums into the CTA's f32 partial (pass 0 stores them), in pass
-// order, as many passes as cover the longest part.  The passes run the dkdv
-// kernels' PASSES instantiations; a walk of one run a CTA (run_steps 0)
-// runs the others, which are the kernels it had (in a shared one the
-// pass's code cost some rows 2-5% of their time on an H100).
+// The split: the host asks for n_split CTAs a key block where B * KV * (key
+// blocks) CTAs leave most SMs idle; each takes one run of its steps (heads
+// first, then query blocks) and writes f32 partial dK and dV to scratch, and
+// kv_reduce_kernel sums them in split order, applies the scale and rounds
+// once.  No atomics: two calls give the same bits.
+// The flush: wgmma's f32 sums lose more than the CUDA cores' over long
+// walks (at G 8 on one KV head, 16,384 query rows into one accumulator, dK
+// missed ATTN_TOL's elementwise bound against f64 by 3.4x at hd 128; with
+// q 8 times the unit scale 4,096 rows still missed on some draws, 256 rows
+// on none).  So where a key block's walk may pass 4,096 (head, query) rows,
+// or the call has a prefix, the host hands the tc entry flush_steps (the
+// steps of 256 rows, a power of two; flash_attention_bwd.py's
+// plan_bwd_flush_steps, held to check_bwd_runs): every flush_steps steps of
+// its walk (at the top of the next step, where the fewest registers are
+// live: after the step the flush spilled at hd 128 and 256) each consumer
+// thread adds its dK and dV accumulators into the CTA's f32 partial in
+// scratch (the first flush stores them) on the CUDA cores, round to
+// nearest, and restarts them from 0; the walk's last sums go in the same
+// way, and at n_split 1 the CTA then rounds partial plus accumulators to dk
+// and dv itself (no kv_reduce).  Each thread reads and writes only its own
+// fragment's entries, so no barrier orders the flushes.  The flushing
+// walks run the dkdv kernels' FLUSH instantiations; every other call
+// (flush_steps 0) runs the others, which are the kernels it had.
 // P and dS keep f32 precision into their products as the forward keeps P:
 // x = hi + lo with hi = bf16(x), lo = bf16(x - hi), two products each; dK
 // takes dS^T in three terms (x = hi + mid + lo, split3_frags) in both dkdv
@@ -671,9 +671,8 @@ struct TcParams {
   int window, prefix;
   float softcap;
   int n_split;
-  // Several runs a CTA (see the split above): this launch takes run `pass`
-  // of run_steps steps of each CTA's part; run_steps 0: the whole part.
-  int run_steps, pass;
+  // The steps of the walk between flushes (see the flush above); 0: none.
+  int flush_steps;
 };
 
 // Shared memory of dq_tc (byte offsets from a 1024-byte-aligned base): Q
@@ -815,21 +814,76 @@ __device__ __forceinline__ void store_part(const float (&acc)[W / 2], float* g, 
   }
 }
 
-// The same rows added onto what the earlier passes left there.
-template <int W>
-__device__ __forceinline__ void add_part(const float (&acc)[W / 2], float* g, int width, int col,
-                                         int r0, int limit, int lane) {
+// The partial's rows plus the accumulator fragment: written back to the
+// partial (WRITE: what the earlier flushes left there, plus this run) or into
+// the fragment (the walk's last sums on top of its flushes).  The partial is
+// read in batches of up to 16 float2 a row: a batch's loads issue back to
+// back, then its adds; the compiler barrier keeps the next batch's loads
+// behind them, so a flush holds at most 32 more registers.
+template <int W, bool WRITE>
+__device__ __forceinline__ void part_plus(float (&acc)[W / 2], float* g, int width, int col,
+                                          int r0, int limit, int lane) {
+  constexpr int kPairs = W / 8, kBatch = kPairs < 16 ? kPairs : 16;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + 8 * half;
     if (row >= limit) continue;
-    float* out = g + int64_t(row) * width + col + 2 * (lane & 3);
+    float* at = g + int64_t(row) * width + col + 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < W / 8; ++c) {
-      const float2 y = *reinterpret_cast<const float2*>(out + 8 * c);
-      *reinterpret_cast<float2*>(out + 8 * c) =
-          make_float2(y.x + acc[4 * c + 2 * half], y.y + acc[4 * c + 2 * half + 1]);
+    for (int c0 = 0; c0 < kPairs; c0 += kBatch) {
+      float2 y[kBatch];
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c)
+        y[c] = *reinterpret_cast<const float2*>(at + 8 * (c0 + c));
+#pragma unroll
+      for (int c = 0; c < kBatch; ++c) {
+        float& lo = acc[4 * (c0 + c) + 2 * half];
+        float& hi = acc[4 * (c0 + c) + 2 * half + 1];
+        if constexpr (WRITE) {
+          *reinterpret_cast<float2*>(at + 8 * (c0 + c)) = make_float2(y[c].x + lo, y[c].y + hi);
+        } else {
+          lo = y[c].x + lo;
+          hi = y[c].y + hi;
+        }
+      }
+      asm volatile("" ::: "memory");
     }
+  }
+}
+
+// The flush after step i of a walk [lo, hi) (run at the top of step i + 1,
+// where the fewest registers are live): every flush_steps steps (a power of
+// two) but the last, the accumulator fragment into the partial's rows
+// (stored at the first flush, added after), then restarted from 0.
+template <int W>
+__device__ __forceinline__ void flush_part(float (&acc)[W / 2], const TcParams& p, float* g,
+                                           int width, int col, int r0, int lane, int i, int lo,
+                                           int hi) {
+  if (((i - lo + 1) & (p.flush_steps - 1)) || i + 1 >= hi) return;
+  if (i - lo + 1 > p.flush_steps)
+    part_plus<W, true>(acc, g, width, col, r0, p.t, lane);
+  else
+    store_part<W>(acc, g, width, col, r0, p.t, lane);
+#pragma unroll
+  for (int r = 0; r < W / 2; ++r) acc[r] = 0.f;
+}
+
+// The end of one consumer's walk [lo, hi): its W columns at `col` of the
+// CTA's f32 partial (rows of `width`), or at n_split 1 rounded to bf16 rows
+// of `g` (position stride `ps`) times `mul`; where FLUSH left sums of this
+// walk in the partial (the walk passed flush_steps steps), on top of them.
+template <int W, bool FLUSH>
+__device__ __forceinline__ void finish_walk(float (&acc)[W / 2], const TcParams& p, float* part,
+                                            int width, int col, __nv_bfloat16* g, int64_t ps,
+                                            float mul, int r0, int lane, int lo, int hi) {
+  const bool flushed = FLUSH && hi - lo > p.flush_steps;
+  if (p.n_split == 1) {
+    if (flushed) part_plus<W, false>(acc, part, width, col, r0, p.t, lane);
+    store_rows<W>(acc, g, ps, r0, p.t, lane, mul);
+  } else if (flushed) {
+    part_plus<W, true>(acc, part, width, col, r0, p.t, lane);
+  } else {
+    store_part<W>(acc, part, width, col, r0, p.t, lane);
   }
 }
 
@@ -1037,12 +1091,11 @@ __device__ __forceinline__ RowRange seeing_rows(int k0, int k_last, const TcPara
 // block's steps (head i / n_q of the group, query block first_qb + i % n_q,
 // i < group * n_q) are cut into n_split runs of consecutive steps, heads
 // first; the CTA takes run z, steps [lo, hi).  Its j-th step (i = lo + j)
-// sits in ring stage j % 2 at parity (j / 2) % 2.  With PASSES, run
-// p.pass of it (p.run_steps steps).
+// sits in ring stage j % 2 at parity (j / 2) % 2.
 struct Walk {
   int k0, z, first_qb, n_q, lo, hi;
 };
-template <int BKV, int BQ, bool PASSES>
+template <int BKV, int BQ>
 __device__ __forceinline__ Walk walk_of(const TcParams& p) {
   const int kb = blockIdx.x / p.n_split, z = blockIdx.x % p.n_split;
   const int k0 = kb * BKV;
@@ -1050,17 +1103,23 @@ __device__ __forceinline__ Walk walk_of(const TcParams& p) {
   const int first_qb = rows.first / BQ;
   const int n_q = rows.first <= rows.last ? rows.last / BQ - first_qb + 1 : 0;
   const int steps = (p.h / p.kv) * n_q;
-  int lo = int(int64_t(steps) * z / p.n_split), hi = int(int64_t(steps) * (z + 1) / p.n_split);
-  if constexpr (PASSES) {
-    lo = min(lo + p.pass * p.run_steps, hi);
-    hi = min(lo + p.run_steps, hi);
-  }
-  return {k0, z, first_qb, n_q, lo, hi};
+  return {k0, z, first_qb, n_q, int(int64_t(steps) * z / p.n_split),
+          int(int64_t(steps) * (z + 1) / p.n_split)};
 }
 
-// This CTA's f32 partial rows of [n_split, B, KV, T, hd + hd_v], from key 0.
+// This CTA's f32 partial rows of [n_split, B, KV, T, hd + hd_v], from key 0
+// (none without a split or a flush).
 __device__ __forceinline__ float* part_rows(const TcParams& p, int z, int kvh, int b, int width) {
+  if (p.part == nullptr) return nullptr;
   return p.part + ((int64_t(z) * gridDim.z + b) * p.kv + kvh) * int64_t(p.t) * width;
+}
+
+// An opaque 0: addresses built on it are formed where they are used, not
+// hoisted out of the walk's loop (where they would stay live).
+__device__ __forceinline__ int opaque_zero() {
+  int zero;
+  asm volatile("mov.u32 %0, 0;\n" : "=r"(zero));
+  return zero;
 }
 
 // The producer warpgroup of either dkdv kernel: its first warp issues the
@@ -1123,7 +1182,7 @@ __device__ __forceinline__ bool pair_seen(int key, int row, const TcParams& p) {
 
 // One consumer warpgroup w of dkdv_tc: keys [k0 + 64w, k0 + 64w + 64);
 // this thread holds keys kr0 and kr0 + 8.
-template <int HD, int BKV, int BQ, bool CAP, bool PASSES>
+template <int HD, int BKV, int BQ, bool CAP, bool FLUSH>
 __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_full,
                                              uint64_t* q_full, uint64_t* do_full,
                                              uint64_t* empty, const TcParams& p, int w, int warp,
@@ -1140,6 +1199,13 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
 
   if (walk.hi > walk.lo) hopper::mbar_wait(kv_full, 0);
   for (int i = walk.lo; i < walk.hi; ++i) {
+    if constexpr (FLUSH) {
+      if (i > walk.lo) {
+        float* part = part_rows(p, walk.z, kvh, b, 2 * HD) + opaque_zero();
+        flush_part<HD>(dk, p, part, 2 * HD, 0, kr0, lane, i - 1, walk.lo, walk.hi);
+        flush_part<HD>(dv, p, part, 2 * HD, HD, kr0, lane, i - 1, walk.lo, walk.hi);
+      }
+    }
     const int s = (i - walk.lo) & 1;
     const uint32_t parity = ((i - walk.lo) >> 1) & 1;
     const int q0 = (walk.first_qb + i % walk.n_q) * BQ;
@@ -1217,28 +1283,22 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  if (p.n_split == 1) {
-    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
-    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
-    store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
-    store_rows<HD>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
-  } else if (!PASSES || p.pass == 0) {
-    float* rows = part_rows(p, walk.z, kvh, b, 2 * HD);
-    store_part<HD>(dk, rows, 2 * HD, 0, kr0, p.t, lane);
-    store_part<HD>(dv, rows, 2 * HD, HD, kr0, p.t, lane);
-  } else if (walk.hi > walk.lo) {
-    float* rows = part_rows(p, walk.z, kvh, b, 2 * HD);
-    add_part<HD>(dk, rows, 2 * HD, 0, kr0, p.t, lane);
-    add_part<HD>(dv, rows, 2 * HD, HD, kr0, p.t, lane);
-  }
+  float* part = part_rows(p, walk.z, kvh, b, 2 * HD);
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
+  finish_walk<HD, FLUSH>(dk, p, part, 2 * HD, 0, dkg, p.st[20], p.scale, kr0, lane, walk.lo,
+                         walk.hi);
+  finish_walk<HD, FLUSH>(dv, p, part, 2 * HD, HD, dvg, p.st[23], 1.f, kr0, lane, walk.lo,
+                         walk.hi);
 }
 
 // One CTA per (BKV keys, KV head, batch, run of the key block's steps), the
 // first KV blocks (seen by the most queries) first: BKV / 64 consumer
-// warpgroups and the producer warpgroup.  Split (n_split > 1) only where a
-// key block's walk is long (see the split above): the runs write f32
-// partials, summed by kv_reduce_kernel.
-template <int HD, int BKV, int BQ, bool CAP, bool PASSES>
+// warpgroups and the producer warpgroup (setmaxnreg 40 / 232; the FLUSH
+// instantiations 24 / 240: at hd 128 their consumers spilled 16-20 bytes
+// at 232).  Split (n_split > 1) where KV heads are few (see the split
+// above): the runs write f32 partials, summed by kv_reduce_kernel.
+template <int HD, int BKV, int BQ, bool CAP, bool FLUSH>
 __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
     dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -1254,7 +1314,7 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
   uint64_t* empty = kv_full + 5;
 
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const Walk walk = walk_of<BKV, BQ, PASSES>(p);
+  const Walk walk = walk_of<BKV, BQ>(p);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -1269,13 +1329,19 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= 4 * kWarpgroups) {
-    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (kWarpgroups == 2 && FLUSH)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    else if constexpr (kWarpgroups == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     dkdv_produce<HD, HD, BKV, BQ>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k, &map_v,
                                   &map_do, p, walk, warp - 4 * kWarpgroups, lane, kvh, b);
   } else {
-    if constexpr (kWarpgroups == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dkdv_consume<HD, BKV, BQ, CAP, PASSES>(smem, kv_full, q_full, do_full, empty, p, warp / 4,
-                                           warp, lane, walk, kvh, b);
+    if constexpr (kWarpgroups == 2 && FLUSH)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    else if constexpr (kWarpgroups == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    dkdv_consume<HD, BKV, BQ, CAP, FLUSH>(smem, kv_full, q_full, do_full, empty, p, warp / 4,
+                                          warp, lane, walk, kvh, b);
   }
 }
 
@@ -1309,7 +1375,7 @@ __device__ __forceinline__ void named_arrive(int id) {
 }
 
 // Warpgroup A: P^T into the exchange, dV += P^T dO.
-template <int HD, int HDV, bool CAP, bool PASSES>
+template <int HD, int HDV, bool CAP, bool FLUSH>
 __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full,
                                           uint64_t* q_full, uint64_t* do_full, uint64_t* empty,
                                           const TcParams& p, int warp, int lane,
@@ -1328,6 +1394,11 @@ __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full
 
   if (walk.hi > walk.lo) hopper::mbar_wait(kv_full, 0);
   for (int i = walk.lo; i < walk.hi; ++i) {
+    if constexpr (FLUSH) {
+      if (i > walk.lo)
+        flush_part<HDV>(dv, p, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, lane,
+                        i - 1, walk.lo, walk.hi);
+    }
     const int j = i - walk.lo, s = j & 1;
     const uint32_t parity = (j >> 1) & 1;
     const int q0 = (walk.first_qb + i % walk.n_q) * BQ;
@@ -1391,20 +1462,15 @@ __device__ __forceinline__ void dkdv_wg_p(unsigned char* smem, uint64_t* kv_full
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  if (p.n_split == 1) {
-    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
-    store_rows<HDV>(dv, dvg, p.st[23], kr0, p.t, lane, 1.f);
-  } else if (!PASSES || p.pass == 0) {
-    store_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
-  } else if (walk.hi > walk.lo) {
-    add_part<HDV>(dv, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, kr0, p.t, lane);
-  }
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv) + b * p.st[21] + kvh * p.st[22];
+  finish_walk<HDV, FLUSH>(dv, p, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, HD, dvg,
+                          p.st[23], 1.f, kr0, lane, walk.lo, walk.hi);
 }
 
 // Warpgroup B: dP^T, dS^T from the exchange, dK += dS^T Q with dS^T in three
 // bf16 terms (split3_frags: with two, dK's entries near 0 missed the check's
 // 1e-4 at gemma-2b's shape with q 8 times the unit scale).
-template <int HD, int HDV, bool PASSES>
+template <int HD, int HDV, bool FLUSH>
 __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_full,
                                            uint64_t* q_full, uint64_t* do_full, uint64_t* empty,
                                            const TcParams& p, int warp, int lane,
@@ -1422,6 +1488,11 @@ __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_ful
 
   if (walk.hi > walk.lo) hopper::mbar_wait(kv_full, 0);
   for (int i = walk.lo; i < walk.hi; ++i) {
+    if constexpr (FLUSH) {
+      if (i > walk.lo)
+        flush_part<HD>(dk, p, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, lane,
+                       i - 1, walk.lo, walk.hi);
+    }
     const int j = i - walk.lo, s = j & 1;
     const uint32_t parity = (j >> 1) & 1;
     const uint32_t q_addr = hopper::smem_u32(smem + L::kRing + s * L::kStage);
@@ -1476,19 +1547,14 @@ __device__ __forceinline__ void dkdv_wg_ds(unsigned char* smem, uint64_t* kv_ful
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  if (p.n_split == 1) {
-    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
-    store_rows<HD>(dk, dkg, p.st[20], kr0, p.t, lane, p.scale);
-  } else if (!PASSES || p.pass == 0) {
-    store_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
-  } else if (walk.hi > walk.lo) {
-    add_part<HD>(dk, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, kr0, p.t, lane);
-  }
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(p.dk) + b * p.st[18] + kvh * p.st[19];
+  finish_walk<HD, FLUSH>(dk, p, part_rows(p, walk.z, kvh, b, HD + HDV), HD + HDV, 0, dkg,
+                         p.st[20], p.scale, kr0, lane, walk.lo, walk.hi);
 }
 
 // One CTA per (64 keys, KV head, batch, run of steps): warpgroups A and B,
 // then the producer warpgroup (setmaxnreg 232 / 232 / 40).
-template <int HD, int HDV, bool CAP, bool PASSES>
+template <int HD, int HDV, bool CAP, bool FLUSH>
 __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
     dkdv_wg_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -1503,7 +1569,7 @@ __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
   uint64_t* empty = kv_full + 5;
 
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const Walk walk = walk_of<64, 64, PASSES>(p);
+  const Walk walk = walk_of<64, 64>(p);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -1523,12 +1589,12 @@ __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
                                   &map_do, p, walk, warp - 8, lane, kvh, b);
   } else if (warp < 4) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dkdv_wg_p<HD, HDV, CAP, PASSES>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk,
-                                    kvh, b);
+    dkdv_wg_p<HD, HDV, CAP, FLUSH>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk,
+                                   kvh, b);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    dkdv_wg_ds<HD, HDV, PASSES>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh,
-                                b);
+    dkdv_wg_ds<HD, HDV, FLUSH>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk, kvh,
+                               b);
   }
 }
 
@@ -1629,15 +1695,14 @@ bool encode(CUtensorMap* map, const void* base, const long long* strides, int id
   return hopper::encode_bf16_4d(map, base, dims, bst, rows);
 }
 
-template <int HD, int HDV, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP,
-          bool PASSES = false>
+template <int HD, int HDV, int DQ_BQ, int DQ_BK, int KV_BK, int KV_BQ, bool CAP, bool FLUSH>
 cudaError_t tc_kernels(const void** dq_kernel, const void** kv_kernel) {
   auto dq = dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>;
   const void* kv;
   if constexpr (KV_BK == 64)
-    kv = reinterpret_cast<const void*>(dkdv_wg_kernel<HD, HDV, CAP, PASSES>);
+    kv = reinterpret_cast<const void*>(dkdv_wg_kernel<HD, HDV, CAP, FLUSH>);
   else
-    kv = reinterpret_cast<const void*>(dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP, PASSES>);
+    kv = reinterpret_cast<const void*>(dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP, FLUSH>);
   cudaError_t err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem);
   if (err != cudaSuccess) return err;
@@ -1656,12 +1721,14 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
               void* dq, void* dk, void* dv, const void* lse, void* delta, void* part,
               const long long* strides, int b, int h, int kv, int s, int t, int hd, int hd_v,
               int dq_bq, int dq_bk, int kv_bk, int kv_bq, int n_split, float scale, int window,
-              int prefix, float softcap, int run_steps, void* stream) {
+              int prefix, float softcap, int flush_steps, void* stream) {
   if (b <= 0 || s <= 0) return cudaSuccess;
   if (kv <= 0 || h % kv || t <= 0 || !(s <= t || prefix >= t) || window < 0 || prefix < 0 ||
       (window > 0 && prefix > 0) || !(softcap >= 0.f) || lse == nullptr || delta == nullptr ||
-      n_split < 1 || n_split > kMaxSplit || (n_split > 1 && part == nullptr) ||
-      reinterpret_cast<uintptr_t>(part) % 16 || run_steps < 0 || (run_steps > 0 && n_split < 2))
+      n_split < 1 || n_split > kMaxSplit || flush_steps < 0 ||
+      (flush_steps & (flush_steps - 1)) ||
+      ((n_split > 1 || flush_steps > 0) && part == nullptr) ||
+      reinterpret_cast<uintptr_t>(part) % 16)
     return cudaErrorInvalidValue;
   // The outputs and O are read and written as bf16 pairs.
   for (int i : {3, 5, 6, 7})
@@ -1682,7 +1749,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
     return cudaErrorNotSupported;
   TcParams p{o, dout, dq, dk, dv, static_cast<const float*>(lse), static_cast<float*>(delta),
              static_cast<float*>(part), {}, h, kv, s, t, scale, window, prefix, softcap, n_split,
-             run_steps, 0};
+             flush_steps};
   for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   return tc_dispatch(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, softcap > 0.f,
@@ -1692,15 +1759,10 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
     constexpr int DQ_BQ = decltype(dq_bq_c)::value, DQ_BK = decltype(dq_bk_c)::value;
     constexpr int KV_BK = decltype(kv_bk_c)::value, KV_BQ = decltype(kv_bq_c)::value;
     constexpr bool CAP = decltype(cap_c)::value;
-    // One dkdv launch a pass, pass r adding run r of every part (the PASSES
-    // instantiations): as many as the longest part (key block 0's steps
-    // over n_split) takes at the host's run_steps.
-    const int longest = ((h / kv) * ((s + KV_BQ - 1) / KV_BQ) + n_split - 1) / n_split;
-    const int passes = run_steps > 0 ? (longest + run_steps - 1) / run_steps : 1;
-    auto run = [&](auto passes_c) -> int {
-      constexpr bool PASSES = decltype(passes_c)::value;
+    auto run = [&](auto flush_c) -> int {
+      constexpr bool FLUSH = decltype(flush_c)::value;
       const void *dq_kernel, *kv_kernel;
-      cudaError_t err = tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP, PASSES>(
+      cudaError_t err = tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP, FLUSH>(
           &dq_kernel, &kv_kernel);
       if (err != cudaSuccess) return err;
       dq_tc_kernel<HD, HDV, DQ_BQ, DQ_BK, CAP>
@@ -1711,19 +1773,15 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
       // After dq_tc on the same stream: it wrote D.
       const dim3 kv_grid((t + KV_BK - 1) / KV_BK * n_split, kv, b);
       const int kv_smem = KvLayout<HD, HDV, KV_BK, KV_BQ>::kSmem;
-      for (p.pass = 0; p.pass < passes; ++p.pass) {
-        if constexpr (KV_BK == 64)
-          dkdv_wg_kernel<HD, HDV, CAP, PASSES><<<kv_grid, kKvThreads, kv_smem, st>>>(
-              kv_q, kv_k, kv_v, kv_do, p);
-        else
-          dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP, PASSES>
-              <<<kv_grid, kKvThreads, kv_smem, st>>>(kv_q, kv_k, kv_v, kv_do, p);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-      }
-      return cudaSuccess;
+      if constexpr (KV_BK == 64)
+        dkdv_wg_kernel<HD, HDV, CAP, FLUSH><<<kv_grid, kKvThreads, kv_smem, st>>>(
+            kv_q, kv_k, kv_v, kv_do, p);
+      else
+        dkdv_tc_kernel<HD, KV_BK, KV_BQ, CAP, FLUSH>
+            <<<kv_grid, kKvThreads, kv_smem, st>>>(kv_q, kv_k, kv_v, kv_do, p);
+      return cudaGetLastError();
     };
-    return passes > 1 ? run(std::true_type{}) : run(std::false_type{});
+    return flush_steps > 0 ? run(std::true_type{}) : run(std::false_type{});
   });
 }
 
@@ -1751,20 +1809,24 @@ int launch_kv_reduce(const void* part, void* dk, void* dv, const long long* stri
   return cudaGetLastError();
 }
 
-// out[10]: for dq_tc then dkdv (dkdv_tc or dkdv_wg), CTAs resident on one
-// SM, registers a thread, local (spilled) bytes a thread, dynamic shared
-// memory, threads.
+// out[10]: for dq_tc then dkdv (dkdv_tc or dkdv_wg; flush != 0: its FLUSH
+// instantiation), CTAs resident on one SM, registers a thread, local
+// (spilled) bytes a thread, dynamic shared memory, threads.
 int attributes_tc(int hd, int hd_v, int dq_bq, int dq_bk, int kv_bk, int kv_bq, int cap,
-                  int* out) {
+                  int flush, int* out) {
   return tc_dispatch(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap != 0,
                      [&](auto hd_c, auto hdv_c, auto dq_bq_c, auto dq_bk_c, auto kv_bk_c,
                          auto kv_bq_c, auto cap_c) -> int {
     constexpr int HD = decltype(hd_c)::value, HDV = decltype(hdv_c)::value;
     constexpr int DQ_BQ = decltype(dq_bq_c)::value, DQ_BK = decltype(dq_bk_c)::value;
     constexpr int KV_BK = decltype(kv_bk_c)::value, KV_BQ = decltype(kv_bq_c)::value;
+    constexpr bool CAP = decltype(cap_c)::value;
     const void* kernels[2];
-    cudaError_t err = tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, decltype(cap_c)::value>(
-        &kernels[0], &kernels[1]);
+    cudaError_t err =
+        flush ? tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP, true>(&kernels[0],
+                                                                           &kernels[1])
+              : tc_kernels<HD, HDV, DQ_BQ, DQ_BK, KV_BK, KV_BQ, CAP, false>(&kernels[0],
+                                                                            &kernels[1]);
     if (err != cudaSuccess) return err;
     const int threads[2] = {DQ_BQ / 64 * 128 + kProducerThreads, kKvThreads};
     const int smem[2] = {DqLayout<HD, HDV, DQ_BQ, DQ_BK>::kSmem,
@@ -1824,19 +1886,19 @@ int remop_flash_attention_bwd_attributes(int is_f32, int hd, int hd_v, int* out)
 // tc_dispatch): dq_tc's (dq_bq, dq_bk), dkdv's (kv_bk, kv_bq).  kv_split:
 // dkdv's CTAs a key block (1 .. 16); above 1, part is f32 scratch of
 // [kv_split, B, KV, T, hd + hd_v] that dkdv fills instead of dk and dv, and
-// the caller sums it with remop_flash_attention_bwd_kv_reduce.  run_steps:
-// 0, or (kv_split > 1) the query blocks of dkdv's runs (each CTA's part
-// walked in runs of that many steps, one dkdv launch a run).  Two
-// launches, and one more dkdv launch for each further run.
+// the caller sums it with remop_flash_attention_bwd_kv_reduce.  flush_steps:
+// 0, or the query blocks of each dkdv accumulator's runs between flushes
+// into the f32 partial (then part is that scratch at kv_split 1 too, and
+// dkdv writes dk and dv from it there).  Two launches.
 int remop_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, void* dq, void* dk, void* dv, const void* lse,
                                  void* delta, void* part, const long long* strides, int b, int h,
                                  int kv, int s, int t, int hd, int hd_v, int dq_bq, int dq_bk,
                                  int kv_bk, int kv_bq, int kv_split, float scale, int window,
-                                 int prefix, float softcap, int run_steps, void* stream) {
+                                 int prefix, float softcap, int flush_steps, void* stream) {
   return launch_tc(q, k, v, o, dout, dq, dk, dv, lse, delta, part, strides, b, h, kv, s, t, hd,
                    hd_v, dq_bq, dq_bk, kv_bk, kv_bq, kv_split, scale, window, prefix, softcap,
-                   run_steps, stream);
+                   flush_steps, stream);
 }
 
 // dk = scale * (part[0] + part[1] + ... + part[kv_split - 1]) and dv the same
@@ -1849,11 +1911,11 @@ int remop_flash_attention_bwd_kv_reduce(const void* part, void* dk, void* dv,
 }
 
 // Occupancy, registers, local bytes, shared memory and threads of dq_tc
-// and dkdv at these blocks (cap != 0: the capped instantiations), into
-// out[10].
+// and dkdv at these blocks (cap != 0: the capped instantiations; flush !=
+// 0: dkdv's flushing one), into out[10].
 int remop_flash_attention_bwd_tc_attributes(int hd, int hd_v, int dq_bq, int dq_bk, int kv_bk,
-                                            int kv_bq, int cap, int* out) {
-  return attributes_tc(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap, out);
+                                            int kv_bq, int cap, int flush, int* out) {
+  return attributes_tc(hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap, flush, out);
 }
 
 const char* remop_flash_attention_bwd_error_string(int err) {

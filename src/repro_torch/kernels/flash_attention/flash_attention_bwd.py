@@ -28,18 +28,19 @@ alone:
   :func:`plan_bwd_kv_split` cuts each key block's walk over the GQA group's
   heads and query blocks into ``n`` parts, one CTA each: they write f32
   partial dK and dV, and a third launch sums them in a fixed order
-  (:func:`kv_reduce`), so two calls still give the same bits.  Both dkdv
-  kernels also split a key block's walk where it is long
-  (:func:`plan_bwd_run_split`: wgmma's f32 sums over more than
-  :data:`BWD_RUN_ROWS` rows, :data:`BWD_PREFIX_RUN_ROWS` in a call with a
-  prefix, lose dK's precision); where the CTAs' cap leaves a CTA's part
-  longer than that, dkdv runs once per run of :data:`BWD_LONG_RUN_ROWS`
-  rows (:data:`BWD_PREFIX_RUN_ROWS` with a prefix), each pass adding its
-  run's sums into each CTA's partial in order (:func:`dkdv_runs`;
-  :func:`bwd_run_rows` gives both bounds).  Both form dK from dS^T in
-  three bf16 terms (hi + mid + lo).  A call this
-  route takes never runs on the CUDA-core kernel: a missing lse, a failed
-  build, encode or launch raises.
+  (:func:`kv_reduce`), so two calls still give the same bits.  A long
+  walk loses dK's precision in wgmma's f32 sums, so where a key block's
+  walk may pass :data:`BWD_RUN_ROWS` (head, query) rows, or the call has a
+  prefix (:func:`bwd_flushes`), both dkdv kernels flush: every
+  :data:`BWD_FLUSH_ROWS` rows of its walk each CTA adds its accumulators
+  into its f32 partial in scratch and restarts them from 0
+  (:func:`plan_bwd_flush_steps`, :func:`dkdv_runs`), in one launch; such
+  a call splits over CTAs only where occupancy asks, at dkdv_tc too (and
+  there into CTAs of at most :data:`BWD_CTA_ROWS` rows of the longest
+  walk), and at one CTA a key block writes dk and dv itself.  Both form dK from dS^T
+  in three bf16 terms (hi + mid + lo).  A call this route takes never runs
+  on the CUDA-core kernel: a missing lse, a failed build, encode or launch
+  raises.
 - ``"simt"``: everything else, at ``(hd, hd_v)`` in
   :data:`BWD_HEAD_PAIRS`: three launches on the CUDA cores (``prep``: each
   row's log-sum-exp and D; ``dq``; ``dkdv``), bf16 or f32, blocks
@@ -92,8 +93,8 @@ BWD_KERNELS = ("prep", "dq", "dkdv")
 # warpgroup per 64, and streams Q/dO blocks of 64 (or 32) query rows; at
 # (256, 256) and (192, 128) (dkdv_wg, blocks (64, 64)) its two consumer
 # warpgroups share 64 keys, one holding dV, the other dK.  A key block may
-# take several CTAs: where its walk is long (plan_bwd_run_split), and at
-# dkdv_wg where KV heads are few (plan_bwd_kv_split).
+# take several CTAs where KV heads are few (plan_bwd_kv_split): at dkdv_wg,
+# and at dkdv_tc in a call that flushes (bwd_flushes).
 BWD_TC_HEAD_PAIRS = BWD_HEAD_PAIRS
 BWD_TC_WG_PAIRS = ((256, 256), (192, 128))
 BWD_TC_KERNELS = ("dq", "dkdv")
@@ -106,34 +107,38 @@ BWD_TC_BLOCKS = {
 }
 # Instantiations that spill at their first block pair (ptxas on sm_90a,
 # read on the card), as (kernel, hd, capped, blocks): the capped dkdv at hd
-# 128 and 64 query rows (16 bytes with dS^T in three terms, 28 with two);
-# the plan takes the next pair there.
+# 128 and 64 query rows (16 bytes with dS^T in three terms, flushing or not;
+# 28 with two); the plan takes the next pair there.
 BWD_TC_SPILLS = {("dkdv", 128, True, (128, 64))}
 # dkdv's CTAs a key block at most (its f32 partials are scratch of
 # kv_split x dK and dV).
 BWD_KV_SPLIT_MAX = 16
-# The (head, query) rows one dkdv accumulator sums at most: wgmma's f32
-# sums lose more than the CUDA cores' over long walks (on an H100, G 8 on
-# one KV head with q 8 times the unit scale: dK at 3.4x ATTN_TOL's
-# elementwise bound against f64 with 16,384 rows a CTA at hd 128, 1.4x at hd
-# 64, 3.6x at hd 256; 0.50-0.82 with 4,096 rows; flash_probe.py --bwd).
-BWD_RUN_ROWS = 4096
-# The run of a walk whose CTAs' parts pass BWD_RUN_ROWS (past
-# BWD_KV_SPLIT_MAX x BWD_RUN_ROWS rows a key block), handed to the kernels
-# as run_steps.  Shorter, as such walks sum more runs: at 48 heads on one KV
-# head of 2048 with q 8 times the unit scale, runs of 4,096 rows left dK at
-# 1.7x ATTN_TOL's bound against the plain version (an H100;
-# flash_probe.py --bwd-run-rows sweeps the length).
-BWD_LONG_RUN_ROWS = 1024
-# Both bounds of a call with a prefix (prefix-LM and every-key calls): a
-# CTA's part and its runs of at most this many rows.  A prefix shows its keys
-# to every row, so each of its key blocks takes the longest walk.  On an
-# H100 with q 8 times the unit scale (flash_probe.py --bwd-run-rows, 9 draws
-# a length), parts of 4,096 rows left dK past ATTN_TOL's elementwise bound
-# against f64 on 6 draws of paligemma-3b's [4, 8, 2048, 256] with prefix 256
-# (up to 1.33x), 256 rows on none (at most 0.58x); calls without a prefix
-# keep the bounds above, their plan and their bits.
-BWD_PREFIX_RUN_ROWS = 256
+# The (head, query) rows one dkdv accumulator may sum in a call that does
+# not flush: wgmma's f32 sums lose more than the CUDA cores' over long walks.
+# On an H100 with q 8 times the unit scale (flash_probe.py --bwd-run-rows,
+# 41 draws a row), accumulators of 4,096 rows left dK past ATTN_TOL's
+# elementwise bound against f64 on 3 draws of qwen3-0.6b's [4, 16, 2048,
+# 128] on 8 KV heads, of 2,048 rows on none of MLA's [4, 16, 2048] (192,
+# 128) or seamless-m4t's every-key [4, 16, 2048, 64] on 16 KV heads.  A call
+# whose walk may pass it flushes.
+BWD_RUN_ROWS = 2048
+# The rows one accumulator sums between flushes in a call that flushes.  On
+# an H100 with q 8 times the unit scale (flash_probe.py --bwd-run-rows, 41
+# draws a row): parts and runs of 4,096 rows missed ATTN_TOL's elementwise
+# bound against f64 on 3 of 46 draws of the causal G 8 rows (up to 1.39x)
+# and on 26 of 41 of paligemma-3b's prefix shape; runs of 256 rows flushed
+# into the f32 partial on 1 draw of 41 of granite-20b's G 48 (1.29x, an
+# entry of 4e-4 cancelling from terms summing to 330) and on none of the
+# other eight q-gain-8 rows.
+BWD_FLUSH_ROWS = 256
+# The (head, query) rows of a key block's longest walk that one CTA of a
+# flushing call takes at most, where its key blocks leave SMs idle: shorter
+# CTAs even the SMs out under the flushes' traffic.  On an H100 (device ms,
+# flash_probe.py --bwd, each split of 1 .. 16): paligemma-3b's [4, 8, 2048,
+# 256] with prefix 256, 2 CTAs a key block 1.744, 4 1.417, 8 1.410;
+# recurrentgemma-2b's [2, 10, 4096, 256] at window 2048, 2 2.849, 4 2.421,
+# 8 2.441; gemma-2b's [1, 8, 2048, 256], 8 0.416, 16 0.456.
+BWD_CTA_ROWS = 4096
 
 
 def bwd_smem_bytes(kernel: str, bq: int, bk: int, hd: int, hd_v: int, dtype_bytes: int) -> int:
@@ -229,85 +234,72 @@ def plan_bwd_kv_split(b: int, kv: int, t: int, group: int, keys_per_cta: int,
     return 1 if ctas >= sms else min(2 * sms // ctas, BWD_KV_SPLIT_MAX)
 
 
-def bwd_run_rows(prefix: int = 0) -> tuple:
-    """(the rows a dkdv CTA's part may sum in one run, the rows of its runs
-    where the CTAs' cap leaves it longer) of a call with ``prefix``:
-    :data:`BWD_PREFIX_RUN_ROWS` for both where it has one, else
-    :data:`BWD_RUN_ROWS` and :data:`BWD_LONG_RUN_ROWS`."""
-    if prefix:
-        return BWD_PREFIX_RUN_ROWS, BWD_PREFIX_RUN_ROWS
-    return BWD_RUN_ROWS, BWD_LONG_RUN_ROWS
-
-
-def plan_bwd_run_split(group: int, s: int, prefix: int = 0) -> int:
-    """dkdv's CTAs a key block for precision: parts of at most
-    :func:`bwd_run_rows`' (head, query) rows of the ``group`` heads' ``s``
-    rows (the most that see a key block), at most :data:`BWD_KV_SPLIT_MAX`:
-    without a prefix 1 at qwen3-0.6b's training shape (2 x 2048 rows), 4 at 8
-    heads on one KV head of 2048, 16 at granite-20b's 48 heads on one KV head
-    of 2048, whose parts of 6,144 rows are walked in runs
-    (:func:`plan_bwd_run_steps`); with one 16 at paligemma-3b's 8 heads on
-    one KV head of 2048, whose parts of 1,024 rows are walked in runs."""
+def bwd_flushes(group: int, s: int, prefix: int = 0) -> bool:
+    """Whether dkdv flushes its accumulators every :data:`BWD_FLUSH_ROWS`
+    rows in a call of ``group`` query heads a KV head over ``s`` query rows
+    with ``prefix``: where the longest walk of a key block (all ``group s``
+    rows see it) passes :data:`BWD_RUN_ROWS`, or the call has a prefix
+    (whose key blocks every row sees; the encoder's and cross-attention's
+    every key too).  Every other call keeps one run a CTA, its plan and its
+    bits: MLA's G 1 (2,048 rows)."""
     if min(group, s) < 1:
-        raise ValueError(f"plan_bwd_run_split takes positive sizes, got group={group}, s={s}")
-    return min(-(-group * s // bwd_run_rows(prefix)[0]), BWD_KV_SPLIT_MAX)
+        raise ValueError(f"bwd_flushes takes positive sizes, got group={group}, s={s}")
+    return bool(prefix) or group * s > BWD_RUN_ROWS
 
 
-def plan_bwd_run_steps(group: int, s: int, bq: int, kv_split: int, prefix: int = 0) -> int:
-    """The steps (query blocks of ``bq`` rows) of one dkdv run, which
-    :func:`bwd_tc_launch` hands the kernels: 0 (each CTA's part in one run,
-    one dkdv launch) unless ``kv_split`` > 1 and the longest part, ``ceil(group
-    ceil(s / bq) / kv_split)`` steps, passes :func:`bwd_run_rows`' first
-    bound; then runs of its second, one dkdv launch (pass) each."""
-    rows, run_rows = bwd_run_rows(prefix)
-    longest = -(-group * -(-s // bq) // kv_split)
-    if kv_split > 1 and longest > rows // bq:
-        return run_rows // bq
-    return 0
+def plan_bwd_flush_steps(group: int, s: int, bq: int, prefix: int = 0) -> int:
+    """The steps (query blocks of ``bq`` rows) between dkdv's flushes, which
+    :func:`bwd_tc_launch` hands the kernels: :data:`BWD_FLUSH_ROWS` / ``bq``
+    where the call flushes (:func:`bwd_flushes`), else 0."""
+    if min(group, s, bq) < 1:
+        raise ValueError(f"plan_bwd_flush_steps takes positive sizes, got group={group}, s={s}, "
+                         f"bq={bq}")
+    return BWD_FLUSH_ROWS // bq if bwd_flushes(group, s, prefix) else 0
 
 
-def dkdv_runs(steps: int, kv_split: int, run_steps: int) -> list:
+def dkdv_runs(steps: int, kv_split: int, flush_steps: int) -> list:
     """The runs each dkdv CTA sums into one set of accumulators, as both
     dkdv kernels walk a key block's ``steps`` (a query block of one head
     each): CTA z of ``kv_split`` takes the part ``[steps z / n, steps (z +
-    1) / n)``, in runs of ``run_steps`` steps (pass r takes run r, storing
-    its sums into the CTA's f32 partial at r = 0 and adding them after), or
-    in one run at ``run_steps`` 0.  A list per CTA of the ``range`` of steps
-    of each run."""
-    if min(steps + 1, kv_split, run_steps + 1) < 1:
+    1) / n)``, flushing its sums into its f32 partial every ``flush_steps``
+    steps (storing them at the first flush and adding them after), or in one
+    run at ``flush_steps`` 0.  A list per CTA of the ``range`` of steps of
+    each run."""
+    if min(steps + 1, kv_split, flush_steps + 1) < 1:
         raise ValueError(f"dkdv_runs takes sizes of at least 0, got steps={steps}, "
-                         f"kv_split={kv_split}, run_steps={run_steps}")
+                         f"kv_split={kv_split}, flush_steps={flush_steps}")
     ctas = []
     for z in range(kv_split):
         lo, hi = steps * z // kv_split, steps * (z + 1) // kv_split
-        run = run_steps or max(hi - lo, 1)
+        run = flush_steps or max(hi - lo, 1)
         ctas.append([range(a, min(a + run, hi)) for a in range(lo, hi, run)])
     return ctas
 
 
 @functools.lru_cache(maxsize=256)
 def longest_bwd_run(group: int, s: int, bq: int, kv_split: int,
-                    run_steps: int | None = None, prefix: int = 0) -> int:
-    """The most (head, query) rows one dkdv accumulator sums when a key
-    block seen by all ``s`` query rows of the ``group`` heads (the longest
-    walk: ``ceil(s / bq)`` query blocks of ``bq`` rows a head) is walked by
-    ``kv_split`` CTAs in runs of ``run_steps`` steps (by default
-    :func:`plan_bwd_run_steps`' at ``prefix``; :func:`dkdv_runs`)."""
+                    flush_steps: int | None = None, prefix: int = 0) -> int:
+    """The most (head, query) rows one dkdv accumulator sums between flushes
+    when a key block seen by all ``s`` query rows of the ``group`` heads (the
+    longest walk: ``ceil(s / bq)`` query blocks of ``bq`` rows a head) is
+    walked by ``kv_split`` CTAs flushing every ``flush_steps`` steps (by
+    default :func:`plan_bwd_flush_steps`' at ``prefix``; :func:`dkdv_runs`)."""
     n_q = -(-s // bq)
-    if run_steps is None:
-        run_steps = plan_bwd_run_steps(group, s, bq, kv_split, prefix)
+    if flush_steps is None:
+        flush_steps = plan_bwd_flush_steps(group, s, bq, prefix)
     return max((sum(min(bq, s - (i % n_q) * bq) for i in run)
-                for cta in dkdv_runs(group * n_q, kv_split, run_steps) for run in cta),
+                for cta in dkdv_runs(group * n_q, kv_split, flush_steps) for run in cta),
                default=0)
 
 
 def check_bwd_runs(group: int, s: int, bq: int, kv_split: int,
-                   run_steps: int | None = None, prefix: int = 0) -> None:
+                   flush_steps: int | None = None, prefix: int = 0) -> None:
     """Raise ``ValueError`` where a dkdv plan (:func:`longest_bwd_run`'s
-    arguments) lets one accumulator sum more rows than
-    :func:`bwd_run_rows` allows a call with ``prefix``."""
-    longest = longest_bwd_run(group, s, bq, kv_split, run_steps, prefix)
-    rows = bwd_run_rows(prefix)[0]
+    arguments) lets one accumulator sum more rows between flushes than a
+    call with ``prefix`` may: :data:`BWD_FLUSH_ROWS` where it flushes
+    (:func:`bwd_flushes`), else :data:`BWD_RUN_ROWS`."""
+    longest = longest_bwd_run(group, s, bq, kv_split, flush_steps, prefix)
+    rows = BWD_FLUSH_ROWS if bwd_flushes(group, s, prefix) else BWD_RUN_ROWS
     if longest > rows:
         raise ValueError(f"a dkdv run of {longest} (head, query) rows at group={group}, s={s}, "
                          f"bq={bq}, kv_split={kv_split}, prefix={prefix}: at most {rows}")
@@ -316,14 +308,20 @@ def check_bwd_runs(group: int, s: int, bq: int, kv_split: int,
 def bwd_tc_kv_split(b: int, h: int, kv: int, s: int, t: int, hd: int, hd_v: int,
                     prefix: int = 0) -> int:
     """dkdv's CTAs a key block on the tensor-core route:
-    :func:`plan_bwd_run_split`'s at ``prefix``, and at :data:`BWD_TC_WG_PAIRS`
-    (``dkdv_wg``, 64 keys a CTA) :func:`plan_bwd_kv_split`'s where that is
-    more."""
-    runs = plan_bwd_run_split(h // kv, s, prefix)
-    if (hd, hd_v) not in BWD_TC_WG_PAIRS:
-        return runs
-    return max(runs, plan_bwd_kv_split(b, kv, t, h // kv,
-                                       plan_bwd_tc_blocks(hd, hd_v)["dkdv"][0]))
+    :func:`plan_bwd_kv_split`'s at :data:`BWD_TC_WG_PAIRS` (``dkdv_wg``, 64
+    keys a CTA) and in a call that flushes (:func:`bwd_flushes`, both
+    kernels), else 1 (``dkdv_tc`` in one CTA a key block); a flushing call
+    that splits takes at least enough CTAs that each walks at most
+    :data:`BWD_CTA_ROWS` of the longest walk's ``group s`` rows, at most
+    :data:`BWD_KV_SPLIT_MAX`."""
+    group = h // kv
+    flushes = bwd_flushes(group, s, prefix)
+    if (hd, hd_v) not in BWD_TC_WG_PAIRS and not flushes:
+        return 1
+    split = plan_bwd_kv_split(b, kv, t, group, plan_bwd_tc_blocks(hd, hd_v)["dkdv"][0])
+    if flushes and split > 1:
+        split = min(max(split, -(-group * s // BWD_CTA_ROWS)), BWD_KV_SPLIT_MAX)
+    return split
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -514,37 +512,41 @@ def _pointers(*xs: torch.Tensor) -> tuple:
 
 def bwd_tc_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                   dout: torch.Tensor, lse: torch.Tensor, scale: float, window: int = 0,
-                  prefix: int = 0, softcap: float = 0.0, run_steps: int | None = None):
+                  prefix: int = 0, softcap: float = 0.0, flush_steps: int | None = None):
     """The tensor-core route's two launches (``dq_tc``, then dkdv) on CUDA
     tensors the route takes, at :func:`plan_bwd_tc_blocks`' blocks and
-    :func:`bwd_tc_kv_split`'s CTAs a key block (``kv_split``), each CTA's
-    part walked in runs of ``run_steps`` query blocks (by default
-    :func:`plan_bwd_run_steps`'; held to :func:`check_bwd_runs`), one dkdv
-    launch a run.  Returns ``(dq, dk, dv, part, kv_split)``: at ``kv_split`` 1 dk and dv
-    are written and ``part`` is None; above 1 dk and dv are empty and
-    ``part``, f32 ``[kv_split, B, KV, T, hd + hd_v]``, holds each CTA's
-    unscaled dK then dV, for :func:`kv_reduce`.  Counts no launch:
-    :func:`flash_attention_bwd` does."""
+    :func:`bwd_tc_kv_split`'s CTAs a key block (``kv_split``), each CTA
+    flushing its sums every ``flush_steps`` query blocks (0 or a power of
+    two; by default :func:`plan_bwd_flush_steps`'; held to
+    :func:`check_bwd_runs`).  Returns
+    ``(dq, dk, dv, part, kv_split)``: at ``kv_split`` 1 dk and dv are
+    written (``part``, where the call flushes, is the scratch the flushes
+    summed in, else None); above 1 dk and dv are empty and ``part``, f32
+    ``[kv_split, B, KV, T, hd + hd_v]``, holds each CTA's unscaled dK then
+    dV, for :func:`kv_reduce`.  Counts no launch: :func:`flash_attention_bwd`
+    does."""
     _check_lse(q, lse)
     b, h, s, hd = q.shape
     kv, t, hd_v = k.shape[1], k.shape[2], v.shape[3]
     plan = plan_bwd_tc_blocks(hd, hd_v, softcap > 0)
     kv_split = bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
-    if run_steps is None:
-        run_steps = plan_bwd_run_steps(h // kv, s, plan["dkdv"][1], kv_split, prefix)
-    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split, run_steps, prefix)
+    if flush_steps is None:
+        flush_steps = plan_bwd_flush_steps(h // kv, s, plan["dkdv"][1], prefix)
+    if flush_steps & (flush_steps - 1):
+        raise ValueError(f"the kernels flush every power of two of steps, got {flush_steps}")
+    check_bwd_runs(h // kv, s, plan["dkdv"][1], kv_split, flush_steps, prefix)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     part = (torch.empty((kv_split, b, kv, t, hd + hd_v), dtype=torch.float32, device=q.device)
-            if kv_split > 1 else None)
+            if kv_split > 1 or flush_steps else None)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     with torch.cuda.device(q.device):
         err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_tc(
             *_pointers(q, k, v, out, dout, dq, dk, dv), lse.data_ptr(), delta.data_ptr(),
             None if part is None else part.data_ptr(), ctypes.addressof(strides), b, h, kv, s,
             t, hd, hd_v, *plan["dq"], *plan["dkdv"], kv_split, scale, window, prefix, softcap,
-            run_steps, runtime.stream_of(q))
+            flush_steps, runtime.stream_of(q))
     runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     return dq, dk, dv, part, kv_split
 
@@ -582,13 +584,13 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                             kv_split: int, scale: float | None = None, window: int = 0,
                             prefix: int = 0, softcap: float = 0.0, keys: int = 64,
-                            rows: int = 64, run_steps: int | None = None) -> torch.Tensor:
+                            rows: int = 64, flush_steps: int | None = None) -> torch.Tensor:
     """The partials the tensor-core dkdv writes with ``kv_split`` CTAs a key
     block, in PyTorch: per key block of ``keys`` keys its steps (head ``i //
     n_q`` of the GQA group, query block ``first + i % n_q`` of ``rows`` rows,
     over the query blocks that see the block), CTA z's part ``[steps z / n,
-    steps (z + 1) / n)`` walked in :func:`dkdv_runs`' runs of ``run_steps``
-    steps (by default :func:`plan_bwd_run_steps`' for the longest walk), each
+    steps (z + 1) / n)`` walked in :func:`dkdv_runs`' runs between flushes of
+    ``flush_steps`` steps (by default :func:`plan_bwd_flush_steps`'), each
     run's f32 sums from 0 added into ``part[z]`` in order:
     CTA z's f32 dK (unscaled) and dV of the block's keys, f32 ``[kv_split, B,
     KV, T, hd + hd_v]`` (:func:`kv_reduce` sums them).  ``lse`` and ``delta``
@@ -601,8 +603,8 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     offset = t - s
     part = torch.zeros((kv_split, b, kv, t, hd + hd_v), device=q.device)
     qf, dof = q.float(), dout.float()
-    if run_steps is None:
-        run_steps = plan_bwd_run_steps(g, s, rows, kv_split, prefix)
+    if flush_steps is None:
+        flush_steps = plan_bwd_flush_steps(g, s, rows, prefix)
     for k0 in range(0, t, keys):
         k_last = min(k0 + keys, t) - 1
         first = 0 if k0 < prefix else max(0, k0 - offset)
@@ -611,7 +613,7 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         steps = g * n_q
         kb, vb = k[:, :, k0:k_last + 1].float(), v[:, :, k0:k_last + 1].float()
         k_pos = torch.arange(k0, k_last + 1, device=q.device)
-        for z, runs in enumerate(dkdv_runs(steps, kv_split, run_steps)):
+        for z, runs in enumerate(dkdv_runs(steps, kv_split, flush_steps)):
             for run in runs:
                 acc = torch.zeros_like(part[z, :, :, k0:k_last + 1])
                 for i in run:
@@ -647,17 +649,18 @@ def bwd_attributes(dtype: torch.dtype, hd: int, hd_v: int) -> dict:
 
 
 def bwd_tc_attributes(hd: int, hd_v: int, capped: bool = False,
-                      plan: dict | None = None) -> dict:
+                      plan: dict | None = None, flush: bool = False) -> dict:
     """Per tensor-core kernel (``dq``, ``dkdv``) at ``plan``'s blocks (by
     default :func:`plan_bwd_tc_blocks`'), on the current card: CTAs one SM
     holds, registers and local (spilled) bytes a thread, dynamic shared
-    memory and threads a CTA (``capped``: the instantiations with a cap)."""
+    memory and threads a CTA (``capped``: the instantiations with a cap;
+    ``flush``: dkdv's flushing one)."""
     plan = plan or plan_bwd_tc_blocks(hd, hd_v, capped)
     for kernel in BWD_TC_KERNELS:
         check_bwd_tc_blocks(kernel, *plan[kernel], hd, hd_v)
     out = (ctypes.c_int * 10)()
     err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_tc_attributes(
-        hd, hd_v, *plan["dq"], *plan["dkdv"], int(capped), ctypes.addressof(out))
+        hd, hd_v, *plan["dq"], *plan["dkdv"], int(capped), int(flush), ctypes.addressof(out))
     runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     keys = ("resident_ctas", "registers", "local_bytes", "smem_bytes", "threads")
     return {kernel: {"blocks": list(plan[kernel]), **dict(zip(keys, out[5 * i:5 * i + 5]))}

@@ -90,13 +90,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "remop_flash_attention_bwd_attributes": ([_I32] * 3 + [_P], _I32),
         # q, k, v, o, do, dq, dk, dv, lse, delta, part, &strides[24], b, h, kv, s, t, hd,
         # hd_v, dq_bq, dq_bk, kv_bk, kv_bq, kv_split, scale, window, prefix, softcap,
-        # run_steps, stream
+        # flush_steps, stream
         "remop_flash_attention_bwd_tc": ([_P] * 12 + [_I32] * 12 + [_F32] + [_I32] * 2
                                          + [_F32, _I32, _P], _I32),
         # part, dk, dv, &strides[24], b, kv, t, hd, hd_v, kv_split, scale, stream
         "remop_flash_attention_bwd_kv_reduce": ([_P] * 4 + [_I32] * 6 + [_F32, _P], _I32),
-        # hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap, &out[10]
-        "remop_flash_attention_bwd_tc_attributes": ([_I32] * 7 + [_P], _I32),
+        # hd, hd_v, dq_bq, dq_bk, kv_bk, kv_bq, cap, flush, &out[10]
+        "remop_flash_attention_bwd_tc_attributes": ([_I32] * 8 + [_P], _I32),
         "remop_flash_attention_bwd_error_string": ([_I32], ctypes.c_char_p),
     },
     "paged_attention": {

@@ -44,17 +44,19 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _build(node, it: Iterator[Any]):
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(x, it) for x in node)
+    return next(it)
+
+
 def tree_unflatten(template, flat: List[Any]):
     """A tree of ``template``'s structure whose leaves are ``flat``, in the
-    order :func:`leaves` gives (dict keys sorted)."""
-    it = iter(flat)
-
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(x) for x in node)
-        return next(it)
-
-    return build(template)
+    order :func:`leaves` gives (dict keys sorted).  No closure: a nested
+    function that recursed through its own cell would make a reference cycle
+    holding ``flat``'s iterator, so the leaves (a training step's
+    gradients) would live until the garbage collector next ran."""
+    return _build(template, iter(flat))

@@ -1,21 +1,21 @@
-"""The flash backward's runs: no dkdv accumulator sums more than
-``BWD_RUN_ROWS`` (head, query) rows, whatever the split's cap, on the CPU.
+"""The flash backward's flush: no dkdv accumulator sums more than
+``BWD_FLUSH_ROWS`` (head, query) rows between flushes in a call that
+flushes, nor more than ``BWD_RUN_ROWS`` in one that does not, on the CPU.
 
-``plan_bwd_run_split`` gives a key block at most ``BWD_KV_SPLIT_MAX`` CTAs;
-past 16 x 4,096 rows (granite-20b's 48 heads on one KV head of 2048, G 8 at
-S 16,384) each CTA's part is walked in runs of ``BWD_LONG_RUN_ROWS`` rows,
-one dkdv launch (pass) a run, each adding its f32 sums into the CTA's
-partial in order (``plan_bwd_run_steps``, ``dkdv_runs``; the launch hands
-the kernels the run length, which plan nothing of their own).  Pinned here: the runs of every plan up
-to 48 x 8192 rows; the planted fault of the capped plan without the walk of
-several runs, rejected by ``check_bwd_runs`` and by the launch; every
-``chip_smoke.BWD_CHECKS`` row at or below 65,536 rows keeping one run a CTA
-(so its one launch and its bits); a call with a prefix held to
-``BWD_PREFIX_RUN_ROWS`` for its parts and its runs (``bwd_run_rows``:
-paligemma-3b's 16,384 rows a key block in 16 CTAs of 4 runs); and
-``kv_split_partials_plain`` over
-several runs a CTA summing to the unsplit plain dK and dV and to
-``jax.vjp`` of ``repro``'s ``full_attention``.
+A call whose key block's walk may pass ``BWD_RUN_ROWS`` rows (granite-20b's
+48 heads on one KV head, G 8 at S 2048, granite-moe's G 3), or that has a
+prefix (paligemma's patches, the encoder's and cross-attention's every
+key), flushes: every ``BWD_FLUSH_ROWS`` rows each dkdv CTA adds its f32
+sums into its partial in scratch and restarts them from 0, in one launch
+(``plan_bwd_flush_steps``, ``dkdv_runs``; the launch hands the kernels the
+flush length, which plan nothing of their own), and splits over CTAs only
+where occupancy asks.  Pinned here: the runs of every plan up to 48 x 8192
+rows; the planted fault of a flushing call handed no flush, rejected by
+``check_bwd_runs`` and by the launch; every ``chip_smoke.BWD_CHECKS`` row
+that does not flush keeping one run a CTA (so its one launch and its
+bits); a call with a prefix held to ``BWD_FLUSH_ROWS``; and
+``kv_split_partials_plain`` over several runs a CTA summing to the unsplit
+plain dK and dV and to ``jax.vjp`` of ``repro``'s ``full_attention``.
 """
 
 import contextlib
@@ -50,37 +50,47 @@ def _dkdv_bq(hd, hd_v, capped=False):
 
 
 def test_kernel_run_rows_match_the_host():
-    """The kernels take their runs from the host (``run_steps``, no run
-    length of their own to drift from :data:`BWD_LONG_RUN_ROWS`), and their
-    CTA cap is BWD_KV_SPLIT_MAX."""
+    """The kernels take their flush length from the host (``flush_steps``,
+    no run length of their own to drift from :data:`BWD_FLUSH_ROWS`), launch
+    dkdv once a call (no pass loop), and their CTA cap is
+    BWD_KV_SPLIT_MAX."""
     src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu").read_text()
-    assert not re.search(r"RUN_ROWS|kRunRows|kLongRunRows", src)
-    assert re.search(r"int prefix, float softcap, int run_steps, void\* stream\)", src)
-    assert fab.BWD_RUN_ROWS % fab.BWD_LONG_RUN_ROWS == 0
+    assert not re.search(r"RUN_ROWS|FLUSH_ROWS|kRunRows|run_steps|PASSES|p\.pass", src)
+    assert re.search(r"int prefix, float softcap, int flush_steps, void\* stream\)", src)
+    assert fab.BWD_RUN_ROWS % fab.BWD_FLUSH_ROWS == 0
     assert re.search(r"constexpr int kMaxSplit = (\d+);", src).group(1) == str(
         fab.BWD_KV_SPLIT_MAX)
 
 
 def test_the_launch_hands_the_kernels_the_planned_runs(monkeypatch):
-    """The tc entry's run_steps (before the stream) is the host's plan: 0
-    where each CTA walks one run, BWD_LONG_RUN_ROWS / bq at granite-20b's
-    G 48; a run length given by the caller goes through the same check."""
+    """The tc entry's flush_steps (before the stream) is the host's plan: 0
+    where a call keeps one run a CTA (G 1 at 2048), BWD_FLUSH_ROWS / bq at
+    G 2, G 8 and granite-20b's G 48; a flush length given by the caller goes
+    through the same check, and a flushing call's scratch is allocated
+    even at one CTA a key block."""
     lib = _Recorder()
     monkeypatch.setattr(fab.runtime, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(fab.runtime, "library", lambda name: lib)
     monkeypatch.setattr(fab.runtime, "stream_of", lambda x: None)
     monkeypatch.setattr(fab.torch.cuda, "device", lambda d: contextlib.nullcontext())
-    lse = torch.zeros(1, 48, 2048)
-    for heads, want in ((8, 0), (48, fab.BWD_LONG_RUN_ROWS // 64)):
-        q = torch.zeros(1, heads, 2048, 128, dtype=torch.bfloat16)
-        k = torch.zeros(1, 1, 2048, 128, dtype=torch.bfloat16)
-        fab.bwd_tc_launch(q, k, k, q, q, lse[:, :heads], 0.1)
-        assert lib.args[-2] == want and lib.args[23] == fab.bwd_tc_kv_split(
-            1, heads, 1, 2048, 2048, 128, 128)
-    fab.bwd_tc_launch(q, k, k, q, q, lse, 0.1, run_steps=4096 // 64)
-    assert lib.args[-2] == 64
+    lse = torch.zeros(4, 48, 2048)
+    for b, heads, want in ((4, 1, 0), (4, 2, fab.BWD_FLUSH_ROWS // 64),
+                           (1, 8, fab.BWD_FLUSH_ROWS // 64),
+                           (1, 48, fab.BWD_FLUSH_ROWS // 64), (4, 3, fab.BWD_FLUSH_ROWS // 64)):
+        q = torch.zeros(b, heads, 2048, 128, dtype=torch.bfloat16)
+        k = torch.zeros(b, 1, 2048, 128, dtype=torch.bfloat16)
+        _, _, _, part, split = fab.bwd_tc_launch(q, k, k, q, q, lse[:b, :heads], 0.1)
+        assert lib.args[-2] == want and lib.args[23] == split == fab.bwd_tc_kv_split(
+            b, heads, 1, 2048, 2048, 128, 128)
+        assert (part is None) == (split == 1 and want == 0)
+    q = torch.zeros(1, 48, 2048, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 2048, 128, dtype=torch.bfloat16)
+    fab.bwd_tc_launch(q, k, k, q, q, lse[:1], 0.1, flush_steps=2)
+    assert lib.args[-2] == 2
     with pytest.raises(ValueError, match="dkdv run of 6144"):  # each CTA's whole part
-        fab.bwd_tc_launch(q, k, k, q, q, lse, 0.1, run_steps=8192 // 64)
+        fab.bwd_tc_launch(q, k, k, q, q, lse[:1], 0.1, flush_steps=0)
+    with pytest.raises(ValueError, match="power of two"):
+        fab.bwd_tc_launch(q, k, k, q, q, lse[:1], 0.1, flush_steps=3)
 
 
 class _Recorder:
@@ -95,70 +105,73 @@ class _Recorder:
     (1, 48, 1, 2048),    # granite-20b: 98,304 rows, 16 CTAs of 6,144
     (1, 48, 1, 8192),    # 48 x 8192: 393,216 rows, 16 CTAs of 24,576
     (1, 8, 1, 16384),    # gemma-2b's G 8 at S 16,384: 131,072 rows
-    (1, 8, 1, 8192),     # 65,536 rows: the last plan of one run a CTA
+    (1, 8, 1, 8192),     # 65,536 rows
     (1, 8, 1, 8200),     # just past it, ragged
     (4, 24, 8, 2048),    # granite-moe-3b-a800m's training shape: G 3
-    (4, 16, 16, 2048),   # deepseek-v2-lite's MLA: G 1
+    (4, 16, 16, 2048),   # deepseek-v2-lite's MLA: G 1, no flush
     (1, 10, 1, 4096),    # recurrentgemma's 10 heads
-    (2, 8, 2, 1000),     # ragged
+    (2, 8, 2, 1000),     # ragged, G 4: 4,000 rows
 ])
 def test_every_run_stays_within_the_run_rows(b, h, kv, s, hd, hd_v, capped):
     """Whatever group * s is, the plan's longest accumulator run (key block
-    0's walk, every query block of every head) is at most BWD_RUN_ROWS
-    rows; the CTAs stay at most BWD_KV_SPLIT_MAX; the launch's check passes."""
+    0's walk, every query block of every head) is at most BWD_FLUSH_ROWS
+    rows where the call flushes and BWD_RUN_ROWS where it does not; the
+    CTAs stay at most BWD_KV_SPLIT_MAX; the launch's check passes."""
     bq = _dkdv_bq(hd, hd_v, capped)
     kv_split = fab.bwd_tc_kv_split(b, h, kv, s, s, hd, hd_v)
     assert 1 <= kv_split <= fab.BWD_KV_SPLIT_MAX
+    flush = fab.plan_bwd_flush_steps(h // kv, s, bq)
+    bound = fab.BWD_FLUSH_ROWS if flush else fab.BWD_RUN_ROWS
+    assert (flush > 0) == (h // kv * s > fab.BWD_RUN_ROWS)
     longest = fab.longest_bwd_run(h // kv, s, bq, kv_split)
-    assert 0 < longest <= fab.BWD_RUN_ROWS
+    assert 0 < longest <= bound
     fab.check_bwd_runs(h // kv, s, bq, kv_split)
     # Exactly: every run's rows, from dkdv_runs, within the bound; the CTAs'
     # runs cover each step once, in order.
     n_q = -(-s // bq)
-    ctas = fab.dkdv_runs(h // kv * n_q, kv_split, fab.plan_bwd_run_steps(h // kv, s, bq, kv_split))
+    ctas = fab.dkdv_runs(h // kv * n_q, kv_split, flush)
     steps = [i for cta in ctas for run in cta for i in run]
     assert steps == list(range(h // kv * n_q))
     for cta in ctas:
         for run in cta:
-            assert sum(min(bq, s - (i % n_q) * bq) for i in run) <= fab.BWD_RUN_ROWS
+            assert sum(min(bq, s - (i % n_q) * bq) for i in run) <= bound
 
 
 def test_granite_20b_walks_several_runs_a_cta():
     """48 heads on one KV head of 2048 at hd 128: 16 CTAs a key block (the
-    cap), each part of 96 steps of 64 rows walked in runs of
-    BWD_LONG_RUN_ROWS rows, one pass each."""
+    cap), each part of 96 steps of 64 rows flushed every BWD_FLUSH_ROWS rows
+    in one launch."""
     kv_split = fab.bwd_tc_kv_split(1, 48, 1, 2048, 2048, 128, 128)
     assert kv_split == fab.BWD_KV_SPLIT_MAX == 16
-    run = fab.plan_bwd_run_steps(48, 2048, 64, kv_split)
-    assert run * 64 == fab.BWD_LONG_RUN_ROWS
+    run = fab.plan_bwd_flush_steps(48, 2048, 64)
+    assert run * 64 == fab.BWD_FLUSH_ROWS
     ctas = fab.dkdv_runs(48 * 32, kv_split, run)
     assert [[len(r) for r in cta] for cta in ctas] == [[run] * (96 // run)] * 16
-    assert fab.longest_bwd_run(48, 2048, 64, kv_split) == fab.BWD_LONG_RUN_ROWS
-    # Within the cap's rows one run a part: 8 heads of 2048 in 4 CTAs.
-    assert fab.plan_bwd_run_steps(8, 2048, 64, 4) == 0
+    assert fab.longest_bwd_run(48, 2048, 64, kv_split) == fab.BWD_FLUSH_ROWS
+    # Within BWD_RUN_ROWS one run a part and no flush: 1 head of 2048.
+    assert fab.plan_bwd_flush_steps(1, 2048, 64) == 0
 
 
 @pytest.mark.parametrize("shape", [(48, 2048, 64), (8, 16384, 64), (48, 8192, 32)])
 def test_planted_fault_the_capped_split_without_runs_is_rejected(shape):
-    """The parent's plan: 16 CTAs at the cap, each summing its whole part in
-    one run (no walk of several runs): its runs pass BWD_RUN_ROWS, and the
-    check rejects it."""
+    """A flushing call handed no flush (its 16 CTAs each summing the whole
+    part in one run, the walk before the flush): its runs pass
+    BWD_FLUSH_ROWS, and the check rejects it."""
     group, s, bq = shape
-    kv_split = fab.plan_bwd_run_split(group, s)
-    assert kv_split == fab.BWD_KV_SPLIT_MAX
+    kv_split = fab.BWD_KV_SPLIT_MAX
     fab.check_bwd_runs(group, s, bq, kv_split)
-    assert fab.longest_bwd_run(group, s, bq, kv_split, run_steps=0) > fab.BWD_RUN_ROWS
+    assert fab.longest_bwd_run(group, s, bq, kv_split, flush_steps=0) > fab.BWD_RUN_ROWS
     with pytest.raises(ValueError, match="dkdv run of"):
-        fab.check_bwd_runs(group, s, bq, kv_split, run_steps=0)
+        fab.check_bwd_runs(group, s, bq, kv_split, flush_steps=0)
 
 
 def test_planted_fault_the_launch_refuses_a_walk_of_one_run(monkeypatch):
-    """With the run plan planted back to one run a CTA, granite-20b's call
-    raises before any launch (the stand-in library records none)."""
+    """With the flush plan planted back to none, granite-20b's call raises
+    before any launch (the stand-in library records none)."""
     calls = []
     monkeypatch.setattr(fab.runtime, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(fab.runtime, "library", lambda name: calls.append(name))
-    monkeypatch.setattr(fab, "plan_bwd_run_steps", lambda *args: 0)
+    monkeypatch.setattr(fab, "plan_bwd_flush_steps", lambda *args: 0)
     fab.longest_bwd_run.cache_clear()
     try:
         q = torch.zeros(1, 48, 2048, 128, dtype=torch.bfloat16)
@@ -171,27 +184,29 @@ def test_planted_fault_the_launch_refuses_a_walk_of_one_run(monkeypatch):
 
 
 def test_every_bwd_check_row_keeps_one_run_a_cta():
-    """Every tensor-core row of chip_smoke's BWD_CHECKS at or below 16 x
-    its bound's rows (4,096, or 256 with a prefix) keeps one run a CTA (the
-    arithmetic and bits it had); the G 48 row and the prefix rows of G 8
-    above it walk several."""
-    rows = _chip_smoke().BWD_CHECKS
-    several = set()
-    for name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain, dtype in rows:
+    """Every tensor-core row of chip_smoke's BWD_CHECKS flushes exactly where
+    its walk may pass BWD_RUN_ROWS rows or it has a prefix (the rows of
+    chip_smoke.BWD_UNFLUSHED do not: one run a CTA, the arithmetic and bits
+    they had); the flushing rows' accumulators sum at most BWD_FLUSH_ROWS
+    between flushes."""
+    smoke = _chip_smoke()
+    unflushed = set()
+    for name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain, dtype in smoke.BWD_CHECKS:
         if dtype != "bfloat16":
             continue
         bq = _dkdv_bq(hd, hd_v, cap > 0)
         kv_split = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
         n_q = -(-s // bq)
-        run = fab.plan_bwd_run_steps(h // kv, s, bq, kv_split, prefix)
-        runs = max(len(cta) for cta in fab.dkdv_runs(h // kv * n_q, kv_split, run))
+        flush = fab.plan_bwd_flush_steps(h // kv, s, bq, prefix)
+        runs = max(len(cta) for cta in fab.dkdv_runs(h // kv * n_q, kv_split, flush))
         fab.check_bwd_runs(h // kv, s, bq, kv_split, prefix=prefix)
-        bound = fab.bwd_run_rows(prefix)[0]
-        assert (runs > 1) == (h // kv * s > fab.BWD_KV_SPLIT_MAX * bound), name
-        if runs > 1:
-            several.add(name)
-    assert several == {"G 48 q gain 8 hd 128", "prefix 256", "paligemma train",
-                       "paligemma q gain 8"}
+        if flush:
+            assert fab.longest_bwd_run(h // kv, s, bq, kv_split, prefix=prefix) <= (
+                fab.BWD_FLUSH_ROWS), name
+        else:
+            assert runs == 1 and (kv_split == 1 or (hd, hd_v) in fab.BWD_TC_WG_PAIRS), name
+            unflushed.add(name)
+    assert unflushed == set(smoke.BWD_UNFLUSHED)
 
 
 @pytest.mark.parametrize("hd,hd_v,capped", [(256, 256, False), (128, 128, False),
@@ -204,75 +219,72 @@ def test_every_bwd_check_row_keeps_one_run_a_cta():
     (1, 48, 1, 2048, 2048),   # 48 heads on one KV head, every key: 98,304 rows
 ])
 def test_every_prefix_run_stays_within_the_prefix_rows(b, h, kv, s, prefix, hd, hd_v, capped):
-    """A call with a prefix: the plan's longest accumulator run is at most
-    BWD_PREFIX_RUN_ROWS rows, its runs cover each step once, in order, and
-    the launch's check passes; the plan without the prefix passes 256 rows
-    here, and the check at the prefix rejects it."""
+    """A call with a prefix flushes: the plan's longest accumulator run is at
+    most BWD_FLUSH_ROWS rows, its runs cover each step once, in order, and
+    the launch's check passes; the same walk handed no flush passes 256 rows
+    wherever it is longer, and the check at the prefix rejects it."""
     bq = _dkdv_bq(hd, hd_v, capped)
     group = h // kv
     kv_split = fab.bwd_tc_kv_split(b, h, kv, s, s, hd, hd_v, prefix)
     assert 1 <= kv_split <= fab.BWD_KV_SPLIT_MAX
-    run = fab.plan_bwd_run_steps(group, s, bq, kv_split, prefix)
-    assert 0 < fab.longest_bwd_run(group, s, bq, kv_split, prefix=prefix) <= fab.BWD_PREFIX_RUN_ROWS
+    run = fab.plan_bwd_flush_steps(group, s, bq, prefix)
+    assert run * bq == fab.BWD_FLUSH_ROWS
+    assert 0 < fab.longest_bwd_run(group, s, bq, kv_split, prefix=prefix) <= fab.BWD_FLUSH_ROWS
     fab.check_bwd_runs(group, s, bq, kv_split, prefix=prefix)
     n_q = -(-s // bq)
     ctas = fab.dkdv_runs(group * n_q, kv_split, run)
     assert [i for cta in ctas for r in cta for i in r] == list(range(group * n_q))
-    causal = fab.bwd_tc_kv_split(b, h, kv, s, s, hd, hd_v)
-    causal_run = fab.plan_bwd_run_steps(group, s, bq, causal)
-    if fab.longest_bwd_run(group, s, bq, causal, causal_run) > fab.BWD_PREFIX_RUN_ROWS:
+    if fab.longest_bwd_run(group, s, bq, kv_split, 0) > fab.BWD_FLUSH_ROWS:
         with pytest.raises(ValueError, match="dkdv run of"):
-            fab.check_bwd_runs(group, s, bq, causal, causal_run, prefix=prefix)
+            fab.check_bwd_runs(group, s, bq, kv_split, 0, prefix=prefix)
 
 
 def test_the_launch_plans_a_prefix_call_on_the_prefix_rows(monkeypatch):
-    """paligemma-3b's [4, 8, 2048, 256] with prefix 256 on one KV head: 16
-    CTAs a key block, each walking its 1,024 rows in runs of
-    BWD_PREFIX_RUN_ROWS (run_steps before the stream); the same call without
-    a prefix keeps 4 CTAs of 4,096 rows and one run each (its plan and bits
-    before the prefix bound), and a prefix call handed the causal run
-    length is refused before any launch."""
+    """paligemma-3b's [4, 8, 2048, 256] with prefix 256 on one KV head: 4
+    CTAs a key block (BWD_CTA_ROWS of its 16,384-row walks), each flushing
+    every BWD_FLUSH_ROWS (flush_steps before the stream); seamless-m4t's
+    every-key [4, 16, 2048,
+    64] on 16 KV heads: one CTA a key block, flushing, its scratch handed
+    on; a prefix call handed no flush is refused before any launch."""
     lib = _Recorder()
     monkeypatch.setattr(fab.runtime, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(fab.runtime, "library", lambda name: lib)
     monkeypatch.setattr(fab.runtime, "stream_of", lambda x: None)
     monkeypatch.setattr(fab.torch.cuda, "device", lambda d: contextlib.nullcontext())
-    q = torch.zeros(4, 8, 2048, 256, dtype=torch.bfloat16)
-    k = torch.zeros(4, 1, 2048, 256, dtype=torch.bfloat16)
-    lse = torch.zeros(4, 8, 2048)
-    bq = _dkdv_bq(256, 256)
-    for prefix, split, run in ((256, 16, fab.BWD_PREFIX_RUN_ROWS // bq), (0, 4, 0)):
-        fab.bwd_tc_launch(q, k, k, q, q, lse, 0.0625, prefix=prefix)
-        assert (lib.args[23], lib.args[-2]) == (split, run), prefix
-        assert lib.args[-4] == prefix  # prefix, softcap, run_steps, stream
-    lib.args = None
-    with pytest.raises(ValueError, match="dkdv run of 1024"):
-        fab.bwd_tc_launch(q, k, k, q, q, lse, 0.0625, prefix=256, run_steps=1024 // bq)
-    assert lib.args is None
+    for b, h, kv, hd, prefix, split in ((4, 8, 1, 256, 256, 4), (4, 16, 16, 64, 2048, 1)):
+        q = torch.zeros(b, h, 2048, hd, dtype=torch.bfloat16)
+        k = torch.zeros(b, kv, 2048, hd, dtype=torch.bfloat16)
+        lse = torch.zeros(b, h, 2048)
+        bq = _dkdv_bq(hd, hd)
+        _, _, _, part, n = fab.bwd_tc_launch(q, k, k, q, q, lse, 0.0625, prefix=prefix)
+        assert (lib.args[23], lib.args[-2]) == (n, fab.BWD_FLUSH_ROWS // bq) == (
+            split, fab.BWD_FLUSH_ROWS // bq), prefix
+        assert lib.args[-4] == prefix  # prefix, softcap, flush_steps, stream
+        assert part is not None and lib.args[10] == part.data_ptr()
+        assert tuple(part.shape) == (split, b, kv, 2048, 2 * hd)
+        lib.args = None
+        with pytest.raises(ValueError, match="dkdv run of"):
+            fab.bwd_tc_launch(q, k, k, q, q, lse, 0.0625, prefix=prefix, flush_steps=0)
+        assert lib.args is None
 
 
-def _partials(case, kv_split, run_steps):
+def _partials(case, kv_split, flush_steps):
     arrays, mask = cases._inputs(case)
     q, k, v, do = (torch.from_numpy(x) for x in arrays)
     out, lse = flash_attention(q, k, v, **mask, return_lse=True)
     delta = (do * out).sum(-1)
     part = fab.kv_split_partials_plain(q, k, v, do, lse, delta, kv_split, **mask, keys=16,
-                                       rows=16, run_steps=run_steps)
+                                       rows=16, flush_steps=flush_steps)
     return arrays, mask, (q, k, v, out, do), part
 
 
-@pytest.mark.parametrize("case", ["G 8", "softcap", "window"])
-def test_partials_over_several_runs_sum_to_the_unsplit_plain(case):
-    """Blocks of 16 keys and 16 query rows, 2 CTAs a key block walking runs
-    of one step: several runs a CTA.  The partials' fixed-order
-    sum equals the unsplit plain dK and dV within f32 rounding, and jax.vjp
-    of full_attention within the f32 bound."""
-    arrays, mask, (q, k, v, out, do), part = _partials(case, 2, run_steps=1)
+def _partial_sums(case, kv_split):
+    arrays, mask, (q, k, v, out, do), part = _partials(case, kv_split, flush_steps=1)
     steps = q.shape[1] // k.shape[1] * -(-q.shape[2] // 16)
-    assert min(len(cta) for cta in fab.dkdv_runs(steps, 2, 1)) > 1
+    assert min(len(cta) for cta in fab.dkdv_runs(steps, kv_split, 1)) > 1
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     scale = 1 / math.sqrt(q.shape[3])
-    fab.kv_reduce(part, dk, dv, 2, scale)
+    fab.kv_reduce(part, dk, dv, kv_split, scale)
     _, dk_plain, dv_plain = fab.flash_attention_bwd_plain(q, k, v, out, do, bk=16, **mask)
     assert cases._rel(dk, dk_plain.numpy()) <= SUM_TOL, cases._rel(dk, dk_plain.numpy())
     assert cases._rel(dv, dv_plain.numpy()) <= SUM_TOL, cases._rel(dv, dv_plain.numpy())
@@ -281,11 +293,28 @@ def test_partials_over_several_runs_sum_to_the_unsplit_plain(case):
     assert cases._rel(dv, dv_want) <= cases.F32_TOL
 
 
+@pytest.mark.parametrize("case", ["G 8", "softcap", "window"])
+def test_partials_over_several_runs_sum_to_the_unsplit_plain(case):
+    """Blocks of 16 keys and 16 query rows, 2 CTAs a key block flushing
+    every step: several runs a CTA.  The partials' fixed-order sum equals
+    the unsplit plain dK and dV within f32 rounding, and jax.vjp of
+    full_attention within the f32 bound."""
+    _partial_sums(case, 2)
+
+
+@pytest.mark.parametrize("case", ["G 8", "softcap", "window", "prefix", "cross"])
+def test_one_cta_flushing_every_step_sums_to_the_unsplit_plain(case):
+    """The same at one CTA a key block (a flushing call whose key blocks
+    fill the SMs: the encoder-decoder's every-key and cross calls), every
+    mask kind: its partial, scaled and rounded, is dK and dV."""
+    _partial_sums(case, 1)
+
+
 def test_runs_add_into_the_partial_in_order():
     """A CTA's partial is its runs' sums added in order, each run from 0:
-    with runs of one step, part[z] is ((run 0) + run 1) + ..., the one-run
+    flushing every step, part[z] is ((run 0) + run 1) + ..., the one-run
     partial's value within f32 rounding."""
-    _, _, _, many = _partials("G 8", 2, run_steps=1)
-    _, _, _, one = _partials("G 8", 2, run_steps=0)
+    _, _, _, many = _partials("G 8", 2, flush_steps=1)
+    _, _, _, one = _partials("G 8", 2, flush_steps=0)
     assert torch.allclose(many, one, rtol=SUM_TOL, atol=SUM_TOL)
     assert many.abs().sum() > 0

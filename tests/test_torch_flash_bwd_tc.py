@@ -542,8 +542,10 @@ def test_wide_calls_go_to_the_tc_entry_point(fake_card, hd, hd_v, kv, split):
 
 @pytest.mark.parametrize("hd", [128, 64])
 def test_long_dkdv_tc_walks_split_then_sum(fake_card, hd):
-    """8 heads on one KV head of 2048 keys: dkdv_tc takes each key block's
-    16,384 (head, query) rows in 4 runs of its own CTAs, then the sum."""
+    """8 heads on one KV head of 2048 keys: a walk of 16,384 (head, query)
+    rows a key block, so dkdv_tc flushes every BWD_FLUSH_ROWS rows and, its
+    16 key blocks leaving most SMs idle, takes each key block in 16 CTAs
+    of its own (the occupancy split), then the sum."""
     lib = fake_card(_FakeLibrary())
     q, k, v = _bf16(1, 8, 2048, hd, seed=1), _bf16(1, 1, 2048, hd, seed=2), _bf16(1, 1, 2048,
                                                                                  hd, seed=3)
@@ -553,51 +555,73 @@ def test_long_dkdv_tc_walks_split_then_sum(fake_card, hd):
     assert [name for name, _ in lib.calls] == ["bwd_tc", "kv_reduce"]
     args = lib.calls[0][1]
     plan = fab.plan_bwd_tc_blocks(hd, hd, capped=True)
-    assert args[12:24] == (1, 8, 1, 2048, 2048, hd, hd, *plan["dq"], *plan["dkdv"], 4)
+    assert args[12:24] == (1, 8, 1, 2048, 2048, hd, hd, *plan["dq"], *plan["dkdv"], 16)
+    assert args[-2] * plan["dkdv"][1] == fab.BWD_FLUSH_ROWS  # flush_steps, before the stream
     part, rdk, rdv, _, *rest = lib.calls[1][1]
     assert part == args[10] and (rdk, rdv) == (dk.data_ptr(), dv.data_ptr())
-    assert tuple(rest[:6]) == (1, 1, 2048, hd, hd, 4)
+    assert tuple(rest[:6]) == (1, 1, 2048, hd, hd, 16)
     assert dict(runtime.launches) == {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1}
 
 
-@pytest.mark.parametrize("hd,hd_v", [(256, 256), (192, 128)])
-def test_a_failed_wide_tc_call_raises_and_never_reroutes(fake_card, hd, hd_v):
+@pytest.mark.parametrize("hd,hd_v,s,prefix", [
+    (256, 256, 128, 0), (192, 128, 128, 0),       # 1,024-row walks: no flush
+    (256, 256, 2048, 256), (192, 128, 2048, 2048),  # prefix, every key: FLUSH instantiations
+])
+def test_a_failed_wide_tc_call_raises_and_never_reroutes(fake_card, hd, hd_v, s, prefix):
+    """A failed dkdv_wg launch, G 8 on one KV head, flushing or not: the
+    error raises, the tc entry was the one call (no kv_reduce, no CUDA-core
+    route), no launch is counted; a call without the lse raises before any."""
     lib = fake_card(_FakeLibrary(tc_error=700))
-    q, k = _bf16(1, 8, 128, hd, seed=1), _bf16(1, 1, 128, hd, seed=2)
-    v = _bf16(1, 1, 128, hd_v, seed=3)
-    out, dout = (_bf16(1, 8, 128, hd_v, seed=s) for s in (4, 5))
+    q, k = _bf16(1, 8, s, hd, seed=1), _bf16(1, 1, s, hd, seed=2)
+    v = _bf16(1, 1, s, hd_v, seed=3)
+    out, dout = (_bf16(1, 8, s, hd_v, seed=seed) for seed in (4, 5))
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        fab.flash_attention_bwd(q, k, v, out, dout, lse=torch.zeros(1, 8, 128))
-    assert [name for name, _ in lib.calls] == ["bwd_tc"]
+        fab.flash_attention_bwd(q, k, v, out, dout, prefix=prefix, lse=torch.zeros(1, 8, s))
+    (name, args), = lib.calls
+    assert name == "bwd_tc"
+    assert args[-2] == (fab.BWD_FLUSH_ROWS // 64 if prefix else 0)  # flush_steps
     assert sum(runtime.launches.values()) == 0
     with pytest.raises(ValueError, match="log-sum-exp"):
-        fab.flash_attention_bwd(q, k, v, out, dout)
+        fab.flash_attention_bwd(q, k, v, out, dout, prefix=prefix)
     assert [name for name, _ in lib.calls] == ["bwd_tc"]
 
 
 @pytest.mark.parametrize("b,h,kv,s,t,hd,hd_v,want", [
     (1, 8, 1, 2048, 2048, 256, 256, 8),     # gemma-2b: dkdv_wg on one KV head
     (1, 16, 16, 2048, 2048, 192, 128, 1),   # MLA: 512 CTAs
-    (1, 16, 8, 2048, 2048, 128, 128, 1),    # qwen3 at batch 1: 128 CTAs, but dkdv_tc
-    (4, 16, 8, 2048, 2048, 128, 128, 1),    # qwen3's training shape: 2 x 2048 rows
+    (1, 16, 8, 2048, 2048, 128, 128, 2),    # qwen3 at batch 1: 128 CTAs, flushing
+    (4, 16, 8, 2048, 2048, 128, 128, 1),    # qwen3's training shape: 512 CTAs
     (1, 16, 16, 300, 200, 64, 64, 1),       # cross-attention: 32 CTAs, dkdv_tc
-    (1, 8, 1, 2048, 2048, 128, 128, 4),     # G 8: 16,384 rows a key block, in 4 runs
-    (4, 64, 8, 2048, 2048, 64, 64, 4),      # G 8 on 512 CTAs: split all the same
+    (1, 8, 1, 2048, 2048, 128, 128, 16),    # G 8: 16,384 rows a key block, 16 key blocks
+    (4, 64, 8, 2048, 2048, 64, 64, 1),      # G 8 on 512 CTAs: no split
     (1, 48, 1, 2048, 2048, 128, 128, 16),   # granite-20b's 48 heads: at the cap
-    (4, 64, 8, 2048, 2048, 256, 256, 4),    # hd 256 G 8 on 1024 CTAs: the runs' split
-    (1, 10, 1, 4096, 4096, 256, 256, 10),   # recurrentgemma's 10 heads of 4096 rows
+    (4, 64, 8, 2048, 2048, 256, 256, 1),    # hd 256 G 8 on 1024 CTAs: no split
+    (1, 10, 1, 4096, 4096, 256, 256, 10),   # recurrentgemma's 10 heads: 40,960-row walks
+    (2, 10, 1, 4096, 4096, 256, 256, 10),   # its training shape: 128 CTAs, 10 of 4,096 rows
+    (4, 8, 1, 2048, 2048, 256, 256, 4),     # paligemma-3b's: 128 CTAs, 4 of 4,096 rows
 ])
 def test_only_the_two_warpgroup_dkdv_splits(b, h, kv, s, t, hd, hd_v, want):
-    """The occupancy split is dkdv_wg's (256 and (192, 128)); both kernels
-    split a key block where its walk passes BWD_RUN_ROWS (head, query) rows,
-    whatever the CTAs, so qwen3-0.6b keeps one CTA a key block."""
+    """The occupancy split is dkdv_wg's (256 and (192, 128)) and, at hd 64
+    and 128, that of a call that flushes (a walk past BWD_RUN_ROWS (head,
+    query) rows); a flushing call that splits takes CTAs of at most
+    BWD_CTA_ROWS rows of the longest walk; at qwen3-0.6b's training shape
+    one CTA a key block, and MLA's without a flush."""
     assert fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v) == want
-    runs = fab.plan_bwd_run_split(h // kv, s)
-    assert (runs - 1) * fab.BWD_RUN_ROWS < h // kv * s <= runs * fab.BWD_RUN_ROWS or (
-        runs == fab.BWD_KV_SPLIT_MAX)
-    assert want == runs if (hd, hd_v) not in fab.BWD_TC_WG_PAIRS else want >= runs
+    flushes = fab.bwd_flushes(h // kv, s)
+    assert flushes == (h // kv * s > fab.BWD_RUN_ROWS)
+    keys = fab.plan_bwd_tc_blocks(hd, hd_v)["dkdv"][0]
+    occupancy = fab.plan_bwd_kv_split(b, kv, t, h // kv, keys)
+    if not flushes:
+        assert want == (occupancy if (hd, hd_v) in fab.BWD_TC_WG_PAIRS else 1)
+    elif occupancy == 1:
+        assert want == 1
+    else:
+        walk = -(-h // kv * s // fab.BWD_CTA_ROWS)
+        assert want == min(max(occupancy, walk), fab.BWD_KV_SPLIT_MAX)
 
 
 def test_run_split_refuses_nonsense():
     with pytest.raises(ValueError, match="positive sizes"):
-        fab.plan_bwd_run_split(0, 2048)
+        fab.plan_bwd_flush_steps(0, 2048, 64)
+    with pytest.raises(ValueError, match="positive sizes"):
+        fab.bwd_flushes(8, 0)
