@@ -13,9 +13,9 @@ each a process of its own with that checkout's ``src`` first on
 ``sys.path`` (each builds its own kernels): the flash kernel at six causal
 and windowed serving shapes, the paged kernel at rows 5, 5c and 5d of
 ``PERF.md``'s kernel table, and the flash backward's tensor-core route at
-every bf16 row of this tree's ``chip_smoke.BWD_CHECKS`` (named ``"bwd "``
-and the row's name: qwen3-0.6b's training shape, gemma-2b's, MLA's, the
-windowed, prefix and capped rows, the "G 8" and "G 48" rows of query heads
+every bf16 row of this tree's ``chip_smoke.BWD_CHECKS`` at the checkout's
+``BWD_TC_HEAD_PAIRS`` (named ``"bwd "`` and the row's name: qwen3-0.6b's
+training shape, gemma-2b's, MLA's, the windowed, prefix and capped rows, the "G 8" and "G 48" rows of query heads
 on one KV head with q 8 times the unit scale, granite-moe-3b-a800m's
 training shape (G 3) plain and at q gain 8, qwen3-0.6b's and MLA's training
 shapes at q gain 8 (rows that keep one run a CTA and no flush), and
@@ -123,7 +123,7 @@ def turn(src: str) -> dict:
         record(name, lambda q=q, kc=kc, vc=vc, ln=ln: pa.paged_attention(q, kc, vc, ln))
     for (name, b, h, kv, s, t, hd, hd_v, window, prefix, cap, gain,
          dtype) in chip_smoke.BWD_CHECKS:
-        if dtype != "bfloat16":
+        if dtype != "bfloat16" or (hd, hd_v) not in fab.BWD_TC_HEAD_PAIRS:
             continue
         name = f"bwd {name}"
         q = randn(b, s, h, hd, gain=gain).transpose(1, 2)

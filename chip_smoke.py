@@ -199,12 +199,14 @@ Phases, each printing JSON objects, one per line:
    its dkdv split over several CTAs), the Function's forward equal to the
    no-grad forward bit for bit, the forward's lse against its plain version
    (qwen3-0.6b's shape, prefix 200 at hd 64, gemma-2b's and MLA's), seven
-   planted faults rejected (D dropped, dK and dV from head 0 of a group, a
-   key one past the prefix, the cap's derivative left out, lse one row
-   off, one split's partial dropped, dK's scale dropped), registers and
-   spills of every instantiation, and time the ``tc`` route at qwen3-0.6b's
-   shape, gemma-2b's, MLA's and G 48's, and the ``simt`` route at the f32
-   shape, beside each bound, plain version and SDPA's backward;
+   planted faults rejected (D dropped, on the tc route and at hd 16, dK and
+   dV from head 0 of a group, a key one past the prefix, the cap's
+   derivative left out, lse one row off, one split's partial dropped, dK's
+   scale dropped), the forward at reduced MLA's (24, 16) against its plain
+   version, registers and spills of every instantiation, and time the
+   ``tc`` route at qwen3-0.6b's shape, gemma-2b's, MLA's and G 48's, and
+   the ``simt`` route at the f32 shape and at the reduced widths (hd 16,
+   32, (24, 16)), beside each bound, plain version and SDPA's backward;
    hold one qwen3-0.6b block's gradients at 4 x 2048 tokens to the plain
    path (``TRAIN_LAYER_TOL``; a backward without D rejected); train
    qwen3-0.6b at full width through ``launch.train.main`` (20 steps of 4 x
@@ -247,7 +249,7 @@ Phases, each printing JSON objects, one per line:
    ``launch.train.main`` (20 steps of 4 x 2048 tokens, f32 masters updated
    in place, full remat; the launch counters set to 0 just before and read
    just after: every flash backward on the ``tc`` route, one a layer a
-   step, deepseek-v2-lite's at (192, 128)): granite-moe-3b-a800m cut to 16
+   step, deepseek-v2-lite's at (192, 128)): granite-moe-3b-a800m cut to 8
    layers without checkpoints, deepseek-v2-lite-16b (MLA with MoE) cut to
    2 layers (``MOE_TRAIN_FAMILIES``); per family the losses finite and
    falling, step seconds, tokens/s, model FLOPs of the active parameters
@@ -311,6 +313,14 @@ Phases, each printing JSON objects, one per line:
    ``ENCDEC_RESUME_LAYERS`` layers, and the encoder's every-key backward
    timed at the trainer's shape beside its bound, plain version and SDPA's
    ``is_causal=False`` backward;
+8g. train_reduced: every config of ``ARCHS`` at ``configs.reduced()``
+   (heads of 16; MLA's q/k 24 over v 16) through ``launch.train.main``
+   (20 steps of 4 x 64 tokens, no checkpoints; the launch counters set to
+   0 just before and read just after: every flash launch on the simt
+   route, one backward an attention call a step), repro's fixed-batch
+   rule, and one step's loss and whole-model gradients on the card held to
+   the same state and batch on the CPU (``REDUCED_LOSS_TOL``,
+   ``REDUCED_GRAD_TOL``; a backward that drops D rejected);
    the trainers' checkpoint bytes are reckoned before the run
    (``checkpoint_reckoning``, at most ``CHECKPOINT_LIMIT_GIB``);
 6. matmul: print the H100 planner's REMOP and conventional tile plans for
@@ -5077,7 +5087,12 @@ TRAIN_ARCH = "qwen3-0.6b"
 # queries.  Inputs in the model's [B, S, heads, hd] memory, seen as [B, heads, S, hd]; dout too, all
 # drawn from one generator in row order, so new rows go last and the other
 # rows keep their inputs (flash_probe.py --bwd-run-rows also reads "q gain
-# 8" on the inputs it gets with the paligemma rows drawn before it).
+# 8" on the inputs it gets with the paligemma rows drawn before it).  The
+# last rows are the CUDA-core route at the reduced configs' widths
+# (configs.reduced: hd 16, MLA's q/k 24 over v 16, which the kernels take
+# at (32, 16) on q and k zero-padded to 32; hd 32 beside them): "... train"
+# at the timing shape [4, 16, 2048, hd] on 8 KV heads (MLA's on 16), "G 8"
+# on one KV head plain and at q gain 8, and f32 at hd 32.
 BWD_CHECKS = (
     ("qwen3-0.6b train", 4, 16, 8, 2048, 2048, 128, 128, 0, 0, 0.0, 1.0, "bfloat16"),
     ("gemma-2b", 1, 8, 1, 2048, 2048, 256, 256, 0, 0, 0.0, 1.0, "bfloat16"),
@@ -5109,12 +5124,23 @@ BWD_CHECKS = (
     ("seamless encoder q gain 8", 4, 16, 16, 2048, 2048, 64, 64, 0, 2048, 0.0, 8.0,
      "bfloat16"),
     ("seamless cross train", 4, 16, 16, 2048, 2048, 64, 64, 0, 2048, 0.0, 1.0, "bfloat16"),
+    ("hd 16 train", 4, 16, 8, 2048, 2048, 16, 16, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("hd 32 train", 4, 16, 8, 2048, 2048, 32, 32, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("mla reduced train", 4, 16, 16, 2048, 2048, 24, 16, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("G 8 hd 16", 1, 8, 1, 2048, 2048, 16, 16, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("G 8 q gain 8 hd 16", 1, 8, 1, 2048, 2048, 16, 16, 0, 0, 0.0, 8.0, "bfloat16"),
+    ("G 8 hd 32", 1, 8, 1, 2048, 2048, 32, 32, 0, 0, 0.0, 1.0, "bfloat16"),
+    ("G 8 q gain 8 hd 32", 1, 8, 1, 2048, 2048, 32, 32, 0, 0, 0.0, 8.0, "bfloat16"),
+    ("f32 hd 32", 1, 8, 2, 512, 512, 32, 32, 0, 0, 0.0, 1.0, "float32"),
+    ("mla reduced q gain 8", 4, 16, 16, 2048, 2048, 24, 16, 0, 0, 0.0, 8.0, "bfloat16"),
 )
 BWD_REPORT = "qwen3-0.6b train"  # the kernels line's shape of the tc route
 BWD_SIMT_REPORT = "f32"  # and of the simt route (f32 only, since hd 256 went to tc)
 # Further timing rows of the tc route: hd 256 (dkdv split over CTAs), (192, 128)
 # and G 48 (dkdv split 16 ways, flushing).
 BWD_TC_WIDE_REPORTS = ("gemma-2b", "mla 192/128", "G 48 q gain 8 hd 128")
+# Timing rows of the simt route at the reduced configs' widths.
+BWD_SIMT_NARROW_REPORTS = ("hd 16 train", "hd 32 train", "mla reduced train")
 # The rows whose calls keep one run a CTA and no flush (their plan and bits
 # before the flush: walks of at most BWD_RUN_ROWS, 2,048 rows, and no
 # prefix); every other bf16 row flushes.
@@ -5239,7 +5265,7 @@ def phase_train_kernels(torch, device):
         if name in ("gemma-2b", "G 8 softcap 50 hd 128", "G 8 q gain 8 hd 64"):
             check(blocks["kv_split"] > 1, f"{name}'s dkdv is not split: {blocks}")
         if name in ("qwen3-0.6b train", "prefix 256", "softcap 50", "prefix 200 hd 64",
-                    "gemma-2b", "mla 192/128"):
+                    "gemma-2b", "mla 192/128", "G 8 hd 16", "mla reduced train"):
             kept[name] = (q, k, v, out, dout, mask, got, lse)
         if name == "qwen3-0.6b train":
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -5263,6 +5289,24 @@ def phase_train_kernels(torch, device):
         check(ok, f"flash_attention {name}: lse differs from its plain version (max abs err "
                   f"{err}, relative L2 {rel})")
 
+    # The forward at reduced MLA's (24, 16): the CUDA-core kernel at (32, 16)
+    # on q and k zero-padded to 32, counted under its logical widths.
+    q, k, v, _, _, mask, _, _ = kept["mla reduced train"]
+    before = dict(runtime.launches)
+    with torch.no_grad():
+        got = remop_flash_attention(q, k, v, **mask)
+    added = {key: n - before.get(key, 0) for key, n in runtime.launches.items()
+             if n != before.get(key, 0)}
+    want_added = {"flash_attention": 1, "flash_attention_simt": 1,
+                  "flash_attention_simt_24x16": 1}
+    ok, err, rel, _ = attn_close(torch, got, flash_attention_plain(q, k, v, **mask))
+    emit({"phase": "train", "check": "flash_attention", "case": "mla reduced train",
+          "shape": list(q.shape) + [v.shape[3]], "launches": added,
+          "tol": ATTN_TOL["torch.bfloat16"], "max_abs_err": err, "rel_err": rel})
+    check(added == want_added, f"flash_attention at (24, 16): launches {added}, not {want_added}")
+    check(ok, f"flash_attention at (24, 16) differs from its plain version (max abs err {err}, "
+              f"relative L2 {rel})")
+
     def fault(name, what, want, got=None):
         got = kept[name][6] if got is None else got
         ok, err, rel = grads_close(torch, got, want)
@@ -5273,6 +5317,10 @@ def phase_train_kernels(torch, device):
     q, k, v, out, dout, mask, _, lse = kept["qwen3-0.6b train"]
     fault("qwen3-0.6b train", "drops D = sum(dO * O)",
           fab.flash_attention_bwd_plain(q, k, v, torch.zeros_like(out), dout, **mask))
+    q, k, v, out, dout, mask, _, _ = kept["G 8 hd 16"]
+    fault("G 8 hd 16", "drops D = sum(dO * O) (the simt kernel at hd 16)",
+          fab.flash_attention_bwd_plain(q, k, v, torch.zeros_like(out), dout, **mask))
+    q, k, v, out, dout, mask, _, lse = kept["qwen3-0.6b train"]
     g = q.shape[1] // k.shape[1]
     _, dk0, dv0 = fab.flash_attention_bwd_plain(q[:, ::g], k, v, out[:, ::g], dout[:, ::g],
                                                 **mask)
@@ -5344,6 +5392,9 @@ def phase_train_kernels(torch, device):
     for report in BWD_TC_WIDE_REPORTS:
         emit({"phase": "train", "timing": "flash_attention_bwd", "route": "tc", "case": report,
               **timing("tc", report)})
+    for report in BWD_SIMT_NARROW_REPORTS:
+        emit({"phase": "train", "timing": "flash_attention_bwd", "route": "simt",
+              "case": report, **timing("simt", report)})
     del bench
     return errs, rows
 
@@ -5394,8 +5445,11 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
         return torch.autograd.grad(lib_out, (qs, ks, vs), dout, retain_graph=True)
 
     elem = q.element_size()
-    ms_bound, by = bound(*bwd_cost(b, h, kv, s, t, hd, hd_v, elem, **mask),
-                         BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
+    cost = bwd_cost(b, h, kv, s, t, hd, hd_v, elem, **mask)
+    ms_bound, by = bound(*cost, BF16_OPS_PER_S if elem == 2 else ALU_OPS_PER_S)
+    # The simt route multiplies in f32 on the CUDA cores, bf16 inputs too:
+    # beside the bound at the inputs' type, the one at the CUDA cores' rate.
+    cores = {"cuda_core_bound_ms": bound(*cost)[0]} if path == "simt" else {}
     if path == "tc":
         blocks = fab.plan_bwd_tc_blocks(hd, hd_v)
         blocks["kv_split"] = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
@@ -5411,7 +5465,7 @@ def bwd_timing(torch, device, bench, gen, report, path="tc"):
         plain_ms=bench.ms(lambda: fab.flash_attention_bwd_plain(q, k, v, out, dout, **mask)),
         library_ms=bench.ms(library),
         **{f"library_{name}": val for name, val in bench.device_ms(library, reps=10).items()},
-        bound_ms=ms_bound, bound_by=by)
+        bound_ms=ms_bound, bound_by=by, **cores)
 
 
 # One qwen3-0.6b block at full width under training: f32 masters, bf16
@@ -5910,9 +5964,9 @@ def run_line(run, card, flops, params) -> dict:
             "checkpoints": run.get("checkpoints", [])}
 
 
-def model_grads(torch, cfg, params, batch, context):
-    """One step's whole-model gradients (full remat) under ``context``, by
-    leaf path."""
+def loss_and_grads(torch, cfg, params, batch, context=contextlib.nullcontext):
+    """One step's loss and whole-model gradients (full remat) under
+    ``context``, the gradients by leaf path."""
     from repro_torch.models import transformer as tf
     from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
@@ -5920,24 +5974,26 @@ def model_grads(torch, cfg, params, batch, context):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         total, _ = tf.loss_fn(live, cfg, batch, remat=True)
         grads = torch.autograd.grad(total, leaves(live))
-    return {"/".join(p): g for (p, _), g in zip(leaves_with_paths(params), grads)}
+    paths = ("/".join(p) for p, _ in leaves_with_paths(params))
+    return float(total.detach()), dict(zip(paths, grads))
 
 
 def path_grad_errors(torch, cfg, params, batch, plain, paths):
     """Per-leaf relative L2 of one step's whole-model gradients under each
     context of ``paths`` against those under ``plain``; one path's
     gradients beside the plain path's at a time."""
-    want = model_grads(torch, cfg, params, batch, plain)
+    want = loss_and_grads(torch, cfg, params, batch, plain)[1]
     return [{n: rel_err(torch, g, want[n])
-             for n, g in model_grads(torch, cfg, params, batch, path).items()} for path in paths]
+             for n, g in loss_and_grads(torch, cfg, params, batch, path)[1].items()}
+            for path in paths]
 
 
 def model_grad_errors(torch, cfg, params, batch, plain):
     """Per-leaf relative L2 of one step's whole-model gradients (full
     remat), the kernel path (run first: the MoE checks replay its routing)
     against the ``plain`` context's path."""
-    got = model_grads(torch, cfg, params, batch, contextlib.nullcontext)
-    want = model_grads(torch, cfg, params, batch, plain)
+    got = loss_and_grads(torch, cfg, params, batch, contextlib.nullcontext)[1]
+    want = loss_and_grads(torch, cfg, params, batch, plain)[1]
     return {n: rel_err(torch, g, want[n]) for n, g in got.items()}
 
 
@@ -6362,14 +6418,15 @@ def phase_ssm_train_run(torch, device, card: str):
 # --------------------------------------------------------------------------
 
 # (arch, layers of the timed run (0: all), layers of the resume check), each
-# at its published widths.  granite-moe-3b-a800m trains at 16 of its 32
+# at its published widths.  granite-moe-3b-a800m trains at 8 of its 32
 # layers (all 32, 3.30B parameters, 53 GB of f32 masters, gradients and AdamW
-# moments, until phase 8f needed the time), without checkpoints; its resume
-# runs at 2 layers (3.3 GB), so that the run's checkpoints stay within
+# moments, until phase 8f needed the time; 16 until phase 8g did), without
+# checkpoints; its resume runs at 2 layers (3.3 GB), so that the run's
+# checkpoints stay within
 # CHECKPOINT_LIMIT_GIB.  deepseek-v2-lite-16b's 15.7B would take 251 GB: 2
 # layers (the dense first and one MoE layer, 876M parameters, 14 GB; 10.5 GB
 # a checkpoint), timed and resumed in the one run.
-MOE_TRAIN_FAMILIES = ((MOE_ARCH, 16, 2), (MLA_ARCH, 2, 2))
+MOE_TRAIN_FAMILIES = ((MOE_ARCH, 8, 2), (MLA_ARCH, 2, 2))
 MOE_TRAIN_ARGV = ("--global-batch", "4", "--seq-len", "2048", "--steps", str(TRAIN_STEPS),
                   "--checkpoint-every", str(TRAIN_CKPT_EVERY), "--seed", "0")
 MOE_FLOPS_FORMULA = ("3 (2 (M + X C / S) B S + 2 (hd_qk + hd_v) H B L S (S + 1) / 2): M the 2-D "
@@ -6457,7 +6514,7 @@ class RoutingLog:
             values, ids = self.top_k(probs, k)
             self.calls.append(ids)
             return values, ids
-        ids = self.calls[len(self.agree)]
+        ids = self.calls[len(self.agree)].to(probs.device)
         own = self.top_k(probs, k)[1]
         self.agree.append(float((own == ids).all(-1).float().mean()))
         return probs.gather(-1, ids), ids
@@ -6964,6 +7021,149 @@ ENCDEC_TRAINER = MaskedTrainer(
     layer_kinds=("enc", "cross"), fault_kind="cross", launches=encdec_launches)
 
 
+# --------------------------------------------------------------------------
+# Phase 8g: train every config of ARCHS at its reduced widths
+# --------------------------------------------------------------------------
+
+# launch.train's command line for every config of ARCHS at configs.reduced()
+# (d_model 64, 4 heads of 16 on at most 2 KV heads, 2 layers; deepseek's MLA
+# at q/k 24 over v 16; recurrentgemma one Griffin period at window 32;
+# mamba2 SSD heads of 16, state 16, chunks of 32; paligemma 8 patch rows;
+# seamless 2 + 2 layers): 4 x 64 tokens a step (past the reduced window and
+# two SSD chunks), TRAIN_STEPS steps, no checkpoints.  At these widths every
+# flash call, forward and backward, runs on the CUDA cores (simt).
+REDUCED_TRAIN_TOKENS = (4, 64)
+REDUCED_TRAIN_ARGV = ("--reduced", "--global-batch", str(REDUCED_TRAIN_TOKENS[0]), "--seq-len",
+                      str(REDUCED_TRAIN_TOKENS[1]), "--steps", str(TRAIN_STEPS),
+                      "--checkpoint-every", "1000", "--seed", "0")
+# One step's loss and whole-model gradients on the card against the same f32
+# state and batch on the CPU, where every kernel takes its plain version:
+# the loss within REDUCED_LOSS_TOL relative, each leaf within
+# REDUCED_GRAD_TOL relative L2 (tests/test_torch_train.py's LOSS_TOL and
+# MODEL_TOL, which hold the port's CPU path to repro's).  The MoE configs'
+# CPU step replays the card's routing (a near-tie routed apart by the two
+# paths' last bits would move an expert's gradient past any tolerance).
+# The planted fault drops D = sum(dO * O) from REDUCED_FAULT_ARCH's flash
+# backward on the card.  Set before the first card run.
+REDUCED_LOSS_TOL, REDUCED_GRAD_TOL = 2e-3, 3e-2
+REDUCED_FAULT_ARCH = "qwen3-0.6b"
+
+
+def reduced_bwd_calls(cfg) -> int:
+    """The flash backward's calls a training step of ``cfg``: one for each
+    attention layer, two for a decoder layer with cross-attention, one for
+    each encoder layer."""
+    from repro_torch.models import transformer as tf
+
+    per_kind = {"attn": 1, "attn_local": 1, "mla": 1, "mla_moe": 1, "moe": 1, "cross": 2}
+    return cfg.n_encoder_layers + sum(per_kind.get(k, 0) for k in tf.layer_kinds(cfg))
+
+
+def card_cpu_errors(torch, cfg, params, batch, fault=contextlib.nullcontext):
+    """One step on the card (``params`` and ``batch`` there, under
+    ``fault``) against the same step on copies on the CPU: (the loss's
+    relative difference, per-leaf relative L2 of the gradients); an MoE's
+    CPU step replays the card's routing (:class:`RoutingLog`)."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    log = RoutingLog(moe._top_k)
+    moe._top_k = log
+    try:
+        loss, got = loss_and_grads(torch, cfg, params, batch, fault)
+        log.replaying = True
+        want_loss, want = loss_and_grads(
+            torch, cfg, tree_map(lambda t: t.detach().cpu(), params),
+            {k: v.cpu() for k, v in batch.items()})
+    finally:
+        moe._top_k = log.top_k
+    check(len(log.agree) == len(log.calls), f"{cfg.name}: {len(log.calls)} routings on the "
+                                            f"card, {len(log.agree)} replayed on the CPU")
+    return (abs(loss - want_loss) / abs(want_loss),
+            {n: rel_err(torch, g.cpu(), want[n]) for n, g in got.items()})
+
+
+def phase_train_reduced(torch, device, card: str):
+    """Every config of ARCHS at ``configs.reduced()`` on the card: trained
+    through ``launch.train.main`` (``REDUCED_TRAIN_ARGV``; the launch
+    counters set to 0 just before and read just after: every flash launch
+    on the simt route, none on tc, the backward once for each attention
+    call of each step; the SSD scan's forward and backward for mamba2),
+    repro's fixed-batch rule (``FIXED_BATCH_STEPS`` steps on one batch,
+    the last loss below ``FIXED_BATCH_RULE`` of the first), and one step's
+    loss and gradients held to the CPU's (``card_cpu_errors``), with
+    ``REDUCED_FAULT_ARCH``'s planted fault rejected.  Returns the launches
+    of the training windows."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    total = collections.Counter()
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        run = train_window(torch, device, ("--arch", arch, *REDUCED_TRAIN_ARGV))
+        state, launches, loss = run.pop("state"), run["launches"], run["loss"]
+        cfg, shape = run["cfg"], run["shape"]
+        total.update(launches)
+        calls = TRAIN_STEPS * reduced_bwd_calls(cfg)
+        flash = {k: n for k, n in launches.items() if k.startswith("flash_attention")}
+        tc = {k: n for k, n in flash.items() if "_tc" in k}
+        check(not tc and launches.get("flash_attention_bwd", 0)
+              == launches.get("flash_attention_bwd_simt", 0) == calls,
+              f"{arch} reduced: flash launches {flash}; want {calls} backward calls, all simt")
+        if cfg.family == "ssm":
+            check(launches.get("ssd_scan", 0) > 0 and launches.get("ssd_scan_bwd", 0) > 0,
+                  f"{arch} reduced: the SSD scan launches {launches}")
+        del state
+
+        # repro's fixed-batch rule (tests/test_runtime.py:37) at the reduced config.
+        fixed_cfg = AdamWConfig(lr=3e-3, total_steps=FIXED_BATCH_STEPS, warmup_steps=2,
+                                weight_decay=0.0)
+        step_fn = steps_lib.make_train_step(cfg, fixed_cfg)
+        state = steps_lib.init_state(cfg, torch.Generator(device=device).manual_seed(SEED),
+                                     device)
+        raw = next(synthetic_batches(cfg, shape, seed=1))
+        batch = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+        params = tree_map(lambda t: t.clone(), state["params"])
+        fixed = []
+        for _ in range(FIXED_BATCH_STEPS):
+            state, m = step_fn(state, batch)
+            fixed.append(float(m["loss"]))
+        del state
+
+        # One step on the card against the CPU, on the initial state.
+        loss_err, errs = card_cpu_errors(torch, cfg, params, batch)
+        line = {"phase": "train_reduced", "card": card, "arch": arch, "family": cfg.family,
+                "layers": cfg.n_layers, "head_dim": cfg.head_dim,
+                "tokens_per_step": list(REDUCED_TRAIN_TOKENS), "losses": loss,
+                "step_seconds_median_3_20": run["step_s"], "launches": launches,
+                "fixed_batch_losses": fixed, "last_over_first": fixed[-1] / fixed[0],
+                "rule": FIXED_BATCH_RULE, "card_vs_cpu_loss_rel_err": loss_err,
+                "card_vs_cpu_per_leaf_rel_err_max": max(errs.values()),
+                "worst_leaves": sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+                "tol": {"loss": REDUCED_LOSS_TOL, "grads": REDUCED_GRAD_TOL}}
+        if arch == REDUCED_FAULT_ARCH:
+            bad_loss, bad = card_cpu_errors(torch, cfg, params, batch, drop_delta)
+            line.update(planted_fault="the flash backward drops D = sum(dO * O)",
+                        fault_per_leaf_rel_err_max=max(bad.values()),
+                        fault_rejected=max(bad.values()) > REDUCED_GRAD_TOL)
+            check(line["fault_rejected"], "the card-against-CPU check passes a backward that "
+                                          "drops D")
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        check(fixed[-1] < FIXED_BATCH_RULE * fixed[0],
+              f"{arch} reduced, fixed batch: last loss {fixed[-1]} not below "
+              f"{FIXED_BATCH_RULE} of {fixed[0]}")
+        check(loss_err <= REDUCED_LOSS_TOL and max(errs.values()) <= REDUCED_GRAD_TOL,
+              f"{arch} reduced: the card's step against the CPU's, loss {loss_err}, "
+              f"gradients {max(errs.values())}")
+        del params, batch
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -7017,8 +7217,8 @@ def main() -> int:
               "2 layers of 32 (4 until phase 8d's checkpoint needed the disk): a checkpoint "
               "of all 32 layers' state would be 40 GB (its timed run trains without "
               "checkpoints)",
-              "granite-moe-3b-a800m's timed run (phase 8c) at its published widths cut to 16 "
-              "layers of 32 (all 32 until phase 8f took the time)",
+              "granite-moe-3b-a800m's timed run (phase 8c) at its published widths cut to 8 "
+              "layers of 32 (all 32 until phase 8f took the time, 16 until phase 8g did)",
               "serving through ServeEngine (phases 4, 5, 5b, 5c, 5d, 5g): four requests each "
               "through two slots, cut from eight through four, to keep the run's time with "
               "phase 8d added",
@@ -7051,7 +7251,11 @@ def main() -> int:
               f"recurrentgemma-2b's training (phase 8d) in {HYBRID_MICROBATCHES} microbatches "
               "of its 2 x 4096 tokens (repro's --microbatches): in one, its f32 logits and "
               "their softmax's backward ran out of the card's memory; its first-step gradient "
-              "check on the first microbatch"],
+              "check on the first microbatch",
+              "phase 8g trains every config of ARCHS at configs.reduced() (d_model 64, 4 heads "
+              "of 16, 2 layers, vocab 128; 4 x 64 tokens, 20 steps): the reduced widths are "
+              "what the phase checks (the CUDA-core flash route at hd 16 and MLA's (24, 16)); "
+              "each config's published widths train, or are cut in depth, in its own phase"],
           "note": "TPC-H SF1 row counts and 256 KiB pages as stated; gemma-2b at its "
                   "published widths and all 18 layers, random weights; mamba2-370m at "
                   "its published widths and all 48 layers, random weights with dt_bias "
@@ -7075,7 +7279,7 @@ def main() -> int:
                   "step, 20 steps), random weights and synthetic tokens; mamba2-370m "
                   "trained at its published widths and all 48 layers (4 x 2048 tokens a "
                   "step, 20 steps), random weights and synthetic tokens; granite-moe-3b-a800m "
-                  "trained at its published widths and 16 of its 32 layers (4 x 2048 tokens a "
+                  "trained at its published widths and 8 of its 32 layers (4 x 2048 tokens a "
                   "step, 20 steps, capacity factor 1.25), random weights and synthetic tokens; "
                   "recurrentgemma-2b trained at its published widths and 14 of its 26 layers (2 x "
                   "4096 tokens a step, past its window of 2048; 20 steps), random weights and "
@@ -7204,6 +7408,11 @@ def main() -> int:
         trained, _ = phase_masked_train(torch, device, card, fam)
         launches["flash_attention_bwd_tc"] += trained["flash_attention_bwd_tc"]
         lap(fam.phase)
+    reduced_launches = phase_train_reduced(torch, device, card)
+    launches["flash_attention_bwd_simt"] += reduced_launches["flash_attention_bwd_simt"]
+    launches["ssd_scan"] += reduced_launches["ssd_scan"]
+    launches["ssd_scan_bwd"] += reduced_launches["ssd_scan_bwd"]
+    lap("train_reduced")
     mm_errs, mm_rows, launches["matmul"] = phase_matmul(torch, device, card)
     errs.update(mm_errs)
     rows.update(mm_rows)

@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with one H100:
 
     python3 flash_probe.py [LOG_DIR]
     python3 flash_probe.py --bwd [LOG_DIR]
-    python3 flash_probe.py --bwd-run-rows [ROW FLUSH_ROWS,...]
+    python3 flash_probe.py --bwd-run-rows [ROW FLUSH_ROWS,... | planned]
     python3 flash_probe.py --emulate ROW SEED,...
+    python3 flash_probe.py --simt-rows [ROW,...]
     python3 flash_probe.py --swap ARCH {init,trained}
     python3 flash_probe.py --layer-f64 ARCH {init,trained}
 
@@ -36,9 +37,15 @@ of ``BWD_CHECKS`` (G 1 to 48, the prefix and every-key rows among them),
 on ``chip_smoke.py``'s inputs and on 40 fresh draws each, and times the
 backward's model shapes under each (given a row and flush lengths, that row
 under those only, e.g. ``--bwd-run-rows "G 48 q gain 8 hd 128" 128,256``).  With
-``--emulate ROW SEED,...`` it holds that row's dK, the kernel's and its
-plan written out in f32 (``emulate``), to the f64 reference on the draws
-of those seeds (-1: ``chip_smoke.py``'s).  With ``--swap ARCH STATE`` it reads which half
+``--emulate ROW SEED,...`` it holds that row's dK to the f64 reference on
+the draws of those seeds (-1: ``chip_smoke.py``'s) under each candidate
+cause of a miss (``emulate``): the kernel; the kernel fed the f64 lse
+rounded to f32; probe builds whose P takes its exponent another way
+(``EXPONENT_VARIANTS``: the form the kernel had before); its plan written
+out in f32; that plan with wgmma's accumulation modelled as truncating.
+With ``--simt-rows`` it holds the CUDA-core route's gradients to f64 at the
+reduced configs' widths, q 8 times the unit scale, over 41 draws a row
+(``simt_rows``).  With ``--swap ARCH STATE`` it reads which half
 of the flash kernel, forward or backward, carries the gap between the
 kernel and plain paths of one whole-model gradient check of
 ``chip_smoke.py`` (qwen3-0.6b's of phase 5h, or that of the trainer of
@@ -402,8 +409,8 @@ def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CA
     inputs (for "q gain 8" also on those it has with the paligemma rows
     drawn first) and on fresh draws from each seed of ``ROW_SEEDS``: the
     largest |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` under each of
-    ``candidates`` (by default ``FLUSH_CANDIDATES``) at the row's planned
-    split, the planned plan marked, with the count of draws
+    ``candidates`` (by default ``FLUSH_CANDIDATES``; None: the row's planned
+    flush only) at the row's planned split, the planned plan marked, with the count of draws
     over 1 (and for each draw over 1, and the planned plan on chip_smoke's
     inputs, the worst entry: its reference, kernel and plain values, the
     kernel against the plain version, and the magnitude its terms cancel
@@ -432,7 +439,8 @@ def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CA
             first=("paligemma train", "paligemma q gain 8"))["q gain 8"]))
     for name in names:
         mask, bq, split, planned = plan_of(name)
-        found = {c: [] for c in candidates}
+        row_candidates = (planned,) if candidates is None else candidates
+        found = {c: [] for c in row_candidates}
         for label, xs in draws[name] + [(f"seed {seed}", seeded_inputs(
                 torch, dev, rows[name], seed)) for seed in ROW_SEEDS]:
             q, k, v, dout = xs
@@ -440,7 +448,7 @@ def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CA
             ref = f64_reference(torch, q, k, v, out, dout, mask["softcap"],
                                 prefix=mask["prefix"])[1]
             plain = None
-            for c in candidates:
+            for c in row_candidates:
                 dk = tc_grads(torch, fab, q, k, v, out, dout, lse, split, c // bq, **mask)[1]
                 r = (dk.double() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
                 found[c].append(round(float(r.max()), 4))
@@ -456,7 +464,7 @@ def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CA
                           f"{chip_smoke.tol_excess(torch, dk, plain):.4f}, sum |dS q| "
                           f"{cancel:.6g}", flush=True)
             del ref, plain, out, lse
-        for c in candidates:
+        for c in row_candidates:
             print(f"bwd run rows {flush_label(c)}{' (planned)' if c == planned else ''} {name} "
                   f"kv_split {split}: dk excess vs f64 on {len(found[c])} draws "
                   f"({[label for label, _ in draws[name]]} and seeds {ROW_SEEDS.start}.."
@@ -466,7 +474,7 @@ def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CA
         q, k, v, dout = seeded_inputs(torch, dev, rows[name], 0)
         mask, bq, split, planned = plan_of(name)
         out, lse = chip_smoke.forward_with_lse(torch, q, k, v, **mask)
-        for c in candidates:
+        for c in ((planned,) if candidates is None else candidates):
             ms = bench.device_ms(lambda: tc_grads(torch, fab, q, k, v, out, dout, lse, split,
                                                   c // bq, **mask), reps=10)["device_ms"]
             print(f"bwd run rows {flush_label(c)}{' (planned)' if c == planned else ''} {name}: "
@@ -474,16 +482,215 @@ def bwd_run_rows(torch, chip_smoke, names=RUN_ROW_PRECISION, candidates=FLUSH_CA
         del q, k, v, dout, out, lse
 
 
+# The CUDA-core route's q-gain-8 rows at the reduced configs' widths that
+# --simt-rows reads against f64.
+SIMT_PRECISION = ("G 8 q gain 8 hd 16", "G 8 q gain 8 hd 32", "mla reduced q gain 8")
+
+
+def simt_rows(torch, chip_smoke, names=SIMT_PRECISION) -> None:
+    """The CUDA-core backward's dq, dk and dv against the f64 reference at
+    each row of ``names`` (by default ``SIMT_PRECISION``), on
+    ``chip_smoke.py``'s inputs and on fresh draws from each seed of
+    ``ROW_SEEDS``: the largest |got - ref| / (atol + rtol |ref|) of
+    ``ATTN_TOL`` of each, with the count of draws over 1; the route
+    asserted by the launch counters."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention.ops import remop_flash_attention
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = chip_smoke.ATTN_TOL["torch.bfloat16"]
+    rows = {c[0]: c for c in chip_smoke.BWD_CHECKS}
+    draws = check_inputs(torch, chip_smoke, dev, names)
+    for name in names:
+        found = {w: [] for w in ("dq", "dk", "dv")}
+        for label, xs in [("chip_smoke", draws[name])] + [(f"seed {seed}", seeded_inputs(
+                torch, dev, rows[name], seed)) for seed in ROW_SEEDS]:
+            q, k, v, dout = xs
+            with torch.no_grad():
+                out = remop_flash_attention(q, k, v)
+            runtime.reset_launches()
+            got = fab.flash_attention_bwd(q, k, v, out, dout)
+            if dict(runtime.launches) != {"flash_attention_bwd": 1,
+                                          "flash_attention_bwd_simt": 1}:
+                raise RuntimeError(f"{name}: launches {dict(runtime.launches)}, not one simt")
+            ref = f64_reference(torch, q, k, v, out, dout, 0.0)
+            for w, g, r in zip(found, got, ref):
+                found[w].append(round(float(((g.double() - r).abs() / (
+                    tol["atol"] + tol["rtol"] * r.abs())).max()), 4))
+            del q, k, v, dout, out, got, ref
+        print(f"simt rows {name}: against f64 on {len(found['dk'])} draws (chip_smoke's and "
+              f"seeds {ROW_SEEDS.start}..{ROW_SEEDS.stop - 1}): " + "; ".join(
+                  f"{w} max {max(x)}, {sum(e > 1 for e in x)} over 1" for w, x in found.items())
+              + f"; dk {found['dk']}", flush=True)
+
+
+# Probe builds of csrc/flash_attention_bwd.cu whose P takes its exponent
+# another way (--emulate reads each beside the shipped kernel), as edits
+# (old text, new text, count) of the source.  The shipped flushing dkdv_tc
+# walks form P as 2^((x - lse) log2 e) (p_exponent); "rounded lse log2 e"
+# gives them the form every other call keeps, 2^(x log2 e - lse2) with lse2
+# = lse * log2 e rounded to f32 once a row (on an H100, G 48's dK at q gain
+# 8 missed ATTN_TOL against f64 on seed 37 with it, 1.29x, and read 0.66
+# without).
+EXPONENT_VARIANTS = {
+    "rounded lse log2 e": (
+        ("return EXACT ? (x - lse) * kLog2e : fmaf(x, kLog2e, -lse);",
+         "return fmaf(x, kLog2e, -lse);", 1),
+        ("lse_s[r] = EXACT ? lse : lse * kLog2e;", "lse_s[r] = lse * kLog2e;", 1),
+    ),
+}
+
+
+def variant_libraries(names):
+    """The backward's library built from each variant of ``names``
+    (``EXPONENT_VARIANTS``' edits of this checkout's source, one nvcc each,
+    all started together) into the gitignored build directory, loaded."""
+    import ctypes
+    import shutil
+
+    from repro_torch.kernels import runtime
+
+    src = (runtime.CSRC / "flash_attention_bwd.cu").read_text()
+    procs = {}
+    for name in names:
+        text = src
+        for old, new, count in EXPONENT_VARIANTS[name]:
+            if text.count(old) != count:
+                raise RuntimeError(f"variant {name}: {old!r} found {text.count(old)} times")
+            text = text.replace(old, new)
+        d = runtime.BUILD_DIR / "variants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attention_bwd.cu").write_text(text)
+        for header in runtime.CSRC.glob("*.cuh"):
+            shutil.copy(header, d)
+        out = d / "libflash_attention_bwd.so"
+        procs[name] = (subprocess.Popen([runtime.nvcc(), *runtime.NVCC_FLAGS, "-o", str(out),
+                                         str(d / "flash_attention_bwd.cu")],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc exited {proc.returncode}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for fn, (argtypes, restype) in runtime.SIGNATURES["flash_attention_bwd"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def backward_library(lib):
+    """``runtime.library("flash_attention_bwd")`` is ``lib`` while the
+    context lasts (None: the shipped one)."""
+    from repro_torch.kernels import runtime
+
+    saved = runtime.library
+    if lib is not None:
+        runtime.library = lambda name: lib if name == "flash_attention_bwd" else saved(name)
+    try:
+        yield
+    finally:
+        runtime.library = saved
+
+
+def f64_lse(torch, q, k, prefix=0, softcap=0.0):
+    """Each row's log-sum-exp in f64 (causal, the first ``prefix`` keys
+    seen by all), on the inputs of :func:`f64_reference`."""
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    sc = torch.einsum("bhsd,bhtd->bhst", q.double(),
+                      k.double().repeat_interleave(g, 1)) / math.sqrt(hd)
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    seen = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    seen[:, :prefix] = True
+    return torch.logsumexp(sc.masked_fill(~seen, float("-inf")), -1)
+
+
+def truncating_add(torch, acc, prods):
+    """``acc + sum(prods)`` as a tensor core is modelled to add one group
+    of exact products into an f32 accumulator (Fasi, Higham, Mikaitis and
+    Pranesh, "Numerical behavior of NVIDIA tensor cores", PeerJ Comput.
+    Sci. 2021, measured on earlier cards): every term aligned to the largest
+    exponent among them and the accumulator, cut to 24 bits below it
+    (towards zero), summed exactly, the sum cut to f32 towards zero.  f64
+    in and out; ``prods`` [n, ...]."""
+    terms = torch.cat([acc[None], prods])
+    top = terms.abs().amax(0)
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-300))) - 23)
+    total = (torch.trunc(terms / ulp) * ulp).sum(0)
+    ulp = torch.exp2(torch.floor(torch.log2(total.abs().clamp_min(1e-300))) - 23)
+    return torch.where(total == 0, total, torch.trunc(total / ulp) * ulp)
+
+
+def truncated_dk_block(torch, q, k, v, dout, lse, delta, key, split, flush, keys, rows, scale):
+    """dK of the key block of ``keys`` keys holding key ``key`` (batch 0, KV
+    head 0, no mask but causal), as the tensor-core dkdv forms it, with
+    wgmma's accumulation modelled by :func:`truncating_add`: P and dS in
+    f32 from the forward's lse (the f32 plan's), dS^T cut into three bf16
+    terms, each step's 64 query rows added 16 at a time (hi, mid, lo) into
+    accumulators restarted at every flush (``flush`` steps; the flush adds
+    them into the CTA's f32 partial, rounded to nearest), the CTAs of
+    ``split`` summed in order, times ``scale``, to bf16: ``[keys, hd]``."""
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    k0 = key // keys * keys
+    kb = k[0, 0, k0:k0 + keys].float()
+    vb = v[0, 0, k0:k0 + keys].float()
+    first = k0 - (k.shape[2] - s)
+    first_qb, n_q = max(first, 0) // rows, -(-s // rows) - max(first, 0) // rows
+    steps = g * n_q
+    k_pos = torch.arange(k0, k0 + kb.shape[0], device=q.device)
+    total = torch.zeros(kb.shape[0], hd, dtype=torch.float32, device=q.device)
+
+    def bf(x):
+        return x.to(torch.bfloat16).double()
+
+    for z in range(split):
+        lo, hi = steps * z // split, steps * (z + 1) // split
+        part = None
+        for a in range(lo, hi, flush or max(hi - lo, 1)):
+            acc = torch.zeros(kb.shape[0], hd, dtype=torch.float64, device=q.device)
+            for i in range(a, min(a + (flush or hi - lo), hi)):
+                head, q0 = i // n_q, (first_qb + i % n_q) * rows
+                qs, ds_ = q[0, head, q0:q0 + rows].float(), dout[0, head, q0:q0 + rows].float()
+                sc = kb @ qs.T * scale
+                q_pos = torch.arange(q0, q0 + qs.shape[0], device=q.device) + k.shape[2] - s
+                p = torch.exp(sc - lse[0, head, q0:q0 + rows][None]).masked_fill(
+                    k_pos[:, None] > q_pos[None], 0.0)
+                dst = p * (vb @ ds_.T - delta[0, head, q0:q0 + rows][None])
+                hi_ = bf(dst)
+                mid = bf(dst.double() - hi_)
+                low = bf(dst.double() - hi_ - mid)
+                qd = qs.double()
+                for c in range(0, qs.shape[0], 16):
+                    for term in (hi_, mid, low):
+                        acc = truncating_add(torch, acc, term[:, c:c + 16].T[:, :, None]
+                                             * qd[c:c + 16, None, :])
+            part = acc.float() if part is None else part + acc.float()
+        total += part
+    return (total * scale).to(torch.bfloat16)
+
+
 def emulate(torch, chip_smoke, name, seeds) -> None:
     """dK of the ``BWD_CHECKS`` row ``name`` against the f64 reference on
     the draws of ``seeds`` (``seeded_inputs``' seeds; -1: chip_smoke's
-    draw): the tensor-core kernel's, and the kernel's plan written out in
+    draw), each as the largest |got - ref| / (atol + rtol |ref|) of
+    ``ATTN_TOL`` and at the shipped kernel's worst entry, for each candidate
+    cause of a miss: the shipped tensor-core kernel; the kernel fed the f64
+    reference's lse rounded to f32 (the forward's lse); the probe builds of
+    ``EXPONENT_VARIANTS`` (P's exponent); the kernel's plan written out in
     f32 on the same inputs, lse and D (``kv_split_partials_plain`` at the
     row's blocks, split and flush, and without the flush, summed in split
-    order and rounded to bf16 as ``kv_reduce`` does), each as the largest
-    |got - ref| / (atol + rtol |ref|) of ``ATTN_TOL`` and at the kernel's
-    worst entry: whether f32 sums in the kernel's order alone miss where
-    the kernel does."""
+    order and rounded to bf16 as ``kv_reduce`` does: f32 sums in the
+    kernel's order); and that plan with wgmma's accumulation modelled as
+    truncating (``truncated_dk_block``, the worst entry's key block only,
+    causal rows)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 
     dev = torch.device("cuda", 0)
@@ -496,6 +703,8 @@ def emulate(torch, chip_smoke, name, seeds) -> None:
     split = fab.bwd_tc_kv_split(b, h, kv, s, t, hd, hd_v, prefix)
     flush = fab.plan_bwd_flush_steps(h // kv, s, bq, prefix)
     scale = 1 / math.sqrt(hd)
+    libs = {"kernel": None, **{f"kernel, {v} exponent": lib
+                               for v, lib in variant_libraries(EXPONENT_VARIANTS).items()}}
     for seed in seeds:
         q, k, v, dout = (check_inputs(torch, chip_smoke, dev, [name])[name] if seed < 0
                          else seeded_inputs(torch, dev, row, seed))
@@ -506,9 +715,17 @@ def emulate(torch, chip_smoke, name, seeds) -> None:
         def excess(dk):
             return (dk.double() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())
 
-        kernel = excess(tc_grads(torch, fab, q, k, v, out, dout, lse, split, flush, **mask)[1])
-        at = tuple(int(x) for x in torch.unravel_index(kernel.argmax(), kernel.shape))
-        found = {"kernel": kernel}
+        found = {}
+        for label, lib in libs.items():
+            with backward_library(lib):
+                found[label] = excess(tc_grads(torch, fab, q, k, v, out, dout, lse, split,
+                                               flush, **mask)[1])
+        at = tuple(int(x) for x in torch.unravel_index(found["kernel"].argmax(),
+                                                       found["kernel"].shape))
+        lse64 = f64_lse(torch, q, k, prefix, cap).float()
+        found["kernel, f64 lse"] = excess(tc_grads(torch, fab, q, k, v, out, dout, lse64, split,
+                                                   flush, **mask)[1])
+        del lse64
         for label, steps in (("f32 plan", flush), ("f32 plan, no flush", 0)):
             part = fab.kv_split_partials_plain(q, k, v, dout, lse, delta, split, **mask,
                                                keys=keys, rows=bq, flush_steps=steps)
@@ -517,12 +734,23 @@ def emulate(torch, chip_smoke, name, seeds) -> None:
                 total += part[z]
             found[label] = excess((total[..., :hd] * scale).to(torch.bfloat16))
             del part, total
+        k0 = at[2] // keys * keys
+        block = None
+        if not (window or prefix or cap) and at[0] == 0 and at[1] == 0:
+            block = truncated_dk_block(torch, q, k, v, dout, lse, delta, at[2], split, flush,
+                                       keys, bq, scale)
+            trunc = ((block.double() - ref[0, 0, k0:k0 + keys]).abs()
+                     / (tol["atol"] + tol["rtol"] * ref[0, 0, k0:k0 + keys].abs()))
         print(f"emulate {name} seed {seed} kv_split {split} flush steps {flush} blocks "
               f"{(keys, bq)}: ref at {list(at)} {float(ref[at]):.6g}; " + "; ".join(
                   f"{label} max {float(r.max()):.4f} ({int((r > 1).sum())} entries over 1), "
-                  f"at the kernel's worst {float(r[at]):.4f}" for label, r in found.items()),
+                  f"at the kernel's worst {float(r[at]):.4f}" for label, r in found.items())
+              + ("" if block is None else
+                 f"; f32 plan, truncating accumulation, keys {k0}..{k0 + keys - 1}: max "
+                 f"{float(trunc.max()):.4f}, at the kernel's worst "
+                 f"{float(trunc[at[2] - k0, at[3]]):.4f}"),
               flush=True)
-        del q, k, v, dout, out, lse, ref, delta, found
+        del q, k, v, dout, out, lse, ref, delta, found, block
 
 
 # (label, plain forward, plain backward, the plain forward's key blocks as a
@@ -604,7 +832,7 @@ def swap(torch, chip_smoke, dev, arch: str, state: str) -> None:
 
     moe._top_k = log
     try:
-        chip_smoke.model_grads(torch, cfg, params, batch, contextlib.nullcontext)  # routing
+        chip_smoke.loss_and_grads(torch, cfg, params, batch, contextlib.nullcontext)  # routing
         errors = chip_smoke.path_grad_errors(
             torch, cfg, params, batch, path(True, True, 1), [path(*p[1:]) for p in SWAP_PATHS])
     finally:
@@ -661,7 +889,7 @@ def layer_f64(torch, chip_smoke, dev, arch: str, state: str) -> None:
 
     fab.flash_attention_bwd = recording
     try:
-        chip_smoke.model_grads(torch, cfg, params, batch, contextlib.nullcontext)
+        chip_smoke.loss_and_grads(torch, cfg, params, batch, contextlib.nullcontext)
     finally:
         fab.flash_attention_bwd = bwd
     worst = {"forward": (0.0, 0.0), "dq": (0.0, 0.0), "dk": (0.0, 0.0), "dv": (0.0, 0.0)}
@@ -727,6 +955,13 @@ def main() -> int:
         emulate(torch, chip_smoke, sys.argv[2], [int(x) for x in sys.argv[3].split(",")])
         print("ALL OK", flush=True)
         return 0
+    if sys.argv[1:2] == ["--simt-rows"]:
+        print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
+        runtime.build(["flash_attention", "flash_attention_bwd"])
+        simt_rows(torch, chip_smoke, tuple(sys.argv[2].split(",")) if sys.argv[2:] else
+                  SIMT_PRECISION)
+        print("ALL OK", flush=True)
+        return 0
     if sys.argv[1:2] == ["--bwd-run-rows"]:
         print(torch.__version__, torch.version.cuda, chip_smoke.nvidia_smi(), flush=True)
         chip_smoke.load_peaks()
@@ -734,6 +969,8 @@ def main() -> int:
         if len(sys.argv) == 4:  # one row of BWD_CHECKS under the given flush lengths (0: none)
             row, flush = sys.argv[2], tuple(int(x) for x in sys.argv[3].split(","))
             bwd_run_rows(torch, chip_smoke, (row,), flush, (row,))
+        elif sys.argv[2:] == ["planned"]:  # every row at its planned flush only
+            bwd_run_rows(torch, chip_smoke, candidates=None)
         else:
             bwd_run_rows(torch, chip_smoke)
         print("ALL OK", flush=True)

@@ -79,7 +79,11 @@
 // banks), forms the bq x bk scores with f32 FMAs in registers (256 threads
 // as 16 x 16, thread (ty, tx) owning rows ty + 16 i and head columns tx +
 // 16 j), updates (m, l, acc) exactly as the TPU kernel does, puts P in
-// shared memory, stages V into the buffer K used, and adds P V.
+// shared memory, stages V into the buffer K used, and adds P V.  Its widths
+// are multiples of 16 (each thread holds hd / 16 columns); reduced MLA's
+// q/k width 24 over values of 16 runs the (32, 16) instantiation on q and k
+// the wrapper zero-pads to 32 (the zero columns add exact zeros to every
+// score; the wrapper passes the scale of 24).
 
 #include "hopper.cuh"
 
@@ -354,6 +358,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   auto st = static_cast<cudaStream_t>(stream);
   if (hd_v != hd) {
     if (hd == 192 && hd_v == 128) return launch<T, 192, 128>(p, b, st);
+    if (hd == 32 && hd_v == 16) return launch<T, 32, 16>(p, b, st);
     return cudaErrorInvalidValue;
   }
   switch (hd) {

@@ -88,8 +88,9 @@
 // The capped dkdv_tc at hd 128 streams 32 query rows a block (at 64 it spills).
 
 // CUDA-core route (prep_kernel, dq_kernel, dkdv_kernel): every f32 call, and
-// bf16 the tensor-core route does not take (strides TMA cannot load).  Three
-// launches a call, in this order:
+// bf16 the tensor-core route does not take (the reduced configs' hd 16 and
+// 32, reduced MLA's (24, 16) as (32, 16) on q and k zero-padded by the
+// wrapper, strides TMA cannot load).  Three launches a call, in this order:
 //
 //   prep: one CTA per (query block, head, batch) walks the KV blocks its
 //     rows see, as the forward does, and keeps each row's running max and
@@ -614,7 +615,9 @@ int attributes_of(int* out) {
 }
 
 // The widths the repo's configs train at: (hd, hd_v) = (64, 64), (128,
-// 128), (256, 256) and MLA's (192, 128); any other is refused.
+// 128), (256, 256) and MLA's (192, 128); the reduced configs' (16, 16) and
+// (32, 32), and (32, 16), which takes reduced MLA's (24, 16) with q and k
+// zero-padded to 32 by the wrapper; any other is refused.
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o, const void* dout,
              void* dq, void* dk, void* dv, void* lse, void* delta, const long long* strides,
@@ -633,6 +636,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* o, const v
   if (hd == 128 && hd_v == 128) return launch<T, 128, 128>(p, b, st);
   if (hd == 256 && hd_v == 256) return launch<T, 256, 256>(p, b, st);
   if (hd == 192 && hd_v == 128) return launch<T, 192, 128>(p, b, st);
+  if (hd == 16 && hd_v == 16) return launch<T, 16, 16>(p, b, st);
+  if (hd == 32 && hd_v == 32) return launch<T, 32, 32>(p, b, st);
+  if (hd == 32 && hd_v == 16) return launch<T, 32, 16>(p, b, st);
   return cudaErrorInvalidValue;
 }
 
@@ -642,6 +648,9 @@ int attributes(int hd, int hd_v, int* out) {
   if (hd == 128 && hd_v == 128) return attributes_of<T, 128, 128>(out);
   if (hd == 256 && hd_v == 256) return attributes_of<T, 256, 256>(out);
   if (hd == 192 && hd_v == 128) return attributes_of<T, 192, 128>(out);
+  if (hd == 16 && hd_v == 16) return attributes_of<T, 16, 16>(out);
+  if (hd == 32 && hd_v == 32) return attributes_of<T, 32, 32>(out);
+  if (hd == 32 && hd_v == 16) return attributes_of<T, 32, 16>(out);
   return cudaErrorInvalidValue;
 }
 
@@ -683,9 +692,9 @@ __host__ __device__ constexpr int dq_tc_smem(int hd, int hdv, int bq, int bk) {
   return 1024 + bq * (hd + hdv) * 2 + 2 * bk * (hd + hdv) * 2 + 7 * 8;
 }
 // dkdv: K then V of BKV keys; two stages of Q and dO of BQ rows; lse (times
-// log2 e) and D of each stage's BQ rows, f32; at BKV = 64 (dkdv_wg) the
-// exchange, 64 x BQ f32; the mbarriers kv_full, q_full[2], do_full[2],
-// empty[2]; 1024 bytes of slack.
+// log2 e but in dkdv_tc's FLUSH walks) and D of each stage's BQ rows, f32; at
+// BKV = 64 (dkdv_wg) the exchange, 64 x BQ f32; the mbarriers kv_full,
+// q_full[2], do_full[2], empty[2]; 1024 bytes of slack.
 __host__ __device__ constexpr int dkdv_tc_smem(int hd, int hdv, int bkv, int bq) {
   return 1024 + bkv * (hd + hdv) * 2 + 2 * bq * (hd + hdv) * 2 + 4 * bq * 4 +
          (bkv == 64 ? 64 * bq * 4 : 0) + 7 * 8;
@@ -762,15 +771,34 @@ __device__ __forceinline__ void split3_frags(const float (&x)[N / 2], uint32_t (
   }
 }
 
+// The exponent of P = exp(s_c - lse) in base 2, from the capped score and
+// `lse`: without EXACT `lse` is lse * log2 e, rounded to f32 once a row, and
+// the exponent fma(s_c, log2 e, -lse); with EXACT `lse` is the row's lse as
+// the forward wrote it, and the exponent (s_c - lse) log2 e.  The rounding
+// of lse * log2 e is an error shared by all of a row's P (at q 8 times the
+// unit scale, lse near 26: up to 2^-19 of the exponent); dK sums it over a
+// key block's whole walk, and at granite-20b's 48 heads on one KV head
+// (98,304 rows) it carried dK past ATTN_TOL against f64 on 1 draw of 41,
+// with the forward's own f32 lse (flash_probe.py --emulate).  dkdv_tc's
+// flushing walks, the long ones, drop it (EXACT); dq_tc, dkdv_wg and every
+// unflushed call keep their bits (dkdv_wg's flushing rows, at one KV head of
+// 256, read 0 misses of 41 with the rounding, and the exact form costs them
+// 5-7% on an H100).  Uncapped, the compiler contracts s_c = dot * scale into the fma.
+template <bool EXACT>
+__device__ __forceinline__ float p_exponent(float x, float lse) {
+  return EXACT ? (x - lse) * kLog2e : fmaf(x, kLog2e, -lse);
+}
+
 // P = exp(s_c - lse) of a visible pair (0 where hidden) and dS = P (dP -
 // D), times 1 - (s_c / c)^2 when capped; `dot` is the raw Q.K product,
-// lse2 = lse * log2 e.  P lands in `dot`'s place, dS in `dp`'s.
-template <bool CAP>
-__device__ __forceinline__ void p_and_ds(float& dot, float& dp, bool seen, float lse2, float d,
+// `lse` as p_exponent<EXACT> takes it.  P lands in `dot`'s place, dS in
+// `dp`'s.
+template <bool CAP, bool EXACT>
+__device__ __forceinline__ void p_and_ds(float& dot, float& dp, bool seen, float lse, float d,
                                          const TcParams& p, float cap_k) {
   float x = dot * p.scale;
   if constexpr (CAP) x = hopper::softcap<true>(x, p.softcap, cap_k);
-  const float pr = seen ? exp2f(fmaf(x, kLog2e, -lse2)) : 0.f;
+  const float pr = seen ? exp2f(p_exponent<EXACT>(x, lse)) : 0.f;
   float ds = pr * (dp - d);
   if constexpr (CAP) {
     const float u = x / p.softcap;
@@ -975,7 +1003,8 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* q_full
       const int col = k0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
       const int lower = (r >> 1) & 1;  // row r0 + 8
       const KeyRange& seen = lower ? seen1 : seen0;
-      p_and_ds<CAP>(sc[r], dp[r], sees(seen, col, p.window), lse2[lower], dd[lower], p, cap_k);
+      p_and_ds<CAP, false>(sc[r], dp[r], sees(seen, col, p.window), lse2[lower], dd[lower], p,
+                           cap_k);
     }
 
     // dQ += dS K: dS from registers, K MN-major through the transpose bit.
@@ -1124,8 +1153,8 @@ __device__ __forceinline__ int opaque_zero() {
 
 // The producer warpgroup of either dkdv kernel: its first warp issues the
 // copies (K and V once, then Q and dO of each step), its second loads each
-// step's lse (times log2 e) and D.
-template <int HD, int HDV, int BKV, int BQ>
+// step's lse (times log2 e without EXACT: p_exponent) and D.
+template <int HD, int HDV, int BKV, int BQ, bool EXACT>
 __device__ __forceinline__ void dkdv_produce(unsigned char* smem, uint64_t* kv_full,
                                              uint64_t* q_full, uint64_t* do_full,
                                              uint64_t* empty, const CUtensorMap* map_q,
@@ -1165,7 +1194,8 @@ __device__ __forceinline__ void dkdv_produce(unsigned char* smem, uint64_t* kv_f
       float* d_s = lse_s + 2 * BQ;
       for (int r = lane; r < BQ; r += 32) {
         const bool live = q0 + r < p.s;
-        lse_s[r] = live ? p.lse[base + q0 + r] * kLog2e : 0.f;
+        const float lse = live ? p.lse[base + q0 + r] : 0.f;
+        lse_s[r] = EXACT ? lse : lse * kLog2e;
         d_s[r] = live ? p.delta[base + q0 + r] : 0.f;
       }
       hopper::mbar_arrive(&do_full[s]);
@@ -1243,7 +1273,7 @@ __device__ __forceinline__ void dkdv_consume(unsigned char* smem, uint64_t* kv_f
     for (int r = 0; r < BQ / 2; ++r) {
       const int c = 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
       const bool seen = pair_seen(kr0 + 8 * ((r >> 1) & 1), q0 + c, p);
-      p_and_ds<CAP>(st[r], dpt[r], seen, lse_s[c], d_s[c], p, cap_k);
+      p_and_ds<CAP, FLUSH>(st[r], dpt[r], seen, lse_s[c], d_s[c], p, cap_k);
     }
 
     // dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers, dO and Q
@@ -1333,8 +1363,9 @@ __global__ void __launch_bounds__(BKV / 64 * 128 + kProducerThreads, 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     else if constexpr (kWarpgroups == 2)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    dkdv_produce<HD, HD, BKV, BQ>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k, &map_v,
-                                  &map_do, p, walk, warp - 4 * kWarpgroups, lane, kvh, b);
+    dkdv_produce<HD, HD, BKV, BQ, FLUSH>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k,
+                                         &map_v, &map_do, p, walk, warp - 4 * kWarpgroups, lane,
+                                         kvh, b);
   } else {
     if constexpr (kWarpgroups == 2 && FLUSH)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -1585,8 +1616,8 @@ __global__ void __launch_bounds__(2 * 128 + kProducerThreads, 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= 8) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    dkdv_produce<HD, HDV, 64, 64>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k, &map_v,
-                                  &map_do, p, walk, warp - 8, lane, kvh, b);
+    dkdv_produce<HD, HDV, 64, 64, false>(smem, kv_full, q_full, do_full, empty, &map_q, &map_k,
+                                         &map_v, &map_do, p, walk, warp - 8, lane, kvh, b);
   } else if (warp < 4) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     dkdv_wg_p<HD, HDV, CAP, FLUSH>(smem, kv_full, q_full, do_full, empty, p, warp, lane, walk,

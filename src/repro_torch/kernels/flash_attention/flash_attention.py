@@ -38,7 +38,11 @@ alignment alone:
   (``wgmma``), K and V in a two-stage TMA ring; ``bq, bk`` in
   :data:`TC_BLOCKS`.
 - ``"simt"``: everything else (every f32 call, bf16 at hd 16 or 32 or with
-  unaligned strides): the CUDA-core kernel, ``bq, bk`` in ``[1, 64]``.
+  unaligned strides, reduced MLA's (24, 16)): the CUDA-core kernel, ``bq,
+  bk`` in ``[1, 64]``.  Its threads hold hd / 16 columns each, so at (24,
+  16) the wrapper zero-pads q and k to 32 (:data:`PADDED_HEAD_PAIRS`) and
+  launches the (32, 16) instantiation with the scale of 24: the zero
+  columns add exact zeros to every score.
 
 A call the tensor-core route takes never goes to the CUDA-core kernel:
 blocks it refuses raise, and so does a failed build, encode or launch.
@@ -79,9 +83,14 @@ NEG_INF = -1e30
 # holding 4 query rows of the f32 accumulator in registers.
 MAX_BLOCK = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
-# (hd, hd_v) of q/k and of v: equal widths, and MLA's 192 / 128.
+# (hd, hd_v) of q/k and of v: equal widths, MLA's 192 / 128 and reduced
+# MLA's 24 / 16 (nope 16 + rope 8 over values of 16).
 MLA_HEAD_PAIR = (192, 128)
-HEAD_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + (MLA_HEAD_PAIR,)
+# Widths the CUDA-core kernels (each thread holds hd / 16 columns) take with
+# q and k zero-padded to a width they are built for, by pair: the zero
+# columns add exact zeros to every score, and the scale stays the caller's.
+PADDED_HEAD_PAIRS = {(24, 16): (32, 16)}
+HEAD_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + (MLA_HEAD_PAIR, *PADDED_HEAD_PAIRS)
 # The tensor-core route: head widths, and blocks in wgmma's 64 rows (one
 # consumer warpgroup per 64 query rows; bk stops at 128 because S and P
 # of a block live in registers beside O).
@@ -115,6 +124,18 @@ def smem_bytes(bq: int, bk: int, hd: int, dtype_bytes: int, route: str = "simt",
 def _tma_aligned(x: torch.Tensor) -> bool:
     return x.data_ptr() % 16 == 0 and all(
         st > 0 and st % 8 == 0 for n, st in zip(x.shape[:3], x.stride()[:3]) if n > 1)
+
+
+def kernel_widths(hd: int, hd_v: int) -> tuple:
+    """The (hd, hd_v) a CUDA kernel runs a call of these widths at: q and
+    k padded to :data:`PADDED_HEAD_PAIRS`' width where it lists the pair."""
+    return PADDED_HEAD_PAIRS.get((hd, hd_v), (hd, hd_v))
+
+
+def pad_heads(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` [..., hd] with zero columns up to ``width`` (``x`` itself at
+    ``width`` hd): a new dense tensor."""
+    return x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -295,11 +316,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv, t = k.shape[1], k.shape[2]
     out = _empty_out(q, hd_v)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+    width = kernel_widths(hd, hd_v)[0]
+    qk, kk = pad_heads(q, width), pad_heads(k, width)
     strides = (ctypes.c_longlong * 12)(
-        *(st for x in (q, k, v, out) for st in (x.stride(0), x.stride(1), x.stride(2))))
+        *(st for x in (qk, kk, v, out) for st in (x.stride(0), x.stride(1), x.stride(2))))
     lib = runtime.library("flash_attention")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-            b, h, kv, s, t, hd, bq, bk, scale)
+    args = (qk.data_ptr(), kk.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ctypes.addressof(strides), b, h, kv, s, t, width, bq, bk, scale)
     with torch.cuda.device(q.device):
         if path == "tc":
             tail = (int(split_p), hd_v, window, prefix, softcap)

@@ -14,8 +14,8 @@ atomics on either route: two calls give the same bits.  Two routes, chosen
 on the host by :func:`bwd_route` from dtype, head widths and alignment
 alone:
 
-- ``"tc"``: bf16 at ``(hd, hd_v)`` in :data:`BWD_TC_HEAD_PAIRS` (every
-  width the backward takes) whose five tensors are TMA-aligned (the
+- ``"tc"``: bf16 at ``(hd, hd_v)`` in :data:`BWD_TC_HEAD_PAIRS` (64, 128,
+  256 and MLA's (192, 128)) whose five tensors are TMA-aligned (the
   forward's rule).  Two launches on the tensor cores (``wgmma``, TMA
   rings): ``dq_tc`` (which also writes ``D = sum(dO * O)``) and a dkdv
   kernel, reading each row's log-sum-exp from the forward
@@ -44,7 +44,9 @@ alone:
 - ``"simt"``: everything else, at ``(hd, hd_v)`` in
   :data:`BWD_HEAD_PAIRS`: three launches on the CUDA cores (``prep``: each
   row's log-sum-exp and D; ``dq``; ``dkdv``), bf16 or f32, blocks
-  :func:`plan_bwd_blocks`'.
+  :func:`plan_bwd_blocks`': every f32 call, and bf16 at the reduced
+  configs' widths (hd 16 and 32; at (24, 16) the kernels run at (32, 16)
+  on q and k zero-padded to 32, and dq and dk are cut back to 24).
 
 ``runtime.launches`` counts every call under ``"flash_attention_bwd"`` and
 under ``"flash_attention_bwd_tc"`` or ``"flash_attention_bwd_simt"``, and,
@@ -76,11 +78,14 @@ from repro_torch.core.cost_model import H100
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention.flash_attention import (
     NEG_INF, SMEM_LIMIT, _DTYPES, _check, _tma_aligned, first_block,
-    flash_attention, hidden_keys,
+    flash_attention, hidden_keys, kernel_widths, pad_heads,
 )
 
-# (hd, hd_v) the backward kernel takes: the widths the repo's configs train at.
-BWD_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
+# (hd, hd_v) the backward kernel takes: the widths the repo's configs train
+# at, the reduced ones (``configs.reduced``: hd 16; hd 32 beside it; MLA's
+# nope 16 + rope 8 over values of 16) among them.  (24, 16) runs the CUDA-core
+# kernels at (32, 16) on q and k zero-padded to 32 (``PADDED_HEAD_PAIRS``).
+BWD_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128), (16, 16), (32, 32), (24, 16))
 # Square blocks (bq = bk), largest first: the first whose three kernels fit a CTA.
 BWD_BLOCKS = (64, 32, 16)
 BWD_KERNELS = ("prep", "dq", "dkdv")
@@ -94,8 +99,9 @@ BWD_KERNELS = ("prep", "dq", "dkdv")
 # (256, 256) and (192, 128) (dkdv_wg, blocks (64, 64)) its two consumer
 # warpgroups share 64 keys, one holding dV, the other dK.  A key block may
 # take several CTAs where KV heads are few (plan_bwd_kv_split): at dkdv_wg,
-# and at dkdv_tc in a call that flushes (bwd_flushes).
-BWD_TC_HEAD_PAIRS = BWD_HEAD_PAIRS
+# and at dkdv_tc in a call that flushes (bwd_flushes).  The narrower widths
+# of BWD_HEAD_PAIRS (16, 32, (24, 16)) run on the CUDA cores ("simt").
+BWD_TC_HEAD_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
 BWD_TC_WG_PAIRS = ((256, 256), (192, 128))
 BWD_TC_KERNELS = ("dq", "dkdv")
 _NARROW_BLOCKS = {"dq": ((128, 64),), "dkdv": ((128, 64), (128, 32))}
@@ -476,18 +482,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if n_split > 1:
             kv_reduce(part, dk, dv, n_split, scale)
     else:
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        width = kernel_widths(hd, hd_v)[0]
+        qk, kk = pad_heads(q, width), pad_heads(k, width)
+        dq, dk, dv = torch.empty_like(qk), torch.empty_like(kk), torch.empty_like(v)
         delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         scratch = torch.empty_like(delta)  # prep's lse
-        blk = plan_bwd_blocks(hd, hd_v, q.element_size())
-        strides = _strides(q, k, v, out, dout, dq, dk, dv)
+        blk = plan_bwd_blocks(width, hd_v, q.element_size())
+        strides = _strides(qk, kk, v, out, dout, dq, dk, dv)
         with torch.cuda.device(q.device):
             err = getattr(runtime.library("flash_attention_bwd"),
                           f"remop_flash_attention_bwd_{_DTYPES[q.dtype]}")(
-                *_pointers(q, k, v, out, dout, dq, dk, dv), scratch.data_ptr(),
-                delta.data_ptr(), ctypes.addressof(strides), b, h, kv, s, t, hd, blk, blk,
+                *_pointers(qk, kk, v, out, dout, dq, dk, dv), scratch.data_ptr(),
+                delta.data_ptr(), ctypes.addressof(strides), b, h, kv, s, t, width, blk, blk,
                 scale, hd_v, window, prefix, softcap, runtime.stream_of(q))
         runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
+        if width != hd:
+            dq = torch.empty_like(q).copy_(dq[..., :hd])
+            dk = torch.empty_like(k).copy_(dk[..., :hd])
     runtime.launches["flash_attention_bwd"] += 1
     runtime.launches[f"flash_attention_bwd_{path}"] += 1
     if window:
@@ -638,11 +649,12 @@ def kv_split_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_attributes(dtype: torch.dtype, hd: int, hd_v: int) -> dict:
     """Registers, local (spilled) bytes a thread and the largest CTA of the
-    ``prep``, ``dq`` and ``dkdv`` kernels at these widths, on the current card."""
+    ``prep``, ``dq`` and ``dkdv`` kernels at these widths (the instantiation
+    :func:`kernel_widths` gives), on the current card."""
     check_bwd_widths(hd, hd_v)
     out = (ctypes.c_int * 9)()
     err = runtime.library("flash_attention_bwd").remop_flash_attention_bwd_attributes(
-        int(dtype == torch.float32), hd, hd_v, ctypes.addressof(out))
+        int(dtype == torch.float32), *kernel_widths(hd, hd_v), ctypes.addressof(out))
     runtime.check("flash_attention_bwd", "flash_attention_bwd", err)
     return {kind: dict(zip(("registers", "local_bytes", "max_threads"), out[3 * i:3 * i + 3]))
             for i, kind in enumerate(BWD_KERNELS)}

@@ -38,7 +38,8 @@ def _chip_smoke():
 
 
 SMOKE = _chip_smoke()
-TC_ROWS = {c[0]: c for c in SMOKE.BWD_CHECKS if c[-1] == "bfloat16"}
+TC_ROWS = {c[0]: c for c in SMOKE.BWD_CHECKS
+           if c[-1] == "bfloat16" and (c[6], c[7]) in fab.BWD_TC_HEAD_PAIRS}
 FLUSHED = sorted(n for n in TC_ROWS if n not in SMOKE.BWD_UNFLUSHED)
 
 

@@ -220,7 +220,7 @@ def test_backward_blocks_fit_a_cta_and_widths_are_checked():
             assert blk == (32 if (dtype_bytes, hd) == (4, 256) else 64)
             assert all(fab.bwd_smem_bytes(kind, blk, blk, hd, hd_v, dtype_bytes) <= SMEM_LIMIT
                        for kind in fab.BWD_KERNELS)
-    for hd, hd_v in ((16, 16), (32, 32), (128, 64)):
+    for hd, hd_v in ((48, 48), (24, 24), (128, 64)):
         with pytest.raises(ValueError, match="backward kernel takes"):
             fab.check_bwd_widths(hd, hd_v)
 
